@@ -1,0 +1,9 @@
+from . import kernel, ops, ref
+from .kernel import paged_attention_kernel
+from .ops import paged_decode_attention
+from .ref import (gather_pages_ref, paged_attention_plain,
+                  paged_decode_attention_ref)
+
+__all__ = ["kernel", "ops", "ref", "paged_attention_kernel",
+           "paged_decode_attention", "gather_pages_ref",
+           "paged_attention_plain", "paged_decode_attention_ref"]

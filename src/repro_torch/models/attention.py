@@ -1,0 +1,219 @@
+"""Attention: GQA + RoPE over dense or paged K/V, for the serving path.
+
+Layouts follow the JAX package: q (B, S, H, D), dense cache views
+(B, KV, T, D), page pools (P, KV, page_size, D).  Three attention forms
+serve the paged engine:
+
+* ``_dense_attn`` — the first chunk of a prompt (nothing cached yet),
+* ``_chunk_attn_with_cache`` — later chunks: prior cache entries plus the
+  chunk itself,
+* decode — one token against the cache plus its own K/V, either through
+  the paged flash-decode kernel (``kernels.paged_attention``, straight on
+  the pool) or, on the reference path, ``gather_pages`` followed by
+  ``_decode_attn_plus_self``.
+
+Cache writes stay deltas: ``attention`` returns the step's own K/V and the
+caller writes them into the pool.  The tiled long-prefill path and the
+flash-attention kernel branch of the reference (training paths) are not
+ported yet.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels.paged_attention import ops as pa_ops
+from .config import ModelConfig
+from .layers import (apply_norm, apply_rope, dense, dtype_of, init_dense,
+                     init_norm, rope_freqs)
+
+__all__ = ["NEG_INF", "init_attention", "attention", "gather_pages"]
+
+NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
+
+
+def init_attention(generator, cfg: ModelConfig, device) -> dict:
+    d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    p = {
+        "q": init_dense(generator, d, H * hd, cfg, device, bias=cfg.qkv_bias),
+        "k": init_dense(generator, d, KV * hd, cfg, device, bias=cfg.qkv_bias),
+        "v": init_dense(generator, d, KV * hd, cfg, device, bias=cfg.qkv_bias),
+        "o": init_dense(generator, H * hd, d, cfg, device,
+                        scale=1.0 / math.sqrt(H * hd)),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_norm(cfg, device, hd)
+        p["k_norm"] = init_norm(cfg, device, hd)
+    return p
+
+
+def _mask_bias(q_pos, k_pos, *, causal: bool, window: int | None, dtype):
+    """(q, k) additive bias: 0 where attendable, NEG_INF elsewhere."""
+    rel = q_pos[:, None] - k_pos[None, :]
+    ok = torch.ones(rel.shape, dtype=torch.bool, device=rel.device)
+    if causal:
+        ok = ok & (rel >= 0)
+    if window is not None:
+        ok = ok & (rel < window)
+    return torch.where(ok, 0.0, NEG_INF).to(dtype)
+
+
+def _dense_attn(q, k, v, q_pos, k_pos, *, causal, window):
+    """q: (B, S, H, D); k/v: (B, T, KV, D).  Scores in fp32, the mask
+    added."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qf = q.float() * (1.0 / math.sqrt(D))
+    qg = qf.reshape(B, S, KV, G, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    scores = scores + _mask_bias(q_pos, k_pos, causal=causal, window=window,
+                                 dtype=scores.dtype)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """Assemble per-slot contiguous K/V views from one layer's page pool.
+
+    pool: (P, KV, page_size, D); page_table: (B, n_pages) int — logical page
+    i of slot b lives in physical page ``page_table[b, i]``.  Returns
+    (B, KV, n_pages*page_size, D).  Rows gathered from page 0 — the trash
+    page, whose contents are arbitrary (NaN included) — are zeroed by
+    select, so a mid-prefill slot's view matches a dense cache's zero
+    tail."""
+    g = pool[page_table.long()]                          # (B, n, KV, ps, D)
+    g = torch.where((page_table == 0)[:, :, None, None, None],
+                    torch.zeros((), dtype=g.dtype, device=g.device), g)
+    B, n, KV, ps, D = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(B, KV, n * ps, D)
+
+
+def _chunk_attn_with_cache(q, k_cache, v_cache, start: int, kt, vt, *,
+                           window: int | None = None):
+    """Chunked-prefill attention: a prompt chunk at positions
+    ``start .. start+C-1`` attends over the cache entries before ``start``
+    plus itself (causal within the chunk).
+
+    q: (B, C, H, D); k_cache/v_cache: (B, KV, T, D) views; kt/vt:
+    (B, KV, C, D).  ``start`` is a host int.  The first chunk
+    (``start == 0``) reads no cache and goes through ``_dense_attn`` (q in
+    fp32, mask added); later chunks score q rounded to the compute dtype
+    against cache and chunk, the mask applied by select — the two branches
+    of the reference, casts included."""
+    B, C, H, D = q.shape
+    KV = kt.shape[1]
+    G = H // KV
+    q_pos = start + torch.arange(C, device=q.device)
+    if start == 0:
+        return _dense_attn(q, kt.transpose(1, 2), vt.transpose(1, 2),
+                           q_pos, q_pos, causal=True, window=window)
+    T = k_cache.shape[2]
+    if k_cache.dtype != q.dtype:
+        k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
+        kt, vt = kt.to(q.dtype), vt.to(q.dtype)
+    scale = 1.0 / math.sqrt(D)
+    qf = (q.reshape(B, C, KV, G, D) * scale).to(q.dtype).float()
+    rel = q_pos[:, None] - q_pos[None, :]
+    valid_self = rel >= 0
+    if window is not None:
+        valid_self = valid_self & (rel < window)
+    t_pos = torch.arange(T, device=q.device)
+    s_old = torch.einsum("bckgd,bktd->bkgct", qf, k_cache.float())
+    valid_old = (t_pos[None, :] < start).expand(C, T)
+    if window is not None:
+        valid_old = valid_old & (q_pos[:, None] - t_pos[None, :] < window)
+    s_old = torch.where(valid_old, s_old, NEG_INF)
+    s_self = torch.einsum("bckgd,bksd->bkgcs", qf, kt.float())
+    s_self = torch.where(valid_self, s_self, NEG_INF)
+    w = torch.softmax(torch.cat([s_old, s_self], dim=-1), dim=-1)
+    w_old, w_self = w[..., :T], w[..., T:]
+    out = torch.einsum("bkgct,bktd->bckgd", w_old.to(v_cache.dtype).float(),
+                       v_cache.float())
+    out = out + torch.einsum("bkgcs,bksd->bckgd", w_self.to(vt.dtype).float(),
+                             vt.float())
+    return out.reshape(B, C, H, D).to(q.dtype)
+
+
+def _decode_attn_plus_self(q, k_cache, v_cache, kv_len_old, kt, vt, *,
+                           window: int | None = None):
+    """Decode attention over the OLD cache entries plus the just-computed
+    token's own K/V (kt/vt, (B, KV, 1, D)), merged by log-sum-exp, so the
+    cache write happens outside as a pure delta."""
+    B, _, H, D = q.shape
+    KV, T = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    if k_cache.dtype != q.dtype:
+        k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
+        kt, vt = kt.to(q.dtype), vt.to(q.dtype)
+    scale = 1.0 / math.sqrt(D)
+    qf = (q.reshape(B, KV, G, D) * scale).to(q.dtype).float()
+    s_old = torch.einsum("bkgd,bktd->bkgt", qf, k_cache.float())
+    pos = torch.arange(T, device=q.device)[None, :]
+    kv_len_old = torch.as_tensor(kv_len_old, device=q.device).reshape(-1, 1)
+    valid = pos < kv_len_old
+    if window is not None:
+        valid = valid & (pos >= kv_len_old + 1 - window)
+    s_old = torch.where(valid[:, None, None, :], s_old, NEG_INF)
+    s_self = torch.einsum("bkgd,bktd->bkgt", qf, kt.float())[..., 0]
+    m = torch.maximum(s_old.amax(dim=-1), s_self)
+    p_old = torch.exp(s_old - m[..., None])
+    p_self = torch.exp(s_self - m)
+    l = p_old.sum(dim=-1) + p_self
+    out = torch.einsum("bkgt,bktd->bkgd", p_old.to(v_cache.dtype).float(),
+                       v_cache.float())
+    out = out + p_self[..., None] * vt[:, :, 0, :].float()[:, :, None, :]
+    out = out / l[..., None]
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
+              cache: dict, cache_len, window: int | None = None,
+              paged_impl: str = "auto"):
+    """Full attention layer against one layer's cache: qkv projection ->
+    RoPE -> core -> output projection.  Returns ``(out, (kt, vt))`` — the
+    step's K/V in the cache layout (B, KV, S, D), for the caller to write.
+
+    ``cache`` takes one of two forms.  On the paged decode path (S == 1,
+    ``{"k_pool", "v_pool", "pages"}``) the pools and page table go straight
+    to the paged flash-decode wrapper, whose ``paged_impl`` picks the
+    kernel (by the tensor's device) or the gather oracle.  Otherwise it
+    holds dense views ``{"k", "v"}`` (or None for a first chunk): S == 1 is
+    decode over the view, S > 1 a prefill chunk starting at the host int
+    ``cache_len``."""
+    cd = dtype_of(cfg.compute_dtype)
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    q = dense(p["q"], x, cd).reshape(B, S, H, hd)
+    k = dense(p["k"], x, cd).reshape(B, S, KV, hd)
+    v = dense(p["v"], x, cd).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = apply_norm(cfg, p["q_norm"], q)
+        k = apply_norm(cfg, p["k_norm"], k)
+    if cfg.use_rope:
+        sin, cos = rope_freqs(cfg, positions, hd)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+
+    store = cache.get("k_pool", cache.get("k")) if cache else None
+    kv_dtype = store.dtype if store is not None else dtype_of(
+        cfg.kv_cache_dtype or cfg.compute_dtype)
+    kt = k.transpose(1, 2).to(kv_dtype)                    # (B, KV, S, D)
+    vt = v.transpose(1, 2).to(kv_dtype)
+    if S == 1 and cache and "k_pool" in cache:
+        out = pa_ops.paged_decode_attention(
+            q, cache["k_pool"], cache["v_pool"], cache["pages"], cache_len,
+            kt, vt, window=window, impl=paged_impl)
+    elif S == 1:
+        out = _decode_attn_plus_self(q, cache["k"], cache["v"], cache_len,
+                                     kt, vt, window=window)
+    else:
+        kc = cache["k"] if cache else None
+        vc = cache["v"] if cache else None
+        out = _chunk_attn_with_cache(q, kc, vc, int(cache_len), kt, vt,
+                                     window=window)
+    out = dense(p["o"], out.reshape(B, S, H * hd), cd)
+    return out, (kt, vt)

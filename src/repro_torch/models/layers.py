@@ -1,0 +1,200 @@
+"""Basic layers: norms, MLPs, embeddings, RoPE — plain functions on
+tensors over dict params, in the JAX package's layouts (dense weights are
+(d_in, d_out) and used as ``x @ w``).
+
+Parameter casts: ``dense``, ``embed`` and ``unembed`` cast weights to the
+compute dtype on every call, as the reference does.  A serving engine casts
+its weights once up front (:func:`cast_weights`), after which these casts
+are no-ops; the values are identical either way.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+
+__all__ = [
+    "DTYPES", "dtype_of", "init_norm", "apply_norm", "init_mlp", "apply_mlp",
+    "init_embedding", "embed", "unembed", "rope_freqs", "apply_rope",
+    "init_dense", "dense", "truncated_normal", "cast_weights",
+]
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    if name not in DTYPES:
+        raise ValueError(f"dtype {name!r} not supported (pick from "
+                         f"{tuple(DTYPES)})")
+    return DTYPES[name]
+
+
+def truncated_normal(generator: torch.Generator, shape, scale: float,
+                     dtype: torch.dtype, device) -> torch.Tensor:
+    """Truncated-normal init on [-2, 2] standard deviations, rescaled so the
+    result has standard deviation ``scale`` (the reference's convention).
+    Drawn in fp32 from ``generator`` (which must live on ``device``)."""
+    stddev = scale / 0.87962566103423978
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                                generator=generator)
+    return (t * stddev).to(dtype)
+
+
+# -- norms ---------------------------------------------------------------------
+
+
+def init_norm(cfg: ModelConfig, device, shape_d: int | None = None) -> dict:
+    d = shape_d or cfg.d_model
+    dt = dtype_of(cfg.param_dtype)
+    p = {"scale": torch.ones((d,), dtype=dt, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dt, device=device)
+    return p
+
+
+def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+               eps: float = 1e-6, use_kernel: bool = False) -> torch.Tensor:
+    """RMSNorm / LayerNorm with fp32 accumulation, output in x.dtype.
+
+    ``use_kernel`` selects the RMSNorm kernel in the reference; that kernel
+    is not ported yet, so the switch raises on a CUDA tensor (and runs the
+    plain form on the CPU, as every kernel wrapper of the port does)."""
+    if use_kernel and cfg.norm == "rmsnorm" and x.is_cuda:
+        raise NotImplementedError("the RMSNorm kernel is not ported yet: "
+                                  "call apply_norm with use_kernel=False")
+    xf = x.float()
+    if cfg.norm == "rmsnorm":
+        var = xf.square().mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    else:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"].float() \
+            + p["bias"].float()
+    return out.to(x.dtype)
+
+
+# -- dense / MLP -----------------------------------------------------------------
+
+
+def init_dense(generator, d_in: int, d_out: int, cfg: ModelConfig, device, *,
+               bias: bool = False, scale: float | None = None) -> dict:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    dt = dtype_of(cfg.param_dtype)
+    p = {"w": truncated_normal(generator, (d_in, d_out), scale, dt, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dt, device=device)
+    return p
+
+
+def dense(p: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    out = x.to(compute_dtype) @ p["w"].to(compute_dtype)
+    if "b" in p:
+        out = out + p["b"].to(compute_dtype)
+    return out
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name}")
+
+
+def init_mlp(generator, cfg: ModelConfig, device, d_ff: int | None = None, *,
+             gated: bool | None = None) -> dict:
+    """Gated (SwiGLU-style) or plain 2-layer MLP."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    gated = gated if gated is not None else (cfg.act == "silu")
+    p = {"up": init_dense(generator, d, ff, cfg, device),
+         "down": init_dense(generator, ff, d, cfg, device,
+                            scale=1.0 / math.sqrt(ff))}
+    if gated:
+        p["gate"] = init_dense(generator, d, ff, cfg, device)
+    return p
+
+
+def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    cd = dtype_of(cfg.compute_dtype)
+    up = dense(p["up"], x, cd)
+    if "gate" in p:
+        h = _act(cfg.act, dense(p["gate"], x, cd)) * up
+    else:
+        h = _act(cfg.act, up)
+    return dense(p["down"], h, cd)
+
+
+# -- embeddings -------------------------------------------------------------------
+
+
+def init_embedding(generator, cfg: ModelConfig, device) -> dict:
+    """(padded_vocab, d) table; the padded rows are random too, as in the
+    reference (greedy argmax runs over them, so they are never masked)."""
+    V, d = cfg.padded_vocab, cfg.d_model
+    dt = dtype_of(cfg.param_dtype)
+    p = {"table": truncated_normal(generator, (V, d), 1.0, dt, device)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = truncated_normal(generator, (V, d),
+                                        1.0 / math.sqrt(d), dt, device)
+    return p
+
+
+def embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    cd = dtype_of(cfg.compute_dtype)
+    x = p["table"].to(cd)[tokens.long()]
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
+    return x
+
+
+def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    cd = dtype_of(cfg.compute_dtype)
+    table = p.get("unembed", p["table"])
+    return x.to(cd) @ table.to(cd).T
+
+
+def cast_weights(params, compute_dtype: torch.dtype):
+    """Copy of ``params`` with every dense weight/bias (``w``/``b``) and
+    embedding table cast to ``compute_dtype`` once — the casts ``dense``,
+    ``embed`` and ``unembed`` would otherwise repeat on every call.  Norm
+    scales keep their dtype: ``apply_norm`` reads them in fp32."""
+    if isinstance(params, dict):
+        return {k: (v.to(compute_dtype)
+                    if k in ("w", "b", "table", "unembed")
+                    and isinstance(v, torch.Tensor)
+                    else cast_weights(v, compute_dtype))
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [cast_weights(v, compute_dtype) for v in params]
+    return params
+
+
+# -- RoPE -------------------------------------------------------------------------
+
+
+def rope_freqs(cfg: ModelConfig, positions: torch.Tensor,
+               hd: int | None = None, theta: float | None = None):
+    """Returns (sin, cos) of shape positions.shape + (hd/2,), fp32."""
+    hd = hd or cfg.hd
+    theta = theta or cfg.rope_theta
+    exps = torch.arange(0, hd, 2, dtype=torch.float32,
+                        device=positions.device) / hd
+    inv = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * inv
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """x: (..., seq, heads, hd); sin/cos: (..., seq, hd/2) broadcast over
+    heads."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    s, c = sin[..., None, :], cos[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)

@@ -1,0 +1,340 @@
+"""Paged serving engine: a shared KV page pool with chunked prefill.
+
+The port of the JAX package's ``PagedEngine`` (DESIGN.md §9): attention
+layers share one page pool ``(num_pages, KV, page_size, D)`` per layer and
+per K/V; a slot's cache is whatever pages the scheduler's allocator gave
+it, recorded in a host-side page table ``(batch, max_pages_per_slot)``
+that is mirrored to the device whenever it changes.  Page 0 is the trash
+page: free (and mid-prefill) slots' rows point at it, so the
+always-full-batch decode step writes their dead K/V somewhere harmless,
+and every read of it yields zeros.
+
+Prefill is chunked (``prefill_chunk``-sized page-aligned chunks, the last
+one padded to a bucket), each chunk attending over the slot's earlier pages
+plus itself, so the scheduler can interleave decode steps between the
+chunks of a long prompt.  During a multi-chunk prefill the slot's live
+table row stays on the trash page; ``commit_slot`` installs its real row
+after the last chunk.
+
+PyTorch runs eagerly, so there are no compiled programs to count; the
+engine counts its decode and chunk calls instead.  The engine runs on the
+card unless the caller asks for the CPU: ``device="cuda"`` (the default)
+raises where no CUDA device exists.  Weights are cast to the compute dtype
+once, at construction — the per-call casts of the reference, done once.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..models.config import ModelConfig
+from ..models.layers import cast_weights, dtype_of
+from ..models.transformer import (check_supported, chunk_prefill_step,
+                                  decode_step, init_paged_cache)
+
+__all__ = ["PagedEngine", "SamplingParams", "chunk_plan", "chunk_buckets_for",
+           "sample", "resolve_device"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    temperature: float = 0.0       # 0 => greedy
+    top_k: int = 0                 # 0 => no top-k filter
+    stop_token: int = -1           # -1 => never stop early
+
+
+def resolve_device(device) -> torch.device:
+    """The port's entry points run on the card: a CUDA device must exist
+    when one is asked for (there is no silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but no CUDA device "
+                           f"is available (pass device='cpu' to run the "
+                           f"plain PyTorch path on the CPU)")
+    return dev
+
+
+def sample(logits: torch.Tensor, sp: SamplingParams,
+           generator: torch.Generator | None = None) -> np.ndarray:
+    """Next token per row from the last position's logits (B, S, V):
+    greedy argmax at temperature 0 (ties to the lowest id), else a draw
+    from the softmax at ``sp.temperature`` with ``generator``.  The top-k
+    filter keeps the logits at or above the k-th largest."""
+    lg = logits[:, -1, :].float()
+    if sp.top_k:
+        thresh = torch.topk(lg, sp.top_k, dim=-1).values[:, -1:]
+        lg = torch.where(lg < thresh, float("-inf"), lg)
+    if sp.temperature <= 0.0:
+        ids = torch.argmax(lg, dim=-1)
+    else:
+        probs = torch.softmax(lg / sp.temperature, dim=-1)
+        ids = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return ids.to(torch.int32).cpu().numpy()
+
+
+def chunk_buckets_for(prefill_chunk: int, page_size: int) -> tuple[int, ...]:
+    """Length buckets for the FINAL (partial) chunk of a prompt: power-of-two
+    multiples of the page size up to the full chunk length."""
+    buckets = {prefill_chunk}
+    b = page_size
+    while b < prefill_chunk:
+        buckets.add(b)
+        b *= 2
+    return tuple(sorted(buckets))
+
+
+def chunk_plan(true_len: int, prefill_chunk: int,
+               buckets: Sequence[int], *,
+               start: int = 0) -> list[tuple[int, int, int]]:
+    """Split a prompt into page-aligned chunks: full ``prefill_chunk``-sized
+    chunks, then the remainder padded up to the smallest fitting bucket.
+    Returns ``[(start, bucket_len, valid_in_chunk), ...]``.
+
+    ``start`` (a chunk-aligned offset, prefix-cache hits) begins the plan at
+    a later position; the result is exactly the suffix of the ``start=0``
+    plan, so the final chunk — whose logits seed the first sampled token —
+    is the one a full prefill would run."""
+    if true_len <= 0:
+        raise ValueError(f"true_len {true_len} must be positive")
+    if not 0 <= start < true_len:
+        raise ValueError(f"start {start} outside [0, {true_len})")
+    if start % prefill_chunk:
+        raise ValueError(f"start {start} must be chunk-aligned "
+                         f"(prefill_chunk {prefill_chunk}) so the plan is a "
+                         f"suffix of the full-prefill plan")
+    plan = []
+    while true_len - start > prefill_chunk:
+        plan.append((start, prefill_chunk, prefill_chunk))
+        start += prefill_chunk
+    rem = true_len - start
+    fitting = [b for b in buckets if b >= rem]
+    if not fitting:
+        raise ValueError(f"no chunk bucket fits remainder {rem} "
+                         f"(buckets {tuple(buckets)})")
+    plan.append((start, min(fitting), rem))
+    return plan
+
+
+class PagedEngine:
+    """Serving engine over a paged KV cache with chunked prefill.
+
+    ``attn_impl`` picks the decode attention: ``auto`` runs the paged
+    flash-decode kernel on a CUDA engine and the gather path on the CPU;
+    ``kernel`` and ``ref`` pin one (``ref`` on the card is for comparing
+    the kernel with its plain version).  ``params`` are the port's
+    parameters (``weights.init_params`` or ``weights.from_jax_numpy``); the
+    engine keeps a copy on ``device`` with the weights cast to the compute
+    dtype.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, batch: int, max_len: int,
+                 page_size: int = 16, num_pages: int | None = None,
+                 prefill_chunk: int = 64, mesh=None, attn_impl: str = "auto",
+                 device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError("multi-device serving (mesh=) is not "
+                                      "ported yet")
+        check_supported(cfg)
+        if prefill_chunk % page_size:
+            raise ValueError(f"prefill_chunk {prefill_chunk} must be a "
+                             f"multiple of page_size {page_size}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = cast_weights(
+            _to_device(params, self.device), dtype_of(cfg.compute_dtype))
+        self.batch, self.max_len = batch, max_len
+        self.page_size = page_size
+        self.attn_impl = attn_impl
+        self.chunk_len = prefill_chunk
+        self.max_pages = -(-max_len // page_size)       # per-slot table width
+        # default pool: batch × max_len tokens plus the trash page
+        self.num_pages = (1 + batch * self.max_pages if num_pages is None
+                          else num_pages)
+        self.chunk_buckets = chunk_buckets_for(prefill_chunk, page_size)
+        # host-side page table; all-zero rows = trash page (slot empty)
+        self.page_table = np.zeros((batch, self.max_pages), np.int32)
+        # attention-only models: every page is shareable
+        self.supports_prefix_cache = True
+        self.n_decode_calls = 0
+        self.n_chunk_calls = 0
+        # device copy of the page table, refreshed only when it changed
+        self._pt_device = None
+        self.cache = None
+
+    # -- lifecycle -------------------------------------------------------------
+    def ensure_batch(self) -> None:
+        """Allocate the empty live batch (all slots free, zero lengths,
+        every table row on the trash page)."""
+        if self.cache is None:
+            self.cache = init_paged_cache(self.cfg, self.batch,
+                                          num_pages=self.num_pages,
+                                          page_size=self.page_size,
+                                          device=self.device)
+
+    def total_pool_bytes(self) -> int:
+        """Attention page-pool bytes (K and V, every layer)."""
+        self.ensure_batch()
+        return sum(t.numel() * t.element_size()
+                   for t in (self.cache["k"], self.cache["v"]))
+
+    def pages_needed(self, true_len: int, max_new: int) -> int:
+        """Pages a request needs to hold ``true_len`` prompt tokens plus
+        ``max_new`` generated ones: the padded prefill span or the prompt +
+        generation budget, whichever reaches further.  ``ServeScheduler``
+        calls it with the whole budget (``reserve="lifetime"``) or with
+        ``max_new=1`` and appends decode pages later (``reserve="demand"``).
+        """
+        plan = chunk_plan(true_len, self.chunk_len, self.chunk_buckets)
+        span = max(plan[-1][0] + plan[-1][1], true_len + max_new)
+        return -(-span // self.page_size)
+
+    # -- chunked prefill -------------------------------------------------------
+    def prefill_chunk(self, slot: int, tokens_1xC, page_ids, start: int,
+                      valid_in_chunk: int) -> torch.Tensor:
+        """Run one chunk through the slot's pages (``page_ids``: the slot's
+        full allocation, host list).  Returns the logits at the chunk's true
+        last token, (1, 1, V) — only the final chunk's are meaningful."""
+        self.ensure_batch()
+        ids = self._check_page_row(slot, page_ids)
+        row = np.zeros((1, self.max_pages), np.int32)
+        row[0, :len(ids)] = ids
+        tokens = torch.as_tensor(np.asarray(tokens_1xC, np.int32),
+                                 device=self.device)
+        logits, self.cache = chunk_prefill_step(
+            self.cfg, self.params, self.cache, tokens, slot=slot,
+            start=int(start), valid_len=int(valid_in_chunk),
+            pages_row=torch.as_tensor(row, device=self.device),
+            page_size=self.page_size)
+        self.n_chunk_calls += 1
+        return logits
+
+    def _check_page_row(self, slot: int, page_ids) -> list[int]:
+        """Fail fast on a bad table row: the trash page (id 0) mid-row would
+        truncate the nonzero-prefix page count ``append_page`` depends on,
+        an out-of-range id would index the pool out of bounds on the
+        device, and an over-long row would overflow the table width."""
+        ids = [int(p) for p in page_ids]
+        if len(ids) > self.max_pages:
+            raise ValueError(f"slot {slot}: {len(ids)} pages exceed the "
+                             f"per-slot table width {self.max_pages}")
+        bad = [p for p in ids if not 0 < p < self.num_pages]
+        if bad:
+            raise ValueError(f"slot {slot}: page id(s) {bad} outside "
+                             f"(0, {self.num_pages}) — 0 is the reserved "
+                             f"trash page")
+        return ids
+
+    def commit_slot(self, slot: int, page_ids) -> None:
+        """Install the slot's pages into the live table — decode reads (and
+        writes) go through them from the next step on."""
+        ids = self._check_page_row(slot, page_ids)
+        row = np.zeros((self.max_pages,), np.int32)
+        row[:len(ids)] = ids
+        self.page_table[slot] = row
+        self._pt_device = None
+
+    def append_page(self, slot: int, page_id: int) -> None:
+        """Reserve-on-demand decode growth: append one page to a COMMITTED
+        slot's live row, just before the decode write that crosses into it.
+        The row's page count is its nonzero prefix."""
+        if page_id <= 0:
+            raise ValueError(f"page {page_id} is reserved (trash page) or "
+                             f"invalid — appends take allocator pages >= 1")
+        if page_id >= self.num_pages:
+            raise ValueError(f"page {page_id} outside the pool "
+                             f"(num_pages {self.num_pages}) — a foreign id "
+                             f"would index the device pool out of bounds")
+        n = int(np.count_nonzero(self.page_table[slot]))
+        if n == 0:
+            raise ValueError(f"slot {slot} is not committed (row on the "
+                             f"trash page); append_page only grows live "
+                             f"slots")
+        if n >= self.max_pages:
+            raise ValueError(f"slot {slot} table is full "
+                             f"({self.max_pages} pages)")
+        self.page_table[slot, n] = page_id
+        self._pt_device = None
+
+    def copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write primitive: duplicate page ``src``'s K/V block into
+        ``dst`` in every layer's pool."""
+        for name, p in (("src", src), ("dst", dst)):
+            if not 0 < p < self.num_pages:
+                raise ValueError(f"copy_page {name} {p} outside "
+                                 f"(0, {self.num_pages})")
+        if src == dst:
+            raise ValueError(f"copy_page onto itself (page {src})")
+        self.ensure_batch()
+        for pool in (self.cache["k"], self.cache["v"]):
+            pool[:, dst] = pool[:, src]
+
+    def remap_slot_page(self, slot: int, idx: int, page_id: int) -> None:
+        """Replace ONE live table-row entry (COW remap: shared original ->
+        private copy).  Only committed rows can be remapped."""
+        if not 0 < page_id < self.num_pages:
+            raise ValueError(f"page {page_id} outside (0, {self.num_pages})")
+        if not 0 <= idx < self.max_pages:
+            raise ValueError(f"row index {idx} outside [0, {self.max_pages})")
+        if self.page_table[slot, idx] == 0:
+            raise ValueError(f"slot {slot} row index {idx} is not live "
+                             f"(trash page) — remap only swaps existing "
+                             f"mappings")
+        self.page_table[slot, idx] = page_id
+        self._pt_device = None
+
+    def free_slot(self, slot: int) -> None:
+        """Retire (or preempt) the slot: its row points back at the trash
+        page; its pages go back to the scheduler's allocator."""
+        self.page_table[slot] = 0
+        self._pt_device = None
+
+    def insert(self, slot: int, tokens, *, true_len: int | None = None,
+               page_ids=None, max_new: int = 0) -> torch.Tensor:
+        """Convenience one-call insert: run every chunk back-to-back and
+        commit the pages.  ``tokens``: (S,) or (1, S) prompt."""
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        true_len = len(toks) if true_len is None else int(true_len)
+        if page_ids is None:
+            raise ValueError("insert() needs the slot's allocated page_ids")
+        need = self.pages_needed(true_len, max_new)
+        if len(page_ids) < need:
+            raise ValueError(f"slot {slot} got {len(page_ids)} pages, needs "
+                             f"{need}")
+        logits = None
+        for start, blen, vlen in chunk_plan(true_len, self.chunk_len,
+                                            self.chunk_buckets):
+            ck = np.zeros((1, blen), np.int32)
+            ck[0, :vlen] = toks[start:start + vlen]
+            logits = self.prefill_chunk(slot, ck, page_ids, start, vlen)
+        self.commit_slot(slot, page_ids)
+        return logits
+
+    # -- decode ----------------------------------------------------------------
+    def decode(self, tokens) -> torch.Tensor:
+        """tokens: (batch, 1) — one step for every slot, page-table reads
+        and writes.  Returns logits (batch, 1, V) on the engine's device.
+        (Attention-only models keep no per-slot state beside the pages, so
+        there is no live mask: free and mid-prefill slots write the trash
+        page.)"""
+        self.ensure_batch()
+        if self._pt_device is None:
+            self._pt_device = torch.tensor(self.page_table,
+                                              device=self.device)
+        tokens = torch.as_tensor(np.asarray(tokens, np.int32),
+                                 device=self.device)
+        logits, self.cache = decode_step(
+            self.cfg, self.params, self.cache, tokens, pages=self._pt_device,
+            page_size=self.page_size, paged_impl=self.attn_impl)
+        self.n_decode_calls += 1
+        return logits
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
