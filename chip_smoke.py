@@ -29,7 +29,20 @@ and prints one JSON line per phase:
 6. ``decode_step_paths`` and ``profile`` — a full batch of long prompts:
    decode steps timed alternately through the kernel path and the plain
    gather path, then a few kernel-path steps under ``torch.profiler``:
-   device time by kernel and the device's busy share.
+   device time by kernel and the device's busy share;
+7. ``kernels`` (``ssd_scan``) — the SSD intra-chunk kernel against its
+   plain version at mamba2-370m's serving shapes (H 32, P 64, N 128;
+   Q 256 and 16 at one chunk, Q 256 at eight), with strongly negative
+   decays; timed beside its plain version and its bound;
+8. ``parity_ssm`` — full-width mamba2-370m (all 48 layers) at fp32:
+   prompts chunk-prefilled through the kernel path and the plain einsum
+   path, then teacher-forced decode steps; logits must agree;
+9. ``serve_ssm`` — full-width mamba2-370m in bf16, the same 16-request
+   trace as phase 5; every request must finish with its token count, and
+   the SSD kernel's launch count must equal chunk calls x 48 layers;
+10. ``prefill_chunk_paths`` — 256-token prefill chunks timed alternately
+   through the kernel path and the plain path, then a few kernel-path
+   chunks under ``torch.profiler``.
 
 Then a ``{"kernels": [...]}`` summary line, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -54,6 +67,12 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 KERNEL_TOL = 1e-4                # kernel vs plain, attention output and m
+# SSD kernel vs plain, max|Δ| / max|plain| of y and of S: the two take
+# cumsum(a) in different orders, and exp(cum_t - cum_s) carries the
+# difference as a relative error of about eps_fp32 * |cum| (|cum| reaches
+# a few hundred at Q = 256 with the strong decays drawn here)
+SSD_TOL = 1e-4
+DEV = "cuda"
 WRAPPER_TOL_F32 = 1e-5           # wrapper, kernel vs gather oracle, fp32
 PARITY_TOL = 1e-3                # kernel vs plain path, logits / max|logit|
 
@@ -72,11 +91,18 @@ def nvidia_smi_line() -> str:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA
-    events, after one warm-up call."""
+    events, after one warm-up call.  The device first sleeps for 1.5x the
+    host time the calls take to enqueue (measured on the warm-up call), so
+    every launch is queued before the first one runs: the events then time
+    the device's work, not the host's launch rate."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn(0)
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * reps * host_s * 2e9, 2e10)))
     start.record()
     for i in range(reps):
         fn(i)
@@ -95,10 +121,9 @@ def paged_inputs(gen, *, B, KV, G, D, ps, n_pages, kv_lens, dtype,
     """Serve-layout inputs on the card: each slot's pages are distinct pool
     pages, the rest of its row is the trash page 0, whose contents are NaN
     (the kernel must read it as zeros)."""
-    dev = "cuda"
     P = 1 + B * n_pages
-    k_pool = torch.randn((P, KV, ps, D), generator=gen, device=dev).to(dtype)
-    v_pool = torch.randn((P, KV, ps, D), generator=gen, device=dev).to(dtype)
+    k_pool = torch.randn((P, KV, ps, D), generator=gen, device=DEV).to(dtype)
+    v_pool = torch.randn((P, KV, ps, D), generator=gen, device=DEV).to(dtype)
     k_pool[0] = float("nan")
     v_pool[0] = float("nan")
     table = np.zeros((B, n_pages), np.int32)
@@ -109,10 +134,10 @@ def paged_inputs(gen, *, B, KV, G, D, ps, n_pages, kv_lens, dtype,
         nxt += need
         if trash_tail and need:
             table[b, max(need - trash_tail, 0):need] = 0
-    q = torch.randn((B, KV, G, D), generator=gen, device=dev)
+    q = torch.randn((B, KV, G, D), generator=gen, device=DEV)
     q = (q / math.sqrt(D)).to(dtype)
-    return (q, k_pool, v_pool, torch.tensor(table, device=dev),
-            torch.tensor(kv_lens, dtype=torch.int32, device=dev))
+    return (q, k_pool, v_pool, torch.tensor(table, device=DEV),
+            torch.tensor(kv_lens, dtype=torch.int32, device=DEV))
 
 
 def bound_ms(pages, kv_len, *, B, KV, G, D, ps, window, elt):
@@ -154,9 +179,9 @@ def wrapper_case(gen, q, k_pool, v_pool, pages, kv_len, window) -> dict:
 
     B, KV, G, D = q.shape
     dtype = q.dtype
-    qw = torch.randn((B, 1, KV * G, D), generator=gen, device="cuda").to(dtype)
-    kt = torch.randn((B, KV, 1, D), generator=gen, device="cuda").to(dtype)
-    vt = torch.randn((B, KV, 1, D), generator=gen, device="cuda").to(dtype)
+    qw = torch.randn((B, 1, KV * G, D), generator=gen, device=DEV).to(dtype)
+    kt = torch.randn((B, KV, 1, D), generator=gen, device=DEV).to(dtype)
+    vt = torch.randn((B, KV, 1, D), generator=gen, device=DEV).to(dtype)
     out = paged_decode_attention(qw, k_pool, v_pool, pages, kv_len, kt, vt,
                                  window=window, impl="kernel")
     ref = paged_decode_attention(qw, k_pool, v_pool, pages, kv_len, kt, vt,
@@ -189,7 +214,7 @@ def kernel_phase(n_layers: int) -> dict:
     # max_len 2048 (128 pages a slot); ragged lengths, one free slot
     B, KV, G, D, ps, n_pages = 8, 2, 6, 128, 16, 128
     kv_lens = [2048, 1999, 1500, 1024, 777, 300, 17, 0]
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=DEV).manual_seed(0)
     max_err = 0.0
     main_case = None
     for dtype in (torch.float32, torch.bfloat16):
@@ -233,7 +258,7 @@ def kernel_phase(n_layers: int) -> dict:
             # library yardstick: one scaled_dot_product_attention call over
             # the gathered dense view with a mask (the gather is not timed)
             T = n_pages * ps
-            pos = torch.arange(T, device="cuda")[None, :]
+            pos = torch.arange(T, device=DEV)[None, :]
             ok = pos < kv_len[:, None]
             if window is not None:
                 ok = ok & (pos >= kv_len[:, None] + 1 - window)
@@ -264,6 +289,92 @@ def kernel_phase(n_layers: int) -> dict:
             "launches_per_decode_step": n_layers}
 
 
+def ssd_inputs(gen, BC, H, Q, P, N):
+    """fp32 inputs of the SSD kernel on the card: a uniform in [-3, 0) per
+    step, so the decays over a 256-step chunk span hundreds of e-folds."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    x = randn(BC, H, Q, P)
+    dt = F.softplus(randn(BC, H, Q, 1))
+    a = -3.0 * torch.rand((BC, H, Q, 1), generator=gen, device=DEV)
+    return x, dt, a, randn(BC, Q, N), randn(BC, Q, N)
+
+
+def ssd_bound_ms(BC, H, Q, P, N):
+    """Least time for the SSD function on these shapes: the larger of its
+    bytes over the card's memory rate and its fp32 operations over the
+    fp32 rate.  Bytes: every input read once and y, S written once (fp32).
+    Operations (an exp counted as one): C Bᵀ once per chunk over the causal
+    half, Q(Q+1)/2 * 2N; per head, the causal entries' weights and the
+    product with x, Q(Q+1)/2 * (2P + 3), and the state, Q * (2NP + N + 3)
+    (weights, the product and the cumsum)."""
+    nbytes = 4 * BC * (2 * H * Q * P + 2 * H * Q + 2 * Q * N + H * N * P)
+    causal = Q * (Q + 1) // 2
+    flops = BC * (causal * 2 * N
+                  + H * (causal * (2 * P + 3) + Q * (2 * N * P + N + 3)))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_kernel_phase(n_layers: int) -> dict:
+    from repro_torch.kernels.ssd_scan import (ssd_intra_chunk_kernel,
+                                              ssd_intra_chunk_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    main_case = None
+    max_err = 0.0
+    # mamba2-370m's serving shapes: one chunk at the largest and smallest
+    # bucket, and eight chunks at once
+    for BC, Q in ((1, 256), (1, 16), (8, 256)):
+        H, P, N = 32, 64, 128
+        args = ssd_inputs(gen, BC, H, Q, P, N)
+        y, S = ssd_intra_chunk_kernel(*args)
+        torch.cuda.synchronize()
+        y_p, S_p = ssd_intra_chunk_plain(*args)
+        if not (torch.isfinite(y).all() and torch.isfinite(S).all()):
+            raise AssertionError(f"SSD kernel output not finite (BC {BC}, "
+                                 f"Q {Q})")
+        err_y = float((y - y_p).abs().max())
+        err_s = float((S - S_p).abs().max())
+        case = {"shape": {"BC": BC, "H": H, "Q": Q, "P": P, "N": N},
+                "max_abs_err": max(err_y, err_s),
+                "y_rel_err": err_y / float(y_p.abs().max()),
+                "S_rel_err": err_s / float(S_p.abs().max()),
+                "tol": SSD_TOL}
+        if max(case["y_rel_err"], case["S_rel_err"]) > SSD_TOL:
+            raise AssertionError(f"SSD kernel disagrees with plain: {case}")
+        max_err = max(max_err, case["max_abs_err"])
+        # timing: rotate over input copies larger than the 50 MB L2, as in
+        # a prefill chunk, where a layer's weights pass between launches
+        in_bytes = sum(t.numel() * 4 for t in args)
+        n_copies = max(2, math.ceil(100e6 / in_bytes))
+        copies = [tuple(t.clone() for t in args) for _ in range(n_copies)]
+        ms = cuda_ms(lambda i: ssd_intra_chunk_kernel(
+            *copies[i % n_copies]), 50)
+        plain_ms = cuda_ms(lambda i: ssd_intra_chunk_plain(
+            *copies[i % n_copies]), 10)
+        bms, by = ssd_bound_ms(BC, H, Q, P, N)
+        case.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=None)
+        emit("kernels", kernel="ssd_scan", **case)
+        if (BC, Q) == (1, 256):
+            main_case = case        # what a full prefill chunk runs
+        del copies
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:57",
+            "max_abs_err": max_err, "ms": main_case["ms"],
+            "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes the SSD "
+                            "intra-chunk dual form",
+            "launches_per_chunk": n_layers}
+
+
 # ---------------------------------------------------------------------------
 # full-width parity and serving
 # ---------------------------------------------------------------------------
@@ -278,14 +389,14 @@ def parity_phase() -> None:
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config("qwen2-1.5b"),
                               compute_dtype="float32")
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
-                         "cuda")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(1),
+                         DEV)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size - 1, (n,)).astype(np.int32)
                for n in (700, 300, 129)]          # slot 3 stays free
     engines = {impl: PagedEngine(cfg, params, batch=4, max_len=1024,
                                  page_size=16, prefill_chunk=256,
-                                 attn_impl=impl)
+                                 attn_impl=impl, device=DEV)
                for impl in ("kernel", "ref")}
     n_steps = 12
     first = {}
@@ -328,10 +439,10 @@ def serve_phase(kernel_mod) -> tuple[int, int]:
     from repro_torch.weights import init_params
 
     cfg = get_config("qwen2-1.5b")                    # bf16 compute
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         "cuda")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
     eng = PagedEngine(cfg, params, batch=8, max_len=2048, page_size=16,
-                      prefill_chunk=256)
+                      prefill_chunk=256, device=DEV)
     del params                     # the engine holds its bf16 copy
     torch.cuda.empty_cache()
     sched = ServeScheduler(eng)
@@ -345,10 +456,10 @@ def serve_phase(kernel_mod) -> tuple[int, int]:
     decode_s: list[float] = []
     decode = eng.decode
 
-    def timed_decode(tokens):
+    def timed_decode(tokens, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = decode(tokens)
+        out = decode(tokens, **kw)
         torch.cuda.synchronize()
         decode_s.append(time.perf_counter() - t0)
         return out
@@ -441,25 +552,253 @@ def profile_decode(sched, cfg, rng, n_steps: int = 8,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(ev):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(ev, attr):
-                return float(getattr(ev, attr))
-        return 0.0
+    emit_profile("profile", prof, wall, "decode_steps", n_steps, "step")
+    sched.run()
 
+
+def dev_us(ev) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(ev, attr):
+            return float(getattr(ev, attr))
+    return 0.0
+
+
+def emit_profile(phase: str, prof, wall: float, count_key: str, n: int,
+                 per: str) -> None:
+    """Device time by kernel name and the device's busy share (kernel time
+    summed over wall time) of a profiled window of ``n`` steps or chunks
+    (``per``)."""
     # device-side events only (kernels and copies): CPU ops carry their
     # children's device time too, and would count it twice
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    emit("profile", decode_steps=n_steps, wall_ms_per_step=wall * 1e3
-         / n_steps, device_busy_ms_per_step=busy_ms / n_steps,
-         device_busy_share=busy_ms / (wall * 1e3) if events else None,
-         top_kernels=[{"name": e.key[:80], "calls": e.count,
-                       "ms_per_step": dev_us(e) / 1e3 / n_steps}
-                      for e in top])
+    emit(phase, **{count_key: n, f"wall_ms_per_{per}": wall * 1e3 / n,
+                   f"device_busy_ms_per_{per}": busy_ms / n,
+                   "device_busy_share": (busy_ms / (wall * 1e3)
+                                         if events else None),
+                   "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                                    f"ms_per_{per}": dev_us(e) / 1e3 / n}
+                                   for e in top]})
+
+
+def prefill_through(eng, slot: int, prompt, page_ids, impl: str):
+    """Chunk-prefill ``prompt`` into ``slot`` as ``PagedEngine.insert``
+    does, with the SSD path pinned to ``impl``, and commit the slot.
+    Returns the final chunk's logits."""
+    from repro_torch.models.transformer import chunk_prefill_step
+    from repro_torch.serve import chunk_plan
+
+    eng.ensure_batch()
+    row = torch.zeros((1, eng.max_pages), dtype=torch.int32, device=DEV)
+    row[0, :len(page_ids)] = torch.tensor(page_ids, dtype=torch.int32)
+    logits = None
+    for start, blen, vlen in chunk_plan(len(prompt), eng.chunk_len,
+                                        eng.chunk_buckets):
+        ck = np.zeros((1, blen), np.int32)
+        ck[0, :vlen] = prompt[start:start + vlen]
+        logits, eng.cache = chunk_prefill_step(
+            eng.cfg, eng.params, eng.cache, torch.tensor(ck, device=DEV),
+            slot=slot, start=start, valid_len=vlen, pages_row=row,
+            page_size=eng.page_size, impl=impl)
+    eng.commit_slot(slot, page_ids)
+    return logits
+
+
+def parity_ssm_phase() -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.serve import PageAllocator, PagedEngine
+    from repro_torch.weights import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("mamba2-370m"),
+                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(1),
+                         DEV)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, (n,)).astype(np.int32)
+               for n in (700, 300, 129)]          # slot 3 stays free
+    engines = {impl: PagedEngine(cfg, params, batch=4, max_len=1024,
+                                 page_size=16, prefill_chunk=256,
+                                 device=DEV)
+               for impl in ("kernel", "ref")}
+    n_steps = 12
+    worst, same, total = 0.0, 0, 0
+
+    def compare(lk, lr):
+        nonlocal worst, same, total
+        lk, lr = lk.float(), lr.float()
+        if not torch.isfinite(lk).all():
+            raise AssertionError("kernel-path logits not finite")
+        worst = max(worst, float((lk - lr).abs().max() / lr.abs().max()))
+        same += int((lk.argmax(-1) == lr.argmax(-1)).sum())
+        total += lk.shape[0]
+        return lr.argmax(-1)
+
+    first = {}
+    for impl, eng in engines.items():
+        alloc = PageAllocator(eng.num_pages)
+        for slot, p in enumerate(prompts):
+            pages = alloc.alloc(eng.pages_needed(len(p), n_steps + 1))
+            first[impl, slot] = prefill_through(eng, slot, p, pages, impl)
+    toks = np.zeros((4, 1), np.int32)
+    for slot in range(len(prompts)):
+        tok = compare(first["kernel", slot][:, -1], first["ref", slot][:, -1])
+        toks[slot, 0] = int(tok[0])
+    # teacher forcing: both engines decode the plain path's greedy tokens
+    for _ in range(n_steps):
+        lk = engines["kernel"].decode(toks)[:len(prompts), -1]
+        lr = engines["ref"].decode(toks)[:len(prompts), -1]
+        toks[:len(prompts), 0] = compare(lk, lr).cpu().numpy()
+    emit("parity_ssm", model=cfg.name, layers=cfg.n_layers,
+         compute="float32", prompt_lens=[len(p) for p in prompts],
+         decode_steps=n_steps, max_rel_logit_err=worst, tol=PARITY_TOL,
+         greedy_token_match=same / total)
+    if worst > PARITY_TOL:
+        raise AssertionError(f"SSM kernel path logits differ from the plain "
+                             f"path: {worst} > {PARITY_TOL}")
+    del engines, params
+    torch.cuda.empty_cache()
+
+
+def serve_ssm_phase(kernel_mod) -> tuple[int, int]:
+    from repro_torch.configs import get_config
+    from repro_torch.serve import PagedEngine, ServeScheduler
+    from repro_torch.weights import init_params
+
+    cfg = get_config("mamba2-370m")                   # bf16 compute
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    eng = PagedEngine(cfg, params, batch=8, max_len=2048, page_size=16,
+                      prefill_chunk=256, device=DEV)
+    del params                     # the engine holds its bf16 copy
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sched = ServeScheduler(eng)
+    rng = np.random.default_rng(0)
+    # warm-up: cuBLAS handles and the first launches, off the record; the
+    # same draws as the qwen2 serve phase, so the trace is the same
+    for n in (64, 300):
+        sched.submit(rng.integers(0, cfg.vocab_size - 1, (n,)), max_new=2)
     sched.run()
+    sched.reset_metrics()
+
+    timed = {"decode": [], "prefill_chunk": []}
+    originals = {name: getattr(eng, name) for name in timed}
+
+    def timer(name):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](*args, **kw)
+            torch.cuda.synchronize()
+            timed[name].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    for name in timed:
+        setattr(eng, name, timer(name))
+    lens = rng.integers(64, 1501, 16)
+    max_new = 32
+    steps0, chunks0 = eng.n_decode_calls, eng.n_chunk_calls
+    kernel_mod.launches = 0
+    t0 = time.perf_counter()
+    for n in lens:
+        sched.submit(rng.integers(0, cfg.vocab_size - 1, (int(n),)),
+                     max_new=max_new)
+    results = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_mod.launches
+    steps = eng.n_decode_calls - steps0
+    chunks = eng.n_chunk_calls - chunks0
+    for name, fn in originals.items():
+        setattr(eng, name, fn)
+
+    if len(results) != len(lens):
+        raise AssertionError(f"{len(results)} of {len(lens)} requests done")
+    bad = [r.rid for r in results if r.n_generated != max_new]
+    if bad:
+        raise AssertionError(f"requests {bad} did not produce {max_new} "
+                             f"tokens")
+    if any(o.outcome != "completed" for o in sched.outcomes.values()):
+        raise AssertionError(f"outcomes {sched.outcomes}")
+    if launches == 0 or launches != chunks * cfg.n_layers:
+        raise AssertionError(f"SSD kernel launches {launches} != chunk "
+                             f"calls {chunks} x {cfg.n_layers} layers")
+    if not all(0 <= t < cfg.padded_vocab for r in results for t in r.tokens):
+        raise AssertionError("a token id falls outside the vocabulary")
+    ttft = np.array([r.ttft_s for r in results])
+    n_tok = sum(r.n_generated for r in results)
+    emit("serve_ssm", model=cfg.name, layers=cfg.n_layers,
+         compute="bfloat16", batch=8, page_size=16, prefill_chunk=256,
+         max_len=2048, requests=len(results),
+         prompt_lens=[int(n) for n in lens], max_new=max_new,
+         gen_tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+         decode_steps=steps, chunk_calls=chunks,
+         decode_ms_per_step_p50=float(np.median(timed["decode"]) * 1e3),
+         decode_ms_per_step_mean=float(np.mean(timed["decode"]) * 1e3),
+         prefill_ms_per_chunk_p50=float(
+             np.median(timed["prefill_chunk"]) * 1e3),
+         prefill_ms_per_chunk_mean=float(
+             np.mean(timed["prefill_chunk"]) * 1e3),
+         ttft_p50_s=float(np.percentile(ttft, 50)),
+         ttft_p95_s=float(np.percentile(ttft, 95)),
+         kernel_launches=launches,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    prefill_chunk_paths(eng, rng)
+    return launches, chunks
+
+
+def prefill_chunk_paths(eng, rng, n_pairs: int = 4,
+                        n_profiled: int = 4) -> None:
+    """Where a prefill chunk's time goes: full 256-token chunks of one
+    prompt (a first chunk and a continuation) into a free slot, timed
+    alternately through the kernel path and the plain einsum path
+    (``impl`` "kernel" / "ref", in the order kernel, ref, ref, kernel,
+    ...), then ``n_profiled`` kernel-path chunks under ``torch.profiler``:
+    device time by kernel name and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import chunk_prefill_step
+
+    C = eng.chunk_len
+    prompt = rng.integers(0, eng.cfg.vocab_size - 1, (2 * C,))
+    row = torch.zeros((1, eng.max_pages), dtype=torch.int32, device=DEV)
+    chunks = [torch.tensor(prompt[None, i * C:(i + 1) * C].astype(np.int32),
+                           device=DEV) for i in range(2)]
+
+    def run(impl):
+        for i, ck in enumerate(chunks):
+            chunk_prefill_step(eng.cfg, eng.params, eng.cache, ck, slot=0,
+                               start=i * C, valid_len=C, pages_row=row,
+                               page_size=eng.page_size, impl=impl)
+
+    run("kernel")
+    run("ref")
+    torch.cuda.synchronize()
+    chunk_ms = {"kernel": [], "ref": []}
+    for i in range(2 * n_pairs):
+        impl = ("kernel", "ref")[(i + i // 2) % 2]
+        t0 = time.perf_counter()
+        run(impl)
+        torch.cuda.synchronize()
+        chunk_ms[impl].append((time.perf_counter() - t0) * 1e3 / 2)
+    emit("prefill_chunk_paths", model=eng.cfg.name, chunk=C,
+         kernel_ms=chunk_ms["kernel"], ref_ms=chunk_ms["ref"],
+         kernel_ms_median=float(np.median(chunk_ms["kernel"])),
+         ref_ms_median=float(np.median(chunk_ms["ref"])))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_profiled // 2):
+            run("kernel")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit_profile("profile_prefill", prof, wall, "chunks", n_profiled,
+                 "chunk")
 
 
 def main() -> int:
@@ -470,6 +809,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     smi = nvidia_smi_line()
     name, power = [s.strip() for s in smi.split(",", 1)]
@@ -486,7 +826,13 @@ def main() -> int:
     launches, steps = serve_phase(pa_kernel)
     entry["launches"] = launches
     entry["launches_per_decode_step"] = launches / steps
-    print(json.dumps({"kernels": [entry]}), flush=True)
+
+    ssd_entry = ssd_kernel_phase(n_layers=48)
+    parity_ssm_phase()
+    launches, chunks = serve_ssm_phase(ssd_kernel)
+    ssd_entry["launches"] = launches
+    ssd_entry["launches_per_chunk"] = launches / chunks
+    print(json.dumps({"kernels": [entry, ssd_entry]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,22 @@
-"""Model composition for the serving path: the dense GQA decoder family.
+"""Model composition for the serving path: the dense GQA decoder family
+and the attention-free Mamba-2 (``ssm``) family.
 
 Parameters are the JAX package's pytree unstacked: ``{"embed": {"table"},
 "layers": [block, ...], "norm_f": {"scale"}}`` with one dict per layer
 (the reference stacks layers on a leading axis for ``lax.scan``; here a
-plain Python loop runs them).  The paged serving cache is
-``{"k": (L, P, KV, ps, D), "v": (L, P, KV, ps, D), "len": (B,) int32}``:
-one page pool per layer and per K/V, so ``cache["k"][i]`` is layer i's
-contiguous pool.
+plain Python loop runs them).  A dense block is ``{"ln1", "attn", "ln2",
+"mlp"}``, an SSM block ``{"ln1", "mixer"}``.  The paged serving cache holds
+``"len": (B,) int32`` and, for the attention layers, ``"k"``/``"v"``:
+(n_attn, P, KV, ps, D), one page pool per layer and per K/V; for the SSM
+layers, per-slot state ``"conv"``: (n_ssm, B, W-1, d_inner + 2N) and
+``"state"``: (n_ssm, B, H, P, N), both fp32 (SSM state is O(1) per slot
+and has no pages).  ``cache["k"][i]`` is the i-th attention layer's pool,
+``cache["state"][i]`` the i-th SSM layer's state.
 
-Both steps UPDATE THE CACHE IN PLACE (pools and ``len``) and return the
-same dict — the reference returns a new cache.  Every layer reads its pool
-before writing its own K/V delta into it, and layers never share a pool,
-so the result equals the reference's read-all-then-write order.
+Both steps UPDATE THE CACHE IN PLACE (pools, SSM state and ``len``) and
+return the same dict — the reference returns a new cache.  Every layer
+reads its own pool or state before writing it, and layers never share
+one, so the result equals the reference's read-all-then-write order.
 """
 from __future__ import annotations
 
@@ -24,10 +29,14 @@ from .attention import attention, gather_pages, init_attention
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, dtype_of, embed, init_embedding,
                      init_mlp, init_norm, unembed)
+from .ssm import apply_mamba2, init_mamba2, init_ssm_cache, mamba2_decode_step
 
-__all__ = ["LayerPlan", "layer_plan", "init_block", "apply_block",
-           "init_params", "init_paged_cache", "decode_step",
+__all__ = ["LayerPlan", "layer_plan", "layer_kinds", "init_block",
+           "apply_block", "init_params", "init_paged_cache", "decode_step",
            "chunk_prefill_step", "check_supported"]
+
+#: block kinds the port runs
+PORTED_KINDS = ("dense", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,14 +70,22 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
     return LayerPlan(pattern=("dense",), n_groups=L, tail=())
 
 
+def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
+    """The block kind of every layer, in the order the layers run."""
+    plan = layer_plan(cfg)
+    return plan.pattern * plan.n_groups + plan.tail
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """The port runs the dense family (attention + gated MLP in every
-    layer); the other block kinds come with later slices."""
+    layer) and the ssm family (a Mamba-2 mixer in every layer); the other
+    block kinds come with later slices."""
     plan = layer_plan(cfg)
-    if plan.pattern != ("dense",) or plan.tail:
+    missing = sorted(set(plan.pattern + plan.tail) - set(PORTED_KINDS))
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {plan.pattern + plan.tail} are not "
-            f"ported yet (the port runs the dense family only)")
+            f"{cfg.name}: block kinds {missing} are not ported yet (the "
+            f"port runs {PORTED_KINDS})")
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +93,10 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_block(generator, cfg: ModelConfig, device) -> dict:
+def init_block(generator, cfg: ModelConfig, device, kind: str) -> dict:
+    if kind == "ssm":
+        return {"ln1": init_norm(cfg, device),
+                "mixer": init_mamba2(generator, cfg, device)}
     return {"ln1": init_norm(cfg, device),
             "attn": init_attention(generator, cfg, device),
             "ln2": init_norm(cfg, device),
@@ -91,15 +111,31 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     parity tests carry JAX weights over with ``weights.from_jax_numpy``."""
     check_supported(cfg)
     return {"embed": init_embedding(generator, cfg, device),
-            "layers": [init_block(generator, cfg, device)
-                       for _ in range(cfg.n_layers)],
+            "layers": [init_block(generator, cfg, device, kind)
+                       for kind in layer_kinds(cfg)],
             "norm_f": init_norm(cfg, device)}
 
 
-def apply_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
-                cache: dict, cache_len, paged_impl: str = "auto"):
-    """One dense block (attention + gated MLP, pre-norm, residuals).
-    Returns ``(x, (kt, vt))`` with the block's K/V delta."""
+def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
+                positions, cache: dict | None, cache_len,
+                paged_impl: str = "auto", impl: str = "auto",
+                valid_len: int | None = None):
+    """One pre-norm residual block.
+
+    ``dense`` (attention + gated MLP) returns ``(x, (kt, vt))`` with the
+    block's K/V delta.  ``ssm`` returns ``(x, new_cache)`` with the slot
+    rows' new ``{"conv", "state"}``: one token per row (S == 1) runs the
+    decode recurrence; a longer chunk continues the conv and SSD scan from
+    ``cache`` (chunked prefill), with positions >= ``valid_len`` masked out
+    of the state, and ``impl`` picks its intra-chunk path."""
+    if kind == "ssm":
+        h = apply_norm(cfg, p["ln1"], x)
+        if x.shape[1] == 1:
+            out, new_cache = mamba2_decode_step(cfg, p["mixer"], h, cache)
+        else:
+            out, new_cache = apply_mamba2(cfg, p["mixer"], h, cache=cache,
+                                          valid_len=valid_len, impl=impl)
+        return x + out, new_cache
     window = cfg.sliding_window
     h = apply_norm(cfg, p["ln1"], x)
     out, kv = attention(cfg, p["attn"], h, positions=positions, cache=cache,
@@ -119,14 +155,34 @@ def apply_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
 def init_paged_cache(cfg: ModelConfig, batch: int, *, num_pages: int,
                      page_size: int, device) -> dict:
     """Paged serving cache: one shared page pool (P, KV, page_size, D) per
-    layer and per K/V, stacked on a leading layer axis, plus per-slot
-    lengths.  Page 0 is the trash page."""
+    attention layer and per K/V, stacked on a leading layer axis; dense
+    per-slot conv tail and SSD state per SSM layer, stacked likewise; and
+    per-slot lengths.  An attention-free model gets no pool.  Page 0 is
+    the trash page."""
     check_supported(cfg)
-    dt = dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype)
-    shape = (cfg.n_layers, num_pages, cfg.n_kv_heads, page_size, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    kinds = layer_kinds(cfg)
+    n_ssm = kinds.count("ssm")
+    n_attn = len(kinds) - n_ssm
+    cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if n_attn:
+        dt = dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype)
+        shape = (n_attn, num_pages, cfg.n_kv_heads, page_size, cfg.hd)
+        cache["k"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    if n_ssm:
+        for key, t in init_ssm_cache(cfg, batch, device).items():
+            cache[key] = t[None].repeat((n_ssm,) + (1,) * t.dim())
+    return cache
+
+
+def _write_ssm_state(layer_cache: dict, new: dict, update_mask) -> None:
+    """Store an SSM layer's new per-slot state into its cache rows, in
+    place; rows where ``update_mask`` (B,) is False keep their state."""
+    for key, val in new.items():
+        if update_mask is not None:
+            m = update_mask.reshape((-1,) + (1,) * (val.dim() - 1))
+            val = torch.where(m, val, layer_cache[key])
+        layer_cache[key].copy_(val)
 
 
 def _write_kv_paged(pool, delta, pos, pages, page_size: int) -> None:
@@ -152,30 +208,42 @@ def _write_kv_paged(pool, delta, pos, pages, page_size: int) -> None:
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor, *, pages: torch.Tensor, page_size: int,
-                paged_impl: str = "auto"):
+                paged_impl: str = "auto", update_mask=None):
     """One decode step for every slot.  tokens: (B, 1) int; ``pages``
     (B, n_pages) int32 page table on the cache's device.  Every slot, free
     ones included, reads its pages, writes its token's K/V through the
     table and has its ``len`` bumped — free slots' rows point at the trash
     page.  ``paged_impl``: ``auto`` (the kernel on a CUDA cache, the gather
     oracle on the CPU), ``kernel`` or ``ref`` (gather ``gather_pages`` view
-    + ``_decode_attn_plus_self``).  Updates the cache in place; returns
-    ``(logits (B, 1, V), cache)``."""
+    + ``_decode_attn_plus_self``).  ``update_mask`` (B,) bool: freeze the
+    per-slot SSM state of masked-out slots (mid-prefill slots between
+    their chunks); None advances every slot.  Updates the cache in place;
+    returns ``(logits (B, 1, V), cache)``."""
     x = embed(cfg, params["embed"], tokens)
     if x.shape[1] != 1:
         raise ValueError("decode_step takes one token per slot (S == 1)")
     pos = cache["len"]
     positions = pos[:, None]
-    paged_impl = resolve_impl(paged_impl, cache["k"].device)
+    paged_impl = resolve_impl(paged_impl, pos.device)
     gathered = paged_impl == "ref"
-    for i, p in enumerate(params["layers"]):
-        kp, vp = cache["k"][i], cache["v"][i]
+    ai = si = 0
+    for kind, p in zip(layer_kinds(cfg), params["layers"]):
+        if kind == "ssm":
+            lc = {"conv": cache["conv"][si], "state": cache["state"][si]}
+            x, new = apply_block(cfg, kind, p, x, positions=positions,
+                                 cache=lc, cache_len=pos)
+            _write_ssm_state(lc, new, update_mask)
+            si += 1
+            continue
+        kp, vp = cache["k"][ai], cache["v"][ai]
+        ai += 1
         if gathered:
             lc = {"k": gather_pages(kp, pages), "v": gather_pages(vp, pages)}
         else:
             lc = {"k_pool": kp, "v_pool": vp, "pages": pages}
-        x, (kt, vt) = apply_block(cfg, p, x, positions=positions, cache=lc,
-                                  cache_len=pos, paged_impl=paged_impl)
+        x, (kt, vt) = apply_block(cfg, kind, p, x, positions=positions,
+                                  cache=lc, cache_len=pos,
+                                  paged_impl=paged_impl)
         _write_kv_paged(kp, kt, pos, pages, page_size)
         _write_kv_paged(vp, vt, pos, pages, page_size)
     x = apply_norm(cfg, params["norm_f"], x)
@@ -204,7 +272,7 @@ def _write_kv_chunk_paged(pool, delta, start: int, pages_1d, page_size: int):
 def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
                        tokens: torch.Tensor, *, slot: int, start: int,
                        valid_len: int, pages_row: torch.Tensor,
-                       page_size: int):
+                       page_size: int, impl: str = "auto"):
     """One prompt chunk of a chunked prefill into batch slot ``slot``.
 
     tokens: (1, C) — the chunk, right-padded to its bucket; ``start`` (a
@@ -213,9 +281,14 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
     before ``start`` (read through ``pages_row``, (1, n_pages)) plus
     itself, and its K/V go into the slot's pages through the same row.
     Padding past ``valid_len`` writes garbage K/V into the slot's own
-    pages, never read as valid.  The slot's ``len`` becomes
-    ``start + valid_len``.  Updates the cache in place; returns
-    ``(logits (1, 1, V) at the true last chunk token, cache)``."""
+    pages, never read as valid.  SSM layers continue from the slot's conv
+    tail and state — from zeros on the first chunk (``start == 0``),
+    whatever the slot's previous occupant left — with padding masked out
+    of the state, and write the new state back into the slot's row;
+    ``impl`` picks their intra-chunk SSD path (``auto``: the kernel on
+    CUDA, the einsum form on the CPU; ``kernel``; ``ref``).  The slot's
+    ``len`` becomes ``start + valid_len``.  Updates the cache in place;
+    returns ``(logits (1, 1, V) at the true last chunk token, cache)``."""
     x = embed(cfg, params["embed"], tokens)
     C = x.shape[1]
     positions = start + torch.arange(C, device=x.device)
@@ -223,12 +296,27 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
     # gathers the whole row and masks positions >= start, which adds only
     # exact zeros
     read = pages_row[:, :start // page_size]
-    for i, p in enumerate(params["layers"]):
-        kp, vp = cache["k"][i], cache["v"][i]
+    ai = si = 0
+    for kind, p in zip(layer_kinds(cfg), params["layers"]):
+        if kind == "ssm":
+            rows = {key: cache[key][si, slot:slot + 1]
+                    for key in ("conv", "state")}
+            # a first chunk starts from zeros: the slot's rows still hold
+            # its previous occupant's state
+            lc = (rows if start > 0
+                  else {k: torch.zeros_like(t) for k, t in rows.items()})
+            x, new = apply_block(cfg, kind, p, x, positions=positions,
+                                 cache=lc, cache_len=start, impl=impl,
+                                 valid_len=valid_len)
+            _write_ssm_state(rows, new, None)
+            si += 1
+            continue
+        kp, vp = cache["k"][ai], cache["v"][ai]
+        ai += 1
         lc = ({"k": gather_pages(kp, read), "v": gather_pages(vp, read)}
               if start > 0 else None)
-        x, (kt, vt) = apply_block(cfg, p, x, positions=positions, cache=lc,
-                                  cache_len=start)
+        x, (kt, vt) = apply_block(cfg, kind, p, x, positions=positions,
+                                  cache=lc, cache_len=start)
         _write_kv_chunk_paged(kp, kt, start, pages_row[0], page_size)
         _write_kv_chunk_paged(vp, vt, start, pages_row[0], page_size)
     x = apply_norm(cfg, params["norm_f"], x)

@@ -4,7 +4,10 @@ The port of the JAX package's ``PagedEngine`` (DESIGN.md §9): attention
 layers share one page pool ``(num_pages, KV, page_size, D)`` per layer and
 per K/V; a slot's cache is whatever pages the scheduler's allocator gave
 it, recorded in a host-side page table ``(batch, max_pages_per_slot)``
-that is mirrored to the device whenever it changes.  Page 0 is the trash
+that is mirrored to the device whenever it changes.  SSM layers keep a
+dense per-slot conv tail and SSD state instead (no pages), so a decode
+step takes a live mask that freezes the state of slots between prefill
+chunks, and the prefix cache stays off for models with SSM layers.  Page 0 is the trash
 page: free (and mid-prefill) slots' rows point at it, so the
 always-full-batch decode step writes their dead K/V somewhere harmless,
 and every read of it yields zeros.
@@ -33,7 +36,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.layers import cast_weights, dtype_of
 from ..models.transformer import (check_supported, chunk_prefill_step,
-                                  decode_step, init_paged_cache)
+                                  decode_step, init_paged_cache, layer_plan)
 
 __all__ = ["PagedEngine", "SamplingParams", "chunk_plan", "chunk_buckets_for",
            "sample", "resolve_device"]
@@ -156,8 +159,12 @@ class PagedEngine:
         self.chunk_buckets = chunk_buckets_for(prefill_chunk, page_size)
         # host-side page table; all-zero rows = trash page (slot empty)
         self.page_table = np.zeros((batch, self.max_pages), np.int32)
-        # attention-only models: every page is shareable
-        self.supports_prefix_cache = True
+        # prefix caching shares pages between slots, which only the paged
+        # attention pools support: SSM layers keep per-slot dense state
+        # that a chunk prefill rebuilds position by position — there is no
+        # page of it to hand a second request
+        plan = layer_plan(cfg)
+        self.supports_prefix_cache = "ssm" not in plan.pattern + plan.tail
         self.n_decode_calls = 0
         self.n_chunk_calls = 0
         # device copy of the page table, refreshed only when it changed
@@ -174,11 +181,16 @@ class PagedEngine:
                                           page_size=self.page_size,
                                           device=self.device)
 
-    def total_pool_bytes(self) -> int:
-        """Attention page-pool bytes (K and V, every layer)."""
+    def _pools(self) -> list[torch.Tensor]:
+        """The attention page pools (K and V; none for an attention-free
+        model)."""
         self.ensure_batch()
-        return sum(t.numel() * t.element_size()
-                   for t in (self.cache["k"], self.cache["v"]))
+        return [self.cache[k] for k in ("k", "v") if k in self.cache]
+
+    def total_pool_bytes(self) -> int:
+        """Attention page-pool bytes (K and V, every layer; 0 for pure-SSM
+        models — their dense per-slot state is not paged)."""
+        return sum(t.numel() * t.element_size() for t in self._pools())
 
     def pages_needed(self, true_len: int, max_new: int) -> int:
         """Pages a request needs to hold ``true_len`` prompt tokens plus
@@ -260,15 +272,15 @@ class PagedEngine:
 
     def copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write primitive: duplicate page ``src``'s K/V block into
-        ``dst`` in every layer's pool."""
+        ``dst`` in every attention layer's pool (SSM layers hold per-slot
+        state, no pages to copy)."""
         for name, p in (("src", src), ("dst", dst)):
             if not 0 < p < self.num_pages:
                 raise ValueError(f"copy_page {name} {p} outside "
                                  f"(0, {self.num_pages})")
         if src == dst:
             raise ValueError(f"copy_page onto itself (page {src})")
-        self.ensure_batch()
-        for pool in (self.cache["k"], self.cache["v"]):
+        for pool in self._pools():
             pool[:, dst] = pool[:, src]
 
     def remap_slot_page(self, slot: int, idx: int, page_id: int) -> None:
@@ -313,21 +325,26 @@ class PagedEngine:
         return logits
 
     # -- decode ----------------------------------------------------------------
-    def decode(self, tokens) -> torch.Tensor:
+    def decode(self, tokens, live_mask=None) -> torch.Tensor:
         """tokens: (batch, 1) — one step for every slot, page-table reads
-        and writes.  Returns logits (batch, 1, V) on the engine's device.
-        (Attention-only models keep no per-slot state beside the pages, so
-        there is no live mask: free and mid-prefill slots write the trash
-        page.)"""
+        and writes.  ``live_mask`` (batch,) bool: slots whose per-slot SSM
+        state may advance — mid-prefill slots must be masked out, or the
+        interleaved decode would corrupt the state their next chunk
+        continues from (their attention K/V needs no mask: the live page
+        table parks them on the trash page).  Defaults to all-live.
+        Returns logits (batch, 1, V) on the engine's device."""
         self.ensure_batch()
         if self._pt_device is None:
             self._pt_device = torch.tensor(self.page_table,
                                               device=self.device)
         tokens = torch.as_tensor(np.asarray(tokens, np.int32),
                                  device=self.device)
+        mask = (None if live_mask is None else torch.as_tensor(
+            np.asarray(live_mask, bool), device=self.device))
         logits, self.cache = decode_step(
             self.cfg, self.params, self.cache, tokens, pages=self._pt_device,
-            page_size=self.page_size, paged_impl=self.attn_impl)
+            page_size=self.page_size, paged_impl=self.attn_impl,
+            update_mask=mask)
         self.n_decode_calls += 1
         return logits
 

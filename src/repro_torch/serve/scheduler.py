@@ -1184,7 +1184,12 @@ class ServeScheduler:
         tokens = np.zeros((self.engine.batch, 1), np.int32)
         for st in live:
             tokens[st.slot, 0] = st.next_token
-        ids = self._sample(self.engine.decode(tokens))
+        # freeze mid-prefill (and free) slots' SSM state: only slots
+        # decoding a real token may advance their per-slot buffers
+        mask = np.zeros((self.engine.batch,), bool)
+        for st in live:
+            mask[st.slot] = True
+        ids = self._sample(self.engine.decode(tokens, live_mask=mask))
         now = self.clock()
         self.n_steps += 1
         self.occupied_slot_steps += len(live) + len(prefilling)

@@ -36,7 +36,8 @@ def test_import_with_jax_unavailable():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.serve, repro_torch.launch.serve, "
-            "repro_torch.weights, repro_torch.kernels.paged_attention; "
+            "repro_torch.weights, repro_torch.kernels.paged_attention, "
+            "repro_torch.kernels.ssd_scan, repro_torch.models.ssm; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,

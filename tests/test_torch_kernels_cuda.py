@@ -8,13 +8,15 @@ package, so it runs on the machine with the card::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 The input builder and the paged-attention cases are shared with the CPU
-parity tests (``test_torch_paged_attention.py``).
+parity tests (``test_torch_paged_attention.py``); the SSD inputs follow
+the JAX package's kernel test, with strongly negative decays added.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.paged_attention import paged_attention_plain
+from repro_torch.kernels.ssd_scan import ssd_intra_chunk_plain
 
 # B, H, KV, D, page_size, n_slot_pages, kv_lens, window, share, trash —
 # the JAX package's cases (ragged, windowed, COW-shared, mid-prefill
@@ -109,3 +111,84 @@ def test_cuda_wrapper_launches_kernel_and_matches_ref(dtype):
     assert torch.isfinite(out).all()
     tol = 1e-5 if dt == torch.float32 else 1e-2     # one bf16 rounding
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+# BC, H, Q, P, N: the serving shape at the largest and smallest chunk
+# buckets, several chunks at once, the CPU tests' Q = 8, and ragged
+# shapes that leave every tile edge partial
+SSD_CASES = [
+    (1, 32, 256, 64, 128),
+    (1, 32, 16, 64, 128),
+    (8, 4, 256, 64, 128),
+    (2, 2, 8, 16, 16),
+    (3, 3, 100, 70, 130),
+    (2, 1, 1, 8, 8),
+]
+SSD_TOL = 1e-4        # max|Δ| / max|plain|, y and S: the cumsum's order
+
+
+def ssd_case(seed, BC, H, Q, P, N, *, strong=False):
+    """fp32 inputs; ``strong`` draws a uniform in [-3, 0) per step, so the
+    decays over a chunk span hundreds of e-folds."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((BC, H, Q, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((BC, H, Q, 1)))).astype(
+        np.float32)
+    if strong:
+        a = -rng.uniform(0.0, 3.0, (BC, H, Q, 1)).astype(np.float32)
+    else:
+        a = (-np.exp(rng.standard_normal((BC, H, Q, 1)) * 0.3) * dt).astype(
+            np.float32)
+    B = rng.standard_normal((BC, Q, N)).astype(np.float32)
+    C = rng.standard_normal((BC, Q, N)).astype(np.float32)
+    return x, dt, a, B, C
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_cuda_ssd_kernel_matches_plain(case, strong):
+    """The hand-written SSD kernel against its plain version, on the card;
+    one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.ssd_scan import kernel, ssd_intra_chunk
+    args = [t.cuda() for t in _torch(*ssd_case(17, *case, strong=strong))]
+    before = kernel.launches
+    y, S = ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    y_p, S_p = ssd_intra_chunk_plain(*args)
+    assert torch.isfinite(y).all() and torch.isfinite(S).all()
+    assert _rel(y, y_p) <= SSD_TOL and _rel(S, S_p) <= SSD_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunked_kernel_path_matches_plain_path():
+    """The model's chunked scan through the kernel (with its relayout)
+    against the einsum path: several chunks, a padded tail, an initial
+    state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.models.ssm import ssd_chunked
+    rng = np.random.default_rng(18)
+    B, S, H, P, N = 2, 600, 8, 64, 128
+    x, dt, Bm, Cm = _torch(
+        rng.standard_normal((B, S, H, P)).astype(np.float32),
+        np.log1p(np.exp(rng.standard_normal((B, S, H)) - 3)).astype(
+            np.float32),
+        rng.standard_normal((B, S, N)).astype(np.float32),
+        rng.standard_normal((B, S, N)).astype(np.float32))
+    A = -torch.linspace(1.0, 16.0, H)
+    s0 = torch.from_numpy(rng.standard_normal((B, H, P, N)).astype(
+        np.float32))
+    args = [t.cuda() for t in (x, dt, A, Bm, Cm)]
+    yk, fk = ssd_chunked(*args, chunk=256, initial_state=s0.cuda(),
+                         impl="kernel")
+    yr, fr = ssd_chunked(*args, chunk=256, initial_state=s0.cuda(),
+                         impl="ref")
+    assert _rel(yk, yr) <= SSD_TOL and _rel(fk, fr) <= SSD_TOL

@@ -115,5 +115,5 @@ def test_engine_defaults_to_cuda_and_refuses_what_is_not_ported(models):
     with pytest.raises(NotImplementedError):
         PagedEngine(tc, tp, batch=1, max_len=16, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
-        PagedEngine(get_smoke_config("mamba2-370m"), tp, batch=1, max_len=16,
-                    device="cpu")
+        PagedEngine(get_smoke_config("mixtral-8x7b"), tp, batch=1,
+                    max_len=16, device="cpu")

@@ -2,12 +2,14 @@
 
 The same request trace — greedy, submitted up front, drained with
 ``run()`` — goes through the JAX ``ServeScheduler(PagedEngine(...,
-attn_impl="ref"))`` and through the port's, on the smoke config
-``qwen2-1.5b-smoke`` at fp32 compute with the JAX weights carried over.
-Per-request token streams and terminal outcomes must be IDENTICAL, for
-full-lifetime reservation, reserve-on-demand with a pool small enough to
-preempt, and the prefix cache with a shared prompt prefix.  Also the
-host-side units (chunk planning, the page allocator) and the launcher.
+attn_impl="ref"))`` and through the port's, on the smoke configs
+``qwen2-1.5b-smoke`` and ``mamba2-370m-smoke`` at fp32 compute with the
+JAX weights carried over.  Per-request token streams and terminal
+outcomes must be IDENTICAL, for full-lifetime reservation and
+reserve-on-demand with a pool small enough to preempt (both models), and
+the prefix cache with a shared prompt prefix (qwen2; an SSM model keeps
+it off).  Also the host-side units (chunk planning, the page allocator)
+and the launcher.
 """
 import dataclasses
 
@@ -26,24 +28,45 @@ from repro_torch.serve import (PageAllocator, PagedEngine, ServeScheduler,
 from repro_torch.weights import from_jax_numpy
 
 
-@pytest.fixture(scope="module")
-def models():
-    jc = dataclasses.replace(jax_smoke("qwen2-1.5b"), compute_dtype="float32")
-    tc = dataclasses.replace(get_smoke_config("qwen2-1.5b"),
-                             compute_dtype="float32")
+def _models(arch):
+    jc = dataclasses.replace(jax_smoke(arch), compute_dtype="float32")
+    tc = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
     jp = jax_init(jc, jax.random.PRNGKey(0))
     return jc, tc, jp, from_jax_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
 
 
 @pytest.fixture(scope="module")
-def engines(models):
-    """One engine per side, shared by the traces (a drained scheduler
-    leaves every table row on the trash page; the JAX engine keeps its
-    compiled programs)."""
-    jc, tc, jp, tp = models
-    kw = dict(batch=3, max_len=64, page_size=8, prefill_chunk=16)
-    return (JaxPagedEngine(jc, jp, attn_impl="ref", **kw),
-            PagedEngine(tc, tp, device="cpu", **kw))
+def arch_models():
+    """Models by arch, made on first use and shared by the module."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            made[arch] = _models(arch)
+        return made[arch]
+    return get
+
+
+@pytest.fixture(scope="module")
+def models(arch_models):
+    return arch_models("qwen2-1.5b")
+
+
+@pytest.fixture(scope="module")
+def arch_engines(arch_models):
+    """One engine per side and arch, shared by the traces (a drained
+    scheduler leaves every table row on the trash page; the JAX engine
+    keeps its compiled programs)."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            jc, tc, jp, tp = arch_models(arch)
+            kw = dict(batch=3, max_len=64, page_size=8, prefill_chunk=16)
+            made[arch] = (JaxPagedEngine(jc, jp, attn_impl="ref", **kw),
+                          PagedEngine(tc, tp, device="cpu", **kw))
+        return made[arch]
+    return get
 
 
 def _trace(seed, vocab, lens, shared_prefix=0):
@@ -63,12 +86,18 @@ CONFIGS = {
                          lens=(40, 37, 45, 33, 41), max_new=6,
                          shared_prefix=32),
 }
+# the SSM model: per-slot state under the live mask, rebuilt from zeros on
+# every (re)prefill, through both reservation modes
+CONFIGS.update({f"mamba2_{name}": dict(CONFIGS[name], arch="mamba2-370m")
+                for name in ("lifetime", "demand_preempt")})
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
-def test_scheduler_token_streams_match_jax(models, engines, name):
-    jc = models[0]
+def test_scheduler_token_streams_match_jax(arch_models, arch_engines, name):
     conf = CONFIGS[name]
+    arch = conf.get("arch", "qwen2-1.5b")
+    jc = arch_models(arch)[0]
+    engines = arch_engines(arch)
     prompts = _trace(3, jc.vocab_size, conf["lens"],
                      conf.get("shared_prefix", 0))
 
@@ -89,7 +118,7 @@ def test_scheduler_token_streams_match_jax(models, engines, name):
     assert len(tokens) == len(prompts)
     assert all(len(t) == conf["max_new"] for t in tokens.values())
     assert {o for o, _ in outcomes.values()} == {"completed"}
-    if name == "demand_preempt":
+    if name.endswith("demand_preempt"):
         assert n_preempted > 0
     if name == "prefix_cache":
         assert n_hits > 0
@@ -106,6 +135,23 @@ def test_scheduler_refuses_what_is_not_ported(models):
             ServeScheduler(eng, **kw)
     with pytest.raises(ValueError):
         ServeScheduler(eng, reserve="lifetime", admit_watermark=2)
+
+
+def test_prefix_cache_gates_ssm(arch_models):
+    """Models with SSM layers keep per-slot dense state, no pages to
+    share: the engine says so and the scheduler accepts the knob but
+    keeps sharing off, as the JAX package does."""
+    jc, tc, jp, tp = arch_models("mamba2-370m")
+    kw = dict(batch=1, max_len=32, page_size=8, prefill_chunk=16)
+    eng = PagedEngine(tc, tp, device="cpu", **kw)
+    jeng = JaxPagedEngine(jc, jp, **kw)
+    assert not eng.supports_prefix_cache and not jeng.supports_prefix_cache
+    sched = ServeScheduler(eng, prefix_cache=True)
+    assert sched.prefix is None and not sched.prefix_cache_active
+    jsched = JaxServeScheduler(jeng, prefix_cache=True)
+    assert jsched.prefix is None and not jsched.prefix_cache_active
+    assert PagedEngine(*arch_models("qwen2-1.5b")[1::2], device="cpu",
+                       **kw).supports_prefix_cache
 
 
 def test_page_allocator_exhaustion_free_and_no_aliasing():
