@@ -42,7 +42,26 @@ and prints one JSON line per phase:
    the SSD kernel's launch count must equal chunk calls x 48 layers;
 10. ``prefill_chunk_paths`` — 256-token prefill chunks timed alternately
    through the kernel path and the plain path, then a few kernel-path
-   chunks under ``torch.profiler``.
+   chunks under ``torch.profiler``;
+11. ``kernels`` (``jacobi_sweep``) — both Jacobi kernels (plain sweep and
+   fused-residual sweep) against their plain versions at the paper's sizes
+   N 2709, 4209 and 7209 in fp32, one bf16-x and one bf16-A case and a
+   ragged N 333; timed beside their plain versions, ``torch.addmv`` (the
+   library call that gives r = b − A·x) and their bound;
+12. ``jobmodel`` — the paper's §2.2 max example, its graph written in the
+   §3.3 job-file text and parsed by the port's parser, run on the card by
+   ``LocalExecutor`` in the sync, pipelined and dataflow modes with the
+   greedy and cost strategies; the answer must equal numpy's maximum;
+13. ``jacobi`` — the paper's Fig. 3: at n 2709, 4209 and 7209, 500
+   iterations, tol 0, the tailored loop (plain and through the fused
+   kernel), the HyPar job graph (4 chunks, three dispatch modes) and the
+   SPMD-fused loop; every variant must do 500 iterations, agree with the
+   plain tailored x within 1e-5 and reach a residual of at most 1e-4·‖b‖,
+   and the fused kernel must launch once per iteration plus one warm-up.
+   Seconds and overhead against the tailored loop, per size and as means;
+   then 100 iterations of the tailored kernel loop and of a HyPar sync
+   solve at n 7209 under ``torch.profiler`` (device time by kernel, busy
+   share).
 
 Then a ``{"kernels": [...]}`` summary line, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -75,6 +94,14 @@ SSD_TOL = 1e-4
 DEV = "cuda"
 WRAPPER_TOL_F32 = 1e-5           # wrapper, kernel vs gather oracle, fp32
 PARITY_TOL = 1e-3                # kernel vs plain path, logits / max|logit|
+# Jacobi kernels vs plain, max|Δ| / max|plain| of x' (fp32 x) and relative
+# error of ‖r‖: both sum N fp32 products in different orders
+JACOBI_TOL = 1e-5
+JACOBI_TOL_BF16 = 2.0 ** -7      # bf16 x': one bf16 spacing of max|x'|
+JACOBI_SIZES = (2709, 4209, 7209)  # paper Fig. 3
+JACOBI_ITERS = 500
+JACOBI_X_TOL = 1e-5              # every variant's x vs the plain tailored x
+JACOBI_RES_TOL = 1e-4            # exact residual / ‖b‖
 
 
 def emit(phase: str, **fields) -> None:
@@ -801,6 +828,347 @@ def prefill_chunk_paths(eng, rng, n_pairs: int = 4,
                  "chunk")
 
 
+# ---------------------------------------------------------------------------
+# the job-model runtime and the paper's Jacobi solver
+# ---------------------------------------------------------------------------
+
+
+def jacobi_inputs(gen, n, a_dtype, x_dtype):
+    """A diagonally dominant system on the card as ``make_system`` draws
+    it (normal / n, diagonal 3), and a random iterate x."""
+    A = torch.randn((n, n), generator=gen, device=DEV) / n
+    A.diagonal().fill_(3.0)
+    x = torch.randn(n, generator=gen, device=DEV)
+    b = torch.randn(n, generator=gen, device=DEV)
+    A = A.to(a_dtype)
+    return A, x.to(x_dtype), b, A.diagonal().contiguous()
+
+
+def jacobi_bound_ms(inputs, outputs):
+    """Least time for one sweep on these tensors: the larger of its bytes
+    over the card's memory rate (A, x, b and d read once; x', and the fused
+    kernel's fp32 partials, written once) and its 2N² fp32 operations over
+    the fp32 rate."""
+    n = inputs[0].shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 2.0 * n * n / H100_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def jacobi_kernel_phase() -> list[dict]:
+    from repro_torch.kernels.jacobi_sweep import (
+        jacobi_sweep, jacobi_sweep_kernel, jacobi_sweep_plain,
+        jacobi_sweep_residual, jacobi_sweep_residual_kernel,
+        jacobi_sweep_residual_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(n, f32, f32) for n in JACOBI_SIZES] + [
+        (4209, f32, bf16), (7209, bf16, f32), (333, f32, f32)]
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    # max_abs_err over the fp32-x cases; the bf16-x case apart (its x' is
+    # rounded to bf16)
+    entries = {name: {"max_abs_err": 0.0, "max_abs_err_bf16_x": 0.0}
+               for name in ("jacobi_sweep", "jacobi_sweep_residual")}
+    for n, a_dtype, x_dtype in cases:
+        A, x, b, d = jacobi_inputs(gen, n, a_dtype, x_dtype)
+        tol = JACOBI_TOL if x_dtype == f32 else JACOBI_TOL_BF16
+        # timing: rotate over copies of A larger than the 50 MB L2, as in
+        # the solver, where every sweep streams all of A from memory
+        a_bytes = A.numel() * A.element_size()
+        n_copies = max(2, math.ceil(100e6 / a_bytes))
+        copies = [A.clone() for _ in range(n_copies)]
+        # the check goes through the public wrappers (which launch the
+        # kernel on these CUDA tensors, and for the fused sweep sum the
+        # partials and take the root); the timing through the bindings
+        for name, wrapper, kern, plain in (
+                ("jacobi_sweep", jacobi_sweep, jacobi_sweep_kernel,
+                 jacobi_sweep_plain),
+                ("jacobi_sweep_residual", jacobi_sweep_residual,
+                 jacobi_sweep_residual_kernel, jacobi_sweep_residual_plain)):
+            fused = name == "jacobi_sweep_residual"
+            out = wrapper(A, x, b, d)
+            torch.cuda.synchronize()
+            want = plain(A, x, b, d)
+            got_x, want_x = (out[0], want[0]) if fused else (out, want)
+            if got_x.dtype != x.dtype or not torch.isfinite(
+                    got_x.float()).all():
+                raise AssertionError(f"{name} x' misshapen or not finite "
+                                     f"(N {n})")
+            err = float((got_x.float() - want_x.float()).abs().max())
+            case = {"N": n, "A": str(a_dtype).replace("torch.", ""),
+                    "x": str(x_dtype).replace("torch.", ""),
+                    "max_abs_err": err,
+                    "x_rel_err": err / float(want_x.float().abs().max()),
+                    "tol": tol}
+            if fused:
+                res = float(out[1])
+                res_p = math.sqrt(float(want[1]))
+                case["res_rel_err"] = abs(res - res_p) / res_p
+            if max(case["x_rel_err"], case.get("res_rel_err", 0.0)) > tol:
+                raise AssertionError(f"{name} disagrees with plain: {case}")
+            ms = cuda_ms(lambda i: kern(copies[i % n_copies], x, b, d), 50)
+            plain_ms = cuda_ms(lambda i: plain(copies[i % n_copies], x, b,
+                                               d), 20)
+            library_ms = None
+            if a_dtype == x_dtype == f32:
+                library_ms = cuda_ms(lambda i: torch.addmv(
+                    b, copies[i % n_copies], x, alpha=-1), 50)
+            bms, by = jacobi_bound_ms((A, x, b, d), kern(A, x, b, d)
+                                      if fused else (out,))
+            case.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=bms, bound_by=by)
+            emit("kernels", kernel=name, **case)
+            key = "max_abs_err" if x_dtype == f32 else "max_abs_err_bf16_x"
+            entries[name][key] = max(entries[name][key], err)
+            if (n, a_dtype, x_dtype) == (7209, f32, f32):
+                entries[name].update(
+                    {k: case[k] for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by")})
+        del copies
+    torch.cuda.empty_cache()
+    return [{"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/jacobi_sweep.cu",
+             "replaces": ("src/repro/kernels/jacobi_sweep/kernel.py:57"
+                          if name == "jacobi_sweep" else
+                          "src/repro/kernels/jacobi_sweep/kernel.py:105"),
+             "shape": "N 7209, fp32",
+             "library_call": "torch.addmv(b, A, x, alpha=-1)", **e}
+            for name, e in entries.items()]
+
+
+JOB_TEXT = """
+  J1(1,0,0), J2(1,0,0);          # segment 1: search chunks in parallel
+  J3(2,1,R1 R2);                 # segment 2: combine both results
+"""
+
+
+def jobmodel_phase() -> None:
+    """The paper's §2.2 example (examples/quickstart.py): the maximum of an
+    array in chunked jobs, on the card in every mode and strategy."""
+    from repro_torch.core import (ChunkedData, FunctionRegistry,
+                                  LocalExecutor, VirtualCluster,
+                                  parse_job_text)
+
+    reg = FunctionRegistry()
+    reg.register(1, torch.max)                     # runs once per chunk
+
+    def combine_max(*inputs):
+        vals = [a for cd in inputs for a in cd.arrays()]
+        return ChunkedData.from_arrays([torch.max(torch.stack(vals))])
+
+    reg.register(2, combine_max, kind="whole")
+    A = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
+    A_dev = torch.from_numpy(A).to(DEV)
+    runs = []
+    for mode in ("sync", "pipelined", "dataflow"):
+        for strategy in ("greedy", "cost"):
+            graph = parse_job_text(JOB_TEXT)
+            graph.bind_input("J1", A_dev[:600], n_chunks=6)
+            graph.bind_input("J2", A_dev[600:], n_chunks=4)
+            cluster = VirtualCluster(n_schedulers=2, cores_per_worker=4,
+                                     max_workers=4)
+            t0 = time.perf_counter()
+            results, report = LocalExecutor(cluster, reg, mode=mode,
+                                            strategy=strategy).run(graph)
+            wall = time.perf_counter() - t0
+            out = results["J3"].to_array()
+            if out.device.type != DEV or float(out) != float(A.max()):
+                raise AssertionError(f"{mode}/{strategy}: max {float(out)} "
+                                     f"on {out.device}, numpy {A.max()}")
+            runs.append({"mode": mode, "strategy": strategy,
+                         "max": float(out), "wall_s": wall,
+                         "workers": len(cluster.workers),
+                         "report": report.summary()})
+    emit("jobmodel", graph=" ".join(JOB_TEXT.split()), numpy_max=float(A.max()),
+         hybrid=parse_job_text(JOB_TEXT).is_hybrid()[1], runs=runs)
+
+
+def jacobi_phase(kernel_mod) -> dict:
+    """The paper's Fig. 3 at full size on the card, then a profiled window
+    of the largest size.  Returns each Jacobi kernel's launches in the
+    Fig. 3 runs."""
+    from repro_torch.apps.jacobi import (jacobi_hypar, jacobi_spmd,
+                                         jacobi_tailored, make_system)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for name in kernel_mod.launches:
+        kernel_mod.launches[name] = 0
+    for n in JACOBI_SIZES:
+        A, b, _ = make_system(n, device=DEV)
+        b_norm = float(torch.linalg.norm(b))
+        runs = {"tailored": jacobi_tailored(A, b, iters=JACOBI_ITERS)}
+        before = kernel_mod.launches["jacobi_sweep_residual"]
+        runs["tailored_kernel"] = jacobi_tailored(A, b, iters=JACOBI_ITERS,
+                                                  kernel=True)
+        launched = kernel_mod.launches["jacobi_sweep_residual"] - before
+        if launched != JACOBI_ITERS + 1:
+            raise AssertionError(f"fused kernel launched {launched} times "
+                                 f"for {JACOBI_ITERS} iterations + 1 warm-up")
+        for mode in ("sync", "pipelined", "dataflow"):
+            runs[f"hypar_{mode}"] = jacobi_hypar(
+                A, b, iters=JACOBI_ITERS, n_chunks=4, mode=mode)
+        runs["spmd"] = jacobi_spmd(A, b, iters=JACOBI_ITERS)
+        base = runs["tailored"]
+        row = {"n": n, "iters": JACOBI_ITERS, "kernel_launches": launched}
+        for key, r in runs.items():
+            dx = float(np.max(np.abs(r.x - base.x)))
+            if (r.iters != JACOBI_ITERS or not np.isfinite(r.x).all()
+                    or dx > JACOBI_X_TOL
+                    or r.residual > JACOBI_RES_TOL * b_norm):
+                raise AssertionError(
+                    f"jacobi {key} at n {n}: iters {r.iters}, max|Δx| {dx}, "
+                    f"residual {r.residual} (‖b‖ {b_norm})")
+            row[key] = {"s": r.seconds, "residual": r.residual,
+                        "max_dx_vs_tailored": dx,
+                        "overhead_pct": 100.0 * (r.seconds / base.seconds
+                                                 - 1.0)}
+            if "report" in r.extra:
+                row[key]["report"] = r.extra["report"]
+        emit("jacobi", **row)
+        rows.append(row)
+        del A, b
+        torch.cuda.empty_cache()
+    launches = dict(kernel_mod.launches)
+    variants = [k for k in rows[0] if isinstance(rows[0][k], dict)]
+    emit("jacobi_mean_overhead_pct",
+         **{k: float(np.mean([r[k]["overhead_pct"] for r in rows]))
+            for k in variants if k != "tailored"})
+    jacobi_loop_phase(rows[-1])
+    profile_jacobi(JACOBI_SIZES[-1])
+    return launches
+
+
+def jacobi_loop_phase(fig3_row: dict, reps: int = 5) -> None:
+    """What the host loop costs the tailored solve at the size of
+    ``fig3_row``: the loop of ``jacobi_tailored`` (plain sweep and fused
+    kernel) run four ways, in alternation, ``reps`` times each:
+    ``checked`` as ``jacobi_tailored`` runs it (``run_while_loop``: the
+    condition read every ``CHECK_EVERY`` iterations); ``masked``, the
+    loop's first design (the carry masked on the device by the condition,
+    ``carry = where(active, body(carry), carry)``, and an on-device count,
+    read every ``CHECK_EVERY`` iterations); ``fixed``, a plain count with no
+    condition at all, which is all a tol-0 run needs; and ``synced``, the
+    condition read on the host before every iteration (a synchronise
+    each).  Emits each way's median, least and greatest seconds, each
+    median against ``fixed``, and the HyPar overheads of ``fig3_row``
+    recomputed against each way's median."""
+    from repro_torch.apps.jacobi import make_system
+    from repro_torch.core import run_while_loop
+    from repro_torch.core.executor import CHECK_EVERY
+    from repro_torch.kernels.jacobi_sweep import jacobi_sweep_residual
+
+    n = fig3_row["n"]
+    A, b, _ = make_system(n, device=DEV)
+    diag = torch.diagonal(A).contiguous()
+
+    def plain(carry):
+        x, _ = carry
+        r = b - A @ x
+        return x + r / diag, torch.linalg.norm(r)
+
+    def kernel(carry):
+        return jacobi_sweep_residual(A, carry[0], b, diag)
+
+    def cond(carry):
+        return carry[1] > 0.0
+
+    def checked(body, carry):
+        return run_while_loop(body, cond, carry, JACOBI_ITERS)
+
+    def masked(body, carry):
+        count = None
+        for k in range(JACOBI_ITERS):
+            active = cond(carry)
+            if k % CHECK_EVERY == 0 and not bool(active):
+                break
+            carry = tuple(torch.where(active, new, old)
+                          for new, old in zip(body(carry), carry))
+            count = (active.to(torch.int32) if count is None
+                     else count + active)
+        return carry, (0 if count is None else int(count))
+
+    def fixed(body, carry):
+        for _ in range(JACOBI_ITERS):
+            carry = body(carry)
+        return carry, JACOBI_ITERS
+
+    def synced(body, carry):
+        n_it = 0
+        while n_it < JACOBI_ITERS and bool(cond(carry)):
+            carry = body(carry)
+            n_it += 1
+        return carry, n_it
+
+    bodies = {"plain": plain, "kernel": kernel}
+    ways = {"checked": checked, "masked": masked, "fixed": fixed,
+            "synced": synced}
+    x0 = (torch.zeros_like(b), torch.tensor(float("inf"), device=b.device))
+    for body in bodies.values():                # warm-up, off the record
+        body(x0)
+    times = {f"{p}_{w}": [] for p in bodies for w in ways}
+    dx = {}
+    for _ in range(reps):
+        for p, body in bodies.items():
+            for w, way in ways.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (x, _), n_it = way(body, x0)
+                torch.cuda.synchronize()
+                times[f"{p}_{w}"].append(time.perf_counter() - t0)
+                if w == "checked":
+                    x_ref = x
+                d = float((x - x_ref).abs().max())
+                dx[f"{p}_{w}"] = max(dx.get(f"{p}_{w}", 0.0), d)
+                if n_it != JACOBI_ITERS or d > JACOBI_X_TOL:
+                    raise AssertionError(f"jacobi loop {p}/{w}: {n_it} "
+                                         f"iterations, max|Δx| {d}")
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    emit("jacobi_loop", n=n, iters=JACOBI_ITERS, reps=reps,
+         s={k: {"median": med[k], "min": min(v), "max": max(v)}
+            for k, v in times.items()},
+         max_dx_vs_checked=dx,
+         vs_fixed_pct={k: 100.0 * (med[k] / med[k.split("_")[0] + "_fixed"]
+                                   - 1.0) for k in med},
+         hypar_overhead_pct={
+             mode: {w: 100.0 * (fig3_row[f"hypar_{mode}"]["s"]
+                                / med[f"plain_{w}"] - 1.0) for w in ways}
+             for mode in ("sync", "pipelined", "dataflow")})
+    del A, b
+    torch.cuda.empty_cache()
+
+
+def profile_jacobi(n: int, iters: int = 100) -> None:
+    """Where a Jacobi iteration's time goes at size ``n``: the tailored
+    loop through the fused kernel and a HyPar sync solve, each for
+    ``iters`` iterations under ``torch.profiler``: device time by kernel
+    and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.apps.jacobi import jacobi_hypar, jacobi_tailored, \
+        make_system
+
+    A, b, _ = make_system(n, device=DEV)
+    for name, run in (("profile_jacobi_tailored_kernel",
+                       lambda: jacobi_tailored(A, b, iters=iters,
+                                               kernel=True)),
+                      ("profile_jacobi_hypar_sync",
+                       lambda: jacobi_hypar(A, b, iters=iters))):
+        run()                                   # warm, off the record
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        emit_profile(name, prof, wall, "iterations", iters, "iteration")
+    del A, b
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -808,6 +1176,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels.jacobi_sweep import kernel as jacobi_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
@@ -832,7 +1201,23 @@ def main() -> int:
     launches, chunks = serve_ssm_phase(ssd_kernel)
     ssd_entry["launches"] = launches
     ssd_entry["launches_per_chunk"] = launches / chunks
-    print(json.dumps({"kernels": [entry, ssd_entry]}), flush=True)
+
+    jacobi_entries = jacobi_kernel_phase()
+    jobmodel_phase()
+    launches = jacobi_phase(jacobi_kernel)
+    for e in jacobi_entries:
+        e["launches"] = launches[e["name"]]
+        e["launches_per_iteration"] = (
+            e["launches"] / (len(JACOBI_SIZES) * JACOBI_ITERS))
+    if (launches["jacobi_sweep_residual"]
+            != len(JACOBI_SIZES) * (JACOBI_ITERS + 1)):
+        raise AssertionError(f"fused Jacobi kernel launched {launches} "
+                             f"times")
+    jacobi_entries[0]["note"] = ("not on the Fig. 3 path: the solver runs "
+                                 "the fused sweep; the JAX package's path "
+                                 "does not call the plain sweep either")
+    print(json.dumps({"kernels": [entry, ssd_entry, *jacobi_entries]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

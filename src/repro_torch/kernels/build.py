@@ -26,7 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 #: kernel name -> source file under ``csrc/``
 SOURCES = {"paged_attention": "paged_attention.cu",
-           "ssd_scan": "ssd_scan.cu"}
+           "ssd_scan": "ssd_scan.cu",
+           "jacobi_sweep": "jacobi_sweep.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -37,7 +37,9 @@ def test_import_with_jax_unavailable():
             "sys.modules['repro'] = None; "
             "import repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.weights, repro_torch.kernels.paged_attention, "
-            "repro_torch.kernels.ssd_scan, repro_torch.models.ssm; "
+            "repro_torch.kernels.ssd_scan, repro_torch.models.ssm, "
+            "repro_torch.core, repro_torch.apps.jacobi, "
+            "repro_torch.kernels.jacobi_sweep; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -63,3 +65,14 @@ def test_launcher_defaults_to_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--smoke"])
+
+
+def test_runtime_and_jacobi_default_to_cuda():
+    from repro_torch.apps.jacobi import make_system
+    from repro_torch.core import VirtualCluster
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VirtualCluster()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_system(16)

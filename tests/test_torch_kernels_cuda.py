@@ -9,12 +9,16 @@ package, so it runs on the machine with the card::
 
 The input builder and the paged-attention cases are shared with the CPU
 parity tests (``test_torch_paged_attention.py``); the SSD inputs follow
-the JAX package's kernel test, with strongly negative decays added.
+the JAX package's kernel test, with strongly negative decays added; the
+Jacobi inputs follow ``apps/jacobi.py``'s ``make_system`` at ragged N,
+N 1 and the paper's largest N.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.jacobi_sweep import (jacobi_sweep_plain,
+                                              jacobi_sweep_residual_plain)
 from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.kernels.ssd_scan import ssd_intra_chunk_plain
 
@@ -192,3 +196,78 @@ def test_cuda_ssd_chunked_kernel_path_matches_plain_path():
     yr, fr = ssd_chunked(*args, chunk=256, initial_state=s0.cuda(),
                          impl="ref")
     assert _rel(yk, yr) <= SSD_TOL and _rel(fk, fr) <= SSD_TOL
+
+
+# N, A dtype, x dtype: ragged N (every row of an odd N starts off a 16-byte
+# boundary), N 1, the bf16 cases of the JAX kernel tests, and the paper's
+# largest size
+JACOBI_CASES = [
+    (200, "float32", "float32"),
+    (333, "float32", "float32"),
+    (1, "float32", "float32"),
+    (31, "float32", "float32"),
+    (300, "float32", "bfloat16"),
+    (300, "bfloat16", "float32"),
+    (257, "bfloat16", "bfloat16"),
+    (7209, "float32", "float32"),
+]
+
+
+def jacobi_case(seed, n, a_dtype, x_dtype):
+    rng = np.random.default_rng(seed)
+    A = (rng.standard_normal((n, n)) / n).astype(np.float32)
+    np.fill_diagonal(A, 3.0)
+    x = rng.standard_normal(n).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    A, x, b = (t.cuda() for t in _torch(A, x, b))
+    A = A.to(getattr(torch, a_dtype))
+    return A, x.to(getattr(torch, x_dtype)), b, torch.diagonal(A).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", JACOBI_CASES)
+def test_cuda_jacobi_kernels_match_plain(case):
+    """Both Jacobi kernels against their plain versions, on the card: x' in
+    x's dtype within 1e-5 of max|plain| (fp32 x; one bf16 rounding with
+    bf16 x), and the fused kernel's Σr² within 1e-5; one launch counted per
+    kernel call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.jacobi_sweep import (jacobi_sweep,
+                                                  jacobi_sweep_residual,
+                                                  kernel)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, a_dtype, x_dtype = case
+    A, x, b, d = jacobi_case(19, n, a_dtype, x_dtype)
+    tol = 1e-5 if x_dtype == "float32" else 2.0 ** -7
+    before = dict(kernel.launches)
+    x1 = jacobi_sweep(A, x, b, d)
+    x2, res = jacobi_sweep_residual(A, x, b, d)
+    torch.cuda.synchronize()
+    assert kernel.launches == {k: v + 1 for k, v in before.items()}
+    p1 = jacobi_sweep_plain(A, x, b, d)
+    p2, rsq = jacobi_sweep_residual_plain(A, x, b, d)
+    for got, want in ((x1, p1), (x2, p2)):
+        assert got.dtype == x.dtype and got.shape == (n,)
+        assert torch.isfinite(got.float()).all()
+        assert _rel(got.float(), want.float()) <= tol
+    assert abs(float(res) ** 2 - float(rsq)) <= 1e-5 * float(rsq)
+
+
+@pytest.mark.cuda
+def test_cuda_jacobi_tailored_runs_the_kernel():
+    """``jacobi_tailored(kernel=True)`` on the card launches the fused
+    kernel once per iteration plus one warm-up, and agrees with the plain
+    loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.apps.jacobi import jacobi_tailored, make_system
+    from repro_torch.kernels.jacobi_sweep import kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    A, b, _ = make_system(1001)
+    before = kernel.launches["jacobi_sweep_residual"]
+    rk = jacobi_tailored(A, b, iters=40, kernel=True)
+    assert kernel.launches["jacobi_sweep_residual"] == before + 41
+    rp = jacobi_tailored(A, b, iters=40)
+    assert rk.iters == rp.iters == 40
+    np.testing.assert_allclose(rk.x, rp.x, atol=1e-5, rtol=1e-5)
