@@ -12,7 +12,7 @@ and prints one JSON line per phase:
 2. ``build``   — builds every CUDA kernel of the port from ``src/repro_torch/
    csrc`` with ``nvcc`` (one process per source, all at once);
 3. ``kernels`` — calls each kernel's wrapper on the card at the shapes the
-   serving path gives it, holds the result against its plain PyTorch
+   serving path gives it (training for the flash kernel, phase 14), holds the result against its plain PyTorch
    version (stated tolerance) and times kernel, plain version and one
    PyTorch library call computing the same attention, beside the least time
    the card could take (``bound_ms``); the wrapper the decode path calls
@@ -61,7 +61,29 @@ and prints one JSON line per phase:
    Seconds and overhead against the tailored loop, per size and as means;
    then 100 iterations of the tailored kernel loop and of a HyPar sync
    solve at n 7209 under ``torch.profiler`` (device time by kernel, busy
-   share).
+   share);
+14. ``kernels`` (``flash_attention``) — the flash-attention kernel against
+   its plain version (output 2e-2 bf16 / 1e-5 fp32, LSE 1e-4) at the
+   training shape (B 2, S 4096, H 12, KV 2, D 128, causal, bf16), in fp32,
+   with a sliding window, at ragged S, at head width 24 and with rows that
+   see no key; timed beside its plain version, its bound and
+   ``scaled_dot_product_attention``; its autograd Function's gradients
+   (kernel forward) against autograd through the plain version, and its
+   torch-ops backward timed beside SDPA's;
+15. ``train`` — full-width qwen2-1.5b (28 layers) trained by the fused
+   step: fp32 params, bf16 compute, AdamW at 3e-4, ``remat="full"``, seq
+   4096, global batch 4 in 2 micro-batches, 4 steps, data from
+   ``SyntheticLMStream`` (seed 0), weights from a seeded generator.  Step
+   time, tokens/s, ``mfu``, peak memory, loss and grad norm per step; the
+   flash kernel must launch steps x 2 x 28 x 2 times (the 2nd 2 is the
+   remat recompute), and step 1 must match the plain path
+   (``impl="tiled"``: loss 1e-3, grad norm 2e-2); then one step under
+   ``torch.profiler`` (busy share, the kernel's share);
+16. ``train_hypar`` — ``HyParTrainer`` (sync) against the fused step at
+   the same widths, 4 layers, 3 steps of 2 micro-batches: seconds of each,
+   HyPar's overhead, final params within 1e-6 (and whether to the bit);
+17. ``train_launcher`` — ``repro_torch.launch.train.main`` at ``--smoke``:
+   6 steps with a checkpoint every 3, then a resume to 8.
 
 Then a ``{"kernels": [...]}`` summary line, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -71,6 +93,7 @@ without a CUDA device, or a directory without the repository's sources.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -1169,6 +1192,422 @@ def profile_jacobi(n: int, iters: int = 100) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# training: flash attention, the fused step, HyPar, the launcher
+# ---------------------------------------------------------------------------
+
+H100_BF16_FLOPS = 989e12         # dense bf16 tensor-core peak
+FA_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # the reference's own
+FA_LSE_TOL = 1e-4
+FA_GRAD_TOL = 1e-4               # Function (kernel forward) vs autograd
+# name, B, S, T, H, KV, D, causal, window, dtype: the training shape
+# (qwen2-1.5b at seq 4096, micro-batch 2), fp32, a sliding window, ragged
+# S, the smoke configs' head width, and S > T with rows that see no key
+FA_CASES = [
+    ("train", 2, 4096, 4096, 12, 2, 128, True, None, torch.bfloat16),
+    ("fp32", 1, 1024, 1024, 12, 2, 128, True, None, torch.float32),
+    ("window", 2, 2048, 2048, 12, 2, 128, True, 512, torch.bfloat16),
+    ("ragged", 2, 1000, 1000, 12, 2, 128, True, None, torch.bfloat16),
+    ("d24", 4, 512, 512, 4, 2, 24, True, None, torch.bfloat16),
+    ("no_visible_key", 1, 300, 100, 4, 2, 64, True, 64, torch.bfloat16),
+]
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_SEQ = 4096                 # the repo's train_4k cell
+TRAIN_BATCH = 4                  # global; 2 micro-batches of 2
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 4
+TRAIN_LR = 3e-4
+TRAIN_LOSS_TOL = 1e-3            # kernel vs plain path, step-1 loss, rel
+TRAIN_GNORM_TOL = 2e-2           # kernel vs plain path, grad norm, rel
+HYPAR_LAYERS = 4
+HYPAR_STEPS = 3
+HYPAR_PARAM_TOL = 1e-6           # HyPar vs fused final params, rel
+
+
+def visible_pairs(S, T, causal, window) -> int:
+    """(query, key) pairs the masks leave visible, for these sizes."""
+    i = np.arange(S)
+    hi = np.minimum(i + 1, T) if causal else np.full(S, T)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(S, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def fa_bound(B, S, T, H, KV, D, causal, window, dtype) -> dict:
+    """Least time for the kernel's work on these inputs: operations (4·D
+    per visible pair: q·k and p·v) over the peak of the dtype's units
+    (tensor cores for bf16, FMA for fp32), against q, k, v read once and
+    the output and LSE written once over the memory rate."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    flops = 4 * B * H * D * visible_pairs(S, T, causal, window)
+    nbytes = (2 * B * S * H * D + 2 * B * T * KV * D) * elt + B * H * S * 4
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
+            "flops": flops, "bytes": nbytes}
+
+
+def fa_inputs(gen, B, S, T, H, KV, D, dtype):
+    return [torch.randn(shape, generator=gen, device=DEV).to(dtype)
+            for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D))]
+
+
+def flash_kernel_phase() -> dict:
+    """The flash kernel against its plain version on the cases above; the
+    training shape timed beside its plain version, its bound and
+    ``scaled_dot_product_attention``; the Function's backward (kernel
+    forward) against autograd through the plain version, and timed beside
+    SDPA's backward."""
+    from repro_torch.kernels.flash_attention import (
+        FlashAttentionFn, flash_attention_backward, flash_attention_kernel,
+        flash_attention_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    entry = None
+    for name, B, S, T, H, KV, D, causal, window, dtype in FA_CASES:
+        q, k, v = fa_inputs(gen, B, S, T, H, KV, D, dtype)
+        out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                          window=window)
+        torch.cuda.synchronize()
+        out_p, lse_p = flash_attention_plain(q, k, v, causal=causal,
+                                             window=window)
+        if (out.shape != q.shape or out.dtype != dtype
+                or not torch.isfinite(out.float()).all()
+                or not torch.isfinite(lse).all()):
+            raise AssertionError(f"flash kernel output misshapen or not "
+                                 f"finite ({name})")
+        err = float((out.float() - out_p.float()).abs().max())
+        lse_err = float((lse - lse_p).abs().max())
+        case = {"case": name, "B": B, "S": S, "T": T, "H": H, "KV": KV,
+                "D": D, "causal": causal, "window": window,
+                "dtype": str(dtype).replace("torch.", ""),
+                "max_abs_err": err, "tol": FA_TOL[dtype],
+                "lse_max_abs_err": lse_err, "lse_tol": FA_LSE_TOL}
+        if err > FA_TOL[dtype] or lse_err > FA_LSE_TOL:
+            raise AssertionError(f"flash kernel disagrees with plain: {case}")
+        if name == "no_visible_key":
+            dark = T + window - 1         # first row that sees no key
+            case["rows_with_no_key"] = S - dark
+            if out[:, dark:].abs().max() != 0:
+                raise AssertionError("rows with no visible key not zero")
+        n_copies = max(2, math.ceil(100e6 / sum(
+            t.numel() * t.element_size() for t in (q, k, v))))
+        copies = [tuple(t.clone() for t in (q, k, v))
+                  for _ in range(n_copies)]
+        case["ms"] = cuda_ms(lambda i: flash_attention_kernel(
+            *copies[i % n_copies], causal=causal, window=window), 20)
+        case.update(fa_bound(B, S, T, H, KV, D, causal, window, dtype))
+        if name == "fp32":
+            case.update(fa_grad_check(FlashAttentionFn, flash_attention_plain,
+                                      q, k, v))
+        if name == "train":
+            case["plain_ms"] = cuda_ms(lambda i: flash_attention_plain(
+                *copies[i % n_copies], causal=True), 3)
+            heads = [tuple(t.transpose(1, 2).contiguous() for t in c)
+                     for c in copies]
+            case["library_ms"] = cuda_ms(
+                lambda i: F.scaled_dot_product_attention(
+                    *heads[i % n_copies], is_causal=True, enable_gqa=True),
+                20)
+            case.update(fa_backward_times(flash_attention_backward, q, k, v,
+                                          out, lse, heads[0]))
+            entry = case
+            del heads
+        emit("kernels", kernel="flash_attention", **case)
+        del copies, q, k, v, out, lse, out_p, lse_p
+        torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+            "shape": "B 2, S 4096, H 12, KV 2, D 128, causal, bf16",
+            "library_call": "F.scaled_dot_product_attention(is_causal=True, "
+                            "enable_gqa=True)",
+            "max_abs_err": entry["max_abs_err"],
+            **{k: entry[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by",
+                                     "bytes_bound_ms", "bwd_ms",
+                                     "library_bwd_ms")}}
+
+
+def fa_grad_check(fn_cls, plain, q, k, v) -> dict:
+    """``FlashAttentionFn`` with the kernel forward against autograd
+    through the plain version, fp32."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    dout = torch.randn(q.shape, device=DEV)
+    out, _ = fn_cls.apply(q, k, v, True, None, "kernel")
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    out_p, _ = plain(q, k, v, causal=True)
+    grads_p = torch.autograd.grad(out_p, (q, k, v), dout)
+    errs = [float((g - gp).abs().max() / gp.abs().max())
+            for g, gp in zip(grads, grads_p)]
+    if max(errs) > FA_GRAD_TOL:
+        raise AssertionError(f"FlashAttentionFn gradients disagree with "
+                             f"autograd through the plain version: {errs}")
+    return {"grad_rel_err_qkv": errs, "grad_tol": FA_GRAD_TOL}
+
+
+def fa_backward_times(backward, q, k, v, out, lse, heads) -> dict:
+    """The Function's backward (torch ops over query tiles) and SDPA's
+    backward at the training shape."""
+    dout = torch.randn(q.shape, device=DEV).to(q.dtype)
+    bwd_ms = cuda_ms(lambda i: backward(q, k, v, out, lse, dout, causal=True,
+                                        window=None), 3)
+    qh, kh, vh = (t.detach().requires_grad_() for t in heads)
+    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                        enable_gqa=True)
+    doh = dout.transpose(1, 2).contiguous()
+    lib_ms = cuda_ms(lambda i: torch.autograd.grad(
+        oh, (qh, kh, vh), doh, retain_graph=True), 10)
+    return {"bwd_ms": bwd_ms, "library_bwd_ms": lib_ms}
+
+
+def reset_launches(mods) -> None:
+    for mod in mods:
+        if isinstance(mod.launches, dict):
+            for key in mod.launches:
+                mod.launches[key] = 0
+        else:
+            mod.launches = 0
+
+
+def read_launches(mods) -> dict:
+    out = {}
+    for mod in mods:
+        name = mod.__name__.split(".")[-2]
+        if isinstance(mod.launches, dict):
+            out.update(mod.launches)
+        else:
+            out[name] = mod.launches
+    return out
+
+
+def device_time(prof) -> tuple[float, float]:
+    """(device ms of every kernel and copy, of the flash kernels) in a
+    profiled window."""
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events) / 1e3
+    flash = sum(dev_us(e) for e in events if "flash_fwd" in e.key) / 1e3
+    return busy, flash
+
+
+def train_batches(cfg, n_steps):
+    from repro_torch.data import DataConfig, SyntheticLMStream, to_device
+    stream = SyntheticLMStream(cfg, DataConfig(
+        seed=0, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    return [to_device(stream.batch(s), DEV) for s in range(n_steps)]
+
+
+def train_phase(mods) -> int:
+    """Full-width qwen2-1.5b training through the fused step on the card:
+    the plain path's step-1 loss and grad norm first (``impl="tiled"``, no
+    update), then ``TRAIN_STEPS`` kernel-path steps with the launch counts
+    set to 0 just before and read just after, then one more step under
+    ``torch.profiler``.  Returns the flash kernel's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptimizerSpec, global_norm
+    from repro_torch.train import TrainState, compute_grads, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    spec = OptimizerSpec(kind="adamw", lr=TRAIN_LR)
+    batches = train_batches(cfg, TRAIN_STEPS + 1)
+    state = TrainState.create(cfg, spec,
+                              torch.Generator(device=DEV).manual_seed(0), DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, loss_plain, _ = compute_grads(cfg, state.params, batches[0],
+                                         accum=TRAIN_ACCUM, impl="tiled")
+    gnorm_plain = float(global_norm(grads))
+    loss_plain = float(loss_plain)
+    plain_s = time.perf_counter() - t0
+    del grads
+    torch.cuda.empty_cache()
+
+    step = make_train_step(cfg, spec, grad_accum=TRAIN_ACCUM)
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses, gnorms = [], [], []
+    reset_launches(mods)
+    for b in batches[:TRAIN_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss_total"]))
+        gnorms.append(float(m["grad_norm"]))
+    launches = read_launches(mods)
+    peak = torch.cuda.max_memory_allocated()
+    want = TRAIN_STEPS * TRAIN_ACCUM * cfg.n_layers * 2
+    step_s = float(np.median(secs[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    attn_ops = 3 * 4 * TRAIN_BATCH * cfg.n_heads * cfg.hd * cfg.n_layers * (
+        TRAIN_SEQ * (TRAIN_SEQ + 1) // 2)
+    flops = 6 * cfg.n_params() * tokens + attn_ops
+    loss_err = abs(losses[0] - loss_plain) / abs(loss_plain)
+    gnorm_err = abs(gnorms[0] - gnorm_plain) / gnorm_plain
+    emit("train", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=cfg.n_params(),
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+         remat=cfg.remat, optimizer="adamw", lr=TRAIN_LR, seq=TRAIN_SEQ,
+         global_batch=TRAIN_BATCH, grad_accum=TRAIN_ACCUM, steps=TRAIN_STEPS,
+         step_s=secs, step_s_median_2_on=step_s,
+         tokens_per_s=tokens / step_s, flops_per_step=flops,
+         mfu=flops / step_s / H100_BF16_FLOPS, peak_memory_gib=peak / 2**30,
+         loss=losses, grad_norm=gnorms, plain_path_step1_loss=loss_plain,
+         plain_path_step1_grad_norm=gnorm_plain, plain_path_s=plain_s,
+         loss_rel_err=loss_err, loss_tol=TRAIN_LOSS_TOL,
+         grad_norm_rel_err=gnorm_err, grad_norm_tol=TRAIN_GNORM_TOL,
+         launches=launches, launches_expected=want)
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"training losses not finite: {losses}")
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"flash kernel launched "
+                             f"{launches['flash_attention']} times, "
+                             f"expected {want} (steps x grad_accum x layers "
+                             f"x 2 for the remat recompute)")
+    if loss_err > TRAIN_LOSS_TOL or gnorm_err > TRAIN_GNORM_TOL:
+        raise AssertionError(f"kernel path vs plain path at step 1: loss "
+                             f"{loss_err}, grad norm {gnorm_err}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, flash = device_time(prof)
+    emit_profile("profile_train", prof, wall, "steps", 1, "step")
+    emit("profile_train_shares", wall_ms=wall * 1e3, device_busy_ms=busy,
+         device_busy_share=busy / (wall * 1e3), flash_kernel_ms=flash,
+         flash_kernel_share_of_device=flash / busy if busy else None)
+    del state, batches, step
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+def train_hypar_phase(mods) -> None:
+    """``HyParTrainer`` (sync mode, greedy placement, on the card) against
+    the fused step, same config and widths, depth cut to ``HYPAR_LAYERS``:
+    ``HYPAR_STEPS`` steps of 2 micro-batches from the same parameters.
+    HyPar runs first (its jobs leave their inputs untouched); the fused
+    step then updates the same tensors in place."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import VirtualCluster
+    from repro_torch.optim import OptimizerSpec, init_opt_state
+    from repro_torch.train import HyParTrainer, TrainState, make_train_step
+    from repro_torch.tree import tree_leaves
+    from repro_torch.weights import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=HYPAR_LAYERS)
+    spec = OptimizerSpec(kind="adamw", lr=TRAIN_LR)
+    batches = train_batches(cfg, HYPAR_STEPS)
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    micro = [[{k: v[m * mb:(m + 1) * mb] for k, v in b.items()}
+              for m in range(TRAIN_ACCUM)] for b in batches]
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    trainer = HyParTrainer(cfg, spec, n_micro=TRAIN_ACCUM, mode="sync",
+                           cluster=VirtualCluster([DEV], n_schedulers=1))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hp, ho, report = trainer.run(micro, params=params)
+    torch.cuda.synchronize()
+    hypar_s = time.perf_counter() - t0
+    hypar_launches = read_launches(mods)
+    hypar_peak = torch.cuda.max_memory_allocated()
+    # the trainer's cluster holds every job result while the trainer lives
+    # (its registered functions close over it, so it goes with a collect):
+    # drop them so that the fused run's peak is its own
+    del ho, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state = TrainState(params=params, opt_state=init_opt_state(spec, params))
+    step = make_train_step(cfg, spec, grad_accum=TRAIN_ACCUM)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        state, _ = step(state, b)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    fused_launches = read_launches(mods)
+    fused_peak = torch.cuda.max_memory_allocated()
+
+    rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(tree_leaves(hp), tree_leaves(state.params)))
+    bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(hp),
+                                                    tree_leaves(state.params)))
+    want = HYPAR_STEPS * TRAIN_ACCUM * cfg.n_layers * 2
+    full = dataclasses.replace(cfg, n_layers=get_config(TRAIN_ARCH).n_layers)
+    emit("train_hypar", model=cfg.name, layers=cfg.n_layers, seq=TRAIN_SEQ,
+         global_batch=TRAIN_BATCH, n_micro=TRAIN_ACCUM, steps=HYPAR_STEPS,
+         mode="sync", strategy="greedy", hypar_s=hypar_s, fused_s=fused_s,
+         overhead_pct=100.0 * (hypar_s / fused_s - 1.0),
+         params_max_rel_err=rel, tol=HYPAR_PARAM_TOL, bitwise_equal=bitwise,
+         hypar_peak_memory_gib=hypar_peak / 2**30,
+         fused_peak_memory_gib=fused_peak / 2**30,
+         retained_opt_result_gib_at_full_depth=(
+             3 * 4 * full.n_params() / 2**30),
+         launches_hypar=hypar_launches, launches_fused=fused_launches,
+         launches_expected_each=want, report=report.summary())
+    if rel > HYPAR_PARAM_TOL:
+        raise AssertionError(f"HyPar and fused params differ: {rel}")
+    if (hypar_launches["flash_attention"] != want
+            or fused_launches["flash_attention"] != want):
+        raise AssertionError(f"flash launches {hypar_launches} / "
+                             f"{fused_launches}, expected {want} each")
+    del hp, state, params, micro, batches
+    torch.cuda.empty_cache()
+
+
+def train_launcher_phase(mods) -> None:
+    """``repro_torch.launch.train.main`` on the card at ``--smoke``: 6 steps
+    with a checkpoint every 3, then a resume to 8 from the same directory
+    (under ``build/``, removed afterwards)."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.launch.train import main as train_main
+
+    ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = []
+    for steps in (6, 8):
+        argv = ["--arch", TRAIN_ARCH, "--smoke", "--steps", str(steps),
+                "--batch", "4", "--seq", "32", "--ckpt-dir", str(ckpt),
+                "--ckpt-every", "3", "--log-every", "3", "--device", DEV]
+        log = io.StringIO()
+        reset_launches(mods)
+        with contextlib.redirect_stdout(log):
+            loss = train_main(argv)
+        torch.cuda.synchronize()
+        runs.append({"argv": " ".join(argv), "final_loss": loss,
+                     "launches": read_launches(mods),
+                     "log": log.getvalue().strip().splitlines()})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit("train_launcher", runs=runs)
+    if not all(math.isfinite(r["final_loss"]) for r in runs):
+        raise AssertionError(f"launcher losses not finite: {runs}")
+    if not runs[1]["log"][0].startswith("resumed from checkpoint step 6"):
+        raise AssertionError(f"the second run did not resume: {runs[1]}")
+    # smoke config: 3 layers, no accumulation, the remat recompute
+    for r, n_steps in zip(runs, (6, 2)):
+        if r["launches"]["flash_attention"] != n_steps * 3 * 2:
+            raise AssertionError(f"launcher flash launches: {r}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1176,6 +1615,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.jacobi_sweep import kernel as jacobi_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -1216,8 +1656,15 @@ def main() -> int:
     jacobi_entries[0]["note"] = ("not on the Fig. 3 path: the solver runs "
                                  "the fused sweep; the JAX package's path "
                                  "does not call the plain sweep either")
-    print(json.dumps({"kernels": [entry, ssd_entry, *jacobi_entries]}),
-          flush=True)
+
+    mods = (pa_kernel, ssd_kernel, jacobi_kernel, fa_kernel)
+    fa_entry = flash_kernel_phase()
+    fa_entry["launches"] = train_phase(mods)
+    fa_entry["launches_per_step"] = fa_entry["launches"] / TRAIN_STEPS
+    train_hypar_phase(mods)
+    train_launcher_phase(mods)
+    print(json.dumps({"kernels": [entry, ssd_entry, *jacobi_entries,
+                                  fa_entry]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

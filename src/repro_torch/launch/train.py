@@ -1,0 +1,178 @@
+"""Training launcher.
+
+Two schedulers: the *fused* step (the tailored implementation,
+:func:`repro_torch.train.make_train_step`) and the *HyPar* job-graph loop
+(the paper's framework, :class:`repro_torch.train.HyParTrainer`).  The
+fused engine checkpoints asynchronously and, on restart with the same
+``--ckpt-dir``, resumes from the newest complete checkpoint; the data
+stream is a pure function of (seed, step), so a resumed run sees the
+batches an uninterrupted one would.
+
+Runs on the card by default (``--device cuda`` raises without a CUDA
+device); ``--device cpu`` runs the plain PyTorch path::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --steps 6 --batch 4 --seq 32
+
+The reference's mesh flags (``--data-axis``, ``--model-axis``), its
+``proc`` engine and its job-store flags are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from ..checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
+from ..configs import ARCHS, get_config, get_smoke_config
+from ..data import DataConfig, Prefetcher, SyntheticLMStream, to_device
+from ..models.config import ModelConfig
+from ..optim import OptimizerSpec, cosine_schedule
+from ..serve.engine import resolve_device
+from ..train import HyParTrainer, TrainState, make_train_step
+from ..tree import tree_leaves
+
+__all__ = ["main", "scale_config"]
+
+
+def scale_config(cfg: ModelConfig, *, layers: int, d_model: int,
+                 seq: int) -> ModelConfig:
+    """Scale an assigned arch down to a trainable size."""
+    repl = {"n_layers": layers, "d_model": d_model, "max_seq": max(seq * 2, 256)}
+    if cfg.family in ("ssm", "hybrid"):
+        repl["ssm_chunk"] = min(cfg.ssm_chunk, 64)
+    if cfg.n_heads > 1:
+        repl["n_heads"] = max(4, min(cfg.n_heads, d_model // 64))
+        repl["n_kv_heads"] = max(1, min(cfg.n_kv_heads, repl["n_heads"]))
+        while repl["n_heads"] % repl["n_kv_heads"]:
+            repl["n_kv_heads"] -= 1
+        repl["head_dim"] = d_model // repl["n_heads"]
+    if cfg.d_ff:
+        repl["d_ff"] = d_model * 4
+    if cfg.is_moe:
+        repl["n_experts"] = min(cfg.n_experts, 8)
+        repl["top_k"] = min(cfg.top_k, 2)
+        repl["moe_d_ff"] = d_model * 2
+    if cfg.family == "encdec":
+        repl["n_encoder_layers"] = layers
+    return dataclasses.replace(cfg, **repl)
+
+
+def main(argv=None):
+    """Returns the final loss (fused engine) or the run's seconds (hypar
+    engine), as the reference's launcher does."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list(ARCHS), default="qwen2-1.5b")
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--layers", type=int, default=8)
+    ap.add_argument("--d-model", type=int, default=512)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config unchanged")
+    ap.add_argument("--engine", choices=["fused", "hypar"], default="fused",
+                    help="fused = the tailored step; hypar = the paper's "
+                         "job-graph runtime (LocalExecutor)")
+    ap.add_argument("--dispatch", choices=["sync", "pipelined", "dataflow"],
+                    default="sync", help="LocalExecutor dispatch mode "
+                                         "(hypar engine)")
+    ap.add_argument("--placement", choices=["greedy", "cost"],
+                    default="greedy",
+                    help="master-scheduler placement strategy (hypar engine)")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where training runs (cuda raises without a CUDA "
+                         "device)")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+
+    base = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = base if args.smoke else scale_config(
+        base, layers=args.layers, d_model=args.d_model, seq=args.seq)
+    spec = OptimizerSpec(kind=cfg.optimizer, lr=args.lr)
+    dc = DataConfig(seed=args.seed, global_batch=args.batch, seq_len=args.seq)
+    stream = SyntheticLMStream(cfg, dc)
+    if args.engine == "hypar":
+        return _run_hypar(cfg, spec, stream, args, device)
+
+    step_fn = make_train_step(
+        cfg, spec, grad_accum=args.grad_accum,
+        schedule=lambda s: cosine_schedule(s, base_lr=args.lr, warmup=50,
+                                           total=args.steps))
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    state = TrainState.create(cfg, spec, gen, device)
+    start = 0
+    if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        tree, start = restore_checkpoint(args.ckpt_dir, state.tree(),
+                                         device=device)
+        state = TrainState.from_tree(tree)
+        print(f"resumed from checkpoint step {start}")
+
+    ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    print(f"device={device} arch={cfg.name} params={n_params / 1e6:.1f}M "
+          f"steps={args.steps}")
+    it = Prefetcher((stream.batch(s) for s in range(start, args.steps)),
+                    depth=2)
+    t0 = time.time()
+    tokens_done = 0
+    metrics = None
+    for s, host_batch in zip(range(start, args.steps), it):
+        state, metrics = step_fn(state, to_device(host_batch, device))
+        tokens_done += args.batch * args.seq
+        if (s + 1) % args.log_every == 0 or s + 1 == args.steps:
+            dt = time.time() - t0
+            print(f"step {s + 1:5d} loss {float(metrics['loss']):8.4f} "
+                  f"gnorm {float(metrics['grad_norm']):7.3f} "
+                  f"tok/s {tokens_done / dt:9.0f}")
+        if ckpt and (s + 1) % args.ckpt_every == 0:
+            ckpt.save(state.tree(), s + 1)
+    if ckpt:
+        ckpt.save(state.tree(), args.steps)
+        ckpt.wait()
+    if metrics is None:
+        print(f"nothing to do: the checkpoint is at step {start}")
+        return float("nan")
+    final_loss = float(metrics["loss"])
+    print(f"done: final loss {final_loss:.4f} "
+          f"({tokens_done / (time.time() - t0):.0f} tok/s)")
+    return final_loss
+
+
+def _run_hypar(cfg, spec, stream, args, device) -> float:
+    """Drive training through the paper's job-graph runtime: the dispatch
+    mode and placement strategy are plain LocalExecutor knobs."""
+    from ..core import VirtualCluster
+
+    n_micro = max(1, args.grad_accum)
+    mb = max(1, args.batch // n_micro)
+    batches = []
+    for s in range(args.steps):
+        b = to_device(stream.batch(s), device)
+        batches.append([{k: v[m * mb:(m + 1) * mb] for k, v in b.items()}
+                        for m in range(n_micro)])
+    trainer = HyParTrainer(cfg, spec, n_micro=n_micro,
+                           cluster=VirtualCluster([device], n_schedulers=1),
+                           mode=args.dispatch, strategy=args.placement)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    t0 = time.time()
+    params, _, report = trainer.run(batches, generator=gen)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    print(f"hypar engine: {args.steps} steps x {n_micro} micro in "
+          f"{dt:.1f}s ({args.steps * args.batch * args.seq / dt:.0f} tok/s) "
+          f"params={n_params / 1e6:.1f}M | {report.summary()}")
+    return dt
+
+
+if __name__ == "__main__":
+    main()

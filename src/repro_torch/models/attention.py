@@ -1,8 +1,23 @@
-"""Attention: GQA + RoPE over dense or paged K/V, for the serving path.
+"""Attention: GQA + RoPE over dense or paged K/V, for serving and training.
 
-Layouts follow the JAX package: q (B, S, H, D), dense cache views
-(B, KV, T, D), page pools (P, KV, page_size, D).  Three attention forms
-serve the paged engine:
+Layouts follow the JAX package: q (B, S, H, D), k/v (B, T, KV, D), dense
+cache views (B, KV, T, D), page pools (P, KV, page_size, D).  The
+cache-less full-sequence form (training, ``cache=None``) has three
+numerically equivalent cores, picked by ``impl``:
+
+* ``dense`` — ``_dense_attn``: materialise the scores (the oracle);
+* ``tiled`` — ``_tiled_attn``: online softmax over KV tiles, a Python loop
+  over query tiles and, inside, over the KV tiles they can see;
+* ``kernel`` (``pallas`` is accepted as its reference name) — the
+  hand-written flash-attention kernel (``kernels.flash_attention``) with
+  its autograd Function.
+
+``auto`` resolves by the tensor's device, as every kernel wrapper of the
+port does: the kernel on CUDA; on the CPU the reference's rule, ``dense``
+up to S·T = 4096²/4 and ``tiled`` beyond.  (The reference's ``auto``
+never picks its Pallas kernel, which ``jax.grad`` cannot differentiate.)
+
+Three forms serve the paged engine:
 
 * ``_dense_attn`` — the first chunk of a prompt (nothing cached yet),
 * ``_chunk_attn_with_cache`` — later chunks: prior cache entries plus the
@@ -13,24 +28,29 @@ serve the paged engine:
   ``_decode_attn_plus_self``.
 
 Cache writes stay deltas: ``attention`` returns the step's own K/V and the
-caller writes them into the pool.  The tiled long-prefill path and the
-flash-attention kernel branch of the reference (training paths) are not
-ported yet.
+caller writes them into the pool.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
+from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.paged_attention import ops as pa_ops
+from ..kernels.runtime import resolve_impl
 from .config import ModelConfig
 from .layers import (apply_norm, apply_rope, dense, dtype_of, init_dense,
                      init_norm, rope_freqs)
 
-__all__ = ["NEG_INF", "init_attention", "attention", "gather_pages"]
+__all__ = ["NEG_INF", "ATTN_IMPLS", "init_attention", "attention",
+           "gather_pages", "resolve_attn_impl"]
 
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
+
+#: ``impl`` values of the cache-less attention core
+ATTN_IMPLS = ("auto", "dense", "tiled", "kernel", "pallas")
 
 
 def init_attention(generator, cfg: ModelConfig, device) -> dict:
@@ -73,6 +93,78 @@ def _dense_attn(q, k, v, q_pos, k_pos, *, causal, window):
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def _tiled_attn(q, k, v, q_pos, k_pos, *, causal, window,
+                q_tile: int = 1024, kv_tile: int = 1024):
+    """Flash-style: online softmax over KV tiles; Python loops over query
+    tiles and, inside, over the KV tiles a query tile can see (the
+    reference's static triangular schedule, its ``lax.scan`` a loop).
+    Inputs are padded to tile multiples: padded queries get position -1,
+    padded keys 2**30 (unattendable under the causal mask)."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    q_tile = min(q_tile, S)
+    kv_tile = min(kv_tile, T)
+    Sp, Tp = -(-S // q_tile) * q_tile, -(-T // kv_tile) * kv_tile
+    qp = F.pad(q, (0, 0, 0, 0, 0, Sp - S))
+    kp = F.pad(k, (0, 0, 0, 0, 0, Tp - T))
+    vp = F.pad(v, (0, 0, 0, 0, 0, Tp - T))
+    qpos = F.pad(q_pos, (0, Sp - S), value=-1)
+    kpos = F.pad(k_pos, (0, Tp - T), value=2**30)
+    nq, nk = Sp // q_tile, Tp // kv_tile
+    kp = kp.reshape(B, nk, kv_tile, KV, D)
+    vp = vp.reshape(B, nk, kv_tile, KV, D)
+    kpos_t = kpos.reshape(nk, kv_tile)
+    scale = 1.0 / math.sqrt(D)
+
+    outs = []
+    for i in range(nq):
+        qi = qp[:, i * q_tile:(i + 1) * q_tile].float() * scale
+        qi = qi.reshape(B, q_tile, KV, G, D)
+        qpos_i = qpos[i * q_tile:(i + 1) * q_tile]
+        # causal: kv tiles strictly after this q tile are never attended
+        hi = nk if not causal else min(nk, -(-((i + 1) * q_tile) // kv_tile))
+        # sliding window: tiles entirely before the window start are masked
+        lo = 0
+        if window is not None and causal:
+            lo = max(0, (i * q_tile - window - kv_tile + 1) // kv_tile)
+        m = torch.full((B, KV, G, q_tile), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, KV, G, q_tile), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, KV, G, q_tile, D), dtype=torch.float32,
+                          device=q.device)
+        for j in range(lo, hi):
+            s = torch.einsum("bqkgd,btkd->bkgqt", qi, kp[:, j].float())
+            s = s + _mask_bias(qpos_i, kpos_t[j], causal=causal,
+                               window=window, dtype=s.dtype)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", p, vp[:, j].float())
+            m = m_new
+        o = acc / l.clamp_min(1e-37)[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, q_tile, H, D))
+    out = torch.cat(outs, dim=1)[:, :S]
+    return out.to(q.dtype)
+
+
+def resolve_attn_impl(impl: str, device, S: int, T: int) -> str:
+    """Map an ``impl`` of :data:`ATTN_IMPLS` to ``dense``, ``tiled`` or
+    ``kernel`` for S queries over T keys on ``device``."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; pick from "
+                         f"{ATTN_IMPLS}")
+    if impl in ("dense", "tiled"):
+        return impl
+    if resolve_impl("kernel" if impl == "pallas" else impl,
+                    device) == "kernel":
+        return "kernel"
+    return "dense" if S * T <= 4096 * 4096 // 4 else "tiled"
 
 
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -170,19 +262,26 @@ def _decode_attn_plus_self(q, k_cache, v_cache, kv_len_old, kt, vt, *,
 
 
 def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
-              cache: dict, cache_len, window: int | None = None,
-              paged_impl: str = "auto"):
-    """Full attention layer against one layer's cache: qkv projection ->
-    RoPE -> core -> output projection.  Returns ``(out, (kt, vt))`` — the
-    step's K/V in the cache layout (B, KV, S, D), for the caller to write.
+              cache: dict | None, cache_len=None, window: int | None = None,
+              paged_impl: str = "auto", causal: bool = True,
+              impl: str = "auto"):
+    """Full attention layer: qkv projection -> RoPE -> core -> output
+    projection.
 
-    ``cache`` takes one of two forms.  On the paged decode path (S == 1,
+    ``cache=None`` is the cache-less full-sequence form (training): the
+    sequence attends over itself with query and key positions
+    ``positions``, through the core ``impl`` picks (see the module
+    docstring), and the result is ``(out, None)``.
+
+    Otherwise it runs against one layer's cache and returns ``(out, (kt,
+    vt))`` — the step's K/V in the cache layout (B, KV, S, D), for the
+    caller to write.  ``cache`` takes one of two forms.  On the paged decode path (S == 1,
     ``{"k_pool", "v_pool", "pages"}``) the pools and page table go straight
     to the paged flash-decode wrapper, whose ``paged_impl`` picks the
     kernel (by the tensor's device) or the gather oracle.  Otherwise it
-    holds dense views ``{"k", "v"}`` (or None for a first chunk): S == 1 is
-    decode over the view, S > 1 a prefill chunk starting at the host int
-    ``cache_len``."""
+    holds dense views ``{"k", "v"}`` (or is empty for a first chunk):
+    S == 1 is decode over the view, S > 1 a prefill chunk starting at the
+    host int ``cache_len``."""
     cd = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -197,6 +296,18 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
         sin, cos = rope_freqs(cfg, positions, hd)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
+
+    if cache is None:
+        pos = positions[0] if positions.dim() > 1 else positions
+        core = resolve_attn_impl(impl, q.device, S, S)
+        if core == "kernel":
+            out = fa_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window, impl="kernel")
+        elif core == "dense":
+            out = _dense_attn(q, k, v, pos, pos, causal=causal, window=window)
+        else:
+            out = _tiled_attn(q, k, v, pos, pos, causal=causal, window=window)
+        return dense(p["o"], out.reshape(B, S, H * hd), cd), None
 
     store = cache.get("k_pool", cache.get("k")) if cache else None
     kv_dtype = store.dtype if store is not None else dtype_of(

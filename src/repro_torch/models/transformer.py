@@ -1,5 +1,6 @@
-"""Model composition for the serving path: the dense GQA decoder family
-and the attention-free Mamba-2 (``ssm``) family.
+"""Model composition: the dense GQA decoder family and the attention-free
+Mamba-2 (``ssm``) family for serving, and the dense family's full-sequence
+forward and loss for training.
 
 Parameters are the JAX package's pytree unstacked: ``{"embed": {"table"},
 "layers": [block, ...], "norm_f": {"scale"}}`` with one dict per layer
@@ -13,7 +14,12 @@ layers, per-slot state ``"conv"``: (n_ssm, B, W-1, d_inner + 2N) and
 and has no pages).  ``cache["k"][i]`` is the i-th attention layer's pool,
 ``cache["state"][i]`` the i-th SSM layer's state.
 
-Both steps UPDATE THE CACHE IN PLACE (pools, SSM state and ``len``) and
+``forward`` / ``loss_fn`` run the whole sequence with no cache (the
+training path); ``cfg.remat == "full"`` recomputes each layer in the
+backward pass (``torch.utils.checkpoint``), so its attention kernel runs
+twice a layer.
+
+Both serving steps UPDATE THE CACHE IN PLACE (pools, SSM state and ``len``) and
 return the same dict — the reference returns a new cache.  Every layer
 reads its own pool or state before writing it, and layers never share
 one, so the result equals the reference's read-all-then-write order.
@@ -23,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.runtime import resolve_impl
 from .attention import attention, gather_pages, init_attention
@@ -33,7 +40,8 @@ from .ssm import apply_mamba2, init_mamba2, init_ssm_cache, mamba2_decode_step
 
 __all__ = ["LayerPlan", "layer_plan", "layer_kinds", "init_block",
            "apply_block", "init_params", "init_paged_cache", "decode_step",
-           "chunk_prefill_step", "check_supported"]
+           "chunk_prefill_step", "check_supported", "check_trainable",
+           "forward", "loss_fn"]
 
 #: block kinds the port runs
 PORTED_KINDS = ("dense", "ssm")
@@ -123,7 +131,8 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
     """One pre-norm residual block.
 
     ``dense`` (attention + gated MLP) returns ``(x, (kt, vt))`` with the
-    block's K/V delta.  ``ssm`` returns ``(x, new_cache)`` with the slot
+    block's K/V delta; with ``cache=None`` (the full-sequence forward) it
+    returns ``(x, None)`` and ``impl`` picks the attention core.  ``ssm`` returns ``(x, new_cache)`` with the slot
     rows' new ``{"conv", "state"}``: one token per row (S == 1) runs the
     decode recurrence; a longer chunk continues the conv and SSD scan from
     ``cache`` (chunked prefill), with positions >= ``valid_len`` masked out
@@ -140,11 +149,81 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
     h = apply_norm(cfg, p["ln1"], x)
     out, kv = attention(cfg, p["attn"], h, positions=positions, cache=cache,
                         cache_len=cache_len, window=window,
-                        paged_impl=paged_impl)
+                        paged_impl=paged_impl, impl=impl)
     x = x + out
     h = apply_norm(cfg, p["ln2"], x)
     x = x + apply_mlp(cfg, p["mlp"], h)
     return x, kv
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward and loss (training)
+# ---------------------------------------------------------------------------
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """``forward`` and ``loss_fn`` run the dense family; training the other
+    families comes with later slices."""
+    check_supported(cfg)
+    if set(layer_kinds(cfg)) != {"dense"}:
+        raise NotImplementedError(f"{cfg.name}: the full-sequence forward "
+                                  f"runs the dense family only")
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat={cfg.remat!r} is not ported (the "
+                                  f"port runs 'none' and 'full')")
+
+
+def _run_stack(cfg: ModelConfig, layers, x, positions, *, impl: str):
+    """Every layer in order, each recomputed in the backward pass under
+    ``remat="full"``.  Returns ``(x, aux)``; the dense family has no
+    auxiliary loss."""
+    for kind, p in zip(layer_kinds(cfg), layers):
+        def block(h, p=p, kind=kind):
+            return apply_block(cfg, kind, p, h, positions=positions,
+                               cache=None, cache_len=None, impl=impl)[0]
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            x = checkpoint(block, x, use_reentrant=False)
+        else:
+            x = block(x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(cfg: ModelConfig, params: dict, *, tokens=None, embeds=None,
+            positions=None, impl: str = "auto"):
+    """Full-sequence forward (train / prefill).  ``tokens`` (B, S) int, or
+    ``embeds`` (B, S, d).  Returns ``(logits (B, S, padded_vocab) in the
+    compute dtype, aux)``; ``impl`` picks every layer's attention core."""
+    check_trainable(cfg)
+    if embeds is None:
+        x = embed(cfg, params["embed"], tokens)
+    else:
+        x = embeds.to(dtype_of(cfg.compute_dtype))
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = _run_stack(cfg, params["layers"], x, positions, impl=impl)
+    x = apply_norm(cfg, params["norm_f"], x)
+    return unembed(cfg, params["embed"], x), aux
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
+            impl: str = "auto"):
+    """Next-token cross-entropy: the mask-weighted mean NLL over
+    ``batch["tokens"]`` / ``"labels"`` / ``"mask"`` (optional), with the
+    padded vocabulary masked out of the softmax.  Returns ``(total,
+    {"loss", "aux", "tokens"})``."""
+    logits, aux = forward(cfg, params, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"), impl=impl)
+    logits = logits.float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e9
+    logz = torch.logsumexp(logits, dim=-1)
+    labels = batch["labels"].long()
+    nll = logz - logits.gather(-1, labels[..., None])[..., 0]
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    total = loss + cfg.router_aux_weight * aux
+    return total, {"loss": loss, "aux": aux, "tokens": mask.sum()}
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +393,7 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
         kp, vp = cache["k"][ai], cache["v"][ai]
         ai += 1
         lc = ({"k": gather_pages(kp, read), "v": gather_pages(vp, read)}
-              if start > 0 else None)
+              if start > 0 else {})
         x, (kt, vt) = apply_block(cfg, kind, p, x, positions=positions,
                                   cache=lc, cache_len=start)
         _write_kv_chunk_paged(kp, kt, start, pages_row[0], page_size)

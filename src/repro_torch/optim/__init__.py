@@ -1,0 +1,5 @@
+from .optimizers import (OptimizerSpec, clip_by_global_norm, cosine_schedule,
+                         global_norm, init_opt_state, opt_update)
+
+__all__ = ["OptimizerSpec", "clip_by_global_norm", "cosine_schedule",
+           "global_norm", "init_opt_state", "opt_update"]

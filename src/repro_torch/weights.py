@@ -6,6 +6,9 @@ afresh.
   module never imports JAX) and returns the port's layout: the layers that
   the reference stacks on a leading axis under ``params["groups"][0]``
   become one dict per layer.
+* :func:`train_state_from_jax_numpy` does the same for a reference
+  ``TrainState`` (parameters, optimizer state, step), so a test can start
+  both trainers from one state.
 * :func:`init_params` draws the same layout with the reference's
   truncated-normal scales from a ``torch.Generator`` — what runs on the card,
   where there is no JAX.
@@ -17,8 +20,9 @@ import torch
 
 from .models.config import ModelConfig
 from .models.transformer import check_supported, init_params
+from .train.step import TrainState
 
-__all__ = ["from_jax_numpy", "init_params"]
+__all__ = ["from_jax_numpy", "init_params", "train_state_from_jax_numpy"]
 
 
 def _tensors(tree, device, index=None):
@@ -30,18 +34,40 @@ def _tensors(tree, device, index=None):
     return torch.tensor(arr, device=device)
 
 
+def _unstack(tree_np: dict, cfg: ModelConfig, device) -> dict:
+    """A params-shaped reference tree (its leaves may themselves be dicts of
+    arrays, as Adafactor's state is) in the port's layout: the one stacked
+    layer group becomes one dict per layer."""
+    groups, tail = tree_np["groups"], tree_np.get("tail", [])
+    if len(groups) != 1 or tail:
+        raise ValueError(f"expected one stacked layer group and no tail, got "
+                         f"{len(groups)} group(s) and {len(tail)} tail block(s)")
+    return {"embed": _tensors(tree_np["embed"], device),
+            "layers": [_tensors(groups[0], device, i)
+                       for i in range(cfg.n_layers)],
+            "norm_f": _tensors(tree_np["norm_f"], device)}
+
+
 def from_jax_numpy(params_np: dict, cfg: ModelConfig, device) -> dict:
     """Reference pytree (numpy leaves) -> the port's parameters on
     ``device``, values unchanged."""
     check_supported(cfg)
-    groups, tail = params_np["groups"], params_np.get("tail", [])
-    if len(groups) != 1 or tail:
-        raise ValueError(f"expected one stacked layer group and no tail, got "
-                         f"{len(groups)} group(s) and {len(tail)} tail block(s)")
-    stacked = groups[0]
-    n = np.asarray(stacked["ln1"]["scale"]).shape[0]
+    n = np.asarray(params_np["groups"][0]["ln1"]["scale"]).shape[0]
     if n != cfg.n_layers:
         raise ValueError(f"{n} stacked layers != cfg.n_layers {cfg.n_layers}")
-    return {"embed": _tensors(params_np["embed"], device),
-            "layers": [_tensors(stacked, device, i) for i in range(n)],
-            "norm_f": _tensors(params_np["norm_f"], device)}
+    return _unstack(params_np, cfg, device)
+
+
+def train_state_from_jax_numpy(state_np: dict, cfg: ModelConfig, device):
+    """A reference ``TrainState`` as ``{"params", "opt_state", "step"}``
+    with numpy leaves -> the port's ``TrainState`` on ``device``.  The
+    optimizer state keeps its kind's layout: AdamW ``{"m", "v", "count"}``
+    (m and v params-shaped), Adafactor ``{"f", "count"}``, SGD
+    ``{"count"}``."""
+    opt_np = state_np["opt_state"]
+    opt = {"count": torch.tensor(np.asarray(opt_np["count"]), device=device)}
+    for key in ("m", "v", "f"):
+        if key in opt_np:
+            opt[key] = _unstack(opt_np[key], cfg, device)
+    return TrainState(params=from_jax_numpy(state_np["params"], cfg, device),
+                      opt_state=opt, step=int(np.asarray(state_np["step"])))

@@ -39,7 +39,9 @@ def test_import_with_jax_unavailable():
             "repro_torch.weights, repro_torch.kernels.paged_attention, "
             "repro_torch.kernels.ssd_scan, repro_torch.models.ssm, "
             "repro_torch.core, repro_torch.apps.jacobi, "
-            "repro_torch.kernels.jacobi_sweep; "
+            "repro_torch.kernels.jacobi_sweep, repro_torch.train, "
+            "repro_torch.launch.train, repro_torch.kernels.flash_attention, "
+            "repro_torch.optim, repro_torch.checkpoint, repro_torch.data; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -65,6 +67,16 @@ def test_launcher_defaults_to_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--smoke"])
+
+
+def test_train_launcher_defaults_to_cuda():
+    from repro_torch.launch.train import main
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--smoke", "--steps", "1", "--engine", "hypar"])
 
 
 def test_runtime_and_jacobi_default_to_cuda():

@@ -271,3 +271,160 @@ def test_cuda_jacobi_tailored_runs_the_kernel():
     rp = jacobi_tailored(A, b, iters=40)
     assert rk.iters == rp.iters == 40
     np.testing.assert_allclose(rk.x, rp.x, atol=1e-5, rtol=1e-5)
+
+
+# B, S, T, H, KV, D, causal, window: the JAX package's FA_CASES, ragged S
+# and T (every tile edge partial), the smoke configs' head width 24, S > T
+# with rows that see no key at all, and the training shape's head layout
+FA_CASES = [
+    (1, 128, 128, 4, 4, 64, True, None),
+    (2, 256, 256, 4, 2, 64, True, None),
+    (1, 512, 512, 8, 2, 32, True, 64),
+    (2, 256, 256, 8, 8, 32, False, None),
+    (1, 384, 384, 4, 1, 64, True, 100),
+    (1, 256, 256, 2, 2, 128, True, None),
+    (2, 77, 77, 4, 2, 24, True, None),
+    (1, 200, 131, 12, 2, 128, False, 50),
+    (1, 100, 40, 2, 2, 32, True, 16),
+    (2, 1000, 1000, 12, 2, 128, True, None),
+]
+FA_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # the reference's own
+FA_LSE_TOL = 1e-4
+
+
+def fa_case(seed, B, S, T, H, KV, D, dtype):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D)))
+    return [t.cuda().to(getattr(torch, dtype)) for t in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_CASES)
+def test_cuda_flash_kernel_matches_plain(case, dtype):
+    """The hand-written flash kernel against its plain version, on the
+    card: output at the reference's tolerance, LSE at 1e-4, rows with no
+    visible key zero and finite; one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain,
+                                                     kernel)
+    B, S, T, H, KV, D, causal, window = case
+    q, k, v = fa_case(20, B, S, T, H, KV, D, dtype)
+    before = kernel.launches
+    out, lse = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    out_p, lse_p = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert lse.shape == (B, H, S) and torch.isfinite(out.float()).all()
+    tol = FA_TOL[dtype]
+    torch.testing.assert_close(out.float(), out_p.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, lse_p, atol=FA_LSE_TOL, rtol=FA_LSE_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernel_reads_strided_inputs():
+    """q, k and v as views of one fused projection (not contiguous): the
+    kernel reads them through their strides and matches the plain
+    version on contiguous copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain)
+    B, S, H, KV, D = 2, 300, 4, 2, 64
+    rng = np.random.default_rng(21)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B, S, H + 2 * KV, D)).astype(np.float32)).cuda()
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    out, lse = flash_attention_kernel(q, k, v, causal=True)
+    out_p, lse_p = flash_attention_plain(*(t.contiguous() for t in (q, k, v)),
+                                         causal=True)
+    torch.testing.assert_close(out, out_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, lse_p, atol=FA_LSE_TOL, rtol=FA_LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 33])
+def test_cuda_flash_fn_gradients_match_autograd_through_plain(window):
+    """``FlashAttentionFn`` with the kernel forward: its output and its
+    gradients against torch autograd through the plain version, fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     flash_attention_plain,
+                                                     kernel, ops)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, H, KV, D = 2, 333, 6, 2, 64
+    q, k, v = (t.requires_grad_() for t in fa_case(22, B, S, S, H, KV, D,
+                                                   "float32"))
+    dout = torch.randn((B, S, H, D), device="cuda")
+    before = kernel.launches
+    out, lse = FlashAttentionFn.apply(q, k, v, True, window, "kernel")
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert kernel.launches == before + 1
+    out_p, _ = flash_attention_plain(q, k, v, causal=True, window=window)
+    grads_p = torch.autograd.grad(out_p, (q, k, v), dout)
+    torch.testing.assert_close(out, out_p, atol=1e-5, rtol=1e-5)
+    for g, gp in zip(grads, grads_p):
+        torch.testing.assert_close(g, gp, atol=1e-4, rtol=1e-4)
+    # the tiled backward visits the same keys with several tile sizes
+    small = ops.flash_attention_backward(
+        *(t.detach() for t in (q, k, v, out)), lse, dout, causal=True,
+        window=window, q_tile=64)
+    for g, gs in zip(grads, small):
+        torch.testing.assert_close(g, gs, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wrapper_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    q, k, v = fa_case(23, 1, 16, 16, 2, 2, 32, "float32")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_kernel(*fa_case(23, 1, 16, 16, 2, 2, 256,
+                                         "float32"))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_kernel(*fa_case(23, 1, 16, 16, 2, 2, 20, "float32"))
+    with pytest.raises(TypeError, match="not supported"):
+        flash_attention_kernel(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="differs"):
+        flash_attention_kernel(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_kernel(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous last"):
+        flash_attention_kernel(q.transpose(1, 3).contiguous().transpose(1, 3),
+                               k, v)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_runs_the_kernel_and_matches_the_plain_path():
+    """One fused step of the qwen2 smoke config in bf16 on the card: every
+    attention layer launches the flash kernel twice a micro-batch (the
+    remat recompute), and the loss and grad norm match the tiled path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticLMStream, to_device
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.optim import OptimizerSpec, global_norm
+    from repro_torch.train import TrainState, compute_grads, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("qwen2-1.5b")
+    spec = OptimizerSpec(lr=1e-3)
+    batch = to_device(SyntheticLMStream(cfg, DataConfig(
+        global_batch=4, seq_len=200)).batch(0), "cuda")
+    state = TrainState.create(cfg, spec,
+                              torch.Generator("cuda").manual_seed(0), "cuda")
+    grads, loss_p, _ = compute_grads(cfg, state.params, batch, accum=2,
+                                     impl="tiled")
+    before = kernel.launches
+    state, m = make_train_step(cfg, spec, grad_accum=2)(state, batch)
+    assert kernel.launches == before + 2 * cfg.n_layers * 2
+    assert abs(float(m["loss_total"]) / float(loss_p) - 1) < 1e-3
+    assert abs(float(m["grad_norm"]) / float(global_norm(grads)) - 1) < 2e-2
