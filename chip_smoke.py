@@ -83,7 +83,28 @@ and prints one JSON line per phase:
    the same widths, 4 layers, 3 steps of 2 micro-batches: seconds of each,
    HyPar's overhead, final params within 1e-6 (and whether to the bit);
 17. ``train_launcher`` — ``repro_torch.launch.train.main`` at ``--smoke``:
-   6 steps with a checkpoint every 3, then a resume to 8.
+   6 steps with a checkpoint every 3, then a resume to 8;
+18. ``kernels`` (``rmsnorm``) and ``norm_switch`` — the RMSNorm kernel
+   against its plain version (fp32 1e-5, bf16 2e-2 of max|plain|) at the
+   kernel bench's (4096, 1024) fp32, qwen2-1.5b's (8192, 1536) bf16,
+   ragged rows, d 16384 and two small ragged widths, under every
+   rows-a-block candidate of the tuner; timed at each beside its plain
+   version, ``F.rms_norm`` and its bound; then ``apply_norm(use_kernel=
+   True)`` against the plain norm on a full-width qwen2-1.5b hidden state;
+19. ``kernel_bench_check`` and ``kernel_bench`` — first every wrapper the
+   autotune pass tunes, on its inputs at the bench's shapes, under every
+   candidate config of the tuner, against ``impl="ref"`` (fp32; flash and
+   RMSNorm 1e-5, SSD 1e-4, Jacobi 1e-5, paged 1e-5); then
+   ``repro_torch.benchmarks.kernel_bench.run`` on the card into a fresh
+   tuning cache: 6 plain-version rows and 5 tuned rows
+   (one ``kernel_bench_row`` line each, with its rates as shares of the
+   card's peaks), the launch counts set to 0 before and read after; a
+   second autotune pass that must hit the cache for every kernel and time
+   nothing; the calibrated cost model beside ``CostModelParams()`` and the
+   card's peaks (no rate above 1.05 of its peak);
+20. ``jacobi_cost`` — ``jacobi_hypar(strategy="cost")`` at n 2709 seeded
+   from that cache: the same iterations and x within 1e-5 of the tailored
+   solve, beside a greedy HyPar solve.
 
 Then a ``{"kernels": [...]}`` summary line, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -96,8 +117,11 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -140,25 +164,13 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA
-    events, after one warm-up call.  The device first sleeps for 1.5x the
-    host time the calls take to enqueue (measured on the warm-up call), so
-    every launch is queued before the first one runs: the events then time
-    the device's work, not the host's launch rate."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn(0)
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(1.5 * reps * host_s * 2e9, 2e10)))
-    start.record()
-    for i in range(reps):
-        fn(i)
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    """Mean device milliseconds of ``fn(i)`` over ``reps`` back-to-back
+    calls, by the tuner's CUDA-event timer (``tuning.device_seconds``: one
+    warm-up call, and the device held by a sleep kernel while the launches
+    queue, so the events time the device's work, not the host's launch
+    rate)."""
+    from repro_torch.kernels.tuning import device_seconds
+    return device_seconds(fn, reps) / reps * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -1577,7 +1589,6 @@ def train_launcher_phase(mods) -> None:
     (under ``build/``, removed afterwards)."""
     import contextlib
     import io
-    import shutil
 
     from repro_torch.launch.train import main as train_main
 
@@ -1608,6 +1619,296 @@ def train_launcher_phase(mods) -> None:
             raise AssertionError(f"launcher flash launches: {r}")
 
 
+# ---------------------------------------------------------------------------
+# the kernel benchmark and tuner: RMSNorm, the bench, the cost-model bridge
+# ---------------------------------------------------------------------------
+
+RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # of max|plain|
+RMS_EPS = 1e-6
+# name, R, d, dtype: the kernel bench's shape; qwen2-1.5b's width at one
+# micro-batch of the train phase (2 x 4096 tokens); ragged rows; the widest
+# d (llama3-405b's); a d that leaves the vector loop ragged; an odd d, which
+# defeats 16-byte vectors (the scalar path)
+RMS_CASES = [
+    ("bench", 4096, 1024, torch.float32),
+    ("qwen2_train", 8192, 1536, torch.bfloat16),
+    ("ragged_rows", 1000, 1536, torch.bfloat16),
+    ("wide", 64, 16384, torch.bfloat16),
+    ("ragged_d", 7, 200, torch.float32),
+    ("odd_d", 5, 203, torch.float32),
+]
+CALIBRATION_MAX_SHARE = 1.05     # calibrated rate / the card's peak
+JACOBI_COST_N = 2709
+
+
+def rms_bound_ms(R: int, d: int, elt: int) -> tuple[float, str]:
+    """Least time for RMSNorm on (R, d): x read once, the output written
+    once and the fp32 gain read once over the memory rate, against 4
+    operations an element (square-add, the mean's scale, two multiplies)
+    over the fp32 rate."""
+    t_bytes = (2 * R * d * elt + 4 * d) / H100_BYTES_PER_S * 1e3
+    t_ops = 4.0 * R * d / H100_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rmsnorm_kernel_phase() -> dict:
+    """The RMSNorm kernel against its plain version at ``RMS_CASES`` under
+    every rows-a-block candidate of the tuner; each case timed at every
+    candidate beside its plain version, ``F.rms_norm`` and its bound."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+    from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
+
+    row_blocks = [c["row_block"] for c in DEFAULT_CANDIDATES["rmsnorm"]]
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    entry, errs = None, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for name, R, d, dtype in RMS_CASES:
+        x = torch.randn((R, d), generator=gen, device=DEV).to(dtype)
+        g = torch.randn(d, generator=gen, device=DEV) + 1.0
+        want = rmsnorm_plain(x, g, eps=RMS_EPS)
+        scale = float(want.float().abs().max())
+        case = {"case": name, "R": R, "d": d,
+                "dtype": str(dtype).replace("torch.", ""),
+                "tol": RMS_TOL[dtype], "rel_err_by_row_block": {}}
+        for rb in row_blocks:
+            got = rmsnorm_kernel(x, g, eps=RMS_EPS, row_block=rb)
+            torch.cuda.synchronize()
+            if (got.shape != x.shape or got.dtype != dtype
+                    or not torch.isfinite(got.float()).all()):
+                raise AssertionError(f"rmsnorm kernel output misshapen or "
+                                     f"not finite ({name}, row_block {rb})")
+            err = float((got.float() - want.float()).abs().max())
+            case["rel_err_by_row_block"][rb] = err / scale
+            errs[dtype] = max(errs[dtype], err)
+            if err > RMS_TOL[dtype] * scale:
+                raise AssertionError(f"rmsnorm kernel disagrees with plain: "
+                                     f"{name}, row_block {rb}: {err} > "
+                                     f"{RMS_TOL[dtype]} x {scale}")
+        # timing: rotate over copies of x larger than the 50 MB L2
+        x_bytes = x.numel() * x.element_size()
+        n_copies = min(64, max(2, math.ceil(100e6 / x_bytes)))
+        copies = [x.clone() for _ in range(n_copies)]
+        by_rb = {rb: cuda_ms(lambda i, rb=rb: rmsnorm_kernel(
+            copies[i % n_copies], g, eps=RMS_EPS, row_block=rb), 50)
+            for rb in row_blocks}
+        best = min(by_rb, key=by_rb.get)
+        g_x = g.to(dtype)     # F.rms_norm's fused path wants one dtype
+        bms, by = rms_bound_ms(R, d, x.element_size())
+        case.update(
+            ms=by_rb[best], row_block=best, ms_by_row_block=by_rb,
+            plain_ms=cuda_ms(lambda i: rmsnorm_plain(
+                copies[i % n_copies], g, eps=RMS_EPS), 10),
+            library_ms=cuda_ms(lambda i: F.rms_norm(
+                copies[i % n_copies], (d,), weight=g_x, eps=RMS_EPS), 50),
+            bound_ms=bms, bound_by=by)
+        emit("kernels", kernel="rmsnorm", **case)
+        if name == "bench":
+            entry = case
+        del copies, x, want
+    torch.cuda.empty_cache()
+    return {"name": "rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm/kernel.py:24",
+            "shape": "R 4096, d 1024, fp32 (the kernel bench's)",
+            "library_call": "F.rms_norm(x, (d,), weight=g.to(x.dtype), "
+                            "eps=1e-6)",
+            "max_abs_err": errs[torch.float32],
+            "max_abs_err_bf16": errs[torch.bfloat16],
+            **{k: entry[k] for k in ("ms", "row_block", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by")}}
+
+
+def norm_switch_phase(rms_kernel) -> None:
+    """``apply_norm(use_kernel=True)`` against ``use_kernel=False`` on a
+    full-width qwen2-1.5b hidden state (one train micro-batch, bf16): the
+    switch must launch the kernel once and agree within 2e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import apply_norm
+
+    cfg = get_config("qwen2-1.5b")
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    p = {"scale": 1.0 + 0.1 * torch.randn(cfg.d_model, generator=gen,
+                                          device=DEV)}
+    h = torch.randn((TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ, cfg.d_model),
+                    generator=gen, device=DEV).to(torch.bfloat16)
+    before = rms_kernel.launches
+    got = apply_norm(cfg, p, h, use_kernel=True)
+    torch.cuda.synchronize()
+    launched = rms_kernel.launches - before
+    want = apply_norm(cfg, p, h)
+    rel = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    emit("norm_switch", model=cfg.name, shape=list(h.shape), dtype="bfloat16",
+         rel_err=rel, tol=RMS_TOL[torch.bfloat16], launches=launched)
+    if launched != 1 or got.dtype != h.dtype or rel > RMS_TOL[torch.bfloat16]:
+        raise AssertionError(f"apply_norm(use_kernel=True): {launched} "
+                             f"launches, rel err {rel}")
+
+
+def kernel_bench_check() -> None:
+    """Every wrapper the autotune pass tunes, at the bench's shapes and on
+    its inputs (``kernel_bench.tuned_cases``), under every candidate config
+    of the tuner, against ``impl="ref"``: fp32 throughout, at the
+    tolerances of the kernels' own phases."""
+    from repro_torch.benchmarks import kernel_bench
+    from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def rel(got, want) -> float:
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max())
+
+    def absolute(got, want) -> float:
+        return float((got.float() - want.float()).abs().max())
+
+    # kernel -> (error of the kernel's outputs against the plain ones, tol)
+    checks = {
+        "jacobi_sweep": (lambda o, w: max(rel(o[0], w[0]), abs(
+            float(o[1]) / float(w[1]) - 1.0)), JACOBI_TOL),
+        "rmsnorm": (rel, RMS_TOL[torch.float32]),
+        "flash_attention": (absolute, FA_TOL[torch.float32]),
+        "ssd_scan": (lambda o, w: max(rel(o[0], w[0]), rel(o[1], w[1])),
+                     SSD_TOL),
+        "paged_attention": (absolute, WRAPPER_TOL_F32),
+    }
+    results = {}
+    for kernel, fn, args, shape, _, _ in kernel_bench.tuned_cases(device=DEV):
+        err_fn, tol = checks[kernel]
+        want = fn(*args, impl="ref")
+        for cfg in DEFAULT_CANDIDATES[kernel]:
+            got = fn(*args, impl="kernel", **cfg)
+            torch.cuda.synchronize()
+            outs = got if isinstance(got, tuple) else (got,)
+            if not all(torch.isfinite(o.float()).all() for o in outs):
+                raise AssertionError(f"{kernel} at the bench's shape "
+                                     f"{shape}, config {cfg}: not finite")
+            err = err_fn(got, want)
+            results.setdefault(kernel, {"shape": list(shape), "tol": tol,
+                                        "err_by_config": {}})
+            results[kernel]["err_by_config"][json.dumps(cfg)] = err
+            if not err <= tol:
+                raise AssertionError(f"{kernel} at the bench's shape {shape}, "
+                                     f"config {cfg}: error {err} > {tol}")
+    emit("kernel_bench_check", kernels=results)
+    torch.cuda.empty_cache()
+
+
+def kernel_bench_phase(mods) -> dict:
+    """``repro_torch.benchmarks.kernel_bench.run`` on the card against the
+    fresh tuning cache ``main`` names in ``REPRO_TORCH_TUNE_CACHE``, with
+    the launch counts set to 0 just before and read just after; then
+    ``autotune_rows`` again, which must hit the cache for every kernel and
+    time nothing; then the calibrated cost model beside
+    ``CostModelParams()`` and the card's peaks.  Returns the bench run's
+    launches."""
+    from repro_torch.benchmarks import kernel_bench
+    from repro_torch.core.scheduler import CostModelParams
+    from repro_torch.kernels import tuning
+
+    kernel_bench_check()
+    reset_launches(mods)
+    t0 = time.perf_counter()
+    rows = kernel_bench.run(device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(mods)
+    ref = [r for r in rows if r["name"].endswith("_ref")]
+    tuned = [r for r in rows if r["name"].endswith("_tuned")]
+    for r in rows:
+        r["bytes_per_s_share_of_hbm"] = (r["bytes"] / r["median_s"]
+                                         / H100_BYTES_PER_S)
+        r["flops_share_of_fp32_peak"] = (r["flops"] / r["median_s"]
+                                         / H100_FP32_FLOPS)
+        emit("kernel_bench_row", **r)
+    emit("kernel_bench", rows=len(rows), ref_rows=len(ref),
+         tuned_rows=len(tuned), wall_s=wall, launches=launches)
+    if len(ref) != 6 or len(tuned) != 5:
+        raise AssertionError(f"kernel bench gave {len(ref)} ref and "
+                             f"{len(tuned)} tuned rows, expected 6 and 5")
+    for r in rows:
+        if not (math.isfinite(r["median_s"]) and r["median_s"] > 0):
+            raise AssertionError(f"kernel bench row {r['name']}: median_s "
+                                 f"{r['median_s']}")
+    for r in tuned:
+        if r["cache"] != "miss" or r["timed"] != r["candidates"]:
+            raise AssertionError(f"first tune of {r['name']} timed "
+                                 f"{r['timed']} of {r['candidates']} "
+                                 f"candidates (cache {r['cache']})")
+        kern = r["name"].removesuffix("_tuned")
+        if launches[{"jacobi_sweep": "jacobi_sweep_residual"}.get(
+                kern, kern)] == 0:
+            raise AssertionError(f"the bench never launched {kern}")
+
+    reset_launches(mods)
+    again = kernel_bench.autotune_rows(device=DEV)
+    relaunched = read_launches(mods)
+    emit("kernel_bench_second_pass",
+         cache=[r["cache"] for r in again], timed=[r["timed"] for r in again],
+         launches=relaunched)
+    if (any(r["cache"] != "hit" or r["timed"] != 0 for r in again)
+            or any(relaunched.values())):
+        raise AssertionError(f"second autotune pass was not all cache hits: "
+                             f"{again}, launches {relaunched}")
+
+    base = CostModelParams()
+    cal = tuning.calibrated_cost_params(backend=torch.device(DEV).type)
+    shares = {"peak_flops": cal.peak_flops / H100_FP32_FLOPS,
+              "mem_bw": cal.mem_bw / H100_BYTES_PER_S}
+    emit("kernel_bench_calibration", calibrated=dataclasses.asdict(cal),
+         base=dataclasses.asdict(base),
+         card_peaks={"peak_flops": H100_FP32_FLOPS,
+                     "mem_bw": H100_BYTES_PER_S},
+         share_of_card_peak=shares, max_share=CALIBRATION_MAX_SHARE)
+    if cal.peak_flops == base.peak_flops or cal.mem_bw == base.mem_bw:
+        raise AssertionError(f"calibration left the defaults: {cal}")
+    if max(shares.values()) > CALIBRATION_MAX_SHARE:
+        raise AssertionError(f"a calibrated rate exceeds the card's peak: "
+                             f"{shares}")
+    return launches
+
+
+def jacobi_cost_phase(mods) -> None:
+    """``jacobi_hypar(strategy="cost")`` at n ``JACOBI_COST_N`` with the
+    tuned cache of the ``kernel_bench`` phase: seeded per-function times
+    and calibrated params, against the tailored solve (same iterations, x
+    within 1e-5) and beside a greedy HyPar solve."""
+    from repro_torch.apps.jacobi import (jacobi_hypar, jacobi_tailored,
+                                         make_system)
+    from repro_torch.kernels import tuning
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    A, b, _ = make_system(JACOBI_COST_N, device=DEV)
+    base = jacobi_tailored(A, b, iters=JACOBI_ITERS)
+    reset_launches(mods)
+    cost = jacobi_hypar(A, b, iters=JACOBI_ITERS, n_chunks=4,
+                        strategy="cost")
+    launches = read_launches(mods)
+    greedy = jacobi_hypar(A, b, iters=JACOBI_ITERS, n_chunks=4)
+    dx = float(np.max(np.abs(cost.x - base.x)))
+    observed = cost.extra["observed_fn_times"]
+    want_params = dataclasses.asdict(tuning.calibrated_cost_params(
+        backend=torch.device(DEV).type))
+    emit("jacobi_cost", n=JACOBI_COST_N, iters=cost.iters,
+         tailored_iters=base.iters, max_dx_vs_tailored=dx, tol=JACOBI_X_TOL,
+         seconds={"tailored": base.seconds, "hypar_cost": cost.seconds,
+                  "hypar_greedy": greedy.seconds},
+         overhead_pct={"hypar_cost": 100.0 * (cost.seconds / base.seconds
+                                              - 1.0),
+                       "hypar_greedy": 100.0 * (greedy.seconds
+                                                / base.seconds - 1.0)},
+         observed_fn_times=observed, cost_params=cost.extra["cost_params"],
+         launches=launches, report=cost.extra["report"])
+    if cost.iters != base.iters or dx > JACOBI_X_TOL:
+        raise AssertionError(f"jacobi_hypar(strategy='cost'): {cost.iters} "
+                             f"iterations against {base.iters}, max|Δx| {dx}")
+    if (sorted(observed) != [f"sweep{i}" for i in range(4)]
+            or cost.extra["cost_params"] != want_params):
+        raise AssertionError(f"jacobi_hypar did not take the tuned seeds: "
+                             f"{observed}, {cost.extra['cost_params']}")
+    del A, b
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1618,6 +1919,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.jacobi_sweep import kernel as jacobi_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     smi = nvidia_smi_line()
@@ -1663,8 +1965,24 @@ def main() -> int:
     fa_entry["launches_per_step"] = fa_entry["launches"] / TRAIN_STEPS
     train_hypar_phase(mods)
     train_launcher_phase(mods)
-    print(json.dumps({"kernels": [entry, ssd_entry, *jacobi_entries,
-                                  fa_entry]}), flush=True)
+
+    mods = (*mods, rms_kernel)
+    rms_entry = rmsnorm_kernel_phase()
+    norm_switch_phase(rms_kernel)
+    # a fresh tuning cache under build/, for the bench and the solve
+    tune_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_tune_",
+                                     dir=ROOT / "build"))
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = str(tune_dir / "kernel_tune.json")
+    try:
+        bench = kernel_bench_phase(mods)
+        jacobi_cost_phase(mods)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+    rms_entry["launches"] = bench["rmsnorm"]
+    kernels = [entry, ssd_entry, *jacobi_entries, fa_entry, rms_entry]
+    for e in kernels:
+        e["launches_kernel_bench"] = bench[e["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,9 +43,10 @@ from repro_torch.core import (ChunkedData, ChunkRef, DataChunk,
                               LocalExecutor, SpmdExecutor, VirtualCluster,
                               run_while_loop)
 from repro_torch.kernels.jacobi_sweep.ops import jacobi_sweep_residual
+from repro_torch.kernels.tuning import calibrated_cost_params, get_tuner
 
 __all__ = ["make_system", "jacobi_tailored", "jacobi_hypar", "jacobi_spmd",
-           "JacobiResult"]
+           "tuned_schedule_inputs", "JacobiResult"]
 
 
 @dataclasses.dataclass
@@ -123,6 +124,33 @@ def jacobi_tailored(A, b, *, iters: int = 500, tol: float = 0.0,
 # ---------------------------------------------------------------------------
 # 2. HyPar job graph (paper-faithful: J1 sweep, J2 residual, J3 dynamic)
 # ---------------------------------------------------------------------------
+
+
+def tuned_schedule_inputs(n: int, bounds, dtype, *, strategy: str,
+                          backend: str, tuner=None):
+    """What the kernel autotuner hands the master scheduler of a HyPar
+    solve of size ``n`` with row chunks ``bounds`` on ``backend``:
+    ``(observed_fn_times, cost_params)``.
+
+    On ``cuda`` the tuned time of the fused sweep over all of A (the
+    ``jacobi_sweep`` entry, from the nearest tuned bucket scaled to n²),
+    times each chunk's share of the rows, seeds ``sweep{i}``; and
+    ``strategy="cost"`` prices jobs with :func:`calibrated_cost_params`.
+    Elsewhere it gives ``({}, None)``: the cache there holds timings of the
+    plain version, as the reference seeds only on a TPU."""
+    if backend != "cuda":
+        return {}, None
+    tuner = tuner or get_tuner()
+    observed = {}
+    t_full = tuner.observed_s("jacobi_sweep", (n, n), dtype, backend=backend,
+                              nearest=True)
+    if t_full is not None and t_full > 0:
+        for i in range(len(bounds) - 1):
+            observed[f"sweep{i}"] = t_full * float(bounds[i + 1]
+                                                   - bounds[i]) / n
+    cost_params = (calibrated_cost_params(tuner=tuner, backend=backend)
+                   if strategy == "cost" else None)
+    return observed, cost_params
 
 
 def jacobi_hypar(A, b, *, iters: int = 500, tol: float = 0.0,
@@ -217,13 +245,17 @@ def jacobi_hypar(A, b, *, iters: int = 500, tol: float = 0.0,
                            cost_hint=float(n))])
     graph.add_segment([Job("C0", "check", 1, (ChunkRef("X0"),))])
 
-    # The JAX package seeds the master's per-function times and the cost
-    # model from its kernel tuner, on a TPU only; the port has no tuner, so
-    # it passes none, as the reference does off the TPU.
+    # tuned timings -> scheduler: seed the master's per-function times
+    # from the autotune cache and, for strategy="cost", price jobs with the
+    # measured kernel rates (on the card only)
+    observed, cost_params = tuned_schedule_inputs(
+        n, bounds, b.dtype, strategy=strategy, backend=A.device.type)
     if cluster is None:
         cluster = VirtualCluster(None if A.is_cuda else [A.device],
                                  n_schedulers=1, max_workers=n_chunks)
-    ex = LocalExecutor(cluster, reg, mode=mode, strategy=strategy)
+    ex = LocalExecutor(cluster, reg, mode=mode, strategy=strategy,
+                       cost_params=cost_params,
+                       observed_fn_times=observed or None)
 
     # warm up the sweep and residual functions (first launches, cuBLAS
     # handles) outside the timed region, as for the tailored baseline
@@ -254,7 +286,10 @@ def jacobi_hypar(A, b, *, iters: int = 500, tol: float = 0.0,
     res = _exact_residual(A, b, x.to(A.device))             # untimed
     return JacobiResult(x.cpu().numpy(), k + 1, res, dt,
                         extra={"report": report.summary(), "mode": mode,
-                               "moved_bytes": report.moved_bytes})
+                               "moved_bytes": report.moved_bytes,
+                               "observed_fn_times": observed,
+                               "cost_params": (dataclasses.asdict(cost_params)
+                                               if cost_params else None)})
 
 
 # ---------------------------------------------------------------------------

@@ -45,13 +45,13 @@ import concurrent.futures
 import dataclasses
 import threading
 import time
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, Mapping
 
 import torch
 
 from .job import ChunkedData, DataChunk, GraphValidationError, Job, JobGraph
 from .registry import ControlContext, FunctionKind, FunctionRegistry
-from .scheduler import (MasterScheduler, Placement,
+from .scheduler import (CostModelParams, MasterScheduler, Placement,
                         ResultStore, VirtualCluster, Worker,
                         indexed_device)
 
@@ -162,7 +162,9 @@ class LocalExecutor(BaseExecutor):
     def __init__(self, cluster: VirtualCluster, registry: FunctionRegistry, *,
                  block_per_job: bool = False,
                  mode: str = "sync",
-                 strategy: str = "greedy"):
+                 strategy: str = "greedy",
+                 cost_params: CostModelParams | None = None,
+                 observed_fn_times: Mapping[Any, float] | None = None):
         if mode not in MODES:
             raise ValueError(f"unknown dispatch mode {mode!r}; pick from {MODES}")
         self.cluster = cluster
@@ -175,6 +177,10 @@ class LocalExecutor(BaseExecutor):
         self.block_per_job = block_per_job
         self.mode = mode
         self.strategy = strategy
+        self.cost_params = cost_params
+        # per-function wall-time seed for the master's queue-term EWMA
+        # (e.g. tuned kernel timings, repro_torch.kernels.tuning)
+        self.observed_fn_times = observed_fn_times
         # serialises store/report/graph mutation when worker queues dispatch
         # from threads; reentrant because lineage recovery recurses into
         # _execute_on
@@ -331,7 +337,9 @@ class LocalExecutor(BaseExecutor):
         """
         report = ExecutionReport(mode=self.mode)
         self._master = MasterScheduler(graph, self.cluster,
-                                       strategy=self.strategy)
+                                       strategy=self.strategy,
+                                       cost_params=self.cost_params,
+                                       observed_fn_times=self.observed_fn_times)
         try:
             if self.mode == "sync":
                 self._run_sync(graph, report, release_consumed)

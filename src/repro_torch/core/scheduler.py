@@ -278,16 +278,21 @@ class MasterScheduler:
     """
 
     def __init__(self, graph: JobGraph, cluster: VirtualCluster, *,
-                 strategy: str = "greedy"):
+                 strategy: str = "greedy",
+                 cost_params: CostModelParams | None = None,
+                 observed_fn_times: Mapping[Any, float] | None = None):
         if strategy not in ("greedy", "cost"):
             raise ValueError(f"unknown placement strategy {strategy!r}")
         self.graph = graph
         self.cluster = cluster
         self.strategy = strategy
-        self.cost_params = CostModelParams()
-        # EWMA of observed wall time per function id (cost-model queue term);
-        # runtime observations sharpen it as the run progresses.
-        self._fn_time: dict[Any, float] = {}
+        self.cost_params = cost_params or CostModelParams()
+        # EWMA of observed wall time per function id (cost-model queue term),
+        # seeded from prior measurements when there are some (the kernel
+        # autotune cache, repro_torch.kernels.tuning) so the first placement
+        # round prices queueing with observed times; runtime observations
+        # keep refining it.
+        self._fn_time: dict[Any, float] = dict(observed_fn_times or {})
 
     # -- runtime feedback (executor -> master) ---------------------------------
     def observe(self, fid, elapsed_s: float, alpha: float = 0.3) -> None:

@@ -1,0 +1,10 @@
+"""Fused RMSNorm: the hand-written Hopper kernel beside its plain PyTorch
+version; :mod:`..runtime` resolves which of the two a call runs, and the
+port's autotuner (:mod:`..tuning`) supplies the kernel's row blocking."""
+from . import kernel, ops, ref
+from .kernel import rmsnorm_kernel
+from .ops import DEFAULT_ROW_BLOCK, rmsnorm
+from .ref import rmsnorm_plain
+
+__all__ = ["kernel", "ops", "ref", "rmsnorm_kernel", "DEFAULT_ROW_BLOCK",
+           "rmsnorm", "rmsnorm_plain"]

@@ -61,12 +61,13 @@ def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                eps: float = 1e-6, use_kernel: bool = False) -> torch.Tensor:
     """RMSNorm / LayerNorm with fp32 accumulation, output in x.dtype.
 
-    ``use_kernel`` selects the RMSNorm kernel in the reference; that kernel
-    is not ported yet, so the switch raises on a CUDA tensor (and runs the
-    plain form on the CPU, as every kernel wrapper of the port does)."""
-    if use_kernel and cfg.norm == "rmsnorm" and x.is_cuda:
-        raise NotImplementedError("the RMSNorm kernel is not ported yet: "
-                                  "call apply_norm with use_kernel=False")
+    ``use_kernel`` sends RMSNorm through the kernel wrapper
+    (:func:`repro_torch.kernels.rmsnorm.rmsnorm`: the hand-written kernel
+    on a CUDA tensor, its plain version on a CPU one), as the reference's
+    switch does.  The kernel is forward only; no caller sets the switch."""
+    if use_kernel and cfg.norm == "rmsnorm":
+        from repro_torch.kernels.rmsnorm import ops as rms_ops
+        return rms_ops.rmsnorm(x, p["scale"].float(), eps=eps)
     xf = x.float()
     if cfg.norm == "rmsnorm":
         var = xf.square().mean(dim=-1, keepdim=True)

@@ -41,7 +41,9 @@ def test_import_with_jax_unavailable():
             "repro_torch.core, repro_torch.apps.jacobi, "
             "repro_torch.kernels.jacobi_sweep, repro_torch.train, "
             "repro_torch.launch.train, repro_torch.kernels.flash_attention, "
-            "repro_torch.optim, repro_torch.checkpoint, repro_torch.data; "
+            "repro_torch.optim, repro_torch.checkpoint, repro_torch.data, "
+            "repro_torch.kernels.rmsnorm, repro_torch.kernels.tuning, "
+            "repro_torch.benchmarks.kernel_bench; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,

@@ -11,7 +11,8 @@ The input builder and the paged-attention cases are shared with the CPU
 parity tests (``test_torch_paged_attention.py``); the SSD inputs follow
 the JAX package's kernel test, with strongly negative decays added; the
 Jacobi inputs follow ``apps/jacobi.py``'s ``make_system`` at ragged N,
-N 1 and the paper's largest N.
+N 1 and the paper's largest N; the RMSNorm cases are ``chip_smoke.py``'s,
+with odd widths and an unaligned start added for the scalar path.
 """
 import numpy as np
 import pytest
@@ -428,3 +429,173 @@ def test_cuda_train_step_runs_the_kernel_and_matches_the_plain_path():
     assert kernel.launches == before + 2 * cfg.n_layers * 2
     assert abs(float(m["loss_total"]) / float(loss_p) - 1) < 1e-3
     assert abs(float(m["grad_norm"]) / float(global_norm(grads)) - 1) < 2e-2
+
+
+# R, d, dtype: chip_smoke.py's cases (the kernel bench's shape, qwen2-1.5b's
+# width at one training micro-batch, ragged rows, the widest d, a d that
+# leaves the vector loop ragged), plus odd widths that defeat 16-byte
+# vectors and a single row
+RMS_CASES = [
+    (4096, 1024, "float32"),
+    (8192, 1536, "bfloat16"),
+    (1000, 1536, "bfloat16"),
+    (64, 16384, "bfloat16"),
+    (7, 200, "float32"),
+    (5, 203, "float32"),
+    (3, 99, "bfloat16"),
+    (1, 64, "float32"),
+]
+RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # of max|plain|
+RMS_ROW_BLOCKS = (1, 2, 4, 8, 32)
+
+
+def rms_case(seed, R, d, dtype):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((R, d)).astype(np.float32))
+    g = torch.from_numpy((rng.standard_normal(d) + 1.0).astype(np.float32))
+    return x.cuda().to(getattr(torch, dtype)), g.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RMS_CASES)
+def test_cuda_rmsnorm_kernel_matches_plain(case):
+    """The hand-written RMSNorm kernel against its plain version under
+    every rows-a-block value: fp32 within 1e-5 and bf16 within 2e-2 of
+    max|plain| (the card sums the squares in another order; one bf16
+    spacing); one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.rmsnorm import kernel, rmsnorm_kernel, \
+        rmsnorm_plain
+    R, d, dtype = case
+    x, g = rms_case(24, R, d, dtype)
+    want = rmsnorm_plain(x, g, eps=1e-6)
+    for rb in RMS_ROW_BLOCKS:
+        before = kernel.launches
+        got = rmsnorm_kernel(x, g, eps=1e-6, row_block=rb)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert got.dtype == x.dtype and got.shape == x.shape
+        assert torch.isfinite(got.float()).all()
+        assert _rel(got.float(), want.float()) <= RMS_TOL[dtype], rb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_kernel_reads_an_unaligned_start(dtype):
+    """A contiguous input whose first element lies off a 16-byte boundary
+    takes the scalar path and gives the same rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+    x, g = rms_case(25, 37, 256, dtype)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    xu = buf[1:].view(37, 256)
+    xu.copy_(x)
+    assert xu.is_contiguous() and xu.data_ptr() % 16
+    got = rmsnorm_kernel(xu, g, eps=1e-5, row_block=4)
+    assert _rel(got.float(), rmsnorm_plain(x, g, eps=1e-5).float()) <= \
+        RMS_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_rmsnorm_wrapper_and_norm_switch_launch_the_kernel(tmp_path,
+                                                               monkeypatch):
+    """``rmsnorm(impl="auto")`` and ``apply_norm(use_kernel=True)`` on
+    CUDA tensors launch the kernel (never the plain version), with the
+    tuned rows a block when the cache has one, for any leading shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.rmsnorm import kernel, ops, rmsnorm, \
+        rmsnorm_plain
+    from repro_torch.models.layers import apply_norm
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "t.json"))
+    tuning.get_tuner().cache.put(
+        tuning.cache_key("rmsnorm", "cuda", (30, 96), torch.float32),
+        {"config": {"row_block": 2}, "median_s": 1e-5})
+    used = []
+    real = ops.rmsnorm_kernel
+
+    def spy(*a, **kw):
+        used.append(kw["row_block"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ops, "rmsnorm_kernel", spy)
+    monkeypatch.setattr(ops, "rmsnorm_plain", None)   # must not be called
+    x, g = rms_case(26, 30, 96, "float32")
+    x3 = x.reshape(2, 15, 96)
+    before = kernel.launches
+    out = rmsnorm(x3, g)
+    assert kernel.launches == before + 1 and used == [2]
+    assert out.shape == x3.shape
+    assert _rel(out.reshape(30, 96), rmsnorm_plain(x, g)) <= 1e-5
+    cfg = get_smoke_config("qwen2-1.5b")
+    p = {"scale": torch.ones(cfg.d_model, device="cuda",
+                             dtype=torch.bfloat16)}
+    h = torch.randn(2, 9, cfg.d_model, device="cuda").bfloat16()
+    got = apply_norm(cfg, p, h, use_kernel=True)
+    assert kernel.launches == before + 2
+    assert _rel(got.float(), apply_norm(cfg, p, h).float()) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_rmsnorm_kernel_refuses_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.rmsnorm import kernel, rmsnorm_kernel
+    x, g = rms_case(27, 8, 64, "float32")
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match="forward only"):
+        rmsnorm_kernel(x.clone().requires_grad_(), g, eps=1e-6, row_block=4)
+    with pytest.raises(RuntimeError, match="forward only"):
+        rmsnorm_kernel(x, g.clone().requires_grad_(), eps=1e-6, row_block=4)
+    with pytest.raises(TypeError, match="not supported"):
+        rmsnorm_kernel(x.half(), g, eps=1e-6, row_block=4)
+    with pytest.raises(TypeError, match="gain must be float32"):
+        rmsnorm_kernel(x, g.bfloat16(), eps=1e-6, row_block=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm_kernel(x.t(), g[:8].contiguous(), eps=1e-6, row_block=4)
+    with pytest.raises(ValueError, match="row_block"):
+        rmsnorm_kernel(x, g, eps=1e-6, row_block=33)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rmsnorm_kernel(x, g.cpu(), eps=1e-6, row_block=4)
+    assert kernel.launches == before
+    with torch.no_grad():                  # no graph: nothing to refuse
+        rmsnorm_kernel(x.clone().requires_grad_(), g, eps=1e-6, row_block=4)
+    assert kernel.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_tuner_round_trip(tmp_path):
+    """The autotuner on the card, in a fresh cache: the RMSNorm kernel's
+    candidates timed by CUDA events (a positive per-call time well under a
+    millisecond), then the same bucket a hit that times nothing; the
+    wrapper's lookup returns the winner."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.rmsnorm import kernel, rmsnorm
+    tuner = tuning.Autotuner(tuning.TuningCache(str(tmp_path / "t.json")))
+    x, g = rms_case(28, 4096, 1024, "float32")
+
+    def make_call(cfg):
+        return lambda: rmsnorm(x, g, **cfg)
+
+    before = kernel.launches
+    e = tuner.tune("rmsnorm", make_call, shape=x.shape, dtype=x.dtype,
+                   backend="cuda", flops=3.0 * x.numel(),
+                   bytes_moved=8.0 * x.numel())
+    assert e["timed"] == len(tuning.DEFAULT_CANDIDATES["rmsnorm"])
+    assert e["impl"] == "kernel" and e["backend"] == "cuda"
+    assert 0 < e["median_s"] < 1e-3
+    assert kernel.launches > before
+    launched = kernel.launches
+    again = tuner.tune("rmsnorm", make_call, shape=(4000, 1000),
+                       dtype=x.dtype, backend="cuda")
+    assert again == e and kernel.launches == launched
+    assert tuner.lookup("rmsnorm", x.shape, x.dtype,
+                        backend="cuda") == e["config"]
+    params = tuning.calibrated_cost_params(tuner=tuner, backend="cuda")
+    assert params.mem_bw == pytest.approx(8.0 * x.numel() / e["median_s"])

@@ -77,9 +77,12 @@ def test_rmsnorm_dense_mlp(cfgs):
 
 
 def test_rmsnorm_kernel_switch_raises_only_on_cuda(cfgs):
-    """``use_kernel=True`` selects a kernel that is not ported yet: on a
-    CPU tensor the plain form runs (as every wrapper does), on a CUDA
-    tensor it would raise."""
+    """``use_kernel=True`` selects the RMSNorm kernel wrapper: on a CPU
+    tensor it runs the plain version (as every wrapper does), which gives
+    the plain norm; on a CUDA tensor it launches the kernel
+    (``test_torch_kernels_cuda.py`` holds it there).  The name dates from
+    before the kernel existed, when the switch raised on a CUDA tensor; it
+    is kept so that the test keeps its identity, and nothing raises now."""
     _, tc = cfgs
     x = torch.randn(3, tc.d_model)
     p = {"scale": torch.ones(tc.d_model)}
