@@ -15,9 +15,11 @@ and prints one JSON line per phase:
    serving path gives it (training for the flash kernel, phase 14), holds the result against its plain PyTorch
    version (stated tolerance) and times kernel, plain version and one
    PyTorch library call computing the same attention, beside the least time
-   the card could take (``bound_ms``); the wrapper the decode path calls
-   (kernel plus self-term merge) is held against its gather oracle on the
-   same inputs;
+   the card could take (``bound_ms``); the paged kernel at every
+   ``pages_per_split`` of the tuner's grid and at its default, each held
+   and timed; the wrapper the decode path calls (split pass, then the merge
+   pass with the self term) is held against its gather oracle on the same
+   inputs and timed (``wrapper_ms``);
 4. ``parity``  — full-width qwen2-1.5b (all 28 layers) at fp32 compute:
    prompts are prefilled, then teacher-forced decode steps run through the
    kernel path and through the plain gather path; logits must agree;
@@ -29,7 +31,8 @@ and prints one JSON line per phase:
 6. ``decode_step_paths`` and ``profile`` — a full batch of long prompts:
    decode steps timed alternately through the kernel path and the plain
    gather path, then a few kernel-path steps under ``torch.profiler``:
-   device time by kernel and the device's busy share;
+   device time by kernel, the paged kernels' device time and launches a
+   step, and the device's busy share;
 7. ``kernels`` (``ssd_scan``) — the SSD intra-chunk kernel against its
    plain version at mamba2-370m's serving shapes (H 32, P 64, N 128;
    Q 256 and 16 at one chunk, Q 256 at eight), with strongly negative
@@ -228,9 +231,12 @@ def bound_ms(pages, kv_len, *, B, KV, G, D, ps, window, elt):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def wrapper_case(gen, q, k_pool, v_pool, pages, kv_len, window) -> dict:
-    """The wrapper the decode path calls (q pre-scale and rounding, kernel,
-    self-term LSE merge) against its gather oracle on the same inputs.
+def wrapper_case(gen, q, k_pool, v_pool, pages, kv_len, window, pps):
+    """The wrapper the decode path calls (one kernel call at ``pps`` pages
+    a split: the split pass with q's pre-scale and rounding, the merge pass
+    with the self-term LSE merge) against its gather oracle on the same
+    inputs.  Returns the errors and the wrapper's other inputs (q, kt, vt),
+    for timing.
 
     bf16 tolerance, from the rounding points: the oracle rounds the
     probabilities to bf16 before P.V (the kernel keeps them fp32), which
@@ -245,7 +251,8 @@ def wrapper_case(gen, q, k_pool, v_pool, pages, kv_len, window) -> dict:
     kt = torch.randn((B, KV, 1, D), generator=gen, device=DEV).to(dtype)
     vt = torch.randn((B, KV, 1, D), generator=gen, device=DEV).to(dtype)
     out = paged_decode_attention(qw, k_pool, v_pool, pages, kv_len, kt, vt,
-                                 window=window, impl="kernel")
+                                 window=window, impl="kernel",
+                                 pages_per_split=pps)
     ref = paged_decode_attention(qw, k_pool, v_pool, pages, kv_len, kt, vt,
                                  window=window, impl="ref")
     if out.shape != (B, 1, KV * G, D) or not torch.isfinite(out).all():
@@ -261,13 +268,36 @@ def wrapper_case(gen, q, k_pool, v_pool, pages, kv_len, window) -> dict:
     if err > tol:
         raise AssertionError(f"wrapper disagrees with its gather oracle: "
                              f"{err} > {tol} ({dtype}, window={window})")
-    return {"wrapper_max_abs_err": err, "wrapper_tol": tol}
+    return {"wrapper_max_abs_err": err, "wrapper_tol": tol}, (qw, kt, vt)
+
+
+def kernel_vs_plain(got, want) -> dict:
+    """Errors of the kernel's (acc, m, l) against the plain version's: the
+    normalised output acc / l (absolute), m and l (relative)."""
+    (acc, m, l), (acc_p, m_p, l_p) = got, want
+    for name, t in (("acc", acc), ("m", m), ("l", l)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"kernel {name} not finite")
+    out = acc / l.clamp_min(1e-30)[..., None]
+    out_p = acc_p / l_p.clamp_min(1e-30)[..., None]
+    return {"max_abs_err": float((out - out_p).abs().max()),
+            "m_rel_err": float(((m - m_p).abs() / (1 + m_p.abs())).max()),
+            "l_rel_err": float(((l - l_p).abs() / l_p.clamp_min(1.0)).max())}
 
 
 def kernel_phase(n_layers: int) -> dict:
+    """The paged kernel at every pages-a-split value of the tuner's grid and
+    at its default, against its plain version (``KERNEL_TOL``), in fp32 and
+    bf16, with and without a window and a trash tail; timed at each, beside
+    its plain version, its bound, one SDPA call over the gathered view and
+    the whole wrapper the decode path calls."""
     from repro_torch.kernels.paged_attention import (paged_attention_kernel,
-                                                     paged_attention_plain)
+                                                     paged_attention_plain,
+                                                     paged_decode_attention)
+    from repro_torch.kernels.paged_attention.kernel import \
+        default_pages_per_split
     from repro_torch.kernels.paged_attention.ref import gather_pages_ref
+    from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -276,6 +306,8 @@ def kernel_phase(n_layers: int) -> dict:
     # max_len 2048 (128 pages a slot); ragged lengths, one free slot
     B, KV, G, D, ps, n_pages = 8, 2, 6, 128, 16, 128
     kv_lens = [2048, 1999, 1500, 1024, 777, 300, 17, 0]
+    default_pps = default_pages_per_split(B, KV, n_pages)
+    grid = [c["pages_per_split"] for c in DEFAULT_CANDIDATES["paged_attention"]]
     gen = torch.Generator(device=DEV).manual_seed(0)
     max_err = 0.0
     main_case = None
@@ -284,28 +316,28 @@ def kernel_phase(n_layers: int) -> dict:
             q, kp, vp, pages, kv_len = paged_inputs(
                 gen, B=B, KV=KV, G=G, D=D, ps=ps, n_pages=n_pages,
                 kv_lens=kv_lens, dtype=dtype, trash_tail=trash_tail)
-            acc, m, l = paged_attention_kernel(q, kp, vp, pages, kv_len,
-                                               window=window)
-            torch.cuda.synchronize()
-            acc_p, m_p, l_p = paged_attention_plain(q, kp, vp, pages, kv_len,
-                                                    window=window)
-            for name, t in (("acc", acc), ("m", m), ("l", l)):
-                if not torch.isfinite(t).all():
-                    raise AssertionError(f"kernel {name} not finite "
-                                         f"({dtype}, window={window})")
-            out = acc / l.clamp_min(1e-30)[..., None]
-            out_p = acc_p / l_p.clamp_min(1e-30)[..., None]
-            err = float((out - out_p).abs().max())
-            err_m = float(((m - m_p).abs() / (1 + m_p.abs())).max())
-            err_l = float(((l - l_p).abs() / l_p.clamp_min(1.0)).max())
+            want = paged_attention_plain(q, kp, vp, pages, kv_len,
+                                         window=window)
+            errs = {}
+            for pps in [None, *grid]:
+                got = paged_attention_kernel(q, kp, vp, pages, kv_len,
+                                             window=window,
+                                             pages_per_split=pps)
+                torch.cuda.synchronize()
+                e = kernel_vs_plain(got, want)
+                errs["default" if pps is None else str(pps)] = e
+                if max(e.values()) > KERNEL_TOL:
+                    raise AssertionError(
+                        f"kernel disagrees with plain at pages_per_split "
+                        f"{pps} ({dtype}, window={window}): {e}")
+                max_err = max(max_err, e["max_abs_err"])
             case = {"dtype": str(dtype).replace("torch.", ""),
                     "window": window, "trash_tail": trash_tail,
-                    "max_abs_err": err, "m_rel_err": err_m,
-                    "l_rel_err": err_l, "tol": KERNEL_TOL}
-            if max(err, err_m, err_l) > KERNEL_TOL:
-                raise AssertionError(f"kernel disagrees with plain: {case}")
-            max_err = max(max_err, err)
-            case.update(wrapper_case(gen, q, kp, vp, pages, kv_len, window))
+                    **errs["default"], "tol": KERNEL_TOL,
+                    "err_by_pages_per_split": errs}
+            wcase, (qw, kt, vt) = wrapper_case(gen, q, kp, vp, pages, kv_len,
+                                               window, default_pps)
+            case.update(wcase)
 
             # timing: rotate over enough pool copies to exceed the 50 MB
             # L2, as in a decode step where 28 layers' weights pass between
@@ -313,8 +345,15 @@ def kernel_phase(n_layers: int) -> dict:
             elt = kp.element_size()
             n_copies = max(2, math.ceil(100e6 / (2 * kp.numel() * elt)))
             pools = [(kp.clone(), vp.clone()) for _ in range(n_copies)]
+            ms_by = {str(p): cuda_ms(lambda i, p=p: paged_attention_kernel(
+                q, *pools[i % n_copies], pages, kv_len, window=window,
+                pages_per_split=p), 50) for p in grid}
             ms = cuda_ms(lambda i: paged_attention_kernel(
                 q, *pools[i % n_copies], pages, kv_len, window=window), 50)
+            wrapper_ms = cuda_ms(lambda i: paged_decode_attention(
+                qw, *pools[i % n_copies], pages, kv_len, kt, vt,
+                window=window, impl="kernel", pages_per_split=default_pps),
+                50)
             plain_ms = cuda_ms(lambda i: paged_attention_plain(
                 q, *pools[i % n_copies], pages, kv_len, window=window), 3)
             # library yardstick: one scaled_dot_product_attention call over
@@ -332,8 +371,10 @@ def kernel_phase(n_layers: int) -> dict:
                 qh, *views[i % n_copies], attn_mask=mask), 50)
             bms, by = bound_ms(pages, kv_len, B=B, KV=KV, G=G, D=D, ps=ps,
                                window=window, elt=elt)
-            case.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                        bound_ms=bms, bound_by=by)
+            case.update(ms=ms, pages_per_split=default_pps,
+                        ms_by_pages_per_split=ms_by, wrapper_ms=wrapper_ms,
+                        plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=bms, bound_by=by, ms_over_bound=ms / bms)
             emit("kernels", kernel="paged_attention",
                  shape={"B": B, "KV": KV, "G": G, "D": D, "page_size": ps,
                         "n_pages": n_pages, "kv_len": kv_lens}, **case)
@@ -348,6 +389,9 @@ def kernel_phase(n_layers: int) -> dict:
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
+            "wrapper_ms": main_case["wrapper_ms"],
+            "pages_per_split": default_pps,
+            "ms_by_pages_per_split": main_case["ms_by_pages_per_split"],
             "launches_per_decode_step": n_layers}
 
 
@@ -495,7 +539,7 @@ def parity_phase() -> None:
     torch.cuda.empty_cache()
 
 
-def serve_phase(kernel_mod) -> tuple[int, int]:
+def serve_phase(kernel_mod) -> tuple[int, int, float]:
     from repro_torch.configs import get_config
     from repro_torch.serve import PagedEngine, ServeScheduler
     from repro_torch.weights import init_params
@@ -571,19 +615,21 @@ def serve_phase(kernel_mod) -> tuple[int, int]:
          kernel_launches=launches,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     eng.decode = decode
-    profile_decode(sched, cfg, rng)
-    return launches, steps
+    per_call = profile_decode(sched, cfg, rng, kernel_mod)
+    return launches, steps, per_call
 
 
-def profile_decode(sched, cfg, rng, n_steps: int = 8,
-                   n_pairs: int = 4) -> None:
+def profile_decode(sched, cfg, rng, kernel_mod, n_steps: int = 8,
+                   n_pairs: int = 4) -> float:
     """Where a decode step's time goes: a full batch of long prompts is
     prefilled; then decode-only scheduler steps run, first ``n_pairs``
     pairs timed alternately through the kernel path and the plain gather
     path (``attn_impl`` "kernel" / "ref", in the order kernel, ref, ref,
     kernel, ...), then ``n_steps`` through the kernel path under
     ``torch.profiler``: device time by kernel name and the device's busy
-    share of the window (kernel time summed over wall time)."""
+    share of the window (kernel time summed over wall time).  Returns the
+    paged device kernels the profiler saw a counted wrapper call in that
+    window (2: the split pass and the merge pass)."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = sched.engine
@@ -606,6 +652,7 @@ def profile_decode(sched, cfg, rng, n_steps: int = 8,
          kernel_ms=step_ms["kernel"], ref_ms=step_ms["ref"],
          kernel_ms_median=float(np.median(step_ms["kernel"])),
          ref_ms_median=float(np.median(step_ms["ref"])))
+    kernel_mod.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -613,9 +660,15 @@ def profile_decode(sched, cfg, rng, n_steps: int = 8,
             sched.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    calls = kernel_mod.launches
 
-    emit_profile("profile", prof, wall, "decode_steps", n_steps, "step")
+    per_call = emit_profile("profile", prof, wall, "decode_steps", n_steps,
+                            "step", focus="paged_", focus_calls=calls)
+    if per_call != 2:
+        raise AssertionError(f"{per_call} paged device kernels a wrapper "
+                             f"call ({calls} calls profiled), expected 2")
     sched.run()
+    return per_call
 
 
 def dev_us(ev) -> float:
@@ -626,23 +679,40 @@ def dev_us(ev) -> float:
 
 
 def emit_profile(phase: str, prof, wall: float, count_key: str, n: int,
-                 per: str) -> None:
+                 per: str, focus: str | None = None,
+                 focus_calls: int = 0) -> float | None:
     """Device time by kernel name and the device's busy share (kernel time
     summed over wall time) of a profiled window of ``n`` steps or chunks
-    (``per``)."""
+    (``per``); with ``focus``, also the device time and launches of the
+    kernels whose name holds it, and their launches a counted wrapper call
+    (``focus_calls`` calls in the window), which it returns."""
     # device-side events only (kernels and copies): CPU ops carry their
     # children's device time too, and would count it twice
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    emit(phase, **{count_key: n, f"wall_ms_per_{per}": wall * 1e3 / n,
+    extra = {}
+    if focus is not None:
+        mine = [e for e in events if focus in e.key]
+        n_launch = sum(e.count for e in mine)
+        extra = {f"{focus}kernels_ms_per_{per}":
+                 sum(dev_us(e) for e in mine) / 1e3 / n,
+                 f"{focus}kernels_launches_per_{per}": n_launch / n,
+                 f"{focus}wrapper_calls": focus_calls,
+                 f"{focus}kernels_per_call": (n_launch / focus_calls
+                                              if focus_calls else None),
+                 f"{focus}kernels": [{"name": e.key[:80], "calls": e.count,
+                                      f"ms_per_{per}": dev_us(e) / 1e3 / n}
+                                     for e in mine]}
+    emit(phase, **extra, **{count_key: n, f"wall_ms_per_{per}": wall * 1e3 / n,
                    f"device_busy_ms_per_{per}": busy_ms / n,
                    "device_busy_share": (busy_ms / (wall * 1e3)
                                          if events else None),
                    "top_kernels": [{"name": e.key[:80], "calls": e.count,
                                     f"ms_per_{per}": dev_us(e) / 1e3 / n}
                                    for e in top]})
+    return extra.get(f"{focus}kernels_per_call")
 
 
 def prefill_through(eng, slot: int, prompt, page_ids, impl: str):
@@ -1820,8 +1890,14 @@ def kernel_bench_phase(mods) -> dict:
         r["flops_share_of_fp32_peak"] = (r["flops"] / r["median_s"]
                                          / H100_FP32_FLOPS)
         emit("kernel_bench_row", **r)
+    by_name = {r["name"]: r for r in rows}
+    paged = {k: by_name.get(f"paged_attention_{k}") for k in ("ref", "tuned")}
     emit("kernel_bench", rows=len(rows), ref_rows=len(ref),
-         tuned_rows=len(tuned), wall_s=wall, launches=launches)
+         tuned_rows=len(tuned), wall_s=wall, launches=launches,
+         paged_attention={
+             "ref_s": paged["ref"] and paged["ref"]["median_s"],
+             "tuned_s": paged["tuned"] and paged["tuned"]["median_s"],
+             "tuned_config": paged["tuned"] and paged["tuned"]["config"]})
     if len(ref) != 6 or len(tuned) != 5:
         raise AssertionError(f"kernel bench gave {len(ref)} ref and "
                              f"{len(tuned)} tuned rows, expected 6 and 5")
@@ -1934,9 +2010,10 @@ def main() -> int:
 
     entry = kernel_phase(n_layers=28)
     parity_phase()
-    launches, steps = serve_phase(pa_kernel)
+    launches, steps, per_call = serve_phase(pa_kernel)
     entry["launches"] = launches
     entry["launches_per_decode_step"] = launches / steps
+    entry["device_kernels_per_call"] = per_call
 
     ssd_entry = ssd_kernel_phase(n_layers=48)
     parity_ssm_phase()

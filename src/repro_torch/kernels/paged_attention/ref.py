@@ -13,7 +13,12 @@ Two functions, at two levels:
   ``models.attention._decode_attn_plus_self``.
 
 Both are the CPU path of :func:`..ops.paged_decode_attention`; on the card
-they run only when asked for by name.
+they run only when asked for by name.  Two more spell out the kernel's
+split plan, for the tests: :func:`paged_attention_split_plain` gives each
+split of ``pages_per_split`` logical pages its own partial
+``(acc, m, l)``, and :func:`merge_splits_plain` merges the partials (and,
+given ``kt``/``vt``, the self term) as the merge pass does.  Nothing on the
+serving path calls them.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import math
 import torch
 
 __all__ = ["NEG_INF", "gather_pages_ref", "paged_attention_plain",
+           "paged_attention_split_plain", "merge_splits_plain",
            "paged_decode_attention_ref"]
 
 NEG_INF = -2.3819763e38
@@ -51,16 +57,22 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     ``(j+1)*ps - 1 >= kv_len + 1 - window``); inside a running page,
     positions past ``kv_len`` or before the window are NEG_INF, and the
     trash page reads as zeros."""
+    return _walk_pages(q, k_pool, v_pool, pages, kv_len, window, 0,
+                       pages.shape[1])
+
+
+def _walk_pages(q, k_pool, v_pool, pages, kv_len, window, j0: int, j1: int):
+    """The online softmax over logical pages ``j0 <= j < j1`` of every
+    slot, each page skipped and masked as the kernel does."""
     B, KV, G, D = q.shape
     ps = k_pool.shape[2]
-    n_pages = pages.shape[1]
     qf = q.float()
     kv_len = kv_len.reshape(-1).to(torch.int64)
     m = torch.full((B, KV, G), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, KV, G), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, KV, G, D), dtype=torch.float32, device=q.device)
     t = torch.arange(ps, device=q.device)
-    for j in range(n_pages):
+    for j in range(j0, j1):
         run = j * ps < kv_len                                          # (B,)
         if window is not None:
             run = run & ((j + 1) * ps - 1 >= kv_len + 1 - window)
@@ -85,6 +97,46 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
         l = torch.where(r, l_new, l)
         acc = torch.where(r[..., None], acc_new, acc)
     return acc, m, l
+
+
+def paged_attention_split_plain(q, k_pool, v_pool, pages, kv_len,
+                                window: int | None = None, *,
+                                pages_per_split: int):
+    """The split pass in torch: split ``s`` walks logical pages
+    ``[s*pps, (s+1)*pps)`` alone.  Inputs as :func:`paged_attention_plain`;
+    returns fp32 ``acc_s`` (B, KV, n_split, G, D) and ``m_s``, ``l_s``
+    (B, KV, n_split, G), ``n_split = ceil(n_pages / pps)``.  A split with
+    no running page is empty: m NEG_INF, l 0, acc 0."""
+    n_pages = pages.shape[1]
+    parts = [_walk_pages(q, k_pool, v_pool, pages, kv_len, window, j0,
+                         min(j0 + pages_per_split, n_pages))
+             for j0 in range(0, n_pages, pages_per_split)]
+    return tuple(torch.stack(t, dim=2) for t in zip(*parts))
+
+
+def merge_splits_plain(acc_s, m_s, l_s, *, q=None, kt=None, vt=None):
+    """The merge pass in torch: the log-sum-exp merge of the partials of
+    :func:`paged_attention_split_plain` into ``(acc, m, l)`` (what
+    :func:`paged_attention_plain` gives).  Given q (B, KV, G, D) pre-scaled
+    in its dtype and the current token's kt, vt (B, KV, 1, D), also the
+    self term, then the normalised (B, 1, H, D) output in q's dtype, as
+    the decode wrapper returns it."""
+    m = m_s.amax(dim=2)
+    w = torch.exp(m_s - m[:, :, None])
+    l = (w * l_s).sum(dim=2)
+    acc = (w[..., None] * acc_s).sum(dim=2)
+    if kt is None:
+        return acc, m, l
+    B, KV, G, D = q.shape
+    s_self = torch.einsum("bkgd,bktd->bkgt", q.float(),
+                          kt.to(q.dtype).float())[..., 0]
+    m_tot = torch.maximum(m, s_self)
+    alpha = torch.exp(m - m_tot)
+    beta = torch.exp(s_self - m_tot)
+    out = alpha[..., None] * acc + beta[..., None] * vt[:, :, 0, :].float()[
+        :, :, None, :]
+    out = out / (alpha * l + beta)[..., None]
+    return out.reshape(B, 1, KV * G, D).to(q.dtype)
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, pages, kv_len, kt, vt, *,

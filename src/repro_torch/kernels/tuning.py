@@ -61,14 +61,15 @@ __all__ = [
 
 # Candidate grids per kernel: CUDA launch shapes, each a valid kwarg set of
 # the kernel's ops-level wrapper.  The RMSNorm kernel takes its rows (warps)
-# a block at launch; the other kernels have one fixed launch shape each, so
+# a block at launch, the paged flash-decode kernel its logical pages a
+# split (block); the other kernels have one fixed launch shape each, so
 # their grid is one empty config, and timing it feeds the cost-model bridge.
 DEFAULT_CANDIDATES: dict[str, list[dict[str, int]]] = {
     "rmsnorm": [{"row_block": r} for r in (1, 2, 4, 8)],
     "jacobi_sweep": [{}],
     "flash_attention": [{}],
     "ssd_scan": [{}],
-    "paged_attention": [{}],
+    "paged_attention": [{"pages_per_split": p} for p in (1, 2, 4, 8, 16)],
 }
 
 #: shortest sample: calls per sample are raised until one lasts this long

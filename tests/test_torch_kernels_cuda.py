@@ -7,8 +7,10 @@ package, so it runs on the machine with the card::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-The input builder and the paged-attention cases are shared with the CPU
-parity tests (``test_torch_paged_attention.py``); the SSD inputs follow
+The input builder and the paged-attention cases (the JAX package's, and
+the split plan's edge cases) are shared with the CPU parity tests
+(``test_torch_paged_attention.py``); the paged kernel runs at every
+pages-a-split value of the tuner's grid.  The SSD inputs follow
 the JAX package's kernel test, with strongly negative decays added; the
 Jacobi inputs follow ``apps/jacobi.py``'s ``make_system`` at ragged N,
 N 1 and the paper's largest N; the RMSNorm cases are ``chip_smoke.py``'s,
@@ -22,6 +24,7 @@ from repro_torch.kernels.jacobi_sweep import (jacobi_sweep_plain,
                                               jacobi_sweep_residual_plain)
 from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.kernels.ssd_scan import ssd_intra_chunk_plain
+from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
 
 # B, H, KV, D, page_size, n_slot_pages, kv_lens, window, share, trash —
 # the JAX package's cases (ragged, windowed, COW-shared, mid-prefill
@@ -34,6 +37,29 @@ PA_CASES = [
     (2, 4, 2, 32, 8, 5, (37, 21), None, False, 1),
     (2, 4, 1, 64, 16, 2, (9, 25), 7, True, 0),
     (3, 4, 2, 32, 8, 4, (9, 16, 30), 1, False, 0),
+]
+
+# the split plan's edge cases, in the same layout
+SPLIT_CASES = [
+    (2, 4, 2, 32, 8, 7, (0, 0), None, False, 0),        # every split empty
+    (2, 4, 2, 32, 8, 5, (1, 8), None, False, 0),        # kv_len 1; a page end
+    (3, 4, 2, 32, 8, 7, (56, 24, 16), None, False, 0),  # 7 pages: no pps fits
+    (3, 4, 2, 32, 8, 7, (9, 16, 0), 1, False, 0),       # window 1, a free slot
+    # G 5; D 40: bf16 rows of 80 bytes take the scalar staging path
+    (2, 10, 2, 40, 4, 5, (19, 3), None, False, 1),
+    # G 16: two blocks of query rows; fp32 D 256: two column slices
+    (2, 32, 2, 256, 8, 3, (17, 9), 5, False, 0),
+    # D 42: not a multiple of 4, so the merge pass reads scalars too
+    (2, 6, 2, 42, 8, 4, (29, 8), 5, False, 0),
+]
+
+# card only: fp32 pages of 64 x 256, where two stages of K and V overrun
+# a block's shared memory, so the split pass stages one page at a time
+# (a trash tail too).  Not a CPU case: its raw 64-term page sums differ
+# from the Pallas kernel's by more than the CPU tests' 2e-6 in any order,
+# the unsplit plain version's too.
+STAGING_CASES = [
+    (2, 4, 2, 256, 64, 3, (150, 64), None, False, 1),
 ]
 
 
@@ -69,23 +95,20 @@ def _torch(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", PA_CASES)
-def test_cuda_kernel_matches_plain(case, dtype):
-    """The hand-written kernel against its plain version, on the card."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+def _kernel_vs_plain(case, dtype, pps, seed=15):
+    """The kernel's (acc, m, l) against its plain version's on ``case``
+    at ``pps`` pages a split (None: the kernel's default)."""
     from repro_torch.kernels.paged_attention import paged_attention_kernel
     B, H, KV, D, ps, n, lens, window, share, trash = case
     q, kp, vp, tbl, kv_len, _, _ = paged_case(
-        15, B, H, KV, D, ps, n, lens, share=share, trash_tail=trash)
+        seed, B, H, KV, D, ps, n, lens, share=share, trash_tail=trash)
     dt = getattr(torch, dtype)
     G = H // KV
     qg = torch.from_numpy(q.reshape(B, KV, G, D) / np.sqrt(D)).to(dt)
     args = [qg] + [t.to(dt) for t in _torch(kp, vp)] + _torch(tbl, kv_len)
     args = [a.cuda() for a in args]
-    acc, m, l = paged_attention_kernel(*args, window=window)
+    acc, m, l = paged_attention_kernel(*args, window=window,
+                                       pages_per_split=pps)
     acc_p, m_p, l_p = paged_attention_plain(*args, window=window)
     torch.testing.assert_close(m, m_p, atol=1e-5, rtol=1e-5)
     # acc / l: the attention output before the self term (a slot with no
@@ -93,6 +116,37 @@ def test_cuda_kernel_matches_plain(case, dtype):
     torch.testing.assert_close(acc / l.clamp_min(1e-30)[..., None],
                                acc_p / l_p.clamp_min(1e-30)[..., None],
                                atol=1e-5, rtol=1e-5)
+
+
+PPS_GRID = [c["pages_per_split"]
+            for c in DEFAULT_CANDIDATES["paged_attention"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pps", PPS_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PA_CASES + SPLIT_CASES + STAGING_CASES,
+                         ids=[f"paged{i}" for i in
+                              range(len(PA_CASES + SPLIT_CASES
+                                        + STAGING_CASES))])
+def test_cuda_kernel_matches_plain(case, dtype, pps):
+    """The hand-written kernel against its plain version, on the card, at
+    every pages-a-split value of the tuner's grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _kernel_vs_plain(case, dtype, pps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pps", PPS_GRID + [None])
+def test_cuda_paged_kernel_long_context(pps):
+    """The serving shape: qwen2-1.5b's heads (G 6, D 128) over 128 pages
+    of 16 at batch 8, ragged lengths up to 2048 and a free slot, fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    case = (8, 12, 2, 128, 16, 128, (2048, 1999, 1500, 1024, 777, 300, 17,
+                                     0), None, False, 0)
+    _kernel_vs_plain(case, "float32", pps)
 
 
 @pytest.mark.cuda
@@ -116,6 +170,23 @@ def test_cuda_wrapper_launches_kernel_and_matches_ref(dtype):
     assert torch.isfinite(out).all()
     tol = 1e-5 if dt == torch.float32 else 1e-2     # one bf16 rounding
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pps", [1, 16])
+def test_cuda_paged_wrapper_takes_every_length_form(pps):
+    """kv_len as an int, a one-element tensor, an int64 (B,) tensor and
+    the int32 (B,) the decode path holds give one answer, fp32 kt/vt."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    arrays = paged_case(20, 3, 8, 2, 64, 8, 6, (41, 41, 41))
+    q, kp, vp, tbl, kv_len, kt, vt = [a.cuda() for a in _torch(*arrays)]
+    ref = paged_decode_attention(q, kp, vp, tbl, kv_len, kt, vt, impl="ref")
+    for kl in (41, torch.tensor([41], device="cuda"), kv_len.long(), kv_len):
+        out = paged_decode_attention(q, kp, vp, tbl, kl, kt, vt,
+                                     pages_per_split=pps)
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
 
 
 # BC, H, Q, P, N: the serving shape at the largest and smallest chunk
