@@ -65,28 +65,36 @@ and prints one JSON line per phase:
    then 100 iterations of the tailored kernel loop and of a HyPar sync
    solve at n 7209 under ``torch.profiler`` (device time by kernel, busy
    share);
-14. ``kernels`` (``flash_attention``) — the flash-attention kernel against
-   its plain version (output 2e-2 bf16 / 1e-5 fp32, LSE 1e-4) at the
-   training shape (B 2, S 4096, H 12, KV 2, D 128, causal, bf16), in fp32,
-   with a sliding window, at ragged S, at head width 24 and with rows that
-   see no key; timed beside its plain version, its bound and
-   ``scaled_dot_product_attention``; its autograd Function's gradients
-   (kernel forward) against autograd through the plain version, and its
-   torch-ops backward timed beside SDPA's;
+14. ``kernels`` (``flash_attention``) — both flash-attention kernels
+   against their plain versions at the training shape (B 2, S 4096, H 12,
+   KV 2, D 128, causal, bf16), in fp32, with a sliding window, at ragged
+   S, at head width 24 and with rows that see no key: the forward at every
+   (``q_block``, ``kv_block``) of the tuner's grid (output 2e-2 bf16 /
+   1e-5 fp32, LSE 1e-4); the backward on the forward's output and LSE with
+   one seeded dO (dq, dk, dv within 2e-2 bf16 / 1e-4 fp32 of max|plain|,
+   bit-identical on a repeat call, dq zero on rows that see no key); each
+   timed beside its bound, the training shape also beside its plain
+   version and ``scaled_dot_product_attention``'s forward and backward,
+   the forward at every launch shape; the autograd Function's gradients
+   (both kernels) against autograd through the plain version, fp32;
 15. ``train`` — full-width qwen2-1.5b (28 layers) trained by the fused
    step: fp32 params, bf16 compute, AdamW at 3e-4, ``remat="full"``, seq
    4096, global batch 4 in 2 micro-batches, 4 steps, data from
    ``SyntheticLMStream`` (seed 0), weights from a seeded generator.  Step
    time, tokens/s, ``mfu``, peak memory, loss and grad norm per step; the
-   flash kernel must launch steps x 2 x 28 x 2 times (the 2nd 2 is the
-   remat recompute), and step 1 must match the plain path
-   (``impl="tiled"``: loss 1e-3, grad norm 2e-2); then one step under
-   ``torch.profiler`` (busy share, the kernel's share);
+   flash forward must launch steps x 2 x 28 x 2 times (the 2nd 2 is the
+   remat recompute) and the backward kernel be called steps x 2 x 28
+   times, and step 1 must match the plain path (``impl="tiled"``: loss
+   1e-3, grad norm 2e-2); then one step under ``torch.profiler``: busy
+   share, the device time of each flash half, three device kernels a
+   backward call, and no einsum;
 16. ``train_hypar`` — ``HyParTrainer`` (sync) against the fused step at
    the same widths, 4 layers, 3 steps of 2 micro-batches: seconds of each,
-   HyPar's overhead, final params within 1e-6 (and whether to the bit);
+   HyPar's overhead, final params within 1e-6 (and whether to the bit),
+   the forward and backward counts of each;
 17. ``train_launcher`` — ``repro_torch.launch.train.main`` at ``--smoke``:
-   6 steps with a checkpoint every 3, then a resume to 8;
+   6 steps with a checkpoint every 3, then a resume to 8, the forward and
+   backward counts of each run;
 18. ``kernels`` (``rmsnorm``) and ``norm_switch`` — the RMSNorm kernel
    against its plain version (fp32 1e-5, bf16 2e-2 of max|plain|) at the
    kernel bench's (4096, 1024) fp32, qwen2-1.5b's (8192, 1536) bf16,
@@ -96,14 +104,15 @@ and prints one JSON line per phase:
    True)`` against the plain norm on a full-width qwen2-1.5b hidden state;
 19. ``kernel_bench_check`` and ``kernel_bench`` — first every wrapper the
    autotune pass tunes, on its inputs at the bench's shapes, under every
-   candidate config of the tuner, against ``impl="ref"`` (fp32; flash and
-   RMSNorm 1e-5, SSD 1e-4, Jacobi 1e-5, paged 1e-5); then
+   candidate config of the tuner, against ``impl="ref"`` (fp32: RMSNorm
+   1e-5, SSD 1e-4, Jacobi 1e-5, paged 1e-5; the flash forward in bf16,
+   2e-2); then
    ``repro_torch.benchmarks.kernel_bench.run`` on the card into a fresh
    tuning cache: 6 plain-version rows and 5 tuned rows
    (one ``kernel_bench_row`` line each, with its rates as shares of the
    card's peaks), the launch counts set to 0 before and read after; a
    second autotune pass that must hit the cache for every kernel and time
-   nothing; the calibrated cost model beside ``CostModelParams()`` and the
+   nothing; the flash row must name a launch shape of the grid; the calibrated cost model beside ``CostModelParams()`` and the
    card's peaks (no rate above 1.05 of its peak);
 20. ``jacobi_cost`` — ``jacobi_hypar(strategy="cost")`` at n 2709 seeded
    from that cache: the same iterations and x within 1e-5 of the tailored
@@ -1282,6 +1291,10 @@ H100_BF16_FLOPS = 989e12         # dense bf16 tensor-core peak
 FA_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # the reference's own
 FA_LSE_TOL = 1e-4
 FA_GRAD_TOL = 1e-4               # Function (kernel forward) vs autograd
+# backward kernel vs plain backward, max|Δ| / max|plain| of dq, dk and dv:
+# fp32 sums in other orders; bf16 rounds P and dS as product operands and
+# its outputs to bf16 (the forward's own bf16 tolerance)
+FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # name, B, S, T, H, KV, D, causal, window, dtype: the training shape
 # (qwen2-1.5b at seq 4096, micro-batch 2), fp32, a sliding window, ragged
 # S, the smoke configs' head width, and S > T with rows that see no key
@@ -1304,6 +1317,7 @@ TRAIN_GNORM_TOL = 2e-2           # kernel vs plain path, grad norm, rel
 HYPAR_LAYERS = 4
 HYPAR_STEPS = 3
 HYPAR_PARAM_TOL = 1e-6           # HyPar vs fused final params, rel
+FA_BWD_KERNELS = 3               # device kernels a backward call
 
 
 def visible_pairs(S, T, causal, window) -> int:
@@ -1314,14 +1328,7 @@ def visible_pairs(S, T, causal, window) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def fa_bound(B, S, T, H, KV, D, causal, window, dtype) -> dict:
-    """Least time for the kernel's work on these inputs: operations (4·D
-    per visible pair: q·k and p·v) over the peak of the dtype's units
-    (tensor cores for bf16, FMA for fp32), against q, k, v read once and
-    the output and LSE written once over the memory rate."""
-    elt = torch.tensor([], dtype=dtype).element_size()
-    flops = 4 * B * H * D * visible_pairs(S, T, causal, window)
-    nbytes = (2 * B * S * H * D + 2 * B * T * KV * D) * elt + B * H * S * 4
+def _bound(flops, nbytes, dtype) -> dict:
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
@@ -1330,93 +1337,189 @@ def fa_bound(B, S, T, H, KV, D, causal, window, dtype) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
+def fa_bound(B, S, T, H, KV, D, causal, window, dtype) -> dict:
+    """Least time for the forward on these inputs: operations (4·D per
+    visible pair: q·k and p·v) over the peak of the dtype's units (tensor
+    cores for bf16, FMA for fp32), against q, k, v read once and the
+    output and LSE written once over the memory rate."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    flops = 4 * B * H * D * visible_pairs(S, T, causal, window)
+    nbytes = (2 * B * S * H * D + 2 * B * T * KV * D) * elt + B * H * S * 4
+    return _bound(flops, nbytes, dtype)
+
+
+def fa_bwd_bound(B, S, T, H, KV, D, causal, window, dtype) -> dict:
+    """Least time for the backward: 10·D operations per visible pair (q·k
+    and dO·vᵀ recomputed, dV, dQ, dK), against q, k, v, O, dO and LSE read
+    once and dq, dk, dv written once."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    flops = 10 * B * H * D * visible_pairs(S, T, causal, window)
+    nbytes = (4 * B * S * H * D + 4 * B * T * KV * D) * elt + B * H * S * 4
+    return {f"bwd_{k}": v for k, v in _bound(flops, nbytes, dtype).items()}
+
+
 def fa_inputs(gen, B, S, T, H, KV, D, dtype):
     return [torch.randn(shape, generator=gen, device=DEV).to(dtype)
             for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D))]
 
 
-def flash_kernel_phase() -> dict:
-    """The flash kernel against its plain version on the cases above; the
-    training shape timed beside its plain version, its bound and
-    ``scaled_dot_product_attention``; the Function's backward (kernel
-    forward) against autograd through the plain version, and timed beside
-    SDPA's backward."""
+def _rotating(tensors, floor_bytes: float = 100e6) -> list[tuple]:
+    """Copies of ``tensors`` that together exceed ``floor_bytes`` (twice
+    the L2), so a timed call finds its inputs in device memory."""
+    n = max(2, math.ceil(floor_bytes / sum(
+        t.numel() * t.element_size() for t in tensors)))
+    return [tuple(t.clone() for t in tensors) for _ in range(n)]
+
+
+def flash_kernel_phase() -> tuple[dict, dict]:
+    """Both flash kernels against their plain versions on the cases above:
+    the forward at every launch shape of the tuner's grid, the backward
+    (on the kernel forward's output and LSE, one seeded dO) twice, which
+    must agree to the bit; every case timed; the training shape also
+    beside the plain versions, the bounds and SDPA's forward and backward.
+    Returns the summary entries of the forward and the backward."""
     from repro_torch.kernels.flash_attention import (
-        FlashAttentionFn, flash_attention_backward, flash_attention_kernel,
+        FlashAttentionFn, flash_attention_backward_kernel,
+        flash_attention_backward_plain, flash_attention_kernel,
         flash_attention_plain)
+    from repro_torch.kernels.flash_attention.kernel import (
+        BLOCKS, DEFAULT_KV_BLOCK, DEFAULT_Q_BLOCK)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(4)
+    grid = [(qb, kb) for qb in BLOCKS for kb in BLOCKS]
+    default = f"{DEFAULT_Q_BLOCK}x{DEFAULT_KV_BLOCK}"
     entry = None
     for name, B, S, T, H, KV, D, causal, window, dtype in FA_CASES:
         q, k, v = fa_inputs(gen, B, S, T, H, KV, D, dtype)
-        out, lse = flash_attention_kernel(q, k, v, causal=causal,
-                                          window=window)
-        torch.cuda.synchronize()
+        dout = torch.randn(q.shape, generator=gen, device=DEV).to(dtype)
         out_p, lse_p = flash_attention_plain(q, k, v, causal=causal,
                                              window=window)
-        if (out.shape != q.shape or out.dtype != dtype
-                or not torch.isfinite(out.float()).all()
-                or not torch.isfinite(lse).all()):
-            raise AssertionError(f"flash kernel output misshapen or not "
-                                 f"finite ({name})")
-        err = float((out.float() - out_p.float()).abs().max())
-        lse_err = float((lse - lse_p).abs().max())
         case = {"case": name, "B": B, "S": S, "T": T, "H": H, "KV": KV,
                 "D": D, "causal": causal, "window": window,
                 "dtype": str(dtype).replace("torch.", ""),
-                "max_abs_err": err, "tol": FA_TOL[dtype],
-                "lse_max_abs_err": lse_err, "lse_tol": FA_LSE_TOL}
-        if err > FA_TOL[dtype] or lse_err > FA_LSE_TOL:
-            raise AssertionError(f"flash kernel disagrees with plain: {case}")
-        if name == "no_visible_key":
-            dark = T + window - 1         # first row that sees no key
-            case["rows_with_no_key"] = S - dark
-            if out[:, dark:].abs().max() != 0:
+                "tol": FA_TOL[dtype], "lse_tol": FA_LSE_TOL,
+                "default_launch_shape": default, "err_by_launch_shape": {}}
+        dark = T + window - 1 if name == "no_visible_key" else None
+        for qb, kb in grid:
+            out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                              window=window, q_block=qb,
+                                              kv_block=kb)
+            torch.cuda.synchronize()
+            if (out.shape != q.shape or out.dtype != dtype
+                    or not torch.isfinite(out.float()).all()
+                    or not torch.isfinite(lse).all()):
+                raise AssertionError(f"flash kernel output misshapen or not "
+                                     f"finite ({name}, {qb}x{kb})")
+            err = float((out.float() - out_p.float()).abs().max())
+            lse_err = float((lse - lse_p).abs().max())
+            case["err_by_launch_shape"][f"{qb}x{kb}"] = [err, lse_err]
+            if err > FA_TOL[dtype] or lse_err > FA_LSE_TOL:
+                raise AssertionError(f"flash kernel disagrees with plain at "
+                                     f"{qb}x{kb}: {case}")
+            if dark is not None and out[:, dark:].abs().max() != 0:
                 raise AssertionError("rows with no visible key not zero")
-        n_copies = max(2, math.ceil(100e6 / sum(
-            t.numel() * t.element_size() for t in (q, k, v))))
-        copies = [tuple(t.clone() for t in (q, k, v))
-                  for _ in range(n_copies)]
-        case["ms"] = cuda_ms(lambda i: flash_attention_kernel(
-            *copies[i % n_copies], causal=causal, window=window), 20)
+        case["max_abs_err"] = max(e for e, _ in
+                                  case["err_by_launch_shape"].values())
+        case["lse_max_abs_err"] = max(e for _, e in
+                                      case["err_by_launch_shape"].values())
+        if dark is not None:
+            case["rows_with_no_key"] = S - dark
+
+        # the backward on the default forward's output, as training runs it
+        out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                          window=window)
+        want = flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                              causal=causal, window=window)
+        got = flash_attention_backward_kernel(q, k, v, out, lse, dout,
+                                              causal=causal, window=window)
+        again = flash_attention_backward_kernel(q, k, v, out, lse, dout,
+                                                causal=causal, window=window)
+        torch.cuda.synchronize()
+        rel = [float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max()) for g, w in zip(got, want)]
+        case.update(bwd_rel_err_dq_dk_dv=rel, bwd_tol=FA_BWD_TOL[dtype],
+                    bwd_bitwise_repeat=all(torch.equal(a, b)
+                                           for a, b in zip(got, again)))
+        if (any(g.dtype != dtype or g.shape != w.shape
+                or not torch.isfinite(g.float()).all()
+                for g, w in zip(got, want))
+                or not max(rel) <= FA_BWD_TOL[dtype]
+                or not case["bwd_bitwise_repeat"]):
+            raise AssertionError(f"flash backward kernel disagrees with the "
+                                 f"plain backward: {case}")
+        if dark is not None:
+            case["dq_max_abs_on_rows_with_no_key"] = float(
+                got[0][:, dark:].abs().max())
+            if case["dq_max_abs_on_rows_with_no_key"] != 0:
+                raise AssertionError("dq not zero on rows with no visible "
+                                     "key")
+
+        copies = _rotating((q, k, v))
+        shapes = grid if name == "train" else [(DEFAULT_Q_BLOCK,
+                                                DEFAULT_KV_BLOCK)]
+        case["ms_by_launch_shape"] = {
+            f"{qb}x{kb}": cuda_ms(lambda i, qb=qb, kb=kb: (
+                flash_attention_kernel(*copies[i % len(copies)],
+                                       causal=causal, window=window,
+                                       q_block=qb, kv_block=kb)), 20)
+            for qb, kb in shapes}
+        case["ms"] = case["ms_by_launch_shape"][default]
         case.update(fa_bound(B, S, T, H, KV, D, causal, window, dtype))
+        bcopies = _rotating((q, k, v, out, lse, dout))
+        case["bwd_ms"] = cuda_ms(lambda i: flash_attention_backward_kernel(
+            *bcopies[i % len(bcopies)], causal=causal, window=window), 10)
+        case.update(fa_bwd_bound(B, S, T, H, KV, D, causal, window, dtype))
         if name == "fp32":
             case.update(fa_grad_check(FlashAttentionFn, flash_attention_plain,
                                       q, k, v))
         if name == "train":
             case["plain_ms"] = cuda_ms(lambda i: flash_attention_plain(
-                *copies[i % n_copies], causal=True), 3)
+                *copies[i % len(copies)], causal=True), 3)
             heads = [tuple(t.transpose(1, 2).contiguous() for t in c)
                      for c in copies]
             case["library_ms"] = cuda_ms(
                 lambda i: F.scaled_dot_product_attention(
-                    *heads[i % n_copies], is_causal=True, enable_gqa=True),
+                    *heads[i % len(heads)], is_causal=True, enable_gqa=True),
                 20)
-            case.update(fa_backward_times(flash_attention_backward, q, k, v,
-                                          out, lse, heads[0]))
+            case.update(fa_backward_times(bcopies, heads[0]))
             entry = case
             del heads
         emit("kernels", kernel="flash_attention", **case)
-        del copies, q, k, v, out, lse, out_p, lse_p
+        del copies, bcopies, q, k, v, out, lse, out_p, lse_p, dout, got
+        del want, again
         torch.cuda.empty_cache()
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
-            "shape": "B 2, S 4096, H 12, KV 2, D 128, causal, bf16",
-            "library_call": "F.scaled_dot_product_attention(is_causal=True, "
-                            "enable_gqa=True)",
-            "max_abs_err": entry["max_abs_err"],
-            **{k: entry[k] for k in ("ms", "plain_ms", "library_ms",
-                                     "bound_ms", "bound_by",
-                                     "bytes_bound_ms", "bwd_ms",
-                                     "library_bwd_ms")}}
+    shape = "B 2, S 4096, H 12, KV 2, D 128, causal, bf16"
+    fwd = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+           "shape": shape, "launch_shape": default,
+           "library_call": "F.scaled_dot_product_attention(is_causal=True, "
+                           "enable_gqa=True)",
+           **{k: entry[k] for k in ("max_abs_err", "ms", "ms_by_launch_shape",
+                                    "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by", "bytes_bound_ms")}}
+    bwd = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "none: the reference differentiates its plain paths "
+                       "(src/repro/kernels/flash_attention/ops.py:35)",
+           "shape": shape,
+           "library_call": "autograd backward of "
+                           "F.scaled_dot_product_attention",
+           "max_abs_err": max(entry["bwd_rel_err_dq_dk_dv"]),
+           "err_kind": "max|Δ| / max|plain| of dq, dk, dv",
+           "ms": entry["bwd_ms"], "plain_ms": entry["plain_bwd_ms"],
+           "library_ms": entry["library_bwd_ms"],
+           "bound_ms": entry["bwd_bound_ms"],
+           "bound_by": entry["bwd_bound_by"],
+           "bytes_bound_ms": entry["bwd_bytes_bound_ms"]}
+    return fwd, bwd
 
 
 def fa_grad_check(fn_cls, plain, q, k, v) -> dict:
-    """``FlashAttentionFn`` with the kernel forward against autograd
-    through the plain version, fp32."""
+    """``FlashAttentionFn`` with both kernels against autograd through the
+    plain version, fp32."""
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     dout = torch.randn(q.shape, device=DEV)
     out, _ = fn_cls.apply(q, k, v, True, None, "kernel")
@@ -1431,19 +1534,20 @@ def fa_grad_check(fn_cls, plain, q, k, v) -> dict:
     return {"grad_rel_err_qkv": errs, "grad_tol": FA_GRAD_TOL}
 
 
-def fa_backward_times(backward, q, k, v, out, lse, heads) -> dict:
-    """The Function's backward (torch ops over query tiles) and SDPA's
-    backward at the training shape."""
-    dout = torch.randn(q.shape, device=DEV).to(q.dtype)
-    bwd_ms = cuda_ms(lambda i: backward(q, k, v, out, lse, dout, causal=True,
-                                        window=None), 3)
+def fa_backward_times(bcopies, heads) -> dict:
+    """The plain backward (torch ops over query tiles) and SDPA's backward
+    (the yardstick; the port never calls it) at the training shape."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_plain)
+    plain_ms = cuda_ms(lambda i: flash_attention_backward_plain(
+        *bcopies[i % len(bcopies)], causal=True, window=None), 3)
     qh, kh, vh = (t.detach().requires_grad_() for t in heads)
     oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                         enable_gqa=True)
-    doh = dout.transpose(1, 2).contiguous()
+    doh = bcopies[0][5].transpose(1, 2).contiguous()
     lib_ms = cuda_ms(lambda i: torch.autograd.grad(
         oh, (qh, kh, vh), doh, retain_graph=True), 10)
-    return {"bwd_ms": bwd_ms, "library_bwd_ms": lib_ms}
+    return {"plain_bwd_ms": plain_ms, "library_bwd_ms": lib_ms}
 
 
 def reset_launches(mods) -> None:
@@ -1466,14 +1570,15 @@ def read_launches(mods) -> dict:
     return out
 
 
-def device_time(prof) -> tuple[float, float]:
-    """(device ms of every kernel and copy, of the flash kernels) in a
-    profiled window."""
+def device_time(prof) -> tuple[float, float, float]:
+    """(device ms of every kernel and copy, of the flash forward kernels,
+    of the flash backward kernels) in a profiled window."""
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events) / 1e3
-    flash = sum(dev_us(e) for e in events if "flash_fwd" in e.key) / 1e3
-    return busy, flash
+    fwd = sum(dev_us(e) for e in events if "flash_fwd" in e.key) / 1e3
+    bwd = sum(dev_us(e) for e in events if "flash_bwd" in e.key) / 1e3
+    return busy, fwd, bwd
 
 
 def train_batches(cfg, n_steps):
@@ -1483,12 +1588,14 @@ def train_batches(cfg, n_steps):
     return [to_device(stream.batch(s), DEV) for s in range(n_steps)]
 
 
-def train_phase(mods) -> int:
+def train_phase(mods) -> dict:
     """Full-width qwen2-1.5b training through the fused step on the card:
     the plain path's step-1 loss and grad norm first (``impl="tiled"``, no
     update), then ``TRAIN_STEPS`` kernel-path steps with the launch counts
     set to 0 just before and read just after, then one more step under
-    ``torch.profiler``.  Returns the flash kernel's launches."""
+    ``torch.profiler``: the device time of each flash half, three device
+    kernels a backward call, and no einsum (the plain paths' score tiles)
+    in the step.  Returns the launch counts of the timed steps."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -1526,6 +1633,7 @@ def train_phase(mods) -> int:
     launches = read_launches(mods)
     peak = torch.cuda.max_memory_allocated()
     want = TRAIN_STEPS * TRAIN_ACCUM * cfg.n_layers * 2
+    want_bwd = TRAIN_STEPS * TRAIN_ACCUM * cfg.n_layers
     step_s = float(np.median(secs[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     attn_ops = 3 * 4 * TRAIN_BATCH * cfg.n_heads * cfg.hd * cfg.n_layers * (
@@ -1545,7 +1653,8 @@ def train_phase(mods) -> int:
          plain_path_step1_grad_norm=gnorm_plain, plain_path_s=plain_s,
          loss_rel_err=loss_err, loss_tol=TRAIN_LOSS_TOL,
          grad_norm_rel_err=gnorm_err, grad_norm_tol=TRAIN_GNORM_TOL,
-         launches=launches, launches_expected=want)
+         launches=launches, launches_expected=want,
+         bwd_calls_expected=want_bwd)
     if not all(math.isfinite(x) for x in losses + gnorms):
         raise AssertionError(f"training losses not finite: {losses}")
     if launches["flash_attention"] != want:
@@ -1553,24 +1662,41 @@ def train_phase(mods) -> int:
                              f"{launches['flash_attention']} times, "
                              f"expected {want} (steps x grad_accum x layers "
                              f"x 2 for the remat recompute)")
+    if launches["flash_attention_bwd"] != want_bwd:
+        raise AssertionError(f"flash backward kernel called "
+                             f"{launches['flash_attention_bwd']} times, "
+                             f"expected {want_bwd} (steps x grad_accum x "
+                             f"layers)")
     if loss_err > TRAIN_LOSS_TOL or gnorm_err > TRAIN_GNORM_TOL:
         raise AssertionError(f"kernel path vs plain path at step 1: loss "
                              f"{loss_err}, grad norm {gnorm_err}")
 
+    reset_launches(mods)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, _ = step(state, batches[TRAIN_STEPS])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, flash = device_time(prof)
-    emit_profile("profile_train", prof, wall, "steps", 1, "step")
+    calls = read_launches(mods)["flash_attention_bwd"]
+    busy, fwd, bwd = device_time(prof)
+    per_call = emit_profile("profile_train", prof, wall, "steps", 1, "step",
+                            focus="flash_bwd", focus_calls=calls)
+    einsums = sum(e.count for e in prof.key_averages()
+                  if e.key == "aten::einsum")
     emit("profile_train_shares", wall_ms=wall * 1e3, device_busy_ms=busy,
-         device_busy_share=busy / (wall * 1e3), flash_kernel_ms=flash,
-         flash_kernel_share_of_device=flash / busy if busy else None)
+         device_busy_share=busy / (wall * 1e3), flash_fwd_kernel_ms=fwd,
+         flash_bwd_kernel_ms=bwd,
+         flash_fwd_share_of_device=fwd / busy if busy else None,
+         flash_bwd_share_of_device=bwd / busy if busy else None,
+         flash_bwd_kernels_per_call=per_call, einsum_calls=einsums)
+    if per_call != FA_BWD_KERNELS or bwd <= 0 or einsums:
+        raise AssertionError(f"profiled step: {per_call} flash backward "
+                             f"kernels a call (expected {FA_BWD_KERNELS}), "
+                             f"{bwd} ms of them, {einsums} einsum calls")
     del state, batches, step
     torch.cuda.empty_cache()
-    return launches["flash_attention"]
+    return launches
 
 
 def train_hypar_phase(mods) -> None:
@@ -1631,6 +1757,7 @@ def train_hypar_phase(mods) -> None:
     bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(hp),
                                                     tree_leaves(state.params)))
     want = HYPAR_STEPS * TRAIN_ACCUM * cfg.n_layers * 2
+    want_bwd = want // 2
     full = dataclasses.replace(cfg, n_layers=get_config(TRAIN_ARCH).n_layers)
     emit("train_hypar", model=cfg.name, layers=cfg.n_layers, seq=TRAIN_SEQ,
          global_batch=TRAIN_BATCH, n_micro=TRAIN_ACCUM, steps=HYPAR_STEPS,
@@ -1642,13 +1769,16 @@ def train_hypar_phase(mods) -> None:
          retained_opt_result_gib_at_full_depth=(
              3 * 4 * full.n_params() / 2**30),
          launches_hypar=hypar_launches, launches_fused=fused_launches,
-         launches_expected_each=want, report=report.summary())
+         launches_expected_each=want, bwd_calls_expected_each=want_bwd,
+         report=report.summary())
     if rel > HYPAR_PARAM_TOL:
         raise AssertionError(f"HyPar and fused params differ: {rel}")
-    if (hypar_launches["flash_attention"] != want
-            or fused_launches["flash_attention"] != want):
+    if any(n[kern] != w for n in (hypar_launches, fused_launches)
+           for kern, w in (("flash_attention", want),
+                           ("flash_attention_bwd", want_bwd))):
         raise AssertionError(f"flash launches {hypar_launches} / "
-                             f"{fused_launches}, expected {want} each")
+                             f"{fused_launches}, expected {want} forward "
+                             f"and {want_bwd} backward each")
     del hp, state, params, micro, batches
     torch.cuda.empty_cache()
 
@@ -1685,7 +1815,8 @@ def train_launcher_phase(mods) -> None:
         raise AssertionError(f"the second run did not resume: {runs[1]}")
     # smoke config: 3 layers, no accumulation, the remat recompute
     for r, n_steps in zip(runs, (6, 2)):
-        if r["launches"]["flash_attention"] != n_steps * 3 * 2:
+        if (r["launches"]["flash_attention"] != n_steps * 3 * 2
+                or r["launches"]["flash_attention_bwd"] != n_steps * 3):
             raise AssertionError(f"launcher flash launches: {r}")
 
 
@@ -1817,8 +1948,9 @@ def norm_switch_phase(rms_kernel) -> None:
 def kernel_bench_check() -> None:
     """Every wrapper the autotune pass tunes, at the bench's shapes and on
     its inputs (``kernel_bench.tuned_cases``), under every candidate config
-    of the tuner, against ``impl="ref"``: fp32 throughout, at the
-    tolerances of the kernels' own phases."""
+    of the tuner, against ``impl="ref"``: fp32, the flash forward in bf16
+    (the dtype whose kernel takes the launch shapes), at the tolerances of
+    the kernels' own phases."""
     from repro_torch.benchmarks import kernel_bench
     from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
 
@@ -1836,7 +1968,8 @@ def kernel_bench_check() -> None:
         "jacobi_sweep": (lambda o, w: max(rel(o[0], w[0]), abs(
             float(o[1]) / float(w[1]) - 1.0)), JACOBI_TOL),
         "rmsnorm": (rel, RMS_TOL[torch.float32]),
-        "flash_attention": (absolute, FA_TOL[torch.float32]),
+        # bf16 on the card, the dtype of its launch shapes: its tolerance
+        "flash_attention": (absolute, FA_TOL[torch.bfloat16]),
         "ssd_scan": (lambda o, w: max(rel(o[0], w[0]), rel(o[1], w[1])),
                      SSD_TOL),
         "paged_attention": (absolute, WRAPPER_TOL_F32),
@@ -1887,17 +2020,26 @@ def kernel_bench_phase(mods) -> dict:
     for r in rows:
         r["bytes_per_s_share_of_hbm"] = (r["bytes"] / r["median_s"]
                                          / H100_BYTES_PER_S)
-        r["flops_share_of_fp32_peak"] = (r["flops"] / r["median_s"]
-                                         / H100_FP32_FLOPS)
+        peak = (H100_BF16_FLOPS if r["dtype"] == "bfloat16"
+                else H100_FP32_FLOPS)
+        r["flops_share_of_peak"] = r["flops"] / r["median_s"] / peak
         emit("kernel_bench_row", **r)
     by_name = {r["name"]: r for r in rows}
     paged = {k: by_name.get(f"paged_attention_{k}") for k in ("ref", "tuned")}
+    flash = by_name.get("flash_attention_tuned")
     emit("kernel_bench", rows=len(rows), ref_rows=len(ref),
          tuned_rows=len(tuned), wall_s=wall, launches=launches,
          paged_attention={
              "ref_s": paged["ref"] and paged["ref"]["median_s"],
              "tuned_s": paged["tuned"] and paged["tuned"]["median_s"],
-             "tuned_config": paged["tuned"] and paged["tuned"]["config"]})
+             "tuned_config": paged["tuned"] and paged["tuned"]["config"]},
+         flash_attention={"tuned_s": flash and flash["median_s"],
+                          "dtype": flash and flash["dtype"],
+                          "tuned_config": flash and flash["config"]})
+    if not flash or flash["config"] not in tuning.DEFAULT_CANDIDATES[
+            "flash_attention"]:
+        raise AssertionError(f"flash_attention_tuned names no launch shape "
+                             f"of the grid: {flash}")
     if len(ref) != 6 or len(tuned) != 5:
         raise AssertionError(f"kernel bench gave {len(ref)} ref and "
                              f"{len(tuned)} tuned rows, expected 6 and 5")
@@ -2037,9 +2179,12 @@ def main() -> int:
                                  "does not call the plain sweep either")
 
     mods = (pa_kernel, ssd_kernel, jacobi_kernel, fa_kernel)
-    fa_entry = flash_kernel_phase()
-    fa_entry["launches"] = train_phase(mods)
-    fa_entry["launches_per_step"] = fa_entry["launches"] / TRAIN_STEPS
+    fa_entry, fa_bwd_entry = flash_kernel_phase()
+    launches = train_phase(mods)
+    for e in (fa_entry, fa_bwd_entry):
+        e["launches"] = launches[e["name"]]
+        e["launches_per_step"] = e["launches"] / TRAIN_STEPS
+    fa_bwd_entry["device_kernels_per_call"] = FA_BWD_KERNELS
     train_hypar_phase(mods)
     train_launcher_phase(mods)
 
@@ -2056,7 +2201,8 @@ def main() -> int:
     finally:
         shutil.rmtree(tune_dir, ignore_errors=True)
     rms_entry["launches"] = bench["rmsnorm"]
-    kernels = [entry, ssd_entry, *jacobi_entries, fa_entry, rms_entry]
+    kernels = [entry, ssd_entry, *jacobi_entries, fa_entry, fa_bwd_entry,
+               rms_entry]
     for e in kernels:
         e["launches_kernel_bench"] = bench[e["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,7 +24,9 @@ card's name, or ``cpu``):
 On the card every timed call rotates over copies of its inputs larger
 than twice the 50 MB L2, so ``bytes / median_s`` is a device-memory rate
 and not an L2 one.  The byte and operation counts are the reference's, row
-for row.  Nothing is written unless ``--out`` is given.
+for row; on the card the two flash rows run in bf16 (the dtype whose
+kernel takes the tuned ``q_block``/``kv_block``), so their bytes are half
+the reference's fp32 ones.  Nothing is written unless ``--out`` is given.
 """
 from __future__ import annotations
 
@@ -98,6 +100,21 @@ def bench_row(name, shape, dtype, median_s, *, dev: torch.device,
     return r
 
 
+def _flash_dtype(dev: torch.device) -> torch.dtype:
+    """The flash rows' dtype: bf16 on the card, where the forward kernel's
+    launch shapes live (its fp32 twin has one), fp32 elsewhere, as the
+    reference's rows."""
+    return torch.bfloat16 if dev.type == "cuda" else torch.float32
+
+
+def _dt_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _nbytes(*tensors) -> float:
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
 def _randn(gen, dev, *shape) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=dev)
 
@@ -142,12 +159,12 @@ def ref_rows(smoke: bool = False, device="cuda") -> list[dict]:
     rows = []
 
     B, S, H, KV, D = (1, 256, 4, 2, 32) if smoke else (1, 1024, 8, 2, 64)
-    q, k, v = (_randn(gen, dev, B, S, h, D) for h in (H, KV, KV))
+    dt = _flash_dtype(dev)
+    q, k, v = (_randn(gen, dev, B, S, h, D).to(dt) for h in (H, KV, KV))
     s = _time(flash_attention, q, k, v, dev=dev, impl="ref")
     flops = 2 * 2 * B * H * S * S // 2 * D
-    rows.append(bench_row("flash_attention_ref", (B, S, H, D), "float32", s,
-                          dev=dev, flops=flops,
-                          nbytes=4.0 * (q.numel() + k.numel() + v.numel())))
+    rows.append(bench_row("flash_attention_ref", (B, S, H, D), _dt_name(dt),
+                          s, dev=dev, flops=flops, nbytes=_nbytes(q, k, v)))
 
     BC, Hs, Q, P, N = (2, 2, 32, 16, 16) if smoke else (8, 8, 128, 64, 64)
     xh, dt, a, Bm, Cm = _ssd_inputs(gen, dev, BC, Hs, Q, P, N)
@@ -211,11 +228,14 @@ def tuned_cases(smoke: bool = False, device="cuda") -> list[tuple]:
     cases.append(("rmsnorm", rmsnorm, (x, torch.ones((d,), device=dev)),
                   (R, d), 3.0 * x.numel(), 2.0 * x.numel() * 4))
 
+    # flash attention in the dtype its launch shapes serve (bf16 on the
+    # card: the fp32 kernel has one shape)
     B, S, H, KV, D = (1, 2048, 8, 2, 64) if card else (1, 128, 2, 2, 32)
-    q, k, v = (_randn(gen, dev, B, S, h, D) for h in (H, KV, KV))
+    dt = _flash_dtype(dev)
+    q, k, v = (_randn(gen, dev, B, S, h, D).to(dt) for h in (H, KV, KV))
     cases.append(("flash_attention", flash_attention, (q, k, v),
                   (B, S, H, D), 2.0 * 2 * B * H * S * S // 2 * D,
-                  4.0 * (q.numel() + k.numel() + v.numel())))
+                  _nbytes(q, k, v)))
 
     # ssd scan (one launch shape: timing feeds the cost-model bridge)
     BC, Hs, Q, P, N = (8, 8, 128, 64, 64) if card else (2, 2, 32, 16, 16)
@@ -249,14 +269,15 @@ def autotune_rows(smoke: bool = False, device="cuda") -> list[dict]:
     for kernel, fn, args, shape, flops, nbytes in tuned_cases(smoke, dev):
         cands = tuning.DEFAULT_CANDIDATES[kernel]
         nxt = _cycle(args, dev)
-        hit = tuner.observed_s(kernel, shape, torch.float32,
+        dt = args[0].dtype
+        hit = tuner.observed_s(kernel, shape, dt,
                                backend=backend) is not None
         before = tuner.n_timed
         entry = tuner.tune(
             kernel, lambda cfg, fn=fn: (lambda: fn(*nxt(), impl=impl, **cfg)),
-            shape=shape, dtype=torch.float32, backend=backend,
+            shape=shape, dtype=dt, backend=backend,
             candidates=cands, flops=flops, bytes_moved=nbytes)
-        rows.append(bench_row(f"{kernel}_tuned", shape, "float32",
+        rows.append(bench_row(f"{kernel}_tuned", shape, _dt_name(dt),
                               entry["median_s"], dev=dev, flops=flops,
                               nbytes=nbytes, config=entry["config"],
                               cache="hit" if hit else "miss",

@@ -21,41 +21,51 @@
 // Bound on this card: at the training shape (B 2, S 4096, H 12, KV 2,
 // D 128, causal, bf16) the two products take 4·B·H·D·S(S+1)/2 = 103 GFLOP,
 // 0.104 ms at 989 TFLOP/s, against 58 MB of inputs and outputs (0.017 ms
-// at 3.35 TB/s): the tensor cores, not memory, bound it.
+// at 3.35 TB/s): the tensor cores, not memory, bound it, and only `wgmma`
+// reaches their full rate.
 //
 // Design.  The TPU kernel runs the kv axis as a sequential grid dimension
 // with m, l and acc in VMEM scratch carried across it.  Blocks here run in
 // parallel and carry nothing, so one block owns a tile of query rows of one
-// (b, h) and loops over the kv tiles itself, K and V tiles staged in shared
-// memory and the online softmax in registers.  KV tiles that the causal
-// mask or the window hides from every row of the block are never visited
-// (the TPU kernel's `run` predicate), and the mask is evaluated only on
-// tiles that straddle its edge.  Blocks start from the last query tile, the
-// one with the most kv tiles under a causal mask.
+// (b, h) and loops over the kv tiles itself, the online softmax in
+// registers.  KV tiles that the causal mask or the window hides from every
+// row of the block are never visited (the TPU kernel's `run` predicate),
+// and the mask is evaluated only on tiles that straddle its edge.  Blocks
+// start from the last query tile, the one with the most kv tiles under a
+// causal mask.
 //
-// * bf16 (`flash_fwd_bf16`): 4 warps, 64 query rows (16 a warp), kv tiles of
-//   64.  q·kᵀ and p·v run on the tensor cores with `mma.sync` m16n8k16
-//   (bf16 in, fp32 accumulate).  A warp keeps its q rows as A fragments in
-//   registers for the whole loop; the score accumulators of two adjacent
-//   8-column tiles are, after the softmax, exactly the A fragment of the
-//   p·v product, so p never leaves registers (it is rounded to bf16 for
-//   the product, as every flash kernel on tensor cores does).  K and V rows
-//   are padded by 8 elements in shared memory, which puts the 32 lanes'
-//   fragment loads on 32 distinct banks.  The tiles are loaded with 16-byte
-//   vector loads where the strides allow it.
+// * bf16 (`flash_fwd_wgmma`), warp-specialised: a producer and one or two
+//   consumer warpgroups of 64 query rows each (`q_block` 64 or 128).  At
+//   two, the producer is a whole warpgroup that hands registers to the
+//   consumers (`setmaxnreg`: ptxas caps a 288-thread block at 168 a
+//   thread), else one warp.
+//   The producer's elected lane brings the block's q rows once and every
+//   K and V tile (`kv_block` 64 or 128 keys) by TMA into a two-stage ring
+//   in shared memory, K and V of a stage on separate mbarriers, so S can
+//   start before V lands; consumers free a stage through a third mbarrier.
+//   TMA writes each 64-column slice of a tile in the 128-byte swizzled
+//   layout that `wgmma` reads, and zero-fills what lies past S, T and D
+//   (D is padded to 64 or 128).  S = q·kᵀ is `wgmma.mma_async`
+//   m64nBNk16 with both operands in shared memory (K-major); the online
+//   softmax runs on the accumulators in registers, in log2 units; P is
+//   rounded to bf16 in registers and is the A operand of P·V (m64n64k16
+//   a 64-column slice of D), V the B operand read from shared memory in
+//   its own (key-row) layout through the transpose flag, all accumulation
+//   fp32.  Each warpgroup keeps two score buffers and issues the next
+//   tile's S before the softmax of this one, so the tensor cores work
+//   while the CUDA cores exponentiate; the two warpgroups of a 128-row
+//   block also run out of step.  Inputs whose strides TMA cannot describe
+//   are copied by the wrapper first.
 // * fp32 (`flash_fwd_f32`): plain FMA, not TF32, so that it holds to the
 //   plain fp32 version at 1e-5.  4 warps, 32 query rows, kv tiles of 32;
 //   four threads share a row, each scoring 8 keys and accumulating a
-//   quarter of the output columns.
-//
-// D is padded to 32, 64 or 128 in shared memory and registers (zeros), so
-// every D that is a multiple of 8 up to 128 works (the smoke configs'
-// head width 24 among them).  cp.async / TMA double buffering and `wgmma`
-// are later work.
+//   quarter of the output columns.  It has one launch shape and ignores
+//   q_block and kv_block.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -81,7 +91,6 @@ struct Params {
   int S, T, H, G, D;
   int causal, window;
   float scale_log2;   // log2(e) / sqrt(D)
-  int vec;            // K/V rows allow 16-byte loads
 };
 
 // the kv tiles [first, last) that can hold a key visible to query rows
@@ -110,14 +119,147 @@ __device__ __forceinline__ bool visible(const Params& p, int row, int col) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16
+// bf16: TMA, mbarriers and wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
+constexpr int kBox = 64 * 64 * 2;   // bytes of one TMA box: 64 rows x 64 cols
+constexpr int kStages = 2;
 
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// waits for the phase with parity `phase` to complete.  The loop lives in
+// one asm block, so the compiler sees no divergent branch around the
+// wgmma that follow; about 2^28 failed polls (seconds) trap, so a lost
+// copy fails the launch instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.gt.u32 p, n, 268435456;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(smem_u32(bar)), "r"(phase)
+      : "memory");
+}
+
+// one 64 x 64 box of a (D, heads, rows, B) tensor map into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int head,
+                                         int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(head), "r"(row), "r"(b)
+      : "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle: 8-row groups 1024
+// bytes apart (SBO) and, for an MN-major operand, 64-column slices
+// described by the same offset field pair (LBO is unused at N 64)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+#define WG_D32(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31])
+#define WG_REGS32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d (64 x 64 fp32) (+)= a·b, both from shared memory, K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#define WG_D64(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),     \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),     \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),     \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),     \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),     \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),     \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (64 x 128 fp32) (+)= a·b, both from shared memory, K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D64(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 fp32) += a·b, a from registers, b MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -125,122 +267,172 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a·b for one 16x8x16 tile: a row-major 16x16 bf16, b column-major
-// 16x8 bf16, c/d 16x8 fp32 (PTX ISA fragment layouts)
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+template <int DP, int BM, int BN>
+struct FwdShape {
+  static constexpr int kChunks = DP / 64;      // 64-column slices of D
+  static constexpr int kWG = BM / 64;          // consumer warpgroups
+  // and the producer: a whole warpgroup at two consumer warpgroups, so
+  // that it can hand its registers to them, else one warp
+  static constexpr int kThreadsAll = kWG * 128 + (kWG == 2 ? 128 : 32);
+  static constexpr int kQBytes = kChunks * BM * 128;
+  static constexpr int kTileBytes = kChunks * BN * 128;   // one K or V tile
+  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes +
+                               (1 + 3 * kStages) * 8;
+};
 
-// rows [k0, k0 + kBN) of K or V into shared memory, zeros past T and D
-template <int DP>
-__device__ __forceinline__ void load_tile_bf16(uint16_t (*dst)[DP + 8],
-                                               const uint16_t* base,
-                                               long long st, int k0,
-                                               const Params& p) {
-  constexpr int kVecs = DP / 8;   // 16-byte vectors a row
-  for (int idx = threadIdx.x; idx < kBN * kVecs; idx += kThreads) {
-    const int r = idx / kVecs;
-    const int c = (idx % kVecs) * 8;
-    const int kr = k0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (kr < p.T && c < p.D) {
-      const uint16_t* src = base + static_cast<long long>(kr) * st + c;
-      if (p.vec && c + 8 <= p.D) {
-        val = *reinterpret_cast<const uint4*>(src);
-      } else {
-        uint16_t e[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) e[i] = c + i < p.D ? src[i] : 0;
-        val = make_uint4(pack_raw(e[0], e[1]), pack_raw(e[2], e[3]),
-                         pack_raw(e[4], e[5]), pack_raw(e[6], e[7]));
-      }
-    }
-    *reinterpret_cast<uint4*>(&dst[r][c]) = val;
-  }
-}
+struct Maps {
+  CUtensorMap q, k, v;
+};
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16(const Params p) {
-  constexpr int kSteps = DP / 16;   // k-steps of q·kᵀ
-  constexpr int kOut = DP / 8;      // 8-column output tiles
-  __shared__ __align__(16) uint16_t Ks[kBN][DP + 8];
-  __shared__ __align__(16) uint16_t Vs[kBN][DP + 8];
+template <int DP, int BM, int BN>
+__device__ __forceinline__ void consume(const Params& p, uint8_t* qs,
+                                        uint8_t* ks, uint8_t* vs,
+                                        uint64_t* q_full, uint64_t* k_full,
+                                        uint64_t* v_full, uint64_t* empty,
+                                        int q0, int h, int b, int wg,
+                                        int first, int last);
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;
+template <int DP, int BM, int BN>
+__global__ void __launch_bounds__(FwdShape<DP, BM, BN>::kThreadsAll, 1)
+    flash_fwd_wgmma(const __grid_constant__ Maps maps, const Params p) {
+  using Sh = FwdShape<DP, BM, BN>;
+  constexpr int kChunks = Sh::kChunks;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles need 1024-byte alignment
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;                               // [chunk][BM][64]
+  uint8_t* ks = qs + Sh::kQBytes;                   // [stage][chunk][BN][64]
+  uint8_t* vs = ks + kStages * Sh::kTileBytes;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(vs + kStages * Sh::kTileBytes);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + kStages;
+  uint64_t* empty = bars + 1 + 2 * kStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;   // fragment row group
-  const int t = lane & 3;    // thread in the group
-  const uint16_t* qb = static_cast<const uint16_t*>(p.q) + b * p.q_sb +
-                       h * p.q_sh;
-  const uint16_t* kb = static_cast<const uint16_t*>(p.k) + b * p.k_sb +
-                       (h / p.G) * p.k_sh;
-  const uint16_t* vb = static_cast<const uint16_t*>(p.v) + b * p.v_sb +
-                       (h / p.G) * p.v_sh;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  int first, last;
+  kv_tile_range(p, q0, BM, BN, &first, &last);
 
-  // the warp's 16 query rows as A fragments, zeros past S and D
-  uint32_t qa[kSteps][4];
-  auto q_at = [&](int r, int c) -> uint16_t {
-    return (r < p.S && c < p.D) ? qb[static_cast<long long>(r) * p.q_ss + c]
-                                : uint16_t(0);
-  };
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = pack_raw(q_at(row[0], c), q_at(row[0], c + 1));
-    qa[kk][1] = pack_raw(q_at(row[1], c), q_at(row[1], c + 1));
-    qa[kk][2] = pack_raw(q_at(row[0], c + 8), q_at(row[0], c + 9));
-    qa[kk][3] = pack_raw(q_at(row[1], c + 8), q_at(row[1], c + 9));
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], Sh::kWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  // warp-uniform for the compiler (a shuffle result), so the wgmma below
+  // are not taken to sit on a divergent path
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == Sh::kWG) {
+    // producer: gives its registers to the consumers (a whole warpgroup);
+    // one thread issues every copy
+    if constexpr (Sh::kWG == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 128 == 0) {
+      const int kvh = h / p.G;
+      mbar_expect_tx(q_full, Sh::kQBytes);
+      for (int c = 0; c < kChunks; ++c)
+        for (int r = 0; r < BM / 64; ++r)
+          tma_load(qs + c * BM * 128 + r * kBox, &maps.q, q_full, c * 64, h,
+                   q0 + r * 64, b);
+      for (int it = 0; it < last - first; ++it) {
+        const int st = it % kStages;
+        const int k0 = (first + it) * BN;
+        if (it >= kStages) mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        uint8_t* kt = ks + st * Sh::kTileBytes;
+        uint8_t* vt = vs + st * Sh::kTileBytes;
+        mbar_expect_tx(&k_full[st], Sh::kTileBytes);
+        for (int c = 0; c < kChunks; ++c)
+          for (int r = 0; r < BN / 64; ++r)
+            tma_load(kt + c * BN * 128 + r * kBox, &maps.k, &k_full[st],
+                     c * 64, kvh, k0 + r * 64, b);
+        mbar_expect_tx(&v_full[st], Sh::kTileBytes);
+        for (int c = 0; c < kChunks; ++c)
+          for (int r = 0; r < BN / 64; ++r)
+            tma_load(vt + c * BN * 128 + r * kBox, &maps.v, &v_full[st],
+                     c * 64, kvh, k0 + r * 64, b);
+      }
+    }
+  } else {
+    // 3 x 128 threads start at 168 registers each; 40 + 2 x 232 fit the
+    // register file (one block of 128 rows a multiprocessor)
+    if constexpr (Sh::kWG == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    consume<DP, BM, BN>(p, qs, ks, vs, q_full, k_full, v_full, empty, q0, h,
+                        b, wg, first, last);
+  }
+}
+
+// consumer warpgroup wg: query rows q0 + 64 wg + [0, 64)
+template <int DP, int BM, int BN>
+__device__ __forceinline__ void consume(const Params& p, uint8_t* qs,
+                                        uint8_t* ks, uint8_t* vs,
+                                        uint64_t* q_full, uint64_t* k_full,
+                                        uint64_t* v_full, uint64_t* empty,
+                                        int q0, int h, int b, int wg,
+                                        int first, int last) {
+  using Sh = FwdShape<DP, BM, BN>;
+  constexpr int kChunks = Sh::kChunks;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row[2] = {q0 + wg * 64 + warp * 16 + g,
+                      q0 + wg * 64 + warp * 16 + g + 8};
+  const int wq0 = q0 + wg * 64;   // the warpgroup's first row
+  const uint32_t q_addr = smem_u32(qs) + wg * kBox;
 
   float m[2] = {-INFINITY, -INFINITY};   // running max, log2 units
   float l[2] = {0.f, 0.f};               // this thread's share of the sum
-  float o[kOut][4];
+  float o[kChunks][32];
 #pragma unroll
-  for (int j = 0; j < kOut; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
 
-  int first, last;
-  kv_tile_range(p, q0, kBM, kBN, &first, &last);
-  for (int tile = first; tile < last; ++tile) {
-    const int k0 = tile * kBN;
-    __syncthreads();   // every warp is done with the previous tile
-    load_tile_bf16<DP>(Ks, kb, p.k_st, k0, p);
-    load_tile_bf16<DP>(Vs, vb, p.v_st, k0, p);
-    __syncthreads();
+  // S = q·kᵀ of tile `it` into `acc`, issued and committed, not waited for
+  auto issue_s = [&](float (&acc)[BN / 2], int it) {
+    const int st = it % kStages;
+    mbar_wait(&k_full[st], (it / kStages) & 1);
+    const uint32_t k_addr = smem_u32(ks + st * Sh::kTileBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss(acc, sw128_desc(q_addr + (kk / 4) * BM * 128 + (kk % 4) * 32),
+               sw128_desc(k_addr + (kk / 4) * BN * 128 + (kk % 4) * 32),
+               kk > 0);
+    wgmma_commit();
+  };
 
-    float s[kBN / 8][4];
+  // two score buffers: S of the next tile runs on the tensor cores while
+  // the softmax of this one runs on the CUDA cores
+  float s[BN / 2], s_next[BN / 2];
+  const int n_tiles = last - first;
+  mbar_wait(q_full, 0);
+  if (n_tiles > 0) {
+    issue_s(s, 0);
+    wgmma_wait<0>();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    const int k0 = (first + it) * BN;
+    if (it + 1 < n_tiles) issue_s(s_next, it + 1);
+
+    const bool masked = tile_needs_mask(p, wq0, 64, k0, BN);
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        const uint32_t b0 =
-            *reinterpret_cast<const uint32_t*>(&Ks[8 * j + g][kk * 16 + 2 * t]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(
-            &Ks[8 * j + g][kk * 16 + 8 + 2 * t]);
-        mma_bf16(s[j], qa[kk], b0, b1);
-      }
-    }
-    const bool masked = tile_needs_mask(p, q0, kBM, k0, kBN);
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[j][i] * p.scale_log2;
-        if (masked && !visible(p, row[i >> 1], k0 + 8 * j + 2 * t + (i & 1)))
-          x = -INFINITY;
-        s[j][i] = x;
-      }
+    for (int i = 0; i < BN / 2; ++i) {
+      float x = s[i] * p.scale_log2;
+      const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+      if (masked && !visible(p, row[(i >> 1) & 1], col)) x = -INFINITY;
+      s[i] = x;
     }
 
     // online softmax, rows g and g + 8 (four lanes share a row)
@@ -248,8 +440,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int rr = 0; rr < 2; ++rr) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * rr], s[j][2 * rr + 1]));
+      for (int j = 0; j < BN / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * rr], s[4 * j + 2 * rr + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[rr], mx);
@@ -258,36 +450,42 @@ __global__ void __launch_bounds__(kThreads)
       m[rr] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        s[j][2 * rr] = exp2f(s[j][2 * rr] - m_use);
-        s[j][2 * rr + 1] = exp2f(s[j][2 * rr + 1] - m_use);
-        sum += s[j][2 * rr] + s[j][2 * rr + 1];
+      for (int j = 0; j < BN / 8; ++j) {
+        float& e0 = s[4 * j + 2 * rr];
+        float& e1 = s[4 * j + 2 * rr + 1];
+        e0 = exp2f(e0 - m_use);
+        e1 = exp2f(e1 - m_use);
+        sum += e0 + e1;
       }
       l[rr] = l[rr] * corr + sum;
 #pragma unroll
-      for (int j = 0; j < kOut; ++j) {
-        o[j][2 * rr] *= corr;
-        o[j][2 * rr + 1] *= corr;
-      }
+      for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[c][4 * j + 2 * rr] *= corr;
+          o[c][4 * j + 2 * rr + 1] *= corr;
+        }
     }
 
-    // o += p·v: two adjacent score tiles form one 16x16 A fragment
+    // o += p·v: p (bf16) from registers, 16 keys a step
+    mbar_wait(&v_full[st], (it / kStages) & 1);
+    const uint32_t v_addr = smem_u32(vs + st * Sh::kTileBytes);
+    wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kBN / 16; ++ks) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-      pa[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
-      pa[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
-      pa[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
-      const int r0 = 16 * ks + 2 * t;
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]),
+                             pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+                             pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+                             pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
 #pragma unroll
-      for (int j = 0; j < kOut; ++j) {
-        const int n = 8 * j + g;
-        const uint32_t b0 = pack_raw(Vs[r0][n], Vs[r0 + 1][n]);
-        const uint32_t b1 = pack_raw(Vs[r0 + 8][n], Vs[r0 + 9][n]);
-        mma_bf16(o[j], pa, b0, b1);
-      }
+      for (int c = 0; c < kChunks; ++c)
+        wgmma_rs_tb(o[c], a, sw128_desc(v_addr + c * BN * 128 + kk * 2048));
     }
+    wgmma_commit();
+    wgmma_wait<0>();   // the next tile's S and this tile's p·v
+    mbar_arrive(&empty[st]);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = s_next[i];
   }
 
 #pragma unroll
@@ -304,11 +502,15 @@ __global__ void __launch_bounds__(kThreads)
     const float inv_l = 1.f / fmaxf(l[rr], 1e-37f);
     __nv_bfloat16* orow = ob + static_cast<long long>(r) * p.o_ss;
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      const int c = 8 * j + 2 * t;
-      if (c < p.D) orow[c] = __float2bfloat16(o[j][2 * rr] * inv_l);
-      if (c + 1 < p.D) orow[c + 1] = __float2bfloat16(o[j][2 * rr + 1] * inv_l);
-    }
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = c * 64 + 8 * j + 2 * t;
+        if (col < p.D)   // D is a multiple of 8: the pair is in or out
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(o[c][4 * j + 2 * rr] * inv_l,
+                                    o[c][4 * j + 2 * rr + 1] * inv_l);
+      }
     if (t == 0)
       p.lse[(static_cast<long long>(b) * p.H + h) * p.S + r] =
           l[rr] > 0.f ? m[rr] * kLn2 + logf(l[rr]) : kNegInf;
@@ -429,20 +631,86 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
         l > 0.f ? m * kLn2 + logf(l) : kNegInf;
 }
 
-template <int DP>
-cudaError_t launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
-  if (is_bf16) {
-    dim3 grid((p.S + kBM - 1) / kBM, p.H, B);
-    flash_fwd_bf16<DP><<<grid, kThreads, 0, stream>>>(p);
-  } else {
-    constexpr int bytes = f32_smem_bytes<DP>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    dim3 grid((p.S + kSM - 1) / kSM, p.H, B);
-    flash_fwd_f32<DP><<<grid, kThreads, bytes, stream>>>(p);
-  }
+template <int DP, int BM, int BN>
+cudaError_t launch_wgmma(const Maps& maps, const Params& p, int B,
+                         cudaStream_t stream) {
+  using Sh = FwdShape<DP, BM, BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<DP, BM, BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.S + BM - 1) / BM, p.H, B);
+  flash_fwd_wgmma<DP, BM, BN>
+      <<<grid, Sh::kThreadsAll, Sh::kSmem, stream>>>(maps, p);
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_bf16(const Maps& maps, const Params& p, int B, int q_block,
+                        int kv_block, cudaStream_t stream) {
+  if (q_block == 64)
+    return kv_block == 64 ? launch_wgmma<DP, 64, 64>(maps, p, B, stream)
+                          : launch_wgmma<DP, 64, 128>(maps, p, B, stream);
+  return kv_block == 64 ? launch_wgmma<DP, 128, 64>(maps, p, B, stream)
+                        : launch_wgmma<DP, 128, 128>(maps, p, B, stream);
+}
+
+template <int DP>
+cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
+  constexpr int bytes = f32_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.S + kSM - 1) / kSM, p.H, B);
+  flash_fwd_f32<DP><<<grid, kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a bf16 (B, rows, heads, D) tensor as the TMA map (D, heads, rows, B) of
+// 64 x 64 boxes (64 columns of D, one head, 64 rows), 128-byte swizzle,
+// zeros past every edge
+bool encode_map(CUtensorMap* map, const void* base, int B, int rows,
+                int heads, int D, long long s_b, long long s_row,
+                long long s_head) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads),
+                              cuuint64_t(rows), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(s_head) * 2,
+                                 cuuint64_t(s_row) * 2, cuuint64_t(s_b) * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -452,6 +720,8 @@ extern "C" {
 // q: (B, S, H, D); k, v: (B, T, KV, D); o: (B, S, H, D), all of one dtype
 // (fp32, or bf16 when is_bf16), strides in elements, the last dimension
 // contiguous; lse: (B, H, S) fp32 contiguous.  window 0 means none.
+// q_block and kv_block (64 or 128) are the bf16 kernel's launch shape; for
+// bf16 every pointer is 16-byte aligned and every stride a multiple of 8.
 // Returns the launch's cudaError_t (0 on success) without synchronising.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, float* lse, long long q_sb, long long q_ss,
@@ -460,9 +730,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long v_sh, long long o_sb, long long o_ss,
                            long long o_sh, int B, int S, int T, int H, int KV,
                            int D, int causal, int window, int is_bf16,
-                           cudaStream_t stream) {
+                           int q_block, int kv_block, cudaStream_t stream) {
   if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV != 0 || D < 8 || D > 128 ||
-      D % 8 != 0 || B > 65535 || H > 65535 || window < 0)
+      D % 8 != 0 || B > 65535 || H > 65535 || window < 0 ||
+      (q_block != 64 && q_block != 128) ||
+      (kv_block != 64 && kv_block != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -482,18 +754,22 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.window = window;
   p.scale_log2 = static_cast<float>(1.4426950408889634 / std::sqrt(double(D)));
-  const auto aligned = [](const void* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-  };
-  p.vec = aligned(k) && aligned(v) && k_sb % 8 == 0 && k_st % 8 == 0 &&
-          k_sh % 8 == 0 && v_sb % 8 == 0 && v_st % 8 == 0 && v_sh % 8 == 0;
   cudaError_t err;
-  if (D <= 32)
-    err = launch<32>(p, B, is_bf16, stream);
-  else if (D <= 64)
-    err = launch<64>(p, B, is_bf16, stream);
-  else
-    err = launch<128>(p, B, is_bf16, stream);
+  if (is_bf16) {
+    Maps maps;
+    if (!encode_map(&maps.q, q, B, S, H, D, q_sb, q_ss, q_sh) ||
+        !encode_map(&maps.k, k, B, T, KV, D, k_sb, k_st, k_sh) ||
+        !encode_map(&maps.v, v, B, T, KV, D, v_sb, v_st, v_sh))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = D <= 64 ? launch_bf16<64>(maps, p, B, q_block, kv_block, stream)
+                  : launch_bf16<128>(maps, p, B, q_block, kv_block, stream);
+  } else if (D <= 32) {
+    err = launch_f32<32>(p, B, stream);
+  } else if (D <= 64) {
+    err = launch_f32<64>(p, B, stream);
+  } else {
+    err = launch_f32<128>(p, B, stream);
+  }
   return static_cast<int>(err);
 }
 

@@ -29,6 +29,7 @@ SOURCES = {"paged_attention": "paged_attention.cu",
            "ssd_scan": "ssd_scan.cu",
            "jacobi_sweep": "jacobi_sweep.cu",
            "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu",
            "rmsnorm": "rmsnorm.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

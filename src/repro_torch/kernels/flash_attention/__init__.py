@@ -1,11 +1,12 @@
-"""Flash attention forward: the hand-written Hopper kernel beside its plain
-PyTorch version, and the autograd Function the training path runs;
-:mod:`..runtime` resolves which forward a call runs."""
+"""Flash attention: the hand-written Hopper kernels (forward and backward)
+beside their plain PyTorch versions, and the autograd Function the
+training path runs; :mod:`..runtime` resolves which pair a call runs."""
 from . import kernel, ops, ref
-from .kernel import flash_attention_kernel
-from .ops import FlashAttentionFn, flash_attention, flash_attention_backward
-from .ref import flash_attention_plain
+from .kernel import flash_attention_backward_kernel, flash_attention_kernel
+from .ops import FlashAttentionFn, flash_attention
+from .ref import flash_attention_backward_plain, flash_attention_plain
 
 __all__ = ["kernel", "ops", "ref", "flash_attention_kernel",
-           "FlashAttentionFn", "flash_attention", "flash_attention_backward",
+           "flash_attention_backward_kernel", "FlashAttentionFn",
+           "flash_attention", "flash_attention_backward_plain",
            "flash_attention_plain"]

@@ -1,18 +1,26 @@
-"""ctypes binding of the hand-written CUDA flash-attention forward kernel.
+"""ctypes bindings of the hand-written CUDA flash-attention kernels.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
+The forward (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention/kernel.py:flash_attention_kernel``.  It
 reads q (B, S, H, D) and k/v (B, T, KV, D) in the model layout through
 their strides (last dimension contiguous), so the TPU wrapper's transposes
 are gone, masks ragged S and T itself, and also writes the fp32 per-row
 log-sum-exp (B, H, S) that the backward pass needs.  bf16 runs on the
-tensor cores (``mma.sync``), fp32 on plain FMA.  The library is built at
-the first launch, never at import (this module must import on machines
-with no CUDA toolkit).
+tensor cores (``wgmma``, tiles brought by TMA), at the launch shape
+``(q_block, kv_block)``; fp32 on plain FMA at one fixed shape.
 
-``launches`` counts kernel launches made through
-:func:`flash_attention_kernel` (the one place the kernel is launched), so a
-run can show that its main path went through the kernel.
+The backward (``csrc/flash_attention_bwd.cu``) has no Pallas counterpart:
+the reference differentiates its plain paths.  It computes dq, dk and dv
+from the forward's output and LSE in three device kernels a call (the
+rowsum of dO∘O, the dK/dV pass, the dQ pass; ``mma.sync`` in bf16, FMA in
+fp32), with no atomics.
+
+Libraries are built at the first launch, never at import (this module must
+import on machines with no CUDA toolkit).  ``launches`` counts calls of
+:func:`flash_attention_kernel` (``flash_attention``) and of
+:func:`flash_attention_backward_kernel` (``flash_attention_bwd``, one a
+call, although a call launches three device kernels), the one place each
+is launched, so a run can show that its main path went through them.
 """
 from __future__ import annotations
 
@@ -22,42 +30,60 @@ import torch
 
 from .. import build
 
-__all__ = ["flash_attention_kernel", "launches"]
+__all__ = ["BLOCKS", "DEFAULT_Q_BLOCK", "DEFAULT_KV_BLOCK",
+           "check_blocks", "flash_attention_kernel",
+           "flash_attention_backward_kernel", "launches"]
 
-#: number of launches of the CUDA kernel since import (or the last reset)
-launches = 0
+#: kernel name -> calls since import (or the last reset)
+launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+
+#: the launch shapes the bf16 forward takes, for q_block and kv_block
+BLOCKS = (64, 128)
+#: the bf16 forward's launch shape when neither the caller nor the tuner
+#: gives one: the fastest of the grid at the training shape (B 2, S 4096,
+#: H 12, KV 2, D 128, causal) on an H100
+DEFAULT_Q_BLOCK = 64
+DEFAULT_KV_BLOCK = 64
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_lib = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build.build("flash_attention")))
-        lib.flash_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12
-            + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-        lib.flash_attention_launch.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _load(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build.build(name)))
+        if name == "flash_attention":
+            lib.flash_attention_launch.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12
+                + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+            lib.flash_attention_launch.restype = ctypes.c_int
+        else:
+            lib.flash_attention_bwd_launch.argtypes = [
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_longlong),
+                ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+            lib.flash_attention_bwd_launch.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return _libs[name]
 
 
-def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           *, causal: bool = True, window: int | None = None):
-    """Launch the kernel on the current stream.
+def check_blocks(q_block: int | None, kv_block: int | None) -> None:
+    """Raise ``ValueError`` unless each given block is in :data:`BLOCKS`."""
+    for name, val in (("q_block", q_block), ("kv_block", kv_block)):
+        if val is not None and val not in BLOCKS:
+            raise ValueError(f"{name} {val} not in the kernel's launch "
+                             f"shapes {BLOCKS}")
 
-    q: (B, S, H, D); k/v: (B, T, KV, D) with H a multiple of KV; all CUDA
-    on one device, one dtype (float32 or bfloat16), last dimension
-    contiguous.  Returns ``(out (B, S, H, D) in q's dtype, lse (B, H, S)
-    fp32)`` — what :func:`.ref.flash_attention_plain` computes."""
-    global launches
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
-                             f"got {t.device}")
+
+def _check(q, k, v, *extra) -> None:
+    """Shapes and dtypes first, then the device: q (B, S, H, D), k/v
+    (B, T, KV, D) and every ``(name, tensor)`` in ``extra`` shaped like q,
+    one dtype, last dimension contiguous, on one CUDA device."""
+    named = (("q", q), ("k", k), ("v", v), *extra)
+    for name, t in named:
         if t.dtype != q.dtype:
             raise TypeError(f"{name} dtype {t.dtype} differs from q's "
                             f"{q.dtype}")
@@ -74,27 +100,115 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)} as (B, T, KV, D) with H "
                          f"a multiple of KV")
+    for name, t in extra:
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match q "
+                             f"{tuple(q.shape)}")
     if not (8 <= D <= 128 and D % 8 == 0):
         raise ValueError(f"head dim {D} not supported by the flash kernel "
                          f"(multiples of 8 up to 128)")
     if min(B, S, T) < 1 or B > 65535 or H > 65535:
         raise ValueError(f"unsupported sizes B={B} S={S} T={T} H={H}")
+    for name, t in named:
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
+                             f"got {t.device}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy where the bf16 kernels' 16-byte copies
+    (TMA, cp.async) cannot reach it: a start off 16 bytes or a stride
+    that is not a multiple of 8 elements."""
+    ok = (t.dtype != torch.bfloat16
+          or (t.data_ptr() % 16 == 0
+              and all(s % 8 == 0 for s in t.stride()[:3])))
+    return t if ok else t.contiguous()
+
+
+def _strides(*tensors) -> list[int]:
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+def _raise(lib, name: str, rc: int) -> None:
+    msg = getattr(lib, f"{name}_error_string")(rc).decode()
+    raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool = True, window: int | None = None,
+                           q_block: int | None = None,
+                           kv_block: int | None = None):
+    """Launch the forward kernel on the current stream.
+
+    q: (B, S, H, D); k/v: (B, T, KV, D) with H a multiple of KV; all CUDA
+    on one device, one dtype (float32 or bfloat16), last dimension
+    contiguous.  ``q_block`` and ``kv_block`` (in :data:`BLOCKS`; default
+    :data:`DEFAULT_Q_BLOCK`, :data:`DEFAULT_KV_BLOCK`) are the bf16
+    kernel's launch shape; the fp32 kernel has one and ignores them.
+    Returns ``(out (B, S, H, D) in q's dtype, lse (B, H, S) fp32)`` — what
+    :func:`.ref.flash_attention_plain` computes."""
+    _check(q, k, v)
+    check_blocks(q_block, kv_block)
     if window is not None and window < 1:
         raise ValueError(f"window {window} must be >= 1")
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    lib = _load()
+    lib = _load("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
-            v.stride(2), out.stride(0), out.stride(1), out.stride(2), B, S, T,
-            H, KV, D, int(causal), 0 if window is None else int(window),
-            int(q.dtype == torch.bfloat16), stream)
+            lse.data_ptr(), *_strides(q, k, v, out), B, S, T, H, KV, D,
+            int(causal), 0 if window is None else int(window),
+            int(q.dtype == torch.bfloat16), q_block or DEFAULT_Q_BLOCK,
+            kv_block or DEFAULT_KV_BLOCK, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc} "
-                           f"({lib.flash_attention_error_string(rc).decode()})")
-    launches += 1
+        _raise(lib, "flash_attention", rc)
+    launches["flash_attention"] += 1
     return out, lse
+
+
+def flash_attention_backward_kernel(q, k, v, out, lse, dout, *,
+                                    causal: bool = True,
+                                    window: int | None = None):
+    """Launch the backward kernels on the current stream.
+
+    q, out, dout: (B, S, H, D); k/v: (B, T, KV, D); lse: (B, H, S) fp32
+    from the forward; all CUDA on one device, q, k, v, out and dout of one
+    dtype (float32 or bfloat16), last dimension contiguous.  Returns
+    ``(dq, dk, dv)`` in the inputs' dtype — what
+    :func:`.ref.flash_attention_backward_plain` computes."""
+    B, S, H, D = q.shape
+    if lse.dtype != torch.float32 or lse.shape != (B, H, S):
+        raise TypeError(f"lse must be float32 of shape {(B, H, S)}, got "
+                        f"{lse.dtype} {tuple(lse.shape)}")
+    _check(q, k, v, ("out", out), ("dout", dout))
+    T, KV = k.shape[1], k.shape[2]
+    if not lse.is_cuda or lse.device != q.device:
+        raise ValueError(f"lse must be a CUDA tensor on {q.device}")
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} must be >= 1")
+    q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    di = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    tensors = (q, k, v, out, dout, lse, di, dq, dk, dv)
+    ptrs = (ctypes.c_void_p * 10)(*(t.data_ptr() for t in tensors))
+    strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, out, dout, dq, dk,
+                                                 dv))
+    dims = (ctypes.c_int * 9)(B, S, T, H, KV, D, int(causal),
+                              0 if window is None else int(window),
+                              int(q.dtype == torch.bfloat16))
+    lib = _load("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd_launch(ptrs, strides, dims, stream)
+    if rc != 0:
+        _raise(lib, "flash_attention_bwd", rc)
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv

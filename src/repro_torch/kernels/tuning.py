@@ -62,12 +62,15 @@ __all__ = [
 # Candidate grids per kernel: CUDA launch shapes, each a valid kwarg set of
 # the kernel's ops-level wrapper.  The RMSNorm kernel takes its rows (warps)
 # a block at launch, the paged flash-decode kernel its logical pages a
-# split (block); the other kernels have one fixed launch shape each, so
-# their grid is one empty config, and timing it feeds the cost-model bridge.
+# split (block), the flash forward its query rows and keys a tile (the
+# reference's key names); the other kernels have one fixed launch shape
+# each, so their grid is one empty config, and timing it feeds the
+# cost-model bridge.
 DEFAULT_CANDIDATES: dict[str, list[dict[str, int]]] = {
     "rmsnorm": [{"row_block": r} for r in (1, 2, 4, 8)],
     "jacobi_sweep": [{}],
-    "flash_attention": [{}],
+    "flash_attention": [{"q_block": q, "kv_block": k} for q in (64, 128)
+                        for k in (64, 128)],
     "ssd_scan": [{}],
     "paged_attention": [{"pages_per_split": p} for p in (1, 2, 4, 8, 16)],
 }
@@ -371,20 +374,23 @@ def get_tuner(cache_path: str | None = None) -> Autotuner:
 def calibrated_cost_params(*, backend: str, tuner: Autotuner | None = None):
     """``CostModelParams`` from observed kernel rates on ``backend``.
 
-    Every cache entry of ``backend`` under its real impl
+    Every float32 cache entry of ``backend`` under its real impl
     (:func:`default_impl`) that recorded flops or bytes gives an achieved
     rate ``flops / median_s`` and ``bytes / median_s``; the best of each
     replace the default ``CostModelParams()``'s roofline guesses.  Entries
-    of other backends, or timed under another impl (the plain version
-    forced on a card), are ignored.  With no usable entry the defaults come
-    back as they are."""
+    of other backends, timed under another impl (the plain version forced
+    on a card), or of another dtype (the bf16 flash forward runs on tensor
+    cores, not in the fp32 units the cost model prices jobs in) are
+    ignored.  With no usable entry the defaults come back as they are."""
     from repro_torch.core.scheduler import CostModelParams
     base = CostModelParams()
     tuner = tuner or get_tuner()
     want_impl = default_impl(backend)
     peak, bw = 0.0, 0.0
-    for entry in tuner.cache.load().values():
-        if entry.get("backend") != backend or entry.get("impl") != want_impl:
+    for key, entry in tuner.cache.load().items():
+        if (entry.get("backend") != backend
+                or entry.get("impl") != want_impl
+                or key.split("|")[-1] != "float32"):
             continue
         t = float(entry.get("median_s") or 0.0)
         if t <= 0:

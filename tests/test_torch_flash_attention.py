@@ -19,10 +19,12 @@ from repro.kernels.flash_attention.ref import attention_ref
 from repro.models import attention as jattn
 from repro.models.attention import init_attention as jax_init_attention
 from repro.models.config import ModelConfig as JaxConfig
-from repro_torch.kernels.flash_attention import (FlashAttentionFn,
-                                                 flash_attention,
-                                                 flash_attention_backward,
-                                                 flash_attention_plain)
+from repro.kernels.tuning import DEFAULT_CANDIDATES as JAX_CANDIDATES
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import (
+    FlashAttentionFn, flash_attention, flash_attention_backward_kernel,
+    flash_attention_backward_plain, flash_attention_plain, ops)
+from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
 from repro_torch.models import attention as tattn
 from repro_torch.models.config import ModelConfig as TorchConfig
 
@@ -110,7 +112,8 @@ GRAD_CASES = [
 
 @pytest.mark.parametrize("case", GRAD_CASES)
 def test_flash_fn_gradients_match_torch_and_jax(case):
-    """``FlashAttentionFn``'s backward (plain forward on the CPU) against
+    """The plain backward (``ref.flash_attention_backward_plain``) and
+    ``FlashAttentionFn``'s backward (plain forward on the CPU) against
     torch autograd through ``_dense_attn`` and ``jax.grad`` of JAX's
     ``attention_ref``, at 1e-5."""
     B, S, H, KV, D, causal, window, q_tile = case
@@ -119,10 +122,9 @@ def test_flash_fn_gradients_match_torch_and_jax(case):
         np.float32)
     tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
     out, lse = FlashAttentionFn.apply(tq, tk, tv, causal, window, "ref")
-    grads = flash_attention_backward(tq.detach(), tk.detach(), tv.detach(),
-                                     out.detach(), lse, torch.from_numpy(dout),
-                                     causal=causal, window=window,
-                                     q_tile=q_tile)
+    grads = flash_attention_backward_plain(
+        tq.detach(), tk.detach(), tv.detach(), out.detach(), lse,
+        torch.from_numpy(dout), causal=causal, window=window, q_tile=q_tile)
     grads_fn = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
 
     pos = torch.arange(S)
@@ -149,12 +151,107 @@ def test_flash_fn_gradients_match_torch_and_jax(case):
 def test_wrapper_runs_the_plain_version_on_the_cpu():
     from repro_torch.kernels.flash_attention import kernel
     q, k, v = _t(*qkv(36, 1, 20, 20, 2, 1, 16))
-    before = kernel.launches
+    before = dict(kernel.launches)
     out = flash_attention(q, k, v, causal=True)
     assert kernel.launches == before
     torch.testing.assert_close(out, flash_attention_plain(q, k, v)[0])
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, k, v, impl="kernel")
+
+
+def test_flash_fn_on_the_cpu_routes_ref_to_the_plain_backward(monkeypatch):
+    """``impl="ref"`` picks both plain halves: the backward runs
+    ``flash_attention_backward_plain`` (counted here), never the kernel."""
+    from repro_torch.kernels.flash_attention import kernel
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return flash_attention_backward_plain(*args, **kw)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the backward kernel ran on the CPU")
+
+    monkeypatch.setattr(ops, "flash_attention_backward_plain", spy)
+    monkeypatch.setattr(ops, "flash_attention_backward_kernel", refuse)
+    q, k, v = (t.requires_grad_() for t in _t(*qkv(39, 1, 30, 30, 4, 2,
+                                                    16)))
+    before = dict(kernel.launches)
+    out = flash_attention(q, k, v, causal=True, window=7)
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    assert calls == [{"causal": True, "window": 7}]
+    assert kernel.launches == before
+    _, lse = flash_attention_plain(q, k, v, causal=True, window=7)
+    want = flash_attention_backward_plain(
+        q.detach(), k.detach(), v.detach(), out.detach(), lse,
+        torch.ones_like(out), causal=True, window=7)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+# what the backward binding refuses, each before any build: name, the
+# change to the default (q (1, 16, 2, D 32) fp32, k/v (1, 16, 2, 32))
+BWD_REFUSED = [
+    ("cpu", {}, ValueError, "CUDA tensor"),
+    ("mixed_dtype", {"k": torch.bfloat16}, TypeError, "differs"),
+    ("d256", {"D": 256}, ValueError, "head dim"),
+    ("d20", {"D": 20}, ValueError, "head dim"),
+    ("half", {"all": torch.float16}, TypeError, "not supported"),
+    ("lse_dtype", {"lse": torch.bfloat16}, TypeError, "lse"),
+]
+
+
+@pytest.mark.parametrize("case", BWD_REFUSED, ids=[c[0] for c in BWD_REFUSED])
+def test_backward_binding_refuses_before_any_build(case, monkeypatch):
+    _, change, exc, match = case
+
+    def no_build(name):
+        raise AssertionError(f"built {name} before checking its inputs")
+
+    monkeypatch.setattr(build, "build", no_build)
+    D = change.get("D", 32)
+    q, k, v = _t(*qkv(40, 1, 16, 16, 2, 2, D))
+    if "all" in change:
+        q, k, v = (t.to(change["all"]) for t in (q, k, v))
+    if "k" in change:
+        k = k.to(change["k"])
+    out, dout = torch.zeros_like(q), torch.ones_like(q)
+    lse = torch.zeros((1, 2, 16), dtype=change.get("lse", torch.float32))
+    with pytest.raises(exc, match=match):
+        flash_attention_backward_kernel(q, k, v, out, lse, dout, causal=True)
+
+
+def test_launch_shape_arguments_on_the_cpu():
+    """``q_block``/``kv_block`` of the grid leave the plain version's
+    result unchanged, in the forward and the gradient; values outside the
+    grid are refused on either path."""
+    q, k, v = (t.requires_grad_() for t in _t(*qkv(41, 2, 40, 40, 4, 2,
+                                                    16)))
+    want = flash_attention(q, k, v, causal=True)
+    want_g = torch.autograd.grad(want.sum(), (q, k, v))
+    for cfg in DEFAULT_CANDIDATES["flash_attention"]:
+        got = flash_attention(q, k, v, causal=True, **cfg)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+        for g, w in zip(torch.autograd.grad(got.sum(), (q, k, v)), want_g):
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+    for bad in ({"q_block": 32}, {"kv_block": 256}, {"q_block": 96,
+                                                     "kv_block": 64}):
+        with pytest.raises(ValueError, match="launch shapes"):
+            flash_attention(q, k, v, causal=True, **bad)
+        with pytest.raises(ValueError, match="launch shapes"):
+            flash_attention(q, k, v, causal=True, impl="ref", **bad)
+    assert ops.launch_shape(q.detach(), 64, 128) == (64, 128)
+
+
+def test_flash_tuner_grid_has_the_reference_key_names():
+    """The port's flash grid: the four (q_block, kv_block) launch shapes,
+    keyed by the names the reference's grid uses."""
+    grid = DEFAULT_CANDIDATES["flash_attention"]
+    assert sorted((c["q_block"], c["kv_block"]) for c in grid) == [
+        (64, 64), (64, 128), (128, 64), (128, 128)]
+    want = {frozenset(c) for c in JAX_CANDIDATES["flash_attention"]}
+    assert {frozenset(c) for c in grid} == want == {
+        frozenset({"q_block", "kv_block"})}
 
 
 TILED_CASES = [

@@ -221,6 +221,7 @@ def ssd_case(seed, BC, H, Q, P, N, *, strong=False):
 
 
 def _rel(got, want):
+    got, want = got.float(), want.float()
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
@@ -385,10 +386,10 @@ def test_cuda_flash_kernel_matches_plain(case, dtype):
                                                      kernel)
     B, S, T, H, KV, D, causal, window = case
     q, k, v = fa_case(20, B, S, T, H, KV, D, dtype)
-    before = kernel.launches
+    before = kernel.launches["flash_attention"]
     out, lse = flash_attention_kernel(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert kernel.launches["flash_attention"] == before + 1
     out_p, lse_p = flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
     assert out.dtype == q.dtype and out.shape == q.shape
@@ -397,6 +398,104 @@ def test_cuda_flash_kernel_matches_plain(case, dtype):
     torch.testing.assert_close(out.float(), out_p.float(), atol=tol,
                                rtol=tol)
     torch.testing.assert_close(lse, lse_p, atol=FA_LSE_TOL, rtol=FA_LSE_TOL)
+
+
+FA_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of max|plain|
+FA_BLOCKS = [(q, kv) for q in (64, 128) for kv in (64, 128)]
+
+
+def _fa_bwd_inputs(case, dtype, seed=24):
+    B, S, T, H, KV, D, causal, window = case
+    q, k, v = fa_case(seed, B, S, T, H, KV, D, dtype)
+    rng = np.random.default_rng(seed + 1)
+    dout = torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).cuda().to(q.dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", FA_BLOCKS)
+@pytest.mark.parametrize("case", FA_CASES)
+def test_cuda_flash_kernel_every_launch_shape(case, blocks):
+    """The bf16 forward at every (q_block, kv_block) of the tuner's grid
+    against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain)
+    B, S, T, H, KV, D, causal, window = case
+    q, k, v = fa_case(25, B, S, T, H, KV, D, "bfloat16")
+    qb, kb = blocks
+    out, lse = flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                      q_block=qb, kv_block=kb)
+    out_p, lse_p = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+    torch.testing.assert_close(out.float(), out_p.float(),
+                               atol=FA_TOL["bfloat16"],
+                               rtol=FA_TOL["bfloat16"])
+    torch.testing.assert_close(lse, lse_p, atol=FA_LSE_TOL, rtol=FA_LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_CASES)
+def test_cuda_flash_backward_kernel_matches_plain(case, dtype):
+    """The backward kernel against the plain backward on the forward's
+    output and LSE: dq, dk, dv within 1e-4 (fp32) / 2e-2 (bf16) of
+    max|plain|, in the inputs' dtype, bit-identical on a repeat call, dq
+    zero on rows that see no key; one call counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_kernel, flash_attention_backward_plain,
+        flash_attention_kernel, kernel)
+    B, S, T, H, KV, D, causal, window = case
+    q, k, v, dout = _fa_bwd_inputs(case, dtype)
+    out, lse = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    before = kernel.launches["flash_attention_bwd"]
+    got = flash_attention_backward_kernel(q, k, v, out, lse, dout,
+                                          causal=causal, window=window)
+    again = flash_attention_backward_kernel(q, k, v, out, lse, dout,
+                                            causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernel.launches["flash_attention_bwd"] == before + 2
+    want = flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                          causal=causal, window=window)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        assert _rel(g, w) <= FA_BWD_TOL[dtype]
+        assert torch.equal(g, a)
+    if window is not None and S > T + window - 1:
+        assert (got[0][:, T + window - 1:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_backward_kernel_reads_strided_inputs(dtype):
+    """q, k and v as views of one fused projection, dO a transposed view:
+    the backward kernel matches the plain backward on contiguous copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_kernel, flash_attention_backward_plain,
+        flash_attention_kernel)
+    B, S, H, KV, D = 2, 300, 4, 2, 64
+    rng = np.random.default_rng(26)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B, S, H + 2 * KV, D)).astype(np.float32)).cuda().to(
+            getattr(torch, dtype))
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    dout = torch.from_numpy(rng.standard_normal((B, H, S, D)).astype(
+        np.float32)).cuda().to(q.dtype).transpose(1, 2)
+    out, lse = flash_attention_kernel(q, k, v, causal=True, window=70)
+    got = flash_attention_backward_kernel(q, k, v, out, lse, dout,
+                                          causal=True, window=70)
+    want = flash_attention_backward_plain(
+        *(t.contiguous() for t in (q, k, v, out)), lse, dout.contiguous(),
+        causal=True, window=70)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= FA_BWD_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -427,25 +526,27 @@ def test_cuda_flash_fn_gradients_match_autograd_through_plain(window):
     gradients against torch autograd through the plain version, fp32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
-                                                     flash_attention_plain,
-                                                     kernel, ops)
+    from repro_torch.kernels.flash_attention import (
+        FlashAttentionFn, flash_attention_backward_plain,
+        flash_attention_plain, kernel)
     torch.backends.cuda.matmul.allow_tf32 = False
     B, S, H, KV, D = 2, 333, 6, 2, 64
     q, k, v = (t.requires_grad_() for t in fa_case(22, B, S, S, H, KV, D,
                                                    "float32"))
     dout = torch.randn((B, S, H, D), device="cuda")
-    before = kernel.launches
+    before = dict(kernel.launches)
     out, lse = FlashAttentionFn.apply(q, k, v, True, window, "kernel")
     grads = torch.autograd.grad(out, (q, k, v), dout)
-    assert kernel.launches == before + 1
+    assert kernel.launches == {
+        "flash_attention": before["flash_attention"] + 1,
+        "flash_attention_bwd": before["flash_attention_bwd"] + 1}
     out_p, _ = flash_attention_plain(q, k, v, causal=True, window=window)
     grads_p = torch.autograd.grad(out_p, (q, k, v), dout)
     torch.testing.assert_close(out, out_p, atol=1e-5, rtol=1e-5)
     for g, gp in zip(grads, grads_p):
         torch.testing.assert_close(g, gp, atol=1e-4, rtol=1e-4)
-    # the tiled backward visits the same keys with several tile sizes
-    small = ops.flash_attention_backward(
+    # the plain backward, tiled small, on the same output and LSE
+    small = flash_attention_backward_plain(
         *(t.detach() for t in (q, k, v, out)), lse, dout, causal=True,
         window=window, q_tile=64)
     for g, gs in zip(grads, small):
@@ -477,8 +578,9 @@ def test_cuda_flash_wrapper_refuses_what_the_kernel_does_not_take():
 @pytest.mark.cuda
 def test_cuda_train_step_runs_the_kernel_and_matches_the_plain_path():
     """One fused step of the qwen2 smoke config in bf16 on the card: every
-    attention layer launches the flash kernel twice a micro-batch (the
-    remat recompute), and the loss and grad norm match the tiled path."""
+    attention layer launches the flash forward twice a micro-batch (the
+    remat recompute) and the backward kernel once, and the loss and grad
+    norm match the tiled path."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     from repro_torch.configs import get_smoke_config
@@ -495,9 +597,12 @@ def test_cuda_train_step_runs_the_kernel_and_matches_the_plain_path():
                               torch.Generator("cuda").manual_seed(0), "cuda")
     grads, loss_p, _ = compute_grads(cfg, state.params, batch, accum=2,
                                      impl="tiled")
-    before = kernel.launches
+    before = dict(kernel.launches)
     state, m = make_train_step(cfg, spec, grad_accum=2)(state, batch)
-    assert kernel.launches == before + 2 * cfg.n_layers * 2
+    assert kernel.launches == {
+        "flash_attention": before["flash_attention"] + 2 * cfg.n_layers * 2,
+        "flash_attention_bwd": (before["flash_attention_bwd"]
+                                + 2 * cfg.n_layers)}
     assert abs(float(m["loss_total"]) / float(loss_p) - 1) < 1e-3
     assert abs(float(m["grad_norm"]) / float(global_norm(grads)) - 1) < 2e-2
 

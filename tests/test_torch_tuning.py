@@ -277,6 +277,23 @@ def test_calibrated_cost_params(tmp_path):
         pytest.approx(4e17)
 
 
+def test_calibration_reads_only_float32_entries(tmp_path):
+    """The cost model prices fp32 work: a bf16 entry (the flash forward
+    on the tensor cores) leaves the calibrated rates alone."""
+    cache = TuningCache(str(tmp_path / "t.json"))
+    tuner = Autotuner(cache)
+    cache.put("jacobi_sweep|cuda|kernel|2048x2048|float32",
+              {"config": {}, "median_s": 1e-3, "flops": 8e9, "bytes": 2e9,
+               "backend": "cuda", "impl": "kernel"})
+    cache.put("flash_attention|cuda|kernel|1x2048x8x64|bfloat16",
+              {"config": {"q_block": 64, "kv_block": 64}, "median_s": 1e-5,
+               "flops": 4e9, "bytes": 3e6, "backend": "cuda",
+               "impl": "kernel"})
+    p = calibrated_cost_params(tuner=tuner, backend="cuda")
+    assert p.peak_flops == pytest.approx(8e12)
+    assert p.mem_bw == pytest.approx(2e12)
+
+
 def test_plain_version_entries_cannot_poison_the_card(tmp_path):
     """Timings of the plain version, on the CPU or forced on a card
     (``...|cuda|ref|...``), never answer a kernel lookup on the card nor
