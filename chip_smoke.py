@@ -10,7 +10,10 @@ and prints one JSON line per phase:
 
 1. ``device``  — the card's name and power limit (``nvidia-smi``);
 2. ``build``   — builds every CUDA kernel of the port from ``src/repro_torch/
-   csrc`` with ``nvcc`` (one process per source, all at once);
+   csrc`` with ``nvcc`` (one process per source, all at once), with
+   ptxas's register report; ``build_flash_bwd`` sums it up for the flash
+   backward's bf16 passes: registers, spill bytes and whether ptxas
+   serialized their ``wgmma`` (C7520), reported, not checked;
 3. ``kernels`` — calls each kernel's wrapper on the card at the shapes the
    serving path gives it (training for the flash kernel, phase 14), holds the result against its plain PyTorch
    version (stated tolerance) and times kernel, plain version and one
@@ -130,6 +133,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1371,6 +1375,41 @@ def _rotating(tensors, floor_bytes: float = 100e6) -> list[tuple]:
     return [tuple(t.clone() for t in tensors) for _ in range(n)]
 
 
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill bytes of each ``wgmma`` entry function, from
+    ``nvcc -Xptxas -v`` output, and the entries ptxas reported a
+    serialized ``wgmma`` for (C7520)."""
+    entries, serialized, name = {}, [], None
+
+    def label(mangled):   # flash_bwd_dq_wgmmaILi128EE... -> ..._wgmma<128>
+        m = re.search(r"(flash_bwd_\w+?)I((?:Li\d+E)+)E", mangled)
+        if not m:
+            return mangled
+        return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = label(m.group(1)) if "wgmma" in m.group(1) else None
+            if name:
+                entries[name] = {}
+            continue
+        if "C7520" in line:
+            m = re.search(r"function '([^']+)'", line)
+            serialized.append(label(m.group(1)) if m else line.strip())
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entries[name]["spill_store_bytes"] = int(m.group(1))
+            entries[name]["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[name]["registers"] = int(m.group(1))
+    return {"entries": entries, "c7520": serialized}
+
+
 def flash_kernel_phase() -> tuple[dict, dict]:
     """Both flash kernels against their plain versions on the cases above:
     the forward at every launch shape of the tuner's grid, the backward
@@ -2149,6 +2188,8 @@ def main() -> int:
     libs = build.build_all(ptxas_verbose=True)
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[str(p.relative_to(ROOT)) for p in libs.values()])
+    emit("build_flash_bwd", **ptxas_summary(
+        build.BUILD_LOGS.get("flash_attention_bwd", "")))
 
     entry = kernel_phase(n_layers=28)
     parity_phase()

@@ -23,10 +23,11 @@
 // D 128, causal, bf16) the five products take 10·D operations per visible
 // (query, key) pair per (b, h), 257.8 GFLOP, 0.261 ms at 989 TFLOP/s,
 // against about 100 MB of inputs and outputs (0.03 ms at 3.35 TB/s): the
-// tensor cores bound it.
+// tensor cores bound it.  The scheme below has no atomics, so the dQ pass
+// recomputes S and dP: it issues 14·D a pair, whose floor is 0.365 ms.
 //
-// Design (the FA2 scheme, deterministic: no atomics, so two calls give the
-// same bits).  Three launches from one C call, on the caller's stream:
+// Design (deterministic: no atomics, so two calls give the same bits).
+// Three launches from one C call, on the caller's stream:
 //
 // 1. `flash_bwd_dot`: Dᵢ (B, H, S) fp32, one warp a row.
 // 2. `flash_bwd_dkdv_*`: a block owns (b, kv head, 64 keys) and walks the G
@@ -34,28 +35,58 @@
 //    keys (under causal from its first key on, under a window up to its
 //    last key + window − 1), recomputing S from q·kᵀ and LSE.  dK and dV
 //    stay in fp32 registers for the whole walk, so GQA's sum needs no
-//    atomics.  Blocks start from the first key tile, the one with the most
-//    query tiles under a causal mask.
-// 3. `flash_bwd_dq_*`: a block owns (b, h, 64 query rows) and walks the kv
-//    tiles its rows see, as the forward does, recomputing S and dP; dQ
+//    atomics.
+// 3. `flash_bwd_dq_*`: a block owns (b, h, 128 query rows) and walks the
+//    kv tiles its rows see, as the forward does, recomputing S and dP; dQ
 //    stays in registers and is written once (no fp32 dQ buffer).
 //
-// bf16 runs on the tensor cores: `mma.sync` m16n8k16, bf16 in, fp32
-// accumulate.  Operand fragments come from shared memory by `ldmatrix`, the
-// Kᵀ, dOᵀ and Qᵀ operands (the B side of dQ = dS·K, dV = Pᵀ·dO and dK =
-// dSᵀ·Q) by `ldmatrix.trans`; rows are padded by 8 elements, which puts the
-// eight rows of every 8x8 matrix on distinct banks.  Q/dO tiles (dK/dV
-// pass) and K/V tiles (dQ pass) are staged by 16-byte `cp.async` with the
-// zero-fill form past S, T and D into a two-stage ring, so the next tile's
-// copies overlap this tile's products (a third stage would save a barrier
-// a tile but halve the dQ pass's blocks a multiprocessor).  The dQ pass
-// keeps its rows' q and dO fragments in registers for its whole walk.  The
-// dK/dV pass runs 8 warps: warps w and w + 4 own the same 16 keys and
-// split each 64-query tile in halves
-// (16 fp32 scores a thread instead of 32, so the 128 accumulator registers
-// of dK and dV fit without spills), and meet in shared memory at the end.
-// P and dS are rounded to bf16 only as operands of a product.  D is padded
-// to 32, 64 or 128 (zeros); every D that is a multiple of 8 up to 128 works.
+// bf16 runs on TMA, mbarriers and `wgmma` (the forward's building blocks,
+// hopper_common.cuh).  Every tile is brought by TMA in the 128-byte swizzle,
+// zero-filled past S, T and D (D is padded to 64 or 128), and every product
+// is `wgmma.mma_async` with fp32 accumulators:
+//
+// * dK/dV pass (`flash_bwd_dkdv_wgmma`, 384 threads): two consumer
+//   warpgroups own the same 64 keys and take alternate (head, query tile)
+//   steps of the walk; a producer warp (its warpgroup hands its registers to
+//   the consumers with `setmaxnreg`, 40 / 232) loads K and V once and
+//   streams Q, dO (64 rows each) and the tile's LSE·log2e and Dᵢ rows into
+//   a ring of four stages, two a consumer, each with a "full" and a "free"
+//   mbarrier.  A consumer computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (both operands
+//   in shared memory, K-major; two commit groups, so Pᵀ is computed while
+//   dPᵀ runs), Pᵀ = 2^(Sᵀ·scale·log2e − LSE·log2e) selected to 0 where
+//   masked, dSᵀ = Pᵀ ∘ (dPᵀ − Dᵢ) in registers, then dV += Pᵀ·dO and dK +=
+//   dSᵀ·Q with Pᵀ and dSᵀ rounded to bf16 as the register A operand and
+//   dO, Q read in their own (row) layout through the transpose flag (the
+//   forward's p·v).  At the end the warpgroups swap halves through the
+//   drained ring: one sums and writes dK, the other dV.
+//   Load balance: under causal, key tile 0 sees every query tile, twice
+//   the average; blocks of 64 keys (256 at the training shape, one a
+//   multiprocessor: 192 accumulator registers a consumer thread) start
+//   with the heaviest key tiles, so the card pairs a light block with each
+//   heavy one and the longest block (6 heads x 64 query tiles) is about an
+//   average multiprocessor's share (378 such steps).  Blocks of 128 keys
+//   (a warpgroup each, sharing every Q, dO tile) ran no faster without a
+//   mask and, under causal, as long as their heaviest block.
+// * dQ pass (`flash_bwd_dq_wgmma`, the forward's 128-row shape): two
+//   consumer warpgroups of 64 query rows and a producer warpgroup
+//   (`setmaxnreg` 40 / 232).  Q and dO come once, K and V (64 keys a tile)
+//   through a two-stage ring that both consumers read.  S = Q·Kᵀ and dP =
+//   dO·Vᵀ from shared memory (two groups again), dS = P ∘ (dP − Dᵢ) in
+//   registers, dQ += dS·K with dS the register A operand and K through the
+//   transpose flag.  Blocks start from the last query tile, the one with
+//   the most kv tiles under causal.  Blocks of 64 rows (a producer warp,
+//   two blocks a multiprocessor) spill at the 168 registers that leaves a
+//   thread; 128-key tiles spill as well.
+// * Between the products, a tile's elementwise step is what bounds it: the
+//   exponential is `ex2.approx.ftz` computed for every element and then
+//   selected (a conditional `exp2f` compiled to a branch, a load and an
+//   exponential one element after another), the LSE·log2e and Dᵢ pairs are
+//   read from shared memory, and the mask test is taken once a tile.
+//
+// Against this source's earlier `mma.sync` design (2.80 ms at the training
+// shape): no `ldmatrix` (wgmma reads shared memory itself), no `cp.async`
+// from every thread (one TMA issue a tile, overlapped by the ring), no
+// 8-warp block at 238 registers, and the causal load balance above.
 //
 // fp32 runs plain FMA, not TF32, as the forward's fp32 kernel, so that it
 // holds to the plain version at 1e-4: the same two passes with 32-row
@@ -65,11 +96,10 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention_bwd.so flash_attention_bwd.cu
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
+#include <climits>
 #include <cmath>
-#include <cstdint>
+
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -166,452 +196,483 @@ __global__ void __launch_bounds__(256) flash_bwd_dot(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16, ldmatrix, cp.async
+// bf16: TMA, mbarriers and wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 64;   // keys a dK/dV block, rows a dQ block, tiles
+constexpr int kRing = 4;     // (Q, dO) stages of the dK/dV pass: two a consumer
+constexpr int kStages = 2;   // (K, V) stages of the dQ pass
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
 
-// 16 bytes from global to shared memory, zeros when !valid (src unread)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4 bytes, zeros when !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
+// named barrier `id` over the `count` threads that reach it
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// p rounded up to 1024 bytes by an offset, so that the compiler still
+// knows it (and what is derived from it) to be shared memory
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// 2^x by the special-function unit, flushed to zero below 2^-126 (such P
+// do not register in a bf16 product); 2^-inf = 0
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x is the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a·b for one 16x8x16 tile: a row-major 16x16 bf16, b column-major
-// 16x8 bf16, c/d 16x8 fp32 (PTX ISA fragment layouts)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the A fragment of a 16x16 product from two adjacent 16x8 accumulators
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// lane addresses of the ldmatrix.x4 forms, for a 16 x 16 block at (r0, c0)
-// of a row-major shared array: the A fragment, the B fragments of two
-// 8-column n tiles from [n][k] storage, and from [k][n] storage (.trans)
-template <int LD>
-__device__ __forceinline__ const uint16_t* a_addr(const uint16_t (*m)[LD],
-                                                  int r0, int c0, int lane) {
-  return &m[r0 + (lane & 15)][c0 + (lane >> 4) * 8];
-}
-template <int LD>
-__device__ __forceinline__ const uint16_t* bt_addr(const uint16_t (*m)[LD],
-                                                   int n0, int k0, int lane) {
-  return &m[n0 + (lane >> 4) * 8 + (lane & 7)][k0 + ((lane >> 3) & 1) * 8];
-}
-template <int LD>
-__device__ __forceinline__ const uint16_t* bk_addr(const uint16_t (*m)[LD],
-                                                   int k0, int n0, int lane) {
-  return &m[k0 + ((lane >> 3) & 1) * 8 + (lane & 7)][n0 + (lane >> 4) * 8];
-}
-
-// rows [r0, r0 + 64) of a (rows, D) slice into shared memory by cp.async,
-// zeros past `limit` rows and past D
-template <int DP>
-__device__ __forceinline__ void load_rows(uint16_t (*dst)[DP + 8],
-                                          const uint16_t* base,
-                                          long long stride, int r0, int limit,
-                                          int D, int nthreads) {
-  constexpr int kVecs = DP / 8;
-  for (int idx = threadIdx.x; idx < kTile * kVecs; idx += nthreads) {
-    const int r = idx / kVecs;
-    const int c = (idx % kVecs) * 8;
-    const bool ok = r0 + r < limit && c < D;
-    cp_async16(&dst[r][c],
-               ok ? base + static_cast<long long>(r0 + r) * stride + c : base,
-               ok);
+// rows row0 and row0 + 8 of a warpgroup's 64 x DP accumulator (one
+// 64-column chunk a slice), times `scale`, as bf16 pairs; rows from
+// `limit` on and columns from D on are not written
+template <int kChunks>
+__device__ __forceinline__ void store_rows(const float (&acc)[kChunks][32],
+                                           __nv_bfloat16* base,
+                                           long long stride, int row0,
+                                           int limit, int D, float scale) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + 8 * rr;
+    if (r >= limit) continue;
+    __nv_bfloat16* out = base + static_cast<long long>(r) * stride;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = c * 64 + 8 * j + 2 * t;
+        if (col < D)   // D is a multiple of 8: the pair is in or out
+          *reinterpret_cast<__nv_bfloat162*>(out + col) =
+              __floats2bfloat162_rn(acc[c][4 * j + 2 * rr] * scale,
+                                    acc[c][4 * j + 2 * rr + 1] * scale);
+      }
   }
 }
 
 template <int DP>
-struct DkdvSmem {
-  static constexpr int kLD = DP + 8;
-  static constexpr int kTileBytes = kTile * kLD * 2;
-  // K, V, then two stages of (Q, dO), then two stages of (lse, Dᵢ)
-  static constexpr int kBytes = 6 * kTileBytes + 2 * 2 * kTile * 4;
+struct DkdvShape {
+  static constexpr int kChunks = DP / 64;             // 64-column slices of D
+  static constexpr int kTileBytes = kChunks * kBox;   // 64 rows of K, V, Q, dO
+  static constexpr int kThreadsAll = 3 * 128;         // 2 consumers, producer
+  // K, V, the ring of (Q, dO), a stage's LSE·log2e and Dᵢ rows, barriers
+  static constexpr int kSmem = 1024 + (2 + 2 * kRing) * kTileBytes +
+                               kRing * 2 * 64 * 4 + (1 + 2 * kRing) * 8;
+  // the consumers swap a dK and a dV partial through the drained ring
+  static_assert(2 * kChunks * 32 * 128 * 4 <= 2 * kRing * kTileBytes, "");
 };
 
 template <int DP>
-__global__ void __launch_bounds__(256)
-    flash_bwd_dkdv_bf16(const Params p) {
-  constexpr int kLD = DP + 8;
-  constexpr int kN = DP / 8;   // 8-column output tiles
-  constexpr int kThr = 256;
-  constexpr int kQW = kTile / 2;   // queries of a tile a warp takes
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint16_t(*Ks)[kLD] = reinterpret_cast<uint16_t(*)[kLD]>(smem);
-  uint16_t(*Vs)[kLD] = Ks + kTile;
-  uint16_t(*ring)[kLD] = Vs + kTile;   // stage st: Q at 2st, dO at 2st + 1
-  float* stats = reinterpret_cast<float*>(ring + 4 * kTile);  // [st][2][64]
-
-  const int k0 = blockIdx.x * kTile;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int kw = warp & 3;    // the warp's 16 keys
-  const int qh = warp >> 2;   // its half of each 64-query tile
+__device__ __forceinline__ void dkdv_produce(
+    const Maps& maps, const Params& p, uint8_t* ks, uint8_t* vs,
+    uint8_t* ring, float* stats, uint64_t* kv_full, uint64_t* full,
+    uint64_t* empty, int k0, int kvh, int b, int first, int nq, int total) {
+  using Sh = DkdvShape<DP>;
   const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  if (lane == 0) {
+    mbar_expect_tx(kv_full, 2 * Sh::kTileBytes);
+    for (int c = 0; c < Sh::kChunks; ++c) {
+      tma_load(ks + c * kBox, &maps.k, kv_full, c * 64, kvh, k0, b);
+      tma_load(vs + c * kBox, &maps.v, kv_full, c * 64, kvh, k0, b);
+    }
+  }
+  for (int it = 0; it < total; ++it) {
+    const int st = it % kRing;
+    const int h = kvh * p.G + it / nq;
+    const int qs = (first + it % nq) * 64;
+    const long long at = (static_cast<long long>(b) * p.H + h) * p.S + qs;
+    // the tile's LSE (log2 units) and Dᵢ rows, read before the wait; rows
+    // past S get LSE +inf, so P = 0 there
+    float l2[2], di[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = lane + 32 * r;
+      const bool ok = qs + row < p.S;
+      l2[r] = ok ? p.lse[at + row] * kLog2e : INFINITY;
+      di[r] = ok ? p.di[at + row] : 0.f;
+    }
+    if (it >= kRing) mbar_wait(&empty[st], ((it / kRing) & 1) ^ 1);
+    float* sl = stats + st * 128;
+    sl[lane] = l2[0];
+    sl[lane + 32] = l2[1];
+    sl[64 + lane] = di[0];
+    sl[96 + lane] = di[1];
+    if (lane == 0) {
+      uint8_t* qt = ring + 2 * st * Sh::kTileBytes;
+      uint8_t* ot = qt + Sh::kTileBytes;
+      mbar_expect_tx(&full[st], 2 * Sh::kTileBytes);
+      for (int c = 0; c < Sh::kChunks; ++c) {
+        tma_load(qt + c * kBox, &maps.q, &full[st], c * 64, h, qs, b);
+        tma_load(ot + c * kBox, &maps.dout, &full[st], c * 64, h, qs, b);
+      }
+    }
+    __syncwarp();
+    mbar_arrive(&full[st]);   // the lane's stats stores, released
+  }
+}
 
-  load_rows<DP>(Ks, static_cast<const uint16_t*>(p.k) + b * p.k_sb +
-                        kvh * p.k_sh, p.k_st, k0, p.T, p.D, kThr);
-  load_rows<DP>(Vs, static_cast<const uint16_t*>(p.v) + b * p.v_sb +
-                        kvh * p.v_sh, p.v_st, k0, p.T, p.D, kThr);
-  cp_async_commit();
+// consumer warpgroup wg (0 or 1): steps wg, wg + 2, ... of the walk
+template <int DP>
+__device__ __forceinline__ void dkdv_consume(
+    const Params& p, uint8_t* ks, uint8_t* vs, uint8_t* ring,
+    const float* stats, uint64_t* kv_full, uint64_t* full, uint64_t* empty,
+    int k0, int kvh, int b, int first, int nq, int total, int wg) {
+  using Sh = DkdvShape<DP>;
+  constexpr int kChunks = Sh::kChunks;
+  const int tid = threadIdx.x % 128;
+  const int t = tid % 4;
+  const int key0 = k0 + (tid / 32) * 16 + (tid % 32) / 4;   // and key0 + 8
+  const uint32_t k_addr = smem_u32(ks);
+  const uint32_t v_addr = smem_u32(vs);
 
+  float dk[kChunks][32], dv[kChunks][32];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
+
+  mbar_wait(kv_full, 0);   // also when the walk is empty: no copy outlives us
+  for (int it = wg; it < total; it += 2) {
+    const int st = it % kRing;
+    const int qs = (first + it % nq) * 64;
+    const uint32_t q_addr = smem_u32(ring + 2 * st * Sh::kTileBytes);
+    const uint32_t o_addr = q_addr + Sh::kTileBytes;
+    mbar_wait(&full[st], (it / kRing) & 1);
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (64 keys x 64 queries), two groups, so
+    // that Pᵀ is computed while dPᵀ runs
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss(s, sw128_desc(k_addr + (kk / 4) * kBox + (kk % 4) * 32),
+               sw128_desc(q_addr + (kk / 4) * kBox + (kk % 4) * 32), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss(dp, sw128_desc(v_addr + (kk / 4) * kBox + (kk % 4) * 32),
+               sw128_desc(o_addr + (kk / 4) * kBox + (kk % 4) * 32), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+
+    // Pᵀ in place.  Element i is key key0 + 8 ((i >> 1) & 1) and query
+    // qs + 8 (i / 4) + 2t + (i & 1), whose LSE·log2e and Dᵢ are a pair
+    // of the stage's rows; every exponential is computed, then selected,
+    // so the loop has no branch
+    const float2* lse2 = reinterpret_cast<const float2*>(stats + st * 128);
+    const float2* di = lse2 + 32;
+    if (tile_needs_mask(p, qs, 64, k0, 64)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float2 l = lse2[4 * (i / 4) + t];
+        const int qc = 8 * (i / 4) + 2 * t + (i & 1);
+        const float e = fast_exp2(s[i] * p.scale_log2 - (i & 1 ? l.y : l.x));
+        s[i] = visible(p, qs + qc, key0 + 8 * ((i >> 1) & 1)) ? e : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float2 l = lse2[4 * (i / 4) + t];
+        s[i] = fast_exp2(s[i] * p.scale_log2 - (i & 1 ? l.y : l.x));
+      }
+    }
+
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float2 d = di[4 * (i / 4) + t];
+      dp[i] = s[i] * (dp[i] - (i & 1 ? d.y : d.x));
+    }
+    // dV += Pᵀ·dO and dK += dSᵀ·Q, 16 queries a step
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]),
+                              pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+                              pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+                              pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+      const uint32_t da[4] = {pack_bf16(dp[8 * kk], dp[8 * kk + 1]),
+                              pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]),
+                              pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]),
+                              pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7])};
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        wgmma_rs_tb(dv[c], pa, sw128_desc(o_addr + c * kBox + kk * 2048));
+        wgmma_rs_tb(dk[c], da, sw128_desc(q_addr + c * kBox + kk * 2048));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    mbar_arrive(&empty[st]);
+  }
+
+  __nv_bfloat16* dkb =
+      static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
+  __nv_bfloat16* dvb =
+      static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+  // every copy into the ring has been waited for and every product read:
+  // warpgroup 1 hands its dK to warpgroup 0, which hands its dV back, in
+  // the accumulators' own order (conflict-free)
+  bar_sync(1, 256);
+  float* red_k = reinterpret_cast<float*>(ring);
+  float* red_v = red_k + kChunks * 32 * 128;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (wg == 0)
+        red_v[(c * 32 + i) * 128 + tid] = dv[c][i];
+      else
+        red_k[(c * 32 + i) * 128 + tid] = dk[c][i];
+    }
+  bar_sync(1, 256);
+  if (wg == 0) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[c][i] += red_k[(c * 32 + i) * 128 + tid];
+    store_rows<kChunks>(dk, dkb, p.dk_st, key0, p.T, p.D, p.scale);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dv[c][i] += red_v[(c * 32 + i) * 128 + tid];
+    store_rows<kChunks>(dv, dvb, p.dv_st, key0, p.T, p.D, 1.f);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(DkdvShape<DP>::kThreadsAll, 1)
+    flash_bwd_dkdv_wgmma(const __grid_constant__ Maps maps, const Params p) {
+  using Sh = DkdvShape<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);   // swizzled tiles: 1024-byte aligned
+  uint8_t* vs = ks + Sh::kTileBytes;
+  uint8_t* ring = vs + Sh::kTileBytes;   // stage st: Q at 2st, dO at 2st + 1
+  float* stats = reinterpret_cast<float*>(ring + 2 * kRing * Sh::kTileBytes);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + kRing * 128);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kRing;
+
+  // key tiles vary slowest, so the heaviest under causal (tile 0) go first
+  const int nb = p.KV * p.B;
+  const int k0 = (blockIdx.x / nb) * 64;
+  const int kvh = (blockIdx.x % nb) % p.KV;
+  const int b = (blockIdx.x % nb) / p.KV;
   int first, last;
-  q_tile_range(p, k0, kTile, kTile, &first, &last);
+  q_tile_range(p, k0, 64, 64, &first, &last);
   const int nq = last - first;
   const int total = p.G * nq;
 
-  auto issue = [&](int it) {
-    const int h = kvh * p.G + it / nq;
-    const int qs = (first + it % nq) * kTile;
-    const int st = it & 1;
-    load_rows<DP>(ring + (2 * st) * kTile,
-                  static_cast<const uint16_t*>(p.q) + b * p.q_sb + h * p.q_sh,
-                  p.q_ss, qs, p.S, p.D, kThr);
-    load_rows<DP>(ring + (2 * st + 1) * kTile,
-                  static_cast<const uint16_t*>(p.dout) + b * p.do_sb +
-                      h * p.do_sh,
-                  p.do_ss, qs, p.S, p.D, kThr);
-    if (threadIdx.x < 2 * kTile) {
-      const int r = threadIdx.x % kTile;
-      const float* src = threadIdx.x < kTile ? p.lse : p.di;
-      const long long at = (static_cast<long long>(b) * p.H + h) * p.S + qs + r;
-      const bool ok = qs + r < p.S;
-      cp_async4(&stats[(2 * st + threadIdx.x / kTile) * kTile + r],
-                ok ? src + at : src, ok);
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(&full[s], 33);   // the copies' expect_tx, 32 lanes' stats
+      mbar_init(&empty[s], 128);
     }
-  };
-  if (total > 0) issue(0);
-  cp_async_commit();
-
-  float dk[kN][4], dv[kN][4];
-#pragma unroll
-  for (int j = 0; j < kN; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[j][i] = dv[j][i] = 0.f;
-
-  for (int it = 0; it < total; ++it) {
-    __syncthreads();   // every warp is done with the stage about to be refilled
-    if (it + 1 < total) {
-      issue(it + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int st = it & 1;
-    const int qs = (first + it % nq) * kTile;
-    const uint16_t(*Qs)[kLD] = ring + (2 * st) * kTile;
-    const uint16_t(*Os)[kLD] = ring + (2 * st + 1) * kTile;
-    const float* lse_s = stats + (2 * st) * kTile;
-    const float* di_s = lse_s + kTile;
-
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 16 keys x kQW queries a warp
-    float s[kQW / 8][4], dp[kQW / 8][4];
-#pragma unroll
-    for (int j = 0; j < kQW / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      ldsm_x4(ka, a_addr<kLD>(Ks, kw * 16, kk * 16, lane));
-      ldsm_x4(va, a_addr<kLD>(Vs, kw * 16, kk * 16, lane));
-#pragma unroll
-      for (int jp = 0; jp < kQW / 16; ++jp) {
-        uint32_t qb[4], ob[4];
-        ldsm_x4(qb, bt_addr<kLD>(Qs, qh * kQW + jp * 16, kk * 16, lane));
-        ldsm_x4(ob, bt_addr<kLD>(Os, qh * kQW + jp * 16, kk * 16, lane));
-        mma_bf16(s[2 * jp], ka, qb[0], qb[1]);
-        mma_bf16(s[2 * jp + 1], ka, qb[2], qb[3]);
-        mma_bf16(dp[2 * jp], va, ob[0], ob[1]);
-        mma_bf16(dp[2 * jp + 1], va, ob[2], ob[3]);
-      }
-    }
-
-    // Pᵀ and dSᵀ = Pᵀ ∘ (dPᵀ − Dᵢ), in place
-    const bool masked = tile_needs_mask(p, qs, kTile, k0, kTile);
-#pragma unroll
-    for (int j = 0; j < kQW / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + kw * 16 + g + (i >> 1) * 8;
-        const int qc = qh * kQW + 8 * j + 2 * t + (i & 1);
-        const bool ok = !masked || visible(p, qs + qc, key);
-        const float pv =
-            ok ? exp2f(s[j][i] * p.scale_log2 - lse_s[qc] * kLog2e) : 0.f;
-        s[j][i] = pv;
-        dp[j][i] = pv * (dp[j][i] - di_s[qc]);
-      }
-
-    // dV += Pᵀ·dO and dK += dSᵀ·Q over the warp's queries
-#pragma unroll
-    for (int kq = 0; kq < kQW / 16; ++kq) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, s[2 * kq], s[2 * kq + 1]);
-      acc_to_a(da, dp[2 * kq], dp[2 * kq + 1]);
-#pragma unroll
-      for (int nd = 0; nd < DP / 16; ++nd) {
-        uint32_t ob[4], qb[4];
-        ldsm_x4_t(ob, bk_addr<kLD>(Os, qh * kQW + kq * 16, nd * 16, lane));
-        ldsm_x4_t(qb, bk_addr<kLD>(Qs, qh * kQW + kq * 16, nd * 16, lane));
-        mma_bf16(dv[2 * nd], pa, ob[0], ob[1]);
-        mma_bf16(dv[2 * nd + 1], pa, ob[2], ob[3]);
-        mma_bf16(dk[2 * nd], da, qb[0], qb[1]);
-        mma_bf16(dk[2 * nd + 1], da, qb[2], qb[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // warps 4-7 hand their sums to warps 0-3 through the drained ring
-  float(*red)[DP] = reinterpret_cast<float(*)[DP]>(ring);   // dK, then dV
-  if (qh == 1) {
-#pragma unroll
-    for (int j = 0; j < kN; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = kw * 16 + g + (i >> 1) * 8;
-        const int c = 8 * j + 2 * t + (i & 1);
-        red[r][c] = dk[j][i];
-        red[kTile + r][c] = dv[j][i];
-      }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (qh == 1) return;
-  __nv_bfloat16* dkb = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb +
-                       kvh * p.dk_sh;
-  __nv_bfloat16* dvb = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb +
-                       kvh * p.dv_sh;
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int r = kw * 16 + g + rr * 8;
-    if (k0 + r >= p.T) continue;
-#pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      const int c = 8 * j + 2 * t;
-      if (c >= p.D) continue;   // D is a multiple of 8: the pair is in or out
-      const long long at = static_cast<long long>(k0 + r);
-      *reinterpret_cast<__nv_bfloat162*>(dkb + at * p.dk_st + c) =
-          __floats2bfloat162_rn(
-              (dk[j][2 * rr] + red[r][c]) * p.scale,
-              (dk[j][2 * rr + 1] + red[r][c + 1]) * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + at * p.dv_st + c) =
-          __floats2bfloat162_rn(
-              dv[j][2 * rr] + red[kTile + r][c],
-              dv[j][2 * rr + 1] + red[kTile + r][c + 1]);
-    }
+
+  // warp-uniform for the compiler (a shuffle result), so the wgmma below
+  // are not taken to sit on a divergent path
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    // 40 + 2 x 232 registers a thread fit the register file
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x / 32 == 8)
+      dkdv_produce<DP>(maps, p, ks, vs, ring, stats, kv_full, full, empty,
+                       k0, kvh, b, first, nq, total);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    dkdv_consume<DP>(p, ks, vs, ring, stats, kv_full, full, empty, k0, kvh,
+                     b, first, nq, total, wg);
   }
 }
 
+constexpr int kDqRows = 128;   // query rows a dQ block: two warpgroups
+
 template <int DP>
-struct DqSmem {
-  static constexpr int kLD = DP + 8;
-  // Q, dO, then two stages of (K, V)
-  static constexpr int kBytes = 6 * kTile * kLD * 2;
+struct DqShape {
+  static constexpr int kChunks = DP / 64;
+  // two consumer warpgroups and a producer warpgroup that hands its
+  // registers to them
+  static constexpr int kThreadsAll = 3 * 128;
+  static constexpr int kQBytes = kChunks * kDqRows * 128;   // Q, and dO
+  static constexpr int kTileBytes = kChunks * kBox;   // 64 keys of K or V
+  static constexpr int kSmem = 1024 + 2 * kQBytes + 2 * kStages * kTileBytes +
+                               (1 + 2 * kStages) * 8;
 };
 
+// consumer warpgroup wg: query rows q0 + 64 wg + [0, 64)
 template <int DP>
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16(const Params p) {
-  constexpr int kLD = DP + 8;
-  constexpr int kN = DP / 8;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint16_t(*Qs)[kLD] = reinterpret_cast<uint16_t(*)[kLD]>(smem);
-  uint16_t(*Os)[kLD] = Qs + kTile;
-  uint16_t(*ring)[kLD] = Os + kTile;   // stage st: K at 2st, V at 2st + 1
+__device__ __forceinline__ void dq_consume(const Params& p, uint8_t* qs,
+                                           uint8_t* os, uint8_t* ks,
+                                           uint8_t* vs, uint64_t* q_full,
+                                           uint64_t* full, uint64_t* empty,
+                                           int q0, int h, int b, int wg,
+                                           int first, int last) {
+  using Sh = DqShape<DP>;
+  constexpr int kChunks = Sh::kChunks;
+  const int tid = threadIdx.x % 128;
+  const int t = tid % 4;
+  const int wq0 = q0 + wg * 64;   // the warpgroup's first row
+  const int row0 = wq0 + (tid / 32) * 16 + (tid % 32) / 4;   // and row0 + 8
+  const uint32_t q_addr = smem_u32(qs) + wg * kBox;
+  const uint32_t o_addr = smem_u32(os) + wg * kBox;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / p.G;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  load_rows<DP>(Qs, static_cast<const uint16_t*>(p.q) + b * p.q_sb +
-                        h * p.q_sh, p.q_ss, q0, p.S, p.D, 128);
-  load_rows<DP>(Os, static_cast<const uint16_t*>(p.dout) + b * p.do_sb +
-                        h * p.do_sh, p.do_ss, q0, p.S, p.D, 128);
-  cp_async_commit();
-
-  int first, last;
-  kv_tile_range(p, q0, kTile, kTile, &first, &last);
-  const int n = last - first;
-  const uint16_t* kb = static_cast<const uint16_t*>(p.k) + b * p.k_sb +
-                       kvh * p.k_sh;
-  const uint16_t* vb = static_cast<const uint16_t*>(p.v) + b * p.v_sb +
-                       kvh * p.v_sh;
-  auto issue = [&](int it) {
-    const int st = it & 1;
-    load_rows<DP>(ring + (2 * st) * kTile, kb, p.k_st, (first + it) * kTile,
-                  p.T, p.D, 128);
-    load_rows<DP>(ring + (2 * st + 1) * kTile, vb, p.v_st,
-                  (first + it) * kTile, p.T, p.D, 128);
-  };
-  if (n > 0) issue(0);
-  cp_async_commit();
-  // the warp's q and dO rows as A fragments, held for the whole walk (the
-  // first commit group is Q and dO)
-  uint32_t qa[DP / 16][4], oa[DP / 16][4];
-  cp_async_wait<1>();
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    ldsm_x4(qa[kk], a_addr<kLD>(Qs, warp * 16, kk * 16, lane));
-    ldsm_x4(oa[kk], a_addr<kLD>(Os, warp * 16, kk * 16, lane));
-  }
-
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   float lse2[2], di[2];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
-    const long long at = (static_cast<long long>(b) * p.H + h) * p.S + row[rr];
+    const int r = row0 + 8 * rr;
+    const long long at = (static_cast<long long>(b) * p.H + h) * p.S + r;
     // rows past S: P = exp2(x − inf) = 0
-    lse2[rr] = row[rr] < p.S ? p.lse[at] * kLog2e : INFINITY;
-    di[rr] = row[rr] < p.S ? p.di[at] : 0.f;
+    lse2[rr] = r < p.S ? p.lse[at] * kLog2e : INFINITY;
+    di[rr] = r < p.S ? p.di[at] : 0.f;
   }
-
-  float dq[kN][4];
+  float dq[kChunks][32];
 #pragma unroll
-  for (int j = 0; j < kN; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-
-  for (int it = 0; it < n; ++it) {
-    __syncthreads();
-    if (it + 1 < n) {
-      issue(it + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int st = it & 1;
-    const int k0 = (first + it) * kTile;
-    const uint16_t(*Ks)[kLD] = ring + (2 * st) * kTile;
-    const uint16_t(*Vs)[kLD] = ring + (2 * st + 1) * kTile;
-
-    // S = Q·Kᵀ and dP = dO·Vᵀ: 16 rows x 64 keys a warp
-    float s[8][4], dp[8][4];
+  for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+    for (int i = 0; i < 32; ++i) dq[c][i] = 0.f;
+
+  mbar_wait(q_full, 0);   // also when the walk is empty: no copy outlives us
+  for (int it = 0; it < last - first; ++it) {
+    const int st = it % kStages;
+    const int k0 = (first + it) * 64;
+    const uint32_t k_addr = smem_u32(ks + st * Sh::kTileBytes);
+    const uint32_t v_addr = smem_u32(vs + st * Sh::kTileBytes);
+    mbar_wait(&full[st], (it / kStages) & 1);
+
+    // S = Q·Kᵀ and dP = dO·Vᵀ (64 rows x 64 keys), two groups, so that P
+    // is computed while dP runs
+    float s[32], dp[32];
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t kf[4], vf[4];
-        ldsm_x4(kf, bt_addr<kLD>(Ks, jp * 16, kk * 16, lane));
-        ldsm_x4(vf, bt_addr<kLD>(Vs, jp * 16, kk * 16, lane));
-        mma_bf16(s[2 * jp], qa[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * jp + 1], qa[kk], kf[2], kf[3]);
-        mma_bf16(dp[2 * jp], oa[kk], vf[0], vf[1]);
-        mma_bf16(dp[2 * jp + 1], oa[kk], vf[2], vf[3]);
-      }
+      const uint32_t a_off = (kk / 4) * kDqRows * 128 + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * kBox + (kk % 4) * 32;
+      wgmma_ss(s, sw128_desc(q_addr + a_off), sw128_desc(k_addr + b_off),
+               kk > 0);
     }
-
-    // dS = P ∘ (dP − Dᵢ), in place of s
-    const bool masked = tile_needs_mask(p, q0, kTile, k0, kTile);
+    wgmma_commit();
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int rr = i >> 1;
-        const int col = k0 + 8 * j + 2 * t + (i & 1);
-        const bool ok = !masked || visible(p, row[rr], col);
-        const float pv = ok ? exp2f(s[j][i] * p.scale_log2 - lse2[rr]) : 0.f;
-        s[j][i] = pv * (dp[j][i] - di[rr]);
-      }
-
-    // dQ += dS·K
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * ks], s[2 * ks + 1]);
-#pragma unroll
-      for (int nd = 0; nd < DP / 16; ++nd) {
-        uint32_t kf[4];
-        ldsm_x4_t(kf, bk_addr<kLD>(Ks, ks * 16, nd * 16, lane));
-        mma_bf16(dq[2 * nd], a, kf[0], kf[1]);
-        mma_bf16(dq[2 * nd + 1], a, kf[2], kf[3]);
-      }
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * kDqRows * 128 + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * kBox + (kk % 4) * 32;
+      wgmma_ss(dp, sw128_desc(o_addr + a_off), sw128_desc(v_addr + b_off),
+               kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<1>();
+
+    // P, then dS = P ∘ (dP − Dᵢ), in place of s; every exponential is
+    // computed, then selected, so the loop has no branch
+    if (tile_needs_mask(p, wq0, 64, k0, 64)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int rr = (i >> 1) & 1;
+        const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+        const float e = fast_exp2(s[i] * p.scale_log2 - lse2[rr]);
+        s[i] = visible(p, row0 + 8 * rr, col) ? e : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = fast_exp2(s[i] * p.scale_log2 - lse2[(i >> 1) & 1]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= dp[i] - di[(i >> 1) & 1];
+
+    // dQ += dS·K, 16 keys a step
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]),
+                             pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+                             pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+                             pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+        wgmma_rs_tb(dq[c], a, sw128_desc(k_addr + c * kBox + kk * 2048));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    mbar_arrive(&empty[st]);
   }
-  cp_async_wait<0>();
+  store_rows<kChunks>(dq,
+                      static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb +
+                          h * p.dq_sh,
+                      p.dq_ss, row0, p.S, p.D, p.scale);
+}
 
-  __nv_bfloat16* qb = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb +
-                      h * p.dq_sh;
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    if (row[rr] >= p.S) continue;
-    __nv_bfloat16* out = qb + static_cast<long long>(row[rr]) * p.dq_ss;
-#pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      const int c = 8 * j + 2 * t;
-      if (c < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(
-            dq[j][2 * rr] * p.scale, dq[j][2 * rr + 1] * p.scale);
+template <int DP>
+__global__ void __launch_bounds__(DqShape<DP>::kThreadsAll, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ Maps maps, const Params p) {
+  using Sh = DqShape<DP>;
+  constexpr int kChunks = Sh::kChunks;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);   // [chunk][128][64]
+  uint8_t* os = qs + Sh::kQBytes;
+  uint8_t* ks = os + Sh::kQBytes;      // [stage][chunk][64][64]
+  uint8_t* vs = ks + kStages * Sh::kTileBytes;
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(vs + kStages * Sh::kTileBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  // query tiles vary slowest and run from the last, the one with the most
+  // kv tiles under causal
+  const int nb = p.H * p.B;
+  const int n_tiles = (p.S + kDqRows - 1) / kDqRows;
+  const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.x) / nb) * kDqRows;
+  const int h = (blockIdx.x % nb) % p.H;
+  const int b = (blockIdx.x % nb) / p.H;
+  int first, last;
+  kv_tile_range(p, q0, kDqRows, 64, &first, &last);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    // 40 + 2 x 232 registers a thread fit the register file
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 128 == 0) {
+      const int kvh = h / p.G;
+      mbar_expect_tx(q_full, 2 * Sh::kQBytes);
+      for (int c = 0; c < kChunks; ++c)
+        for (int r = 0; r < 2; ++r) {
+          const int at = c * kDqRows * 128 + r * kBox;
+          tma_load(qs + at, &maps.q, q_full, c * 64, h, q0 + r * 64, b);
+          tma_load(os + at, &maps.dout, q_full, c * 64, h, q0 + r * 64, b);
+        }
+      for (int it = 0; it < last - first; ++it) {
+        const int st = it % kStages;
+        const int k0 = (first + it) * 64;
+        if (it >= kStages) mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * Sh::kTileBytes);
+        for (int c = 0; c < kChunks; ++c) {
+          const int at = st * Sh::kTileBytes + c * kBox;
+          tma_load(ks + at, &maps.k, &full[st], c * 64, kvh, k0, b);
+          tma_load(vs + at, &maps.v, &full[st], c * 64, kvh, k0, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    dq_consume<DP>(p, qs, os, ks, vs, q_full, full, empty, q0, h, b,
+                           wg, first, last);
   }
 }
 
@@ -811,26 +872,46 @@ cudaError_t launch_one(K kernel, dim3 grid, int threads, int bytes,
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch(const Params& p, int is_bf16, cudaStream_t stream) {
+cudaError_t launch_dot(const Params& p, int is_bf16, cudaStream_t stream) {
   const long long rows = static_cast<long long>(p.B) * p.S * p.H;
   if (is_bf16)
     flash_bwd_dot<__nv_bfloat16><<<(rows + 7) / 8, 256, 0, stream>>>(p);
   else
     flash_bwd_dot<float><<<(rows + 7) / 8, 256, 0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <typename K>
+cudaError_t launch_wgmma(K kernel, long long blocks, int threads, int bytes,
+                         const Maps& maps, const Params& p,
+                         cudaStream_t stream) {
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  if (is_bf16) {
-    err = launch_one(flash_bwd_dkdv_bf16<DP>,
-                     dim3((p.T + kTile - 1) / kTile, p.KV, p.B), 256,
-                     DkdvSmem<DP>::kBytes, p, stream);
-    if (err != cudaSuccess) return err;
-    return launch_one(flash_bwd_dq_bf16<DP>,
-                      dim3((p.S + kTile - 1) / kTile, p.H, p.B), 128,
-                      DqSmem<DP>::kBytes, p, stream);
-  }
-  err = launch_one(flash_bwd_dkdv_f32<DP>, dim3((p.T + kS - 1) / kS, p.KV, p.B),
-                   128, f32_smem_bytes<DP>(), p, stream);
+  kernel<<<static_cast<unsigned>(blocks), threads, bytes, stream>>>(maps, p);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_bf16(const Maps& maps, const Params& p,
+                        cudaStream_t stream) {
+  cudaError_t err = launch_wgmma(
+      flash_bwd_dkdv_wgmma<DP>,
+      static_cast<long long>((p.T + 63) / 64) * p.KV * p.B,
+      DkdvShape<DP>::kThreadsAll, DkdvShape<DP>::kSmem, maps, p, stream);
+  if (err != cudaSuccess) return err;
+  return launch_wgmma(
+      flash_bwd_dq_wgmma<DP>,
+      static_cast<long long>((p.S + kDqRows - 1) / kDqRows) * p.H * p.B,
+      DqShape<DP>::kThreadsAll, DqShape<DP>::kSmem, maps, p, stream);
+}
+
+template <int DP>
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  cudaError_t err = launch_one(flash_bwd_dkdv_f32<DP>,
+                               dim3((p.T + kS - 1) / kS, p.KV, p.B), 128,
+                               f32_smem_bytes<DP>(), p, stream);
   if (err != cudaSuccess) return err;
   return launch_one(flash_bwd_dq_f32<DP>, dim3((p.S + kS - 1) / kS, p.H, p.B),
                     128, f32_smem_bytes<DP>(), p, stream);
@@ -884,13 +965,28 @@ int flash_attention_bwd_launch(const void* const* ptrs,
   p.G = p.H / p.KV;
   p.scale = static_cast<float>(1.0 / std::sqrt(double(p.D)));
   p.scale_log2 = static_cast<float>(1.4426950408889634 / std::sqrt(double(p.D)));
-  cudaError_t err;
-  if (p.D <= 32)
-    err = launch<32>(p, is_bf16, stream);
-  else if (p.D <= 64)
-    err = launch<64>(p, is_bf16, stream);
-  else
-    err = launch<128>(p, is_bf16, stream);
+  cudaError_t err = launch_dot(p, is_bf16, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (is_bf16) {
+    Maps maps;
+    if (!encode_map(&maps.q, p.q, p.B, p.S, p.H, p.D, p.q_sb, p.q_ss,
+                    p.q_sh) ||
+        !encode_map(&maps.k, p.k, p.B, p.T, p.KV, p.D, p.k_sb, p.k_st,
+                    p.k_sh) ||
+        !encode_map(&maps.v, p.v, p.B, p.T, p.KV, p.D, p.v_sb, p.v_st,
+                    p.v_sh) ||
+        !encode_map(&maps.dout, p.dout, p.B, p.S, p.H, p.D, p.do_sb,
+                    p.do_ss, p.do_sh))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = p.D <= 64 ? launch_bf16<64>(maps, p, stream)
+                    : launch_bf16<128>(maps, p, stream);
+  } else if (p.D <= 32) {
+    err = launch_f32<32>(p, stream);
+  } else if (p.D <= 64) {
+    err = launch_f32<64>(p, stream);
+  } else {
+    err = launch_f32<128>(p, stream);
+  }
   return static_cast<int>(err);
 }
 

@@ -18,8 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "SOURCES", "build", "build_all",
-           "library_path"]
+__all__ = ["BUILD_DIR", "BUILD_LOGS", "CSRC", "SOURCES", "build",
+           "build_all", "library_path"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -31,6 +31,8 @@ SOURCES = {"paged_attention": "paged_attention.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "rmsnorm": "rmsnorm.cu"}
+#: kernel name -> the compiler's output of its last verbose build
+BUILD_LOGS: dict[str, str] = {}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -48,10 +50,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where kernel ``name``'s library lives once built."""
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where kernel ``name``'s library lives once built: named by the
+    source, every header under ``csrc/`` and the flags."""
+    data = (CSRC / SOURCES[name]).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        data += header.read_bytes()
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -59,7 +63,8 @@ def build_all(names=None, *, ptxas_verbose: bool = False) -> dict[str, Path]:
     """Build every kernel in ``names`` (default: all) that is not built yet,
     one ``nvcc`` process per source, all started together.  Returns
     ``{name: library path}``.  ``ptxas_verbose`` prints each kernel's
-    register and shared-memory use (``-Xptxas -v``).  Raises with the
+    register and shared-memory use (``-Xptxas -v``) and keeps the output
+    in :data:`BUILD_LOGS`.  Raises with the
     compiler's output if any build fails."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -83,6 +88,7 @@ def build_all(names=None, *, ptxas_verbose: bool = False) -> dict[str, Path]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         if ptxas_verbose and log:
+            BUILD_LOGS[name] = log
             print(log, end="", flush=True)
         os.replace(tmp, out[name])
     if failed:

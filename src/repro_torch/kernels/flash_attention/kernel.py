@@ -12,8 +12,8 @@ tensor cores (``wgmma``, tiles brought by TMA), at the launch shape
 The backward (``csrc/flash_attention_bwd.cu``) has no Pallas counterpart:
 the reference differentiates its plain paths.  It computes dq, dk and dv
 from the forward's output and LSE in three device kernels a call (the
-rowsum of dO∘O, the dK/dV pass, the dQ pass; ``mma.sync`` in bf16, FMA in
-fp32), with no atomics.
+rowsum of dO∘O, the dK/dV pass, the dQ pass; in bf16 on TMA, an mbarrier
+ring and ``wgmma``, in fp32 on FMA), with no atomics.
 
 Libraries are built at the first launch, never at import (this module must
 import on machines with no CUDA toolkit).  ``launches`` counts calls of
