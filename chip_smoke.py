@@ -36,10 +36,12 @@ and prints one JSON line per phase:
    gather path, then a few kernel-path steps under ``torch.profiler``:
    device time by kernel, the paged kernels' device time and launches a
    step, and the device's busy share;
-7. ``kernels`` (``ssd_scan``) — the SSD intra-chunk kernel against its
-   plain version at mamba2-370m's serving shapes (H 32, P 64, N 128;
-   Q 256 and 16 at one chunk, Q 256 at eight), with strongly negative
-   decays; timed beside its plain version and its bound;
+7. ``kernels`` (``ssd_scan``) — the SSD intra-chunk kernel (a C·Bᵀ pass
+   and a y/S pass) against its plain version at mamba2-370m's serving
+   shapes (H 32, P 64, N 128; Q 256 and 16 at one chunk, Q 256 at
+   eight), with strongly negative decays, at every row tile of the
+   tuner's grid and at its default; timed at each
+   (``ms_by_launch_shape``) beside its plain version and its bound;
 8. ``parity_ssm`` — full-width mamba2-370m (all 48 layers) at fp32:
    prompts chunk-prefilled through the kernel path and the plain einsum
    path, then teacher-forced decode steps; logits must agree;
@@ -48,7 +50,9 @@ and prints one JSON line per phase:
    the SSD kernel's launch count must equal chunk calls x 48 layers;
 10. ``prefill_chunk_paths`` — 256-token prefill chunks timed alternately
    through the kernel path and the plain path, then a few kernel-path
-   chunks under ``torch.profiler``;
+   chunks under ``torch.profiler``: the ``profile_prefill`` line gives
+   the SSD device kernels' ms a chunk, per pass, and the device kernels
+   a counted wrapper call (the script fails unless it is 2);
 11. ``kernels`` (``jacobi_sweep``) — both Jacobi kernels (plain sweep and
    fused-residual sweep) against their plain versions at the paper's sizes
    N 2709, 4209 and 7209 in fp32, one bf16-x and one bf16-A case and a
@@ -116,7 +120,9 @@ and prints one JSON line per phase:
    card's peaks), the launch counts set to 0 before and read after; a
    second autotune pass that must hit the cache for every kernel and time
    nothing; the flash row must name a launch shape of the grid; the calibrated cost model beside ``CostModelParams()`` and the
-   card's peaks (no rate above 1.05 of its peak);
+   card's peaks (no rate above 1.05 of its peak); the SSD row's rate (the
+   reference's operation count) as a share of the fp32 peak goes into
+   the summary;
 20. ``jacobi_cost`` — ``jacobi_hypar(strategy="cost")`` at n 2709 seeded
    from that cache: the same iterations and x within 1e-5 of the tailored
    solve, beside a greedy HyPar solve.
@@ -437,11 +443,18 @@ def ssd_bound_ms(BC, H, Q, P, N):
 
 
 def ssd_kernel_phase(n_layers: int) -> dict:
+    """The SSD kernel at every row tile of the tuner's grid and at its
+    default, against its plain version (``SSD_TOL``), at mamba2-370m's
+    serving shapes; timed at each, beside its plain version and its
+    bound."""
     from repro_torch.kernels.ssd_scan import (ssd_intra_chunk_kernel,
                                               ssd_intra_chunk_plain)
+    from repro_torch.kernels.ssd_scan.kernel import default_row_tile
+    from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    grid = [c["row_tile"] for c in DEFAULT_CANDIDATES["ssd_scan"]]
     gen = torch.Generator(device=DEV).manual_seed(2)
     main_case = None
     max_err = 0.0
@@ -450,33 +463,42 @@ def ssd_kernel_phase(n_layers: int) -> dict:
     for BC, Q in ((1, 256), (1, 16), (8, 256)):
         H, P, N = 32, 64, 128
         args = ssd_inputs(gen, BC, H, Q, P, N)
-        y, S = ssd_intra_chunk_kernel(*args)
-        torch.cuda.synchronize()
         y_p, S_p = ssd_intra_chunk_plain(*args)
-        if not (torch.isfinite(y).all() and torch.isfinite(S).all()):
-            raise AssertionError(f"SSD kernel output not finite (BC {BC}, "
-                                 f"Q {Q})")
-        err_y = float((y - y_p).abs().max())
-        err_s = float((S - S_p).abs().max())
+        errs = {}
+        for rt in [None, *grid]:
+            y, S = ssd_intra_chunk_kernel(*args, row_tile=rt)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(y).all() and torch.isfinite(S).all()):
+                raise AssertionError(f"SSD kernel output not finite (BC "
+                                     f"{BC}, Q {Q}, row_tile {rt})")
+            err_y = float((y - y_p).abs().max())
+            err_s = float((S - S_p).abs().max())
+            e = {"max_abs_err": max(err_y, err_s),
+                 "y_rel_err": err_y / float(y_p.abs().max()),
+                 "S_rel_err": err_s / float(S_p.abs().max())}
+            errs["default" if rt is None else str(rt)] = e
+            if max(e["y_rel_err"], e["S_rel_err"]) > SSD_TOL:
+                raise AssertionError(f"SSD kernel disagrees with plain at "
+                                     f"row_tile {rt} (BC {BC}, Q {Q}): {e}")
+            max_err = max(max_err, e["max_abs_err"])
         case = {"shape": {"BC": BC, "H": H, "Q": Q, "P": P, "N": N},
-                "max_abs_err": max(err_y, err_s),
-                "y_rel_err": err_y / float(y_p.abs().max()),
-                "S_rel_err": err_s / float(S_p.abs().max()),
-                "tol": SSD_TOL}
-        if max(case["y_rel_err"], case["S_rel_err"]) > SSD_TOL:
-            raise AssertionError(f"SSD kernel disagrees with plain: {case}")
-        max_err = max(max_err, case["max_abs_err"])
+                **errs["default"], "tol": SSD_TOL,
+                "err_by_launch_shape": errs}
         # timing: rotate over input copies larger than the 50 MB L2, as in
         # a prefill chunk, where a layer's weights pass between launches
         in_bytes = sum(t.numel() * 4 for t in args)
         n_copies = max(2, math.ceil(100e6 / in_bytes))
         copies = [tuple(t.clone() for t in args) for _ in range(n_copies)]
+        ms_by = {str(rt): cuda_ms(lambda i, rt=rt: ssd_intra_chunk_kernel(
+            *copies[i % n_copies], row_tile=rt), 50) for rt in grid}
         ms = cuda_ms(lambda i: ssd_intra_chunk_kernel(
             *copies[i % n_copies]), 50)
         plain_ms = cuda_ms(lambda i: ssd_intra_chunk_plain(
             *copies[i % n_copies]), 10)
         bms, by = ssd_bound_ms(BC, H, Q, P, N)
-        case.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        case.update(ms=ms, row_tile=default_row_tile(BC, H, Q, P, N),
+                    ms_by_launch_shape=ms_by, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, ms_over_bound=ms / bms,
                     library_ms=None)
         emit("kernels", kernel="ssd_scan", **case)
         if (BC, Q) == (1, 256):
@@ -491,6 +513,8 @@ def ssd_kernel_phase(n_layers: int) -> dict:
             "bound_by": main_case["bound_by"], "library_ms": None,
             "library_note": "no single PyTorch call computes the SSD "
                             "intra-chunk dual form",
+            "row_tile": main_case["row_tile"],
+            "ms_by_launch_shape": main_case["ms_by_launch_shape"],
             "launches_per_chunk": n_layers}
 
 
@@ -808,7 +832,7 @@ def parity_ssm_phase() -> None:
     torch.cuda.empty_cache()
 
 
-def serve_ssm_phase(kernel_mod) -> tuple[int, int]:
+def serve_ssm_phase(kernel_mod) -> tuple[int, int, float]:
     from repro_torch.configs import get_config
     from repro_torch.serve import PagedEngine, ServeScheduler
     from repro_torch.weights import init_params
@@ -893,18 +917,21 @@ def serve_ssm_phase(kernel_mod) -> tuple[int, int]:
          ttft_p95_s=float(np.percentile(ttft, 95)),
          kernel_launches=launches,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-    prefill_chunk_paths(eng, rng)
-    return launches, chunks
+    per_call = prefill_chunk_paths(eng, rng, kernel_mod)
+    return launches, chunks, per_call
 
 
-def prefill_chunk_paths(eng, rng, n_pairs: int = 4,
-                        n_profiled: int = 4) -> None:
+def prefill_chunk_paths(eng, rng, kernel_mod, n_pairs: int = 4,
+                        n_profiled: int = 4) -> float:
     """Where a prefill chunk's time goes: full 256-token chunks of one
     prompt (a first chunk and a continuation) into a free slot, timed
     alternately through the kernel path and the plain einsum path
     (``impl`` "kernel" / "ref", in the order kernel, ref, ref, kernel,
     ...), then ``n_profiled`` kernel-path chunks under ``torch.profiler``:
-    device time by kernel name and the device's busy share."""
+    device time by kernel name, the device's busy share, and the SSD
+    kernels' device time a chunk, per pass.  Returns the SSD device
+    kernels the profiler saw a counted wrapper call (2: the C·Bᵀ pass and
+    the y/S pass)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.transformer import chunk_prefill_step
@@ -935,6 +962,7 @@ def prefill_chunk_paths(eng, rng, n_pairs: int = 4,
          kernel_ms=chunk_ms["kernel"], ref_ms=chunk_ms["ref"],
          kernel_ms_median=float(np.median(chunk_ms["kernel"])),
          ref_ms_median=float(np.median(chunk_ms["ref"])))
+    kernel_mod.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -942,8 +970,14 @@ def prefill_chunk_paths(eng, rng, n_pairs: int = 4,
             run("kernel")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    emit_profile("profile_prefill", prof, wall, "chunks", n_profiled,
-                 "chunk")
+    calls = kernel_mod.launches
+    per_call = emit_profile("profile_prefill", prof, wall, "chunks",
+                            n_profiled, "chunk", focus="ssd_",
+                            focus_calls=calls)
+    if per_call != 2:
+        raise AssertionError(f"{per_call} SSD device kernels a wrapper call "
+                             f"({calls} calls profiled), expected 2")
+    return per_call
 
 
 # ---------------------------------------------------------------------------
@@ -2035,14 +2069,14 @@ def kernel_bench_check() -> None:
     torch.cuda.empty_cache()
 
 
-def kernel_bench_phase(mods) -> dict:
+def kernel_bench_phase(mods) -> tuple[dict, dict]:
     """``repro_torch.benchmarks.kernel_bench.run`` on the card against the
     fresh tuning cache ``main`` names in ``REPRO_TORCH_TUNE_CACHE``, with
     the launch counts set to 0 just before and read just after; then
     ``autotune_rows`` again, which must hit the cache for every kernel and
     time nothing; then the calibrated cost model beside
     ``CostModelParams()`` and the card's peaks.  Returns the bench run's
-    launches."""
+    launches and its rows by name."""
     from repro_torch.benchmarks import kernel_bench
     from repro_torch.core.scheduler import CostModelParams
     from repro_torch.kernels import tuning
@@ -2121,7 +2155,7 @@ def kernel_bench_phase(mods) -> dict:
     if max(shares.values()) > CALIBRATION_MAX_SHARE:
         raise AssertionError(f"a calibrated rate exceeds the card's peak: "
                              f"{shares}")
-    return launches
+    return launches, by_name
 
 
 def jacobi_cost_phase(mods) -> None:
@@ -2200,9 +2234,10 @@ def main() -> int:
 
     ssd_entry = ssd_kernel_phase(n_layers=48)
     parity_ssm_phase()
-    launches, chunks = serve_ssm_phase(ssd_kernel)
+    launches, chunks, per_call = serve_ssm_phase(ssd_kernel)
     ssd_entry["launches"] = launches
     ssd_entry["launches_per_chunk"] = launches / chunks
+    ssd_entry["device_kernels_per_call"] = per_call
 
     jacobi_entries = jacobi_kernel_phase()
     jobmodel_phase()
@@ -2237,11 +2272,16 @@ def main() -> int:
                                      dir=ROOT / "build"))
     os.environ["REPRO_TORCH_TUNE_CACHE"] = str(tune_dir / "kernel_tune.json")
     try:
-        bench = kernel_bench_phase(mods)
+        bench, bench_rows = kernel_bench_phase(mods)
         jacobi_cost_phase(mods)
     finally:
         shutil.rmtree(tune_dir, ignore_errors=True)
     rms_entry["launches"] = bench["rmsnorm"]
+    # the SSD row's rate, by the reference's operation count, as a share
+    # of the fp32 peak: what it offers the calibrated peak_flops
+    ssd_row = bench_rows["ssd_scan_tuned"]
+    ssd_entry["kernel_bench_config"] = ssd_row["config"]
+    ssd_entry["peak_flops_share"] = ssd_row["flops_share_of_peak"]
     kernels = [entry, ssd_entry, *jacobi_entries, fa_entry, fa_bwd_entry,
                rms_entry]
     for e in kernels:

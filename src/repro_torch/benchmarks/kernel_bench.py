@@ -237,7 +237,7 @@ def tuned_cases(smoke: bool = False, device="cuda") -> list[tuple]:
                   (B, S, H, D), 2.0 * 2 * B * H * S * S // 2 * D,
                   _nbytes(q, k, v)))
 
-    # ssd scan (one launch shape: timing feeds the cost-model bridge)
+    # ssd scan (its launch shape is the rows of a tile of the y/S pass)
     BC, Hs, Q, P, N = (8, 8, 128, 64, 64) if card else (2, 2, 32, 16, 16)
     ssd = _ssd_inputs(gen, dev, BC, Hs, Q, P, N)
     cases.append(("ssd_scan", ssd_intra_chunk, ssd, (BC, Hs, Q, P, N),

@@ -63,15 +63,16 @@ __all__ = [
 # the kernel's ops-level wrapper.  The RMSNorm kernel takes its rows (warps)
 # a block at launch, the paged flash-decode kernel its logical pages a
 # split (block), the flash forward its query rows and keys a tile (the
-# reference's key names); the other kernels have one fixed launch shape
-# each, so their grid is one empty config, and timing it feeds the
-# cost-model bridge.
+# reference's key names), the SSD kernel the rows of a tile of its y/S
+# pass (the reference's grid is one empty config: its TPU kernel has one
+# launch shape); the Jacobi kernels have one fixed launch shape, so their
+# grid is one empty config, and timing it feeds the cost-model bridge.
 DEFAULT_CANDIDATES: dict[str, list[dict[str, int]]] = {
     "rmsnorm": [{"row_block": r} for r in (1, 2, 4, 8)],
     "jacobi_sweep": [{}],
     "flash_attention": [{"q_block": q, "kv_block": k} for q in (64, 128)
                         for k in (64, 128)],
-    "ssd_scan": [{}],
+    "ssd_scan": [{"row_tile": r} for r in (32, 64)],
     "paged_attention": [{"pages_per_split": p} for p in (1, 2, 4, 8, 16)],
 }
 

@@ -98,7 +98,10 @@ def ssd_chunked(xh, dt, A, Bm, Cm, *, chunk: int, initial_state=None,
 
     cum = torch.cumsum(ac, dim=2)                           # (B, nc, Q, H)
     if impl == "kernel":
-        # the kernel's (B·nc, H, Q, P) layout; it computes y_intra + states
+        # the kernel's (B·nc, H, Q, P) layout as views of this memory (the
+        # kernel reads them through their strides); it computes y_intra and
+        # the states into (B·nc, Q, H, P) and (B·nc, H, P, N) memory, so
+        # the reshapes back are views too
         xk = xc.reshape(B_ * nc, Q, H, P).transpose(1, 2)
         dtk = dtc.reshape(B_ * nc, Q, H).transpose(1, 2)[..., None]
         ak = ac.reshape(B_ * nc, Q, H).transpose(1, 2)[..., None]

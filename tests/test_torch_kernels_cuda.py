@@ -190,16 +190,19 @@ def test_cuda_paged_wrapper_takes_every_length_form(pps):
 
 
 # BC, H, Q, P, N: the serving shape at the largest and smallest chunk
-# buckets, several chunks at once, the CPU tests' Q = 8, and ragged
-# shapes that leave every tile edge partial
+# buckets, several chunks at once, the kernel bench's shape, the CPU
+# tests' Q = 8, and ragged shapes that leave every tile edge partial (P 70
+# and N 130 also take the 4-byte staging path)
 SSD_CASES = [
     (1, 32, 256, 64, 128),
     (1, 32, 16, 64, 128),
     (8, 4, 256, 64, 128),
+    (8, 8, 128, 64, 64),
     (2, 2, 8, 16, 16),
     (3, 3, 100, 70, 130),
     (2, 1, 1, 8, 8),
 ]
+SSD_ROW_TILES = [c["row_tile"] for c in DEFAULT_CANDIDATES["ssd_scan"]]
 SSD_TOL = 1e-4        # max|Δ| / max|plain|, y and S: the cumsum's order
 
 
@@ -226,22 +229,91 @@ def _rel(got, want):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("row_tile", SSD_ROW_TILES)
 @pytest.mark.parametrize("strong", [False, True])
 @pytest.mark.parametrize("case", SSD_CASES)
-def test_cuda_ssd_kernel_matches_plain(case, strong):
-    """The hand-written SSD kernel against its plain version, on the card;
-    one launch counted per call."""
+def test_cuda_ssd_kernel_matches_plain(case, strong, row_tile):
+    """The hand-written SSD kernel against its plain version, on the card,
+    at every launch shape of the tuner's grid; one launch counted per
+    call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     from repro_torch.kernels.ssd_scan import kernel, ssd_intra_chunk
     args = [t.cuda() for t in _torch(*ssd_case(17, *case, strong=strong))]
     before = kernel.launches
-    y, S = ssd_intra_chunk(*args)
+    y, S = ssd_intra_chunk(*args, row_tile=row_tile)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     y_p, S_p = ssd_intra_chunk_plain(*args)
+    assert y.shape == y_p.shape and S.shape == S_p.shape
     assert torch.isfinite(y).all() and torch.isfinite(S).all()
     assert _rel(y, y_p) <= SSD_TOL and _rel(S, S_p) <= SSD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_tile", SSD_ROW_TILES)
+def test_cuda_ssd_kernel_is_bit_identical_on_repeat(row_tile):
+    """Every output element is written by one block in a fixed order:
+    two calls on the same inputs agree to the bit (and with the default
+    launch shape's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.ssd_scan import ssd_intra_chunk
+    for case in ((1, 32, 256, 64, 128), (3, 3, 100, 70, 130)):
+        args = [t.cuda() for t in _torch(*ssd_case(19, *case, strong=True))]
+        y1, S1 = ssd_intra_chunk(*args, row_tile=row_tile)
+        y2, S2 = ssd_intra_chunk(*args, row_tile=row_tile)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y2) and torch.equal(S1, S2)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_reads_the_model_layout():
+    """The model's (B·nc, Q, H, P) memory goes in as strided views, with no
+    copy, and y, S come back as views of (BC, Q, H, P) and (BC, H, P, N)
+    memory, equal to the plain version on contiguous copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.ssd_scan import ssd_intra_chunk
+    rng = np.random.default_rng(20)
+    BC, Q, H, P, N = 3, 256, 8, 64, 128
+    xm, dm, Bm, Cm = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).cuda() for s in ((BC, Q, H, P), (BC, Q, H), (BC, Q, N),
+                                      (BC, Q, N)))
+    dm = torch.nn.functional.softplus(dm)
+    args = (xm.transpose(1, 2), dm.transpose(1, 2)[..., None],
+            (-dm).transpose(1, 2)[..., None], Bm, Cm)
+    for row_tile in SSD_ROW_TILES:
+        y, S = ssd_intra_chunk(*args, row_tile=row_tile)
+        assert y.transpose(1, 2).is_contiguous()
+        assert S.transpose(2, 3).is_contiguous()
+        y_p, S_p = ssd_intra_chunk_plain(*(t.contiguous() for t in args))
+        assert _rel(y, y_p) <= SSD_TOL and _rel(S, S_p) <= SSD_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_wrapper_refuses_a_launch_shape_outside_the_grid(
+        monkeypatch):
+    """A row tile outside the grid is refused before any build or launch,
+    by the wrapper and by the binding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import kernel, ssd_intra_chunk
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(build, "build", no_build)
+    monkeypatch.setattr(kernel, "_lib", None)
+    args = [t.cuda() for t in _torch(*ssd_case(21, 1, 2, 16, 64, 128))]
+    before = kernel.launches
+    for bad in (16, 48, 128):
+        with pytest.raises(ValueError, match="launch shapes"):
+            ssd_intra_chunk(*args, row_tile=bad)
+        with pytest.raises(ValueError, match="launch shapes"):
+            kernel.ssd_intra_chunk_kernel(*args, row_tile=bad)
+    assert kernel.launches == before
 
 
 @pytest.mark.cuda

@@ -103,6 +103,34 @@ def test_ssd_intra_chunk_kernel_needs_cuda_tensors():
     assert kernel.launches == before
 
 
+def test_ssd_intra_chunk_refuses_a_launch_shape_outside_the_grid(
+        monkeypatch):
+    """``row_tile`` of the grid leaves the plain version's result
+    unchanged; a value outside it is refused on either path before any
+    build, and nothing is launched."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(build, "build", no_build)
+    monkeypatch.setattr(kernel, "_lib", None)
+    arrays = _t(*ssd_inputs(4, 1, 2, 8, 8, 8))
+    want = ssd_intra_chunk_plain(*arrays)
+    for cfg in DEFAULT_CANDIDATES["ssd_scan"]:
+        got = ssd_intra_chunk(*arrays, **cfg)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    before = kernel.launches
+    for bad in (16, 48, 128):
+        for impl in ("auto", "ref", "kernel"):
+            with pytest.raises(ValueError, match="launch shapes"):
+                ssd_intra_chunk(*arrays, impl=impl, row_tile=bad)
+        with pytest.raises(ValueError, match="launch shapes"):
+            kernel.ssd_intra_chunk_kernel(*arrays, row_tile=bad)
+    assert kernel.launches == before
+
+
 def chunked_inputs(seed, B, S, H, P, N):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, S, H, P)).astype(np.float32)
@@ -119,8 +147,9 @@ def chunked_inputs(seed, B, S, H, P, N):
 def test_ssd_chunked_matches_jax(jax_impl, port_path, monkeypatch):
     """S = 40 at chunk 16: three chunks, the last one padded; a nonzero
     initial state and the final state.  ``kernel_layout`` runs the port's
-    kernel branch (the (B·nc, H, Q, P) relayout and back) with the plain
-    intra-chunk version in the kernel's place."""
+    kernel branch (the (B·nc, H, Q, P) views and back) with the plain
+    intra-chunk version in the kernel's place, taking and giving the
+    kernel's memory layouts."""
     x, dt, A, Bm, Cm, s0 = chunked_inputs(3, 2, 40, 3, 8, 4)
     y_j, f_j = jax_ssm.ssd_chunked(
         *map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk=16,
@@ -129,9 +158,18 @@ def test_ssd_chunked_matches_jax(jax_impl, port_path, monkeypatch):
     impl = "ref"
     if port_path == "kernel_layout":
         impl = "kernel"
+
+        def as_kernel(xh, dt, a, Bm, Cm, *, impl):
+            # the kernel's contract: the model's memory comes in as strided
+            # views, and y, S go back as views of (BC, Q, H, P) and
+            # (BC, H, P, N) memory
+            assert xh.stride(-1) == 1 and xh.transpose(1, 2).is_contiguous()
+            y, S = ssd_intra_chunk_plain(xh, dt, a, Bm, Cm)
+            return (y.transpose(1, 2).contiguous().transpose(1, 2),
+                    S.transpose(2, 3).contiguous().transpose(2, 3))
+
         monkeypatch.setattr(ssm, "resolve_impl", lambda impl, device: impl)
-        monkeypatch.setattr(ssm, "ssd_intra_chunk",
-                            lambda *a, impl: ssd_intra_chunk_plain(*a))
+        monkeypatch.setattr(ssm, "ssd_intra_chunk", as_kernel)
     y, f = ssm.ssd_chunked(*_t(x, dt, A, Bm, Cm), chunk=16,
                            initial_state=torch.from_numpy(s0), impl=impl)
     np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **TOL)

@@ -587,6 +587,15 @@ def test_kernel_bench_tuned_cases_run_under_every_candidate():
             fn(*args, impl="kernel")
 
 
+def test_ssd_tuner_grid_names_rows_a_tile():
+    """The port's SSD grid: one ``row_tile`` a candidate, every launch
+    shape the kernel takes (the reference's grid is one empty config)."""
+    from repro_torch.kernels.ssd_scan.kernel import ROW_TILES
+    grid = tuning.DEFAULT_CANDIDATES["ssd_scan"]
+    assert {frozenset(c) for c in grid} == {frozenset({"row_tile"})}
+    assert sorted(c["row_tile"] for c in grid) == list(ROW_TILES) == [32, 64]
+
+
 def test_kernel_bench_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
