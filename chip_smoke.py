@@ -31,6 +31,18 @@ and prints one JSON line per phase:
    serves 16 requests (prompts 64-1500 tokens, 32 new tokens each, greedy);
    every request must finish with its token count, and the kernel's launch
    count must equal decode steps x layers;
+5a. ``serve_hypar`` — the same engine configuration and trace, served four
+   times on one engine, each by a fresh ``ServeScheduler``: direct, HyPar
+   (``HyParRequestTracker``, cost strategy), HyPar, direct; then a fifth,
+   HyPar run in which ``fail_slot(0)`` is called after the first decode
+   step.  Every request gets its 32 tokens, every run's token streams
+   equal the direct run's request by request (the failed slot's victim
+   re-prefills to the same stream, ``n_recovered`` 1), launches equal
+   decode steps x 28 in each run, and after each HyPar run the tracker's
+   graph is empty, its 16 result records released and never sent back,
+   and ``serve.decode`` has an EWMA.  Tok/s, TTFT, the decode step and the
+   tracker's host seconds of each run, and ``hypar_overhead_pct`` from the
+   medians beside the run-to-run spread (``overhead_resolved``);
 6. ``decode_step_paths`` and ``profile`` — a full batch of long prompts:
    decode steps timed alternately through the kernel path and the plain
    gather path, then a few kernel-path steps under ``torch.profiler``:
@@ -99,6 +111,15 @@ and prints one JSON line per phase:
    the same widths, 4 layers, 3 steps of 2 micro-batches: seconds of each,
    HyPar's overhead, final params within 1e-6 (and whether to the bit),
    the forward and backward counts of each;
+16a. ``train_proc`` — ``HyParTrainer`` on ``ProcessExecutor`` (2 spawned
+   workers on the card, a ``JobStore`` under ``build/``, removed after) at
+   ``train_hypar``'s widths and seq, 1 layer and 1 step, against the thread
+   trainer from the same start: parameters within 1e-6; then a second run
+   over the same store must serve every job from it (no ``grad`` job
+   issued).  Seconds of each run, the workers' boot time and the store's
+   inline and spilled bytes; the workers' gradients run the flash kernels
+   (``impl="auto"`` on ``resolve_device("cuda")``), which the parent's
+   counters cannot see;
 17. ``train_launcher`` — ``repro_torch.launch.train.main`` at ``--smoke``:
    6 steps with a checkpoint every 3, then a resume to 8, the forward and
    backward counts of each run;
@@ -706,6 +727,178 @@ def profile_decode(sched, cfg, rng, kernel_mod, n_steps: int = 8,
                              f"call ({calls} calls profiled), expected 2")
     sched.run()
     return per_call
+
+
+SERVE_MAX_NEW = 32
+
+
+def serve_trace(cfg):
+    """The ``serve`` phase's draws, in its order: the two warm-up prompts,
+    then 16 prompt lengths in 64-1500 and their prompts."""
+    rng = np.random.default_rng(0)
+    warm = [rng.integers(0, cfg.vocab_size - 1, (n,)) for n in (64, 300)]
+    lens = rng.integers(64, 1501, 16)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, (int(n),)) for n in lens]
+    return warm, lens, prompts
+
+
+class HostTimer:
+    """Host seconds spent in the wrapped methods of one object."""
+
+    def __init__(self, obj, names):
+        self.seconds = 0.0
+        self.calls = 0
+        for name in names:
+            setattr(obj, name, self._wrap(getattr(obj, name)))
+
+    def _wrap(self, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+        return timed
+
+
+def serve_hypar_phase(kernel_mod) -> None:
+    """HyPar request placement against direct slot filling on the ``serve``
+    phase's engine and trace: four runs in the order direct, hypar, hypar,
+    direct, each a fresh ``ServeScheduler`` over one engine; then a fifth,
+    hypar run in which slot 0 fails after the first decode step.  Streams
+    must match request by request, launches equal decode steps x layers,
+    and the tracker's graph and result records must be drained."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import (HyParRequestTracker, PagedEngine,
+                                   ServeScheduler)
+    from repro_torch.weights import init_params
+
+    cfg = get_config("qwen2-1.5b")                    # bf16 compute
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    eng = PagedEngine(cfg, params, batch=8, max_len=2048, page_size=16,
+                      prefill_chunk=256, device=DEV)
+    del params
+    torch.cuda.empty_cache()
+    warm, lens, prompts = serve_trace(cfg)
+    sched = ServeScheduler(eng)
+    for w in warm:
+        sched.submit(w, max_new=2)
+    sched.run()
+
+    decode_s: list[float] = []
+    decode = eng.decode
+
+    def timed_decode(tokens, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode(tokens, **kw)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+        return out
+
+    eng.decode = timed_decode
+
+    def tracker():
+        return HyParRequestTracker(
+            eng.batch, strategy="cost", flops_per_token=2.0 * cfg.n_params(),
+            devices=[torch.device("cuda", 0)])
+
+    def check_tracker(tr, n):
+        recs = list(tr.store.records.values())
+        if (tr.graph.n_jobs() != 0 or len(recs) != n
+                or any(r.data is not None or r.sent_back for r in recs)
+                or tr.master._fn_time.get(tr.DECODE_FN, 0.0) <= 0.0):
+            raise AssertionError(
+                f"tracker not drained: {tr.graph.n_jobs()} jobs, "
+                f"{len(recs)} records, EWMA {tr.master._fn_time}")
+
+    def one_run(engine: str, fail_after: int | None = None) -> dict:
+        tr = tracker() if engine == "hypar" else None
+        timer = (HostTimer(tr, ("place_batch", "observe", "finish",
+                                "retire")) if tr is not None else None)
+        sched = ServeScheduler(eng, tracker=tr)
+        decode_s.clear()
+        steps0 = eng.n_decode_calls
+        kernel_mod.launches = 0
+        victim = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in prompts:
+            sched.submit(p, max_new=SERVE_MAX_NEW)
+        if fail_after is not None:
+            while sched.n_steps < fail_after:
+                sched.step()
+            victim = sched.fail_slot(0)
+        results = sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = eng.n_decode_calls - steps0
+        launches = kernel_mod.launches
+        if len(results) != len(prompts) or any(
+                r.n_generated != SERVE_MAX_NEW for r in results):
+            raise AssertionError(f"{engine}: {len(results)} requests done, "
+                                 f"{[r.n_generated for r in results]}")
+        if launches != steps * cfg.n_layers:
+            raise AssertionError(f"{engine}: kernel launches {launches} != "
+                                 f"decode steps {steps} x {cfg.n_layers}")
+        if tr is not None:
+            check_tracker(tr, len(prompts))
+        ttft = np.array([r.ttft_s for r in results])
+        n_tok = sum(r.n_generated for r in results)
+        return {"engine": engine, "wall_s": wall, "tok_per_s": n_tok / wall,
+                "ttft_p50_s": float(np.percentile(ttft, 50)),
+                "ttft_p95_s": float(np.percentile(ttft, 95)),
+                "decode_steps": steps, "kernel_launches": launches,
+                "decode_ms_per_step_p50": float(np.median(decode_s) * 1e3),
+                "tracker_host_s": timer.seconds if timer else None,
+                "tracker_calls": timer.calls if timer else None,
+                "victim": victim, "n_recovered": (tr.n_recovered if tr
+                                                  else None),
+                "streams": {r.rid: r.tokens for r in results}}
+
+    runs = [one_run(e) for e in ("direct", "hypar", "hypar", "direct")]
+    failed = one_run("hypar", fail_after=1)
+    eng.decode = decode
+    want = runs[0]["streams"]
+    for r in runs[1:] + [failed]:
+        if r["streams"] != want:
+            bad = [rid for rid in want if r["streams"].get(rid) != want[rid]]
+            raise AssertionError(f"{r['engine']} streams differ from the "
+                                 f"direct run's for requests {bad}")
+    if failed["victim"] is None or failed["n_recovered"] != 1:
+        raise AssertionError(f"fail_slot(0): victim {failed['victim']}, "
+                             f"n_recovered {failed['n_recovered']}")
+    direct = [r["tok_per_s"] for r in runs if r["engine"] == "direct"]
+    hypar = [r["tok_per_s"] for r in runs if r["engine"] == "hypar"]
+    overhead = 100.0 * (float(np.median(direct)) / float(np.median(hypar))
+                        - 1.0)
+    # the spread of the alternated runs: the overhead a pair of single
+    # runs could show (most and least favourable pairing), and the
+    # run-to-run spread of each engine
+    lo = 100.0 * (min(direct) / max(hypar) - 1.0)
+    hi = 100.0 * (max(direct) / min(hypar) - 1.0)
+    spread = max(100.0 * (max(v) / min(v) - 1.0) for v in (direct, hypar))
+    hyp_runs = [r for r in runs if r["engine"] == "hypar"]
+    emit("serve_hypar", model=cfg.name, layers=cfg.n_layers,
+         compute="bfloat16", batch=8, page_size=16, prefill_chunk=256,
+         max_len=2048, requests=len(prompts),
+         prompt_lens=[int(n) for n in lens], max_new=SERVE_MAX_NEW,
+         strategy="cost", order="direct, hypar, hypar, direct",
+         runs=[{k: v for k, v in r.items() if k != "streams"}
+               for r in runs],
+         failed_slot_run={k: v for k, v in failed.items()
+                          if k != "streams"},
+         hypar_overhead_pct=overhead, overhead_pct_pairings=[lo, hi],
+         run_to_run_spread_pct=spread,
+         overhead_resolved=abs(overhead) > spread,
+         tracker_host_share_of_wall=float(np.mean(
+             [r["tracker_host_s"] / r["wall_s"] for r in hyp_runs])),
+         streams_identical=True)
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def dev_us(ev) -> float:
@@ -1355,6 +1548,12 @@ TRAIN_GNORM_TOL = 2e-2           # kernel vs plain path, grad norm, rel
 HYPAR_LAYERS = 4
 HYPAR_STEPS = 3
 HYPAR_PARAM_TOL = 1e-6           # HyPar vs fused final params, rel
+PROC_LAYERS = 1                  # train_proc: depth and steps cut for the
+PROC_STEPS = 1                   # store's traffic (see train_proc_phase)
+PROC_WORKERS = 2
+PROC_PARAM_TOL = 1e-6            # process workers vs threads, rel
+PROC_JOB_TIMEOUT_S = 600.0
+PROC_BOOT_S = 120.0
 FA_BWD_KERNELS = 3               # device kernels a backward call
 
 
@@ -1856,6 +2055,117 @@ def train_hypar_phase(mods) -> None:
     torch.cuda.empty_cache()
 
 
+def train_proc_phase() -> None:
+    """``HyParTrainer`` on ``ProcessExecutor``: 2 spawn workers on the card
+    and a ``JobStore`` under ``build/`` (removed afterwards), against the
+    thread trainer from the same start; then a second run over the same
+    store, which must serve every job from it.  The widths and seq are
+    ``train_hypar``'s; depth and steps are cut to ``PROC_LAYERS`` and
+    ``PROC_STEPS``, because every job result crosses the process boundary
+    and lands in the store (at full width the embedding alone is 0.93 GB
+    in fp32, and the optimizer job's inputs hold it five times).  The
+    children take their device from ``resolve_device("cuda")`` and the
+    model's ``impl="auto"``, so their gradients run the flash forward and
+    backward kernels; the parent's launch counters cannot see them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import JobStore, ProcessExecutor, VirtualCluster
+    from repro_torch.optim import OptimizerSpec
+    from repro_torch.train import HyParTrainer, procfns
+    from repro_torch.tree import tree_leaves
+    from repro_torch.weights import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=PROC_LAYERS)
+    spec = OptimizerSpec(kind="adamw", lr=TRAIN_LR)
+    batches = train_batches(cfg, PROC_STEPS)
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    micro = [[{k: v[m * mb:(m + 1) * mb] for k, v in b.items()}
+              for m in range(TRAIN_ACCUM)] for b in batches]
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    trainer = HyParTrainer(cfg, spec, n_micro=TRAIN_ACCUM, mode="sync",
+                           cluster=VirtualCluster([DEV], n_schedulers=1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tp, _, _ = trainer.run(micro, params=params)
+    torch.cuda.synchronize()
+    thread_s = time.perf_counter() - t0
+    want = [t.cpu() for t in tree_leaves(tp)]
+    del tp, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    store_dir = ROOT / "build" / "chip_smoke_train_proc"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    store = str(store_dir / "jobs.sqlite")
+    procfns.export_env(cfg, spec, batch_keys=micro[0][0], device=DEV)
+    runs = []
+    try:
+        for _ in range(2):
+            made = []
+
+            def factory(cluster, registry):
+                ex = ProcessExecutor(
+                    cluster, registry, procfns.WORKER_FNS_SPEC, store=store,
+                    mode="pipelined", job_timeout_s=PROC_JOB_TIMEOUT_S,
+                    heartbeat_interval_s=1.0, heartbeat_max_missed=30)
+                made.append((ex, ex.wait_booted(PROC_BOOT_S)))
+                return ex
+
+            trainer = HyParTrainer(
+                cfg, spec, n_micro=TRAIN_ACCUM, executor_factory=factory,
+                cluster=VirtualCluster([DEV], n_schedulers=1,
+                                       max_workers=PROC_WORKERS))
+            t0 = time.perf_counter()
+            pp, _, report = trainer.run(micro, params=params)
+            secs = time.perf_counter() - t0
+            ex, boot_s = made[0]
+            got = tree_leaves(pp)
+            rel = max(float((a - b).abs().max()
+                            / b.abs().max().clamp_min(1e-30))
+                      for a, b in zip(got, want))
+            grads = [j for s in report.segments for j in s.jobs
+                     if j.startswith("G")]
+            runs.append({"seconds": secs, "workers_boot_s": boot_s,
+                         "executed": ex.n_executed,
+                         "memoised": len(report.memoised_jobs),
+                         "grad_jobs_executed": len(
+                             set(grads) - set(report.memoised_jobs)),
+                         "params_max_rel_err": rel,
+                         "bitwise_equal": all(torch.equal(a, b) for a, b
+                                              in zip(got, want))})
+            del pp, trainer, made, ex
+            gc.collect()
+        st = JobStore(store)
+        try:
+            nbytes, counts = st.payload_bytes(), st.counts()
+            leaks = st.check_leaks()
+        finally:
+            st.close()
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    first, second = runs
+    emit("train_proc", model=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, params=cfg.n_params(),
+         seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, n_micro=TRAIN_ACCUM,
+         steps=PROC_STEPS, workers=PROC_WORKERS, device_of_workers=DEV,
+         thread_s=thread_s, runs=runs, store_rows=counts,
+         store_inline_bytes=nbytes["inline"],
+         store_spilled_bytes=nbytes["spilled"], store_leaks=leaks,
+         tol=PROC_PARAM_TOL)
+    if any(r["params_max_rel_err"] > PROC_PARAM_TOL for r in runs):
+        raise AssertionError(f"process-worker params differ from the "
+                             f"thread trainer's: {runs}")
+    if (second["executed"] != 0 or second["grad_jobs_executed"] != 0
+            or second["memoised"] != first["executed"]
+            or first["memoised"] != 0 or leaks):
+        raise AssertionError(f"the second run was not served from the "
+                             f"store: {runs}, leaks {leaks}")
+    del params, micro, batches
+    torch.cuda.empty_cache()
+
+
 def train_launcher_phase(mods) -> None:
     """``repro_torch.launch.train.main`` on the card at ``--smoke``: 6 steps
     with a checkpoint every 3, then a resume to 8 from the same directory
@@ -2231,6 +2541,7 @@ def main() -> int:
     entry["launches"] = launches
     entry["launches_per_decode_step"] = launches / steps
     entry["device_kernels_per_call"] = per_call
+    serve_hypar_phase(pa_kernel)
 
     ssd_entry = ssd_kernel_phase(n_layers=48)
     parity_ssm_phase()
@@ -2262,6 +2573,7 @@ def main() -> int:
         e["launches_per_step"] = e["launches"] / TRAIN_STEPS
     fa_bwd_entry["device_kernels_per_call"] = FA_BWD_KERNELS
     train_hypar_phase(mods)
+    train_proc_phase()
     train_launcher_phase(mods)
 
     mods = (*mods, rms_kernel)

@@ -6,12 +6,14 @@ Public API::
         DataChunk, ChunkedData, ChunkRef, Job, ParallelSegment, JobGraph,
         FunctionRegistry, parse_job_text, parse_job_file,
         VirtualCluster, LocalExecutor, SpmdExecutor, IterativeSpec,
-        FaultInjector, ChaosLocalExecutor,
+        FaultInjector, ChaosLocalExecutor, JobStore, job_key,
+        ProcessExecutor,
     )
 
 Workers sit on CUDA devices unless the caller passes others
-(``VirtualCluster(devices=[torch.device("cpu")])``).  The durable runtime
-(a persistent job store and process workers) is not ported yet.
+(``VirtualCluster(devices=[torch.device("cpu")])``).  The durable runtime is
+:class:`JobStore` (sqlite, the JAX package's schema) under
+:class:`ProcessExecutor` (spawned worker processes).
 """
 from .job import (ChunkedData, ChunkRef, DataChunk, GraphValidationError, Job,
                   JobGraph, ParallelSegment)
@@ -22,6 +24,8 @@ from .scheduler import (CostModelParams, MasterScheduler, Placement,
 from .executor import (BaseExecutor, ExecutionReport, IterativeSpec,
                        LocalExecutor, SpmdExecutor, run_while_loop)
 from .fault import ChaosLocalExecutor, FaultInjector, Heartbeat
+from .store import JobStore, job_key
+from .procworker import ProcessExecutor, WorkerFunctionError
 
 __all__ = [
     "ChunkedData", "ChunkRef", "DataChunk", "GraphValidationError", "Job",
@@ -31,5 +35,6 @@ __all__ = [
     "ResultStore", "SchedulerProc",
     "VirtualCluster", "Worker", "ExecutionReport", "IterativeSpec",
     "LocalExecutor", "SpmdExecutor", "run_while_loop", "ChaosLocalExecutor",
-    "FaultInjector", "Heartbeat",
+    "FaultInjector", "Heartbeat", "JobStore", "job_key", "ProcessExecutor",
+    "WorkerFunctionError",
 ]

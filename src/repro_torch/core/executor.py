@@ -79,6 +79,8 @@ class SegmentReport:
     co_scheduled: list[tuple[str, ...]] = dataclasses.field(default_factory=list)
     recovered_jobs: list[str] = dataclasses.field(default_factory=list)
     speculated_jobs: list[str] = dataclasses.field(default_factory=list)
+    # jobs served from a durable JobStore instead of executing (ProcessExecutor)
+    memoised_jobs: list[str] = dataclasses.field(default_factory=list)
     sim_makespan: float = 0.0
     wall_time: float = 0.0
 
@@ -100,6 +102,10 @@ class ExecutionReport:
     @property
     def recovered_jobs(self) -> list[str]:
         return [j for s in self.segments for j in s.recovered_jobs]
+
+    @property
+    def memoised_jobs(self) -> list[str]:
+        return [j for s in self.segments for j in s.memoised_jobs]
 
     def summary(self) -> str:
         return (f"mode={self.mode} segments={len(self.segments)} "

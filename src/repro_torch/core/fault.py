@@ -68,16 +68,32 @@ class Heartbeat:
     """Liveness monitor: a silent worker is declared dead after
     ``max_missed`` beats — *discovery*, not notification.
 
-    Beats are reported by the executor after each job; ``tick`` advances one
-    monitoring round and a worker silent for more than ``max_missed`` rounds
-    is failed.  Registration itself counts as a beat: a replacement worker
-    spawned mid-run is not killed on the next tick before it ran a single
-    job.
+    Two modes:
+
+    * **round-based** (default) — beats are reported by the executor after
+      each job; ``tick`` advances one monitoring round and a worker silent
+      for more than ``max_missed`` rounds is failed.
+    * **store-backed** — pass a :class:`~repro_torch.core.store.JobStore`;
+      real worker processes stamp wall-clock heartbeats into the store on a
+      timer (``interval_s``) and ``tick``/``expired_wids`` compare against
+      ``max_missed * interval_s`` of silence.  This is what replaces the
+      explicit ``fail()`` protocol for the :class:`ProcessExecutor`.
+
+    Registration itself counts as a beat: a replacement worker spawned
+    mid-run is not killed on the next tick before it ran a single job.
     """
 
-    def __init__(self, cluster: VirtualCluster, max_missed: int = 3):
+    def __init__(self, cluster: VirtualCluster, max_missed: int = 3, *,
+                 store=None, interval_s: float = 1.0,
+                 boot_grace_s: float = 10.0):
         self.cluster = cluster
         self.max_missed = max_missed
+        self.store = store
+        self.interval_s = interval_s
+        # real processes take far longer to boot (interpreter + imports)
+        # than one beat interval; a worker that never checked in only
+        # expires after this grace
+        self.boot_grace_s = boot_grace_s
         self.last_beat: dict[int, int] = {}
         self.round = 0
 
@@ -90,6 +106,12 @@ class Heartbeat:
 
     def expired_wids(self) -> list[int]:
         """Alive workers whose last beat is too old (does not fail them)."""
+        if self.store is not None:
+            expired = set(self.store.expired(
+                self.max_missed * self.interval_s,
+                boot_grace_s=self.boot_grace_s))
+            return [w.wid for w in self.cluster.alive_workers()
+                    if w.wid in expired]
         out = []
         for w in self.cluster.alive_workers():
             self.register(w.wid)  # first sight == registration beat

@@ -8,15 +8,23 @@ pool, chunked prefill interleaved with decode.  The engine runs on
 asked for explicitly, on the CPU.  Weights are random, drawn from
 ``--seed`` with a ``torch.Generator``.
 
+``--engine hypar`` routes every admission wave through the core job
+machinery (:class:`~repro_torch.serve.HyParRequestTracker`: dynamic
+control-spawned jobs, ``MasterScheduler`` placement by ``--strategy``,
+``ResultStore`` retention); ``--store`` backs it with a durable sqlite job
+store, so suspended requests survive a master restart (``--resume``
+re-seeds them, under ``--reserve demand``), and ``--store-gc`` /
+``--store-gc-rows`` prune the store after the run.
+
 Example::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --batch 8 --prefill-chunk 256 \\
-        --prompt-lens 64 512 1500 --max-new 32 --n-requests 16
+        --prompt-lens 64 512 1500 --max-new 32 --n-requests 16 \\
+        --engine hypar --strategy cost
 
-Only the reference's ``--trace --paged`` mode on the direct engine is
-ported, so it is the launcher's only mode and takes no flag; wave mode,
-the dense engine, ``--engine hypar`` and ``--mesh`` are later work.
+The reference's ``--trace --paged`` mode is the launcher's only mode and
+takes no flag; wave mode, the dense engine and ``--mesh`` are later work.
 """
 from __future__ import annotations
 
@@ -29,9 +37,10 @@ import numpy as np
 import torch
 
 from ..configs import ARCHS, get_config, get_smoke_config
-from ..serve import (PagedEngine, Request, RequestQueue, SamplingParams,
-                     ServeScheduler)
+from ..serve import (HyParRequestTracker, PagedEngine, Request, RequestQueue,
+                     SamplingParams, ServeScheduler)
 from ..serve.engine import resolve_device
+from ..tree import tree_leaves
 from ..weights import init_params
 
 __all__ = ["build_trace", "warmup_requests", "make_scheduler",
@@ -96,7 +105,18 @@ def make_scheduler(cfg, params, args, *, sp: SamplingParams,
                       prefill_chunk=args.prefill_chunk,
                       attn_impl=args.paged_attn_impl, device=args.device)
     generator = torch.Generator(device=eng.device).manual_seed(args.seed)
-    return ServeScheduler(eng, sp=sp, generator=generator,
+    tracker = None
+    if args.engine == "hypar":
+        jobstore = None
+        if args.store:
+            from ..core.store import JobStore
+            jobstore = JobStore(args.store)
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        tracker = HyParRequestTracker(args.batch, strategy=args.strategy,
+                                      flops_per_token=2.0 * n_params,
+                                      devices=[eng.device],
+                                      jobstore=jobstore)
+    return ServeScheduler(eng, sp=sp, generator=generator, tracker=tracker,
                           queue=RequestQueue(max_pending=args.max_pending),
                           reserve=args.reserve,
                           preempt_policy=args.preempt_policy,
@@ -173,6 +193,7 @@ def replay_trace(sched, reqs) -> dict:
         "outcomes": outcome_hist,
         "goodput_tokens": sched.goodput_tokens,
         "n_expired": sched.n_expired,
+        "suspended_rids": sorted(sched._suspended),
     }
     sched.reset_metrics()
     return snap
@@ -183,6 +204,11 @@ def run_trace(cfg, params, args, *, sp: SamplingParams,
     """Warm up, replay the trace ``repeats`` times on the warmed scheduler
     and report the fastest replay."""
     sched, reqs = prepare_trace(cfg, params, args, sp=sp)
+    if args.resume:
+        # master restart: re-seed suspended-request records from the durable
+        # store — resubmitted rids resume by recompute
+        n = sched.restore_suspended()
+        print(f"restored {n} suspended request(s) from {args.store}")
     snaps = [replay_trace(sched, reqs) for _ in range(max(1, repeats))]
     return trace_stats(args, sched, max(snaps, key=lambda s: s["tok_per_s"]))
 
@@ -201,6 +227,7 @@ def trace_stats(args, sched, snap) -> dict:
     eng = sched.engine
     stats = {k: v for k, v in snap.items() if k not in ("results",)}
     stats.update({
+        "engine": args.engine,
         "device": (torch.cuda.get_device_name(eng.device)
                    if eng.device.type == "cuda" else "cpu"),
         "paged": True,
@@ -230,6 +257,25 @@ def main(argv=None):
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the engine runs (cuda raises without a "
                          "CUDA device)")
+    ap.add_argument("--engine", choices=["direct", "hypar"], default="direct",
+                    help="direct slot filling vs HyPar dynamic-job "
+                         "scheduling")
+    ap.add_argument("--strategy", choices=["greedy", "cost"], default="greedy",
+                    help="hypar engine: MasterScheduler placement strategy")
+    ap.add_argument("--store", default="",
+                    help="hypar engine: durable job-store path — suspended "
+                         "requests' host-retained tokens persist, so "
+                         "recovery survives a master restart")
+    ap.add_argument("--resume", action="store_true",
+                    help="hypar engine: re-seed suspended requests from "
+                         "--store before replaying (requires --reserve "
+                         "demand)")
+    ap.add_argument("--store-gc", type=float, default=None, metavar="SECS",
+                    help="after the run, prune done job-store rows older "
+                         "than this many seconds (and their spill files)")
+    ap.add_argument("--store-gc-rows", type=int, default=None, metavar="N",
+                    help="after the run, keep at most N most-recent done "
+                         "job-store rows")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
@@ -272,6 +318,16 @@ def main(argv=None):
     ap.add_argument("--no-enforce-deadlines", dest="enforce_deadlines",
                     action="store_false")
     args = ap.parse_args(argv)
+    if (args.store or args.resume) and args.engine != "hypar":
+        ap.error("--store/--resume require --engine hypar (the tracker "
+                 "owns the durable store)")
+    if args.resume and not (args.store and args.reserve == "demand"):
+        ap.error("--resume needs --store and --reserve demand (resume "
+                 "recompute is the demand-mode recovery path)")
+    if (args.store_gc is not None or args.store_gc_rows is not None) \
+            and not args.store:
+        ap.error("--store-gc/--store-gc-rows need --store (nothing to "
+                 "prune otherwise)")
     if args.admit_watermark and args.reserve != "demand":
         ap.error("--admit-watermark requires --reserve demand")
     if args.prefix_admit < 1:
@@ -283,7 +339,7 @@ def main(argv=None):
     params = init_params(cfg, gen, device)
     sp = SamplingParams(temperature=args.temperature)
     stats = run_trace(cfg, params, args, sp=sp, repeats=args.repeats)
-    print(f"device={stats['device']} arch={cfg.name} "
+    print(f"engine={stats['engine']} device={stats['device']} arch={cfg.name} "
           f"requests={stats['n_requests']} (+{stats['n_rejected']} shed) "
           f"tokens={stats['gen_tokens']} decode_steps={stats['decode_steps']}")
     print(f"reserve={stats['reserve']} preempts={stats['preempt_count']} "
@@ -302,7 +358,32 @@ def main(argv=None):
     if args.stats_json:
         with open(args.stats_json, "w") as f:
             json.dump(stats, f, indent=1, default=float)
+    _maybe_store_gc(args, live_rids=stats["suspended_rids"])
     return stats
+
+
+def _maybe_store_gc(args, live_rids=()) -> None:
+    """Post-run job-store hygiene (``--store-gc`` / ``--store-gc-rows``).
+
+    ``live_rids`` — rids still suspended on THIS run's scheduler; their
+    durable recovery rows are exempt from the age prune (they are live
+    recovery state, not orphans of a dead master)."""
+    if args.store_gc is None and args.store_gc_rows is None:
+        return
+    from ..core.store import JobStore
+    store = JobStore(args.store)
+    try:
+        exempt = [f"{HyParRequestTracker.STORE_PREFIX}{rid}"
+                  for rid in live_rids]
+        pruned = store.gc(max_age_s=args.store_gc,
+                          max_rows=args.store_gc_rows,
+                          exempt_requests=exempt)
+        print(f"store gc: pruned {pruned['rows']} done row(s), "
+              f"{pruned['spill_files']} spill file(s), "
+              f"{pruned['request_rows']} stale request row(s) from "
+              f"{args.store}")
+    finally:
+        store.close()
 
 
 if __name__ == "__main__":

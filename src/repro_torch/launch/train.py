@@ -2,25 +2,36 @@
 
 Two schedulers: the *fused* step (the tailored implementation,
 :func:`repro_torch.train.make_train_step`) and the *HyPar* job-graph loop
-(the paper's framework, :class:`repro_torch.train.HyParTrainer`).  The
-fused engine checkpoints asynchronously and, on restart with the same
+(the paper's framework, :class:`repro_torch.train.HyParTrainer`), on
+thread workers (``--engine hypar``) or on spawned worker processes with a
+durable sqlite job store (``--engine proc``,
+:class:`repro_torch.core.ProcessExecutor`): every job result persists under
+its content identity, so a killed run restarted with ``--resume`` over the
+same ``--store`` serves the jobs already done from the store.  The fused
+engine checkpoints asynchronously and, on restart with the same
 ``--ckpt-dir``, resumes from the newest complete checkpoint; the data
 stream is a pure function of (seed, step), so a resumed run sees the
 batches an uninterrupted one would.
 
 Runs on the card by default (``--device cuda`` raises without a CUDA
-device); ``--device cpu`` runs the plain PyTorch path::
+device; the ``proc`` engine's workers compute there too); ``--device cpu``
+runs the plain PyTorch path::
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --steps 6 --batch 4 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --steps 2 --batch 4 --seq 32 --grad-accum 2 --engine proc \\
+        --store /tmp/run.sqlite
 
-The reference's mesh flags (``--data-axis``, ``--model-axis``), its
-``proc`` engine and its job-store flags are not ported yet.
+The reference's mesh flags (``--data-axis``, ``--model-axis``) are not
+ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import shutil
 import time
 
 import torch
@@ -62,7 +73,7 @@ def scale_config(cfg: ModelConfig, *, layers: int, d_model: int,
 
 def main(argv=None):
     """Returns the final loss (fused engine) or the run's seconds (hypar
-    engine), as the reference's launcher does."""
+    and proc engines), as the reference's launcher does."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ARCHS), default="qwen2-1.5b")
     ap.add_argument("--steps", type=int, default=300)
@@ -78,19 +89,48 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config unchanged")
-    ap.add_argument("--engine", choices=["fused", "hypar"], default="fused",
+    ap.add_argument("--engine", choices=["fused", "hypar", "proc"],
+                    default="fused",
                     help="fused = the tailored step; hypar = the paper's "
-                         "job-graph runtime (LocalExecutor)")
+                         "job-graph runtime (LocalExecutor); proc = the same "
+                         "job graph on worker processes with a durable job "
+                         "store (ProcessExecutor)")
     ap.add_argument("--dispatch", choices=["sync", "pipelined", "dataflow"],
                     default="sync", help="LocalExecutor dispatch mode "
-                                         "(hypar engine)")
+                                         "(hypar/proc engines)")
     ap.add_argument("--placement", choices=["greedy", "cost"],
                     default="greedy",
                     help="master-scheduler placement strategy (hypar engine)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where training runs (cuda raises without a CUDA "
                          "device)")
+    ap.add_argument("--store", default="",
+                    help="proc engine: sqlite job-store path — results "
+                         "persist under content identity, so a killed run "
+                         "restarted with --resume skips every job already "
+                         "done (default: a fresh temporary store)")
+    ap.add_argument("--resume", action="store_true",
+                    help="proc engine: reuse an existing --store instead of "
+                         "starting it fresh (memoised jobs are served from "
+                         "the store, not re-executed)")
+    ap.add_argument("--proc-workers", type=int, default=2,
+                    help="proc engine: number of worker processes")
+    ap.add_argument("--store-gc", type=float, default=None, metavar="SECS",
+                    help="after the run, prune done job-store rows older "
+                         "than this many seconds (and their spill files)")
+    ap.add_argument("--store-gc-rows", type=int, default=None, metavar="N",
+                    help="after the run, keep at most N most-recent done "
+                         "job-store rows")
     args = ap.parse_args(argv)
+    if (args.store or args.resume) and args.engine != "proc":
+        ap.error("--store/--resume require --engine proc")
+    if args.resume and not args.store:
+        ap.error("--resume needs --store (a temporary store has no "
+                 "previous run to resume from)")
+    if (args.store_gc is not None or args.store_gc_rows is not None) \
+            and not args.store:
+        ap.error("--store-gc/--store-gc-rows need --store (a temporary "
+                 "store is deleted whole when the run ends)")
     device = resolve_device(args.device)
 
     base = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -99,7 +139,7 @@ def main(argv=None):
     spec = OptimizerSpec(kind=cfg.optimizer, lr=args.lr)
     dc = DataConfig(seed=args.seed, global_batch=args.batch, seq_len=args.seq)
     stream = SyntheticLMStream(cfg, dc)
-    if args.engine == "hypar":
+    if args.engine in ("hypar", "proc"):
         return _run_hypar(cfg, spec, stream, args, device)
 
     step_fn = make_train_step(
@@ -148,8 +188,13 @@ def main(argv=None):
 
 def _run_hypar(cfg, spec, stream, args, device) -> float:
     """Drive training through the paper's job-graph runtime: the dispatch
-    mode and placement strategy are plain LocalExecutor knobs."""
-    from ..core import VirtualCluster
+    mode and placement strategy are plain LocalExecutor knobs.
+    ``--engine proc`` swaps the thread workers for the durable
+    ProcessExecutor: the trainer's functions run in spawn children via
+    :mod:`repro_torch.train.procfns` on ``device`` and every job result
+    lands in the sqlite store, so a killed run restarted with ``--resume``
+    replays the done prefix as store hits."""
+    from ..core import ProcessExecutor, VirtualCluster
 
     n_micro = max(1, args.grad_accum)
     mb = max(1, args.batch // n_micro)
@@ -158,9 +203,37 @@ def _run_hypar(cfg, spec, stream, args, device) -> float:
         b = to_device(stream.batch(s), device)
         batches.append([{k: v[m * mb:(m + 1) * mb] for k, v in b.items()}
                         for m in range(n_micro)])
-    trainer = HyParTrainer(cfg, spec, n_micro=n_micro,
-                           cluster=VirtualCluster([device], n_schedulers=1),
-                           mode=args.dispatch, strategy=args.placement)
+    factory, made = None, []
+    cluster = VirtualCluster([device], n_schedulers=1)
+    if args.engine == "proc":
+        from ..kernels import build
+        from ..train import procfns
+
+        store = args.store or None
+        if store and not args.resume:
+            for stale in (store, store + "-wal", store + "-shm"):
+                if os.path.exists(stale):
+                    os.remove(stale)
+            shutil.rmtree(store + ".d", ignore_errors=True)   # spill files
+        if device.type == "cuda":
+            build.build_all()        # children load the libraries, never build
+        procfns.export_env(cfg, spec, batch_keys=batches[0][0],
+                           device=device)
+        cluster = VirtualCluster([device], n_schedulers=1,
+                                 max_workers=args.proc_workers)
+
+        def factory(cluster, registry):
+            ex = ProcessExecutor(
+                cluster, registry, procfns.WORKER_FNS_SPEC, store=store,
+                mode=("pipelined" if args.dispatch == "sync"
+                      else args.dispatch),
+                strategy=args.placement)
+            made.append(ex)
+            return ex
+
+    trainer = HyParTrainer(cfg, spec, n_micro=n_micro, cluster=cluster,
+                           mode=args.dispatch, strategy=args.placement,
+                           executor_factory=factory)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.time()
     params, _, report = trainer.run(batches, generator=gen)
@@ -168,9 +241,25 @@ def _run_hypar(cfg, spec, stream, args, device) -> float:
         torch.cuda.synchronize(device)
     dt = time.time() - t0
     n_params = sum(x.numel() for x in tree_leaves(params))
-    print(f"hypar engine: {args.steps} steps x {n_micro} micro in "
+    print(f"{args.engine} engine: {args.steps} steps x {n_micro} micro in "
           f"{dt:.1f}s ({args.steps * args.batch * args.seq / dt:.0f} tok/s) "
           f"params={n_params / 1e6:.1f}M | {report.summary()}")
+    if made:
+        ex = made[0]
+        print(f"job store: {ex.n_executed} executed, "
+              f"{ex.n_memoised} memoised"
+              + (f" (durable at {args.store})" if args.store else ""))
+    if args.store and (args.store_gc is not None
+                       or args.store_gc_rows is not None):
+        from ..core.store import JobStore
+        gc_store = JobStore(args.store)
+        try:
+            pruned = gc_store.gc(max_age_s=args.store_gc,
+                                 max_rows=args.store_gc_rows)
+            print(f"store gc: pruned {pruned['rows']} done row(s), "
+                  f"{pruned['spill_files']} spill file(s)")
+        finally:
+            gc_store.close()
     return dt
 
 

@@ -1,22 +1,40 @@
 """Request-level serving scheduler: continuous batching over a
-:class:`~repro_torch.serve.engine.PagedEngine`.
+:class:`~repro_torch.serve.engine.PagedEngine` — the HyPar job model one
+level up.
 
-The port of the JAX package's ``ServeScheduler`` on its direct path: free
-slots are filled first-come-first-served; admission is by free pages of the
-shared pool (``reserve="lifetime"`` reserves a request's whole span,
-``reserve="demand"`` appends decode pages lazily and preempts on
+The port of the JAX package's ``ServeScheduler``: admission is by free
+pages of the shared pool (``reserve="lifetime"`` reserves a request's whole
+span, ``reserve="demand"`` appends decode pages lazily and preempts on
 exhaustion, resuming by chunked recompute); ``prefix_cache=True`` shares
 cache-hit prompt prefixes copy-on-write; deadlines shed, expire and count
 goodput.  All of it is host-side Python over numpy — the engine is the only
 part that touches the device.
 
-Not ported yet (each raises ``NotImplementedError``): the HyPar request
-tracker (``tracker=``), more than one device group (``device_groups > 1``),
-the serve chaos harness (``chaos=``), the step watchdog
-(``watchdog_budget_s=``) and the per-request restart budget
-(``max_restarts=``).  Fault injection and group failover (``fail_slot``,
-``fail_group``, ``probe_group``) and the dense ``Engine`` are not ported
-either.
+The decode fleet maps onto the paper's runtime roles: a *slot* is a worker
+(its share of the KV pool a device-local retained result,
+``no_send_back``), an admitted request is a *dynamic job* spawned by a
+``control`` function (paper §3.3), and losing a slot's KV
+(:meth:`ServeScheduler.fail_slot`) invalidates the retained result — the
+request re-queues and re-prefills, lineage recovery.  Two modes share every
+code path except placement:
+
+* **direct** (``tracker=None``) — free slots are filled first-come-first-
+  served;
+* **hypar** (:class:`HyParRequestTracker`) — each admission wave goes
+  through the core machinery: dynamic jobs added via
+  :class:`~repro_torch.core.ControlContext`, placed by
+  :class:`~repro_torch.core.MasterScheduler` (``greedy`` or ``cost``
+  strategy, decode-time EWMA fed back via ``observe``), their generated
+  tokens recorded in :class:`~repro_torch.core.ResultStore` as
+  worker-retained results and released on delivery; with a
+  :class:`~repro_torch.core.JobStore` suspended requests persist, so a
+  restarted scheduler resumes them (:meth:`ServeScheduler.restore_suspended`).
+
+Not ported yet (each raises ``NotImplementedError``): more than one device
+group (``device_groups > 1``), the serve chaos harness (``chaos=``), the
+step watchdog (``watchdog_budget_s=``) and the per-request restart budget
+(``max_restarts=``).  Group failover (``fail_group``, ``probe_group``) and
+the dense ``Engine`` are not ported either.
 """
 from __future__ import annotations
 
@@ -24,18 +42,23 @@ import collections
 import dataclasses
 import time
 from collections import deque
-from typing import Callable, Iterable
+from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
 import torch
 
+from ..core.job import ChunkedData, Job, JobGraph, ParallelSegment
+from ..core.registry import ControlContext, FunctionKind, FunctionRegistry
+from ..core.scheduler import (CostModelParams, MasterScheduler, ResultStore,
+                              VirtualCluster)
+from ..core.store import JobStore
 from .engine import PagedEngine, SamplingParams, chunk_plan, sample
 from .prefix import PrefixCache
 
 __all__ = [
     "Request", "RequestResult", "RequestOutcome", "TERMINAL_OUTCOMES",
     "RequestQueue", "SlotState", "PageAllocator",
-    "PrefixCache", "DeviceGroup", "ServeScheduler",
+    "PrefixCache", "DeviceGroup", "ServeScheduler", "HyParRequestTracker",
 ]
 
 
@@ -367,6 +390,234 @@ class DeviceGroup:
 
 
 # ---------------------------------------------------------------------------
+# HyPar integration
+# ---------------------------------------------------------------------------
+
+
+class HyParRequestTracker:
+    """Runs each admitted request through the core job machinery.
+
+    Slots are pre-spawned :class:`~repro_torch.core.Worker`\\ s (wid == slot
+    at start); a request becomes a dynamic ``Job`` spawned by the
+    registered ``serve.admit`` *control* function, placed by
+    :class:`MasterScheduler` (so ``greedy``/``cost`` strategies pick the
+    slot), its generated tokens recorded as a ``no_send_back``
+    (worker-retained) result in :class:`ResultStore` and released on
+    delivery.  A failed slot loses its retained results
+    (``invalidate_worker``), its worker's cluster slot is freed and a
+    replacement is spawned — the serving instance of the recovery
+    contract.
+
+    ``devices`` are the workers' placement targets; None means every CUDA
+    device, as :class:`VirtualCluster`'s default, and raises without one
+    (pass ``[torch.device("cpu")]`` on the CPU).  ``jobstore`` makes
+    suspended requests durable (:meth:`persist_suspended`).
+    """
+
+    ADMIT_FN = "serve.admit"
+    DECODE_FN = "serve.decode"
+
+    #: key prefix for suspended-request rows in the durable job store —
+    #: keeps serve recovery state apart from any other ``requests`` users
+    #: sharing the same sqlite file (e.g. a ProcessExecutor run)
+    STORE_PREFIX = "serve.suspended:"
+
+    def __init__(self, n_slots: int, *, strategy: str = "greedy",
+                 cost_params: CostModelParams | None = None,
+                 devices: Sequence[Any] | None = None,
+                 flops_per_token: float = 0.0,
+                 registry: FunctionRegistry | None = None,
+                 jobstore: JobStore | None = None):
+        self.n_slots = n_slots
+        self.cluster = VirtualCluster(devices, max_workers=n_slots)
+        for _ in range(n_slots):
+            self.cluster.spawn_worker()
+        self.graph = JobGraph([ParallelSegment([])])
+        self.store = ResultStore(self.cluster)
+        self.master = MasterScheduler(self.graph, self.cluster,
+                                      strategy=strategy,
+                                      cost_params=cost_params)
+        self.registry = registry or FunctionRegistry()
+        self.registry.register(self.ADMIT_FN, self._admit_control,
+                               kind=FunctionKind.CONTROL, name=self.ADMIT_FN)
+        self.flops_per_token = flops_per_token
+        self.slot_to_wid = {i: i for i in range(n_slots)}
+        self.wid_to_slot = {i: i for i in range(n_slots)}
+        self._job_of: dict[int, Job] = {}
+        self._pending_jobs: list[Job] = []
+        self.jobstore = jobstore
+        self.n_recovered = 0
+        self.n_preempted = 0
+
+    # -- control function: dynamic job creation (paper §3.3) -------------------
+    def _admit_control(self, inputs: ChunkedData,
+                       ctx: ControlContext) -> ChunkedData:
+        for job in self._pending_jobs:
+            ctx.add_job(job, 0)     # current segment: decode starts now
+        self._pending_jobs = []
+        return inputs
+
+    # -- scheduler hooks -------------------------------------------------------
+    def place(self, req: Request, free_slots: Sequence[int]) -> int:
+        """Choose the slot for one admitted request via MasterScheduler."""
+        return self.place_batch([req], free_slots)[req.rid]
+
+    def place_batch(self, reqs: Sequence[Request],
+                    free_slots: Sequence[int], *,
+                    slot_choices: dict[int, Sequence[int]] | None = None,
+                    ) -> dict[int, int]:
+        """Place a whole admission wave with ONE ``plan_segment`` call: the
+        wave's jobs are created together, spawned through one control-fn
+        call and planned as one segment batch, with ``loads`` marking every
+        slot outside ``free_slots`` busy.  Returns ``{rid: slot}``.
+
+        ``slot_choices`` (``{rid: allowed slots}``) restricts each request
+        to a subset of ``free_slots`` (the device groups of the JAX package
+        route so; one group runs here, so the serving path passes None).
+        The master's pick is kept when it lands inside the allowed set,
+        else the fallback stays within it."""
+        if len(reqs) > len(free_slots):
+            raise ValueError(f"wave of {len(reqs)} requests exceeds "
+                             f"{len(free_slots)} free slots")
+        jobs = [Job(name=f"req{r.rid}", fn=self.DECODE_FN, n_threads=1,
+                    no_send_back=True,
+                    cost_hint=self.flops_per_token * r.max_new)
+                for r in reqs]
+        self._pending_jobs = list(jobs)
+        ctx = ControlContext(self.graph, current_segment=0)
+        self.registry[self.ADMIT_FN].fn(ChunkedData(), ctx)
+        for j, seg in ctx.added:
+            self.graph.add_dynamic(j, seg, current=0)
+
+        free = set(free_slots)
+        loads = {wid: (0 if slot in free else 1)
+                 for slot, wid in self.slot_to_wid.items()}
+        placements = self.master.plan_segment(jobs, self.store, loads=loads)
+        assign: dict[int, int] = {}
+        remaining = set(free_slots)
+        for req, placement in zip(reqs, placements):
+            allowed = remaining
+            if slot_choices is not None and req.rid in slot_choices:
+                allowed = set(slot_choices[req.rid]) & remaining
+                if not allowed:
+                    raise ValueError(f"request {req.rid}: no free slot left "
+                                     f"in its device group")
+            slot = self.wid_to_slot.get(placement.worker.wid)
+            if slot not in allowed:
+                # master picked a busy/taken/unmapped worker: fall back to
+                # the first remaining allowed slot and keep ITS worker
+                # binding — rebinding the picked worker here would leave
+                # two slots mapped to one wid and a later fail() would
+                # invalidate the busy slot's results
+                slot = sorted(allowed)[0]
+            remaining.discard(slot)
+            assign[req.rid] = slot
+            self._job_of[req.rid] = placement.job
+        return assign
+
+    def finish(self, req: Request, slot: int, tokens: np.ndarray) -> None:
+        """Record the request's output as a worker-retained result."""
+        job = self._job_of[req.rid]
+        worker = self.cluster.workers[self.slot_to_wid[slot]]
+        self.store.put(job, ChunkedData.from_arrays([np.asarray(tokens)]),
+                       worker)
+        worker.jobs_done += 1
+
+    def retire(self, req: Request) -> None:
+        """Result delivered: release the retained data, GC the dynamic job
+        and drop any durable resume state — the request is over."""
+        self.drop_suspended(req.rid)
+        job = self._job_of.pop(req.rid, None)
+        if job is None:
+            return
+        self.store.release(job.name)
+        self.graph.remove_job(job.name)
+
+    def abandon(self, rid: int) -> None:
+        """The request ends WITHOUT a result (expired / shed after
+        suspension): its dynamic job — if one is still placed — leaves the
+        graph with nothing recorded, and its durable resume row is dropped.
+        ``retire``'s no-result sibling."""
+        self.drop_suspended(rid)
+        job = self._job_of.pop(rid, None)
+        if job is not None:
+            self.graph.remove_job(job.name)
+
+    # -- durable resume state --------------------------------------------------
+    def persist_suspended(self, rid: int, tokens: Sequence[int],
+                          token_s: Sequence[float],
+                          n_preempts: int) -> None:
+        """Write a suspended request's host-retained tokens to the durable
+        job store.  The device KV is already gone (that is what suspension
+        means); with this row even the *master's* host copy is expendable —
+        a restarted serving process re-seeds its suspended table from the
+        store and resumes by the usual chunked recompute."""
+        if self.jobstore is None:
+            return
+        self.jobstore.put_request(
+            f"{self.STORE_PREFIX}{rid}",
+            {"tokens": np.asarray(tokens, np.int64),
+             "token_s": np.asarray(token_s, np.float64),
+             "n_preempts": np.asarray(n_preempts, np.int64)})
+
+    def drop_suspended(self, rid: int) -> None:
+        if self.jobstore is not None:
+            self.jobstore.delete_request(f"{self.STORE_PREFIX}{rid}")
+
+    def restore_suspended(self) -> dict[int, tuple[list[int], list[float], int]]:
+        """Read every persisted suspended-request record back:
+        ``{rid: (tokens, token_s, n_preempts)}``.  Rids are stable across a
+        master restart when requests are resubmitted in the original order
+        (``RequestQueue`` numbers from zero)."""
+        if self.jobstore is None:
+            return {}
+        out: dict[int, tuple[list[int], list[float], int]] = {}
+        for key, fields in self.jobstore.get_requests().items():
+            if not key.startswith(self.STORE_PREFIX):
+                continue
+            rid = int(key[len(self.STORE_PREFIX):])
+            out[rid] = (fields["tokens"].tolist(),
+                        fields["token_s"].tolist(),
+                        int(fields["n_preempts"].reshape(-1)[0]))
+        return out
+
+    def preempt(self, req: Request) -> None:
+        """The request's pages were reclaimed: its dynamic job returns to
+        the master queue.  No result was recorded yet (``finish`` runs at
+        completion), so the job simply leaves the graph; when the request
+        resumes, the next ``place_batch`` wave re-spawns and re-places it —
+        the same re-queue path ``fail`` uses, minus the worker replacement
+        (the worker is healthy; only its page budget was taken)."""
+        job = self._job_of.pop(req.rid, None)
+        if job is not None:
+            self.graph.remove_job(job.name)
+        self.n_preempted += 1
+
+    def observe(self, step_s: float, n_live: int) -> None:
+        """Feed per-request decode-step time into the cost model's EWMA."""
+        if n_live > 0:
+            self.master.observe(self.DECODE_FN, step_s / n_live)
+
+    def fail(self, slot: int, *, rid: int | None = None) -> list[str]:
+        """Worker failure: retained results lost, cluster slot freed, a
+        replacement worker spawned and bound to the slot."""
+        wid = self.slot_to_wid[slot]
+        worker = self.cluster.workers[wid]
+        worker.fail()
+        lost = self.store.invalidate_worker(wid)
+        if rid is not None:
+            job = self._job_of.pop(rid, None)
+            if job is not None:     # in-flight job dies with its worker
+                self.graph.remove_job(job.name)
+        del self.wid_to_slot[wid]
+        repl = self.cluster.spawn_worker()
+        self.slot_to_wid[slot] = repl.wid
+        self.wid_to_slot[repl.wid] = slot
+        self.n_recovered += 1
+        return lost
+
+
+# ---------------------------------------------------------------------------
 # The scheduler
 # ---------------------------------------------------------------------------
 
@@ -401,6 +652,11 @@ class ServeScheduler:
     remainder (at best one chunk), the allocator refcounts shared pages,
     and any write into one copy-on-writes first.
 
+    ``tracker`` (a :class:`HyParRequestTracker`) places every admission
+    wave through the core job machinery instead of filling free slots in
+    order; placement changes only which slot a request occupies, never its
+    tokens.
+
     Sampling at temperature > 0 draws from ``generator`` (a
     ``torch.Generator`` on the engine's device; one seeded with 0 is made
     when none is given).
@@ -409,7 +665,7 @@ class ServeScheduler:
     def __init__(self, engine: PagedEngine, *,
                  sp: SamplingParams = SamplingParams(),
                  queue: RequestQueue | None = None,
-                 tracker=None,
+                 tracker: HyParRequestTracker | None = None,
                  generator: torch.Generator | None = None,
                  clock: Callable[[], float] = time.perf_counter,
                  reserve: str = "lifetime",
@@ -427,9 +683,6 @@ class ServeScheduler:
         if not isinstance(engine, PagedEngine):
             raise TypeError("ServeScheduler drives a PagedEngine (the dense "
                             "Engine is not ported yet)")
-        if tracker is not None:
-            raise NotImplementedError("the HyPar request tracker is not "
-                                      "ported yet (tracker=None only)")
         if chaos is not None:
             raise NotImplementedError("the serve chaos harness is not "
                                       "ported yet (chaos=None only)")
@@ -482,6 +735,7 @@ class ServeScheduler:
             allocator=PageAllocator(usable, watermark=admit_watermark),
             prefix=pref)]
         self._slot_group = {s: g for g in self.groups for s in g.slot_ids}
+        self.tracker = tracker
         self.clock = clock
         self._generator = generator
         self.slots = [SlotState(i) for i in range(engine.batch)]
@@ -525,6 +779,27 @@ class ServeScheduler:
     @property
     def prefix_cache_active(self) -> bool:
         return any(g.prefix is not None for g in self.groups)
+
+    def restore_suspended(self) -> int:
+        """Re-seed the suspended-request table from the tracker's durable
+        job store (master restart).  Call after constructing the scheduler
+        and BEFORE resubmitting: requests resubmitted in the original order
+        get their original rids back, so a restored record turns their
+        admission into a resume — chunked recompute of prompt + retained
+        tokens instead of regenerating from scratch.  Returns the number of
+        records restored.  No-op without a demand-mode tracker backed by a
+        store."""
+        if self.tracker is None or not self.demand:
+            return 0
+        n = 0
+        for rid, (tokens, token_s, n_pre) in \
+                self.tracker.restore_suspended().items():
+            if rid in self._suspended or not tokens:
+                continue
+            self._suspended[rid] = _Suspended(tokens=tokens, token_s=token_s,
+                                              n_preempts=n_pre)
+            n += 1
+        return n
 
     # -- submission ------------------------------------------------------------
     def submit(self, tokens, max_new: int, *,
@@ -618,9 +893,12 @@ class ServeScheduler:
     def _terminate(self, req: Request, outcome: str,
                    detail: str = "") -> None:
         """Terminal path for a request that will never run again (expired /
-        shed after suspension): drop its resume state, bump the matching
-        counter, record the outcome."""
+        shed after suspension): drop its resume state — host and durable —
+        and its tracker job, bump the matching counter, record the
+        outcome."""
         self._suspended.pop(req.rid, None)
+        if self.tracker is not None:
+            self.tracker.abandon(req.rid)
         if outcome == "expired":
             self.n_expired += 1
         elif outcome == "shed_deadline":
@@ -841,9 +1119,12 @@ class ServeScheduler:
         starvation of long prompts).  Under reserve-on-demand an exhausted
         pool may instead preempt one running victim for the head request —
         never more than one, and only when the victim's pages actually
-        cover the shortfall (anti-thrash guard)."""
+        cover the shortfall (anti-thrash guard).  With a tracker the WHOLE
+        wave is placed in one ``place_batch`` call before the prefills
+        begin."""
         g = self.groups[0]
         free = [s for s in g.slot_ids if self.slots[s].free]
+        all_free = list(free)
         # wave entries: (req, slot, pages, shared, stream)
         wave: list[tuple] = []
         while free and len(self.queue):
@@ -902,8 +1183,14 @@ class ServeScheduler:
                 self.n_admit_deferred += 1
                 self.queue.push_front(req)
                 break
-        for req, slot, pages, shared, stream in wave:
-            self._start_prefill(req, slot, pages, shared, stream)
+        if not wave:
+            return
+        if self.tracker is not None:
+            assign = self.tracker.place_batch([w[0] for w in wave], all_free)
+        else:
+            assign = {w[0].rid: w[1] for w in wave}
+        for req, _, pages, shared, stream in wave:
+            self._start_prefill(req, assign[req.rid], pages, shared, stream)
 
     # -- deadlines (DESIGN.md §14) ---------------------------------------------
     def _deadline_drop_queued(self, req: Request) -> bool:
@@ -1012,12 +1299,16 @@ class ServeScheduler:
 
     def _suspend(self, st: SlotState) -> None:
         """Record the slot's generated tokens as the resume state of its
-        request (preemption)."""
+        request (preemption, or worker failure under demand mode) — and,
+        with a tracker, in its durable store."""
         prev = self._suspended.get(st.request.rid)
         sus = _Suspended(
             tokens=list(st.tokens), token_s=list(st.token_s),
             n_preempts=(prev.n_preempts + 1 if prev else 1))
         self._suspended[st.request.rid] = sus
+        if self.tracker is not None:
+            self.tracker.persist_suspended(st.request.rid, sus.tokens,
+                                           sus.token_s, sus.n_preempts)
 
     def _clear_slot(self, st: SlotState) -> None:
         """Reset a slot's host-side bookkeeping to free (pages must already
@@ -1034,9 +1325,39 @@ class ServeScheduler:
         req = st.request
         self._suspend(st)
         self.n_preempted += 1
+        if self.tracker is not None:
+            self.tracker.preempt(req)
         self._release_slot(st)
         self._clear_slot(st)
         self.queue.push_front(req)
+
+    def _evict_request(self, st: SlotState) -> int | None:
+        """Fault-path eviction (the tail of ``fail_slot``).  The slot's
+        device state is gone; its request goes back through recovery: under
+        reserve-on-demand a decoding slot's generated tokens suspend
+        (recompute-on-resume keeps TTFT and tokens), a slot evicted
+        mid-resume puts its retained record back, anything else re-queues
+        from scratch — at the queue front.  (The JAX package also charges a
+        per-request restart budget here; ``max_restarts`` is not ported.)
+        Returns the rid, or None for a free slot."""
+        req = st.request
+        if req is None:
+            return None
+        if self.demand and st.tokens and not st.prefilling \
+                and not st.finished:
+            self._suspend(st)
+        elif self.demand and st.resume is not None:
+            # evicted mid-resume-prefill: the retained tokens are still the
+            # suspended record — put it back for the next resume attempt
+            self._suspended[req.rid] = st.resume
+            if self.tracker is not None:
+                self.tracker.persist_suspended(
+                    req.rid, st.resume.tokens, st.resume.token_s,
+                    st.resume.n_preempts)
+        self._release_slot(st)
+        self._clear_slot(st)
+        self.queue.push_front(req)
+        return req.rid
 
     def _ensure_decode_pages(self, live: list[SlotState]) -> list[SlotState]:
         """Reserve-on-demand: before the decode step, make sure every live
@@ -1134,6 +1455,9 @@ class ServeScheduler:
                     dt if self._ewma_retire_s == 0.0
                     else 0.7 * self._ewma_retire_s + 0.3 * dt)
             self._last_retire_s = now
+            if self.tracker is not None:
+                self.tracker.finish(req, st.slot, np.asarray(st.tokens))
+                self.tracker.retire(req)
             self._release_slot(st)
             self._clear_slot(st)
 
@@ -1152,6 +1476,20 @@ class ServeScheduler:
             self._clear_slot(st)
             self._terminate(req, "expired",
                             detail="total deadline passed mid-flight")
+
+    def fail_slot(self, slot: int) -> int | None:
+        """Simulate losing a slot's device-local KV (worker failure).  Under
+        full-lifetime reservation the in-flight request restarts from its
+        prompt; under reserve-on-demand the generated tokens live host-side
+        anyway (the preemption path retains them), so recovery reuses the
+        resume machinery — the request recomputes prompt + retained tokens
+        instead of regenerating from scratch.  Returns the rid (None for a
+        free slot)."""
+        st = self.slots[slot]
+        if self.tracker is not None:
+            self.tracker.fail(slot, rid=st.request.rid if st.request
+                              else None)
+        return self._evict_request(st)
 
     # -- the loop --------------------------------------------------------------
     def step(self) -> bool:
@@ -1196,6 +1534,8 @@ class ServeScheduler:
         self._ewma_step_s = (now - t0 if self._ewma_step_s == 0.0
                              else 0.7 * self._ewma_step_s
                              + 0.3 * (now - t0))
+        if self.tracker is not None:
+            self.tracker.observe(now - t0, len(live))
         for st in live:
             tok = int(ids[st.slot])
             st.tokens.append(tok)

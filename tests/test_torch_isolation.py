@@ -43,7 +43,9 @@ def test_import_with_jax_unavailable():
             "repro_torch.launch.train, repro_torch.kernels.flash_attention, "
             "repro_torch.optim, repro_torch.checkpoint, repro_torch.data, "
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.tuning, "
-            "repro_torch.benchmarks.kernel_bench; "
+            "repro_torch.benchmarks.kernel_bench, repro_torch.core.store, "
+            "repro_torch.core.procworker, repro_torch.core._procworker_child, "
+            "repro_torch.apps.procdemo, repro_torch.train.procfns; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -51,6 +53,47 @@ def test_import_with_jax_unavailable():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+PROBE = """
+import sys
+
+import numpy as np
+
+
+def probe(*chunk_lists):
+    import repro_torch.apps.procdemo, repro_torch.train.procfns  # noqa: F401
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    return np.array(len(bad))
+
+
+FNS = {"probe": probe}
+"""
+
+
+def test_spawned_worker_imports_no_jax(tmp_path, monkeypatch):
+    """A worker process, spawned as ``ProcessExecutor`` spawns it, imports
+    neither JAX nor the JAX package — not for the runtime, the demo's or
+    the trainer's function tables (this test's own process has both)."""
+    from repro_torch.core import (ChunkedData, DataChunk, FunctionRegistry,
+                                  Job, JobGraph, ProcessExecutor,
+                                  VirtualCluster)
+
+    (tmp_path / "iso_probe.py").write_text(PROBE)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    reg = FunctionRegistry()
+    reg.register("probe", lambda *cds: None, kind="whole")
+    graph = JobGraph()
+    graph.add_segment([Job("P", "probe", 1, ())])
+    graph.bind_input("P", ChunkedData([DataChunk(torch.zeros(1))]))
+    with ProcessExecutor(VirtualCluster([torch.device("cpu")],
+                                        max_workers=1),
+                         reg, "iso_probe:FNS",
+                         store=tmp_path / "jobs.sqlite") as ex:
+        results, _ = ex.run(graph)
+    assert ex.n_executed == 1
+    assert int(results["P"].arrays()[0]) == 0
 
 
 def test_chip_smoke_fails_without_a_card():

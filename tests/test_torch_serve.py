@@ -128,7 +128,7 @@ def test_scheduler_refuses_what_is_not_ported(models):
     _, tc, _, tp = models
     eng = PagedEngine(tc, tp, batch=2, max_len=32, page_size=8,
                       prefill_chunk=16, device="cpu")
-    for kw in (dict(tracker=object()), dict(chaos=object()),
+    for kw in (dict(chaos=object()),
                dict(device_groups=2), dict(watchdog_budget_s=1.0),
                dict(max_restarts=2)):
         with pytest.raises(NotImplementedError):
