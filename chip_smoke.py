@@ -43,6 +43,20 @@ and prints one JSON line per phase:
    and ``serve.decode`` has an EWMA.  Tok/s, TTFT, the decode step and the
    tracker's host seconds of each run, and ``hypar_overhead_pct`` from the
    medians beside the run-to-run spread (``overhead_resolved``);
+5b. ``serve_dense_trace`` — the same trace through ``ServeScheduler``
+   over the dense ``Engine`` (batch 8, max_len 2048, prompts right-padded
+   to the default buckets): every request gets its 32 tokens, each insert
+   runs the flash forward once a layer (16 x 28), and tok/s, TTFT, the
+   decode step and the insert stand beside the ``serve`` phase's;
+5c. ``serve_waves`` — the launcher's wave mode at full width:
+   ``Engine(batch=8, max_len=1064)``, 4 waves of 8 prompts of 1,024
+   tokens (numpy seed 0), 32 greedy tokens; wave 0 is the warm-up.  First
+   a batched prefill at the wave's shape through the kernel
+   (``decode_step(impl="auto")``) and the plain core (``impl="dense"``):
+   last-token logits within 1e-3 of max|logit| in fp32 compute (bf16
+   reported); then the waves, the flash forward launched once a layer a
+   wave (4 x 28); steady tok/s, prefill ms and the median decode step;
+   then 4 decode steps under ``torch.profiler`` (``profile_serve_waves``);
 6. ``decode_step_paths`` and ``profile`` — a full batch of long prompts:
    decode steps timed alternately through the kernel path and the plain
    gather path, then a few kernel-path steps under ``torch.profiler``:
@@ -65,6 +79,14 @@ and prints one JSON line per phase:
    chunks under ``torch.profiler``: the ``profile_prefill`` line gives
    the SSD device kernels' ms a chunk, per pass, and the device kernels
    a counted wrapper call (the script fails unless it is 2);
+10a. ``serve_waves_ssm`` — phase 5c for mamba2-370m (48 layers, d 1024),
+   the SSD kernel against ``impl="ref"``, launched 4 x 48 times;
+10b. ``dense_vs_paged`` — qwen2-1.5b and mamba2-370m at full width cut to
+   4 layers, fp32 compute: one 8-request mixed-length trace (prompts of
+   up to four 256-token chunks) through ``ServeScheduler`` over the dense
+   ``Engine`` and over ``PagedEngine`` (the paged kernel decoding);
+   greedy streams and outcomes must be identical, a mismatch printed with
+   the request, the token and both engines' top-2 logit gap;
 11. ``kernels`` (``jacobi_sweep``) — both Jacobi kernels (plain sweep and
    fused-residual sweep) against their plain versions at the paper's sizes
    N 2709, 4209 and 7209 in fp32, one bf16-x and one bf16-A case and a
@@ -597,7 +619,7 @@ def parity_phase() -> None:
     torch.cuda.empty_cache()
 
 
-def serve_phase(kernel_mod) -> tuple[int, int, float]:
+def serve_phase(kernel_mod) -> tuple[int, int, float, dict]:
     from repro_torch.configs import get_config
     from repro_torch.serve import PagedEngine, ServeScheduler
     from repro_torch.weights import init_params
@@ -674,7 +696,12 @@ def serve_phase(kernel_mod) -> tuple[int, int, float]:
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     eng.decode = decode
     per_call = profile_decode(sched, cfg, rng, kernel_mod)
-    return launches, steps, per_call
+    figures = {"tok_per_s": n_tok / wall,
+               "ttft_p50_s": float(np.percentile(ttft, 50)),
+               "ttft_p95_s": float(np.percentile(ttft, 95)),
+               "decode_ms_per_step_p50": float(np.median(decode_s) * 1e3),
+               "decode_steps": steps}
+    return launches, steps, per_call, figures
 
 
 def profile_decode(sched, cfg, rng, kernel_mod, n_steps: int = 8,
@@ -899,6 +926,350 @@ def serve_hypar_phase(kernel_mod) -> None:
     del eng, sched
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the dense engine: waves, the dense trace, dense against paged
+# ---------------------------------------------------------------------------
+
+
+WAVES = 4                        # wave 0 pays the one-time costs
+WAVE_BATCH = 8
+WAVE_PROMPT = 1024
+WAVE_NEW = 32
+WAVE_PROFILED_STEPS = 4
+DVP_LAYERS = 4                   # dense_vs_paged: depth cut, widths kept
+DVP_LENS = (700, 64, 300, 1000, 129, 513, 17, 256)
+DVP_MAX_NEW = 16
+
+
+class CallTimer:
+    """Wall seconds of each call of the wrapped methods of one object, the
+    device synchronised before and after; ``restore`` unwraps them."""
+
+    def __init__(self, obj, names):
+        self.obj = obj
+        self.original = {name: getattr(obj, name) for name in names}
+        self.seconds = {name: [] for name in names}
+        for name in names:
+            setattr(obj, name, self._wrap(name))
+
+    def _wrap(self, name):
+        fn = self.original[name]
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def ms(self, name, skip: int = 0) -> float:
+        return float(np.median(self.seconds[name][skip:]) * 1e3)
+
+    def restore(self) -> None:
+        for name, fn in self.original.items():
+            setattr(self.obj, name, fn)
+
+
+def prefill_check(cfg, params, prompts, max_len: int, plain: str) -> dict:
+    """A batched prefill of ``prompts`` from a fresh dense cache through
+    ``decode_step(impl="auto")`` (the path's kernel) and ``impl=plain``:
+    the last-token logits' largest difference over max|logit| and the
+    greedy tokens' agreement."""
+    from repro_torch.models.transformer import decode_step, init_cache
+
+    toks = torch.tensor(prompts, device=DEV)
+    out = {}
+    for impl in ("auto", plain):
+        cache = init_cache(cfg, toks.shape[0], max_len, device=DEV)
+        with torch.no_grad():
+            lg, cache = decode_step(cfg, params, cache, toks, impl=impl,
+                                    valid_len=toks.shape[1])
+        out[impl] = lg[:, -1].float()
+        del cache, lg
+    got, want = out["auto"], out[plain]
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{cfg.name}: kernel-path prefill logits not "
+                             f"finite")
+    return {"compute": cfg.compute_dtype,
+            "max_rel_logit_err": float((got - want).abs().max()
+                                       / want.abs().max()),
+            "greedy_token_match": float(
+                (got.argmax(-1) == want.argmax(-1)).float().mean())}
+
+
+def serve_waves_phase(arch: str, mods, kernel: str, plain: str,
+                      phase: str) -> int:
+    """The launcher's wave mode at full width: ``Engine(batch 8, max_len
+    1064)`` generates ``WAVES`` waves of 8 prompts of 1,024 tokens (numpy
+    seed 0), 32 greedy tokens each; wave 0 pays the one-time costs.
+    First the kernel-vs-plain check of a batched prefill at the wave's
+    shape (fp32 compute on the fp32 weights, gated at ``PARITY_TOL``; the
+    engine's bf16, reported); then the waves, with the launch counts set to
+    0 just before and read just after (the path's ``kernel`` must launch
+    once a layer a wave); then a few decode steps under ``torch.profiler``.
+    Returns the kernel's launches in the waves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Engine, count_generated
+    from repro_torch.weights import init_params
+
+    cfg = get_config(arch)                            # bf16 compute
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    rng = np.random.default_rng(0)
+    waves = [rng.integers(0, cfg.vocab_size - 1, (WAVE_BATCH, WAVE_PROMPT)
+                          ).astype(np.int32) for _ in range(WAVES)]
+    max_len = WAVE_PROMPT + WAVE_NEW + 8
+    checks = [prefill_check(dataclasses.replace(cfg, compute_dtype="float32"),
+                            params, waves[0], max_len, plain)]
+    eng = Engine(cfg, params, batch=WAVE_BATCH, max_len=max_len, device=DEV)
+    del params                     # the engine holds its bf16 copy
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks.append(prefill_check(cfg, eng.params, waves[0], max_len, plain))
+    if checks[0]["max_rel_logit_err"] > PARITY_TOL:
+        raise AssertionError(f"{phase}: kernel-path prefill logits differ "
+                             f"from impl={plain!r}: {checks[0]}")
+    torch.cuda.reset_peak_memory_stats()
+
+    timer = CallTimer(eng, ("prefill", "decode"))
+    seconds, tokens = [], []
+    reset_launches(mods)
+    for prompts in waves:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new=WAVE_NEW)
+        seconds.append(time.perf_counter() - t0)
+        tokens.append(count_generated(out, -1))
+        if out.shape != (WAVE_BATCH, WAVE_NEW) or not (
+                (out >= 0) & (out < cfg.padded_vocab)).all():
+            raise AssertionError(f"{phase}: generated {out.shape}, ids "
+                                 f"[{out.min()}, {out.max()}]")
+    launches = read_launches(mods)[kernel]
+    timer.restore()
+    if launches != WAVES * cfg.n_layers:
+        raise AssertionError(f"{phase}: {kernel} launched {launches} times, "
+                             f"expected {WAVES} waves x {cfg.n_layers}")
+    steady_s = sum(seconds[1:])
+    n_decode = len(timer.seconds["decode"]) // WAVES
+
+    # where a decode step's time goes: a few more steps of the last wave's
+    # cache (its slots sit at 1,055 tokens) under the profiler
+    toks = out[:, -1:]
+    eng.decode(toks)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(WAVE_PROFILED_STEPS):
+            eng.decode(toks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit(phase, model=cfg.name, layers=cfg.n_layers, compute="bfloat16",
+         batch=WAVE_BATCH, prompt_len=WAVE_PROMPT, max_new=WAVE_NEW,
+         max_len=max_len, waves=WAVES, wave_s=seconds,
+         steady_tokens=sum(tokens[1:]), steady_s=steady_s,
+         steady_tok_per_s=sum(tokens[1:]) / steady_s,
+         prefill_ms_p50=timer.ms("prefill", skip=1),
+         decode_ms_per_step_p50=timer.ms("decode", skip=n_decode),
+         kernel=kernel, kernel_launches=launches,
+         kernel_launches_per_wave=launches / WAVES,
+         trace_counts={name: eng.trace_count(name)
+                       for name in ("prefill", "decode", "splice")},
+         kernel_vs_plain=checks, plain_impl=plain, tol=PARITY_TOL,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    emit_profile(f"profile_{phase}", prof, wall, "decode_steps",
+                 WAVE_PROFILED_STEPS, "step")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_dense_trace_phase(mods, paged: dict) -> int:
+    """``ServeScheduler`` over the dense ``Engine`` on the ``serve``
+    phase's 16-request trace, at its widths and batch: every request gets
+    its 32 tokens, each insert runs the flash forward once a layer (the
+    counts set to 0 just before the trace and read just after), and tok/s,
+    TTFT and the decode step stand beside the paged ``serve`` phase's from
+    this run.  Returns the flash forward's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Engine, ServeScheduler
+    from repro_torch.weights import init_params
+
+    cfg = get_config("qwen2-1.5b")                    # bf16 compute
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    eng = Engine(cfg, params, batch=8, max_len=2048, device=DEV)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    warm, lens, prompts = serve_trace(cfg)
+    sched = ServeScheduler(eng)
+    for w in warm:
+        sched.submit(w, max_new=2)
+    sched.run()
+    sched.reset_metrics()
+
+    timer = CallTimer(eng, ("insert", "decode"))
+    reset_launches(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        sched.submit(p, max_new=SERVE_MAX_NEW)
+    results = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(mods)["flash_attention"]
+    timer.restore()
+    inserts = len(timer.seconds["insert"])
+
+    if len(results) != len(prompts) or any(
+            r.n_generated != SERVE_MAX_NEW for r in results):
+        raise AssertionError(f"serve_dense_trace: {len(results)} requests "
+                             f"done, {[r.n_generated for r in results]}")
+    if any(o.outcome != "completed" for o in sched.outcomes.values()):
+        raise AssertionError(f"outcomes {sched.outcomes}")
+    if inserts != len(prompts) or launches != inserts * cfg.n_layers:
+        raise AssertionError(f"serve_dense_trace: flash launched {launches} "
+                             f"times in {inserts} inserts x {cfg.n_layers}")
+    if not all(0 <= t < cfg.padded_vocab for r in results for t in r.tokens):
+        raise AssertionError("a token id falls outside the vocabulary")
+    ttft = np.array([r.ttft_s for r in results])
+    n_tok = sum(r.n_generated for r in results)
+    emit("serve_dense_trace", model=cfg.name, layers=cfg.n_layers,
+         compute="bfloat16", batch=8, max_len=2048, buckets=sched.buckets,
+         requests=len(results), prompt_lens=[int(n) for n in lens],
+         max_new=SERVE_MAX_NEW, gen_tokens=n_tok, wall_s=wall,
+         tok_per_s=n_tok / wall, decode_steps=len(timer.seconds["decode"]),
+         decode_ms_per_step_p50=timer.ms("decode"),
+         insert_ms_p50=timer.ms("insert"),
+         ttft_p50_s=float(np.percentile(ttft, 50)),
+         ttft_p95_s=float(np.percentile(ttft, 95)),
+         flash_launches=launches, inserts=inserts,
+         trace_counts={name: eng.trace_count(name)
+                       for name in ("prefill", "decode", "splice")},
+         paged_serve={k: paged[k] for k in (
+             "tok_per_s", "ttft_p50_s", "ttft_p95_s",
+             "decode_ms_per_step_p50", "decode_steps")})
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def top2_gap(row: torch.Tensor) -> float:
+    top = torch.topk(row.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def dense_vs_paged_phase(mods) -> None:
+    """qwen2-1.5b and mamba2-370m at full width, cut to ``DVP_LAYERS``
+    layers, fp32 compute: one 8-request mixed-length trace (multi-chunk
+    prompts included) through ``ServeScheduler`` over the dense ``Engine``
+    (flash or SSD kernel in its inserts) and over ``PagedEngine`` (the
+    paged kernel in its decode steps, SSD in its chunks).  Greedy streams
+    and outcomes must be identical; on a mismatch the request, the token
+    and both engines' top-2 logit gap there are printed before the run
+    fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Engine, PagedEngine, ServeScheduler
+    from repro_torch.weights import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("qwen2-1.5b", "mamba2-370m"):
+        cfg = dataclasses.replace(get_config(arch), n_layers=DVP_LAYERS,
+                                  compute_dtype="float32")
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(2),
+                             DEV)
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(0, cfg.vocab_size - 1, (n,)).astype(np.int32)
+                   for n in DVP_LENS]
+        max_len = max(DVP_LENS) + DVP_MAX_NEW + 8
+        runs = {}
+        for name in ("dense", "paged"):
+            eng = (Engine(cfg, params, batch=4, max_len=max_len, device=DEV)
+                   if name == "dense" else
+                   PagedEngine(cfg, params, batch=4, max_len=max_len,
+                               page_size=16, prefill_chunk=256, device=DEV))
+            sched = ServeScheduler(eng)
+            gaps = {}
+            decode = eng.decode
+
+            def recording(*args, sched=sched, decode=decode, gaps=gaps,
+                          **kw):
+                lg = decode(*args, **kw)
+                for st in sched.slots:
+                    if st.request is not None and not st.prefilling:
+                        gaps[st.request.rid, len(st.tokens)] = top2_gap(
+                            lg[st.slot, -1])
+                return lg
+
+            first = sched._first_token
+
+            def recording_first(st, req, logits, first=first, gaps=gaps):
+                gaps[req.rid, 0] = top2_gap(logits[0, -1])
+                return first(st, req, logits)
+
+            eng.decode = recording
+            sched._first_token = recording_first
+            reset_launches(mods)
+            rids = [sched.submit(p, max_new=DVP_MAX_NEW) for p in prompts]
+            results = {r.rid: r.tokens for r in sched.run()}
+            runs[name] = {"rids": rids, "streams": results, "gaps": gaps,
+                          "outcomes": {rid: o.outcome for rid, o
+                                       in sched.outcomes.items()},
+                          "launches": read_launches(mods)}
+            del eng, sched
+        dense, paged = runs["dense"], runs["paged"]
+        bad = []
+        for rid in dense["rids"]:
+            a, b = dense["streams"].get(rid), paged["streams"].get(rid)
+            if a != b:
+                k = next((i for i, (x, y) in enumerate(zip(a or [], b or []))
+                          if x != y), min(len(a or []), len(b or [])))
+                bad.append({"rid": rid, "prompt_len": len(prompts[rid]),
+                            "token": k,
+                            "dense_top2_gap": dense["gaps"].get((rid, k)),
+                            "paged_top2_gap": paged["gaps"].get((rid, k))})
+        ok = (not bad and dense["outcomes"] == paged["outcomes"]
+              and set(dense["outcomes"].values()) == {"completed"})
+        kernels = ("flash_attention" if arch.startswith("qwen2")
+                   else "ssd_scan")
+        emit("dense_vs_paged", model=cfg.name, layers=DVP_LAYERS,
+             compute="float32", prompt_lens=list(DVP_LENS),
+             max_new=DVP_MAX_NEW, streams_identical=not bad,
+             outcomes_identical=dense["outcomes"] == paged["outcomes"],
+             mismatches=bad,
+             min_top2_gap={k: min(r["gaps"].values())
+                           for k, r in runs.items()},
+             dense_launches={kernels: dense["launches"][kernels],
+                             "paged_attention":
+                                 dense["launches"]["paged_attention"]},
+             paged_launches={kernels: paged["launches"][kernels],
+                             "paged_attention":
+                                 paged["launches"]["paged_attention"]})
+        if not ok:
+            raise AssertionError(f"dense_vs_paged {cfg.name}: streams or "
+                                 f"outcomes differ: {bad}")
+        if arch.startswith("qwen2") and (
+                paged["launches"]["paged_attention"] == 0
+                or dense["launches"]["flash_attention"] == 0):
+            raise AssertionError(f"dense_vs_paged: kernels not run "
+                                 f"{runs['dense']['launches']} "
+                                 f"{runs['paged']['launches']}")
+        if not arch.startswith("qwen2") and (
+                dense["launches"]["ssd_scan"] == 0
+                or paged["launches"]["ssd_scan"] == 0):
+            raise AssertionError("dense_vs_paged: SSD kernel not run")
+        del params, runs
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def dev_us(ev) -> float:
@@ -2537,11 +2908,19 @@ def main() -> int:
 
     entry = kernel_phase(n_layers=28)
     parity_phase()
-    launches, steps, per_call = serve_phase(pa_kernel)
+    launches, steps, per_call, paged_serve = serve_phase(pa_kernel)
     entry["launches"] = launches
     entry["launches_per_decode_step"] = launches / steps
     entry["device_kernels_per_call"] = per_call
     serve_hypar_phase(pa_kernel)
+    # the dense engine's paths: the flash forward in its batched prefills
+    # and inserts, the SSD kernel likewise (counts read per phase)
+    serve_mods = (pa_kernel, ssd_kernel, fa_kernel)
+    dense_launches = {
+        "serve_dense_trace": serve_dense_trace_phase(serve_mods, paged_serve),
+        "serve_waves": serve_waves_phase("qwen2-1.5b", serve_mods,
+                                         "flash_attention", "dense",
+                                         "serve_waves")}
 
     ssd_entry = ssd_kernel_phase(n_layers=48)
     parity_ssm_phase()
@@ -2549,6 +2928,9 @@ def main() -> int:
     ssd_entry["launches"] = launches
     ssd_entry["launches_per_chunk"] = launches / chunks
     ssd_entry["device_kernels_per_call"] = per_call
+    ssd_entry["launches_serve_waves_ssm"] = serve_waves_phase(
+        "mamba2-370m", serve_mods, "ssd_scan", "ref", "serve_waves_ssm")
+    dense_vs_paged_phase(serve_mods)
 
     jacobi_entries = jacobi_kernel_phase()
     jobmodel_phase()
@@ -2571,6 +2953,8 @@ def main() -> int:
     for e in (fa_entry, fa_bwd_entry):
         e["launches"] = launches[e["name"]]
         e["launches_per_step"] = e["launches"] / TRAIN_STEPS
+    for phase, n in dense_launches.items():
+        fa_entry[f"launches_{phase}"] = n
     fa_bwd_entry["device_kernels_per_call"] = FA_BWD_KERNELS
     train_hypar_phase(mods)
     train_proc_phase()

@@ -1,30 +1,41 @@
-"""Serving driver of the port: a request trace through ``ServeScheduler``
-over the paged engine, on the card.
+"""Serving launcher of the port, on the card: waves of batched generation,
+or a request trace through ``ServeScheduler``.
 
-Request-level continuous batching from an open-loop trace: Poisson
-arrivals, mixed prompt lengths, admission by free pages of the shared KV
-pool, chunked prefill interleaved with decode.  The engine runs on
-``--device cuda`` (the default; it raises where no CUDA device exists) or,
-asked for explicitly, on the CPU.  Weights are random, drawn from
-``--seed`` with a ``torch.Generator``.
+Two modes, as in the reference's launcher:
 
-``--engine hypar`` routes every admission wave through the core job
-machinery (:class:`~repro_torch.serve.HyParRequestTracker`: dynamic
+* **wave mode** (the default): ``--requests`` waves of ``--batch`` prompts
+  of ``--prompt-len`` tokens, each generated by the dense ``Engine`` in
+  one batched prefill and ``--max-new`` decode steps; wave 0 pays the
+  one-time costs and is left out of the steady-state throughput;
+* **trace mode** (``--trace``): request-level continuous batching from an
+  open-loop trace — Poisson arrivals, mixed prompt lengths — over the
+  dense ``Engine`` (prompts right-padded to power-of-two buckets, one
+  insert each) or, with ``--paged``, the paged engine (admission by free
+  pages of the shared KV pool, chunked prefill interleaved with decode).
+
+The engine runs on ``--device cuda`` (the default; it raises where no
+CUDA device exists) or, asked for explicitly, on the CPU.  Weights are
+random, drawn from ``--seed`` with a ``torch.Generator``.
+
+``--engine hypar`` routes every admission wave of a trace through the core
+job machinery (:class:`~repro_torch.serve.HyParRequestTracker`: dynamic
 control-spawned jobs, ``MasterScheduler`` placement by ``--strategy``,
 ``ResultStore`` retention); ``--store`` backs it with a durable sqlite job
 store, so suspended requests survive a master restart (``--resume``
 re-seeds them, under ``--reserve demand``), and ``--store-gc`` /
 ``--store-gc-rows`` prune the store after the run.
 
-Example::
+Examples::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
-        --batch 8 --prefill-chunk 256 \\
-        --prompt-lens 64 512 1500 --max-new 32 --n-requests 16 \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --batch 8 --prompt-len 1024 --max-new 32 --requests 4
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --trace --paged --batch 8 --prefill-chunk 256 \
+        --prompt-lens 64 512 1500 --max-new 32 --n-requests 16 \
         --engine hypar --strategy cost
 
-The reference's ``--trace --paged`` mode is the launcher's only mode and
-takes no flag; wave mode, the dense engine and ``--mesh`` are later work.
+``--mesh``, the step watchdog and the restart budget are later work.
 """
 from __future__ import annotations
 
@@ -37,15 +48,16 @@ import numpy as np
 import torch
 
 from ..configs import ARCHS, get_config, get_smoke_config
-from ..serve import (HyParRequestTracker, PagedEngine, Request, RequestQueue,
-                     SamplingParams, ServeScheduler)
+from ..serve import (Engine, HyParRequestTracker, PagedEngine, Request,
+                     RequestQueue, SamplingParams, ServeScheduler,
+                     count_generated)
 from ..serve.engine import resolve_device
-from ..tree import tree_leaves
+from ..models.transformer import param_count
 from ..weights import init_params
 
 __all__ = ["build_trace", "warmup_requests", "make_scheduler",
            "prepare_trace", "replay_trace", "run_trace", "trace_stats",
-           "main"]
+           "run_waves", "main"]
 
 
 def build_trace(rng: np.random.Generator, cfg, *, n_requests: int,
@@ -100,10 +112,14 @@ def warmup_requests(rng: np.random.Generator, cfg, *, prompt_lens,
 
 def make_scheduler(cfg, params, args, *, sp: SamplingParams,
                    max_len: int) -> ServeScheduler:
-    eng = PagedEngine(cfg, params, batch=args.batch, max_len=max_len,
-                      page_size=args.page_size, num_pages=args.num_pages,
-                      prefill_chunk=args.prefill_chunk,
-                      attn_impl=args.paged_attn_impl, device=args.device)
+    if args.paged:
+        eng = PagedEngine(cfg, params, batch=args.batch, max_len=max_len,
+                          page_size=args.page_size, num_pages=args.num_pages,
+                          prefill_chunk=args.prefill_chunk,
+                          attn_impl=args.paged_attn_impl, device=args.device)
+    else:
+        eng = Engine(cfg, params, batch=args.batch, max_len=max_len,
+                     device=args.device)
     generator = torch.Generator(device=eng.device).manual_seed(args.seed)
     tracker = None
     if args.engine == "hypar":
@@ -111,12 +127,16 @@ def make_scheduler(cfg, params, args, *, sp: SamplingParams,
         if args.store:
             from ..core.store import JobStore
             jobstore = JobStore(args.store)
-        n_params = sum(x.numel() for x in tree_leaves(params))
+        n_params = param_count(params)
         tracker = HyParRequestTracker(args.batch, strategy=args.strategy,
                                       flops_per_token=2.0 * n_params,
                                       devices=[eng.device],
                                       jobstore=jobstore)
+    # power-of-two buckets covering the trace's prompt lengths
+    buckets = sorted({1 << (int(l) - 1).bit_length() for l in args.prompt_lens
+                      if l < max_len} | {16})
     return ServeScheduler(eng, sp=sp, generator=generator, tracker=tracker,
+                          buckets=buckets,
                           queue=RequestQueue(max_pending=args.max_pending),
                           reserve=args.reserve,
                           preempt_policy=args.preempt_policy,
@@ -230,7 +250,12 @@ def trace_stats(args, sched, snap) -> dict:
         "engine": args.engine,
         "device": (torch.cuda.get_device_name(eng.device)
                    if eng.device.type == "cuda" else "cpu"),
-        "paged": True,
+        "paged": sched.paged,
+        "trace_counts": ({name: eng.trace_count(name)
+                          for name in ("chunk_prefill", "decode")}
+                         if sched.paged else
+                         {name: eng.trace_count(name)
+                          for name in ("prefill", "decode", "splice")}),
         "n_requests": len(results),
         "gen_tokens": n_tok,
         "ttft_p50_s": float(np.percentile(ttfts, 50)),
@@ -244,10 +269,59 @@ def trace_stats(args, sched, snap) -> dict:
         "goodput_tok_per_s": (snap["goodput_tokens"] / wall
                               if wall > 0 else 0.0),
         "enforce_deadlines": sched.enforce_deadlines,
-        "total_pool_bytes": eng.total_pool_bytes(),
-        "kv_budget_tokens": eng.num_pages * eng.page_size,
     })
+    if sched.paged:
+        stats["total_pool_bytes"] = eng.total_pool_bytes()
+        stats["kv_budget_tokens"] = eng.num_pages * eng.page_size
     return stats
+
+
+def run_waves(cfg, params, args, *, sp: SamplingParams) -> dict:
+    """``--requests`` waves of ``--batch`` random prompts of
+    ``--prompt-len`` tokens through ``Engine.generate``; wave 0 pays the
+    one-time costs (the kernel build, library initialisation) and is left
+    out of the steady-state throughput.  Returns the waves' figures."""
+    rng = np.random.default_rng(args.seed)
+    max_len = args.prompt_len + args.max_new + 8
+    eng = Engine(cfg, params, batch=args.batch, max_len=max_len,
+                 device=args.device)
+    generator = torch.Generator(device=eng.device).manual_seed(args.seed)
+    print(f"arch={cfg.name} params={param_count(params)/1e6:.1f}M "
+          f"batch={args.batch} max_len={max_len}")
+
+    total_tokens = steady_tokens = 0
+    steady_s = 0.0
+    waves = []
+    for wave in range(args.requests):
+        prompts = rng.integers(0, cfg.vocab_size - 1,
+                               (args.batch, args.prompt_len)).astype(np.int32)
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new=args.max_new, sp=sp,
+                           generator=generator)
+        dt = time.perf_counter() - t0
+        n_real = count_generated(out, sp.stop_token)
+        total_tokens += n_real
+        if wave == 0:
+            print(f"wave 0 (compile): {n_real} tokens in {dt:.1f}s "
+                  f"(excluded from steady-state tok/s)")
+        else:
+            steady_tokens += n_real
+            steady_s += dt
+        print(f"wave {wave}: generated {out.shape} -> {n_real} real tokens; "
+              f"sample row: {out[0, :10].tolist()}")
+        waves.append({"tokens": out, "seconds": dt})
+    if steady_s > 0:
+        print(f"throughput: {steady_tokens / steady_s:.1f} tok/s steady-state "
+              f"({steady_tokens} tokens in {steady_s:.1f}s; "
+              f"{total_tokens} total incl. compile wave)")
+    else:
+        print(f"throughput: n/a (single wave pays compilation; "
+              f"{total_tokens} tokens)")
+    return {"waves": waves, "steady_tokens": steady_tokens,
+            "steady_s": steady_s,
+            "tok_per_s": steady_tokens / steady_s if steady_s > 0 else None,
+            "trace_counts": {name: eng.trace_count(name)
+                             for name in ("prefill", "decode", "splice")}}
 
 
 def main(argv=None):
@@ -277,9 +351,17 @@ def main(argv=None):
                     help="after the run, keep at most N most-recent done "
                          "job-store rows")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--requests", type=int, default=2,
+                    help="waves of requests (wave mode)")
+    ap.add_argument("--trace", action="store_true",
+                    help="request-level continuous batching from a trace")
+    ap.add_argument("--paged", action="store_true",
+                    help="trace mode: paged KV cache + chunked prefill "
+                         "(admission by free pages)")
     ap.add_argument("--n-requests", type=int, default=16)
     ap.add_argument("--rate", type=float, default=0.0,
                     help="Poisson arrival rate, requests/s (0 = all at once)")
@@ -317,6 +399,9 @@ def main(argv=None):
                     metavar="SECS")
     ap.add_argument("--no-enforce-deadlines", dest="enforce_deadlines",
                     action="store_false")
+    ap.add_argument("--watchdog-budget", type=float, default=None,
+                    metavar="SECS")
+    ap.add_argument("--max-restarts", type=int, default=None, metavar="N")
     args = ap.parse_args(argv)
     if (args.store or args.resume) and args.engine != "hypar":
         ap.error("--store/--resume require --engine hypar (the tracker "
@@ -324,27 +409,55 @@ def main(argv=None):
     if args.resume and not (args.store and args.reserve == "demand"):
         ap.error("--resume needs --store and --reserve demand (resume "
                  "recompute is the demand-mode recovery path)")
+    if args.paged and not args.trace:
+        ap.error("--paged requires --trace (wave mode is dense-only)")
+    if args.reserve == "demand" and not args.paged:
+        ap.error("--reserve demand requires --paged")
+    if args.admit_watermark and args.reserve != "demand":
+        ap.error("--admit-watermark requires --reserve demand")
+    if args.prefix_cache and not args.paged:
+        ap.error("--prefix-cache requires --paged (dense slots have no "
+                 "pages to share)")
+    if args.shared_prefix_len and not args.trace:
+        ap.error("--shared-prefix-len requires --trace")
+    if args.prefix_admit < 1:
+        ap.error("--prefix-admit must be >= 1")
+    if not args.trace and (args.ttft_deadline is not None
+                           or args.total_deadline is not None
+                           or args.watchdog_budget is not None
+                           or args.max_restarts is not None):
+        ap.error("--ttft-deadline/--total-deadline/--watchdog-budget/"
+                 "--max-restarts require --trace (wave mode has no "
+                 "scheduler)")
     if (args.store_gc is not None or args.store_gc_rows is not None) \
             and not args.store:
         ap.error("--store-gc/--store-gc-rows need --store (nothing to "
                  "prune otherwise)")
-    if args.admit_watermark and args.reserve != "demand":
-        ap.error("--admit-watermark requires --reserve demand")
-    if args.prefix_admit < 1:
-        ap.error("--prefix-admit must be >= 1")
+    if args.watchdog_budget is not None or args.max_restarts is not None:
+        ap.error("--watchdog-budget/--max-restarts are not ported yet")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
     sp = SamplingParams(temperature=args.temperature)
+    if not args.trace:
+        waves = run_waves(cfg, params, args, sp=sp)
+        _maybe_store_gc(args)
+        return waves
     stats = run_trace(cfg, params, args, sp=sp, repeats=args.repeats)
-    print(f"engine={stats['engine']} device={stats['device']} arch={cfg.name} "
-          f"requests={stats['n_requests']} (+{stats['n_rejected']} shed) "
-          f"tokens={stats['gen_tokens']} decode_steps={stats['decode_steps']}")
-    print(f"reserve={stats['reserve']} preempts={stats['preempt_count']} "
-          f"resume_tokens_recomputed={stats['resume_tokens_recomputed']} "
-          f"admit_deferred={stats['admit_deferred']}")
+    kind = "paged" if stats["paged"] else "dense"
+    print(f"engine={stats['engine']} ({kind}) device={stats['device']} "
+          f"arch={cfg.name} requests={stats['n_requests']} "
+          f"(+{stats['n_rejected']} shed) tokens={stats['gen_tokens']} "
+          f"decode_steps={stats['decode_steps']} "
+          f"traces={stats['trace_counts']}")
+    if stats["paged"]:
+        print(f"reserve={stats['reserve']} "
+              f"preempts={stats['preempt_count']} "
+              f"resume_tokens_recomputed="
+              f"{stats['resume_tokens_recomputed']} "
+              f"admit_deferred={stats['admit_deferred']}")
     if stats["prefix_cache"]:
         print(f"prefix_cache: hit_rate={stats['prefix_hit_rate']*100:.0f}% "
               f"pages_shared={stats['pages_shared']} "

@@ -27,6 +27,13 @@ Three forms serve the paged engine:
   the pool) or, on the reference path, ``gather_pages`` followed by
   ``_decode_attn_plus_self``.
 
+The dense engine's batched prefill (S > 1 into a fresh per-slot cache)
+reads no cache: the prompt attends over its own K/V through the core
+``impl`` picks, as the cache-less form does — so on CUDA ``auto`` runs the
+flash kernel here too (the reference's cached branch only ever runs its
+plain cores).  Its decode (S == 1 over the dense views) is
+``_decode_attn_plus_self``, plain, as in the reference.
+
 Cache writes stay deltas: ``attention`` returns the step's own K/V and the
 caller writes them into the pool.
 """
@@ -261,10 +268,24 @@ def _decode_attn_plus_self(q, k_cache, v_cache, kv_len_old, kt, vt, *,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def _self_attn(q, k, v, q_pos, *, causal, window, impl):
+    """The sequence attends over its own K/V (q (B, S, H, D), k/v (B, S,
+    KV, D)) through the core ``impl`` resolves to for S x S."""
+    S = q.shape[1]
+    core = resolve_attn_impl(impl, q.device, S, S)
+    if core == "kernel":
+        return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      impl="kernel")
+    if core == "dense":
+        return _dense_attn(q, k, v, q_pos, q_pos, causal=causal,
+                           window=window)
+    return _tiled_attn(q, k, v, q_pos, q_pos, causal=causal, window=window)
+
+
 def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
               cache: dict | None, cache_len=None, window: int | None = None,
               paged_impl: str = "auto", causal: bool = True,
-              impl: str = "auto"):
+              impl: str = "auto", chunk_continue: bool = False):
     """Full attention layer: qkv projection -> RoPE -> core -> output
     projection.
 
@@ -280,8 +301,10 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
     to the paged flash-decode wrapper, whose ``paged_impl`` picks the
     kernel (by the tensor's device) or the gather oracle.  Otherwise it
     holds dense views ``{"k", "v"}`` (or is empty for a first chunk):
-    S == 1 is decode over the view, S > 1 a prefill chunk starting at the
-    host int ``cache_len``."""
+    S == 1 is decode over the view; S > 1 with ``chunk_continue`` a prefill
+    chunk starting at the host int ``cache_len``, and without it the dense
+    engine's batched prefill from a fresh cache (positions ``cache_len +
+    arange(S)``, no cache read, the core ``impl`` picks)."""
     cd = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -299,14 +322,8 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
 
     if cache is None:
         pos = positions[0] if positions.dim() > 1 else positions
-        core = resolve_attn_impl(impl, q.device, S, S)
-        if core == "kernel":
-            out = fa_ops.flash_attention(q, k, v, causal=causal,
-                                         window=window, impl="kernel")
-        elif core == "dense":
-            out = _dense_attn(q, k, v, pos, pos, causal=causal, window=window)
-        else:
-            out = _tiled_attn(q, k, v, pos, pos, causal=causal, window=window)
+        out = _self_attn(q, k, v, pos, causal=causal, window=window,
+                         impl=impl)
         return dense(p["o"], out.reshape(B, S, H * hd), cd), None
 
     store = cache.get("k_pool", cache.get("k")) if cache else None
@@ -321,6 +338,10 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
     elif S == 1:
         out = _decode_attn_plus_self(q, cache["k"], cache["v"], cache_len,
                                      kt, vt, window=window)
+    elif not chunk_continue:
+        q_pos = cache_len + torch.arange(S, device=q.device)
+        out = _self_attn(q, k, v, q_pos, causal=True, window=window,
+                         impl=impl)
     else:
         kc = cache["k"] if cache else None
         vc = cache["v"] if cache else None

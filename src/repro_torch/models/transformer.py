@@ -6,23 +6,35 @@ Parameters are the JAX package's pytree unstacked: ``{"embed": {"table"},
 "layers": [block, ...], "norm_f": {"scale"}}`` with one dict per layer
 (the reference stacks layers on a leading axis for ``lax.scan``; here a
 plain Python loop runs them).  A dense block is ``{"ln1", "attn", "ln2",
-"mlp"}``, an SSM block ``{"ln1", "mixer"}``.  The paged serving cache holds
-``"len": (B,) int32`` and, for the attention layers, ``"k"``/``"v"``:
-(n_attn, P, KV, ps, D), one page pool per layer and per K/V; for the SSM
-layers, per-slot state ``"conv"``: (n_ssm, B, W-1, d_inner + 2N) and
-``"state"``: (n_ssm, B, H, P, N), both fp32 (SSM state is O(1) per slot
-and has no pages).  ``cache["k"][i]`` is the i-th attention layer's pool,
-``cache["state"][i]`` the i-th SSM layer's state.
+"mlp"}``, an SSM block ``{"ln1", "mixer"}``.
+
+Two serving caches, both with the SSM layers' per-slot state ``"conv"``:
+(n_ssm, B, W-1, d_inner + 2N) and ``"state"``: (n_ssm, B, H, P, N), fp32
+(SSM state is O(1) per slot and has no pages):
+
+* the dense cache (``init_cache``, the dense ``Engine``): ``"k"``/``"v"``
+  (n_attn, B, KV, T, D), one per-slot buffer per attention layer, and
+  ``"len"``, a scalar while the batch is uniform and (B,) once slots
+  diverge;
+* the paged cache (``init_paged_cache``, ``PagedEngine``): ``"k"``/``"v"``
+  (n_attn, P, KV, ps, D), one page pool per layer and per K/V, and
+  ``"len"`` (B,) int32.
+
+``cache["k"][i]`` is the i-th attention layer's buffer or pool,
+``cache["state"][i]`` the i-th SSM layer's state.  ``decode_step`` runs
+either cache: without ``pages`` S == 1 decodes and S > 1 is a batched
+prefill from a fresh cache.
 
 ``forward`` / ``loss_fn`` run the whole sequence with no cache (the
 training path); ``cfg.remat == "full"`` recomputes each layer in the
 backward pass (``torch.utils.checkpoint``), so its attention kernel runs
 twice a layer.
 
-Both serving steps UPDATE THE CACHE IN PLACE (pools, SSM state and ``len``) and
-return the same dict — the reference returns a new cache.  Every layer
-reads its own pool or state before writing it, and layers never share
-one, so the result equals the reference's read-all-then-write order.
+The serving steps UPDATE THE CACHE IN PLACE (buffers, pools, SSM state and
+``len``) and return the same dict — the reference returns a new cache.
+Every layer reads its own buffer or state before writing it, and layers
+never share one, so the result equals the reference's read-all-then-write
+order.
 """
 from __future__ import annotations
 
@@ -32,6 +44,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.runtime import resolve_impl
+from ..tree import tree_leaves
 from .attention import attention, gather_pages, init_attention
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, dtype_of, embed, init_embedding,
@@ -39,7 +52,8 @@ from .layers import (apply_mlp, apply_norm, dtype_of, embed, init_embedding,
 from .ssm import apply_mamba2, init_mamba2, init_ssm_cache, mamba2_decode_step
 
 __all__ = ["LayerPlan", "layer_plan", "layer_kinds", "init_block",
-           "apply_block", "init_params", "init_paged_cache", "decode_step",
+           "apply_block", "init_params", "param_count", "init_cache",
+           "init_paged_cache", "decode_step", "prefill",
            "chunk_prefill_step", "check_supported", "check_trainable",
            "forward", "loss_fn"]
 
@@ -124,32 +138,42 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "norm_f": init_norm(cfg, device)}
 
 
+def param_count(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
 def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
                 positions, cache: dict | None, cache_len,
                 paged_impl: str = "auto", impl: str = "auto",
-                valid_len: int | None = None):
+                valid_len: int | None = None, chunk_continue: bool = False):
     """One pre-norm residual block.
 
     ``dense`` (attention + gated MLP) returns ``(x, (kt, vt))`` with the
     block's K/V delta; with ``cache=None`` (the full-sequence forward) it
-    returns ``(x, None)`` and ``impl`` picks the attention core.  ``ssm`` returns ``(x, new_cache)`` with the slot
-    rows' new ``{"conv", "state"}``: one token per row (S == 1) runs the
-    decode recurrence; a longer chunk continues the conv and SSD scan from
-    ``cache`` (chunked prefill), with positions >= ``valid_len`` masked out
-    of the state, and ``impl`` picks its intra-chunk path."""
+    returns ``(x, None)`` and ``impl`` picks the attention core.  ``ssm``
+    returns ``(x, new_cache)`` with the slot rows' new ``{"conv",
+    "state"}``: one token per row (S == 1) runs the decode recurrence; a
+    longer chunk runs the conv and SSD scan, continuing from ``cache``
+    under ``chunk_continue`` (chunked prefill) and from zeros otherwise
+    (the dense engine's batched prefill), with positions >= ``valid_len``
+    masked out of the state, and ``impl`` picks its intra-chunk path.
+    ``chunk_continue`` likewise tells an attention block's S > 1 chunk
+    from a batched prefill."""
     if kind == "ssm":
         h = apply_norm(cfg, p["ln1"], x)
         if x.shape[1] == 1:
             out, new_cache = mamba2_decode_step(cfg, p["mixer"], h, cache)
         else:
-            out, new_cache = apply_mamba2(cfg, p["mixer"], h, cache=cache,
-                                          valid_len=valid_len, impl=impl)
+            out, new_cache = apply_mamba2(
+                cfg, p["mixer"], h, cache=cache if chunk_continue else None,
+                valid_len=valid_len, impl=impl)
         return x + out, new_cache
     window = cfg.sliding_window
     h = apply_norm(cfg, p["ln1"], x)
     out, kv = attention(cfg, p["attn"], h, positions=positions, cache=cache,
                         cache_len=cache_len, window=window,
-                        paged_impl=paged_impl, impl=impl)
+                        paged_impl=paged_impl, impl=impl,
+                        chunk_continue=chunk_continue)
     x = x + out
     h = apply_norm(cfg, p["ln2"], x)
     x = x + apply_mlp(cfg, p["mlp"], h)
@@ -227,8 +251,40 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
 
 
 # ---------------------------------------------------------------------------
-# Paged cache and steps
+# Serving caches and steps
 # ---------------------------------------------------------------------------
+
+
+def _new_cache(cfg: ModelConfig, batch: int, lens: torch.Tensor,
+               kv_rows: int, kv_cols: int, device) -> dict:
+    """``{"len": lens}`` plus zero K/V of shape (n_attn, kv_rows, KV,
+    kv_cols, D) for the attention layers and zero per-slot SSM state for
+    the SSM layers, each stacked on a leading layer axis."""
+    check_supported(cfg)
+    kinds = layer_kinds(cfg)
+    n_ssm = kinds.count("ssm")
+    n_attn = len(kinds) - n_ssm
+    cache = {"len": lens}
+    if n_attn:
+        dt = dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype)
+        shape = (n_attn, kv_rows, cfg.n_kv_heads, kv_cols, cfg.hd)
+        cache["k"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    if n_ssm:
+        for key, t in init_ssm_cache(cfg, batch, device).items():
+            cache[key] = t[None].repeat((n_ssm,) + (1,) * t.dim())
+    return cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device) -> dict:
+    """Dense serving cache: per-slot K/V buffers (B, KV, max_len, D) per
+    attention layer, per-slot SSM state per SSM layer, and a scalar
+    ``len`` of 0 (the dense engine broadcasts it to (B,) after a
+    prefill)."""
+    return _new_cache(cfg, batch,
+                      torch.zeros((), dtype=torch.int32, device=device),
+                      batch, max_len, device)
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, *, num_pages: int,
@@ -238,20 +294,29 @@ def init_paged_cache(cfg: ModelConfig, batch: int, *, num_pages: int,
     per-slot conv tail and SSD state per SSM layer, stacked likewise; and
     per-slot lengths.  An attention-free model gets no pool.  Page 0 is
     the trash page."""
-    check_supported(cfg)
-    kinds = layer_kinds(cfg)
-    n_ssm = kinds.count("ssm")
-    n_attn = len(kinds) - n_ssm
-    cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
-    if n_attn:
-        dt = dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype)
-        shape = (n_attn, num_pages, cfg.n_kv_heads, page_size, cfg.hd)
-        cache["k"] = torch.zeros(shape, dtype=dt, device=device)
-        cache["v"] = torch.zeros(shape, dtype=dt, device=device)
-    if n_ssm:
-        for key, t in init_ssm_cache(cfg, batch, device).items():
-            cache[key] = t[None].repeat((n_ssm,) + (1,) * t.dim())
-    return cache
+    return _new_cache(cfg, batch,
+                      torch.zeros((batch,), dtype=torch.int32, device=device),
+                      num_pages, page_size, device)
+
+
+def _write_kv(buf, delta, pos) -> None:
+    """Write a step's K/V delta (B, KV, S, D) into one layer's dense
+    buffer (B, KV, T, D), in place, at the token position: ``pos`` a
+    scalar (one slice for the whole batch) or (B,) (one position a slot,
+    S == 1).  A write that would run past the buffer lands at its end, as
+    the reference's ``dynamic_update_slice`` clamps its start index: a
+    free slot's ``len`` keeps growing with every decode step and passes
+    ``max_len``, and its writes then overwrite position T - 1, which
+    nothing reads as valid."""
+    T, S = buf.shape[2], delta.shape[2]
+    if S > T:
+        raise ValueError(f"{S} positions do not fit a cache of {T}")
+    if pos.dim() == 0:
+        start = min(max(int(pos), 0), T - S)
+        buf[:, :, start:start + S] = delta.to(buf.dtype)
+        return
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    buf[rows, :, pos.long().clamp(0, T - 1)] = delta[:, :, 0].to(buf.dtype)
 
 
 def _write_ssm_state(layer_cache: dict, new: dict, update_mask) -> None:
@@ -286,49 +351,91 @@ def _write_kv_paged(pool, delta, pos, pages, page_size: int) -> None:
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor, *, pages: torch.Tensor, page_size: int,
-                paged_impl: str = "auto", update_mask=None):
-    """One decode step for every slot.  tokens: (B, 1) int; ``pages``
-    (B, n_pages) int32 page table on the cache's device.  Every slot, free
-    ones included, reads its pages, writes its token's K/V through the
-    table and has its ``len`` bumped — free slots' rows point at the trash
-    page.  ``paged_impl``: ``auto`` (the kernel on a CUDA cache, the gather
-    oracle on the CPU), ``kernel`` or ``ref`` (gather ``gather_pages`` view
-    + ``_decode_attn_plus_self``).  ``update_mask`` (B,) bool: freeze the
-    per-slot SSM state of masked-out slots (mid-prefill slots between
-    their chunks); None advances every slot.  Updates the cache in place;
-    returns ``(logits (B, 1, V), cache)``."""
+                tokens: torch.Tensor, *, pages: torch.Tensor | None = None,
+                page_size: int | None = None, paged_impl: str = "auto",
+                update_mask=None, impl: str = "auto",
+                valid_len: int | None = None):
+    """One cache-extending step for every slot.  tokens: (B, S) int.
+
+    Dense cache (``pages=None``): S == 1 decodes against the per-slot
+    buffers (``len`` a scalar or (B,)); S > 1 is a batched prefill from a
+    fresh cache (scalar ``len``; a (B,) ``len`` is refused, as in the
+    reference), whose attention reads no cache (``impl`` picks its core:
+    the flash kernel on CUDA under ``auto``) and whose SSM layers scan from
+    zeros with positions >= ``valid_len`` (a right-padded prompt's true
+    length) masked out of the state.
+
+    Paged cache: ``pages`` (B, n_pages) int32 page table on the cache's
+    device, S == 1.  Every slot, free ones included, reads its pages,
+    writes its token's K/V through the table and has its ``len`` bumped —
+    free slots' rows point at the trash page.  ``paged_impl``: ``auto``
+    (the kernel on a CUDA cache, the gather oracle on the CPU), ``kernel``
+    or ``ref`` (gather ``gather_pages`` view + ``_decode_attn_plus_self``).
+
+    ``update_mask`` (B,) bool: freeze the per-slot SSM state of masked-out
+    slots (mid-prefill slots between their chunks); None advances every
+    slot.  Updates the cache in place; returns ``(logits (B, S, V),
+    cache)``."""
     x = embed(cfg, params["embed"], tokens)
-    if x.shape[1] != 1:
-        raise ValueError("decode_step takes one token per slot (S == 1)")
+    S = x.shape[1]
     pos = cache["len"]
-    positions = pos[:, None]
-    paged_impl = resolve_impl(paged_impl, pos.device)
-    gathered = paged_impl == "ref"
+    if pages is not None and S != 1:
+        raise ValueError("a paged decode_step takes one token per slot "
+                         "(S == 1)")
+    # ``len`` may be a scalar (uniform batch) or (B,) (per-slot lengths
+    # under continuous batching); vector lengths are decode-only
+    if pos.dim() == 1 and S > 1:
+        raise ValueError("per-slot cache lengths only support single-token "
+                         "decode (S == 1); prefill from a fresh cache")
+    steps = torch.arange(S, device=x.device)
+    positions = pos[:, None] + steps if pos.dim() == 1 else pos + steps
+    if pages is not None:
+        paged_impl = resolve_impl(paged_impl, pos.device)
     ai = si = 0
     for kind, p in zip(layer_kinds(cfg), params["layers"]):
         if kind == "ssm":
             lc = {"conv": cache["conv"][si], "state": cache["state"][si]}
             x, new = apply_block(cfg, kind, p, x, positions=positions,
-                                 cache=lc, cache_len=pos)
+                                 cache=lc, cache_len=pos, impl=impl,
+                                 valid_len=valid_len)
             _write_ssm_state(lc, new, update_mask)
             si += 1
             continue
-        kp, vp = cache["k"][ai], cache["v"][ai]
+        kb, vb = cache["k"][ai], cache["v"][ai]
         ai += 1
-        if gathered:
-            lc = {"k": gather_pages(kp, pages), "v": gather_pages(vp, pages)}
+        if pages is None:
+            lc = {"k": kb, "v": vb}
+        elif paged_impl == "ref":
+            lc = {"k": gather_pages(kb, pages), "v": gather_pages(vb, pages)}
         else:
-            lc = {"k_pool": kp, "v_pool": vp, "pages": pages}
+            lc = {"k_pool": kb, "v_pool": vb, "pages": pages}
         x, (kt, vt) = apply_block(cfg, kind, p, x, positions=positions,
                                   cache=lc, cache_len=pos,
-                                  paged_impl=paged_impl)
-        _write_kv_paged(kp, kt, pos, pages, page_size)
-        _write_kv_paged(vp, vt, pos, pages, page_size)
+                                  paged_impl=paged_impl, impl=impl)
+        if pages is None:
+            _write_kv(kb, kt, pos)
+            _write_kv(vb, vt, pos)
+        else:
+            _write_kv_paged(kb, kt, pos, pages, page_size)
+            _write_kv_paged(vb, vt, pos, pages, page_size)
     x = apply_norm(cfg, params["norm_f"], x)
     logits = unembed(cfg, params["embed"], x)
-    cache["len"] += 1
+    cache["len"] += S
     return logits, cache
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            max_len: int | None = None, impl: str = "auto"):
+    """The small-scale reference prefill: a fresh dense cache extended one
+    token at a time by ``decode_step``.  Returns ``(cache, logits (B, 1,
+    V) of the last prompt token)``."""
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, max_len or S + 64, device=tokens.device)
+    logits = None
+    for t in range(S):
+        logits, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1],
+                                    impl=impl)
+    return cache, logits
 
 
 def _write_kv_chunk_paged(pool, delta, start: int, pages_1d, page_size: int):
@@ -386,7 +493,7 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
                   else {k: torch.zeros_like(t) for k, t in rows.items()})
             x, new = apply_block(cfg, kind, p, x, positions=positions,
                                  cache=lc, cache_len=start, impl=impl,
-                                 valid_len=valid_len)
+                                 valid_len=valid_len, chunk_continue=True)
             _write_ssm_state(rows, new, None)
             si += 1
             continue
@@ -395,7 +502,8 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
         lc = ({"k": gather_pages(kp, read), "v": gather_pages(vp, read)}
               if start > 0 else {})
         x, (kt, vt) = apply_block(cfg, kind, p, x, positions=positions,
-                                  cache=lc, cache_len=start)
+                                  cache=lc, cache_len=start,
+                                  chunk_continue=True)
         _write_kv_chunk_paged(kp, kt, start, pages_row[0], page_size)
         _write_kv_chunk_paged(vp, vt, start, pages_row[0], page_size)
     x = apply_norm(cfg, params["norm_f"], x)

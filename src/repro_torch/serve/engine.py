@@ -1,6 +1,19 @@
-"""Paged serving engine: a shared KV page pool with chunked prefill.
+"""Serving engines: the dense per-slot ``Engine`` and the paged
+``PagedEngine`` with chunked prefill.
 
-The port of the JAX package's ``PagedEngine`` (DESIGN.md §9): attention
+``Engine`` is the port of the JAX package's dense engine: every slot owns
+a (KV, max_len, D) K/V buffer per attention layer.  ``prefill`` runs a
+whole batch of prompts in one batched step, ``decode`` one step for every
+slot, and ``insert`` prefills one request into a batch-1 cache and splices
+it into its slot's row in place, the other slots untouched — the
+continuous batching ``ServeScheduler`` drives.  After the first prefill the
+cache ``len`` is (B,), one length per slot, so an inserted request
+attends, RoPEs and writes at its own position.  The reference counts the
+traces of its three jitted programs; the port compiles nothing, so
+``trace_count`` counts the distinct input-shape signatures each of
+``prefill``, ``decode`` and ``splice`` has seen — what the traces count.
+
+``PagedEngine`` (DESIGN.md §9): attention
 layers share one page pool ``(num_pages, KV, page_size, D)`` per layer and
 per K/V; a slot's cache is whatever pages the scheduler's allocator gave
 it, recorded in a host-side page table ``(batch, max_pages_per_slot)``
@@ -19,14 +32,15 @@ chunks of a long prompt.  During a multi-chunk prefill the slot's live
 table row stays on the trash page; ``commit_slot`` installs its real row
 after the last chunk.
 
-PyTorch runs eagerly, so there are no compiled programs to count; the
-engine counts its decode and chunk calls instead.  The engine runs on the
-card unless the caller asks for the CPU: ``device="cuda"`` (the default)
-raises where no CUDA device exists.  Weights are cast to the compute dtype
-once, at construction — the per-call casts of the reference, done once.
+Both engines count their decode calls and the shape signatures of their
+steps (``trace_count``).  They run on the card unless the caller asks for the
+CPU: ``device="cuda"`` (the default) raises where no CUDA device exists.
+Weights are cast to the compute dtype once, at construction — the per-call
+casts of the reference, done once.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Sequence
 
@@ -36,10 +50,11 @@ import torch
 from ..models.config import ModelConfig
 from ..models.layers import cast_weights, dtype_of
 from ..models.transformer import (check_supported, chunk_prefill_step,
-                                  decode_step, init_paged_cache, layer_plan)
+                                  decode_step, init_cache, init_paged_cache,
+                                  layer_plan)
 
-__all__ = ["PagedEngine", "SamplingParams", "chunk_plan", "chunk_buckets_for",
-           "sample", "resolve_device"]
+__all__ = ["Engine", "PagedEngine", "SamplingParams", "count_generated",
+           "chunk_plan", "chunk_buckets_for", "sample", "resolve_device"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +73,20 @@ def resolve_device(device) -> torch.device:
                            f"is available (pass device='cpu' to run the "
                            f"plain PyTorch path on the CPU)")
     return dev
+
+
+def count_generated(out: np.ndarray, stop_token: int) -> int:
+    """Real generated tokens in a ``generate`` result: stop-token padding
+    after a sequence terminated does not count (the first stop token
+    itself does — the model produced it)."""
+    out = np.asarray(out)
+    if stop_token < 0:
+        return int(out.size)
+    total = 0
+    for row in out:
+        hits = np.flatnonzero(row == stop_token)
+        total += int(hits[0]) + 1 if hits.size else row.size
+    return total
 
 
 def sample(logits: torch.Tensor, sp: SamplingParams,
@@ -121,6 +150,150 @@ def chunk_plan(true_len: int, prefill_chunk: int,
     return plan
 
 
+def _as_tokens(tokens, device) -> torch.Tensor:
+    if isinstance(tokens, torch.Tensor):
+        return tokens.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(tokens, np.int32), device=device)
+
+
+class Engine:
+    """Dense serving engine: per-slot K/V buffers of ``max_len`` positions,
+    batched prefill, one decode step for the whole batch, and slot inserts.
+
+    The batched prefill runs the path's kernel on a CUDA engine (the flash
+    forward, or the SSD kernel) and the plain versions on the CPU.
+    ``params`` are the port's parameters; the engine
+    keeps a copy on ``device`` with the weights cast to the compute dtype.
+    The reference's ``donate_cache`` has no counterpart: the port updates
+    the cache in place.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, batch: int, max_len: int,
+                 device="cuda"):
+        check_supported(cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = cast_weights(
+            _to_device(params, self.device), dtype_of(cfg.compute_dtype))
+        self.batch, self.max_len = batch, max_len
+        # step name -> the input shapes it has run at
+        self._shapes: dict[str, set] = collections.defaultdict(set)
+        self.n_decode_calls = 0
+        self.cache = None
+
+    def trace_count(self, name: str) -> int:
+        """Distinct input-shape signatures ``name`` (prefill | decode |
+        splice) has run at — the reference's trace count."""
+        return len(self._shapes[name])
+
+    # -- lifecycle -------------------------------------------------------------
+    def fresh_cache(self) -> dict:
+        return init_cache(self.cfg, self.batch, self.max_len,
+                          device=self.device)
+
+    def ensure_batch(self) -> None:
+        """Allocate the empty live batch (all slots free, zero lengths) so
+        insert-driven serving can start without a full-batch prefill."""
+        if self.cache is None:
+            cache = self.fresh_cache()
+            cache["len"] = torch.zeros((self.batch,), dtype=torch.int32,
+                                       device=self.device)
+            self.cache = cache
+
+    def _prefill(self, cache: dict, tokens: torch.Tensor, last_idx: int):
+        """Batched prefill of ``tokens`` (B, S) into the fresh ``cache``:
+        the logits at the true last token ``last_idx`` (the pad tail of a
+        bucketed prompt picks nothing, and SSM layers mask it out of the
+        state), and ``len`` broadcast to (B,)."""
+        self._shapes["prefill"].add(tuple(tokens.shape))
+        logits, cache = decode_step(self.cfg, self.params, cache, tokens,
+                                    valid_len=last_idx + 1)
+        cache["len"] = cache["len"].expand(tokens.shape[0]).clone()
+        return logits[:, last_idx:last_idx + 1], cache
+
+    def prefill(self, tokens) -> torch.Tensor:
+        """tokens: (batch, S).  Returns the last position's logits
+        (batch, 1, V)."""
+        tokens = _as_tokens(tokens, self.device)
+        logits, self.cache = self._prefill(self.fresh_cache(), tokens,
+                                           tokens.shape[1] - 1)
+        return logits
+
+    def decode(self, tokens) -> torch.Tensor:
+        """tokens: (batch, 1) — one step for every slot.  Returns logits
+        (batch, 1, V) on the engine's device."""
+        tokens = _as_tokens(tokens, self.device)
+        self._shapes["decode"].add((tuple(tokens.shape),
+                                    tuple(self.cache["len"].shape)))
+        self.n_decode_calls += 1
+        logits, self.cache = decode_step(self.cfg, self.params, self.cache,
+                                         tokens)
+        return logits
+
+    # -- sampling --------------------------------------------------------------
+    def generate(self, tokens, *, max_new: int,
+                 sp: SamplingParams = SamplingParams(),
+                 generator: torch.Generator | None = None) -> np.ndarray:
+        """Greedy or temperature generation for a full batch: prefill, then
+        ``max_new`` tokens (the first sampled from the prefill's logits).
+        Returns (batch, max_new) ids, stop-token padded after a row stops;
+        stops early once every row has.  Temperature > 0 draws from
+        ``generator`` (one seeded with 0 on the engine's device when
+        None)."""
+        if sp.temperature > 0 and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        logits = self.prefill(tokens)
+        out = []
+        done = np.zeros((logits.shape[0],), bool)
+        for _ in range(max_new):
+            ids = sample(logits, sp, generator)
+            if sp.stop_token >= 0:
+                ids = np.where(done, sp.stop_token, ids).astype(np.int32)
+                done |= ids == sp.stop_token
+            out.append(ids)
+            if done.all():
+                out.extend([np.full_like(ids, sp.stop_token)]
+                           * (max_new - len(out)))
+                break
+            logits = self.decode(ids[:, None])
+        return np.stack(out, axis=1)
+
+    # -- continuous batching -----------------------------------------------------
+    def insert(self, slot: int, tokens_1xS, *,
+               true_len: int | None = None) -> torch.Tensor:
+        """Prefill one request into slot ``slot`` without disturbing the
+        other slots: a batched prefill into a fresh batch-1 cache, spliced
+        into the slot's row in place.
+
+        ``tokens_1xS`` may be right-padded to a bucket length; ``true_len``
+        is the unpadded prompt length (the full width by default), and the
+        slot's ``len`` becomes it.  Returns the logits of the true last
+        prompt token, (1, 1, V)."""
+        if self.cache is None:
+            raise RuntimeError("insert() needs a live batch; call prefill() "
+                               "first")
+        tokens = _as_tokens(tokens_1xS, self.device)
+        S = tokens.shape[1]
+        true_len = S if true_len is None else int(true_len)
+        if not 0 < true_len <= S:
+            raise ValueError(f"true_len {true_len} outside (0, {S}]")
+        if not 0 <= slot < self.batch:
+            raise ValueError(f"slot {slot} outside [0, {self.batch})")
+        mini = init_cache(self.cfg, 1, self.max_len, device=self.device)
+        logits, mini = self._prefill(mini, tokens, true_len - 1)
+        self._splice(mini, slot, true_len)
+        return logits
+
+    def _splice(self, mini: dict, slot: int, true_len: int) -> None:
+        """Copy a batch-1 cache into row ``slot`` of the live cache."""
+        self._shapes["splice"].add(tuple(tuple(t.shape)
+                                         for t in mini.values()))
+        for key, full in self.cache.items():
+            if key != "len":
+                full[:, slot] = mini[key][:, 0]
+        self.cache["len"][slot] = true_len
+
+
 class PagedEngine:
     """Serving engine over a paged KV cache with chunked prefill.
 
@@ -167,9 +340,16 @@ class PagedEngine:
         self.supports_prefix_cache = "ssm" not in plan.pattern + plan.tail
         self.n_decode_calls = 0
         self.n_chunk_calls = 0
+        self._shapes: dict[str, set] = collections.defaultdict(set)
         # device copy of the page table, refreshed only when it changed
         self._pt_device = None
         self.cache = None
+
+    def trace_count(self, name: str) -> int:
+        """Distinct input-shape signatures ``name`` (chunk_prefill |
+        decode) has run at — the reference's trace count: one a chunk
+        bucket, one decode."""
+        return len(self._shapes[name])
 
     # -- lifecycle -------------------------------------------------------------
     def ensure_batch(self) -> None:
@@ -213,8 +393,8 @@ class PagedEngine:
         ids = self._check_page_row(slot, page_ids)
         row = np.zeros((1, self.max_pages), np.int32)
         row[0, :len(ids)] = ids
-        tokens = torch.as_tensor(np.asarray(tokens_1xC, np.int32),
-                                 device=self.device)
+        tokens = _as_tokens(tokens_1xC, self.device)
+        self._shapes["chunk_prefill"].add(tuple(tokens.shape))
         logits, self.cache = chunk_prefill_step(
             self.cfg, self.params, self.cache, tokens, slot=slot,
             start=int(start), valid_len=int(valid_in_chunk),
@@ -337,8 +517,8 @@ class PagedEngine:
         if self._pt_device is None:
             self._pt_device = torch.tensor(self.page_table,
                                               device=self.device)
-        tokens = torch.as_tensor(np.asarray(tokens, np.int32),
-                                 device=self.device)
+        tokens = _as_tokens(tokens, self.device)
+        self._shapes["decode"].add(tuple(tokens.shape))
         mask = (None if live_mask is None else torch.as_tensor(
             np.asarray(live_mask, bool), device=self.device))
         logits, self.cache = decode_step(

@@ -1,8 +1,13 @@
 """Request-level serving scheduler: continuous batching over a
+:class:`~repro_torch.serve.engine.Engine` or a
 :class:`~repro_torch.serve.engine.PagedEngine` — the HyPar job model one
 level up.
 
-The port of the JAX package's ``ServeScheduler``: admission is by free
+The port of the JAX package's ``ServeScheduler``.  Over the dense
+``Engine`` a request's prompt is right-padded to its length bucket
+(``buckets``) and prefilled into a free slot in one ``insert``; admission
+checks only that a bucket and the slot's ``max_len`` fit.  Over the paged
+engine admission is by free
 pages of the shared pool (``reserve="lifetime"`` reserves a request's whole
 span, ``reserve="demand"`` appends decode pages lazily and preempts on
 exhaustion, resuming by chunked recompute); ``prefix_cache=True`` shares
@@ -33,8 +38,8 @@ code path except placement:
 Not ported yet (each raises ``NotImplementedError``): more than one device
 group (``device_groups > 1``), the serve chaos harness (``chaos=``), the
 step watchdog (``watchdog_budget_s=``) and the per-request restart budget
-(``max_restarts=``).  Group failover (``fail_group``, ``probe_group``) and
-the dense ``Engine`` are not ported either.
+(``max_restarts=``).  Group failover (``fail_group``, ``probe_group``) is
+not ported either.
 """
 from __future__ import annotations
 
@@ -52,14 +57,19 @@ from ..core.registry import ControlContext, FunctionKind, FunctionRegistry
 from ..core.scheduler import (CostModelParams, MasterScheduler, ResultStore,
                               VirtualCluster)
 from ..core.store import JobStore
-from .engine import PagedEngine, SamplingParams, chunk_plan, sample
+from .engine import Engine, PagedEngine, SamplingParams, chunk_plan, sample
 from .prefix import PrefixCache
 
 __all__ = [
     "Request", "RequestResult", "RequestOutcome", "TERMINAL_OUTCOMES",
     "RequestQueue", "SlotState", "PageAllocator",
     "PrefixCache", "DeviceGroup", "ServeScheduler", "HyParRequestTracker",
+    "DEFAULT_BUCKETS",
 ]
+
+# prompt-length buckets of the dense engine: prompts are right-padded to
+# the next bucket, so slot prefills run at a few shapes, not one a length
+DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 
 
 # ---------------------------------------------------------------------------
@@ -380,12 +390,13 @@ class DeviceGroup:
     :class:`PageAllocator` (and its own :class:`PrefixCache`).  The
     allocator's ``[n_reserved, num_pages)`` free range doubles as the
     group's page range; the engine-global trash page 0 is never
-    allocator-owned.  The port runs one group, always healthy (group
-    failover is not ported)."""
+    allocator-owned.  A dense engine's one group has no allocator.  The
+    port runs one group, always healthy (group failover is not
+    ported)."""
 
     gid: int
     slot_ids: tuple[int, ...]
-    allocator: PageAllocator
+    allocator: PageAllocator | None
     prefix: PrefixCache | None = None
 
 
@@ -623,16 +634,19 @@ class HyParRequestTracker:
 
 
 class ServeScheduler:
-    """Continuous-batching loop over a :class:`PagedEngine`.
+    """Continuous-batching loop over an :class:`Engine` or a
+    :class:`PagedEngine`.
 
     Slot lifecycle: a free slot pulls the next admitted request and
-    prefills it chunk by chunk (one chunk per ``step()``, interleaved with
-    decode), then samples its first token; every ``step()`` decodes the
-    whole live batch once; a slot whose request hit its budget or stop
+    prefills it — over the dense engine in one ``insert`` of the prompt
+    right-padded to its bucket (``buckets``, clamped to ``max_len``); over
+    the paged engine chunk by chunk (one chunk per ``step()``, interleaved
+    with decode) — then samples its first token; every ``step()`` decodes
+    the whole live batch once; a slot whose request hit its budget or stop
     token is retired and immediately refillable.  All request-visible
     timing (arrival, TTFT, per-token) is measured on ``clock``.
 
-    Two reservation disciplines (DESIGN.md §10):
+    Two reservation disciplines of the paged engine (DESIGN.md §10):
 
     * ``reserve="lifetime"`` — a request reserves its full prompt+budget
       page span at admission and can never be preempted;
@@ -662,9 +676,10 @@ class ServeScheduler:
     when none is given).
     """
 
-    def __init__(self, engine: PagedEngine, *,
+    def __init__(self, engine: Engine | PagedEngine, *,
                  sp: SamplingParams = SamplingParams(),
                  queue: RequestQueue | None = None,
+                 buckets: Sequence[int] = DEFAULT_BUCKETS,
                  tracker: HyParRequestTracker | None = None,
                  generator: torch.Generator | None = None,
                  clock: Callable[[], float] = time.perf_counter,
@@ -680,9 +695,10 @@ class ServeScheduler:
                  watchdog_budget_s: float | None = None,
                  max_restarts: int | None = None,
                  chaos=None):
-        if not isinstance(engine, PagedEngine):
-            raise TypeError("ServeScheduler drives a PagedEngine (the dense "
-                            "Engine is not ported yet)")
+        self.paged = isinstance(engine, PagedEngine)
+        if device_groups > 1 and not self.paged:
+            raise ValueError("device_groups > 1 requires a PagedEngine — "
+                             "group ownership partitions the page pool")
         if chaos is not None:
             raise NotImplementedError("the serve chaos harness is not "
                                       "ported yet (chaos=None only)")
@@ -711,6 +727,19 @@ class ServeScheduler:
         self.engine = engine
         self.sp = sp
         self.queue = queue if queue is not None else RequestQueue()
+        # clamp oversized buckets to the cache size instead of dropping them:
+        # a prompt whose next bucket exceeds max_len may still fit the cache
+        # (prompt + budget <= max_len) and must stay placeable
+        self.buckets = tuple(sorted({min(b, engine.max_len) for b in buckets
+                                     if b > 0}))
+        if not self.buckets:
+            raise ValueError(f"no prompt bucket fits max_len={engine.max_len}")
+        if reserve == "demand" and not self.paged:
+            raise ValueError("reserve='demand' needs a PagedEngine — the "
+                             "dense per-slot cache has nothing to append")
+        if prefix_cache and not self.paged:
+            raise ValueError("prefix_cache requires a PagedEngine — dense "
+                             "per-slot caches have no pages to share")
         self.reserve = reserve
         self.demand = reserve == "demand"
         self.preempt_policy = preempt_policy
@@ -720,19 +749,22 @@ class ServeScheduler:
         # One page of decode progress is the natural default: by then the
         # resume has at least paid for the page it appends.
         self.resume_floor = (resume_floor if resume_floor is not None
-                             else engine.page_size)
-        # one device group owning every slot and the usable page range
-        # [1, pool_pages) behind its allocator (page 0 is the trash page);
-        # ``pool_pages`` restricts the usable pool below the engine's
-        # physical one — the oversubscription knob
+                             else (engine.page_size if self.paged else 0))
+        # one device group owning every slot and, paged, the usable page
+        # range [1, pool_pages) behind its allocator (page 0 is the trash
+        # page); ``pool_pages`` restricts the usable pool below the
+        # engine's physical one — the oversubscription knob
         self.admit_watermark = admit_watermark
-        usable = (engine.num_pages if pool_pages is None
-                  else min(pool_pages, engine.num_pages))
-        pref = (PrefixCache(engine.page_size, admit_after=prefix_admit)
-                if prefix_cache and engine.supports_prefix_cache else None)
+        alloc = pref = None
+        if self.paged:
+            usable = (engine.num_pages if pool_pages is None
+                      else min(pool_pages, engine.num_pages))
+            alloc = PageAllocator(usable, watermark=admit_watermark)
+            pref = (PrefixCache(engine.page_size, admit_after=prefix_admit)
+                    if prefix_cache and engine.supports_prefix_cache
+                    else None)
         self.groups: list[DeviceGroup] = [DeviceGroup(
-            gid=0, slot_ids=tuple(range(engine.batch)),
-            allocator=PageAllocator(usable, watermark=admit_watermark),
+            gid=0, slot_ids=tuple(range(engine.batch)), allocator=alloc,
             prefix=pref)]
         self._slot_group = {s: g for g in self.groups for s in g.slot_ids}
         self.tracker = tracker
@@ -769,7 +801,7 @@ class ServeScheduler:
         self._last_retire_s: float | None = None
 
     @property
-    def allocator(self) -> PageAllocator:
+    def allocator(self) -> PageAllocator | None:
         return self.groups[0].allocator
 
     @property
@@ -868,7 +900,10 @@ class ServeScheduler:
         make this start permissive — shedding is LOAD-based and needs
         observed evidence, unlike the structural never-fits screen."""
         ahead = self._queue_ahead()
-        n_chunks = -(-max(len(req.tokens), 1) // self.engine.chunk_len)
+        if self.paged:
+            n_chunks = -(-max(len(req.tokens), 1) // self.engine.chunk_len)
+        else:
+            n_chunks = 1
         return ((self.clock() - req.arrival_s)
                 + ahead * self._ewma_retire_s
                 + (n_chunks + 1) * self._ewma_step_s)
@@ -906,11 +941,16 @@ class ServeScheduler:
         self._record_outcome(req.rid, outcome, detail=detail)
 
     def _fits(self, req: Request) -> bool:
-        """Can this request ever be placed: its declared-budget page
-        reservation fits the per-slot table width and the pool (transient
-        exhaustion is NOT a rejection — the request waits for retirements;
-        this check is only the never-fits test)."""
+        """Can this request ever be placed.  Dense: a prompt bucket exists
+        and prompt + declared budget stay inside the per-slot cache.
+        Paged: its declared-budget page reservation fits the per-slot
+        table width and the pool (transient exhaustion is NOT a rejection
+        — the request waits for retirements; this check is only the
+        never-fits test)."""
         cap = req.declared_new
+        if not self.paged:
+            return (self._bucket_len(len(req.tokens)) is not None
+                    and len(req.tokens) + cap <= self.engine.max_len)
         if len(req.tokens) + cap > self.engine.max_len:
             return False
         need = self.engine.pages_needed(len(req.tokens), cap)
@@ -929,6 +969,12 @@ class ServeScheduler:
                         for g in self.groups)
         return need <= self.engine.max_pages and pool_need <= group_cap
 
+    def _bucket_len(self, n: int) -> int | None:
+        for b in self.buckets:
+            if b >= n:
+                return b
+        return None
+
     # -- slot lifecycle --------------------------------------------------------
     def _sample(self, logits) -> np.ndarray:
         if self.sp.temperature > 0 and self._generator is None:
@@ -936,8 +982,20 @@ class ServeScheduler:
                 device=self.engine.device).manual_seed(0)
         return sample(logits, self.sp, self._generator)
 
+    def _insert(self, req: Request, slot: int) -> None:
+        """Dense path: prefill the prompt, right-padded to its bucket, into
+        the slot in one ``insert`` and sample the first token."""
+        S = len(req.tokens)
+        padded = np.zeros((1, self._bucket_len(S)), np.int32)
+        padded[0, :S] = req.tokens
+        self.engine.ensure_batch()
+        logits = self.engine.insert(slot, padded, true_len=S)
+        self._admit_seq += 1
+        self.slots[slot].admit_seq = self._admit_seq
+        self._first_token(self.slots[slot], req, logits)
+
     def _first_token(self, st: SlotState, req: Request, logits) -> None:
-        """Prefill done (final chunk): sample the request's
+        """Prefill done (one-shot or final chunk): sample the request's
         first token — time-to-first-token is measured here."""
         tok = int(self._sample(logits)[0])
         now = self.clock()
@@ -1136,6 +1194,9 @@ class ServeScheduler:
                 continue
             if self._deadline_drop_queued(req):
                 continue
+            if not self.paged:
+                wave.append((req, free.pop(0), None, [], None))
+                continue
             stream = self._prefill_stream(req)
             need_total = self._admission_pages(req, stream)
             placed = False
@@ -1190,7 +1251,11 @@ class ServeScheduler:
         else:
             assign = {w[0].rid: w[1] for w in wave}
         for req, _, pages, shared, stream in wave:
-            self._start_prefill(req, assign[req.rid], pages, shared, stream)
+            if self.paged:
+                self._start_prefill(req, assign[req.rid], pages, shared,
+                                    stream)
+            else:
+                self._insert(req, assign[req.rid])
 
     # -- deadlines (DESIGN.md §14) ---------------------------------------------
     def _deadline_drop_queued(self, req: Request) -> bool:
@@ -1238,8 +1303,11 @@ class ServeScheduler:
             return False
         done = (len(self._suspended[req.rid].tokens)
                 if req.rid in self._suspended else 0)
-        n_chunks = -(-max(len(req.tokens) + max(done - 1, 0), 1)
-                     // self.engine.chunk_len)
+        if self.paged:
+            n_chunks = -(-max(len(req.tokens) + max(done - 1, 0), 1)
+                         // self.engine.chunk_len)
+        else:
+            n_chunks = 1
         eta = (self.clock()
                + (n_chunks + req.max_new - done) * self._ewma_step_s)
         return eta > req.arrival_s + req.total_deadline_s
@@ -1420,8 +1488,8 @@ class ServeScheduler:
 
     def _release_slot(self, st: SlotState) -> None:
         """Hand the slot's pages back to its group's pool and point its
-        page-table row at the trash page."""
-        if st.page_ids:
+        page-table row at the trash page (paged engines only)."""
+        if self.paged and st.page_ids:
             self._slot_group[st.slot].allocator.free(st.page_ids)
             self.engine.free_slot(st.slot)
             st.page_ids = []
@@ -1522,12 +1590,15 @@ class ServeScheduler:
         tokens = np.zeros((self.engine.batch, 1), np.int32)
         for st in live:
             tokens[st.slot, 0] = st.next_token
-        # freeze mid-prefill (and free) slots' SSM state: only slots
-        # decoding a real token may advance their per-slot buffers
-        mask = np.zeros((self.engine.batch,), bool)
-        for st in live:
-            mask[st.slot] = True
-        ids = self._sample(self.engine.decode(tokens, live_mask=mask))
+        if self.paged:
+            # freeze mid-prefill (and free) slots' SSM state: only slots
+            # decoding a real token may advance their per-slot buffers
+            mask = np.zeros((self.engine.batch,), bool)
+            for st in live:
+                mask[st.slot] = True
+            ids = self._sample(self.engine.decode(tokens, live_mask=mask))
+        else:
+            ids = self._sample(self.engine.decode(tokens))
         now = self.clock()
         self.n_steps += 1
         self.occupied_slot_steps += len(live) + len(prefilling)

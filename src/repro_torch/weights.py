@@ -31,6 +31,11 @@ def _tensors(tree, device, index=None):
     arr = np.asarray(tree)
     if index is not None:
         arr = arr[index]
+    if arr.dtype.name == "bfloat16":
+        # numpy's bfloat16 (ml_dtypes) has no torch counterpart to read
+        # from; the fp32 round trip is exact
+        return torch.tensor(arr.astype(np.float32),
+                            device=device).to(torch.bfloat16)
     return torch.tensor(arr, device=device)
 
 

@@ -337,7 +337,8 @@ def test_master_restart_restores_suspended_from_store(models, tmp_path):
         store_b.close()
 
 
-LAUNCH = ["--smoke", "--device", "cpu", "--prefill-chunk", "32",
+LAUNCH = ["--smoke", "--device", "cpu", "--trace", "--paged",
+          "--prefill-chunk", "32",
           "--n-requests", "6", "--prompt-lens", "6", "12", "40",
           "--max-new", "4"]
 
@@ -377,9 +378,9 @@ def test_launcher_store_argument_errors_match_jax(argv, capsys):
     from repro.launch.serve import main as jax_main
 
     errors = []
-    for main, mode in ((serve_main, []), (jax_main, ["--trace", "--paged"])):
+    for main in (serve_main, jax_main):
         with pytest.raises(SystemExit) as err:
-            main(["--smoke", *mode, *argv])
+            main(["--smoke", "--trace", "--paged", *argv])
         assert err.value.code == 2
         errors.append(capsys.readouterr().err.strip().splitlines()[-1])
     # the same refusal, word for word (after the program name)

@@ -45,7 +45,10 @@ def test_import_with_jax_unavailable():
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.tuning, "
             "repro_torch.benchmarks.kernel_bench, repro_torch.core.store, "
             "repro_torch.core.procworker, repro_torch.core._procworker_child, "
-            "repro_torch.apps.procdemo, repro_torch.train.procfns; "
+            "repro_torch.apps.procdemo, repro_torch.train.procfns, "
+            "repro_torch.serve.engine, repro_torch.serve.scheduler, "
+            "repro_torch.models.transformer; "
+            "from repro_torch.serve import Engine, DEFAULT_BUCKETS; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -112,6 +115,25 @@ def test_launcher_defaults_to_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--smoke"])
+
+
+def test_dense_engine_defaults_to_cuda():
+    """``Engine`` runs on the card unless asked for the CPU: without a
+    CUDA device the default raises, ``device="cpu"`` builds."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serve import Engine
+    from repro_torch.weights import init_params
+    cfg = get_smoke_config("qwen2-1.5b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert Engine(cfg, params, batch=1, max_len=16,
+                  device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert Engine(cfg, params, batch=1, max_len=16).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(cfg, params, batch=1, max_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(cfg, params, batch=1, max_len=16, device="cuda")
 
 
 def test_train_launcher_defaults_to_cuda():

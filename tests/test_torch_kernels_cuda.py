@@ -859,3 +859,111 @@ def test_cuda_tuner_round_trip(tmp_path):
                         backend="cuda") == e["config"]
     params = tuning.calibrated_cost_params(tuner=tuner, backend="cuda")
     assert params.mem_bw == pytest.approx(8.0 * x.numel() / e["median_s"])
+
+
+# the dense engine's batched prefill: B, S (ragged S included), tolerance
+# of the last-token logits against the plain path, of max|logit|
+DENSE_PREFILL_CASES = [(2, 64), (3, 77), (1, 300), (2, 1)]
+DENSE_PREFILL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _smoke_model(arch, dtype):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.weights import init_params
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype)
+    return cfg, init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            "cuda")
+
+
+def _prefill_paths(cfg, params, B, S, impls, counter):
+    """Last-token logits of a batched prefill from a fresh dense cache
+    through each ``impl``, and the kernel calls each made."""
+    from repro_torch.models.transformer import decode_step, init_cache
+    toks = torch.randint(0, cfg.vocab_size - 1, (B, S), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+    out = {}
+    for impl in impls:
+        cache = init_cache(cfg, B, S + 8, device="cuda")
+        before = counter()
+        lg, cache = decode_step(cfg, params, cache, toks, impl=impl,
+                                valid_len=S)
+        torch.cuda.synchronize()
+        assert int(cache["len"]) == S
+        out[impl] = (lg[:, -1].float(), counter() - before)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DENSE_PREFILL_CASES)
+def test_cuda_dense_prefill_flash_route_matches_dense(case, dtype):
+    """The dense engine's batched prefill on the card: ``auto`` runs the
+    flash kernel once a layer (S > 1; S == 1 decodes, plainly) and its
+    logits match the plain ``dense`` core's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S = case
+    cfg, params = _smoke_model("qwen2-1.5b", dtype)
+    out = _prefill_paths(cfg, params, B, S, ("dense", "auto"),
+                         lambda: kernel.launches["flash_attention"])
+    (want, n_plain), (got, n_kernel) = out["dense"], out["auto"]
+    assert n_plain == 0
+    assert n_kernel == (cfg.n_layers if S > 1 else 0)
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= DENSE_PREFILL_TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 40, 7])
+def test_cuda_dense_ssm_prefill_runs_the_ssd_kernel(S):
+    """mamba2's batched prefill on the card: ``auto`` runs the SSD kernel
+    once a layer and matches ``impl="ref"``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.ssd_scan import kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _smoke_model("mamba2-370m", "float32")
+    out = _prefill_paths(cfg, params, 2, S, ("ref", "auto"),
+                         lambda: kernel.launches)
+    (want, n_plain), (got, n_kernel) = out["ref"], out["auto"]
+    assert n_plain == 0 and n_kernel == cfg.n_layers
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-370m"])
+def test_cuda_dense_engine_launch_counts(arch):
+    """``Engine`` on the card: a batched prefill and an insert each run
+    the path's kernel once a layer; a decode step runs neither (dense
+    decode is plain, as in the reference)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.serve import Engine
+    cfg, params = _smoke_model(arch, "bfloat16")
+
+    def count():
+        return fa.launches["flash_attention"] + ssd.launches
+
+    eng = Engine(cfg, params, batch=2, max_len=64)
+    rng = np.random.default_rng(0)
+    steps = []
+    before = count()
+    lg = eng.prefill(rng.integers(0, cfg.vocab_size - 1, (2, 24)))
+    steps.append(count() - before)
+    before = count()
+    eng.insert(1, rng.integers(0, cfg.vocab_size - 1, (1, 16)), true_len=11)
+    steps.append(count() - before)
+    before = count()
+    lg = eng.decode(np.zeros((2, 1), np.int32))
+    steps.append(count() - before)
+    assert steps == [cfg.n_layers, cfg.n_layers, 0]
+    assert eng.cache["len"].tolist() == [25, 12]
+    assert torch.isfinite(lg.float()).all()

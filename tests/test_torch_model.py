@@ -117,3 +117,57 @@ def test_engine_defaults_to_cuda_and_refuses_what_is_not_ported(models):
     with pytest.raises(NotImplementedError):
         PagedEngine(get_smoke_config("mixtral-8x7b"), tp, batch=1,
                     max_len=16, device="cpu")
+
+
+#: dense archs the port runs beyond qwen2: qk-norm (chameleon), a wide
+#: GQA stack (deepseek-coder) and llama3 (whose smoke config keeps the KV
+#: cache in the compute dtype)
+DENSE_ARCHS = ("chameleon-34b", "deepseek-coder-33b", "llama3-405b")
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_arch_serving_steps_match_jax(arch):
+    """Both engines of the port against the JAX package's on the arch's
+    smoke config: a multi-chunk paged prefill and paged decode steps, and
+    the dense engine's batched prefill, insert and decode steps."""
+    from repro.serve import Engine as JaxEngine
+    from repro_torch.serve import Engine
+
+    jc = dataclasses.replace(jax_smoke(arch), compute_dtype="float32")
+    tc = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    assert tc.kv_cache_dtype == jc.kv_cache_dtype == ""
+    jp = jax_init(jc, jax.random.PRNGKey(0))
+    tp = from_jax_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, jc.vocab_size - 1, (21,)).astype(np.int32)
+
+    je = JaxPagedEngine(jc, jp, batch=2, max_len=32, page_size=8,
+                        prefill_chunk=16, attn_impl="ref")
+    te = PagedEngine(tc, tp, batch=2, max_len=32, page_size=8,
+                     prefill_chunk=16, device="cpu")
+    ids = [1, 2, 3, 4]
+    lj, lt = je.insert(0, prompt, page_ids=ids), te.insert(0, prompt,
+                                                            page_ids=ids)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    toks = np.zeros((2, 1), np.int32)
+    for _ in range(4):
+        toks[0, 0] = int(np.argmax(np.asarray(lj)[0, -1]))
+        lj = je.decode(jnp.asarray(toks), live_mask=np.array([True, False]))
+        lt = te.decode(toks, live_mask=np.array([True, False]))
+        np.testing.assert_allclose(lt.numpy()[:1], np.asarray(lj)[:1], **TOL)
+
+    batch = rng.integers(0, jc.vocab_size - 1, (2, 9)).astype(np.int32)
+    jd = JaxEngine(jc, jp, batch=2, max_len=32)
+    td = Engine(tc, tp, batch=2, max_len=32, device="cpu")
+    np.testing.assert_allclose(td.prefill(batch).numpy(),
+                               np.asarray(jd.prefill(jnp.asarray(batch))),
+                               **TOL)
+    padded = np.zeros((1, 16), np.int32)
+    padded[0, :11] = prompt[:11]
+    np.testing.assert_allclose(
+        td.insert(1, padded, true_len=11).numpy(),
+        np.asarray(jd.insert(1, jnp.asarray(padded), true_len=11)), **TOL)
+    for _ in range(3):
+        np.testing.assert_allclose(td.decode(batch[:, :1]).numpy(),
+                                   np.asarray(jd.decode(
+                                       jnp.asarray(batch[:, :1]))), **TOL)

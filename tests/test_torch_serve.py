@@ -23,8 +23,8 @@ from repro.serve import PagedEngine as JaxPagedEngine
 from repro.serve import ServeScheduler as JaxServeScheduler
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.serve import main as serve_main
-from repro_torch.serve import (PageAllocator, PagedEngine, ServeScheduler,
-                               chunk_buckets_for, chunk_plan)
+from repro_torch.serve import (Engine, PageAllocator, PagedEngine,
+                               ServeScheduler, chunk_buckets_for, chunk_plan)
 from repro_torch.weights import from_jax_numpy
 
 
@@ -135,6 +135,11 @@ def test_scheduler_refuses_what_is_not_ported(models):
             ServeScheduler(eng, **kw)
     with pytest.raises(ValueError):
         ServeScheduler(eng, reserve="lifetime", admit_watermark=2)
+    # the dense engine has nothing to append: demand reservation is
+    # refused, as in the reference
+    dense = Engine(tc, tp, batch=2, max_len=32, device="cpu")
+    with pytest.raises(ValueError, match="reserve='demand'"):
+        ServeScheduler(dense, reserve="demand")
 
 
 def test_prefix_cache_gates_ssm(arch_models):
@@ -206,7 +211,7 @@ def test_chunk_plan_is_page_aligned_and_suffix_closed():
 
 def test_launcher_trace_on_cpu(tmp_path):
     out = tmp_path / "stats.json"
-    stats = serve_main(["--smoke", "--device", "cpu",
+    stats = serve_main(["--smoke", "--device", "cpu", "--trace", "--paged",
                         "--prefill-chunk", "32", "--n-requests", "4",
                         "--prompt-lens", "6", "12", "40", "--max-new", "4",
                         "--reserve", "demand", "--stats-json", str(out)])
@@ -214,4 +219,28 @@ def test_launcher_trace_on_cpu(tmp_path):
     assert stats["outcomes"] == {"completed": 4}
     assert stats["device"] == "cpu" and out.exists()
     with pytest.raises(SystemExit):                    # watermark needs demand
-        serve_main(["--smoke", "--device", "cpu", "--admit-watermark", "2"])
+        serve_main(["--smoke", "--device", "cpu", "--trace", "--paged",
+                    "--admit-watermark", "2"])
+
+
+@pytest.mark.parametrize("arch", ["chameleon-34b", "deepseek-coder-33b",
+                                  "llama3-405b"])
+def test_dense_arch_scheduler_streams_match_jax(arch_models, arch):
+    """The lifetime trace through the paged scheduler of each package on
+    the arch's smoke config: identical token streams and outcomes."""
+    jc, tc, jp, tp = arch_models(arch)
+    kw = dict(batch=3, max_len=64, page_size=8, prefill_chunk=16)
+    prompts = _trace(3, jc.vocab_size, CONFIGS["lifetime"]["lens"])
+
+    def drain(sched):
+        for p in prompts:
+            assert sched.submit(p, max_new=8) is not None
+        tokens = {r.rid: r.tokens for r in sched.run()}
+        return tokens, {rid: o.outcome for rid, o in sched.outcomes.items()}
+
+    want = drain(JaxServeScheduler(JaxPagedEngine(jc, jp, attn_impl="ref",
+                                                  **kw)))
+    got = drain(ServeScheduler(PagedEngine(tc, tp, device="cpu", **kw)))
+    assert got == want
+    assert len(got[0]) == len(prompts)
+    assert set(got[1].values()) == {"completed"}
