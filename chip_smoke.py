@@ -43,12 +43,29 @@ and prints one JSON line per phase:
    and ``serve.decode`` has an EWMA.  Tok/s, TTFT, the decode step and the
    tracker's host seconds of each run, and ``hypar_overhead_pct`` from the
    medians beside the run-to-run spread (``overhead_resolved``);
-5b. ``serve_dense_trace`` — the same trace through ``ServeScheduler``
+5b. ``serve_groups`` — the ``serve`` engine settings and trace under
+   reserve-on-demand, served by one device group, by two, and by two
+   under a chaos plan (``ServeChaosInjector``): group 1 fails at
+   scheduler call 6 for 10 calls, and at call 8 group 0's decode wave
+   reports 10 watchdog budgets of extra time, the watchdog's budget 5
+   times the fault-free two-group run's slowest step, ``unhealthy_after``
+   2, ``max_restarts`` 4.  Every request completes, both groups end with
+   no page outstanding, both serve in the fault-free two-group run, the
+   chaos run fails over once and rejoins once with one watchdog trip for
+   each injected slow reading, and the paged kernel runs 28 times a
+   decode step.  Tok/s, TTFT, the host seconds of routing and probes,
+   and the bf16 streams equal to the one-group run (counted, not gated);
+5c. ``serve_groups_parity`` — the same three runs (two groups with the
+   prefix cache for qwen2, whose longer prompts share a 512-token
+   prefix) at fp32 for qwen2-1.5b and mamba2-370m at full width cut to
+   4 layers: every stream equals the fault-free one-group run's, and
+   SSD launches equal prefill chunks x 4, re-prefills included;
+5d. ``serve_dense_trace`` — the same trace through ``ServeScheduler``
    over the dense ``Engine`` (batch 8, max_len 2048, prompts right-padded
    to the default buckets): every request gets its 32 tokens, each insert
    runs the flash forward once a layer (16 x 28), and tok/s, TTFT, the
    decode step and the insert stand beside the ``serve`` phase's;
-5c. ``serve_waves`` — the launcher's wave mode at full width:
+5e. ``serve_waves`` — the launcher's wave mode at full width:
    ``Engine(batch=8, max_len=1064)``, 4 waves of 8 prompts of 1,024
    tokens (numpy seed 0), 32 greedy tokens; wave 0 is the warm-up.  First
    a batched prefill at the wave's shape through the kernel
@@ -926,6 +943,261 @@ def serve_hypar_phase(kernel_mod) -> None:
     del eng, sched
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# device groups and the robustness layer
+# ---------------------------------------------------------------------------
+
+
+# the chaos plan of serve_groups and serve_groups_parity: group 1 fails at
+# scheduler call 6 and its fault lasts 10 calls; at call 8, while it is
+# down, group 0's decode wave reports GROUPS_SLOW_X watchdog budgets of
+# extra time (injected into the measurement, never slept).  One call on
+# one group keeps its trips below GROUPS_UNHEALTHY_AFTER, so the kill is
+# the run's one failover.
+GROUPS_KILL = (1, 6, 10)
+GROUPS_SLOW = (8, 1)             # (first call, calls)
+GROUPS_SLOW_GID = 0
+GROUPS_SLOW_X = 10.0
+GROUPS_BUDGET_X = 5.0            # watchdog budget / slowest fault-free step
+GROUPS_UNHEALTHY_AFTER = 2
+GROUPS_MAX_RESTARTS = 4
+GROUPS_PARITY_LAYERS = 4         # serve_groups_parity: depth cut, widths kept
+GROUPS_SHARED_PREFIX = 512       # qwen2 parity prompts longer than this share it
+
+
+def groups_run(eng, prompts, mods, n_layers, *, device_groups: int,
+               budget: float | None = None, prefix_cache: bool = False
+               ) -> dict:
+    """One drain of ``prompts`` (SERVE_MAX_NEW tokens each, greedy) by a
+    fresh reserve-on-demand ``ServeScheduler`` over ``eng``; with
+    ``budget`` under the chaos plan, the watchdog at that budget.  Each
+    step is timed, the device synchronised around it; the launches of
+    ``mods`` are set to 0 before and read after.  Fails unless every
+    request completes, every group ends healthy and leak-free, and the
+    paged kernel ran once a layer in every decode step (attention
+    models)."""
+    from repro_torch.core.fault import ServeChaosInjector
+    from repro_torch.serve import ServeScheduler
+
+    chaos = None
+    if budget is not None:
+        chaos = ServeChaosInjector(
+            kill_group=GROUPS_KILL,
+            slow=(*GROUPS_SLOW, GROUPS_SLOW_X * budget),
+            slow_gid=GROUPS_SLOW_GID)
+    sched = ServeScheduler(eng, reserve="demand",
+                           device_groups=device_groups,
+                           prefix_cache=prefix_cache, chaos=chaos,
+                           watchdog_budget_s=budget,
+                           unhealthy_after=GROUPS_UNHEALTHY_AFTER,
+                           max_restarts=(GROUPS_MAX_RESTARTS if chaos
+                                         else None))
+    route = HostTimer(sched, ("_route_order",))
+    probe = HostTimer(sched, ("_probe_groups",))
+    steps = CallTimer(sched, ("step",))
+    steps0, chunks0 = eng.n_decode_calls, eng.n_chunk_calls
+    reset_launches(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        sched.submit(p, max_new=SERVE_MAX_NEW)
+    results = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    while not all(g.healthy for g in sched.groups):
+        sched.step()                 # the recovery tail: probes rejoin
+    launches = read_launches(mods)
+    decode_steps = eng.n_decode_calls - steps0
+    chunks = eng.n_chunk_calls - chunks0
+    steps.restore()
+    tag = (f"{eng.cfg.name}, {device_groups} group(s)"
+           + (", chaos" if chaos else ""))
+    outcomes = {o.outcome for o in sched.outcomes.values()}
+    if len(results) != len(prompts) or outcomes != {"completed"}:
+        raise AssertionError(f"{tag}: {len(results)} of {len(prompts)} "
+                             f"requests completed, outcomes {outcomes}")
+    if chaos is not None:
+        chaos.release_pages(sched)
+        if any(chaos.held_pages(g.gid) for g in sched.groups):
+            raise AssertionError(f"{tag}: pressure pages still held")
+    sched.flush_prefix_cache()
+    leaks = [g.allocator.n_outstanding for g in sched.groups]
+    if any(leaks):
+        raise AssertionError(f"{tag}: pages outstanding after the drain "
+                             f"{leaks}")
+    if (eng.cfg.family != "ssm"
+            and launches["paged_attention"] != decode_steps * n_layers):
+        raise AssertionError(f"{tag}: paged kernel launched "
+                             f"{launches['paged_attention']} times for "
+                             f"{decode_steps} decode steps x {n_layers}")
+    ttft = np.array([r.ttft_s for r in results])
+    n_tok = sum(r.n_generated for r in results)
+    out = {"device_groups": device_groups, "chaos": chaos is not None,
+           "wall_s": wall, "tok_per_s": n_tok / wall,
+           "ttft_p50_s": float(np.percentile(ttft, 50)),
+           "ttft_p95_s": float(np.percentile(ttft, 95)),
+           "step_s_max": float(max(steps.seconds["step"])),
+           "step_ms_p50": steps.ms("step"),
+           "decode_steps": decode_steps, "chunk_calls": chunks,
+           "step_calls": sched.step_calls,
+           "kernel_launches": launches,
+           "route_host_s": route.seconds, "route_calls": route.calls,
+           "probe_host_s": probe.seconds, "probe_calls": probe.calls,
+           "group_occupancy": sched.group_occupancy,
+           "watchdog_budget_s": budget,
+           "watchdog_trips": sched.watchdog_trips,
+           "group_failovers": sched.n_group_failovers,
+           "group_rejoins": sched.n_group_rejoins,
+           "n_failed": sched.n_failed,
+           "resume_tokens_recomputed": sched.resume_tokens_recomputed,
+           "prefix_hits": sched.n_prefix_hits,
+           "streams": {r.rid: r.tokens for r in results}}
+    if chaos is not None:
+        out.update(kills=chaos.n_kills, slow_steps=chaos.n_slow_steps)
+    return out
+
+
+def check_chaos_run(run: dict, tag: str) -> None:
+    """The plan's count of everything: one kill, one failover and one
+    rejoin, and as many watchdog trips as the plan injected slow
+    readings (none from the real step times)."""
+    if (run["kills"] != 1 or run["group_failovers"] != 1
+            or run["group_rejoins"] != 1 or run["slow_steps"] < 1
+            or run["watchdog_trips"] != run["slow_steps"]):
+        raise AssertionError(
+            f"{tag}: kills {run['kills']}, failovers "
+            f"{run['group_failovers']}, rejoins {run['group_rejoins']}, "
+            f"trips {run['watchdog_trips']} for {run['slow_steps']} slow "
+            f"readings")
+
+
+def serve_groups_phase(kernel_mod) -> int:
+    """Two device groups on the ``serve`` phase's engine settings and
+    trace (qwen2-1.5b, 28 layers, bf16), reserve-on-demand: one group,
+    two groups, then two groups under the chaos plan with the watchdog at
+    GROUPS_BUDGET_X times the two-group run's slowest step.  Every
+    request completes, both groups end leak-free, both groups serve in
+    the fault-free two-group run, the chaos run fails over and rejoins
+    once with the plan's watchdog trips, and the paged kernel runs 28
+    times a decode step.  The bf16 streams equal to the one-group run's
+    are counted, not gated: a recomputed prefix runs the chunk path.
+    Returns the paged kernel's launches in the three runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import PagedEngine
+    from repro_torch.weights import init_params
+
+    cfg = get_config("qwen2-1.5b")                    # bf16 compute
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    eng = PagedEngine(cfg, params, batch=8, max_len=2048, page_size=16,
+                      prefill_chunk=256, device=DEV)
+    del params
+    torch.cuda.empty_cache()
+    warm, lens, prompts = serve_trace(cfg)
+    mods = (kernel_mod,)
+    groups_run(eng, warm, mods, cfg.n_layers, device_groups=2)
+    one = groups_run(eng, prompts, mods, cfg.n_layers, device_groups=1)
+    two = groups_run(eng, prompts, mods, cfg.n_layers, device_groups=2)
+    if not all(x > 0.0 for x in two["group_occupancy"]):
+        raise AssertionError(f"serve_groups: a group served nothing "
+                             f"{two['group_occupancy']}")
+    budget = GROUPS_BUDGET_X * two["step_s_max"]
+    chaos = groups_run(eng, prompts, mods, cfg.n_layers, device_groups=2,
+                       budget=budget)
+    check_chaos_run(chaos, "serve_groups")
+    want = one["streams"]
+    runs = [one, two, chaos]
+    emit("serve_groups", model=cfg.name, layers=cfg.n_layers,
+         compute="bfloat16", batch=8, page_size=16, prefill_chunk=256,
+         max_len=2048, reserve="demand", requests=len(prompts),
+         prompt_lens=[int(n) for n in lens], max_new=SERVE_MAX_NEW,
+         plan={"kill_group": GROUPS_KILL, "slow": [*GROUPS_SLOW],
+               "slow_gid": GROUPS_SLOW_GID, "slow_x_budget": GROUPS_SLOW_X,
+               "budget_x_slowest_step": GROUPS_BUDGET_X,
+               "unhealthy_after": GROUPS_UNHEALTHY_AFTER,
+               "max_restarts": GROUPS_MAX_RESTARTS},
+         runs=[{k: v for k, v in r.items() if k != "streams"}
+               for r in runs],
+         streams_equal_to_one_group=[
+             sum(r["streams"][rid] == toks for rid, toks in want.items())
+             for r in runs[1:]])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sum(r["kernel_launches"]["paged_attention"] for r in runs)
+
+
+def serve_groups_parity_phase(mods) -> dict:
+    """The chaos plan at fp32, where recompute must be exact:
+    qwen2-1.5b (prefix cache on, prompts longer than
+    GROUPS_SHARED_PREFIX opening with one shared prefix) and mamba2-370m,
+    full width cut to GROUPS_PARITY_LAYERS layers, the ``serve`` engine
+    settings and trace.  Every stream of the two-group chaos run must
+    equal the fault-free one-group run's (no prefix cache there), and
+    mamba2's SSD kernel must run once a layer in every prefill chunk,
+    re-prefills included.  Returns the launches of each kernel in the
+    runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import PagedEngine
+    from repro_torch.weights import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total: dict = {}
+    for arch in ("qwen2-1.5b", "mamba2-370m"):
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=GROUPS_PARITY_LAYERS,
+                                  compute_dtype="float32")
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(2),
+                             DEV)
+        eng = PagedEngine(cfg, params, batch=8, max_len=2048, page_size=16,
+                          prefill_chunk=256, device=DEV)
+        del params
+        warm, lens, prompts = serve_trace(cfg)
+        attn = arch.startswith("qwen2")
+        if attn:
+            prefix = prompts[0][:GROUPS_SHARED_PREFIX]
+            prompts = [np.concatenate([prefix, p[GROUPS_SHARED_PREFIX:]])
+                       if len(p) > GROUPS_SHARED_PREFIX else p
+                       for p in prompts]
+        groups_run(eng, warm, mods, GROUPS_PARITY_LAYERS, device_groups=2)
+        ref = groups_run(eng, prompts, mods, GROUPS_PARITY_LAYERS,
+                         device_groups=1)
+        two = groups_run(eng, prompts, mods, GROUPS_PARITY_LAYERS,
+                         device_groups=2, prefix_cache=attn)
+        chaos = groups_run(eng, prompts, mods, GROUPS_PARITY_LAYERS,
+                           device_groups=2, prefix_cache=attn,
+                           budget=GROUPS_BUDGET_X * two["step_s_max"])
+        want = ref["streams"]
+        bad = {name: [rid for rid in want if r["streams"].get(rid)
+                      != want[rid]]
+               for name, r in (("two_groups", two), ("chaos", chaos))}
+        ssd_ok = all(r["kernel_launches"]["ssd_scan"]
+                     == r["chunk_calls"] * GROUPS_PARITY_LAYERS
+                     for r in (ref, two, chaos)) if not attn else True
+        emit("serve_groups_parity", model=cfg.name,
+             layers=GROUPS_PARITY_LAYERS, compute="float32",
+             requests=len(prompts), max_new=SERVE_MAX_NEW,
+             prefix_cache=attn,
+             runs=[{k: v for k, v in r.items() if k != "streams"}
+                   for r in (ref, two, chaos)],
+             streams_identical=not any(bad.values()), mismatches=bad)
+        if any(bad.values()):
+            raise AssertionError(f"serve_groups_parity {cfg.name}: streams "
+                                 f"differ from the one-group run: {bad}")
+        if not ssd_ok:
+            raise AssertionError(f"serve_groups_parity {cfg.name}: SSD "
+                                 f"launches differ from chunk calls x "
+                                 f"{GROUPS_PARITY_LAYERS}")
+        check_chaos_run(chaos, f"serve_groups_parity {cfg.name}")
+        for r in (ref, two, chaos):
+            for name, n in r["kernel_launches"].items():
+                total[name] = total.get(name, 0) + n
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2913,6 +3185,11 @@ def main() -> int:
     entry["launches_per_decode_step"] = launches / steps
     entry["device_kernels_per_call"] = per_call
     serve_hypar_phase(pa_kernel)
+    # device groups and the robustness layer: the paged kernel, and SSD
+    # in mamba2's chunks (counts read per run)
+    entry["launches_serve_groups"] = serve_groups_phase(pa_kernel)
+    groups_parity = serve_groups_parity_phase((pa_kernel, ssd_kernel))
+    entry["launches_serve_groups_parity"] = groups_parity["paged_attention"]
     # the dense engine's paths: the flash forward in its batched prefills
     # and inserts, the SSD kernel likewise (counts read per phase)
     serve_mods = (pa_kernel, ssd_kernel, fa_kernel)
@@ -2928,6 +3205,7 @@ def main() -> int:
     ssd_entry["launches"] = launches
     ssd_entry["launches_per_chunk"] = launches / chunks
     ssd_entry["device_kernels_per_call"] = per_call
+    ssd_entry["launches_serve_groups_parity"] = groups_parity["ssd_scan"]
     ssd_entry["launches_serve_waves_ssm"] = serve_waves_phase(
         "mamba2-370m", serve_mods, "ssd_scan", "ref", "serve_waves_ssm")
     dense_vs_paged_phase(serve_mods)

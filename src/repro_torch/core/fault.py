@@ -11,6 +11,9 @@ to be re-computed".  This module provides:
   invalidated (triggering lineage recovery in the LocalExecutor).
 * :class:`ChaosLocalExecutor` — a LocalExecutor that consults the injector
   around every job execution, exercising the recovery path end-to-end.
+* :class:`ServeChaosInjector` — deterministic fault injection for the
+  serving scheduler: device-group kills, slow steps and allocator
+  pressure.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ from .executor import LocalExecutor
 from .registry import FunctionRegistry
 from .scheduler import ResultStore, VirtualCluster
 
-__all__ = ["FaultInjector", "Heartbeat", "ChaosLocalExecutor"]
+__all__ = ["FaultInjector", "Heartbeat", "ChaosLocalExecutor",
+           "ServeChaosInjector"]
 
 
 @dataclasses.dataclass
@@ -129,6 +133,114 @@ class Heartbeat:
                 w.fail()
                 lost.extend(store.invalidate_worker(w.wid))
         return lost
+
+
+class ServeChaosInjector:
+    """Deterministic fault injection for the SERVING path (DESIGN.md §14) —
+    the serve-layer sibling of :class:`FaultInjector`.  A
+    ``ServeScheduler`` constructed with ``chaos=`` calls ``on_step`` at the
+    top of every ``step()`` and consults the other hooks from its watchdog
+    and group-failover machinery; without an injector none of those paths
+    change.
+
+    All step counts run on the scheduler's ``step_calls`` clock (every
+    ``step()`` CALL, including idle ones — plans cannot stall with a
+    drained batch).  Three plans, composable:
+
+    * ``kill_group=(gid, after, down)`` — at call ``after`` device group
+      ``gid`` is failed (``sched.fail_group``); ``group_healthy`` stays
+      False for ``down`` further calls, then the next health probe rejoins
+      the group.
+    * ``slow=(after, n, extra_s)`` — calls ``[after, after+n)`` report an
+      extra ``extra_s`` seconds of measured duration to the step watchdog.
+      The delay is injected into the MEASUREMENT, not slept: runs stay
+      fast and deterministic, and at the watchdog's granularity a wedged
+      step is indistinguishable from a slow one anyway.  ``slow_gid``
+      narrows it to one device group.
+    * ``pressure=(gid, after, n, pages)`` — the injector holds up to
+      ``pages`` pages of group ``gid``'s pool for ``n`` calls (an
+      allocator-level load spike forcing deferred admission / preemption);
+      held pages are released at the window end, or by ``fail_group``'s
+      quarantine sweep if the group dies holding them.
+    """
+
+    def __init__(self, *, kill_group: tuple[int, int, int] | None = None,
+                 slow: tuple[int, int, float] | None = None,
+                 slow_gid: int | None = None,
+                 pressure: tuple[int, int, int, int] | None = None):
+        self.kill_group = kill_group
+        self.slow = slow
+        self.slow_gid = slow_gid
+        self.pressure = pressure
+        self._held: dict[int, list[int]] = {}   # gid -> held page ids
+        self._pressure_fired = False
+        self.n_kills = 0
+        self.n_slow_steps = 0
+        self.n_pressure_pages = 0
+
+    # -- scheduler hooks -------------------------------------------------------
+    def on_step(self, sched) -> None:
+        """Apply due plans; called at the top of every scheduler step."""
+        step = sched.step_calls
+        if self.kill_group is not None:
+            gid, after, _down = self.kill_group
+            if step >= after and sched.groups[gid].healthy \
+                    and not self.group_healthy(sched, gid):
+                self.n_kills += 1
+                sched.fail_group(gid, reason="chaos kill_group")
+        if self.pressure is not None:
+            gid, after, n, pages = self.pressure
+            g = sched.groups[gid]
+            if (step >= after and not self._pressure_fired and g.healthy
+                    and g.allocator is not None):
+                self._pressure_fired = True
+                take = min(pages, g.allocator.n_free)
+                if take > 0:
+                    held = g.allocator.alloc(take)
+                    if held is not None:
+                        self._held[gid] = held
+                        self.n_pressure_pages += len(held)
+            if step >= after + n:
+                self.release_pages(sched, gid=gid)
+
+    def step_extra_s(self, sched, gid: int) -> float:
+        """Measured-duration inflation the watchdog should add for this
+        group on the current step."""
+        if self.slow is None:
+            return 0.0
+        if self.slow_gid is not None and gid != self.slow_gid:
+            return 0.0
+        after, n, extra = self.slow
+        if after <= sched.step_calls < after + n:
+            self.n_slow_steps += 1
+            return float(extra)
+        return 0.0
+
+    def group_healthy(self, sched, gid: int) -> bool:
+        """Probe gate: is the injected group fault still active?"""
+        if self.kill_group is None or gid != self.kill_group[0]:
+            return True
+        _gid, after, down = self.kill_group
+        return not (after <= sched.step_calls < after + down)
+
+    # -- held-page accounting --------------------------------------------------
+    def held_pages(self, gid: int) -> list[int]:
+        """Pages the injector currently holds in group ``gid``'s pool —
+        invariant checks add these to the expected outstanding set."""
+        return list(self._held.get(gid, []))
+
+    def release_pages(self, sched, gid: int | None = None) -> int:
+        """Release held pressure pages (one group, or all).  Called by the
+        window end, by ``fail_group``'s quarantine sweep, and by drains
+        before their final leak checks."""
+        gids = [gid] if gid is not None else list(self._held)
+        n = 0
+        for g in gids:
+            held = self._held.pop(g, None)
+            if held:
+                sched.groups[g].allocator.free(held)
+                n += len(held)
+        return n
 
 
 class ChaosLocalExecutor(LocalExecutor):

@@ -35,7 +35,16 @@ Examples::
         --prompt-lens 64 512 1500 --max-new 32 --n-requests 16 \
         --engine hypar --strategy cost
 
-``--mesh``, the step watchdog and the restart budget are later work.
+A trace runs under the scheduler's robustness layer: ``--ttft-deadline``
+/ ``--total-deadline`` stamp deadlines that admission sheds and the loop
+expires, ``--watchdog-budget`` is the step watchdog's per-step budget in
+seconds (over-budget slots are evicted and re-run, a group that trips
+repeatedly fails over and rejoins by a health probe), and
+``--max-restarts`` caps the fault evictions a request may take before it
+ends ``failed``.  The stats report the outcome histogram, the watchdog
+trips and the group failovers and rejoins, as the reference's do.
+``--mesh`` (a device mesh under the engine, and with it more than one
+device group from the command line) is not ported.
 """
 from __future__ import annotations
 
@@ -143,7 +152,9 @@ def make_scheduler(cfg, params, args, *, sp: SamplingParams,
                           admit_watermark=args.admit_watermark,
                           prefix_cache=args.prefix_cache,
                           prefix_admit=args.prefix_admit,
-                          enforce_deadlines=args.enforce_deadlines)
+                          enforce_deadlines=args.enforce_deadlines,
+                          watchdog_budget_s=args.watchdog_budget,
+                          max_restarts=args.max_restarts)
 
 
 def prepare_trace(cfg, params, args, *, sp: SamplingParams):
@@ -212,7 +223,13 @@ def replay_trace(sched, reqs) -> dict:
         "shed_deadline": sched.queue.shed_deadline,
         "outcomes": outcome_hist,
         "goodput_tokens": sched.goodput_tokens,
+        "watchdog_trips": sched.watchdog_trips,
         "n_expired": sched.n_expired,
+        "n_failed": sched.n_failed,
+        "group_failovers": sched.n_group_failovers,
+        "group_rejoins": sched.n_group_rejoins,
+        "rejoin_backoff_s": sched.rejoin_backoff_s,
+        "group_occupancy": [float(x) for x in sched.group_occupancy],
         "suspended_rids": sorted(sched._suspended),
     }
     sched.reset_metrics()
@@ -263,6 +280,7 @@ def trace_stats(args, sched, snap) -> dict:
         "lat_p50_s": float(np.percentile(lats, 50)),
         "lat_p95_s": float(np.percentile(lats, 95)),
         "reserve": sched.reserve,
+        "device_groups": len(sched.groups),
         "prefix_cache": sched.prefix_cache_active,
         "prefix_hit_rate": (snap["prefix_hits"] / snap["prefix_lookups"]
                             if snap["prefix_lookups"] else 0.0),
@@ -433,8 +451,6 @@ def main(argv=None):
             and not args.store:
         ap.error("--store-gc/--store-gc-rows need --store (nothing to "
                  "prune otherwise)")
-    if args.watchdog_budget is not None or args.max_restarts is not None:
-        ap.error("--watchdog-budget/--max-restarts are not ported yet")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -462,6 +478,16 @@ def main(argv=None):
         print(f"prefix_cache: hit_rate={stats['prefix_hit_rate']*100:.0f}% "
               f"pages_shared={stats['pages_shared']} "
               f"cow_copies={stats['cow_copies']}")
+    if (args.ttft_deadline is not None or args.total_deadline is not None
+            or args.watchdog_budget is not None):
+        print(f"deadlines: enforce={stats['enforce_deadlines']} "
+              f"goodput={stats['goodput_tok_per_s']:.1f} tok/s "
+              f"shed(queue={stats['shed_queue_full']} "
+              f"never_fits={stats['shed_never_fits']} "
+              f"deadline={stats['shed_deadline']}) "
+              f"expired={stats['n_expired']} failed={stats['n_failed']} "
+              f"watchdog_trips={stats['watchdog_trips']} "
+              f"failovers={stats['group_failovers']}")
     print(f"tok/s={stats['tok_per_s']:.1f} "
           f"ttft p50={stats['ttft_p50_s']*1e3:.1f}ms "
           f"p95={stats['ttft_p95_s']*1e3:.1f}ms "

@@ -54,7 +54,8 @@ from ..models.transformer import (check_supported, chunk_prefill_step,
                                   layer_plan)
 
 __all__ = ["Engine", "PagedEngine", "SamplingParams", "count_generated",
-           "chunk_plan", "chunk_buckets_for", "sample", "resolve_device"]
+           "chunk_plan", "chunk_buckets_for", "sample", "resolve_device",
+           "probe_device"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +74,20 @@ def resolve_device(device) -> torch.device:
                            f"is available (pass device='cpu' to run the "
                            f"plain PyTorch path on the CPU)")
     return dev
+
+
+def probe_device(device: torch.device) -> bool:
+    """Serve-layer health probe (DESIGN.md §14): one tiny op must run on
+    ``device`` and its result come back to the host.  Returns False on the
+    error a lost or faulted device raises (PyTorch reports CUDA errors as
+    ``RuntimeError``; ``torch.AcceleratorError`` is one) instead of
+    raising, so group failover keeps the group quarantined and retries;
+    any other error is a bug and propagates."""
+    try:
+        x = torch.ones((2,), dtype=torch.int32, device=device)
+        return int(x.sum().item()) == 2
+    except RuntimeError:
+        return False
 
 
 def count_generated(out: np.ndarray, stop_token: int) -> int:
@@ -185,6 +200,10 @@ class Engine:
         """Distinct input-shape signatures ``name`` (prefill | decode |
         splice) has run at — the reference's trace count."""
         return len(self._shapes[name])
+
+    def probe_device(self) -> bool:
+        """Health probe of the engine's device (see :func:`probe_device`)."""
+        return probe_device(self.device)
 
     # -- lifecycle -------------------------------------------------------------
     def fresh_cache(self) -> dict:
@@ -350,6 +369,12 @@ class PagedEngine:
         decode) has run at — the reference's trace count: one a chunk
         bucket, one decode."""
         return len(self._shapes[name])
+
+    def probe_device(self) -> bool:
+        """Health probe of the engine's device (see :func:`probe_device`):
+        ``ServeScheduler.probe_group`` calls it before a quarantined group
+        rejoins."""
+        return probe_device(self.device)
 
     # -- lifecycle -------------------------------------------------------------
     def ensure_batch(self) -> None:

@@ -35,11 +35,20 @@ code path except placement:
   :class:`~repro_torch.core.JobStore` suspended requests persist, so a
   restarted scheduler resumes them (:meth:`ServeScheduler.restore_suspended`).
 
-Not ported yet (each raises ``NotImplementedError``): more than one device
-group (``device_groups > 1``), the serve chaos harness (``chaos=``), the
-step watchdog (``watchdog_budget_s=``) and the per-request restart budget
-(``max_restarts=``).  Group failover (``fail_group``, ``probe_group``) is
-not ported either.
+Over a paged engine the slots and the page pool split into
+``device_groups`` contiguous groups (:class:`DeviceGroup`), each with its
+own allocator and prefix cache; admission routes each request to a group
+by the cost model's score.  The robustness layer (DESIGN.md §14) is the
+reference's: a step watchdog (``watchdog_budget_s``) evicts slots of an
+over-budget step and drives a group that trips ``unhealthy_after`` times
+into failover (:meth:`ServeScheduler.fail_group`), a quarantined group
+rejoins through a health probe (:meth:`ServeScheduler.probe_group`) at a
+backed-off interval, a per-request restart budget (``max_restarts``) ends
+a request that faults evict too often as ``failed``, and a
+:class:`~repro_torch.core.fault.ServeChaosInjector` (``chaos=``) injects
+group kills, slow steps and allocator pressure.  Not ported: the
+reference's device mesh (``--mesh``), which shards one engine over the
+groups' devices; here every group shares the engine's one device.
 """
 from __future__ import annotations
 
@@ -63,8 +72,8 @@ from .prefix import PrefixCache
 __all__ = [
     "Request", "RequestResult", "RequestOutcome", "TERMINAL_OUTCOMES",
     "RequestQueue", "SlotState", "PageAllocator",
-    "PrefixCache", "DeviceGroup", "ServeScheduler", "HyParRequestTracker",
-    "DEFAULT_BUCKETS",
+    "PrefixCache", "DeviceGroup", "CostModelParams", "ServeScheduler",
+    "HyParRequestTracker", "DEFAULT_BUCKETS",
 ]
 
 # prompt-length buckets of the dense engine: prompts are right-padded to
@@ -152,8 +161,7 @@ class RequestOutcome:
     * ``expired`` — admitted but its total deadline passed before it
       finished; partial work is discarded,
     * ``failed`` — evicted by faults more times than ``max_restarts``
-      allows (kept for the reference's taxonomy; this port has no fault
-      path yet, so no request reaches it).
+      allows.
     """
 
     rid: int
@@ -385,19 +393,61 @@ class PageAllocator:
 
 @dataclasses.dataclass
 class DeviceGroup:
-    """A partition of the serving engine (DESIGN.md §13): a range of batch
-    slots and a range of the page pool behind its own
-    :class:`PageAllocator` (and its own :class:`PrefixCache`).  The
-    allocator's ``[n_reserved, num_pages)`` free range doubles as the
-    group's page range; the engine-global trash page 0 is never
-    allocator-owned.  A dense engine's one group has no allocator.  The
-    port runs one group, always healthy (group failover is not
-    ported)."""
+    """One data-parallel partition of the serving engine (DESIGN.md §13).
+
+    A group owns a contiguous range of batch slots and a private, contiguous
+    range of the page pool behind its own :class:`PageAllocator` (and its
+    own :class:`PrefixCache`) — allocation, sharing, COW and preemption
+    never cross a group boundary, so every per-group invariant is exactly
+    the single-allocator invariant.  The allocator's ``[n_reserved,
+    num_pages)`` free range doubles as the group's page range; the
+    engine-global trash page 0 is shared by all groups (it is never
+    allocator-owned, so it cannot carry a cross-group reference).  A dense
+    engine's one group has no allocator.
+
+    ``ewma_step_s`` is the group's decode-time EWMA — the queue-depth term
+    of the admission router's cost score.
+    """
 
     gid: int
     slot_ids: tuple[int, ...]
     allocator: PageAllocator | None
     prefix: PrefixCache | None = None
+    ewma_step_s: float = 0.0
+    occupied_slot_steps: int = 0
+    # failover state machine (DESIGN.md §14): healthy -> unhealthy on
+    # injection or ``unhealthy_after`` watchdog trips (in-flight requests
+    # evicted, pages quarantined at zero outstanding) -> healthy again once
+    # a probe passes.  ``down_step`` is the scheduler-call stamp the probe
+    # interval counts from.
+    healthy: bool = True
+    watchdog_trips: int = 0
+    down_step: int = 0
+    # rejoin backoff: the probe interval for this group is
+    # ``probe_interval_steps * probe_backoff``.  The multiplier doubles
+    # (capped at ``rejoin_backoff_cap``) on every failed probe and on every
+    # re-failure shortly after a rejoin, so a flapping group stops soaking
+    # the scheduler in constant-cadence probe/evict churn; it resets once
+    # the group fails fresh after a long stable stretch.
+    probe_backoff: int = 1
+    up_step: int = 0          # step_calls stamp of the last rejoin
+    backoff_wall: float | None = None   # clock stamp of the last re-arm
+
+    @property
+    def page_lo(self) -> int:
+        return self.allocator.n_reserved
+
+    @property
+    def page_hi(self) -> int:
+        return self.allocator.num_pages
+
+    def observe(self, per_slot_step_s: float, alpha: float = 0.3) -> None:
+        """Fold one decode step's per-live-slot time into the EWMA."""
+        if self.ewma_step_s == 0.0:
+            self.ewma_step_s = per_slot_step_s
+        else:
+            self.ewma_step_s = ((1 - alpha) * self.ewma_step_s
+                                + alpha * per_slot_step_s)
 
 
 # ---------------------------------------------------------------------------
@@ -483,10 +533,11 @@ class HyParRequestTracker:
         slot outside ``free_slots`` busy.  Returns ``{rid: slot}``.
 
         ``slot_choices`` (``{rid: allowed slots}``) restricts each request
-        to a subset of ``free_slots`` (the device groups of the JAX package
-        route so; one group runs here, so the serving path passes None).
-        The master's pick is kept when it lands inside the allowed set,
-        else the fallback stays within it."""
+        to a subset of ``free_slots`` — under device groups the admission
+        router already charged a specific group's allocator for the
+        request's pages, so the slot MUST come from that group.  The
+        master's pick is kept when it lands inside the allowed set, else
+        the fallback stays within it."""
         if len(reqs) > len(free_slots):
             raise ValueError(f"wave of {len(reqs)} requests exceeds "
                              f"{len(free_slots)} free slots")
@@ -515,11 +566,11 @@ class HyParRequestTracker:
                                      f"in its device group")
             slot = self.wid_to_slot.get(placement.worker.wid)
             if slot not in allowed:
-                # master picked a busy/taken/unmapped worker: fall back to
-                # the first remaining allowed slot and keep ITS worker
-                # binding — rebinding the picked worker here would leave
-                # two slots mapped to one wid and a later fail() would
-                # invalidate the busy slot's results
+                # master picked a busy/taken/unmapped/foreign-group worker:
+                # fall back to the first remaining allowed slot and keep
+                # ITS worker binding — rebinding the picked worker here
+                # would leave two slots mapped to one wid and a later
+                # fail() would invalidate the busy slot's results
                 slot = sorted(allowed)[0]
             remaining.discard(slot)
             assign[req.rid] = slot
@@ -671,6 +722,20 @@ class ServeScheduler:
     order; placement changes only which slot a request occupies, never its
     tokens.
 
+    ``device_groups > 1`` (paged engines, DESIGN.md §13) partitions the
+    slots and the usable page range into contiguous groups; each request
+    is routed to one group by the cost model's score (``cost_params``) and
+    lives entirely inside it.  The robustness layer (DESIGN.md §14): a
+    step watchdog (``watchdog_budget_s``) evicts the slots of an
+    over-budget prefill chunk or decode wave back through recovery, and a
+    group that trips ``unhealthy_after`` times fails over; an unhealthy
+    group is probed every ``probe_interval_steps`` scheduler calls, times
+    a backoff multiplier capped at ``rejoin_backoff_cap``; ``max_restarts``
+    caps the fault evictions one request may take before it ends
+    ``failed``; ``chaos`` (a
+    :class:`~repro_torch.core.fault.ServeChaosInjector`) injects faults
+    into all of these.
+
     Sampling at temperature > 0 draws from ``generator`` (a
     ``torch.Generator`` on the engine's device; one seeded with 0 is made
     when none is given).
@@ -691,30 +756,33 @@ class ServeScheduler:
                  prefix_cache: bool = False,
                  prefix_admit: int = 1,
                  device_groups: int = 1,
+                 cost_params: CostModelParams | None = None,
                  enforce_deadlines: bool = True,
                  watchdog_budget_s: float | None = None,
+                 unhealthy_after: int = 3,
+                 probe_interval_steps: int = 5,
+                 rejoin_backoff_cap: int = 16,
                  max_restarts: int | None = None,
-                 chaos=None):
-        self.paged = isinstance(engine, PagedEngine)
-        if device_groups > 1 and not self.paged:
-            raise ValueError("device_groups > 1 requires a PagedEngine — "
-                             "group ownership partitions the page pool")
-        if chaos is not None:
-            raise NotImplementedError("the serve chaos harness is not "
-                                      "ported yet (chaos=None only)")
-        if device_groups != 1:
-            raise NotImplementedError("only one device group is ported "
-                                      "(device_groups=1)")
-        if watchdog_budget_s is not None:
-            raise NotImplementedError("the step watchdog is not ported yet "
-                                      "(watchdog_budget_s=None only)")
-        if max_restarts is not None:
-            raise NotImplementedError("the restart budget is not ported yet "
-                                      "(max_restarts=None only)")
+                 chaos: Any = None):
         if reserve not in ("lifetime", "demand"):
             raise ValueError(f"unknown reserve discipline {reserve!r}")
         if preempt_policy not in ("fewest", "lifo"):
             raise ValueError(f"unknown preempt policy {preempt_policy!r}")
+        if watchdog_budget_s is not None and watchdog_budget_s <= 0:
+            raise ValueError(f"watchdog_budget_s {watchdog_budget_s} must "
+                             f"be positive (None disables the watchdog)")
+        if unhealthy_after < 1:
+            raise ValueError(f"unhealthy_after {unhealthy_after} must be "
+                             f">= 1")
+        if probe_interval_steps < 1:
+            raise ValueError(f"probe_interval_steps {probe_interval_steps} "
+                             f"must be >= 1")
+        if rejoin_backoff_cap < 1:
+            raise ValueError(f"rejoin_backoff_cap {rejoin_backoff_cap} must "
+                             f"be >= 1 (1 disables the backoff)")
+        if max_restarts is not None and max_restarts < 0:
+            raise ValueError(f"max_restarts {max_restarts} must be >= 0 "
+                             f"(None = unlimited)")
         if admit_watermark and reserve != "demand":
             # the watermark is decode-append headroom — a concept only
             # reserve-on-demand has.  Under lifetime reservation _fits
@@ -734,12 +802,10 @@ class ServeScheduler:
                                      if b > 0}))
         if not self.buckets:
             raise ValueError(f"no prompt bucket fits max_len={engine.max_len}")
+        self.paged = isinstance(engine, PagedEngine)
         if reserve == "demand" and not self.paged:
             raise ValueError("reserve='demand' needs a PagedEngine — the "
                              "dense per-slot cache has nothing to append")
-        if prefix_cache and not self.paged:
-            raise ValueError("prefix_cache requires a PagedEngine — dense "
-                             "per-slot caches have no pages to share")
         self.reserve = reserve
         self.demand = reserve == "demand"
         self.preempt_policy = preempt_policy
@@ -750,23 +816,55 @@ class ServeScheduler:
         # resume has at least paid for the page it appends.
         self.resume_floor = (resume_floor if resume_floor is not None
                              else (engine.page_size if self.paged else 0))
-        # one device group owning every slot and, paged, the usable page
-        # range [1, pool_pages) behind its allocator (page 0 is the trash
-        # page); ``pool_pages`` restricts the usable pool below the
-        # engine's physical one — the oversubscription knob
+        if prefix_cache and not self.paged:
+            raise ValueError("prefix_cache requires a PagedEngine — dense "
+                             "per-slot caches have no pages to share")
+        # device groups: slots and the usable page range [1, pool_pages)
+        # partition into contiguous, as-even-as-possible runs (page 0 is
+        # the trash page); each group gets a PRIVATE PageAllocator over its
+        # run (num_pages/n_reserved double as the range bounds) and, when
+        # enabled, its own prefix cache.  ``pool_pages`` restricts the
+        # TOTAL usable pool below the engine's physical one — the
+        # oversubscription knob.
+        if device_groups < 1:
+            raise ValueError(f"device_groups {device_groups} must be >= 1")
+        if device_groups > 1 and not self.paged:
+            raise ValueError("device_groups > 1 requires a PagedEngine — "
+                             "group ownership partitions the page pool")
+        if device_groups > engine.batch:
+            raise ValueError(f"device_groups {device_groups} exceeds the "
+                             f"{engine.batch} batch slots (every group needs "
+                             f"at least one)")
         self.admit_watermark = admit_watermark
-        alloc = pref = None
+        self.groups: list[DeviceGroup] = []
         if self.paged:
             usable = (engine.num_pages if pool_pages is None
                       else min(pool_pages, engine.num_pages))
-            alloc = PageAllocator(usable, watermark=admit_watermark)
-            pref = (PrefixCache(engine.page_size, admit_after=prefix_admit)
-                    if prefix_cache and engine.supports_prefix_cache
-                    else None)
-        self.groups: list[DeviceGroup] = [DeviceGroup(
-            gid=0, slot_ids=tuple(range(engine.batch)), allocator=alloc,
-            prefix=pref)]
+            slot_parts = np.array_split(np.arange(engine.batch),
+                                        device_groups)
+            page_parts = np.array_split(np.arange(1, usable), device_groups)
+            for gid in range(device_groups):
+                pages_g = page_parts[gid]
+                if len(pages_g) == 0:
+                    raise ValueError(f"pool of {usable} usable pages cannot "
+                                     f"cover {device_groups} device groups "
+                                     f"(group {gid} would own none)")
+                alloc = PageAllocator(int(pages_g[-1]) + 1,
+                                      n_reserved=int(pages_g[0]),
+                                      watermark=admit_watermark)
+                pref = (PrefixCache(engine.page_size,
+                                    admit_after=prefix_admit)
+                        if prefix_cache and engine.supports_prefix_cache
+                        else None)
+                self.groups.append(DeviceGroup(
+                    gid=gid,
+                    slot_ids=tuple(int(s) for s in slot_parts[gid]),
+                    allocator=alloc, prefix=pref))
+        else:
+            self.groups.append(DeviceGroup(
+                gid=0, slot_ids=tuple(range(engine.batch)), allocator=None))
         self._slot_group = {s: g for g in self.groups for s in g.slot_ids}
+        self.cost_params = cost_params or CostModelParams()
         self.tracker = tracker
         self.clock = clock
         self._generator = generator
@@ -787,13 +885,32 @@ class ServeScheduler:
         self.pages_shared = 0
         self.n_cow_copies = 0
         self.n_cache_insert_deferred = 0
-        # terminal outcomes and deadline enforcement (DESIGN.md §14)
+        # robustness layer (DESIGN.md §14): terminal outcomes, deadline
+        # enforcement, the step watchdog and group failover
         self.enforce_deadlines = enforce_deadlines
+        self.watchdog_budget_s = watchdog_budget_s
+        self.unhealthy_after = unhealthy_after
+        self.probe_interval_steps = probe_interval_steps
+        self.rejoin_backoff_cap = rejoin_backoff_cap
+        self.max_restarts = max_restarts
+        self.chaos = chaos
         self.outcomes: dict[int, RequestOutcome] = {}
+        self._restarts: dict[int, int] = {}
+        self.watchdog_trips = 0
         self.n_expired = 0
+        self.n_failed = 0
+        self.n_group_failovers = 0
+        self.n_group_rejoins = 0
+        # clock seconds unhealthy groups spent waiting for their next
+        # probe — grows with the backoff multiplier when a group flaps
+        self.rejoin_backoff_s = 0.0
         # tokens from completed requests that met every declared deadline —
         # the numerator of the goodput metric
         self.goodput_tokens = 0
+        # monotone count of step() CALLS — unlike n_steps it advances even
+        # when nothing decodes (queue waiting on an unhealthy group), so
+        # probe scheduling and chaos plans cannot stall with the loop
+        self.step_calls = 0
         # EWMAs behind deadline admission: wall time per decode step and the
         # interval between retirements (how fast slots free up)
         self._ewma_step_s = 0.0
@@ -802,11 +919,21 @@ class ServeScheduler:
 
     @property
     def allocator(self) -> PageAllocator | None:
-        return self.groups[0].allocator
+        """Single-group accessor.  With multiple device groups there is no
+        one allocator — use ``self.groups[g].allocator``; this raises
+        instead of silently returning group 0's."""
+        if len(self.groups) == 1:
+            return self.groups[0].allocator
+        raise RuntimeError(f"{len(self.groups)} device groups — no single "
+                           f"allocator; use sched.groups[g].allocator")
 
     @property
     def prefix(self) -> PrefixCache | None:
-        return self.groups[0].prefix
+        """Single-group accessor; see :attr:`allocator`."""
+        if len(self.groups) == 1:
+            return self.groups[0].prefix
+        raise RuntimeError(f"{len(self.groups)} device groups — no single "
+                           f"prefix cache; use sched.groups[g].prefix")
 
     @property
     def prefix_cache_active(self) -> bool:
@@ -889,8 +1016,9 @@ class ServeScheduler:
 
     def _queue_ahead(self) -> int:
         """Requests a new admission would wait behind: queue depth plus
-        itself, minus slots free right now."""
-        free = sum(1 for s in self.slots if s.free)
+        itself, minus slots free on healthy groups right now."""
+        free = sum(1 for g in self.groups if g.healthy
+                   for s in g.slot_ids if self.slots[s].free)
         return max(len(self.queue) + 1 - free, 0)
 
     def _predicted_ttft_s(self, req: Request) -> float:
@@ -928,14 +1056,16 @@ class ServeScheduler:
     def _terminate(self, req: Request, outcome: str,
                    detail: str = "") -> None:
         """Terminal path for a request that will never run again (expired /
-        shed after suspension): drop its resume state — host and durable —
-        and its tracker job, bump the matching counter, record the
-        outcome."""
+        failed / shed after suspension): drop its resume state — host and
+        durable — and its tracker job, bump the matching counter, record
+        the outcome."""
         self._suspended.pop(req.rid, None)
         if self.tracker is not None:
             self.tracker.abandon(req.rid)
         if outcome == "expired":
             self.n_expired += 1
+        elif outcome == "failed":
+            self.n_failed += 1
         elif outcome == "shed_deadline":
             self.queue.shed_deadline += 1
         self._record_outcome(req.rid, outcome, detail=detail)
@@ -965,6 +1095,8 @@ class ServeScheduler:
             need = max(need, self.engine.pages_needed(
                 len(req.tokens) + max(cap - 1, 0), 1))
             pool_need = need + self.admit_watermark
+        # a request lives entirely inside ONE device group's page range,
+        # so the never-fits test is against the LARGEST group's capacity
         group_cap = max(g.allocator.num_pages - g.allocator.n_reserved
                         for g in self.groups)
         return need <= self.engine.max_pages and pool_need <= group_cap
@@ -1169,23 +1301,48 @@ class ServeScheduler:
                 pages = g.allocator.alloc(n)
         return pages
 
+    def _route_order(self, groups: Sequence[DeviceGroup],
+                     need: int) -> list[DeviceGroup]:
+        """Cost-model admission routing across device groups (the paper's
+        dynamic job placement at device-group granularity): groups whose
+        free pages cover the request outright come first, then by
+        queue-depth × decode-EWMA cost (busy slots × per-slot step time,
+        seeded with the cost model's dispatch overhead until the EWMA
+        warms), free pages breaking ties.  Gid last keeps the order
+        deterministic."""
+        def score(g: DeviceGroup):
+            busy = sum(1 for s in g.slot_ids
+                       if self.slots[s].request is not None)
+            step_s = g.ewma_step_s or self.cost_params.dispatch_s
+            n_free = g.allocator.n_free if g.allocator is not None else 0
+            return (0 if n_free >= need else 1, busy * step_s, -n_free, g.gid)
+        return sorted(groups, key=score)
+
     def _fill_free_slots(self) -> None:
-        """Admit a wave: pull queued requests while free slots and pages
-        allow, then begin their chunked prefills.  Admission is FIFO: when
-        the pool cannot cover the head request's reservation, filling stops
-        until retirements free pages (no smaller request overtakes — no
-        starvation of long prompts).  Under reserve-on-demand an exhausted
-        pool may instead preempt one running victim for the head request —
-        never more than one, and only when the victim's pages actually
-        cover the shortfall (anti-thrash guard).  With a tracker the WHOLE
-        wave is placed in one ``place_batch`` call before the prefills
-        begin."""
-        g = self.groups[0]
-        free = [s for s in g.slot_ids if self.slots[s].free]
-        all_free = list(free)
-        # wave entries: (req, slot, pages, shared, stream)
+        """Admit a wave: pull queued requests while slots (dense) or slots +
+        pages (paged) allow, place the WHOLE wave through the tracker in one
+        ``plan_segment`` call, then insert (dense) or begin chunked prefill
+        (paged).  Paged admission is FIFO: when no group's pool can cover
+        the head request's reservation, filling stops until retirements
+        free pages (no smaller request overtakes — no starvation of long
+        prompts).  Under reserve-on-demand an exhausted pool may instead
+        preempt one running victim for the head request — never more than
+        one, and only when the victim's pages actually cover the shortfall
+        (anti-thrash guard).
+
+        With multiple device groups, each head request is routed to a group
+        by :meth:`_route_order`; its shared-prefix hit, page allocation and
+        eventual slot all come from THAT group, so page ownership never
+        crosses a group boundary."""
+        # unhealthy groups are quarantined out of admission entirely: their
+        # free slots don't exist until a probe rejoins them
+        free_by_gid = {g.gid: ([s for s in g.slot_ids if self.slots[s].free]
+                               if g.healthy else [])
+                       for g in self.groups}
+        all_free = [s for ss in free_by_gid.values() for s in ss]
+        # wave entries: (req, group, reserved slot, pages, shared, stream)
         wave: list[tuple] = []
-        while free and len(self.queue):
+        while any(free_by_gid.values()) and len(self.queue):
             req = self.queue.pop()
             if not self._fits(req):      # raw queue.submit bypassed admission
                 self.queue.shed_never_fits += 1
@@ -1195,23 +1352,30 @@ class ServeScheduler:
             if self._deadline_drop_queued(req):
                 continue
             if not self.paged:
-                wave.append((req, free.pop(0), None, [], None))
+                g = self.groups[0]
+                wave.append((req, g, free_by_gid[g.gid].pop(0),
+                             None, [], None))
                 continue
             stream = self._prefill_stream(req)
             need_total = self._admission_pages(req, stream)
+            cands = self._route_order(
+                [g for g in self.groups if free_by_gid[g.gid]], need_total)
             placed = False
-            shared = self._shared_prefix(g, stream)
-            if shared:
-                # the slot's references on its hit pages — taken BEFORE
-                # the private allocation, so eviction inside it cannot
-                # reclaim them out from under the admission
-                g.allocator.share(shared)
-            pages = self._admit_pages(g, need_total - len(shared))
-            if pages is not None:
-                wave.append((req, free.pop(0), pages, shared, stream))
-                placed = True
-            elif shared:                 # release the hit refs taken above
-                g.allocator.free(shared)
+            for g in cands:
+                shared = self._shared_prefix(g, stream)
+                if shared:
+                    # the slot's references on its hit pages — taken BEFORE
+                    # the private allocation, so eviction inside it cannot
+                    # reclaim them out from under the admission
+                    g.allocator.share(shared)
+                pages = self._admit_pages(g, need_total - len(shared))
+                if pages is not None:
+                    wave.append((req, g, free_by_gid[g.gid].pop(0),
+                                 pages, shared, stream))
+                    placed = True
+                    break
+                if shared:               # release the hit refs taken above
+                    g.allocator.free(shared)
             if not placed and self.demand and req.rid in self._suspended:
                 # only a RESUME may preempt to admit: it already earned
                 # its place once and sits at the queue front, so letting
@@ -1219,7 +1383,8 @@ class ServeScheduler:
                 # starvation — whereas fresh arrivals preempting grown
                 # runners is the recompute-thrash spiral (they wait for
                 # retirements instead, like any FIFO admission).  One
-                # victim only (anti-thrash).
+                # victim, in the best-scored group only (anti-thrash).
+                g = cands[0]
                 shared = self._shared_prefix(g, stream)
                 if shared:
                     g.allocator.share(shared)
@@ -1235,8 +1400,8 @@ class ServeScheduler:
                     self._preempt(victim)
                     pages = self._admit_pages(g, need)
                     if pages is not None:
-                        wave.append((req, free.pop(0), pages, shared,
-                                     stream))
+                        wave.append((req, g, free_by_gid[g.gid].pop(0),
+                                     pages, shared, stream))
                         placed = True
                 if not placed and shared:
                     g.allocator.free(shared)
@@ -1247,10 +1412,15 @@ class ServeScheduler:
         if not wave:
             return
         if self.tracker is not None:
-            assign = self.tracker.place_batch([w[0] for w in wave], all_free)
+            # each request must land in the group whose allocator its pages
+            # came from — restrict the master's choice to that group's slots
+            choices = ({req.rid: g.slot_ids for req, g, *_ in wave}
+                       if len(self.groups) > 1 else None)
+            assign = self.tracker.place_batch([w[0] for w in wave], all_free,
+                                              slot_choices=choices)
         else:
-            assign = {w[0].rid: w[1] for w in wave}
-        for req, _, pages, shared, stream in wave:
+            assign = {w[0].rid: w[2] for w in wave}
+        for req, _, _, pages, shared, stream in wave:
             if self.paged:
                 self._start_prefill(req, assign[req.rid], pages, shared,
                                     stream)
@@ -1399,14 +1569,18 @@ class ServeScheduler:
         self._clear_slot(st)
         self.queue.push_front(req)
 
-    def _evict_request(self, st: SlotState) -> int | None:
-        """Fault-path eviction (the tail of ``fail_slot``).  The slot's
-        device state is gone; its request goes back through recovery: under
+    def _evict_request(self, st: SlotState, *,
+                       count_restart: bool = False) -> int | None:
+        """Fault-path eviction — the shared tail of ``fail_slot``, a step
+        watchdog trip and group failover.  The slot's device state is
+        gone/untrusted; its request goes back through recovery: under
         reserve-on-demand a decoding slot's generated tokens suspend
         (recompute-on-resume keeps TTFT and tokens), a slot evicted
         mid-resume puts its retained record back, anything else re-queues
-        from scratch — at the queue front.  (The JAX package also charges a
-        per-request restart budget here; ``max_restarts`` is not ported.)
+        from scratch — at the queue front.  ``count_restart`` charges the
+        per-request restart budget: a request evicted more than
+        ``max_restarts`` times ends ``failed`` instead of re-queued (a
+        poison request cannot cycle through fault recovery forever).
         Returns the rid, or None for a free slot."""
         req = st.request
         if req is None:
@@ -1424,6 +1598,13 @@ class ServeScheduler:
                     st.resume.n_preempts)
         self._release_slot(st)
         self._clear_slot(st)
+        if count_restart and self.max_restarts is not None:
+            self._restarts[req.rid] = self._restarts.get(req.rid, 0) + 1
+            if self._restarts[req.rid] > self.max_restarts:
+                self._terminate(req, "failed",
+                                detail=f"restart budget "
+                                       f"{self.max_restarts} exhausted")
+                return req.rid
         self.queue.push_front(req)
         return req.rid
 
@@ -1553,11 +1734,160 @@ class ServeScheduler:
         resume machinery — the request recomputes prompt + retained tokens
         instead of regenerating from scratch.  Returns the rid (None for a
         free slot)."""
-        st = self.slots[slot]
+        return self._fault_evict(self.slots[slot])
+
+    def _fault_evict(self, st: SlotState) -> int | None:
+        """A fault made the slot's device state untrusted (``fail_slot``,
+        group failover, a watchdog trip): with a tracker the slot's worker
+        fails first — its retained results are invalidated, the request's
+        job leaves the graph and a replacement worker takes the slot —
+        then the request goes back through recovery, charged to its
+        restart budget.  (The JAX package's watchdog evicts without
+        telling the tracker, so under HyPar placement the request's job
+        stays in the graph and its re-admission adds a second job of the
+        same name, which the graph refuses.)"""
         if self.tracker is not None:
-            self.tracker.fail(slot, rid=st.request.rid if st.request
+            self.tracker.fail(st.slot, rid=st.request.rid if st.request
                               else None)
-        return self._evict_request(st)
+        return self._evict_request(st, count_restart=True)
+
+    # -- group failover (DESIGN.md §14) ----------------------------------------
+    def fail_group(self, gid: int, *, reason: str = "injected") -> int:
+        """Mark device group ``gid`` unhealthy and quarantine it: every
+        in-flight request on its slots is evicted back through the recovery
+        path (the next admission wave re-routes them to healthy groups —
+        page ownership still never crosses a group boundary, the request
+        simply re-prefills from the new group's pool), its prefix cache is
+        flushed (KV resident on a failed device is untrusted), any
+        chaos-held pages are released, and the allocator is leak-checked:
+        a quarantined group must own ZERO outstanding pages.  Returns the
+        number of evicted requests.  The group rejoins via
+        :meth:`probe_group`, attempted automatically every
+        ``probe_interval_steps * probe_backoff`` scheduler calls."""
+        g = self.groups[gid]
+        if not g.healthy:
+            return 0
+        g.healthy = False
+        g.down_step = self.step_calls
+        # failing again shortly after a rejoin doubles the probe interval
+        # (capped) instead of flapping at constant cadence; a long stable
+        # stretch forgives the history and a fresh incident starts back at
+        # the base cadence
+        stable_steps = self.probe_interval_steps * self.rejoin_backoff_cap
+        if g.up_step and self.step_calls - g.up_step < stable_steps:
+            g.probe_backoff = min(g.probe_backoff * 2,
+                                  self.rejoin_backoff_cap)
+        else:
+            g.probe_backoff = 1
+        g.backoff_wall = self.clock()
+        n = 0
+        for slot in g.slot_ids:
+            st = self.slots[slot]
+            if st.request is None:
+                continue
+            self._fault_evict(st)
+            n += 1
+        if g.prefix is not None:
+            g.prefix.flush(g.allocator)
+        if self.chaos is not None:
+            self.chaos.release_pages(self, gid=gid)
+        if g.allocator is not None and g.allocator.n_outstanding:
+            raise RuntimeError(
+                f"group {gid} failed ({reason}) with "
+                f"{g.allocator.n_outstanding} pages still outstanding — "
+                f"quarantine leak")
+        self.n_group_failovers += 1
+        return n
+
+    def probe_group(self, gid: int) -> bool:
+        """Health probe for an unhealthy group: the chaos gate (is the
+        injected fault still active?), a real device round-trip through the
+        engine (:meth:`PagedEngine.probe_device`), and the quarantine
+        invariant (allocator fully drained).  On success the group rejoins
+        admission with its trip counter cleared; on failure the probe
+        interval re-arms and the backoff multiplier doubles (capped at
+        ``rejoin_backoff_cap``), so a dead group is probed exponentially
+        less often instead of at constant cadence."""
+        g = self.groups[gid]
+        if g.healthy:
+            return True
+        if g.backoff_wall is not None:
+            # close the waiting window opened at the last re-arm
+            self.rejoin_backoff_s += self.clock() - g.backoff_wall
+            g.backoff_wall = None
+        if ((self.chaos is not None
+             and not self.chaos.group_healthy(self, gid))
+                or not self.engine.probe_device()):
+            g.down_step = self.step_calls
+            g.probe_backoff = min(g.probe_backoff * 2,
+                                  self.rejoin_backoff_cap)
+            g.backoff_wall = self.clock()
+            return False
+        if g.allocator is not None and g.allocator.n_outstanding:
+            raise RuntimeError(
+                f"group {gid} cannot rejoin: {g.allocator.n_outstanding} "
+                f"pages leaked while quarantined")
+        g.healthy = True
+        g.watchdog_trips = 0
+        g.up_step = self.step_calls
+        self.n_group_rejoins += 1
+        return True
+
+    def _probe_groups(self) -> None:
+        for g in self.groups:
+            if (not g.healthy and self.step_calls - g.down_step
+                    >= self.probe_interval_steps * g.probe_backoff):
+                self.probe_group(g.gid)
+
+    # -- step watchdog (DESIGN.md §14) -----------------------------------------
+    def _chaos_extra_s(self, gid: int) -> float:
+        """Injected slow-step seconds for this group — added to the
+        MEASURED step duration, not slept, so chaos runs stay fast and the
+        watchdog sees exactly what a wedged device would show it."""
+        return (self.chaos.step_extra_s(self, gid)
+                if self.chaos is not None else 0.0)
+
+    def _watch_prefill(self, st: SlotState, dt: float) -> None:
+        """Wall-clock budget around one prefill chunk: an over-budget slot
+        is evicted back through the recovery path (the chunk may be wedged
+        — its work is recomputed elsewhere) and its group moves toward
+        unhealthy."""
+        if self.watchdog_budget_s is None or st.request is None:
+            return
+        g = self._slot_group[st.slot]
+        if dt + self._chaos_extra_s(g.gid) <= self.watchdog_budget_s:
+            return
+        self.watchdog_trips += 1
+        g.watchdog_trips += 1
+        self._fault_evict(st)
+        if g.healthy and g.watchdog_trips >= self.unhealthy_after:
+            self.fail_group(g.gid, reason="watchdog")
+
+    def _watch_decode(self, live: list[SlotState], dt: float) -> None:
+        """Wall-clock budget around the decode wave.  One decode call spans
+        the whole batch, so finer attribution than per-group is impossible:
+        every group with live slots in an over-budget wave takes a trip and
+        evicts its least-progressed live slot (the cheapest recompute —
+        possibly the wedged one; repeat offenders drive the group to
+        unhealthy either way)."""
+        if self.watchdog_budget_s is None:
+            return
+        for g in self.groups:
+            mine = [s for s in live if s.slot in g.slot_ids]
+            if not mine:
+                continue
+            if dt + self._chaos_extra_s(g.gid) <= self.watchdog_budget_s:
+                continue
+            self.watchdog_trips += 1
+            g.watchdog_trips += 1
+            victim = min((s for s in mine if s.request is not None
+                          and not s.finished),
+                         key=lambda s: (len(s.tokens), -s.admit_seq),
+                         default=None)
+            if victim is not None:
+                self._fault_evict(victim)
+            if g.healthy and g.watchdog_trips >= self.unhealthy_after:
+                self.fail_group(g.gid, reason="watchdog")
 
     # -- the loop --------------------------------------------------------------
     def step(self) -> bool:
@@ -1570,10 +1900,16 @@ class ServeScheduler:
         but the live batch keeps emitting tokens throughout instead of
         stalling for the whole prompt (the utilisation loss the paper's
         overlapping-segments design warns about)."""
+        self.step_calls += 1
+        if self.chaos is not None:
+            self.chaos.on_step(self)
+        self._probe_groups()
         self._fill_free_slots()
         for st in self.slots:
             if st.prefilling:
+                t0 = self.clock()
                 self._advance_prefill(st)
+                self._watch_prefill(st, self.clock() - t0)
         self._retire_finished()          # budget-1 requests end at prefill
         if self.enforce_deadlines:
             self._expire_running()
@@ -1607,6 +1943,12 @@ class ServeScheduler:
                              + 0.3 * (now - t0))
         if self.tracker is not None:
             self.tracker.observe(now - t0, len(live))
+        busy = {s.slot for s in live} | {s.slot for s in prefilling}
+        for g in self.groups:
+            g.occupied_slot_steps += sum(1 for s in g.slot_ids if s in busy)
+            g_live = sum(1 for s in live if s.slot in g.slot_ids)
+            if g_live:
+                g.observe((now - t0) / g_live)
         for st in live:
             tok = int(ids[st.slot])
             st.tokens.append(tok)
@@ -1617,6 +1959,10 @@ class ServeScheduler:
             if st.budget <= 0 or (self.sp.stop_token >= 0
                                   and tok == self.sp.stop_token):
                 st.finished = True
+        # watchdog AFTER token bookkeeping: an evicted slot's suspended
+        # record then includes this wave's token, so resume recomputes the
+        # exact state and the output still bit-matches
+        self._watch_decode(live, now - t0)
         self._retire_finished()
         return True
 
@@ -1671,11 +2017,20 @@ class ServeScheduler:
         self.n_cow_copies = 0
         self.n_cache_insert_deferred = 0
         self.outcomes = {}
+        self._restarts = {}
+        self.watchdog_trips = 0
         self.n_expired = 0
+        self.n_failed = 0
+        self.n_group_failovers = 0
+        self.n_group_rejoins = 0
+        self.rejoin_backoff_s = 0.0
         self.goodput_tokens = 0
         self._last_retire_s = None
-        # _ewma_step_s / _ewma_retire_s survive — they are calibration,
-        # not run metrics
+        # _ewma_step_s / _ewma_retire_s and the groups' step EWMAs survive
+        # — they are calibration, not run metrics
+        for g in self.groups:
+            g.occupied_slot_steps = 0
+            g.watchdog_trips = 0
 
     def flush_prefix_cache(self) -> int:
         """Drop every prefix-cache entry in every group, releasing the
@@ -1693,3 +2048,12 @@ class ServeScheduler:
         if self.n_steps == 0:
             return 0.0
         return self.occupied_slot_steps / (self.n_steps * self.engine.batch)
+
+    @property
+    def group_occupancy(self) -> list[float]:
+        """Per-device-group mean busy-slot fraction — the cost-model
+        router's balance evidence (both groups nonzero under load)."""
+        if self.n_steps == 0:
+            return [0.0 for _ in self.groups]
+        return [g.occupied_slot_steps / (self.n_steps * len(g.slot_ids))
+                for g in self.groups]

@@ -58,6 +58,44 @@ def test_import_with_jax_unavailable():
     assert out.stdout.strip() == "ok"
 
 
+def test_chaos_scheduler_imports_no_jax():
+    """The serve chaos harness and the scheduler driving it, group
+    failover and the watchdog included, run with JAX unavailable and pull
+    in nothing of JAX or the JAX package."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        "import numpy as np, torch\n"
+        "from repro_torch.core.fault import ServeChaosInjector\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.serve import PagedEngine, ServeScheduler\n"
+        "from repro_torch.weights import init_params\n"
+        "cfg = get_smoke_config('qwen2-1.5b')\n"
+        "params = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "eng = PagedEngine(cfg, params, batch=2, max_len=32, page_size=8,\n"
+        "                  prefill_chunk=16, device='cpu')\n"
+        "chaos = ServeChaosInjector(kill_group=(1, 2, 2), slow=(1, 1, 9.0))\n"
+        "sched = ServeScheduler(eng, device_groups=2, chaos=chaos,\n"
+        "                       watchdog_budget_s=5.0, max_restarts=3,\n"
+        "                       probe_interval_steps=1)\n"
+        "for n in (5, 9, 12):\n"
+        "    sched.submit(np.arange(n) % 50, max_new=3)\n"
+        "sched.run()\n"
+        "while not all(g.healthy for g in sched.groups):\n"
+        "    sched.step()\n"
+        "assert chaos.n_kills == 1 and sched.watchdog_trips >= 1\n"
+        "assert sched.n_group_rejoins == 1, sched.n_group_rejoins\n"
+        "bad = sorted(m for m in sys.modules if m is not None\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "             and sys.modules[m] is not None)\n"
+        "print(len(sched.results), bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "3 []"
+
+
 PROBE = """
 import sys
 

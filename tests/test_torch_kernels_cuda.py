@@ -967,3 +967,37 @@ def test_cuda_dense_engine_launch_counts(arch):
     assert steps == [cfg.n_layers, cfg.n_layers, 0]
     assert eng.cache["len"].tolist() == [25, 12]
     assert torch.isfinite(lg.float()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_two_group_failover_runs_the_paged_kernel():
+    """Two device groups on the card with a ``kill_group`` plan: group 1
+    fails mid-trace and rejoins by a probe of the card, every request
+    completes, both groups end leak-free, and the paged kernel runs once a
+    layer in every decode step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.core.fault import ServeChaosInjector
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.serve import PagedEngine, ServeScheduler
+    cfg, params = _smoke_model("qwen2-1.5b", "float32")
+    eng = PagedEngine(cfg, params, batch=4, max_len=64, page_size=8,
+                      prefill_chunk=16)
+    chaos = ServeChaosInjector(kill_group=(1, 3, 6))
+    sched = ServeScheduler(eng, device_groups=2, reserve="demand",
+                           probe_interval_steps=2, chaos=chaos)
+    rng = np.random.default_rng(0)
+    for n, max_new in [(5, 4), (11, 6), (19, 4), (30, 6), (5, 6), (19, 6)]:
+        sched.submit(rng.integers(0, cfg.vocab_size - 1, (n,)), max_new)
+    steps0, launches0 = eng.n_decode_calls, kernel.launches
+    results = sched.run()
+    while not all(g.healthy for g in sched.groups):
+        sched.step()
+    steps = eng.n_decode_calls - steps0
+    assert len(results) == 6
+    assert {o.outcome for o in sched.outcomes.values()} == {"completed"}
+    assert chaos.n_kills == 1
+    assert sched.n_group_failovers == 1 and sched.n_group_rejoins == 1
+    assert sched.resume_tokens_recomputed > 0
+    assert all(g.allocator.n_outstanding == 0 for g in sched.groups)
+    assert steps > 0 and kernel.launches - launches0 == steps * cfg.n_layers

@@ -125,16 +125,39 @@ def test_scheduler_token_streams_match_jax(arch_models, arch_engines, name):
 
 
 def test_scheduler_refuses_what_is_not_ported(models):
-    _, tc, _, tp = models
-    eng = PagedEngine(tc, tp, batch=2, max_len=32, page_size=8,
-                      prefill_chunk=16, device="cpu")
-    for kw in (dict(chaos=object()),
-               dict(device_groups=2), dict(watchdog_budget_s=1.0),
-               dict(max_restarts=2)):
-        with pytest.raises(NotImplementedError):
-            ServeScheduler(eng, **kw)
-    with pytest.raises(ValueError):
-        ServeScheduler(eng, reserve="lifetime", admit_watermark=2)
+    """The scheduler's refusals are the reference's: device groups, the
+    chaos harness, the watchdog and the restart budget are accepted, and
+    out-of-range values of their knobs raise the JAX package's errors with
+    its messages.  (What stays unported is the engine's ``mesh=``.)"""
+    from repro.core.fault import ServeChaosInjector as JaxChaos
+    from repro_torch.core.fault import ServeChaosInjector
+
+    jc, tc, jp, tp = models
+    kw = dict(batch=2, max_len=32, page_size=8, prefill_chunk=16)
+    eng = PagedEngine(tc, tp, device="cpu", **kw)
+    jeng = JaxPagedEngine(jc, jp, attn_impl="ref", **kw)
+    sched = ServeScheduler(eng, chaos=ServeChaosInjector(), device_groups=2,
+                           watchdog_budget_s=1.0, max_restarts=2,
+                           unhealthy_after=1, probe_interval_steps=1,
+                           rejoin_backoff_cap=1)
+    jsched = JaxServeScheduler(jeng, chaos=JaxChaos(), device_groups=2,
+                               watchdog_budget_s=1.0, max_restarts=2,
+                               unhealthy_after=1, probe_interval_steps=1,
+                               rejoin_backoff_cap=1)
+    assert ([(g.slot_ids, g.page_lo, g.page_hi) for g in sched.groups]
+            == [(g.slot_ids, g.page_lo, g.page_hi) for g in jsched.groups])
+    for bad in (dict(device_groups=0), dict(device_groups=3),
+                dict(watchdog_budget_s=0.0), dict(unhealthy_after=0),
+                dict(probe_interval_steps=0), dict(rejoin_backoff_cap=0),
+                dict(max_restarts=-1),
+                dict(reserve="lifetime", admit_watermark=2)):
+        with pytest.raises(ValueError) as want:
+            JaxServeScheduler(jeng, **bad)
+        with pytest.raises(ValueError) as got:
+            ServeScheduler(eng, **bad)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        PagedEngine(tc, tp, device="cpu", mesh=object(), **kw)
     # the dense engine has nothing to append: demand reservation is
     # refused, as in the reference
     dense = Engine(tc, tp, batch=2, max_len=32, device="cpu")

@@ -16,7 +16,7 @@ configs (fp32 compute, weights from a seeded ``torch.Generator``):
   TTFT shedding, total-deadline expiry in the queue and mid-flight,
   goodput;
 * the hypothesis soak (``tests/test_serve_properties.py``), with the
-  reference's settings, over one device group (the port runs one).
+  reference's settings, over one or two device groups.
 
 Trace-count assertions read the port's shape signatures
 (``PagedEngine.trace_count``), the counterpart of the reference's jit
@@ -724,18 +724,22 @@ def _check_invariants(sched):
        demand=st.booleans(),
        policy=st.sampled_from(("fewest", "lifo")),
        watermark=st.integers(0, 2),
-       share=st.booleans())
+       share=st.booleans(),
+       groups=st.sampled_from((1, 2)))
 @settings(max_examples=MAX_EXAMPLES, deadline=None,
           suppress_health_check=[HealthCheck.too_slow,
                                  HealthCheck.data_too_large])
 def test_serve_soak_invariants_and_bitmatch(arch, reqs, pool, demand,
-                                            policy, watermark, share):
+                                            policy, watermark, share,
+                                            groups):
     sched = ServeScheduler(
         _fresh(_soak_engine(arch)), pool_pages=pool,
         reserve="demand" if demand else "lifetime",
         preempt_policy=policy,
         admit_watermark=watermark if demand else 0,
-        prefix_cache=share)
+        prefix_cache=share,
+        device_groups=groups)  # 2: slots 2/1, pages split — uneven is the
+    #                            production case (batch % groups != 0)
     rids = {}
     for idx, max_new in reqs:
         rid = sched.submit(_soak_prompts(arch, share)[idx], max_new=max_new)
@@ -748,7 +752,8 @@ def test_serve_soak_invariants_and_bitmatch(arch, reqs, pool, demand,
         steps += 1
         assert steps < STEP_CAP, (
             f"drain did not finish in {STEP_CAP} steps (reqs={reqs}, "
-            f"pool={pool}, demand={demand}, share={share})")
+            f"pool={pool}, demand={demand}, share={share}, "
+            f"groups={groups})")
 
     _check_invariants(sched)
     for g in sched.groups:
@@ -770,4 +775,4 @@ def test_serve_soak_invariants_and_bitmatch(arch, reqs, pool, demand,
             _soak_reference(arch, idx, max_new, share), (
                 f"rid {rid} (prompt {idx}, max_new {max_new}) diverged "
                 f"(pool={pool}, demand={demand}, share={share}, "
-                f"preempts={sched.n_preempted})")
+                f"groups={groups}, preempts={sched.n_preempted})")
