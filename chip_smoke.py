@@ -23,14 +23,18 @@ and prints one JSON line per phase:
    and timed; the wrapper the decode path calls (split pass, then the merge
    pass with the self term) is held against its gather oracle on the same
    inputs and timed (``wrapper_ms``);
-4. ``parity``  — full-width qwen2-1.5b (all 28 layers) at fp32 compute:
-   prompts are prefilled, then teacher-forced decode steps run through the
-   kernel path and through the plain gather path; logits must agree;
-5. ``serve``   — full-width qwen2-1.5b in bf16 with random weights from a
-   seeded ``torch.Generator``: ``ServeScheduler`` over ``PagedEngine``
-   serves 16 requests (prompts 64-1500 tokens, 32 new tokens each, greedy);
-   every request must finish with its token count, and the kernel's launch
-   count must equal decode steps x layers;
+4. ``parity``  — full-width qwen2-1.5b (all 28 layers) at fp32 compute
+   (``parity_phase``, the kernel-vs-plain check of every paged model):
+   prompts are chunk-prefilled, then teacher-forced decode steps run
+   through the kernel path and through the plain gather path; chunk and
+   decode logits must agree;
+5. ``serve``   — (``serve_paged_phase``, the paged serving phase of every
+   model) phase 4, and its paths in bf16 at full depth, reported; then
+   full-width qwen2-1.5b in bf16 with random weights from a seeded
+   ``torch.Generator``: ``ServeScheduler`` over ``PagedEngine`` serves 16
+   requests (prompts 64-1500 tokens, 32 new tokens each, greedy); every
+   request must finish with its token count, and the kernel's launch count
+   must equal decode steps x layers;
 5a. ``serve_hypar`` — the same engine configuration and trace, served four
    times on one engine, each by a fresh ``ServeScheduler``: direct, HyPar
    (``HyParRequestTracker``, cost strategy), HyPar, direct; then a fifth,
@@ -85,11 +89,9 @@ and prints one JSON line per phase:
    eight), with strongly negative decays, at every row tile of the
    tuner's grid and at its default; timed at each
    (``ms_by_launch_shape``) beside its plain version and its bound;
-8. ``parity_ssm`` — full-width mamba2-370m (all 48 layers) at fp32:
-   prompts chunk-prefilled through the kernel path and the plain einsum
-   path, then teacher-forced decode steps; logits must agree;
-9. ``serve_ssm`` — full-width mamba2-370m in bf16, the same 16-request
-   trace as phase 5; every request must finish with its token count, and
+8. ``parity_ssm`` — phase 4 for full-width mamba2-370m (all 48 layers):
+   the chunks through the SSD kernel and its plain einsum path;
+9. ``serve_ssm`` — phase 5 for mamba2-370m, the same 16-request trace;
    the SSD kernel's launch count must equal chunk calls x 48 layers;
 10. ``prefill_chunk_paths`` — 256-token prefill chunks timed alternately
    through the kernel path and the plain path, then a few kernel-path
@@ -104,6 +106,31 @@ and prints one JSON line per phase:
    ``Engine`` and over ``PagedEngine`` (the paged kernel decoding);
    greedy streams and outcomes must be identical, a mismatch printed with
    the request, the token and both engines' top-2 logit gap;
+10c. ``kernels`` at the MoE and hybrid shapes — the paged kernel (bf16,
+   batch 8, page 16, max_len 2048, G 1: qwen2-moe-a2.7b's KV 16 x D 128
+   and zamba2-1.2b's KV 32 x D 64) at every pages-a-split value and the
+   default, SSD at zamba2's chunk (1, 64, 256, 64, 64) at every row tile,
+   the flash forward at the dense engine's batched prefill (bf16, causal,
+   B 8, S 1,024, H = KV 16 x D 128 and 32 x D 64) at every launch shape;
+   each against its plain version, timed beside it, its bound and, where
+   there is one, its library call (a ``model`` field names the model);
+10d. ``serve_moe`` and ``serve_hybrid`` — qwen2-moe-a2.7b (24 MoE
+   layers, 60 experts top-4 and 4 shared, d 2048, 16 heads of 128) and
+   zamba2-1.2b (38 SSM layers and 6 invocations of one shared attention
+   block, d 2048, 32 heads of 64) at full width, by phase 5's code: first
+   ``parity_moe`` / ``parity_hybrid`` (phase 4; qwen2-moe cut to 4 layers,
+   its fp32 weights being 57 GB, zamba2 whole), then the bf16 full-depth
+   gap, reported with, for qwen2-moe, the decode rows whose top-4 experts
+   differ between the two paths, by layer; then 8 requests of phase 5's
+   trace: the paged kernel runs once an attention layer a decode step
+   (24 / 6) and SSD once an SSM layer a chunk (0 / 38); tok/s, TTFT, a
+   profiled decode step and, for zamba2, a profiled prefill chunk;
+10e. ``serve_waves_moe`` and ``serve_waves_hybrid`` — phase 5e for the
+   two models: 2 waves of 8 prompts of 1,024 tokens, 16 tokens each, the
+   flash forward launched once an attention layer a wave and SSD once an
+   SSM layer a wave; the fp32 prefill check against ``impl="dense"``
+   (qwen2-moe, at 4 layers) and ``impl="ref"`` (zamba2, whole: plain
+   attention and SSD);
 11. ``kernels`` (``jacobi_sweep``) — both Jacobi kernels (plain sweep and
    fused-residual sweep) against their plain versions at the paper's sizes
    N 2709, 4209 and 7209 in fp32, one bf16-x and one bf16-A case and a
@@ -364,18 +391,99 @@ def kernel_vs_plain(got, want) -> dict:
             "l_rel_err": float(((l - l_p).abs() / l_p.clamp_min(1.0)).max())}
 
 
+def paged_timed_case(gen, *, B, KV, G, D, ps, n_pages, kv_lens, dtype,
+                     window, trash_tail, grid, default_pps,
+                     model: str | None = None) -> tuple[dict, float]:
+    """One shape of the paged kernel: every pages-a-split value of the
+    tuner's grid and the default against its plain version
+    (``KERNEL_TOL``), the wrapper against its gather oracle, then timed at
+    each beside its plain version, its bound, one SDPA call over the
+    gathered view and the whole wrapper.  Emits a ``kernels`` line and
+    returns it with the largest error."""
+    from repro_torch.kernels.paged_attention import (paged_attention_kernel,
+                                                     paged_attention_plain,
+                                                     paged_decode_attention)
+    from repro_torch.kernels.paged_attention.ref import gather_pages_ref
+
+    t0 = time.perf_counter()
+    max_err = 0.0
+    q, kp, vp, pages, kv_len = paged_inputs(
+        gen, B=B, KV=KV, G=G, D=D, ps=ps, n_pages=n_pages,
+        kv_lens=kv_lens, dtype=dtype, trash_tail=trash_tail)
+    want = paged_attention_plain(q, kp, vp, pages, kv_len, window=window)
+    errs = {}
+    for pps in [None, *grid]:
+        got = paged_attention_kernel(q, kp, vp, pages, kv_len,
+                                     window=window, pages_per_split=pps)
+        torch.cuda.synchronize()
+        e = kernel_vs_plain(got, want)
+        errs["default" if pps is None else str(pps)] = e
+        if max(e.values()) > KERNEL_TOL:
+            raise AssertionError(
+                f"kernel disagrees with plain at pages_per_split "
+                f"{pps} ({dtype}, window={window}, D {D}): {e}")
+        max_err = max(max_err, e["max_abs_err"])
+    case = {"dtype": str(dtype).replace("torch.", ""),
+            "window": window, "trash_tail": trash_tail,
+            **errs["default"], "tol": KERNEL_TOL,
+            "err_by_pages_per_split": errs}
+    wcase, (qw, kt, vt) = wrapper_case(gen, q, kp, vp, pages, kv_len,
+                                       window, default_pps)
+    case.update(wcase)
+
+    # timing: rotate over enough pool copies to exceed the 50 MB
+    # L2, as in a decode step where every layer's weights pass between
+    # two launches on the same pool
+    elt = kp.element_size()
+    n_copies = max(2, math.ceil(100e6 / (2 * kp.numel() * elt)))
+    pools = [(kp.clone(), vp.clone()) for _ in range(n_copies)]
+    ms_by = {str(p): cuda_ms(lambda i, p=p: paged_attention_kernel(
+        q, *pools[i % n_copies], pages, kv_len, window=window,
+        pages_per_split=p), 50) for p in grid}
+    ms = cuda_ms(lambda i: paged_attention_kernel(
+        q, *pools[i % n_copies], pages, kv_len, window=window), 50)
+    wrapper_ms = cuda_ms(lambda i: paged_decode_attention(
+        qw, *pools[i % n_copies], pages, kv_len, kt, vt,
+        window=window, impl="kernel", pages_per_split=default_pps),
+        50)
+    plain_ms = cuda_ms(lambda i: paged_attention_plain(
+        q, *pools[i % n_copies], pages, kv_len, window=window), 3)
+    # library yardstick: one scaled_dot_product_attention call over
+    # the gathered dense view with a mask (the gather is not timed)
+    T = n_pages * ps
+    pos = torch.arange(T, device=DEV)[None, :]
+    ok = pos < kv_len[:, None]
+    if window is not None:
+        ok = ok & (pos >= kv_len[:, None] + 1 - window)
+    mask = ok[:, None, None, :]
+    qh = (q.reshape(B, KV * G, 1, D).float() * math.sqrt(D)).to(dtype)
+    views = [tuple(gather_pages_ref(p, pages).repeat_interleave(G, 1)
+                   for p in pair) for pair in pools]
+    library_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        qh, *views[i % n_copies], attn_mask=mask), 50)
+    bms, by = bound_ms(pages, kv_len, B=B, KV=KV, G=G, D=D, ps=ps,
+                       window=window, elt=elt)
+    case.update(ms=ms, pages_per_split=default_pps,
+                ms_by_pages_per_split=ms_by, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bms, bound_by=by, ms_over_bound=ms / bms)
+    extra = {} if model is None else {"model": model,
+                                      "seconds": time.perf_counter() - t0}
+    emit("kernels", kernel="paged_attention", **extra,
+         shape={"B": B, "KV": KV, "G": G, "D": D, "page_size": ps,
+                "n_pages": n_pages, "kv_len": kv_lens}, **case)
+    del pools, views
+    return case, max_err
+
+
 def kernel_phase(n_layers: int) -> dict:
     """The paged kernel at every pages-a-split value of the tuner's grid and
     at its default, against its plain version (``KERNEL_TOL``), in fp32 and
     bf16, with and without a window and a trash tail; timed at each, beside
     its plain version, its bound, one SDPA call over the gathered view and
     the whole wrapper the decode path calls."""
-    from repro_torch.kernels.paged_attention import (paged_attention_kernel,
-                                                     paged_attention_plain,
-                                                     paged_decode_attention)
     from repro_torch.kernels.paged_attention.kernel import \
         default_pages_per_split
-    from repro_torch.kernels.paged_attention.ref import gather_pages_ref
     from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -392,74 +500,13 @@ def kernel_phase(n_layers: int) -> dict:
     main_case = None
     for dtype in (torch.float32, torch.bfloat16):
         for window, trash_tail in ((None, 0), (512, 1)):
-            q, kp, vp, pages, kv_len = paged_inputs(
+            case, err = paged_timed_case(
                 gen, B=B, KV=KV, G=G, D=D, ps=ps, n_pages=n_pages,
-                kv_lens=kv_lens, dtype=dtype, trash_tail=trash_tail)
-            want = paged_attention_plain(q, kp, vp, pages, kv_len,
-                                         window=window)
-            errs = {}
-            for pps in [None, *grid]:
-                got = paged_attention_kernel(q, kp, vp, pages, kv_len,
-                                             window=window,
-                                             pages_per_split=pps)
-                torch.cuda.synchronize()
-                e = kernel_vs_plain(got, want)
-                errs["default" if pps is None else str(pps)] = e
-                if max(e.values()) > KERNEL_TOL:
-                    raise AssertionError(
-                        f"kernel disagrees with plain at pages_per_split "
-                        f"{pps} ({dtype}, window={window}): {e}")
-                max_err = max(max_err, e["max_abs_err"])
-            case = {"dtype": str(dtype).replace("torch.", ""),
-                    "window": window, "trash_tail": trash_tail,
-                    **errs["default"], "tol": KERNEL_TOL,
-                    "err_by_pages_per_split": errs}
-            wcase, (qw, kt, vt) = wrapper_case(gen, q, kp, vp, pages, kv_len,
-                                               window, default_pps)
-            case.update(wcase)
-
-            # timing: rotate over enough pool copies to exceed the 50 MB
-            # L2, as in a decode step where 28 layers' weights pass between
-            # two launches on the same pool
-            elt = kp.element_size()
-            n_copies = max(2, math.ceil(100e6 / (2 * kp.numel() * elt)))
-            pools = [(kp.clone(), vp.clone()) for _ in range(n_copies)]
-            ms_by = {str(p): cuda_ms(lambda i, p=p: paged_attention_kernel(
-                q, *pools[i % n_copies], pages, kv_len, window=window,
-                pages_per_split=p), 50) for p in grid}
-            ms = cuda_ms(lambda i: paged_attention_kernel(
-                q, *pools[i % n_copies], pages, kv_len, window=window), 50)
-            wrapper_ms = cuda_ms(lambda i: paged_decode_attention(
-                qw, *pools[i % n_copies], pages, kv_len, kt, vt,
-                window=window, impl="kernel", pages_per_split=default_pps),
-                50)
-            plain_ms = cuda_ms(lambda i: paged_attention_plain(
-                q, *pools[i % n_copies], pages, kv_len, window=window), 3)
-            # library yardstick: one scaled_dot_product_attention call over
-            # the gathered dense view with a mask (the gather is not timed)
-            T = n_pages * ps
-            pos = torch.arange(T, device=DEV)[None, :]
-            ok = pos < kv_len[:, None]
-            if window is not None:
-                ok = ok & (pos >= kv_len[:, None] + 1 - window)
-            mask = ok[:, None, None, :]
-            qh = (q.reshape(B, KV * G, 1, D).float() * math.sqrt(D)).to(dtype)
-            views = [tuple(gather_pages_ref(p, pages).repeat_interleave(G, 1)
-                           for p in pair) for pair in pools]
-            library_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
-                qh, *views[i % n_copies], attn_mask=mask), 50)
-            bms, by = bound_ms(pages, kv_len, B=B, KV=KV, G=G, D=D, ps=ps,
-                               window=window, elt=elt)
-            case.update(ms=ms, pages_per_split=default_pps,
-                        ms_by_pages_per_split=ms_by, wrapper_ms=wrapper_ms,
-                        plain_ms=plain_ms, library_ms=library_ms,
-                        bound_ms=bms, bound_by=by, ms_over_bound=ms / bms)
-            emit("kernels", kernel="paged_attention",
-                 shape={"B": B, "KV": KV, "G": G, "D": D, "page_size": ps,
-                        "n_pages": n_pages, "kv_len": kv_lens}, **case)
+                kv_lens=kv_lens, dtype=dtype, window=window,
+                trash_tail=trash_tail, grid=grid, default_pps=default_pps)
+            max_err = max(max_err, err)
             if dtype == torch.bfloat16 and window is None:
                 main_case = case      # what the bf16 serving path runs
-            del pools, views
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:101",
@@ -502,14 +549,69 @@ def ssd_bound_ms(BC, H, Q, P, N):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ssd_timed_case(gen, BC, H, Q, P, N, grid,
+                   model: str | None = None) -> tuple[dict, float]:
+    """One shape of the SSD kernel: every row tile of the tuner's grid and
+    the default against its plain version (``SSD_TOL``), then timed at
+    each beside its plain version and its bound.  Emits a ``kernels`` line
+    and returns it with the largest error."""
+    from repro_torch.kernels.ssd_scan import (ssd_intra_chunk_kernel,
+                                              ssd_intra_chunk_plain)
+    from repro_torch.kernels.ssd_scan.kernel import default_row_tile
+
+    t0 = time.perf_counter()
+    max_err = 0.0
+    args = ssd_inputs(gen, BC, H, Q, P, N)
+    y_p, S_p = ssd_intra_chunk_plain(*args)
+    errs = {}
+    for rt in [None, *grid]:
+        y, S = ssd_intra_chunk_kernel(*args, row_tile=rt)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(y).all() and torch.isfinite(S).all()):
+            raise AssertionError(f"SSD kernel output not finite (BC "
+                                 f"{BC}, Q {Q}, row_tile {rt})")
+        err_y = float((y - y_p).abs().max())
+        err_s = float((S - S_p).abs().max())
+        e = {"max_abs_err": max(err_y, err_s),
+             "y_rel_err": err_y / float(y_p.abs().max()),
+             "S_rel_err": err_s / float(S_p.abs().max())}
+        errs["default" if rt is None else str(rt)] = e
+        if max(e["y_rel_err"], e["S_rel_err"]) > SSD_TOL:
+            raise AssertionError(f"SSD kernel disagrees with plain at "
+                                 f"row_tile {rt} (BC {BC}, H {H}, Q {Q}, N "
+                                 f"{N}): {e}")
+        max_err = max(max_err, e["max_abs_err"])
+    case = {"shape": {"BC": BC, "H": H, "Q": Q, "P": P, "N": N},
+            **errs["default"], "tol": SSD_TOL,
+            "err_by_launch_shape": errs}
+    # timing: rotate over input copies larger than the 50 MB L2, as in
+    # a prefill chunk, where a layer's weights pass between launches
+    in_bytes = sum(t.numel() * 4 for t in args)
+    n_copies = max(2, math.ceil(100e6 / in_bytes))
+    copies = [tuple(t.clone() for t in args) for _ in range(n_copies)]
+    ms_by = {str(rt): cuda_ms(lambda i, rt=rt: ssd_intra_chunk_kernel(
+        *copies[i % n_copies], row_tile=rt), 50) for rt in grid}
+    ms = cuda_ms(lambda i: ssd_intra_chunk_kernel(
+        *copies[i % n_copies]), 50)
+    plain_ms = cuda_ms(lambda i: ssd_intra_chunk_plain(
+        *copies[i % n_copies]), 10)
+    bms, by = ssd_bound_ms(BC, H, Q, P, N)
+    case.update(ms=ms, row_tile=default_row_tile(BC, H, Q, P, N),
+                ms_by_launch_shape=ms_by, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, ms_over_bound=ms / bms,
+                library_ms=None)
+    extra = {} if model is None else {"model": model,
+                                      "seconds": time.perf_counter() - t0}
+    emit("kernels", kernel="ssd_scan", **extra, **case)
+    del copies
+    return case, max_err
+
+
 def ssd_kernel_phase(n_layers: int) -> dict:
     """The SSD kernel at every row tile of the tuner's grid and at its
     default, against its plain version (``SSD_TOL``), at mamba2-370m's
     serving shapes; timed at each, beside its plain version and its
     bound."""
-    from repro_torch.kernels.ssd_scan import (ssd_intra_chunk_kernel,
-                                              ssd_intra_chunk_plain)
-    from repro_torch.kernels.ssd_scan.kernel import default_row_tile
     from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -521,49 +623,10 @@ def ssd_kernel_phase(n_layers: int) -> dict:
     # mamba2-370m's serving shapes: one chunk at the largest and smallest
     # bucket, and eight chunks at once
     for BC, Q in ((1, 256), (1, 16), (8, 256)):
-        H, P, N = 32, 64, 128
-        args = ssd_inputs(gen, BC, H, Q, P, N)
-        y_p, S_p = ssd_intra_chunk_plain(*args)
-        errs = {}
-        for rt in [None, *grid]:
-            y, S = ssd_intra_chunk_kernel(*args, row_tile=rt)
-            torch.cuda.synchronize()
-            if not (torch.isfinite(y).all() and torch.isfinite(S).all()):
-                raise AssertionError(f"SSD kernel output not finite (BC "
-                                     f"{BC}, Q {Q}, row_tile {rt})")
-            err_y = float((y - y_p).abs().max())
-            err_s = float((S - S_p).abs().max())
-            e = {"max_abs_err": max(err_y, err_s),
-                 "y_rel_err": err_y / float(y_p.abs().max()),
-                 "S_rel_err": err_s / float(S_p.abs().max())}
-            errs["default" if rt is None else str(rt)] = e
-            if max(e["y_rel_err"], e["S_rel_err"]) > SSD_TOL:
-                raise AssertionError(f"SSD kernel disagrees with plain at "
-                                     f"row_tile {rt} (BC {BC}, Q {Q}): {e}")
-            max_err = max(max_err, e["max_abs_err"])
-        case = {"shape": {"BC": BC, "H": H, "Q": Q, "P": P, "N": N},
-                **errs["default"], "tol": SSD_TOL,
-                "err_by_launch_shape": errs}
-        # timing: rotate over input copies larger than the 50 MB L2, as in
-        # a prefill chunk, where a layer's weights pass between launches
-        in_bytes = sum(t.numel() * 4 for t in args)
-        n_copies = max(2, math.ceil(100e6 / in_bytes))
-        copies = [tuple(t.clone() for t in args) for _ in range(n_copies)]
-        ms_by = {str(rt): cuda_ms(lambda i, rt=rt: ssd_intra_chunk_kernel(
-            *copies[i % n_copies], row_tile=rt), 50) for rt in grid}
-        ms = cuda_ms(lambda i: ssd_intra_chunk_kernel(
-            *copies[i % n_copies]), 50)
-        plain_ms = cuda_ms(lambda i: ssd_intra_chunk_plain(
-            *copies[i % n_copies]), 10)
-        bms, by = ssd_bound_ms(BC, H, Q, P, N)
-        case.update(ms=ms, row_tile=default_row_tile(BC, H, Q, P, N),
-                    ms_by_launch_shape=ms_by, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by, ms_over_bound=ms / bms,
-                    library_ms=None)
-        emit("kernels", kernel="ssd_scan", **case)
+        case, err = ssd_timed_case(gen, BC, 32, Q, 64, 128, grid)
+        max_err = max(max_err, err)
         if (BC, Q) == (1, 256):
             main_case = case        # what a full prefill chunk runs
-        del copies
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:57",
@@ -583,146 +646,9 @@ def ssd_kernel_phase(n_layers: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def parity_phase() -> None:
-    from repro_torch.configs import get_config
-    from repro_torch.serve import PageAllocator, PagedEngine
-    from repro_torch.weights import init_params
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
-                              compute_dtype="float32")
-    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(1),
-                         DEV)
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size - 1, (n,)).astype(np.int32)
-               for n in (700, 300, 129)]          # slot 3 stays free
-    engines = {impl: PagedEngine(cfg, params, batch=4, max_len=1024,
-                                 page_size=16, prefill_chunk=256,
-                                 attn_impl=impl, device=DEV)
-               for impl in ("kernel", "ref")}
-    n_steps = 12
-    first = {}
-    for impl, eng in engines.items():
-        alloc = PageAllocator(eng.num_pages)
-        for slot, p in enumerate(prompts):
-            pages = alloc.alloc(eng.pages_needed(len(p), n_steps + 1))
-            first[impl, slot] = eng.insert(slot, p, page_ids=pages,
-                                           max_new=n_steps + 1)
-    # teacher forcing: both engines decode the plain path's greedy tokens
-    toks = np.zeros((4, 1), np.int32)
-    for slot in range(len(prompts)):
-        toks[slot, 0] = int(first["ref", slot][0, -1].argmax())
-    worst, same, total = 0.0, 0, 0
-    for _ in range(n_steps):
-        lk = engines["kernel"].decode(toks).float()
-        lr = engines["ref"].decode(toks).float()
-        live = lk[:len(prompts), -1], lr[:len(prompts), -1]
-        if not torch.isfinite(lk).all():
-            raise AssertionError("kernel-path logits not finite")
-        rel = float((live[0] - live[1]).abs().max() / live[1].abs().max())
-        worst = max(worst, rel)
-        gk, gr = live[0].argmax(-1), live[1].argmax(-1)
-        same += int((gk == gr).sum())
-        total += len(prompts)
-        toks[:len(prompts), 0] = gr.cpu().numpy()
-    emit("parity", model=cfg.name, layers=cfg.n_layers, compute="float32",
-         decode_steps=n_steps, max_rel_logit_err=worst, tol=PARITY_TOL,
-         greedy_token_match=same / total)
-    if worst > PARITY_TOL:
-        raise AssertionError(f"kernel path logits differ from the plain "
-                             f"path: {worst} > {PARITY_TOL}")
-    del engines, params, first
-    torch.cuda.empty_cache()
-
-
-def serve_phase(kernel_mod) -> tuple[int, int, float, dict]:
-    from repro_torch.configs import get_config
-    from repro_torch.serve import PagedEngine, ServeScheduler
-    from repro_torch.weights import init_params
-
-    cfg = get_config("qwen2-1.5b")                    # bf16 compute
-    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
-                         DEV)
-    eng = PagedEngine(cfg, params, batch=8, max_len=2048, page_size=16,
-                      prefill_chunk=256, device=DEV)
-    del params                     # the engine holds its bf16 copy
-    torch.cuda.empty_cache()
-    sched = ServeScheduler(eng)
-    rng = np.random.default_rng(0)
-    # warm-up: cuBLAS handles and the first launches, off the record
-    for n in (64, 300):
-        sched.submit(rng.integers(0, cfg.vocab_size - 1, (n,)), max_new=2)
-    sched.run()
-    sched.reset_metrics()
-
-    decode_s: list[float] = []
-    decode = eng.decode
-
-    def timed_decode(tokens, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = decode(tokens, **kw)
-        torch.cuda.synchronize()
-        decode_s.append(time.perf_counter() - t0)
-        return out
-
-    eng.decode = timed_decode
-    lens = rng.integers(64, 1501, 16)
-    max_new = 32
-    steps0 = eng.n_decode_calls
-    kernel_mod.launches = 0
-    t0 = time.perf_counter()
-    for n in lens:
-        sched.submit(rng.integers(0, cfg.vocab_size - 1, (int(n),)),
-                     max_new=max_new)
-    results = sched.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernel_mod.launches
-    steps = eng.n_decode_calls - steps0
-
-    if len(results) != len(lens):
-        raise AssertionError(f"{len(results)} of {len(lens)} requests done")
-    bad = [r.rid for r in results if r.n_generated != max_new]
-    if bad:
-        raise AssertionError(f"requests {bad} did not produce {max_new} "
-                             f"tokens")
-    if any(o.outcome != "completed" for o in sched.outcomes.values()):
-        raise AssertionError(f"outcomes {sched.outcomes}")
-    if launches != steps * cfg.n_layers:
-        raise AssertionError(f"kernel launches {launches} != decode steps "
-                             f"{steps} x {cfg.n_layers} layers")
-    vocab_ok = all(0 <= t < cfg.padded_vocab for r in results
-                   for t in r.tokens)
-    if not vocab_ok:
-        raise AssertionError("a token id falls outside the vocabulary")
-    ttft = np.array([r.ttft_s for r in results])
-    n_tok = sum(r.n_generated for r in results)
-    emit("serve", model=cfg.name, layers=cfg.n_layers, compute="bfloat16",
-         batch=8, page_size=16, prefill_chunk=256, max_len=2048,
-         requests=len(results), prompt_lens=[int(n) for n in lens],
-         max_new=max_new, gen_tokens=n_tok, wall_s=wall,
-         tok_per_s=n_tok / wall, decode_steps=steps,
-         chunk_calls=eng.n_chunk_calls,
-         decode_ms_per_step_p50=float(np.median(decode_s) * 1e3),
-         decode_ms_per_step_mean=float(np.mean(decode_s) * 1e3),
-         ttft_p50_s=float(np.percentile(ttft, 50)),
-         ttft_p95_s=float(np.percentile(ttft, 95)),
-         kernel_launches=launches,
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-    eng.decode = decode
-    per_call = profile_decode(sched, cfg, rng, kernel_mod)
-    figures = {"tok_per_s": n_tok / wall,
-               "ttft_p50_s": float(np.percentile(ttft, 50)),
-               "ttft_p95_s": float(np.percentile(ttft, 95)),
-               "decode_ms_per_step_p50": float(np.median(decode_s) * 1e3),
-               "decode_steps": steps}
-    return launches, steps, per_call, figures
-
-
 def profile_decode(sched, cfg, rng, kernel_mod, n_steps: int = 8,
-                   n_pairs: int = 4) -> float:
+                   n_pairs: int = 4, phase: str = "profile",
+                   paths_phase: str = "decode_step_paths") -> float:
     """Where a decode step's time goes: a full batch of long prompts is
     prefilled; then decode-only scheduler steps run, first ``n_pairs``
     pairs timed alternately through the kernel path and the plain gather
@@ -750,7 +676,7 @@ def profile_decode(sched, cfg, rng, kernel_mod, n_steps: int = 8,
         torch.cuda.synchronize()
         step_ms[impl].append((time.perf_counter() - t0) * 1e3)
     eng.attn_impl = "auto"
-    emit("decode_step_paths", batch=eng.batch, context="1000-1500 tokens",
+    emit(paths_phase, batch=eng.batch, context="1000-1500 tokens",
          kernel_ms=step_ms["kernel"], ref_ms=step_ms["ref"],
          kernel_ms_median=float(np.median(step_ms["kernel"])),
          ref_ms_median=float(np.median(step_ms["ref"])))
@@ -764,7 +690,7 @@ def profile_decode(sched, cfg, rng, kernel_mod, n_steps: int = 8,
         wall = time.perf_counter() - t0
     calls = kernel_mod.launches
 
-    per_call = emit_profile("profile", prof, wall, "decode_steps", n_steps,
+    per_call = emit_profile(phase, prof, wall, "decode_steps", n_steps,
                             "step", focus="paged_", focus_calls=calls)
     if per_call != 2:
         raise AssertionError(f"{per_call} paged device kernels a wrapper "
@@ -776,12 +702,16 @@ def profile_decode(sched, cfg, rng, kernel_mod, n_steps: int = 8,
 SERVE_MAX_NEW = 32
 
 
-def serve_trace(cfg):
+SERVE_REQUESTS = 16
+
+
+def serve_trace(cfg, n_requests: int = SERVE_REQUESTS, rng=None):
     """The ``serve`` phase's draws, in its order: the two warm-up prompts,
-    then 16 prompt lengths in 64-1500 and their prompts."""
-    rng = np.random.default_rng(0)
+    then ``n_requests`` prompt lengths in 64-1500 and their prompts, from
+    ``rng`` (a fresh numpy seed 0 by default)."""
+    rng = np.random.default_rng(0) if rng is None else rng
     warm = [rng.integers(0, cfg.vocab_size - 1, (n,)) for n in (64, 300)]
-    lens = rng.integers(64, 1501, 16)
+    lens = rng.integers(64, 1501, n_requests)
     prompts = [rng.integers(0, cfg.vocab_size - 1, (int(n),)) for n in lens]
     return warm, lens, prompts
 
@@ -1273,17 +1203,32 @@ def prefill_check(cfg, params, prompts, max_len: int, plain: str) -> dict:
                 (got.argmax(-1) == want.argmax(-1)).float().mean())}
 
 
-def serve_waves_phase(arch: str, mods, kernel: str, plain: str,
-                      phase: str) -> int:
+def layer_counts(cfg) -> tuple[int, int]:
+    """(attention layers, SSM layers) of a model: every invocation of a
+    shared block counts as an attention layer."""
+    from repro_torch.models.transformer import layer_kinds
+
+    kinds = layer_kinds(cfg)
+    return len(kinds) - kinds.count("ssm"), kinds.count("ssm")
+
+
+def serve_waves_phase(arch: str, mods, plain: str, phase: str, *,
+                      waves: int = WAVES, max_new: int = WAVE_NEW,
+                      check_layers: int | None = None) -> dict:
     """The launcher's wave mode at full width: ``Engine(batch 8, max_len
-    1064)`` generates ``WAVES`` waves of 8 prompts of 1,024 tokens (numpy
-    seed 0), 32 greedy tokens each; wave 0 pays the one-time costs.
-    First the kernel-vs-plain check of a batched prefill at the wave's
-    shape (fp32 compute on the fp32 weights, gated at ``PARITY_TOL``; the
-    engine's bf16, reported); then the waves, with the launch counts set to
-    0 just before and read just after (the path's ``kernel`` must launch
-    once a layer a wave); then a few decode steps under ``torch.profiler``.
-    Returns the kernel's launches in the waves."""
+    1,024 + max_new + 8)`` generates ``waves`` waves of 8 prompts of 1,024
+    tokens (numpy seed 0), ``max_new`` greedy tokens each; wave 0 pays the
+    one-time costs.  First the kernel-vs-plain check of a batched prefill
+    at the wave's shape (fp32 compute on fp32 weights, gated at
+    ``PARITY_TOL``; the engine's bf16, reported) — on the model itself, or,
+    with ``check_layers``, on its depth cut to that many layers with fp32
+    weights of its own, the engine's weights then drawn in bf16 (qwen2-moe's
+    fp32 weights and their bf16 copy would not fit the card together);
+    then the waves, with the launch counts set to 0 just before and read
+    just after: the flash forward must launch once an attention layer a
+    wave and the SSD kernel once an SSM layer a wave; then a few decode
+    steps under ``torch.profiler``.  Returns the kernels' launches in the
+    waves."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -1291,19 +1236,36 @@ def serve_waves_phase(arch: str, mods, kernel: str, plain: str,
     from repro_torch.weights import init_params
 
     cfg = get_config(arch)                            # bf16 compute
-    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
-                         DEV)
+    n_attn, n_ssm = layer_counts(cfg)
     rng = np.random.default_rng(0)
-    waves = [rng.integers(0, cfg.vocab_size - 1, (WAVE_BATCH, WAVE_PROMPT)
-                          ).astype(np.int32) for _ in range(WAVES)]
-    max_len = WAVE_PROMPT + WAVE_NEW + 8
-    checks = [prefill_check(dataclasses.replace(cfg, compute_dtype="float32"),
-                            params, waves[0], max_len, plain)]
+    prompts_by_wave = [rng.integers(0, cfg.vocab_size - 1,
+                                    (WAVE_BATCH, WAVE_PROMPT)
+                                    ).astype(np.int32) for _ in range(waves)]
+    max_len = WAVE_PROMPT + max_new + 8
+    if check_layers is None:
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             DEV)
+        checks = [prefill_check(dataclasses.replace(
+            cfg, compute_dtype="float32"), params, prompts_by_wave[0],
+            max_len, plain)]
+    else:
+        cut = dataclasses.replace(cfg, n_layers=check_layers,
+                                  compute_dtype="float32")
+        params = init_params(cut, torch.Generator(device=DEV).manual_seed(1),
+                             DEV)
+        checks = [dict(prefill_check(cut, params, prompts_by_wave[0],
+                                     max_len, plain), layers=check_layers)]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = init_params(dataclasses.replace(cfg, param_dtype="bfloat16"),
+                             torch.Generator(device=DEV).manual_seed(0), DEV)
     eng = Engine(cfg, params, batch=WAVE_BATCH, max_len=max_len, device=DEV)
     del params                     # the engine holds its bf16 copy
     gc.collect()
     torch.cuda.empty_cache()
-    checks.append(prefill_check(cfg, eng.params, waves[0], max_len, plain))
+    checks.append(prefill_check(cfg, eng.params, prompts_by_wave[0], max_len,
+                                plain))
     if checks[0]["max_rel_logit_err"] > PARITY_TOL:
         raise AssertionError(f"{phase}: kernel-path prefill logits differ "
                              f"from impl={plain!r}: {checks[0]}")
@@ -1312,26 +1274,29 @@ def serve_waves_phase(arch: str, mods, kernel: str, plain: str,
     timer = CallTimer(eng, ("prefill", "decode"))
     seconds, tokens = [], []
     reset_launches(mods)
-    for prompts in waves:
+    for prompts in prompts_by_wave:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = eng.generate(prompts, max_new=WAVE_NEW)
+        out = eng.generate(prompts, max_new=max_new)
         seconds.append(time.perf_counter() - t0)
         tokens.append(count_generated(out, -1))
-        if out.shape != (WAVE_BATCH, WAVE_NEW) or not (
+        if out.shape != (WAVE_BATCH, max_new) or not (
                 (out >= 0) & (out < cfg.padded_vocab)).all():
             raise AssertionError(f"{phase}: generated {out.shape}, ids "
                                  f"[{out.min()}, {out.max()}]")
-    launches = read_launches(mods)[kernel]
+    launches = read_launches(mods)
     timer.restore()
-    if launches != WAVES * cfg.n_layers:
-        raise AssertionError(f"{phase}: {kernel} launched {launches} times, "
-                             f"expected {WAVES} waves x {cfg.n_layers}")
+    expected = {"flash_attention": waves * n_attn, "ssd_scan": waves * n_ssm}
+    for name, n in expected.items():
+        if launches[name] != n:
+            raise AssertionError(f"{phase}: {name} launched {launches[name]} "
+                                 f"times, expected {waves} waves x "
+                                 f"{n // waves} layers")
     steady_s = sum(seconds[1:])
-    n_decode = len(timer.seconds["decode"]) // WAVES
+    n_decode = len(timer.seconds["decode"]) // waves
 
     # where a decode step's time goes: a few more steps of the last wave's
-    # cache (its slots sit at 1,055 tokens) under the profiler
+    # cache under the profiler
     toks = out[:, -1:]
     eng.decode(toks)
     torch.cuda.synchronize()
@@ -1342,15 +1307,18 @@ def serve_waves_phase(arch: str, mods, kernel: str, plain: str,
             eng.decode(toks)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    emit(phase, model=cfg.name, layers=cfg.n_layers, compute="bfloat16",
-         batch=WAVE_BATCH, prompt_len=WAVE_PROMPT, max_new=WAVE_NEW,
-         max_len=max_len, waves=WAVES, wave_s=seconds,
+    emit(phase, model=cfg.name, layers=cfg.n_layers,
+         attention_layers=n_attn, ssm_layers=n_ssm, compute="bfloat16",
+         batch=WAVE_BATCH, prompt_len=WAVE_PROMPT, max_new=max_new,
+         max_len=max_len, waves=waves, wave_s=seconds,
          steady_tokens=sum(tokens[1:]), steady_s=steady_s,
          steady_tok_per_s=sum(tokens[1:]) / steady_s,
          prefill_ms_p50=timer.ms("prefill", skip=1),
          decode_ms_per_step_p50=timer.ms("decode", skip=n_decode),
-         kernel=kernel, kernel_launches=launches,
-         kernel_launches_per_wave=launches / WAVES,
+         kernels=[name for name, n in expected.items() if n],
+         kernel_launches={name: launches[name] for name in expected},
+         kernel_launches_per_wave={name: launches[name] / waves
+                                   for name in expected},
          trace_counts={name: eng.trace_count(name)
                        for name in ("prefill", "decode", "splice")},
          kernel_vs_plain=checks, plain_impl=plain, tol=PARITY_TOL,
@@ -1360,7 +1328,7 @@ def serve_waves_phase(arch: str, mods, kernel: str, plain: str,
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return {name: launches[name] for name in expected}
 
 
 def serve_dense_trace_phase(mods, paged: dict) -> int:
@@ -1611,154 +1579,10 @@ def prefill_through(eng, slot: int, prompt, page_ids, impl: str):
     return logits
 
 
-def parity_ssm_phase() -> None:
-    from repro_torch.configs import get_config
-    from repro_torch.serve import PageAllocator, PagedEngine
-    from repro_torch.weights import init_params
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("mamba2-370m"),
-                              compute_dtype="float32")
-    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(1),
-                         DEV)
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size - 1, (n,)).astype(np.int32)
-               for n in (700, 300, 129)]          # slot 3 stays free
-    engines = {impl: PagedEngine(cfg, params, batch=4, max_len=1024,
-                                 page_size=16, prefill_chunk=256,
-                                 device=DEV)
-               for impl in ("kernel", "ref")}
-    n_steps = 12
-    worst, same, total = 0.0, 0, 0
-
-    def compare(lk, lr):
-        nonlocal worst, same, total
-        lk, lr = lk.float(), lr.float()
-        if not torch.isfinite(lk).all():
-            raise AssertionError("kernel-path logits not finite")
-        worst = max(worst, float((lk - lr).abs().max() / lr.abs().max()))
-        same += int((lk.argmax(-1) == lr.argmax(-1)).sum())
-        total += lk.shape[0]
-        return lr.argmax(-1)
-
-    first = {}
-    for impl, eng in engines.items():
-        alloc = PageAllocator(eng.num_pages)
-        for slot, p in enumerate(prompts):
-            pages = alloc.alloc(eng.pages_needed(len(p), n_steps + 1))
-            first[impl, slot] = prefill_through(eng, slot, p, pages, impl)
-    toks = np.zeros((4, 1), np.int32)
-    for slot in range(len(prompts)):
-        tok = compare(first["kernel", slot][:, -1], first["ref", slot][:, -1])
-        toks[slot, 0] = int(tok[0])
-    # teacher forcing: both engines decode the plain path's greedy tokens
-    for _ in range(n_steps):
-        lk = engines["kernel"].decode(toks)[:len(prompts), -1]
-        lr = engines["ref"].decode(toks)[:len(prompts), -1]
-        toks[:len(prompts), 0] = compare(lk, lr).cpu().numpy()
-    emit("parity_ssm", model=cfg.name, layers=cfg.n_layers,
-         compute="float32", prompt_lens=[len(p) for p in prompts],
-         decode_steps=n_steps, max_rel_logit_err=worst, tol=PARITY_TOL,
-         greedy_token_match=same / total)
-    if worst > PARITY_TOL:
-        raise AssertionError(f"SSM kernel path logits differ from the plain "
-                             f"path: {worst} > {PARITY_TOL}")
-    del engines, params
-    torch.cuda.empty_cache()
-
-
-def serve_ssm_phase(kernel_mod) -> tuple[int, int, float]:
-    from repro_torch.configs import get_config
-    from repro_torch.serve import PagedEngine, ServeScheduler
-    from repro_torch.weights import init_params
-
-    cfg = get_config("mamba2-370m")                   # bf16 compute
-    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
-                         DEV)
-    eng = PagedEngine(cfg, params, batch=8, max_len=2048, page_size=16,
-                      prefill_chunk=256, device=DEV)
-    del params                     # the engine holds its bf16 copy
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    sched = ServeScheduler(eng)
-    rng = np.random.default_rng(0)
-    # warm-up: cuBLAS handles and the first launches, off the record; the
-    # same draws as the qwen2 serve phase, so the trace is the same
-    for n in (64, 300):
-        sched.submit(rng.integers(0, cfg.vocab_size - 1, (n,)), max_new=2)
-    sched.run()
-    sched.reset_metrics()
-
-    timed = {"decode": [], "prefill_chunk": []}
-    originals = {name: getattr(eng, name) for name in timed}
-
-    def timer(name):
-        def run(*args, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = originals[name](*args, **kw)
-            torch.cuda.synchronize()
-            timed[name].append(time.perf_counter() - t0)
-            return out
-        return run
-
-    for name in timed:
-        setattr(eng, name, timer(name))
-    lens = rng.integers(64, 1501, 16)
-    max_new = 32
-    steps0, chunks0 = eng.n_decode_calls, eng.n_chunk_calls
-    kernel_mod.launches = 0
-    t0 = time.perf_counter()
-    for n in lens:
-        sched.submit(rng.integers(0, cfg.vocab_size - 1, (int(n),)),
-                     max_new=max_new)
-    results = sched.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernel_mod.launches
-    steps = eng.n_decode_calls - steps0
-    chunks = eng.n_chunk_calls - chunks0
-    for name, fn in originals.items():
-        setattr(eng, name, fn)
-
-    if len(results) != len(lens):
-        raise AssertionError(f"{len(results)} of {len(lens)} requests done")
-    bad = [r.rid for r in results if r.n_generated != max_new]
-    if bad:
-        raise AssertionError(f"requests {bad} did not produce {max_new} "
-                             f"tokens")
-    if any(o.outcome != "completed" for o in sched.outcomes.values()):
-        raise AssertionError(f"outcomes {sched.outcomes}")
-    if launches == 0 or launches != chunks * cfg.n_layers:
-        raise AssertionError(f"SSD kernel launches {launches} != chunk "
-                             f"calls {chunks} x {cfg.n_layers} layers")
-    if not all(0 <= t < cfg.padded_vocab for r in results for t in r.tokens):
-        raise AssertionError("a token id falls outside the vocabulary")
-    ttft = np.array([r.ttft_s for r in results])
-    n_tok = sum(r.n_generated for r in results)
-    emit("serve_ssm", model=cfg.name, layers=cfg.n_layers,
-         compute="bfloat16", batch=8, page_size=16, prefill_chunk=256,
-         max_len=2048, requests=len(results),
-         prompt_lens=[int(n) for n in lens], max_new=max_new,
-         gen_tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
-         decode_steps=steps, chunk_calls=chunks,
-         decode_ms_per_step_p50=float(np.median(timed["decode"]) * 1e3),
-         decode_ms_per_step_mean=float(np.mean(timed["decode"]) * 1e3),
-         prefill_ms_per_chunk_p50=float(
-             np.median(timed["prefill_chunk"]) * 1e3),
-         prefill_ms_per_chunk_mean=float(
-             np.mean(timed["prefill_chunk"]) * 1e3),
-         ttft_p50_s=float(np.percentile(ttft, 50)),
-         ttft_p95_s=float(np.percentile(ttft, 95)),
-         kernel_launches=launches,
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-    per_call = prefill_chunk_paths(eng, rng, kernel_mod)
-    return launches, chunks, per_call
-
-
 def prefill_chunk_paths(eng, rng, kernel_mod, n_pairs: int = 4,
-                        n_profiled: int = 4) -> float:
+                        n_profiled: int = 4,
+                        phase: str = "profile_prefill",
+                        paths_phase: str = "prefill_chunk_paths") -> float:
     """Where a prefill chunk's time goes: full 256-token chunks of one
     prompt (a first chunk and a continuation) into a free slot, timed
     alternately through the kernel path and the plain einsum path
@@ -1794,7 +1618,7 @@ def prefill_chunk_paths(eng, rng, kernel_mod, n_pairs: int = 4,
         run(impl)
         torch.cuda.synchronize()
         chunk_ms[impl].append((time.perf_counter() - t0) * 1e3 / 2)
-    emit("prefill_chunk_paths", model=eng.cfg.name, chunk=C,
+    emit(paths_phase, model=eng.cfg.name, chunk=C,
          kernel_ms=chunk_ms["kernel"], ref_ms=chunk_ms["ref"],
          kernel_ms_median=float(np.median(chunk_ms["kernel"])),
          ref_ms_median=float(np.median(chunk_ms["ref"])))
@@ -1807,13 +1631,368 @@ def prefill_chunk_paths(eng, rng, kernel_mod, n_pairs: int = 4,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     calls = kernel_mod.launches
-    per_call = emit_profile("profile_prefill", prof, wall, "chunks",
+    per_call = emit_profile(phase, prof, wall, "chunks",
                             n_profiled, "chunk", focus="ssd_",
                             focus_calls=calls)
     if per_call != 2:
         raise AssertionError(f"{per_call} SSD device kernels a wrapper call "
                              f"({calls} calls profiled), expected 2")
     return per_call
+
+
+PARITY_PROMPTS = (700, 300, 129)  # slot 3 stays free
+PARITY_STEPS = 12
+
+
+def parity_paths(cfg, params) -> dict:
+    """The kernel path against the plain path on one model: two
+    ``PagedEngine``s (batch 4, max_len 1024, page 16, chunk 256) on the
+    same weights (``attn_impl`` kernel / ref), the ``PARITY_PROMPTS``
+    (numpy seed 1) chunk-prefilled through the SSD kernel and through its
+    plain version, then ``PARITY_STEPS`` teacher-forced decode steps (both
+    decode the plain path's greedy tokens).  Returns the largest difference
+    over max|logit| of the chunk (first-token) logits and of the decode
+    logits, the greedy tokens' agreement and, for a MoE model, how many
+    live decode rows picked other top-k experts on the kernel path than on
+    the plain path, by MoE layer (``moe._route`` recorded on both)."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.serve import PageAllocator, PagedEngine
+
+    engines = {impl: PagedEngine(cfg, params, batch=4, max_len=1024,
+                                 page_size=16, prefill_chunk=256,
+                                 attn_impl=impl, device=DEV)
+               for impl in ("kernel", "ref")}
+    worst = {"chunk": 0.0, "decode": 0.0}
+    same = total = 0
+
+    def compare(kind, lk, lr):
+        nonlocal same, total
+        lk, lr = lk.float(), lr.float()
+        if not torch.isfinite(lk).all():
+            raise AssertionError(f"{cfg.name}: kernel-path logits not finite")
+        worst[kind] = max(worst[kind], float((lk - lr).abs().max()
+                                             / lr.abs().max()))
+        same += int((lk.argmax(-1) == lr.argmax(-1)).sum())
+        total += lk.shape[0]
+        return lr.argmax(-1)
+
+    first = {}
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, (n,)).astype(np.int32)
+               for n in PARITY_PROMPTS]
+    for impl, eng in engines.items():
+        alloc = PageAllocator(eng.num_pages)
+        for slot, p in enumerate(prompts):
+            pages = alloc.alloc(eng.pages_needed(len(p), PARITY_STEPS + 1))
+            with torch.no_grad():
+                first[impl, slot] = prefill_through(eng, slot, p, pages,
+                                                    impl)
+    toks = np.zeros((4, 1), np.int32)
+    for slot in range(len(prompts)):
+        toks[slot, 0] = int(compare("chunk", first["kernel", slot][:, -1],
+                                    first["ref", slot][:, -1])[0])
+    n = len(prompts)
+    picks = {"kernel": [], "ref": []}
+    route = moe._route
+
+    def recording(impl):
+        def run(*args):
+            out = route(*args)
+            picks[impl].append(out[2][:n, -1].sort(-1).values)
+            return out
+        return run
+
+    try:
+        for _ in range(PARITY_STEPS):
+            moe._route = recording("kernel")
+            lk = engines["kernel"].decode(toks)[:n, -1]
+            moe._route = recording("ref")
+            lr = engines["ref"].decode(toks)[:n, -1]
+            toks[:n, 0] = compare("decode", lk, lr).cpu().numpy()
+    finally:
+        moe._route = route
+    del engines, first
+    out = {"compute": cfg.compute_dtype, "layers": cfg.n_layers,
+           "prompt_lens": list(PARITY_PROMPTS), "decode_steps": PARITY_STEPS,
+           "chunk_max_rel_logit_err": worst["chunk"],
+           "decode_max_rel_logit_err": worst["decode"],
+           "max_rel_logit_err": max(worst.values()),
+           "greedy_token_match": same / total,
+           "greedy_streams_agree": same == total}
+    n_moe = layer_kinds(cfg).count("moe")
+    if n_moe:
+        if not len(picks["kernel"]) == len(picks["ref"]) \
+                == PARITY_STEPS * n_moe:
+            raise AssertionError(f"{cfg.name}: router calls "
+                                 f"{len(picks['kernel'])}, "
+                                 f"{len(picks['ref'])}, expected "
+                                 f"{PARITY_STEPS} x {n_moe}")
+        flips = torch.stack([(a != b).any(-1).sum() for a, b in
+                             zip(picks["kernel"], picks["ref"])])
+        out["routing_rows_per_layer"] = PARITY_STEPS * n
+        out["routing_flips_by_layer"] = \
+            flips.view(PARITY_STEPS, n_moe).sum(0).tolist()
+    return out
+
+
+def parity_phase(phase: str, arch: str, depth: int | None = None) -> dict:
+    """``parity_paths`` in fp32 compute (TF32 off) on fp32 weights from a
+    generator seeded 1, at full width and ``depth`` layers (all when
+    None): emits ``phase`` and fails unless the chunk and decode logits
+    agree within ``PARITY_TOL`` of max|logit|."""
+    from repro_torch.configs import get_config
+    from repro_torch.weights import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                              n_layers=depth or cfg.n_layers)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(1),
+                         DEV)
+    out = parity_paths(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase, model=cfg.name, **out, tol=PARITY_TOL)
+    if out["max_rel_logit_err"] > PARITY_TOL:
+        raise AssertionError(f"{phase}: kernel path logits differ from the "
+                             f"plain path: {out}")
+    return out
+
+
+def serve_paged_phase(phase: str, arch: str, mods, *, requests: int,
+                      parity: str, depth: int | None = None,
+                      tag: str | None = None) -> dict:
+    """One model served at full width through ``PagedEngine``.
+
+    First ``parity_phase`` (emitted as ``parity``, at ``depth`` layers)
+    and the same two paths in bf16 at full depth, reported, not gated.
+    Then ``ServeScheduler`` over ``PagedEngine(batch=8, page_size=16,
+    prefill_chunk=256, max_len=2048)``, weights from a generator seeded 0
+    cast to bf16 block by block, serves the first ``requests`` requests of
+    ``serve_trace`` (prompts 64-1500, 32 greedy tokens each) after its
+    two-request warm-up: every request gets its tokens, and, with the
+    counts set to 0 just before and read just after, the paged kernel runs
+    once an attention layer a decode step and SSD once an SSM layer a
+    prefill chunk, each at least once where the model has such layers.
+    Tok/s, TTFT p50/p95, the decode step and the prefill chunk; then
+    ``profile_decode`` where the model has attention layers and
+    ``prefill_chunk_paths`` where it has SSM layers, their lines suffixed
+    with ``tag`` (``_<phase>`` by default).  Returns the launches by
+    kernel, the decode steps and chunk calls, the device kernels a wrapper
+    call each profile saw, and the serve figures."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.serve import PagedEngine, ServeScheduler
+    from repro_torch.weights import init_params
+
+    t_phase = time.perf_counter()
+    tag = f"_{phase}" if tag is None else tag
+    gate = parity_phase(parity, arch, depth)
+    cfg = get_config(arch)                            # bf16 compute
+    n_attn, n_ssm = layer_counts(cfg)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV, cast=True)
+    bf16_gap = parity_paths(cfg, params)
+    eng = PagedEngine(cfg, params, batch=8, max_len=2048, page_size=16,
+                      prefill_chunk=256, device=DEV)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    warm, lens, prompts = serve_trace(cfg, requests, rng)
+    sched = ServeScheduler(eng)
+    # warm-up: cuBLAS handles and the first launches, off the record
+    for w in warm:
+        sched.submit(w, max_new=2)
+    sched.run()
+    sched.reset_metrics()
+
+    timer = CallTimer(eng, ("decode", "prefill_chunk"))
+    steps0, chunks0 = eng.n_decode_calls, eng.n_chunk_calls
+    reset_launches(mods)
+    t0 = time.perf_counter()
+    for p in prompts:
+        sched.submit(p, max_new=SERVE_MAX_NEW)
+    results = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(mods)
+    timer.restore()
+    steps = eng.n_decode_calls - steps0
+    chunks = eng.n_chunk_calls - chunks0
+
+    if len(results) != len(prompts) or any(
+            r.n_generated != SERVE_MAX_NEW for r in results):
+        raise AssertionError(f"{phase}: {len(results)} requests done, "
+                             f"{[r.n_generated for r in results]}")
+    if any(o.outcome != "completed" for o in sched.outcomes.values()):
+        raise AssertionError(f"{phase}: outcomes {sched.outcomes}")
+    for kernel, calls, layers in (("paged_attention", steps, n_attn),
+                                  ("ssd_scan", chunks, n_ssm)):
+        if launches[kernel] != calls * layers or (
+                layers and not launches[kernel]):
+            raise AssertionError(f"{phase}: {kernel} launched "
+                                 f"{launches[kernel]} times in {calls} "
+                                 f"calls x {layers} layers")
+    if not all(0 <= t < cfg.padded_vocab for r in results for t in r.tokens):
+        raise AssertionError(f"{phase}: a token id falls outside the "
+                             f"vocabulary")
+    ttft = np.array([r.ttft_s for r in results])
+    n_tok = sum(r.n_generated for r in results)
+    figures = {"tok_per_s": n_tok / wall,
+               "ttft_p50_s": float(np.percentile(ttft, 50)),
+               "ttft_p95_s": float(np.percentile(ttft, 95)),
+               "decode_ms_per_step_p50": timer.ms("decode"),
+               "decode_steps": steps}
+    emit(phase, model=cfg.name, layers=cfg.n_layers,
+         attention_layers=n_attn, ssm_layers=n_ssm, compute="bfloat16",
+         batch=8, page_size=16, prefill_chunk=256, max_len=2048,
+         requests=len(results), prompt_lens=[int(n) for n in lens],
+         max_new=SERVE_MAX_NEW, gen_tokens=n_tok, wall_s=wall,
+         chunk_calls=chunks, **figures,
+         decode_ms_per_step_mean=float(
+             np.mean(timer.seconds["decode"]) * 1e3),
+         prefill_ms_per_chunk_p50=timer.ms("prefill_chunk"),
+         prefill_ms_per_chunk_mean=float(
+             np.mean(timer.seconds["prefill_chunk"]) * 1e3),
+         kernel_launches={k: launches[k] for k in ("paged_attention",
+                                                   "ssd_scan")},
+         kernel_vs_plain_fp32=gate, tol=PARITY_TOL,
+         kernel_vs_plain_bf16_full_depth=bf16_gap,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+         seconds_so_far=time.perf_counter() - t_phase)
+    per_call = {}
+    if n_attn:
+        per_call["paged_attention"] = profile_decode(
+            sched, cfg, rng, pa_kernel, phase=f"profile{tag}",
+            paths_phase=f"decode_step_paths{tag}")
+    if n_ssm:
+        per_call["ssd_scan"] = prefill_chunk_paths(
+            eng, rng, ssd_kernel, phase=f"profile_prefill{tag}",
+            paths_phase=f"prefill_chunk_paths{tag}")
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {k: launches[k] for k in ("paged_attention",
+                                                  "ssd_scan")},
+            "chunk_calls": chunks, "device_kernels_per_call": per_call,
+            **figures}
+
+
+# ---------------------------------------------------------------------------
+# the MoE and hybrid families: qwen2-moe-a2.7b and zamba2-1.2b
+# ---------------------------------------------------------------------------
+
+
+FAMILY_REQUESTS = 8
+FAMILY_WAVES = 2
+FAMILY_WAVE_NEW = 16
+
+
+def case_summary(case: dict, err: float) -> dict:
+    return {"max_abs_err": err, **{k: case[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
+def flash_serve_case(gen, B, S, H, D, model: str) -> tuple[dict, float]:
+    """The flash forward at the dense engine's batched prefill of one MoE
+    or hybrid model (bf16, causal, H = KV): every launch shape of the
+    tuner's grid against its plain version (``FA_TOL``, LSE
+    ``FA_LSE_TOL``), then the default timed beside its plain version,
+    ``scaled_dot_product_attention`` and its bound.  Emits a ``kernels``
+    line and returns it with the largest error."""
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention.kernel import BLOCKS
+
+    t0 = time.perf_counter()
+    dtype = torch.bfloat16
+    q, k, v = fa_inputs(gen, B, S, S, H, H, D, dtype)
+    out_p, lse_p = flash_attention_plain(q, k, v, causal=True)
+    errs = {}
+    for qb in (None, *BLOCKS):
+        for kb in ((None,) if qb is None else BLOCKS):
+            out, lse = flash_attention_kernel(q, k, v, causal=True,
+                                              q_block=qb, kv_block=kb)
+            torch.cuda.synchronize()
+            err = float((out.float() - out_p.float()).abs().max())
+            lse_err = float((lse - lse_p).abs().max())
+            errs["default" if qb is None else f"{qb}x{kb}"] = [err, lse_err]
+            if (out.shape != q.shape or not torch.isfinite(out.float()).all()
+                    or err > FA_TOL[dtype] or lse_err > FA_LSE_TOL):
+                raise AssertionError(f"flash kernel disagrees with plain at "
+                                     f"{model}'s shape ({qb}x{kb}): {err}, "
+                                     f"{lse_err}")
+    copies = _rotating((q, k, v))
+    heads = [tuple(t.transpose(1, 2).contiguous() for t in c)
+             for c in copies]
+    case = {"case": f"serve_{model}", "B": B, "S": S, "T": S, "H": H,
+            "KV": H, "D": D, "causal": True, "window": None,
+            "dtype": "bfloat16", "tol": FA_TOL[dtype], "lse_tol": FA_LSE_TOL,
+            "err_by_launch_shape": errs,
+            "max_abs_err": max(e for e, _ in errs.values()),
+            "ms": cuda_ms(lambda i: flash_attention_kernel(
+                *copies[i % len(copies)], causal=True), 20),
+            "plain_ms": cuda_ms(lambda i: flash_attention_plain(
+                *copies[i % len(copies)], causal=True), 3),
+            "library_ms": cuda_ms(lambda i: F.scaled_dot_product_attention(
+                *heads[i % len(heads)], is_causal=True), 20),
+            **fa_bound(B, S, S, H, H, D, True, None, dtype)}
+    emit("kernels", kernel="flash_attention", model=model,
+         seconds=time.perf_counter() - t0, **case)
+    del copies, heads
+    torch.cuda.empty_cache()
+    return case, case["max_abs_err"]
+
+
+def family_kernel_phase() -> dict:
+    """``kernels`` lines at the shapes qwen2-moe-a2.7b and zamba2-1.2b
+    give the three kernels on their paths, each against its plain
+    version: the paged kernel (bf16, decode at batch 8, page 16, max_len
+    2048, G 1: KV 16 x D 128 and KV 32 x D 64) at every pages-a-split
+    value and the default, SSD at zamba2's chunk (1, 64, 256, 64, 64) at
+    every row tile, and the flash forward at the dense engine's batched
+    prefill (B 8, S 1,024, H = KV 16 x D 128 and 32 x D 64).  Returns each
+    kernel's figures by model."""
+    from repro_torch.kernels.paged_attention.kernel import \
+        default_pages_per_split
+    from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    out = {"paged_attention": {}, "ssd_scan": {}, "flash_attention": {}}
+    pps_grid = [c["pages_per_split"]
+                for c in DEFAULT_CANDIDATES["paged_attention"]]
+    kv_lens = [2048, 1999, 1500, 1024, 777, 300, 17, 0]
+    shapes = (("qwen2-moe-a2.7b", 16, 128), ("zamba2-1.2b", 32, 64))
+    for model, KV, D in shapes:
+        case, err = paged_timed_case(
+            gen, B=8, KV=KV, G=1, D=D, ps=16, n_pages=128, kv_lens=kv_lens,
+            dtype=torch.bfloat16, window=None, trash_tail=0, grid=pps_grid,
+            default_pps=default_pages_per_split(8, KV, 128), model=model)
+        out["paged_attention"][model] = dict(
+            case_summary(case, err), pages_per_split=case["pages_per_split"],
+            ms_by_pages_per_split=case["ms_by_pages_per_split"])
+    case, err = ssd_timed_case(
+        gen, 1, 64, 256, 64, 64,
+        [c["row_tile"] for c in DEFAULT_CANDIDATES["ssd_scan"]],
+        model="zamba2-1.2b")
+    out["ssd_scan"]["zamba2-1.2b"] = dict(
+        case_summary(case, err), row_tile=case["row_tile"],
+        ms_by_launch_shape=case["ms_by_launch_shape"])
+    for model, H, D in shapes:        # H = KV: the models' head counts
+        case, err = flash_serve_case(gen, WAVE_BATCH, WAVE_PROMPT, H, D,
+                                     model)
+        out["flash_attention"][model] = case_summary(case, err)
+    emit("family_kernels", seconds=time.perf_counter() - t0)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3178,12 +3357,16 @@ def main() -> int:
     emit("build_flash_bwd", **ptxas_summary(
         build.BUILD_LOGS.get("flash_attention_bwd", "")))
 
+    serve_mods = (pa_kernel, ssd_kernel, fa_kernel)
     entry = kernel_phase(n_layers=28)
-    parity_phase()
-    launches, steps, per_call, paged_serve = serve_phase(pa_kernel)
-    entry["launches"] = launches
-    entry["launches_per_decode_step"] = launches / steps
-    entry["device_kernels_per_call"] = per_call
+    paged_serve = serve_paged_phase("serve", "qwen2-1.5b", serve_mods,
+                                    requests=SERVE_REQUESTS, parity="parity",
+                                    tag="")
+    entry["launches"] = paged_serve["launches"]["paged_attention"]
+    entry["launches_per_decode_step"] = (entry["launches"]
+                                         / paged_serve["decode_steps"])
+    entry["device_kernels_per_call"] = \
+        paged_serve["device_kernels_per_call"]["paged_attention"]
     serve_hypar_phase(pa_kernel)
     # device groups and the robustness layer: the paged kernel, and SSD
     # in mamba2's chunks (counts read per run)
@@ -3192,23 +3375,49 @@ def main() -> int:
     entry["launches_serve_groups_parity"] = groups_parity["paged_attention"]
     # the dense engine's paths: the flash forward in its batched prefills
     # and inserts, the SSD kernel likewise (counts read per phase)
-    serve_mods = (pa_kernel, ssd_kernel, fa_kernel)
     dense_launches = {
         "serve_dense_trace": serve_dense_trace_phase(serve_mods, paged_serve),
-        "serve_waves": serve_waves_phase("qwen2-1.5b", serve_mods,
-                                         "flash_attention", "dense",
-                                         "serve_waves")}
+        "serve_waves": serve_waves_phase(
+            "qwen2-1.5b", serve_mods, "dense",
+            "serve_waves")["flash_attention"]}
 
     ssd_entry = ssd_kernel_phase(n_layers=48)
-    parity_ssm_phase()
-    launches, chunks, per_call = serve_ssm_phase(ssd_kernel)
-    ssd_entry["launches"] = launches
-    ssd_entry["launches_per_chunk"] = launches / chunks
-    ssd_entry["device_kernels_per_call"] = per_call
+    ssm_serve = serve_paged_phase("serve_ssm", "mamba2-370m", serve_mods,
+                                  requests=SERVE_REQUESTS,
+                                  parity="parity_ssm", tag="")
+    ssd_entry["launches"] = ssm_serve["launches"]["ssd_scan"]
+    ssd_entry["launches_per_chunk"] = (ssd_entry["launches"]
+                                       / ssm_serve["chunk_calls"])
+    ssd_entry["device_kernels_per_call"] = \
+        ssm_serve["device_kernels_per_call"]["ssd_scan"]
     ssd_entry["launches_serve_groups_parity"] = groups_parity["ssd_scan"]
     ssd_entry["launches_serve_waves_ssm"] = serve_waves_phase(
-        "mamba2-370m", serve_mods, "ssd_scan", "ref", "serve_waves_ssm")
+        "mamba2-370m", serve_mods, "ref", "serve_waves_ssm")["ssd_scan"]
     dense_vs_paged_phase(serve_mods)
+
+    # the MoE and hybrid families: the three serving kernels at their
+    # shapes, paged serving and the dense engine's waves (counts read per
+    # phase); qwen2-moe's fp32 gate is cut to 4 layers (its fp32 weights
+    # are 57 GB), zamba2's runs whole
+    family_shapes = family_kernel_phase()
+    family = {phase: serve_paged_phase(
+        phase, arch, serve_mods, requests=FAMILY_REQUESTS,
+        parity=f"parity_{phase[len('serve_'):]}", depth=depth)["launches"]
+        for phase, arch, depth in (("serve_moe", "qwen2-moe-a2.7b", 4),
+                                   ("serve_hybrid", "zamba2-1.2b", None))}
+    for phase, arch, plain, cut in (
+            ("serve_waves_moe", "qwen2-moe-a2.7b", "dense", 4),
+            ("serve_waves_hybrid", "zamba2-1.2b", "ref", None)):
+        family[phase] = serve_waves_phase(
+            arch, serve_mods, plain, phase, waves=FAMILY_WAVES,
+            max_new=FAMILY_WAVE_NEW, check_layers=cut)
+    entry["launches_serve_moe"] = family["serve_moe"]["paged_attention"]
+    entry["launches_serve_hybrid"] = family["serve_hybrid"]["paged_attention"]
+    entry["by_model"] = family_shapes["paged_attention"]
+    ssd_entry["launches_serve_hybrid"] = family["serve_hybrid"]["ssd_scan"]
+    ssd_entry["launches_serve_waves_hybrid"] = \
+        family["serve_waves_hybrid"]["ssd_scan"]
+    ssd_entry["by_model"] = family_shapes["ssd_scan"]
 
     jacobi_entries = jacobi_kernel_phase()
     jobmodel_phase()
@@ -3233,6 +3442,9 @@ def main() -> int:
         e["launches_per_step"] = e["launches"] / TRAIN_STEPS
     for phase, n in dense_launches.items():
         fa_entry[f"launches_{phase}"] = n
+    for phase in ("serve_waves_moe", "serve_waves_hybrid"):
+        fa_entry[f"launches_{phase}"] = family[phase]["flash_attention"]
+    fa_entry["by_model"] = family_shapes["flash_attention"]
     fa_bwd_entry["device_kernels_per_call"] = FA_BWD_KERNELS
     train_hypar_phase(mods)
     train_proc_phase()

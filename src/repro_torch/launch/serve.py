@@ -15,7 +15,11 @@ Two modes, as in the reference's launcher:
 
 The engine runs on ``--device cuda`` (the default; it raises where no
 CUDA device exists) or, asked for explicitly, on the CPU.  Weights are
-random, drawn from ``--seed`` with a ``torch.Generator``.
+random, drawn from ``--seed`` with a ``torch.Generator`` and cast to the
+compute dtype block by block, as the engines cast them.  Every family the
+port serves runs here: dense, MoE (``--arch qwen2-moe-a2.7b``,
+``mixtral-8x7b``), SSM (``mamba2-370m``) and the hybrid
+(``zamba2-1.2b``).
 
 ``--engine hypar`` routes every admission wave of a trace through the core
 job machinery (:class:`~repro_torch.serve.HyParRequestTracker`: dynamic
@@ -455,7 +459,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_params(cfg, gen, device)
+    # cast block by block as drawn, as the engines would cast them: the
+    # card holds one copy (qwen2-moe-a2.7b's fp32 weights and a bf16 copy
+    # beside them would not fit 80 GB)
+    params = init_params(cfg, gen, device, cast=True)
     sp = SamplingParams(temperature=args.temperature)
     if not args.trace:
         waves = run_waves(cfg, params, args, sp=sp)

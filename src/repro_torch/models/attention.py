@@ -14,7 +14,10 @@ numerically equivalent cores, picked by ``impl``:
 
 ``auto`` resolves by the tensor's device, as every kernel wrapper of the
 port does: the kernel on CUDA; on the CPU the reference's rule, ``dense``
-up to S·T = 4096²/4 and ``tiled`` beyond.  (The reference's ``auto``
+up to S·T = 4096²/4 and ``tiled`` beyond.  ``ref`` takes that plain rule
+on any device, as the kernel wrappers' ``ref`` does (so one ``impl="ref"``
+runs a hybrid model's attention and SSM layers both on their plain
+paths).  (The reference's ``auto``
 never picks its Pallas kernel, which ``jax.grad`` cannot differentiate.)
 
 Three forms serve the paged engine:
@@ -57,7 +60,7 @@ __all__ = ["NEG_INF", "ATTN_IMPLS", "init_attention", "attention",
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
 
 #: ``impl`` values of the cache-less attention core
-ATTN_IMPLS = ("auto", "dense", "tiled", "kernel", "pallas")
+ATTN_IMPLS = ("auto", "dense", "tiled", "kernel", "pallas", "ref")
 
 
 def init_attention(generator, cfg: ModelConfig, device) -> dict:

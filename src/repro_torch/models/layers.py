@@ -162,19 +162,26 @@ def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def cast_weights(params, compute_dtype: torch.dtype):
-    """Copy of ``params`` with every dense weight/bias (``w``/``b``) and
-    embedding table cast to ``compute_dtype`` once — the casts ``dense``,
-    ``embed`` and ``unembed`` would otherwise repeat on every call.  Norm
-    scales keep their dtype: ``apply_norm`` reads them in fp32."""
+    """Copy of ``params`` with every dense weight/bias (``w``/``b``),
+    embedding table and MoE expert tensor (``gate``/``up``/``down`` arrays)
+    cast to ``compute_dtype`` once — the casts ``dense``, ``embed``,
+    ``unembed`` and the expert products would otherwise repeat on every
+    call.  Norm scales keep their dtype (``apply_norm`` reads them in
+    fp32), and so do the MoE router and shared-expert gate, which the
+    reference reads in fp32."""
     if isinstance(params, dict):
-        return {k: (v.to(compute_dtype)
-                    if k in ("w", "b", "table", "unembed")
+        return {k: (v if k in _KEEP_DTYPE
+                    else v.to(compute_dtype) if k in _CAST
                     and isinstance(v, torch.Tensor)
                     else cast_weights(v, compute_dtype))
                 for k, v in params.items()}
     if isinstance(params, list):
         return [cast_weights(v, compute_dtype) for v in params]
     return params
+
+
+_CAST = ("w", "b", "table", "unembed", "gate", "up", "down")
+_KEEP_DTYPE = ("router", "shared_gate")
 
 
 # -- RoPE -------------------------------------------------------------------------

@@ -1,19 +1,25 @@
-"""Model composition: the dense GQA decoder family and the attention-free
-Mamba-2 (``ssm``) family for serving, and the dense family's full-sequence
-forward and loss for training.
+"""Model composition: the dense GQA decoder family, the mixture-of-experts
+family (``moe`` blocks: attention + routed experts), the attention-free
+Mamba-2 (``ssm``) family and zamba2's hybrid (SSM blocks with one
+``shared`` attention + MLP block re-invoked every k of them) for serving
+and the full-sequence forward, and the dense family's loss for training.
 
 Parameters are the JAX package's pytree unstacked: ``{"embed": {"table"},
-"layers": [block, ...], "norm_f": {"scale"}}`` with one dict per layer
-(the reference stacks layers on a leading axis for ``lax.scan``; here a
+"layers": [block, ...], "norm_f": {"scale"}}`` with one dict per layer in
+the order ``layer_kinds`` gives (the reference stacks each pattern
+position's layers on a leading axis for ``lax.scan``, then a tail; here a
 plain Python loop runs them).  A dense block is ``{"ln1", "attn", "ln2",
-"mlp"}``, an SSM block ``{"ln1", "mixer"}``.
+"mlp"}``, a MoE block ``{"ln1", "attn", "ln2", "moe"}``, an SSM block
+``{"ln1", "mixer"}``.  A hybrid model's ``shared`` positions hold ``{}``
+in ``"layers"``, and the one block they all run is ``params["shared"]``.
 
 Two serving caches, both with the SSM layers' per-slot state ``"conv"``:
 (n_ssm, B, W-1, d_inner + 2N) and ``"state"``: (n_ssm, B, H, P, N), fp32
 (SSM state is O(1) per slot and has no pages):
 
 * the dense cache (``init_cache``, the dense ``Engine``): ``"k"``/``"v"``
-  (n_attn, B, KV, T, D), one per-slot buffer per attention layer, and
+  (n_attn, B, KV, T, D), one per-slot buffer per attention layer (each
+  invocation of a shared block is a layer of its own), and
   ``"len"``, a scalar while the batch is uniform and (B,) once slots
   diverge;
 * the paged cache (``init_paged_cache``, ``PagedEngine``): ``"k"``/``"v"``
@@ -25,10 +31,11 @@ Two serving caches, both with the SSM layers' per-slot state ``"conv"``:
 either cache: without ``pages`` S == 1 decodes and S > 1 is a batched
 prefill from a fresh cache.
 
-``forward`` / ``loss_fn`` run the whole sequence with no cache (the
-training path); ``cfg.remat == "full"`` recomputes each layer in the
-backward pass (``torch.utils.checkpoint``), so its attention kernel runs
-twice a layer.
+``forward`` runs the whole sequence with no cache and returns the MoE
+blocks' summed auxiliary loss; ``loss_fn`` (the training path) takes the
+dense family only (``check_trainable``).  ``cfg.remat == "full"``
+recomputes each layer in the backward pass (``torch.utils.checkpoint``),
+so its attention kernel runs twice a layer.
 
 The serving steps UPDATE THE CACHE IN PLACE (buffers, pools, SSM state and
 ``len``) and return the same dict — the reference returns a new cache.
@@ -47,8 +54,9 @@ from ..kernels.runtime import resolve_impl
 from ..tree import tree_leaves
 from .attention import attention, gather_pages, init_attention
 from .config import ModelConfig
-from .layers import (apply_mlp, apply_norm, dtype_of, embed, init_embedding,
-                     init_mlp, init_norm, unembed)
+from .layers import (apply_mlp, apply_norm, cast_weights, dtype_of, embed,
+                     init_embedding, init_mlp, init_norm, unembed)
+from .moe import apply_moe, init_moe
 from .ssm import apply_mamba2, init_mamba2, init_ssm_cache, mamba2_decode_step
 
 __all__ = ["LayerPlan", "layer_plan", "layer_kinds", "init_block",
@@ -58,7 +66,7 @@ __all__ = ["LayerPlan", "layer_plan", "layer_kinds", "init_block",
            "forward", "loss_fn"]
 
 #: block kinds the port runs
-PORTED_KINDS = ("dense", "ssm")
+PORTED_KINDS = ("dense", "moe", "ssm", "shared")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,9 +107,9 @@ def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense family (attention + gated MLP in every
-    layer) and the ssm family (a Mamba-2 mixer in every layer); the other
-    block kinds come with later slices."""
+    """The port serves the dense, moe, ssm and hybrid families; the other
+    block kinds (local/global windows, encoder-decoder) come with later
+    slices."""
     plan = layer_plan(cfg)
     missing = sorted(set(plan.pattern + plan.tail) - set(PORTED_KINDS))
     if missing:
@@ -119,65 +127,101 @@ def init_block(generator, cfg: ModelConfig, device, kind: str) -> dict:
     if kind == "ssm":
         return {"ln1": init_norm(cfg, device),
                 "mixer": init_mamba2(generator, cfg, device)}
-    return {"ln1": init_norm(cfg, device),
-            "attn": init_attention(generator, cfg, device),
-            "ln2": init_norm(cfg, device),
-            "mlp": init_mlp(generator, cfg, device)}
+    p = {"ln1": init_norm(cfg, device),
+         "attn": init_attention(generator, cfg, device),
+         "ln2": init_norm(cfg, device)}
+    if kind == "moe":
+        p["moe"] = init_moe(generator, cfg, device)
+    else:
+        p["mlp"] = init_mlp(generator, cfg, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> dict:
+                device, *, cast: bool = False) -> dict:
     """Random parameters in the port's layout, with the reference's
     truncated-normal scales, drawn from ``generator`` (which must live on
     ``device``).  The numbers differ from the reference's JAX PRNG stream;
-    parity tests carry JAX weights over with ``weights.from_jax_numpy``."""
+    parity tests carry JAX weights over with ``weights.from_jax_numpy``.
+    A hybrid model's shared block is drawn once, as ``params["shared"]``;
+    its positions in ``"layers"`` hold ``{}``.
+
+    ``cast=True`` passes each block through :func:`cast_weights` as soon as
+    it is drawn: the values the engines would cast the whole tree to, with
+    one ``param_dtype`` block at a time beside the cast copy (a serving
+    model's fp32 weights and their bf16 copy need not fit together)."""
     check_supported(cfg)
-    return {"embed": init_embedding(generator, cfg, device),
-            "layers": [init_block(generator, cfg, device, kind)
-                       for kind in layer_kinds(cfg)],
-            "norm_f": init_norm(cfg, device)}
+    kinds = layer_kinds(cfg)
+    done = ((lambda p: cast_weights(p, dtype_of(cfg.compute_dtype)))
+            if cast else (lambda p: p))
+    params = {"embed": done(init_embedding(generator, cfg, device)),
+              "layers": [{} if kind == "shared"
+                         else done(init_block(generator, cfg, device, kind))
+                         for kind in kinds],
+              "norm_f": init_norm(cfg, device)}
+    if "shared" in kinds:
+        params["shared"] = done(init_block(generator, cfg, device, "shared"))
+    return params
 
 
 def param_count(params) -> int:
     return sum(t.numel() for t in tree_leaves(params))
 
 
+def _blocks(cfg: ModelConfig, params: dict):
+    """``(kind, block params)`` of every layer in order; a ``shared``
+    position runs ``params["shared"]``."""
+    for kind, p in zip(layer_kinds(cfg), params["layers"]):
+        yield kind, (params["shared"] if kind == "shared" else p)
+
+
+def _window_for(cfg: ModelConfig, kind: str) -> int | None:
+    """The attention window of a block kind: ``sliding_window`` for dense
+    and MoE blocks (mixtral), none for zamba2's shared block."""
+    return cfg.sliding_window if kind in ("dense", "moe") else None
+
+
 def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
                 positions, cache: dict | None, cache_len,
                 paged_impl: str = "auto", impl: str = "auto",
                 valid_len: int | None = None, chunk_continue: bool = False):
-    """One pre-norm residual block.
+    """One pre-norm residual block.  Returns ``(x, update, aux)``: ``aux``
+    is a MoE block's load-balancing loss (an fp32 scalar) and None for the
+    other kinds.
 
-    ``dense`` (attention + gated MLP) returns ``(x, (kt, vt))`` with the
-    block's K/V delta; with ``cache=None`` (the full-sequence forward) it
-    returns ``(x, None)`` and ``impl`` picks the attention core.  ``ssm``
-    returns ``(x, new_cache)`` with the slot rows' new ``{"conv",
-    "state"}``: one token per row (S == 1) runs the decode recurrence; a
-    longer chunk runs the conv and SSD scan, continuing from ``cache``
-    under ``chunk_continue`` (chunked prefill) and from zeros otherwise
-    (the dense engine's batched prefill), with positions >= ``valid_len``
-    masked out of the state, and ``impl`` picks its intra-chunk path.
-    ``chunk_continue`` likewise tells an attention block's S > 1 chunk
-    from a batched prefill."""
+    ``dense``, ``moe`` and ``shared`` (attention + gated MLP or experts)
+    give the block's K/V delta ``(kt, vt)`` as ``update``; with
+    ``cache=None`` (the full-sequence forward) the update is None and
+    ``impl`` picks the attention core.  ``ssm`` gives the slot rows' new
+    ``{"conv", "state"}``: one token per row against a cache runs the
+    decode recurrence; a longer chunk runs the conv and SSD scan,
+    continuing from ``cache`` under ``chunk_continue`` (chunked prefill)
+    and from zeros otherwise (the dense engine's batched prefill and the
+    forward), with positions >= ``valid_len`` masked out of the state, and
+    ``impl`` picks its intra-chunk path.  ``chunk_continue`` likewise tells
+    an attention block's S > 1 chunk from a batched prefill."""
     if kind == "ssm":
         h = apply_norm(cfg, p["ln1"], x)
-        if x.shape[1] == 1:
+        if cache is not None and x.shape[1] == 1:
             out, new_cache = mamba2_decode_step(cfg, p["mixer"], h, cache)
         else:
             out, new_cache = apply_mamba2(
                 cfg, p["mixer"], h, cache=cache if chunk_continue else None,
                 valid_len=valid_len, impl=impl)
-        return x + out, new_cache
-    window = cfg.sliding_window
+        return x + out, new_cache, None
     h = apply_norm(cfg, p["ln1"], x)
     out, kv = attention(cfg, p["attn"], h, positions=positions, cache=cache,
-                        cache_len=cache_len, window=window,
+                        cache_len=cache_len, window=_window_for(cfg, kind),
                         paged_impl=paged_impl, impl=impl,
                         chunk_continue=chunk_continue)
     x = x + out
     h = apply_norm(cfg, p["ln2"], x)
-    x = x + apply_mlp(cfg, p["mlp"], h)
-    return x, kv
+    aux = None
+    if kind == "moe":
+        out, aux = apply_moe(cfg, p["moe"], h)
+    else:
+        out = apply_mlp(cfg, p["mlp"], h)
+    return x + out, kv, aux
 
 
 # ---------------------------------------------------------------------------
@@ -185,46 +229,58 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """``forward`` and ``loss_fn`` run the dense family; training the other
-    families comes with later slices."""
-    check_supported(cfg)
-    if set(layer_kinds(cfg)) != {"dense"}:
-        raise NotImplementedError(f"{cfg.name}: the full-sequence forward "
-                                  f"runs the dense family only")
+def _check_remat(cfg: ModelConfig) -> None:
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(f"remat={cfg.remat!r} is not ported (the "
                                   f"port runs 'none' and 'full')")
 
 
-def _run_stack(cfg: ModelConfig, layers, x, positions, *, impl: str):
+def check_trainable(cfg: ModelConfig) -> None:
+    """The training entry points (``loss_fn``, the fused step, the HyPar
+    trainer) take the dense family; training the other families comes
+    with later slices."""
+    check_supported(cfg)
+    if set(layer_kinds(cfg)) != {"dense"}:
+        raise NotImplementedError(f"{cfg.name}: training runs the dense "
+                                  f"family only")
+    _check_remat(cfg)
+
+
+def _run_stack(cfg: ModelConfig, params: dict, x, positions, *,
+               impl: str):
     """Every layer in order, each recomputed in the backward pass under
-    ``remat="full"``.  Returns ``(x, aux)``; the dense family has no
-    auxiliary loss."""
-    for kind, p in zip(layer_kinds(cfg), layers):
+    ``remat="full"``.  Returns ``(x, aux)``: the MoE blocks' summed
+    auxiliary loss (0 for the other families)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, p in _blocks(cfg, params):
         def block(h, p=p, kind=kind):
             return apply_block(cfg, kind, p, h, positions=positions,
-                               cache=None, cache_len=None, impl=impl)[0]
+                               cache=None, cache_len=None, impl=impl)
         if cfg.remat == "full" and torch.is_grad_enabled():
-            x = checkpoint(block, x, use_reentrant=False)
+            x, _, a = checkpoint(block, x, use_reentrant=False)
         else:
-            x = block(x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, _, a = block(x)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params: dict, *, tokens=None, embeds=None,
             positions=None, impl: str = "auto"):
     """Full-sequence forward (train / prefill).  ``tokens`` (B, S) int, or
     ``embeds`` (B, S, d).  Returns ``(logits (B, S, padded_vocab) in the
-    compute dtype, aux)``; ``impl`` picks every layer's attention core."""
-    check_trainable(cfg)
+    compute dtype, aux)``, aux the MoE blocks' summed load-balancing loss;
+    ``impl`` picks every layer's attention core (and the SSM layers'
+    intra-chunk path)."""
+    check_supported(cfg)
+    _check_remat(cfg)
     if embeds is None:
         x = embed(cfg, params["embed"], tokens)
     else:
         x = embeds.to(dtype_of(cfg.compute_dtype))
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _run_stack(cfg, params["layers"], x, positions, impl=impl)
+    x, aux = _run_stack(cfg, params, x, positions, impl=impl)
     x = apply_norm(cfg, params["norm_f"], x)
     return unembed(cfg, params["embed"], x), aux
 
@@ -234,7 +290,9 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     """Next-token cross-entropy: the mask-weighted mean NLL over
     ``batch["tokens"]`` / ``"labels"`` / ``"mask"`` (optional), with the
     padded vocabulary masked out of the softmax.  Returns ``(total,
-    {"loss", "aux", "tokens"})``."""
+    {"loss", "aux", "tokens"})``.  A training entry point: the dense
+    family only."""
+    check_trainable(cfg)
     logits, aux = forward(cfg, params, tokens=batch.get("tokens"),
                           embeds=batch.get("embeds"), impl=impl)
     logits = logits.float()
@@ -259,7 +317,9 @@ def _new_cache(cfg: ModelConfig, batch: int, lens: torch.Tensor,
                kv_rows: int, kv_cols: int, device) -> dict:
     """``{"len": lens}`` plus zero K/V of shape (n_attn, kv_rows, KV,
     kv_cols, D) for the attention layers and zero per-slot SSM state for
-    the SSM layers, each stacked on a leading layer axis."""
+    the SSM layers, each stacked on a leading layer axis.  Every
+    invocation of a shared block is an attention layer of its own, with
+    its own K/V (the reference stacks them over its groups)."""
     check_supported(cfg)
     kinds = layer_kinds(cfg)
     n_ssm = kinds.count("ssm")
@@ -392,10 +452,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     if pages is not None:
         paged_impl = resolve_impl(paged_impl, pos.device)
     ai = si = 0
-    for kind, p in zip(layer_kinds(cfg), params["layers"]):
+    for kind, p in _blocks(cfg, params):
         if kind == "ssm":
             lc = {"conv": cache["conv"][si], "state": cache["state"][si]}
-            x, new = apply_block(cfg, kind, p, x, positions=positions,
+            x, new, _ = apply_block(cfg, kind, p, x, positions=positions,
                                  cache=lc, cache_len=pos, impl=impl,
                                  valid_len=valid_len)
             _write_ssm_state(lc, new, update_mask)
@@ -409,9 +469,9 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             lc = {"k": gather_pages(kb, pages), "v": gather_pages(vb, pages)}
         else:
             lc = {"k_pool": kb, "v_pool": vb, "pages": pages}
-        x, (kt, vt) = apply_block(cfg, kind, p, x, positions=positions,
-                                  cache=lc, cache_len=pos,
-                                  paged_impl=paged_impl, impl=impl)
+        x, (kt, vt), _ = apply_block(cfg, kind, p, x, positions=positions,
+                                     cache=lc, cache_len=pos,
+                                     paged_impl=paged_impl, impl=impl)
         if pages is None:
             _write_kv(kb, kt, pos)
             _write_kv(vb, vt, pos)
@@ -483,7 +543,7 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
     # exact zeros
     read = pages_row[:, :start // page_size]
     ai = si = 0
-    for kind, p in zip(layer_kinds(cfg), params["layers"]):
+    for kind, p in _blocks(cfg, params):
         if kind == "ssm":
             rows = {key: cache[key][si, slot:slot + 1]
                     for key in ("conv", "state")}
@@ -491,9 +551,9 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
             # its previous occupant's state
             lc = (rows if start > 0
                   else {k: torch.zeros_like(t) for k, t in rows.items()})
-            x, new = apply_block(cfg, kind, p, x, positions=positions,
-                                 cache=lc, cache_len=start, impl=impl,
-                                 valid_len=valid_len, chunk_continue=True)
+            x, new, _ = apply_block(cfg, kind, p, x, positions=positions,
+                                    cache=lc, cache_len=start, impl=impl,
+                                    valid_len=valid_len, chunk_continue=True)
             _write_ssm_state(rows, new, None)
             si += 1
             continue
@@ -501,9 +561,9 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
         ai += 1
         lc = ({"k": gather_pages(kp, read), "v": gather_pages(vp, read)}
               if start > 0 else {})
-        x, (kt, vt) = apply_block(cfg, kind, p, x, positions=positions,
-                                  cache=lc, cache_len=start,
-                                  chunk_continue=True)
+        x, (kt, vt), _ = apply_block(cfg, kind, p, x, positions=positions,
+                                     cache=lc, cache_len=start,
+                                     chunk_continue=True)
         _write_kv_chunk_paged(kp, kt, start, pages_row[0], page_size)
         _write_kv_chunk_paged(vp, vt, start, pages_row[0], page_size)
     x = apply_norm(cfg, params["norm_f"], x)

@@ -4,8 +4,10 @@ afresh.
 * :func:`from_jax_numpy` takes the reference's parameter pytree with numpy
   leaves (``jax.tree.map(np.asarray, params)`` — the caller does that; this
   module never imports JAX) and returns the port's layout: the layers that
-  the reference stacks on a leading axis under ``params["groups"][0]``
-  become one dict per layer.
+  the reference stacks on a leading axis under ``params["groups"]`` (one
+  stacked tree a position of the layer pattern) and the ``params["tail"]``
+  blocks become one dict per layer, in the order ``layer_kinds`` gives;
+  a hybrid model's ``params["shared"]`` block comes across as it is.
 * :func:`train_state_from_jax_numpy` does the same for a reference
   ``TrainState`` (parameters, optimizer state, step), so a test can start
   both trainers from one state.
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from .models.config import ModelConfig
-from .models.transformer import check_supported, init_params
+from .models.transformer import check_supported, init_params, layer_plan
 from .train.step import TrainState
 
 __all__ = ["from_jax_numpy", "init_params", "train_state_from_jax_numpy"]
@@ -41,16 +43,25 @@ def _tensors(tree, device, index=None):
 
 def _unstack(tree_np: dict, cfg: ModelConfig, device) -> dict:
     """A params-shaped reference tree (its leaves may themselves be dicts of
-    arrays, as Adafactor's state is) in the port's layout: the one stacked
-    layer group becomes one dict per layer."""
+    arrays, as Adafactor's state is) in the port's layout: group g of
+    every pattern position, for g in order, then the tail blocks —
+    ``pattern * n_groups + tail``.  A shared position's group entry is
+    ``{}`` in both layouts."""
+    plan = layer_plan(cfg)
     groups, tail = tree_np["groups"], tree_np.get("tail", [])
-    if len(groups) != 1 or tail:
-        raise ValueError(f"expected one stacked layer group and no tail, got "
-                         f"{len(groups)} group(s) and {len(tail)} tail block(s)")
-    return {"embed": _tensors(tree_np["embed"], device),
-            "layers": [_tensors(groups[0], device, i)
-                       for i in range(cfg.n_layers)],
-            "norm_f": _tensors(tree_np["norm_f"], device)}
+    if len(groups) != len(plan.pattern) or len(tail) != len(plan.tail):
+        raise ValueError(f"expected {len(plan.pattern)} stacked group(s) and "
+                         f"{len(plan.tail)} tail block(s), got {len(groups)} "
+                         f"and {len(tail)}")
+    out = {"embed": _tensors(tree_np["embed"], device),
+           "layers": [_tensors(groups[i], device, g)
+                      for g in range(plan.n_groups)
+                      for i in range(len(plan.pattern))]
+           + [_tensors(t, device) for t in tail],
+           "norm_f": _tensors(tree_np["norm_f"], device)}
+    if "shared" in tree_np:
+        out["shared"] = _tensors(tree_np["shared"], device)
+    return out
 
 
 def from_jax_numpy(params_np: dict, cfg: ModelConfig, device) -> dict:
@@ -58,8 +69,9 @@ def from_jax_numpy(params_np: dict, cfg: ModelConfig, device) -> dict:
     ``device``, values unchanged."""
     check_supported(cfg)
     n = np.asarray(params_np["groups"][0]["ln1"]["scale"]).shape[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"{n} stacked layers != cfg.n_layers {cfg.n_layers}")
+    if n != layer_plan(cfg).n_groups:
+        raise ValueError(f"{n} stacked groups != the plan's "
+                         f"{layer_plan(cfg).n_groups}")
     return _unstack(params_np, cfg, device)
 
 

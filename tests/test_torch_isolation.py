@@ -47,7 +47,7 @@ def test_import_with_jax_unavailable():
             "repro_torch.core.procworker, repro_torch.core._procworker_child, "
             "repro_torch.apps.procdemo, repro_torch.train.procfns, "
             "repro_torch.serve.engine, repro_torch.serve.scheduler, "
-            "repro_torch.models.transformer; "
+            "repro_torch.models.transformer, repro_torch.models.moe; "
             "from repro_torch.serve import Engine, DEFAULT_BUCKETS; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

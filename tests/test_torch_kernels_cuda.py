@@ -62,6 +62,17 @@ STAGING_CASES = [
     (2, 4, 2, 256, 64, 3, (150, 64), None, False, 1),
 ]
 
+# card only: multi-head attention (G 1) at the served MoE and hybrid
+# widths — qwen2-moe-a2.7b (H = KV 16, D 128) and zamba2-1.2b's shared
+# block (H = KV 32, D 64) — at the serving batch and page size, ragged
+# lengths and a free slot
+MHA_CASES = [
+    (8, 16, 16, 128, 16, 16, (256, 200, 129, 64, 17, 1, 0, 100), None,
+     False, 0),
+    (8, 32, 32, 64, 16, 16, (256, 200, 129, 64, 17, 1, 0, 100), None,
+     False, 0),
+]
+
 
 def paged_case(seed, B, H, KV, D, page_size, n_slot_pages, kv_lens, *,
                share=False, trash_tail=0):
@@ -125,10 +136,11 @@ PPS_GRID = [c["pages_per_split"]
 @pytest.mark.cuda
 @pytest.mark.parametrize("pps", PPS_GRID)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", PA_CASES + SPLIT_CASES + STAGING_CASES,
+@pytest.mark.parametrize("case", PA_CASES + SPLIT_CASES + STAGING_CASES
+                         + MHA_CASES,
                          ids=[f"paged{i}" for i in
                               range(len(PA_CASES + SPLIT_CASES
-                                        + STAGING_CASES))])
+                                        + STAGING_CASES + MHA_CASES))])
 def test_cuda_kernel_matches_plain(case, dtype, pps):
     """The hand-written kernel against its plain version, on the card, at
     every pages-a-split value of the tuner's grid."""
@@ -201,6 +213,10 @@ SSD_CASES = [
     (2, 2, 8, 16, 16),
     (3, 3, 100, 70, 130),
     (2, 1, 1, 8, 8),
+    # zamba2-1.2b (H 64, P 64, N 64): a paged prefill chunk, and the dense
+    # engine's batched prefill of 8 prompts of 1,024 tokens (32 chunks)
+    (1, 64, 256, 64, 64),
+    (32, 64, 256, 64, 64),
 ]
 SSD_ROW_TILES = [c["row_tile"] for c in DEFAULT_CANDIDATES["ssd_scan"]]
 SSD_TOL = 1e-4        # max|Δ| / max|plain|, y and S: the cumsum's order
@@ -444,9 +460,18 @@ def fa_case(seed, B, S, T, H, KV, D, dtype):
     return [t.cuda().to(getattr(torch, dtype)) for t in (q, k, v)]
 
 
+# card only: the dense engine's batched prefill of 8 prompts of 1,024
+# tokens with multi-head attention (H = KV), qwen2-moe-a2.7b's D 128 and
+# zamba2-1.2b's shared block's D 64
+FA_SERVE_CASES = [
+    (8, 1024, 1024, 16, 16, 128, True, None),
+    (8, 1024, 1024, 32, 32, 64, True, None),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FA_CASES)
+@pytest.mark.parametrize("case", FA_CASES + FA_SERVE_CASES)
 def test_cuda_flash_kernel_matches_plain(case, dtype):
     """The hand-written flash kernel against its plain version, on the
     card: output at the reference's tolerance, LSE at 1e-4, rows with no
@@ -1001,3 +1026,60 @@ def test_cuda_two_group_failover_runs_the_paged_kernel():
     assert sched.resume_tokens_recomputed > 0
     assert all(g.allocator.n_outstanding == 0 for g in sched.groups)
     assert steps > 0 and kernel.launches - launches0 == steps * cfg.n_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "zamba2-1.2b"])
+def test_cuda_moe_and_hybrid_engines_run_their_kernels(arch):
+    """qwen2-moe and zamba2 (smoke widths, fp32) on the card: a paged
+    decode step runs the paged kernel once an attention layer (every MoE
+    block; every invocation of zamba2's shared block), a prefill chunk
+    runs SSD once an SSM layer, the dense engine's batched prefill runs
+    the flash forward once an attention layer and SSD once an SSM layer;
+    the paged kernel's decode logits match the gather path's, and the
+    batched prefill's match ``impl="ref"``'s (plain attention and SSD)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.paged_attention import kernel as pa
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.serve import PagedEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _smoke_model(arch, "float32")
+    kinds = layer_kinds(cfg)
+    n_ssm = kinds.count("ssm")
+    n_attn = len(kinds) - n_ssm
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size - 1, (40,))
+    logits = {}
+    for impl in ("kernel", "ref"):
+        eng = PagedEngine(cfg, params, batch=2, max_len=64, page_size=8,
+                          prefill_chunk=16, attn_impl=impl)
+        before = ssd.launches
+        first = eng.insert(0, prompt, page_ids=list(range(1, 8)), max_new=8)
+        chunks = eng.n_chunk_calls
+        if impl == "kernel":
+            assert ssd.launches - before == chunks * n_ssm
+        before = pa.launches
+        toks = np.zeros((2, 1), np.int32)
+        toks[0, 0] = int(first[0, -1].argmax())
+        out = [first[0, -1]]
+        for _ in range(3):
+            lg = eng.decode(toks, live_mask=np.array([True, False]))
+            out.append(lg[0, -1])
+            toks[0, 0] = int(lg[0, -1].argmax())
+        torch.cuda.synchronize()
+        assert pa.launches - before == (3 * n_attn if impl == "kernel"
+                                        else 0)
+        logits[impl] = torch.stack(out).float()
+    got, want = logits["kernel"], logits["ref"]
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+    out = _prefill_paths(cfg, params, 2, 40, ("ref", "auto"),
+                         lambda: np.array([fa.launches["flash_attention"],
+                                           ssd.launches]))
+    (want, n_plain), (got, n_kernel) = out["ref"], out["auto"]
+    assert n_plain.tolist() == [0, 0]
+    assert n_kernel.tolist() == [n_attn, n_ssm]
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4

@@ -115,7 +115,7 @@ def test_engine_defaults_to_cuda_and_refuses_what_is_not_ported(models):
     with pytest.raises(NotImplementedError):
         PagedEngine(tc, tp, batch=1, max_len=16, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
-        PagedEngine(get_smoke_config("mixtral-8x7b"), tp, batch=1,
+        PagedEngine(get_smoke_config("gemma3-4b"), tp, batch=1,
                     max_len=16, device="cpu")
 
 

@@ -129,9 +129,15 @@ def test_remat_full_and_none_give_the_same_gradients(smoke):
 
 
 def test_forward_refuses_other_families():
+    """The forward runs every family the port serves; training (the loss)
+    takes the dense family only, and the forward refuses block kinds not
+    ported yet."""
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="dense family"):
         cfg = get_smoke_config("mamba2-370m")
-        forward(cfg, {}, tokens=torch.zeros((1, 4), dtype=torch.int32))
+        loss_fn(cfg, {}, {"tokens": tokens, "labels": tokens})
+    with pytest.raises(NotImplementedError, match="not ported"):
+        forward(get_smoke_config("gemma3-4b"), {}, tokens=tokens)
 
 
 # ---------------------------------------------------------------------------
