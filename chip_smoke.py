@@ -11,9 +11,10 @@ and prints one JSON line per phase:
 1. ``device``  — the card's name and power limit (``nvidia-smi``);
 2. ``build``   — builds every CUDA kernel of the port from ``src/repro_torch/
    csrc`` with ``nvcc`` (one process per source, all at once), with
-   ptxas's register report; ``build_flash_bwd`` sums it up for the flash
-   backward's bf16 passes: registers, spill bytes and whether ptxas
-   serialized their ``wgmma`` (C7520), reported, not checked;
+   ptxas's register report; ``build_flash_bwd`` and ``build_flash_fwd``
+   sum it up for the flash kernels' bf16 instances: registers, spill
+   bytes and whether ptxas serialized their ``wgmma`` (C7520), reported,
+   not checked;
 3. ``kernels`` — calls each kernel's wrapper on the card at the shapes the
    serving path gives it (training for the flash kernel, phase 14), holds the result against its plain PyTorch
    version (stated tolerance) and times kernel, plain version and one
@@ -131,6 +132,35 @@ and prints one JSON line per phase:
    SSM layer a wave; the fp32 prefill check against ``impl="dense"``
    (qwen2-moe, at 4 layers) and ``impl="ref"`` (zamba2, whole: plain
    attention and SSD);
+10f. ``kernels`` at gemma3-4b's and whisper-base's shapes
+   (``gemma3_whisper_kernel_phase``) — the flash forward at gemma3's
+   batched prefill (B 8, S 2,048, H 8, KV 4, D 256; causal, and under the
+   local window of 1,024) in bf16 and fp32 at every launch shape of the
+   tuner's grid (128-key tiles must be refused at D 256), and at
+   whisper's non-causal shapes (bf16, B 8, H = KV 8, D 64: 1,500 encoder
+   frames over themselves, 64 and 1 decoder rows over them); the paged
+   kernel at gemma3's decode (bf16, B 8, KV 4, G 2, D 256, page 16,
+   contexts 1,000-1,500) without and with the window; each against its
+   plain version, timed beside it, its bound and SDPA (the window as a
+   boolean mask);
+10g. ``serve_gemma3`` and ``serve_waves_gemma3`` — gemma3-4b at full
+   width (34 layers: 29 local, 5 global) by phases 5 and 5e:
+   ``parity_gemma3`` at full depth in fp32 with prompts of 1,500, 1,100
+   and 129 tokens (max_len 2,048, so the window cuts in chunks and
+   decode steps), the bf16 gap reported; 8 requests of phase 5's trace,
+   the paged kernel once a layer a decode step (34); 2 waves of 8 prompts
+   of 2,048 tokens, 16 tokens each, the flash forward once a layer a wave
+   (its fp32 prefill check against ``impl="dense"``);
+10h. ``parity_whisper``, ``serve_waves_whisper`` and
+   ``serve_whisper_trace`` (``serve_whisper_phases``) — whisper-base at
+   full width on the dense ``Engine``, 1,500 random encoder frames a
+   request, 64-token prompts, 64 greedy tokens: a prefill and a decode
+   step through the kernel path against ``impl="ref"`` (fp32 gated at
+   1e-3 of max|logit|, bf16 reported); 4 waves of 8, then 16 requests
+   through ``ServeScheduler`` (an insert each, splicing its encoder
+   output).  The flash forward must launch once an encoder layer and
+   twice a decoder layer a prefill or insert, and once a decoder layer
+   (cross-attention) a decode step, exactly;
 11. ``kernels`` (``jacobi_sweep``) — both Jacobi kernels (plain sweep and
    fused-residual sweep) against their plain versions at the paper's sizes
    N 2709, 4209 and 7209 in fp32, one bf16-x and one bf16-A case and a
@@ -1214,12 +1244,13 @@ def layer_counts(cfg) -> tuple[int, int]:
 
 def serve_waves_phase(arch: str, mods, plain: str, phase: str, *,
                       waves: int = WAVES, max_new: int = WAVE_NEW,
-                      check_layers: int | None = None) -> dict:
+                      check_layers: int | None = None,
+                      prompt: int = WAVE_PROMPT) -> dict:
     """The launcher's wave mode at full width: ``Engine(batch 8, max_len
-    1,024 + max_new + 8)`` generates ``waves`` waves of 8 prompts of 1,024
-    tokens (numpy seed 0), ``max_new`` greedy tokens each; wave 0 pays the
-    one-time costs.  First the kernel-vs-plain check of a batched prefill
-    at the wave's shape (fp32 compute on fp32 weights, gated at
+    prompt + max_new + 8)`` generates ``waves`` waves of 8 prompts of
+    ``prompt`` tokens (1,024 by default; numpy seed 0), ``max_new`` greedy
+    tokens each; wave 0 pays the one-time costs.  First the
+    kernel-vs-plain check of a batched prefill at the wave's shape (fp32 compute on fp32 weights, gated at
     ``PARITY_TOL``; the engine's bf16, reported) — on the model itself, or,
     with ``check_layers``, on its depth cut to that many layers with fp32
     weights of its own, the engine's weights then drawn in bf16 (qwen2-moe's
@@ -1239,9 +1270,9 @@ def serve_waves_phase(arch: str, mods, plain: str, phase: str, *,
     n_attn, n_ssm = layer_counts(cfg)
     rng = np.random.default_rng(0)
     prompts_by_wave = [rng.integers(0, cfg.vocab_size - 1,
-                                    (WAVE_BATCH, WAVE_PROMPT)
+                                    (WAVE_BATCH, prompt)
                                     ).astype(np.int32) for _ in range(waves)]
-    max_len = WAVE_PROMPT + max_new + 8
+    max_len = prompt + max_new + 8
     if check_layers is None:
         params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
                              DEV)
@@ -1309,7 +1340,7 @@ def serve_waves_phase(arch: str, mods, plain: str, phase: str, *,
         wall = time.perf_counter() - t0
     emit(phase, model=cfg.name, layers=cfg.n_layers,
          attention_layers=n_attn, ssm_layers=n_ssm, compute="bfloat16",
-         batch=WAVE_BATCH, prompt_len=WAVE_PROMPT, max_new=max_new,
+         batch=WAVE_BATCH, prompt_len=prompt, max_new=max_new,
          max_len=max_len, waves=waves, wave_s=seconds,
          steady_tokens=sum(tokens[1:]), steady_s=steady_s,
          steady_tok_per_s=sum(tokens[1:]) / steady_s,
@@ -1644,11 +1675,12 @@ PARITY_PROMPTS = (700, 300, 129)  # slot 3 stays free
 PARITY_STEPS = 12
 
 
-def parity_paths(cfg, params) -> dict:
+def parity_paths(cfg, params, shape=(PARITY_PROMPTS, 1024)) -> dict:
     """The kernel path against the plain path on one model: two
-    ``PagedEngine``s (batch 4, max_len 1024, page 16, chunk 256) on the
-    same weights (``attn_impl`` kernel / ref), the ``PARITY_PROMPTS``
-    (numpy seed 1) chunk-prefilled through the SSD kernel and through its
+    ``PagedEngine``s (batch 4, page 16, chunk 256, max_len ``shape[1]``)
+    on the same weights (``attn_impl`` kernel / ref), the prompts of
+    ``shape[0]`` (``PARITY_PROMPTS`` by default; numpy seed 1)
+    chunk-prefilled through the SSD kernel and through its
     plain version, then ``PARITY_STEPS`` teacher-forced decode steps (both
     decode the plain path's greedy tokens).  Returns the largest difference
     over max|logit| of the chunk (first-token) logits and of the decode
@@ -1659,7 +1691,8 @@ def parity_paths(cfg, params) -> dict:
     from repro_torch.models.transformer import layer_kinds
     from repro_torch.serve import PageAllocator, PagedEngine
 
-    engines = {impl: PagedEngine(cfg, params, batch=4, max_len=1024,
+    prompt_lens, max_len = shape
+    engines = {impl: PagedEngine(cfg, params, batch=4, max_len=max_len,
                                  page_size=16, prefill_chunk=256,
                                  attn_impl=impl, device=DEV)
                for impl in ("kernel", "ref")}
@@ -1680,7 +1713,7 @@ def parity_paths(cfg, params) -> dict:
     first = {}
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size - 1, (n,)).astype(np.int32)
-               for n in PARITY_PROMPTS]
+               for n in prompt_lens]
     for impl, eng in engines.items():
         alloc = PageAllocator(eng.num_pages)
         for slot, p in enumerate(prompts):
@@ -1714,7 +1747,7 @@ def parity_paths(cfg, params) -> dict:
         moe._route = route
     del engines, first
     out = {"compute": cfg.compute_dtype, "layers": cfg.n_layers,
-           "prompt_lens": list(PARITY_PROMPTS), "decode_steps": PARITY_STEPS,
+           "prompt_lens": list(prompt_lens), "decode_steps": PARITY_STEPS,
            "chunk_max_rel_logit_err": worst["chunk"],
            "decode_max_rel_logit_err": worst["decode"],
            "max_rel_logit_err": max(worst.values()),
@@ -1736,11 +1769,12 @@ def parity_paths(cfg, params) -> dict:
     return out
 
 
-def parity_phase(phase: str, arch: str, depth: int | None = None) -> dict:
-    """``parity_paths`` in fp32 compute (TF32 off) on fp32 weights from a
-    generator seeded 1, at full width and ``depth`` layers (all when
-    None): emits ``phase`` and fails unless the chunk and decode logits
-    agree within ``PARITY_TOL`` of max|logit|."""
+def parity_phase(phase: str, arch: str, depth: int | None = None,
+                 shape=(PARITY_PROMPTS, 1024)) -> dict:
+    """``parity_paths`` (at ``shape``) in fp32 compute (TF32 off) on fp32
+    weights from a generator seeded 1, at full width and ``depth`` layers
+    (all when None): emits ``phase`` and fails unless the chunk and decode
+    logits agree within ``PARITY_TOL`` of max|logit|."""
     from repro_torch.configs import get_config
     from repro_torch.weights import init_params
 
@@ -1751,7 +1785,7 @@ def parity_phase(phase: str, arch: str, depth: int | None = None) -> dict:
                               n_layers=depth or cfg.n_layers)
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(1),
                          DEV)
-    out = parity_paths(cfg, params)
+    out = parity_paths(cfg, params, shape)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1764,11 +1798,13 @@ def parity_phase(phase: str, arch: str, depth: int | None = None) -> dict:
 
 def serve_paged_phase(phase: str, arch: str, mods, *, requests: int,
                       parity: str, depth: int | None = None,
-                      tag: str | None = None) -> dict:
+                      tag: str | None = None,
+                      parity_shape=(PARITY_PROMPTS, 1024)) -> dict:
     """One model served at full width through ``PagedEngine``.
 
-    First ``parity_phase`` (emitted as ``parity``, at ``depth`` layers)
-    and the same two paths in bf16 at full depth, reported, not gated.
+    First ``parity_phase`` (emitted as ``parity``, at ``depth`` layers and
+    ``parity_shape``) and the same two paths in bf16 at full depth,
+    reported, not gated.
     Then ``ServeScheduler`` over ``PagedEngine(batch=8, page_size=16,
     prefill_chunk=256, max_len=2048)``, weights from a generator seeded 0
     cast to bf16 block by block, serves the first ``requests`` requests of
@@ -1791,12 +1827,12 @@ def serve_paged_phase(phase: str, arch: str, mods, *, requests: int,
 
     t_phase = time.perf_counter()
     tag = f"_{phase}" if tag is None else tag
-    gate = parity_phase(parity, arch, depth)
+    gate = parity_phase(parity, arch, depth, parity_shape)
     cfg = get_config(arch)                            # bf16 compute
     n_attn, n_ssm = layer_counts(cfg)
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
                          DEV, cast=True)
-    bf16_gap = parity_paths(cfg, params)
+    bf16_gap = parity_paths(cfg, params, parity_shape)
     eng = PagedEngine(cfg, params, batch=8, max_len=2048, page_size=16,
                       prefill_chunk=256, device=DEV)
     del params
@@ -1899,50 +1935,77 @@ def case_summary(case: dict, err: float) -> dict:
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
 
 
-def flash_serve_case(gen, B, S, H, D, model: str) -> tuple[dict, float]:
-    """The flash forward at the dense engine's batched prefill of one MoE
-    or hybrid model (bf16, causal, H = KV): every launch shape of the
-    tuner's grid against its plain version (``FA_TOL``, LSE
-    ``FA_LSE_TOL``), then the default timed beside its plain version,
-    ``scaled_dot_product_attention`` and its bound.  Emits a ``kernels``
-    line and returns it with the largest error."""
+def flash_timed_case(gen, *, B, S, T, H, KV, D, causal, window, dtype,
+                     model: str, case_name: str) -> tuple[dict, float]:
+    """The flash forward at one shape of a served model: every launch shape
+    of the tuner's grid and the default against its plain version
+    (``FA_TOL``, LSE ``FA_LSE_TOL``; a shape the kernel does not take at
+    this head dim, 128-key tiles at D 256, must be refused before any
+    launch), then each shape it takes timed, the default beside its plain
+    version, its bound and one ``scaled_dot_product_attention`` call (the
+    window as a boolean ``attn_mask``).  Emits a ``kernels`` line and
+    returns it with the largest error."""
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      flash_attention_plain)
-    from repro_torch.kernels.flash_attention.kernel import BLOCKS
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
 
     t0 = time.perf_counter()
-    dtype = torch.bfloat16
-    q, k, v = fa_inputs(gen, B, S, S, H, H, D, dtype)
-    out_p, lse_p = flash_attention_plain(q, k, v, causal=True)
-    errs = {}
-    for qb in (None, *BLOCKS):
-        for kb in ((None,) if qb is None else BLOCKS):
-            out, lse = flash_attention_kernel(q, k, v, causal=True,
-                                              q_block=qb, kv_block=kb)
-            torch.cuda.synchronize()
-            err = float((out.float() - out_p.float()).abs().max())
-            lse_err = float((lse - lse_p).abs().max())
-            errs["default" if qb is None else f"{qb}x{kb}"] = [err, lse_err]
-            if (out.shape != q.shape or not torch.isfinite(out.float()).all()
-                    or err > FA_TOL[dtype] or lse_err > FA_LSE_TOL):
-                raise AssertionError(f"flash kernel disagrees with plain at "
-                                     f"{model}'s shape ({qb}x{kb}): {err}, "
-                                     f"{lse_err}")
+    q, k, v = fa_inputs(gen, B, S, T, H, KV, D, dtype)
+    out_p, lse_p = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+    errs, taken = {}, []
+    for cfg in [{}, *DEFAULT_CANDIDATES["flash_attention"]]:
+        name = f"{cfg['q_block']}x{cfg['kv_block']}" if cfg else "default"
+        before = fa_kernel.launches["flash_attention"]
+        try:
+            out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                              window=window, **cfg)
+        except ValueError:
+            if (not cfg or D <= fa_kernel.WIDE_D or cfg["kv_block"] == 64
+                    or fa_kernel.launches["flash_attention"] != before):
+                raise
+            errs[name] = "refused"
+            continue
+        torch.cuda.synchronize()
+        err = float((out.float() - out_p.float()).abs().max())
+        lse_err = float((lse - lse_p).abs().max())
+        errs[name] = [err, lse_err]
+        if cfg:
+            taken.append(cfg)
+        if (out.shape != q.shape or not torch.isfinite(out.float()).all()
+                or err > FA_TOL[dtype] or lse_err > FA_LSE_TOL):
+            raise AssertionError(f"flash kernel disagrees with plain at "
+                                 f"{model}'s {case_name} shape ({name}, "
+                                 f"{dtype}): {err}, {lse_err}")
     copies = _rotating((q, k, v))
     heads = [tuple(t.transpose(1, 2).contiguous() for t in c)
              for c in copies]
-    case = {"case": f"serve_{model}", "B": B, "S": S, "T": S, "H": H,
-            "KV": H, "D": D, "causal": True, "window": None,
-            "dtype": "bfloat16", "tol": FA_TOL[dtype], "lse_tol": FA_LSE_TOL,
-            "err_by_launch_shape": errs,
-            "max_abs_err": max(e for e, _ in errs.values()),
+    mask = None
+    if window is not None:
+        i = torch.arange(S, device=DEV)[:, None]
+        j = torch.arange(T, device=DEV)[None, :]
+        mask = (i - j < window) & ((i >= j) if causal else True)
+    bf16 = dtype == torch.bfloat16
+    ms_by = {f"{c['q_block']}x{c['kv_block']}": cuda_ms(
+        lambda i, c=c: flash_attention_kernel(
+            *copies[i % len(copies)], causal=causal, window=window, **c), 20)
+        for c in (taken if bf16 else [])}
+    case = {"case": f"{model}_{case_name}", "B": B, "S": S, "T": T, "H": H,
+            "KV": KV, "D": D, "causal": causal, "window": window,
+            "dtype": str(dtype).replace("torch.", ""), "tol": FA_TOL[dtype],
+            "lse_tol": FA_LSE_TOL, "err_by_launch_shape": errs,
+            "max_abs_err": max(e[0] for e in errs.values()
+                               if e != "refused"),
             "ms": cuda_ms(lambda i: flash_attention_kernel(
-                *copies[i % len(copies)], causal=True), 20),
+                *copies[i % len(copies)], causal=causal, window=window), 20),
+            "ms_by_launch_shape": ms_by,
             "plain_ms": cuda_ms(lambda i: flash_attention_plain(
-                *copies[i % len(copies)], causal=True), 3),
+                *copies[i % len(copies)], causal=causal, window=window), 3),
             "library_ms": cuda_ms(lambda i: F.scaled_dot_product_attention(
-                *heads[i % len(heads)], is_causal=True), 20),
-            **fa_bound(B, S, S, H, H, D, True, None, dtype)}
+                *heads[i % len(heads)], attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True), 20),
+            **fa_bound(B, S, T, H, KV, D, causal, window, dtype)}
     emit("kernels", kernel="flash_attention", model=model,
          seconds=time.perf_counter() - t0, **case)
     del copies, heads
@@ -1988,11 +2051,285 @@ def family_kernel_phase() -> dict:
         case_summary(case, err), row_tile=case["row_tile"],
         ms_by_launch_shape=case["ms_by_launch_shape"])
     for model, H, D in shapes:        # H = KV: the models' head counts
-        case, err = flash_serve_case(gen, WAVE_BATCH, WAVE_PROMPT, H, D,
-                                     model)
+        case, err = flash_timed_case(
+            gen, B=WAVE_BATCH, S=WAVE_PROMPT, T=WAVE_PROMPT, H=H, KV=H, D=D,
+            causal=True, window=None, dtype=torch.bfloat16, model=model,
+            case_name="serve")
         out["flash_attention"][model] = case_summary(case, err)
     emit("family_kernels", seconds=time.perf_counter() - t0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# gemma3's local/global attention and whisper's encoder-decoder:
+# gemma3-4b and whisper-base
+# ---------------------------------------------------------------------------
+
+
+GEMMA3 = "gemma3-4b"
+GEMMA3_WAVE_PROMPT = 2048        # twice the local window: the window cuts
+GEMMA3_PARITY = ((1500, 1100, 129), 2048)   # prompts past the window
+WHISPER = "whisper-base"
+WHISPER_FRAMES = 1500            # 30 s of audio after the stubbed frontend
+WHISPER_PROMPT = 64
+WHISPER_NEW = 64                 # prompt + new stay within 448 positions
+WHISPER_WAVES = 4
+WHISPER_REQUESTS = 16
+WHISPER_PROFILED_STEPS = 4
+
+
+def gemma3_whisper_kernel_phase() -> dict:
+    """``kernels`` lines at the shapes gemma3-4b and whisper-base give the
+    two attention kernels on their paths, each against its plain version:
+    the flash forward at gemma3's batched prefill (B 8, S 2,048, H 8, KV
+    4, D 256; global: causal, local: the window of 1,024) in bf16 and fp32
+    at every launch shape of the tuner's grid, and at whisper's
+    non-causal shapes (bf16, B 8, H = KV 8, D 64: the encoder's 1,500
+    frames over themselves, the decoder's 64-token prefill and one decode
+    token over the frames); the paged kernel at gemma3's decode (bf16,
+    B 8, KV 4, G 2, D 256, page 16, contexts 1,000-1,500) without and
+    with the window.  Returns each kernel's figures by model and case."""
+    from repro_torch.kernels.paged_attention.kernel import \
+        default_pages_per_split
+    from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    out = {"paged_attention": {}, "flash_attention": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, window in (("global", None), ("local", 1024)):
+            tag = f"{name}_{str(dtype).replace('torch.', '')}"
+            case, err = flash_timed_case(
+                gen, B=WAVE_BATCH, S=GEMMA3_WAVE_PROMPT, T=GEMMA3_WAVE_PROMPT,
+                H=8, KV=4, D=256, causal=True, window=window, dtype=dtype,
+                model=GEMMA3, case_name=tag)
+            out["flash_attention"][f"{GEMMA3} {tag}"] = dict(
+                case_summary(case, err),
+                ms_by_launch_shape=case["ms_by_launch_shape"],
+                err_by_launch_shape=case["err_by_launch_shape"])
+    for name, S in (("encoder", WHISPER_FRAMES),
+                    ("cross_prefill", WHISPER_PROMPT), ("cross_decode", 1)):
+        case, err = flash_timed_case(
+            gen, B=WAVE_BATCH, S=S, T=WHISPER_FRAMES, H=8, KV=8, D=64,
+            causal=False, window=None, dtype=torch.bfloat16, model=WHISPER,
+            case_name=name)
+        out["flash_attention"][f"{WHISPER} {name}"] = case_summary(case, err)
+    pps_grid = [c["pages_per_split"]
+                for c in DEFAULT_CANDIDATES["paged_attention"]]
+    kv_lens = [1500, 1431, 1362, 1293, 1224, 1155, 1086, 1000]
+    for name, window in (("global", None), ("local", 1024)):
+        case, err = paged_timed_case(
+            gen, B=WAVE_BATCH, KV=4, G=2, D=256, ps=16, n_pages=128,
+            kv_lens=kv_lens, dtype=torch.bfloat16, window=window,
+            trash_tail=0, grid=pps_grid,
+            default_pps=default_pages_per_split(WAVE_BATCH, 4, 128),
+            model=GEMMA3)
+        out["paged_attention"][f"{GEMMA3} {name}"] = dict(
+            case_summary(case, err), pages_per_split=case["pages_per_split"],
+            ms_by_pages_per_split=case["ms_by_pages_per_split"])
+    emit("gemma3_whisper_kernels", seconds=time.perf_counter() - t0)
+    return out
+
+
+def whisper_flash_launches(cfg, prefills: int, decode_steps: int) -> int:
+    """Flash forward launches of ``prefills`` prefills or inserts and
+    ``decode_steps`` decode steps of an encoder-decoder model: a prefill
+    runs each encoder layer's self-attention and each decoder layer's
+    self- and cross-attention through it, a decode step each decoder
+    layer's cross-attention (its one-token self-attention is plain)."""
+    return (prefills * (cfg.n_encoder_layers + 2 * cfg.n_layers)
+            + decode_steps * cfg.n_layers)
+
+
+def whisper_check(cfg, params, prompts, frames) -> dict:
+    """A batched prefill of ``prompts`` over ``frames`` from a fresh dense
+    cache, then one decode step (on the plain path's greedy tokens),
+    through ``impl="auto"`` (the flash kernel in the encoder, the
+    decoder's prefill and its cross-attention) and ``impl="ref"``: the
+    logits' largest difference over max|logit| and the greedy tokens'
+    agreement."""
+    from repro_torch.models.transformer import decode_step, encode, init_cache
+
+    toks = torch.tensor(prompts, device=DEV)
+    enc = torch.tensor(frames, device=DEV)
+    out, nxt = {}, None
+    for impl in ("ref", "auto"):
+        with torch.no_grad():
+            e = encode(cfg, params, enc, impl=impl)
+            cache = init_cache(cfg, toks.shape[0], toks.shape[1] + 8,
+                               device=DEV)
+            a, cache = decode_step(cfg, params, cache, toks, impl=impl,
+                                   valid_len=toks.shape[1], enc_out=e)
+            if nxt is None:
+                nxt = a[:, -1:].argmax(-1).to(torch.int32)
+            b, _ = decode_step(cfg, params, cache, nxt, impl=impl, enc_out=e)
+        out[impl] = torch.stack([a[:, -1], b[:, -1]]).float()
+        del cache, e, a, b
+    got, want = out["auto"], out["ref"]
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{cfg.name}: kernel-path logits not finite")
+    return {"compute": cfg.compute_dtype,
+            "max_rel_logit_err": float((got - want).abs().max()
+                                       / want.abs().max()),
+            "greedy_token_match": float(
+                (got.argmax(-1) == want.argmax(-1)).float().mean())}
+
+
+def serve_whisper_phases(mods) -> dict:
+    """whisper-base at full width on the dense ``Engine`` (bf16), each
+    request or wave row with ``WHISPER_FRAMES`` random encoder frames
+    (numpy seed 0) and a ``WHISPER_PROMPT``-token prompt, ``WHISPER_NEW``
+    greedy tokens.  ``parity_whisper``: ``whisper_check`` in fp32 compute
+    on fp32 weights (gated at ``PARITY_TOL``) and in the engine's bf16
+    (reported).  ``serve_waves_whisper``: ``WHISPER_WAVES`` waves of 8
+    through ``Engine.generate``, then a few decode steps profiled.
+    ``serve_whisper_trace``: ``WHISPER_REQUESTS`` requests through
+    ``ServeScheduler`` (one insert each, which splices the slot's encoder
+    output) after a two-request warm-up.  With the counts set to 0 just
+    before each run and read just after, the flash forward must launch
+    exactly ``whisper_flash_launches`` times.  Returns the launches by
+    phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Engine, ServeScheduler
+    from repro_torch.weights import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(WHISPER)                         # bf16 compute
+    rng = np.random.default_rng(0)
+
+    def frames(rows):
+        return rng.standard_normal((rows, WHISPER_FRAMES, cfg.d_model),
+                                   dtype=np.float32)
+
+    waves = [(rng.integers(0, cfg.vocab_size - 1,
+                           (WAVE_BATCH, WHISPER_PROMPT)).astype(np.int32),
+              frames(WAVE_BATCH)) for _ in range(WHISPER_WAVES)]
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         DEV)
+    gate = whisper_check(dataclasses.replace(cfg, compute_dtype="float32"),
+                         params, *waves[0])
+    max_len = WHISPER_PROMPT + WHISPER_NEW + 8
+    eng = Engine(cfg, params, batch=WAVE_BATCH, max_len=max_len, device=DEV)
+    del params
+    bf16 = whisper_check(cfg, eng.params, *waves[0])
+    emit("parity_whisper", model=cfg.name, frames=WHISPER_FRAMES,
+         prompt_len=WHISPER_PROMPT, fp32=gate, bf16=bf16, tol=PARITY_TOL)
+    if gate["max_rel_logit_err"] > PARITY_TOL:
+        raise AssertionError(f"parity_whisper: kernel-path logits differ "
+                             f"from impl='ref': {gate}")
+
+    launches = {}
+    timer = CallTimer(eng, ("prefill", "decode"))
+    seconds, tokens = [], []
+    reset_launches(mods)
+    for prompts, enc in waves:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new=WHISPER_NEW, enc_embeds=enc)
+        seconds.append(time.perf_counter() - t0)
+        tokens.append(out.size)
+        if out.shape != (WAVE_BATCH, WHISPER_NEW) or not (
+                (out >= 0) & (out < cfg.padded_vocab)).all():
+            raise AssertionError(f"serve_waves_whisper: generated "
+                                 f"{out.shape}, ids [{out.min()}, "
+                                 f"{out.max()}]")
+    launches["serve_waves_whisper"] = read_launches(mods)["flash_attention"]
+    timer.restore()
+    n_decode = len(timer.seconds["decode"])
+    want = whisper_flash_launches(cfg, WHISPER_WAVES, n_decode)
+    # generate decodes after every sampled token, the last one included
+    if (n_decode != WHISPER_WAVES * WHISPER_NEW
+            or launches["serve_waves_whisper"] != want):
+        raise AssertionError(f"serve_waves_whisper: flash launched "
+                             f"{launches['serve_waves_whisper']} times in "
+                             f"{WHISPER_WAVES} prefills and {n_decode} "
+                             f"decode steps, expected {want}")
+    toks = out[:, -1:]
+    eng.decode(toks)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(WHISPER_PROFILED_STEPS):
+            eng.decode(toks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steady_s = sum(seconds[1:])
+    emit("serve_waves_whisper", model=cfg.name,
+         layers=[cfg.n_encoder_layers, cfg.n_layers], compute="bfloat16",
+         batch=WAVE_BATCH, frames=WHISPER_FRAMES, prompt_len=WHISPER_PROMPT,
+         max_new=WHISPER_NEW, max_len=max_len, waves=WHISPER_WAVES,
+         wave_s=seconds, steady_tokens=sum(tokens[1:]), steady_s=steady_s,
+         steady_tok_per_s=sum(tokens[1:]) / steady_s,
+         prefill_ms_p50=timer.ms("prefill", skip=1),
+         decode_ms_per_step_p50=timer.ms("decode", skip=WHISPER_NEW),
+         decode_steps=n_decode,
+         flash_launches=launches["serve_waves_whisper"],
+         trace_counts={name: eng.trace_count(name)
+                       for name in ("prefill", "decode", "splice")})
+    emit_profile("profile_serve_waves_whisper", prof, wall, "decode_steps",
+                 WHISPER_PROFILED_STEPS, "step")
+
+    # the trace: one insert a request, each splicing its encoder output
+    eng = Engine(cfg, eng.params, batch=WAVE_BATCH, max_len=max_len,
+                 device=DEV)
+    sched = ServeScheduler(eng)
+    for n in (WHISPER_PROMPT, 16):
+        sched.submit(rng.integers(0, cfg.vocab_size - 1, (n,)), max_new=2,
+                     enc_embeds=frames(1))
+    sched.run()
+    sched.reset_metrics()
+    reqs = [(rng.integers(0, cfg.vocab_size - 1, (WHISPER_PROMPT,)),
+             frames(1)) for _ in range(WHISPER_REQUESTS)]
+    timer = CallTimer(eng, ("insert", "decode"))
+    steps0 = eng.n_decode_calls
+    reset_launches(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p, enc in reqs:
+        sched.submit(p, max_new=WHISPER_NEW, enc_embeds=enc)
+    results = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["serve_whisper_trace"] = read_launches(mods)["flash_attention"]
+    timer.restore()
+    inserts, steps = len(timer.seconds["insert"]), eng.n_decode_calls - steps0
+    if len(results) != len(reqs) or any(
+            r.n_generated != WHISPER_NEW for r in results):
+        raise AssertionError(f"serve_whisper_trace: {len(results)} requests "
+                             f"done, {[r.n_generated for r in results]}")
+    if any(o.outcome != "completed" for o in sched.outcomes.values()):
+        raise AssertionError(f"serve_whisper_trace: {sched.outcomes}")
+    want = whisper_flash_launches(cfg, inserts, steps)
+    if inserts != len(reqs) or launches["serve_whisper_trace"] != want:
+        raise AssertionError(f"serve_whisper_trace: flash launched "
+                             f"{launches['serve_whisper_trace']} times in "
+                             f"{inserts} inserts and {steps} decode steps, "
+                             f"expected {want}")
+    if not all(0 <= t < cfg.padded_vocab for r in results for t in r.tokens):
+        raise AssertionError("a token id falls outside the vocabulary")
+    ttft = np.array([r.ttft_s for r in results])
+    n_tok = sum(r.n_generated for r in results)
+    emit("serve_whisper_trace", model=cfg.name, compute="bfloat16",
+         batch=WAVE_BATCH, frames=WHISPER_FRAMES, max_len=max_len,
+         requests=len(results), prompt_len=WHISPER_PROMPT,
+         max_new=WHISPER_NEW, gen_tokens=n_tok, wall_s=wall,
+         tok_per_s=n_tok / wall, decode_steps=steps,
+         decode_ms_per_step_p50=timer.ms("decode"),
+         insert_ms_p50=timer.ms("insert"),
+         ttft_p50_s=float(np.percentile(ttft, 50)),
+         ttft_p95_s=float(np.percentile(ttft, 95)),
+         flash_launches=launches["serve_whisper_trace"], inserts=inserts,
+         trace_counts={name: eng.trace_count(name)
+                       for name in ("prefill", "decode", "splice")})
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2437,7 +2774,7 @@ def ptxas_summary(log: str) -> dict:
     entries, serialized, name = {}, [], None
 
     def label(mangled):   # flash_bwd_dq_wgmmaILi128EE... -> ..._wgmma<128>
-        m = re.search(r"(flash_bwd_\w+?)I((?:Li\d+E)+)E", mangled)
+        m = re.search(r"(flash_(?:fwd|bwd)_\w+?)I((?:Li\d+E)+)E", mangled)
         if not m:
             return mangled
         return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
@@ -3356,6 +3693,8 @@ def main() -> int:
          libraries=[str(p.relative_to(ROOT)) for p in libs.values()])
     emit("build_flash_bwd", **ptxas_summary(
         build.BUILD_LOGS.get("flash_attention_bwd", "")))
+    emit("build_flash_fwd", **ptxas_summary(
+        build.BUILD_LOGS.get("flash_attention", "")))
 
     serve_mods = (pa_kernel, ssd_kernel, fa_kernel)
     entry = kernel_phase(n_layers=28)
@@ -3419,6 +3758,24 @@ def main() -> int:
         family["serve_waves_hybrid"]["ssd_scan"]
     ssd_entry["by_model"] = family_shapes["ssd_scan"]
 
+    # gemma3's local/global attention and whisper's encoder-decoder: the
+    # flash forward at D 256 and at whisper's non-causal shapes, the paged
+    # kernel at gemma3's decode; gemma3 paged (its fp32 gate at full depth)
+    # and in waves of 2,048-token prompts, whisper's dense engine in waves
+    # and a trace (counts read per phase)
+    slice_shapes = gemma3_whisper_kernel_phase()
+    gemma3 = serve_paged_phase("serve_gemma3", GEMMA3, serve_mods,
+                               requests=FAMILY_REQUESTS,
+                               parity="parity_gemma3",
+                               parity_shape=GEMMA3_PARITY)["launches"]
+    gemma3_waves = serve_waves_phase(
+        GEMMA3, serve_mods, "dense", "serve_waves_gemma3",
+        waves=FAMILY_WAVES, max_new=FAMILY_WAVE_NEW,
+        prompt=GEMMA3_WAVE_PROMPT)
+    whisper = serve_whisper_phases(serve_mods)
+    entry["launches_serve_gemma3"] = gemma3["paged_attention"]
+    entry["by_model"].update(slice_shapes["paged_attention"])
+
     jacobi_entries = jacobi_kernel_phase()
     jobmodel_phase()
     launches = jacobi_phase(jacobi_kernel)
@@ -3444,7 +3801,11 @@ def main() -> int:
         fa_entry[f"launches_{phase}"] = n
     for phase in ("serve_waves_moe", "serve_waves_hybrid"):
         fa_entry[f"launches_{phase}"] = family[phase]["flash_attention"]
-    fa_entry["by_model"] = family_shapes["flash_attention"]
+    fa_entry["launches_serve_waves_gemma3"] = gemma3_waves["flash_attention"]
+    for phase, n in whisper.items():
+        fa_entry[f"launches_{phase}"] = n
+    fa_entry["by_model"] = {**family_shapes["flash_attention"],
+                            **slice_shapes["flash_attention"]}
     fa_bwd_entry["device_kernels_per_call"] = FA_BWD_KERNELS
     train_hypar_phase(mods)
     train_proc_phase()

@@ -56,11 +56,25 @@
 //   while the CUDA cores exponentiate; the two warpgroups of a 128-row
 //   block also run out of step.  Inputs whose strides TMA cannot describe
 //   are copied by the wrapper first.
+// * bf16 at head dim 256 (gemma3): the same kernel at D padded to 256.
+//   A 64 x 256 fp32 output tile is 128 accumulator registers a consumer
+//   thread, so the second score buffer goes (S of the next tile is issued
+//   after this tile's p·v, not beside its softmax): 160 live accumulators
+//   where the overlap would need 192 beside the addressing.  Q of 128 rows
+//   is 64 KB and a K or V tile of 64 keys 32 KB, so two stages of 64-key
+//   tiles fit (197 KB at 128 rows) and 128-key tiles do not: kv_block is
+//   64 only.  At 128 rows the producer warpgroup hands its registers over
+//   (`setmaxnreg` 40 / 232) as at D 128; the wrapper's default there, as
+//   its two warpgroups overlap one another's softmax and products.
+// * The elementwise step takes the backward's two idioms: the
+//   exponential is `ex2.approx.ftz` on every element (a masked score is
+//   -inf, whose 2^x is 0), and shared-memory pointers are offsets from the
+//   `extern __shared__` array, so reads stay shared loads.
 // * fp32 (`flash_fwd_f32`): plain FMA, not TF32, so that it holds to the
 //   plain fp32 version at 1e-5.  4 warps, 32 query rows, kv tiles of 32;
 //   four threads share a row, each scoring 8 keys and accumulating a
 //   quarter of the output columns.  It has one launch shape and ignores
-//   q_block and kv_block.
+//   q_block and kv_block; at D 256 a block holds 101 KB of tiles.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
@@ -132,6 +146,10 @@ struct FwdShape {
   static constexpr int kTileBytes = kChunks * BN * 128;   // one K or V tile
   static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes +
                                (1 + 3 * kStages) * 8;
+  // S of the next tile beside this tile's softmax: a second score buffer,
+  // which a 64 x 256 output tile leaves no registers for
+  static constexpr bool kOverlap = DP <= 128;
+  static_assert(kSmem <= 232448, "tiles exceed the shared memory of a block");
 };
 
 struct Maps {
@@ -152,10 +170,7 @@ __global__ void __launch_bounds__(FwdShape<DP, BM, BN>::kThreadsAll, 1)
   using Sh = FwdShape<DP, BM, BN>;
   constexpr int kChunks = Sh::kChunks;
   extern __shared__ uint8_t smem_raw[];
-  // swizzled tiles need 1024-byte alignment
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* qs = smem;                               // [chunk][BM][64]
+  uint8_t* qs = align1024(smem_raw);   // [chunk][BM][64], swizzled tiles
   uint8_t* ks = qs + Sh::kQBytes;                   // [stage][chunk][BN][64]
   uint8_t* vs = ks + kStages * Sh::kTileBytes;
   uint64_t* bars =
@@ -266,8 +281,8 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* qs,
     wgmma_commit();
   };
 
-  // two score buffers: S of the next tile runs on the tensor cores while
-  // the softmax of this one runs on the CUDA cores
+  // two score buffers (kOverlap): S of the next tile runs on the tensor
+  // cores while the softmax of this one runs on the CUDA cores
   float s[BN / 2], s_next[BN / 2];
   const int n_tiles = last - first;
   mbar_wait(q_full, 0);
@@ -278,7 +293,7 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* qs,
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it % kStages;
     const int k0 = (first + it) * BN;
-    if (it + 1 < n_tiles) issue_s(s_next, it + 1);
+    if (Sh::kOverlap && it + 1 < n_tiles) issue_s(s_next, it + 1);
 
     const bool masked = tile_needs_mask(p, wq0, 64, k0, BN);
 #pragma unroll
@@ -300,15 +315,15 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* qs,
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[rr], mx);
       const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = exp2f(m[rr] - m_use);
+      const float corr = fast_exp2(m[rr] - m_use);
       m[rr] = m_new;
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         float& e0 = s[4 * j + 2 * rr];
         float& e1 = s[4 * j + 2 * rr + 1];
-        e0 = exp2f(e0 - m_use);
-        e1 = exp2f(e1 - m_use);
+        e0 = fast_exp2(e0 - m_use);
+        e1 = fast_exp2(e1 - m_use);
         sum += e0 + e1;
       }
       l[rr] = l[rr] * corr + sum;
@@ -336,10 +351,15 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* qs,
         wgmma_rs_tb(o[c], a, sw128_desc(v_addr + c * BN * 128 + kk * 2048));
     }
     wgmma_commit();
-    wgmma_wait<0>();   // the next tile's S and this tile's p·v
+    wgmma_wait<0>();   // this tile's p·v (and the next tile's S)
     mbar_arrive(&empty[st]);
+    if constexpr (Sh::kOverlap) {
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) s[i] = s_next[i];
+      for (int i = 0; i < BN / 2; ++i) s[i] = s_next[i];
+    } else if (it + 1 < n_tiles) {
+      issue_s(s, it + 1);
+      wgmma_wait<0>();
+    }
   }
 
 #pragma unroll
@@ -448,12 +468,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m, mx);
     const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    const float corr = exp2f(m - m_use);
+    const float corr = fast_exp2(m - m_use);
     m = m_new;
     float sum = 0.f;
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
-      const float e = exp2f(s[jj] - m_use);
+      const float e = fast_exp2(s[jj] - m_use);
       Ps[r][c * 8 + jj] = e;
       sum += e;
     }
@@ -502,11 +522,16 @@ cudaError_t launch_wgmma(const Maps& maps, const Params& p, int B,
 template <int DP>
 cudaError_t launch_bf16(const Maps& maps, const Params& p, int B, int q_block,
                         int kv_block, cudaStream_t stream) {
-  if (q_block == 64)
-    return kv_block == 64 ? launch_wgmma<DP, 64, 64>(maps, p, B, stream)
-                          : launch_wgmma<DP, 64, 128>(maps, p, B, stream);
-  return kv_block == 64 ? launch_wgmma<DP, 128, 64>(maps, p, B, stream)
-                        : launch_wgmma<DP, 128, 128>(maps, p, B, stream);
+  if constexpr (DP == 256) {   // 128-key tiles do not fit two stages
+    return q_block == 64 ? launch_wgmma<DP, 64, 64>(maps, p, B, stream)
+                         : launch_wgmma<DP, 128, 64>(maps, p, B, stream);
+  } else {
+    if (q_block == 64)
+      return kv_block == 64 ? launch_wgmma<DP, 64, 64>(maps, p, B, stream)
+                            : launch_wgmma<DP, 64, 128>(maps, p, B, stream);
+    return kv_block == 64 ? launch_wgmma<DP, 128, 64>(maps, p, B, stream)
+                          : launch_wgmma<DP, 128, 128>(maps, p, B, stream);
+  }
 }
 
 template <int DP>
@@ -527,8 +552,9 @@ extern "C" {
 // q: (B, S, H, D); k, v: (B, T, KV, D); o: (B, S, H, D), all of one dtype
 // (fp32, or bf16 when is_bf16), strides in elements, the last dimension
 // contiguous; lse: (B, H, S) fp32 contiguous.  window 0 means none.
-// q_block and kv_block (64 or 128) are the bf16 kernel's launch shape; for
-// bf16 every pointer is 16-byte aligned and every stride a multiple of 8.
+// D is a multiple of 8 up to 256.  q_block and kv_block (64 or 128; kv_block
+// 64 at D > 128) are the bf16 kernel's launch shape; for bf16 every pointer
+// is 16-byte aligned and every stride a multiple of 8.
 // Returns the launch's cudaError_t (0 on success) without synchronising.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, float* lse, long long q_sb, long long q_ss,
@@ -538,10 +564,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long o_sh, int B, int S, int T, int H, int KV,
                            int D, int causal, int window, int is_bf16,
                            int q_block, int kv_block, cudaStream_t stream) {
-  if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV != 0 || D < 8 || D > 128 ||
+  if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV != 0 || D < 8 || D > 256 ||
       D % 8 != 0 || B > 65535 || H > 65535 || window < 0 ||
       (q_block != 64 && q_block != 128) ||
-      (kv_block != 64 && kv_block != 128))
+      (kv_block != 64 && kv_block != 128) || (D > 128 && kv_block != 64))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -568,14 +594,17 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
         !encode_map(&maps.k, k, B, T, KV, D, k_sb, k_st, k_sh) ||
         !encode_map(&maps.v, v, B, T, KV, D, v_sb, v_st, v_sh))
       return static_cast<int>(cudaErrorInvalidValue);
-    err = D <= 64 ? launch_bf16<64>(maps, p, B, q_block, kv_block, stream)
-                  : launch_bf16<128>(maps, p, B, q_block, kv_block, stream);
+    err = D <= 64    ? launch_bf16<64>(maps, p, B, q_block, kv_block, stream)
+          : D <= 128 ? launch_bf16<128>(maps, p, B, q_block, kv_block, stream)
+                     : launch_bf16<256>(maps, p, B, q_block, kv_block, stream);
   } else if (D <= 32) {
     err = launch_f32<32>(p, B, stream);
   } else if (D <= 64) {
     err = launch_f32<64>(p, B, stream);
-  } else {
+  } else if (D <= 128) {
     err = launch_f32<128>(p, B, stream);
+  } else {
+    err = launch_f32<256>(p, B, stream);
   }
   return static_cast<int>(err);
 }

@@ -211,20 +211,6 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// p rounded up to 1024 bytes by an offset, so that the compiler still
-// knows it (and what is derived from it) to be shared memory
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-// 2^x by the special-function unit, flushed to zero below 2^-126 (such P
-// do not register in a bf16 product); 2^-inf = 0
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // rows row0 and row0 + 8 of a warpgroup's 64 x DP accumulator (one
 // 64-column chunk a slice), times `scale`, as bf16 pairs; rows from
 // `limit` on and columns from D on are not written

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu): mbarriers,
-// TMA tile loads, shared-memory matrix descriptors in the 128-byte swizzle,
-// `wgmma.mma_async` wrappers, and the host-side tensor-map encoder.
+// (flash_attention.cu) and backward (flash_attention_bwd.cu): shared-memory
+// alignment, the fast exponential, mbarriers, TMA tile loads, shared-memory
+// matrix descriptors in the 128-byte swizzle, `wgmma.mma_async` wrappers,
+// and the host-side tensor-map encoder.
 //
 // Every tile is a set of 64 x 64 bf16 boxes (64 rows of 64 columns, 128
 // bytes a row) that TMA writes in the 128-byte swizzled layout `wgmma`
@@ -21,6 +22,23 @@ constexpr int kBox = 64 * 64 * 2;   // bytes of one TMA box: 64 rows x 64 cols
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// p rounded up to 1024 bytes by an offset, so that the compiler still
+// knows it (and what is derived from it) to be shared memory (a round trip
+// through uintptr_t turns its reads into generic loads)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// 2^x by the special-function unit, flushed to zero below 2^-126 (such P
+// do not register in a bf16 product); 2^-inf = 0.  Computed for every
+// element and then selected: a conditional exp2f compiles to a branch, a
+// load and an exponential, one element after another
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {

@@ -7,9 +7,12 @@ their strides (last dimension contiguous), so the TPU wrapper's transposes
 are gone, masks ragged S and T itself, and also writes the fp32 per-row
 log-sum-exp (B, H, S) that the backward pass needs.  bf16 runs on the
 tensor cores (``wgmma``, tiles brought by TMA), at the launch shape
-``(q_block, kv_block)``; fp32 on plain FMA at one fixed shape.
+``(q_block, kv_block)``; fp32 on plain FMA at one fixed shape.  It takes
+head dims that are multiples of 8 up to 256 (gemma3's 256 among them); at
+D > 128 the bf16 kernel's tiles are 64 keys (:func:`check_blocks`).
 
-The backward (``csrc/flash_attention_bwd.cu``) has no Pallas counterpart:
+The backward (``csrc/flash_attention_bwd.cu``, D up to 128) has no Pallas
+counterpart:
 the reference differentiates its plain paths.  It computes dq, dk and dv
 from the forward's output and LSE in three device kernels a call (the
 rowsum of dO∘O, the dK/dV pass, the dQ pass; in bf16 on TMA, an mbarrier
@@ -30,8 +33,9 @@ import torch
 
 from .. import build
 
-__all__ = ["BLOCKS", "DEFAULT_Q_BLOCK", "DEFAULT_KV_BLOCK",
-           "check_blocks", "flash_attention_kernel",
+__all__ = ["BLOCKS", "DEFAULT_Q_BLOCK", "DEFAULT_KV_BLOCK", "MAX_D",
+           "MAX_D_BWD", "WIDE_D", "WIDE_Q_BLOCK", "check_blocks",
+           "default_blocks", "flash_attention_kernel",
            "flash_attention_backward_kernel", "launches"]
 
 #: kernel name -> calls since import (or the last reset)
@@ -44,6 +48,24 @@ BLOCKS = (64, 128)
 #: H 12, KV 2, D 128, causal) on an H100
 DEFAULT_Q_BLOCK = 64
 DEFAULT_KV_BLOCK = 64
+#: the widest head dim of the forward and of the backward
+MAX_D = 256
+MAX_D_BWD = 128
+#: head dims above this take 64-key tiles only: a 128-key K and V tile of
+#: D 256 (64 KB each) leaves no room for a second stage
+WIDE_D = 128
+#: the bf16 forward's query rows above ``WIDE_D`` when neither the caller
+#: nor the tuner gives them: the faster of its two launch shapes at
+#: gemma3-4b's batched prefill (B 8, S 2,048, H 8, KV 4, D 256, causal
+#: and windowed) on an H100
+WIDE_Q_BLOCK = 128
+
+
+def default_blocks(D: int) -> tuple[int, int]:
+    """``(q_block, kv_block)`` of the bf16 forward at head dim ``D`` when
+    neither the caller nor the tuner gives one."""
+    return (WIDE_Q_BLOCK if D > WIDE_D else DEFAULT_Q_BLOCK,
+            DEFAULT_KV_BLOCK)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _libs: dict[str, ctypes.CDLL] = {}
@@ -70,18 +92,24 @@ def _load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def check_blocks(q_block: int | None, kv_block: int | None) -> None:
-    """Raise ``ValueError`` unless each given block is in :data:`BLOCKS`."""
+def check_blocks(q_block: int | None, kv_block: int | None,
+                 D: int | None = None) -> None:
+    """Raise ``ValueError`` unless each given block is in :data:`BLOCKS`,
+    and, at a head dim ``D`` above :data:`WIDE_D`, ``kv_block`` is 64."""
     for name, val in (("q_block", q_block), ("kv_block", kv_block)):
         if val is not None and val not in BLOCKS:
             raise ValueError(f"{name} {val} not in the kernel's launch "
                              f"shapes {BLOCKS}")
+    if D is not None and D > WIDE_D and kv_block not in (None, 64):
+        raise ValueError(f"kv_block {kv_block} not taken at head dim {D} "
+                         f"(64 above {WIDE_D})")
 
 
-def _check(q, k, v, *extra) -> None:
+def _check(q, k, v, *extra, max_d: int = MAX_D) -> None:
     """Shapes and dtypes first, then the device: q (B, S, H, D), k/v
     (B, T, KV, D) and every ``(name, tensor)`` in ``extra`` shaped like q,
-    one dtype, last dimension contiguous, on one CUDA device."""
+    one dtype, last dimension contiguous, D a multiple of 8 up to
+    ``max_d``, on one CUDA device."""
     named = (("q", q), ("k", k), ("v", v), *extra)
     for name, t in named:
         if t.dtype != q.dtype:
@@ -104,9 +132,9 @@ def _check(q, k, v, *extra) -> None:
         if t.shape != q.shape:
             raise ValueError(f"{name} {tuple(t.shape)} does not match q "
                              f"{tuple(q.shape)}")
-    if not (8 <= D <= 128 and D % 8 == 0):
+    if not (8 <= D <= max_d and D % 8 == 0):
         raise ValueError(f"head dim {D} not supported by the flash kernel "
-                         f"(multiples of 8 up to 128)")
+                         f"(multiples of 8 up to {max_d})")
     if min(B, S, T) < 1 or B > 65535 or H > 65535:
         raise ValueError(f"unsupported sizes B={B} S={S} T={T} H={H}")
     for name, t in named:
@@ -142,13 +170,14 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, S, H, D); k/v: (B, T, KV, D) with H a multiple of KV; all CUDA
     on one device, one dtype (float32 or bfloat16), last dimension
-    contiguous.  ``q_block`` and ``kv_block`` (in :data:`BLOCKS`; default
-    :data:`DEFAULT_Q_BLOCK`, :data:`DEFAULT_KV_BLOCK`) are the bf16
-    kernel's launch shape; the fp32 kernel has one and ignores them.
+    contiguous, D a multiple of 8 up to :data:`MAX_D`.  ``q_block`` and
+    ``kv_block`` (in :data:`BLOCKS`, kv_block 64 above :data:`WIDE_D`;
+    default :func:`default_blocks`) are the bf16 kernel's launch shape;
+    the fp32 kernel has one and ignores them.
     Returns ``(out (B, S, H, D) in q's dtype, lse (B, H, S) fp32)`` — what
     :func:`.ref.flash_attention_plain` computes."""
     _check(q, k, v)
-    check_blocks(q_block, kv_block)
+    check_blocks(q_block, kv_block, q.shape[-1])
     if window is not None and window < 1:
         raise ValueError(f"window {window} must be >= 1")
     q, k, v = (_aligned(t) for t in (q, k, v))
@@ -156,6 +185,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    q_default, kv_default = default_blocks(D)
     lib = _load("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -163,8 +193,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), *_strides(q, k, v, out), B, S, T, H, KV, D,
             int(causal), 0 if window is None else int(window),
-            int(q.dtype == torch.bfloat16), q_block or DEFAULT_Q_BLOCK,
-            kv_block or DEFAULT_KV_BLOCK, stream)
+            int(q.dtype == torch.bfloat16), q_block or q_default,
+            kv_block or kv_default, stream)
     if rc != 0:
         _raise(lib, "flash_attention", rc)
     launches["flash_attention"] += 1
@@ -178,14 +208,15 @@ def flash_attention_backward_kernel(q, k, v, out, lse, dout, *,
 
     q, out, dout: (B, S, H, D); k/v: (B, T, KV, D); lse: (B, H, S) fp32
     from the forward; all CUDA on one device, q, k, v, out and dout of one
-    dtype (float32 or bfloat16), last dimension contiguous.  Returns
-    ``(dq, dk, dv)`` in the inputs' dtype — what
+    dtype (float32 or bfloat16), last dimension contiguous, D a multiple
+    of 8 up to :data:`MAX_D_BWD`.  Returns ``(dq, dk, dv)`` in the inputs'
+    dtype — what
     :func:`.ref.flash_attention_backward_plain` computes."""
     B, S, H, D = q.shape
     if lse.dtype != torch.float32 or lse.shape != (B, H, S):
         raise TypeError(f"lse must be float32 of shape {(B, H, S)}, got "
                         f"{lse.dtype} {tuple(lse.shape)}")
-    _check(q, k, v, ("out", out), ("dout", dout))
+    _check(q, k, v, ("out", out), ("dout", dout), max_d=MAX_D_BWD)
     T, KV = k.shape[1], k.shape[2]
     if not lse.is_cuda or lse.device != q.device:
         raise ValueError(f"lse must be a CUDA tensor on {q.device}")

@@ -12,7 +12,7 @@ caller, else from the port's autotuner cache (CUDA tensors only; lookups
 only: the wrapper never times anything), else the kernel's default, as
 the paged wrapper does.  The plain version takes the same values and
 ignores them; values outside :data:`.kernel.BLOCKS` are refused on either
-path.
+path (and so are 128-key tiles at a head dim above ``WIDE_D``).
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch
 
 from ..runtime import resolve_impl
 from ..tuning import get_tuner
-from .kernel import (DEFAULT_KV_BLOCK, DEFAULT_Q_BLOCK, check_blocks,
+from .kernel import (check_blocks, default_blocks,
                      flash_attention_backward_kernel, flash_attention_kernel)
 from .ref import flash_attention_backward_plain, flash_attention_plain
 
@@ -31,14 +31,15 @@ def launch_shape(q: torch.Tensor, q_block: int | None = None,
                  kv_block: int | None = None) -> tuple[int, int]:
     """``(q_block, kv_block)`` for a forward on ``q``: the caller's values,
     else the tuned config for q's (bucket, dtype) on the card, else the
-    kernel's defaults."""
-    check_blocks(q_block, kv_block)
+    kernel's defaults at q's head dim."""
+    check_blocks(q_block, kv_block, q.shape[-1])
     if (q_block is None or kv_block is None) and q.is_cuda:
         cfg = get_tuner().lookup("flash_attention", q.shape, q.dtype,
                                  backend="cuda", impl="kernel") or {}
         q_block = q_block or cfg.get("q_block")
         kv_block = kv_block or cfg.get("kv_block")
-    return q_block or DEFAULT_Q_BLOCK, kv_block or DEFAULT_KV_BLOCK
+    q_default, kv_default = default_blocks(q.shape[-1])
+    return q_block or q_default, kv_block or kv_default
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -56,7 +57,7 @@ class FlashAttentionFn(torch.autograd.Function):
                                               window=window, q_block=q_block,
                                               kv_block=kv_block)
         else:
-            check_blocks(q_block, kv_block)
+            check_blocks(q_block, kv_block, q.shape[-1])
             out, lse = flash_attention_plain(q, k, v, causal=causal,
                                              window=window)
         ctx.save_for_backward(q, k, v, out, lse)

@@ -17,9 +17,12 @@ The engine runs on ``--device cuda`` (the default; it raises where no
 CUDA device exists) or, asked for explicitly, on the CPU.  Weights are
 random, drawn from ``--seed`` with a ``torch.Generator`` and cast to the
 compute dtype block by block, as the engines cast them.  Every family the
-port serves runs here: dense, MoE (``--arch qwen2-moe-a2.7b``,
-``mixtral-8x7b``), SSM (``mamba2-370m``) and the hybrid
-(``zamba2-1.2b``).
+port serves runs here: dense (gemma3-4b's local/global windows among
+them), MoE (``--arch qwen2-moe-a2.7b``, ``mixtral-8x7b``), SSM
+(``mamba2-370m``), the hybrid (``zamba2-1.2b``) and the encoder-decoder
+(``whisper-base``, dense engine only: each request, or each wave's row,
+brings 64 random encoder frames, as in the reference — its conv frontend
+is stubbed by precomputed frames).
 
 ``--engine hypar`` routes every admission wave of a trace through the core
 job machinery (:class:`~repro_torch.serve.HyParRequestTracker`: dynamic
@@ -73,6 +76,20 @@ __all__ = ["build_trace", "warmup_requests", "make_scheduler",
            "run_waves", "main"]
 
 
+#: encoder frames a request of an encoder-decoder model brings (the
+#: reference's)
+ENC_FRAMES = 64
+
+
+def _enc_embeds(rng: np.random.Generator, cfg, rows: int):
+    """Random encoder frames (rows, ENC_FRAMES, d) for an encoder-decoder
+    model, None for the others: the reference's draw."""
+    if cfg.family != "encdec":
+        return None
+    return rng.standard_normal((rows, ENC_FRAMES, cfg.d_model),
+                               dtype=np.float32)
+
+
 def build_trace(rng: np.random.Generator, cfg, *, n_requests: int,
                 rate_per_s: float, prompt_lens: list[int],
                 max_new, budget_new: int | None = None,
@@ -86,8 +103,10 @@ def build_trace(rng: np.random.Generator, cfg, *, n_requests: int,
     request; ``budget_new`` is the declared generation cap clients submit
     alongside.  ``shared_prefix_len`` > 0 makes every prompt open with the
     SAME token prefix (a system prompt).  ``ttft_deadline_s`` /
-    ``total_deadline_s`` stamp the same SLO onto every request.  The draws
-    match the reference's, so one seed gives both packages one trace."""
+    ``total_deadline_s`` stamp the same SLO onto every request.  An
+    encoder-decoder model's requests each bring ``ENC_FRAMES`` random
+    encoder frames.  The draws match the reference's, so one seed gives
+    both packages one trace."""
     t = 0.0
     mix = [int(m) for m in np.atleast_1d(max_new)]
     prefix = None
@@ -105,9 +124,11 @@ def build_trace(rng: np.random.Generator, cfg, *, n_requests: int,
         toks = rng.integers(0, cfg.vocab_size - 1, (S,)).astype(np.int32)
         if prefix is not None:
             toks = np.concatenate([prefix, toks[shared_prefix_len:]])
+        enc = _enc_embeds(rng, cfg, 1)
         reqs.append(Request(rid=rid, tokens=toks,
                             max_new=int(rng.choice(mix)),
                             budget_new=budget_new, arrival_s=t,
+                            enc_embeds=enc,
                             ttft_deadline_s=ttft_deadline_s,
                             total_deadline_s=total_deadline_s))
     return reqs
@@ -119,7 +140,8 @@ def warmup_requests(rng: np.random.Generator, cfg, *, prompt_lens,
     reqs = []
     for rid, S in enumerate(sorted(set(int(l) for l in prompt_lens))):
         toks = rng.integers(0, cfg.vocab_size - 1, (S,)).astype(np.int32)
-        reqs.append(Request(rid=rid, tokens=toks, max_new=2, arrival_s=0.0))
+        reqs.append(Request(rid=rid, tokens=toks, max_new=2, arrival_s=0.0,
+                            enc_embeds=_enc_embeds(rng, cfg, 1)))
     return reqs
 
 
@@ -300,9 +322,11 @@ def trace_stats(args, sched, snap) -> dict:
 
 def run_waves(cfg, params, args, *, sp: SamplingParams) -> dict:
     """``--requests`` waves of ``--batch`` random prompts of
-    ``--prompt-len`` tokens through ``Engine.generate``; wave 0 pays the
-    one-time costs (the kernel build, library initialisation) and is left
-    out of the steady-state throughput.  Returns the waves' figures."""
+    ``--prompt-len`` tokens (and, for an encoder-decoder model,
+    ``ENC_FRAMES`` random encoder frames a row) through
+    ``Engine.generate``; wave 0 pays the one-time costs (the kernel build,
+    library initialisation) and is left out of the steady-state
+    throughput.  Returns the waves' figures."""
     rng = np.random.default_rng(args.seed)
     max_len = args.prompt_len + args.max_new + 8
     eng = Engine(cfg, params, batch=args.batch, max_len=max_len,
@@ -317,9 +341,10 @@ def run_waves(cfg, params, args, *, sp: SamplingParams) -> dict:
     for wave in range(args.requests):
         prompts = rng.integers(0, cfg.vocab_size - 1,
                                (args.batch, args.prompt_len)).astype(np.int32)
+        enc = _enc_embeds(rng, cfg, args.batch)
         t0 = time.perf_counter()
         out = eng.generate(prompts, max_new=args.max_new, sp=sp,
-                           generator=generator)
+                           generator=generator, enc_embeds=enc)
         dt = time.perf_counter() - t0
         n_real = count_generated(out, sp.stop_token)
         total_tokens += n_real

@@ -37,6 +37,13 @@ flash kernel here too (the reference's cached branch only ever runs its
 plain cores).  Its decode (S == 1 over the dense views) is
 ``_decode_attn_plus_self``, plain, as in the reference.
 
+Cross-attention (whisper's decoder, ``kv_x=`` the encoder output) projects
+K/V from ``kv_x`` on every call (no cross-K/V cache, as in the reference),
+uses no RoPE and no mask, and runs the cache-less core that ``impl``
+resolves to for S queries over T frames: the flash kernel on CUDA under
+``auto``, with S != T.  (The reference's cross-attention never reaches its
+Pallas kernel; its ``auto`` takes the plain cores.)
+
 Cache writes stay deltas: ``attention`` returns the step's own K/V and the
 caller writes them into the pool.
 """
@@ -63,7 +70,11 @@ NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
 ATTN_IMPLS = ("auto", "dense", "tiled", "kernel", "pallas", "ref")
 
 
-def init_attention(generator, cfg: ModelConfig, device) -> dict:
+def init_attention(generator, cfg: ModelConfig, device, *,
+                   cross: bool = False) -> dict:
+    """q/k/v/o projections (and the qk-norm scales).  A cross-attention
+    layer (``cross``) has the same parameters: its K/V read the encoder
+    output."""
     d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     p = {
         "q": init_dense(generator, d, H * hd, cfg, device, bias=cfg.qkv_bias),
@@ -271,31 +282,38 @@ def _decode_attn_plus_self(q, k_cache, v_cache, kv_len_old, kt, vt, *,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
-def _self_attn(q, k, v, q_pos, *, causal, window, impl):
-    """The sequence attends over its own K/V (q (B, S, H, D), k/v (B, S,
-    KV, D)) through the core ``impl`` resolves to for S x S."""
-    S = q.shape[1]
-    core = resolve_attn_impl(impl, q.device, S, S)
+def _attn_core(q, k, v, q_pos, k_pos, *, causal, window, impl):
+    """q (B, S, H, D) over k/v (B, T, KV, D) with no cache, through the
+    core ``impl`` resolves to for S x T: the sequence over its own K/V
+    (``k_pos`` is ``q_pos``), or cross-attention over T encoder frames.
+    The kernel takes query and key positions from 0, as every caller's
+    are."""
+    core = resolve_attn_impl(impl, q.device, q.shape[1], k.shape[1])
     if core == "kernel":
         return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
                                       impl="kernel")
     if core == "dense":
-        return _dense_attn(q, k, v, q_pos, q_pos, causal=causal,
+        return _dense_attn(q, k, v, q_pos, k_pos, causal=causal,
                            window=window)
-    return _tiled_attn(q, k, v, q_pos, q_pos, causal=causal, window=window)
+    return _tiled_attn(q, k, v, q_pos, k_pos, causal=causal, window=window)
 
 
 def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
               cache: dict | None, cache_len=None, window: int | None = None,
               paged_impl: str = "auto", causal: bool = True,
-              impl: str = "auto", chunk_continue: bool = False):
+              impl: str = "auto", chunk_continue: bool = False,
+              kv_x: torch.Tensor | None = None, kv_positions=None,
+              rope: bool | None = None):
     """Full attention layer: qkv projection -> RoPE -> core -> output
-    projection.
+    projection.  ``rope`` (default ``cfg.use_rope``) turns RoPE on or off.
 
     ``cache=None`` is the cache-less full-sequence form (training): the
     sequence attends over itself with query and key positions
     ``positions``, through the core ``impl`` picks (see the module
-    docstring), and the result is ``(out, None)``.
+    docstring), and the result is ``(out, None)``.  With ``kv_x`` (B, T, d)
+    it is cross-attention: K/V are projected from ``kv_x`` at key
+    positions ``kv_positions`` (default ``arange(T)``), RoPE (if on)
+    rotates the queries only, and the result is ``(out, None)``.
 
     Otherwise it runs against one layer's cache and returns ``(out, (kt,
     vt))`` — the step's K/V in the cache layout (B, KV, S, D), for the
@@ -311,21 +329,31 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
     cd = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rope = cfg.use_rope if rope is None else rope
+    if kv_x is not None and cache is not None:
+        raise ValueError("cross-attention (kv_x) takes no cache: its K/V "
+                         "are recomputed from kv_x on every call")
 
+    src = x if kv_x is None else kv_x
     q = dense(p["q"], x, cd).reshape(B, S, H, hd)
-    k = dense(p["k"], x, cd).reshape(B, S, KV, hd)
-    v = dense(p["v"], x, cd).reshape(B, S, KV, hd)
+    k = dense(p["k"], src, cd).reshape(B, src.shape[1], KV, hd)
+    v = dense(p["v"], src, cd).reshape(B, src.shape[1], KV, hd)
     if cfg.qk_norm:
         q = apply_norm(cfg, p["q_norm"], q)
         k = apply_norm(cfg, p["k_norm"], k)
-    if cfg.use_rope:
+    if rope:
         sin, cos = rope_freqs(cfg, positions, hd)
         q = apply_rope(q, sin, cos)
-        k = apply_rope(k, sin, cos)
+        if kv_x is None:
+            k = apply_rope(k, sin, cos)
 
     if cache is None:
         pos = positions[0] if positions.dim() > 1 else positions
-        out = _self_attn(q, k, v, pos, causal=causal, window=window,
+        k_pos = pos
+        if kv_x is not None:
+            k_pos = (torch.arange(k.shape[1], device=q.device)
+                     if kv_positions is None else kv_positions)
+        out = _attn_core(q, k, v, pos, k_pos, causal=causal, window=window,
                          impl=impl)
         return dense(p["o"], out.reshape(B, S, H * hd), cd), None
 
@@ -343,7 +371,7 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
                                      kt, vt, window=window)
     elif not chunk_continue:
         q_pos = cache_len + torch.arange(S, device=q.device)
-        out = _self_attn(q, k, v, q_pos, causal=True, window=window,
+        out = _attn_core(q, k, v, q_pos, q_pos, causal=True, window=window,
                          impl=impl)
     else:
         kc = cache["k"] if cache else None

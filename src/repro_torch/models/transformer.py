@@ -1,8 +1,12 @@
-"""Model composition: the dense GQA decoder family, the mixture-of-experts
-family (``moe`` blocks: attention + routed experts), the attention-free
-Mamba-2 (``ssm``) family and zamba2's hybrid (SSM blocks with one
-``shared`` attention + MLP block re-invoked every k of them) for serving
-and the full-sequence forward, and the dense family's loss for training.
+"""Model composition: the dense GQA decoder family (with gemma3's
+``local``/``global`` blocks: sliding-window and full attention), the
+mixture-of-experts family (``moe`` blocks: attention + routed experts),
+the attention-free Mamba-2 (``ssm``) family, zamba2's hybrid (SSM blocks
+with one ``shared`` attention + MLP block re-invoked every k of them) and
+whisper's encoder-decoder (``enc`` blocks: non-causal self-attention;
+``dec`` blocks: causal self-attention, cross-attention over the encoder
+output, MLP) for serving and the full-sequence forward, and the dense
+family's loss for training.
 
 Parameters are the JAX package's pytree unstacked: ``{"embed": {"table"},
 "layers": [block, ...], "norm_f": {"scale"}}`` with one dict per layer in
@@ -10,8 +14,12 @@ the order ``layer_kinds`` gives (the reference stacks each pattern
 position's layers on a leading axis for ``lax.scan``, then a tail; here a
 plain Python loop runs them).  A dense block is ``{"ln1", "attn", "ln2",
 "mlp"}``, a MoE block ``{"ln1", "attn", "ln2", "moe"}``, an SSM block
-``{"ln1", "mixer"}``.  A hybrid model's ``shared`` positions hold ``{}``
-in ``"layers"``, and the one block they all run is ``params["shared"]``.
+``{"ln1", "mixer"}``, a decoder block the dense one plus ``{"ln_cross",
+"cross"}``.  A hybrid model's ``shared`` positions hold ``{}`` in
+``"layers"``, and the one block they all run is ``params["shared"]``.  An
+encoder-decoder model adds ``"enc_layers"`` (its encoder blocks, the
+reference's ``enc_groups`` unstacked), ``"enc_norm_f"``, and the learned
+position tables ``"enc_pos"`` and ``"dec_pos"`` (max_seq, d).
 
 Two serving caches, both with the SSM layers' per-slot state ``"conv"``:
 (n_ssm, B, W-1, d_inner + 2N) and ``"state"``: (n_ssm, B, H, P, N), fp32
@@ -30,6 +38,11 @@ Two serving caches, both with the SSM layers' per-slot state ``"conv"``:
 ``cache["state"][i]`` the i-th SSM layer's state.  ``decode_step`` runs
 either cache: without ``pages`` S == 1 decodes and S > 1 is a batched
 prefill from a fresh cache.
+
+An encoder-decoder model's serving steps take the encoder output
+(``enc_out``, from :func:`encode`) beside the cache: its cross K/V are
+recomputed from it on every step, as in the reference, so its caches
+hold the decoder's self-attention K/V only, and it has no paged form.
 
 ``forward`` runs the whole sequence with no cache and returns the MoE
 blocks' summed auxiliary loss; ``loss_fn`` (the training path) takes the
@@ -50,23 +63,26 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.flash_attention.kernel import MAX_D_BWD
 from ..kernels.runtime import resolve_impl
 from ..tree import tree_leaves
 from .attention import attention, gather_pages, init_attention
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, cast_weights, dtype_of, embed,
-                     init_embedding, init_mlp, init_norm, unembed)
+                     init_embedding, init_mlp, init_norm, truncated_normal,
+                     unembed)
 from .moe import apply_moe, init_moe
 from .ssm import apply_mamba2, init_mamba2, init_ssm_cache, mamba2_decode_step
 
 __all__ = ["LayerPlan", "layer_plan", "layer_kinds", "init_block",
            "apply_block", "init_params", "param_count", "init_cache",
-           "init_paged_cache", "decode_step", "prefill",
+           "init_paged_cache", "decode_step", "prefill", "encode",
            "chunk_prefill_step", "check_supported", "check_trainable",
            "forward", "loss_fn"]
 
 #: block kinds the port runs
-PORTED_KINDS = ("dense", "moe", "ssm", "shared")
+PORTED_KINDS = ("dense", "local", "global", "moe", "ssm", "shared", "enc",
+                "dec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,11 +123,11 @@ def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense, moe, ssm and hybrid families; the other
-    block kinds (local/global windows, encoder-decoder) come with later
-    slices."""
+    """Raise ``NotImplementedError`` for a block kind the port does not
+    run; it runs every kind of the reference's ``layer_plan``."""
     plan = layer_plan(cfg)
-    missing = sorted(set(plan.pattern + plan.tail) - set(PORTED_KINDS))
+    missing = sorted(set(plan.pattern + plan.tail + plan.enc_pattern)
+                     - set(PORTED_KINDS))
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {missing} are not ported yet (the "
@@ -134,6 +150,9 @@ def init_block(generator, cfg: ModelConfig, device, kind: str) -> dict:
         p["moe"] = init_moe(generator, cfg, device)
     else:
         p["mlp"] = init_mlp(generator, cfg, device)
+    if kind == "dec":
+        p["ln_cross"] = init_norm(cfg, device)
+        p["cross"] = init_attention(generator, cfg, device, cross=True)
     return p
 
 
@@ -144,7 +163,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``device``).  The numbers differ from the reference's JAX PRNG stream;
     parity tests carry JAX weights over with ``weights.from_jax_numpy``.
     A hybrid model's shared block is drawn once, as ``params["shared"]``;
-    its positions in ``"layers"`` hold ``{}``.
+    its positions in ``"layers"`` hold ``{}``.  An encoder-decoder model's
+    encoder blocks, final encoder norm and position tables (std 0.02, as
+    the reference draws them) follow.
 
     ``cast=True`` passes each block through :func:`cast_weights` as soon as
     it is drawn: the values the engines would cast the whole tree to, with
@@ -161,6 +182,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
               "norm_f": init_norm(cfg, device)}
     if "shared" in kinds:
         params["shared"] = done(init_block(generator, cfg, device, "shared"))
+    if cfg.family == "encdec":
+        plan = layer_plan(cfg)
+        params["enc_layers"] = [
+            done(init_block(generator, cfg, device, kind))
+            for kind in plan.enc_pattern * plan.enc_groups]
+        params["enc_norm_f"] = init_norm(cfg, device)
+        dt = dtype_of(cfg.param_dtype)
+        for key in ("enc_pos", "dec_pos"):
+            params[key] = truncated_normal(generator, (cfg.max_seq,
+                                                       cfg.d_model),
+                                           0.02, dt, device)
     return params
 
 
@@ -176,21 +208,28 @@ def _blocks(cfg: ModelConfig, params: dict):
 
 
 def _window_for(cfg: ModelConfig, kind: str) -> int | None:
-    """The attention window of a block kind: ``sliding_window`` for dense
-    and MoE blocks (mixtral), none for zamba2's shared block."""
+    """The attention window of a block kind: ``local_window`` for gemma3's
+    local blocks, ``sliding_window`` for dense and MoE blocks (mixtral),
+    none for the global, shared, encoder and decoder blocks."""
+    if kind == "local":
+        return cfg.local_window
     return cfg.sliding_window if kind in ("dense", "moe") else None
 
 
 def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
                 positions, cache: dict | None, cache_len,
                 paged_impl: str = "auto", impl: str = "auto",
-                valid_len: int | None = None, chunk_continue: bool = False):
+                valid_len: int | None = None, chunk_continue: bool = False,
+                enc_out: torch.Tensor | None = None):
     """One pre-norm residual block.  Returns ``(x, update, aux)``: ``aux``
     is a MoE block's load-balancing loss (an fp32 scalar) and None for the
     other kinds.
 
-    ``dense``, ``moe`` and ``shared`` (attention + gated MLP or experts)
-    give the block's K/V delta ``(kt, vt)`` as ``update``; with
+    The attention kinds (dense, local, global, moe, shared, enc, dec: an
+    attention + gated MLP or experts) give the block's K/V delta ``(kt,
+    vt)`` as ``update``; ``enc`` attends without a causal mask and with no
+    RoPE, ``dec`` with no RoPE and then, given ``enc_out``, over the
+    encoder output (cross-attention, ``impl`` picking its core); with
     ``cache=None`` (the full-sequence forward) the update is None and
     ``impl`` picks the attention core.  ``ssm`` gives the slot rows' new
     ``{"conv", "state"}``: one token per row against a cache runs the
@@ -213,8 +252,16 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
     out, kv = attention(cfg, p["attn"], h, positions=positions, cache=cache,
                         cache_len=cache_len, window=_window_for(cfg, kind),
                         paged_impl=paged_impl, impl=impl,
-                        chunk_continue=chunk_continue)
+                        chunk_continue=chunk_continue,
+                        causal=kind != "enc",
+                        rope=cfg.use_rope and kind not in ("enc", "dec"))
     x = x + out
+    if kind == "dec" and enc_out is not None:
+        h = apply_norm(cfg, p["ln_cross"], x)
+        out, _ = attention(cfg, p["cross"], h, positions=positions,
+                           cache=None, kv_x=enc_out, causal=False,
+                           rope=False, impl=impl)
+        x = x + out
     h = apply_norm(cfg, p["ln2"], x)
     aux = None
     if kind == "moe":
@@ -237,25 +284,33 @@ def _check_remat(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """The training entry points (``loss_fn``, the fused step, the HyPar
-    trainer) take the dense family; training the other families comes
-    with later slices."""
+    trainer) take the dense family at head dims the flash backward kernel
+    takes; training the other families, and gemma3 (head dim 256), comes
+    with later slices (ROADMAP item 17).  Refused up front, so a step
+    never fails halfway through on the card."""
     check_supported(cfg)
+    if cfg.hd > MAX_D_BWD:
+        raise NotImplementedError(
+            f"{cfg.name}: head dim {cfg.hd} is wider than the flash "
+            f"backward kernel's {MAX_D_BWD}; training it comes with ROADMAP "
+            f"item 17")
     if set(layer_kinds(cfg)) != {"dense"}:
         raise NotImplementedError(f"{cfg.name}: training runs the dense "
                                   f"family only")
     _check_remat(cfg)
 
 
-def _run_stack(cfg: ModelConfig, params: dict, x, positions, *,
-               impl: str):
-    """Every layer in order, each recomputed in the backward pass under
-    ``remat="full"``.  Returns ``(x, aux)``: the MoE blocks' summed
-    auxiliary loss (0 for the other families)."""
+def _run_stack(cfg: ModelConfig, blocks, x, positions, *, impl: str,
+               enc_out=None):
+    """Every ``(kind, params)`` of ``blocks`` in order, each recomputed in
+    the backward pass under ``remat="full"``.  Returns ``(x, aux)``: the
+    MoE blocks' summed auxiliary loss (0 for the other families)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p in _blocks(cfg, params):
+    for kind, p in blocks:
         def block(h, p=p, kind=kind):
             return apply_block(cfg, kind, p, h, positions=positions,
-                               cache=None, cache_len=None, impl=impl)
+                               cache=None, cache_len=None, impl=impl,
+                               enc_out=enc_out)
         if cfg.remat == "full" and torch.is_grad_enabled():
             x, _, a = checkpoint(block, x, use_reentrant=False)
         else:
@@ -265,13 +320,38 @@ def _run_stack(cfg: ModelConfig, params: dict, x, positions, *,
     return x, aux
 
 
+def encode(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor, *,
+           impl: str = "auto") -> torch.Tensor:
+    """An encoder-decoder model's encoder: ``enc_embeds`` (B, T, d) plus
+    ``enc_pos[:T]`` through the encoder blocks (non-causal, ``impl``
+    picking their attention core) and the final encoder norm.  Returns
+    ``enc_out`` (B, T, d) in the compute dtype."""
+    plan = layer_plan(cfg)
+    e = enc_embeds.to(dtype_of(cfg.compute_dtype))
+    e = e + params["enc_pos"][:e.shape[1]].to(e.dtype)[None]
+    kinds = plan.enc_pattern * plan.enc_groups
+    e, _ = _run_stack(cfg, zip(kinds, params["enc_layers"]), e,
+                      torch.arange(e.shape[1], device=e.device), impl=impl)
+    return apply_norm(cfg, params["enc_norm_f"], e)
+
+
+def _add_dec_pos(cfg: ModelConfig, params: dict, x, positions):
+    """The decoder's learned positions, ``dec_pos[positions]``, added to
+    an encoder-decoder model's token embeddings (others pass through)."""
+    if cfg.family != "encdec":
+        return x
+    pe = params["dec_pos"][positions.long()]
+    return x + (pe if positions.dim() > 1 else pe[None]).to(x.dtype)
+
+
 def forward(cfg: ModelConfig, params: dict, *, tokens=None, embeds=None,
-            positions=None, impl: str = "auto"):
+            positions=None, enc_embeds=None, impl: str = "auto"):
     """Full-sequence forward (train / prefill).  ``tokens`` (B, S) int, or
-    ``embeds`` (B, S, d).  Returns ``(logits (B, S, padded_vocab) in the
-    compute dtype, aux)``, aux the MoE blocks' summed load-balancing loss;
-    ``impl`` picks every layer's attention core (and the SSM layers'
-    intra-chunk path)."""
+    ``embeds`` (B, S, d); an encoder-decoder model also takes
+    ``enc_embeds`` (B, T, d), its encoder input.  Returns ``(logits (B, S,
+    padded_vocab) in the compute dtype, aux)``, aux the MoE blocks' summed
+    load-balancing loss; ``impl`` picks every layer's attention core (and
+    the SSM layers' intra-chunk path)."""
     check_supported(cfg)
     _check_remat(cfg)
     if embeds is None:
@@ -280,7 +360,15 @@ def forward(cfg: ModelConfig, params: dict, *, tokens=None, embeds=None,
         x = embeds.to(dtype_of(cfg.compute_dtype))
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _run_stack(cfg, params, x, positions, impl=impl)
+    enc_out = None
+    if cfg.family == "encdec":
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
+                             f"enc_embeds")
+        enc_out = encode(cfg, params, enc_embeds, impl=impl)
+        x = _add_dec_pos(cfg, params, x, positions)
+    x, aux = _run_stack(cfg, _blocks(cfg, params), x, positions, impl=impl,
+                        enc_out=enc_out)
     x = apply_norm(cfg, params["norm_f"], x)
     return unembed(cfg, params["embed"], x), aux
 
@@ -337,11 +425,13 @@ def _new_cache(cfg: ModelConfig, batch: int, lens: torch.Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device) -> dict:
+               device, enc_len: int = 0) -> dict:
     """Dense serving cache: per-slot K/V buffers (B, KV, max_len, D) per
     attention layer, per-slot SSM state per SSM layer, and a scalar
     ``len`` of 0 (the dense engine broadcasts it to (B,) after a
-    prefill)."""
+    prefill).  ``enc_len`` is taken for the reference's signature and
+    sizes nothing: cross K/V are recomputed from the encoder output, so an
+    encoder-decoder cache holds the decoder's self-attention K/V only."""
     return _new_cache(cfg, batch,
                       torch.zeros((), dtype=torch.int32, device=device),
                       batch, max_len, device)
@@ -353,7 +443,11 @@ def init_paged_cache(cfg: ModelConfig, batch: int, *, num_pages: int,
     attention layer and per K/V, stacked on a leading layer axis; dense
     per-slot conv tail and SSD state per SSM layer, stacked likewise; and
     per-slot lengths.  An attention-free model gets no pool.  Page 0 is
-    the trash page."""
+    the trash page.  Encoder-decoder models are refused, as in the
+    reference."""
+    if cfg.family == "encdec":
+        raise NotImplementedError("paged KV for encdec (cross-attention "
+                                  "buffers) is not implemented")
     return _new_cache(cfg, batch,
                       torch.zeros((batch,), dtype=torch.int32, device=device),
                       num_pages, page_size, device)
@@ -414,7 +508,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor, *, pages: torch.Tensor | None = None,
                 page_size: int | None = None, paged_impl: str = "auto",
                 update_mask=None, impl: str = "auto",
-                valid_len: int | None = None):
+                valid_len: int | None = None,
+                enc_out: torch.Tensor | None = None):
     """One cache-extending step for every slot.  tokens: (B, S) int.
 
     Dense cache (``pages=None``): S == 1 decodes against the per-slot
@@ -434,7 +529,9 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
     ``update_mask`` (B,) bool: freeze the per-slot SSM state of masked-out
     slots (mid-prefill slots between their chunks); None advances every
-    slot.  Updates the cache in place; returns ``(logits (B, S, V),
+    slot.  An encoder-decoder model adds ``dec_pos`` at each slot's
+    positions and attends over ``enc_out`` (B, T, d) in every decoder
+    block.  Updates the cache in place; returns ``(logits (B, S, V),
     cache)``."""
     x = embed(cfg, params["embed"], tokens)
     S = x.shape[1]
@@ -449,6 +546,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                          "decode (S == 1); prefill from a fresh cache")
     steps = torch.arange(S, device=x.device)
     positions = pos[:, None] + steps if pos.dim() == 1 else pos + steps
+    x = _add_dec_pos(cfg, params, x, positions)
     if pages is not None:
         paged_impl = resolve_impl(paged_impl, pos.device)
     ai = si = 0
@@ -471,7 +569,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             lc = {"k_pool": kb, "v_pool": vb, "pages": pages}
         x, (kt, vt), _ = apply_block(cfg, kind, p, x, positions=positions,
                                      cache=lc, cache_len=pos,
-                                     paged_impl=paged_impl, impl=impl)
+                                     paged_impl=paged_impl, impl=impl,
+                                     enc_out=enc_out)
         if pages is None:
             _write_kv(kb, kt, pos)
             _write_kv(vb, vt, pos)
@@ -485,17 +584,23 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            max_len: int | None = None, impl: str = "auto"):
+            max_len: int | None = None, impl: str = "auto",
+            enc_embeds: torch.Tensor | None = None):
     """The small-scale reference prefill: a fresh dense cache extended one
     token at a time by ``decode_step``.  Returns ``(cache, logits (B, 1,
-    V) of the last prompt token)``."""
+    V) of the last prompt token, enc_out)``: ``enc_out`` is an
+    encoder-decoder model's encoder output (from ``enc_embeds``), None for
+    the other families."""
     B, S = tokens.shape
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = encode(cfg, params, enc_embeds, impl=impl)
     cache = init_cache(cfg, B, max_len or S + 64, device=tokens.device)
     logits = None
     for t in range(S):
         logits, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1],
-                                    impl=impl)
-    return cache, logits
+                                    impl=impl, enc_out=enc_out)
+    return cache, logits, enc_out
 
 
 def _write_kv_chunk_paged(pool, delta, start: int, pages_1d, page_size: int):
@@ -534,7 +639,10 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
     ``impl`` picks their intra-chunk SSD path (``auto``: the kernel on
     CUDA, the einsum form on the CPU; ``kernel``; ``ref``).  The slot's
     ``len`` becomes ``start + valid_len``.  Updates the cache in place;
-    returns ``(logits (1, 1, V) at the true last chunk token, cache)``."""
+    returns ``(logits (1, 1, V) at the true last chunk token, cache)``.
+    Encoder-decoder models are refused, as in the reference."""
+    if cfg.family == "encdec":
+        raise NotImplementedError("chunked prefill for encdec models")
     x = embed(cfg, params["embed"], tokens)
     C = x.shape[1]
     positions = start + torch.arange(C, device=x.device)

@@ -8,8 +8,12 @@ slot, and ``insert`` prefills one request into a batch-1 cache and splices
 it into its slot's row in place, the other slots untouched — the
 continuous batching ``ServeScheduler`` drives.  After the first prefill the
 cache ``len`` is (B,), one length per slot, so an inserted request
-attends, RoPEs and writes at its own position.  The reference counts the
-traces of its three jitted programs; the port compiles nothing, so
+attends, RoPEs and writes at its own position.  An encoder-decoder model
+(whisper) keeps its encoder output beside the cache, (B, T, d) in the
+compute dtype: ``prefill`` and ``insert`` run the encoder on their
+``enc_embeds`` and ``insert`` splices the slot's row, and every step
+recomputes the cross K/V from it, as the reference does.  The reference
+counts the traces of its three jitted programs; the port compiles nothing, so
 ``trace_count`` counts the distinct input-shape signatures each of
 ``prefill``, ``decode`` and ``splice`` has seen — what the traces count.
 
@@ -50,8 +54,8 @@ import torch
 from ..models.config import ModelConfig
 from ..models.layers import cast_weights, dtype_of
 from ..models.transformer import (check_supported, chunk_prefill_step,
-                                  decode_step, init_cache, init_paged_cache,
-                                  layer_plan)
+                                  decode_step, encode, init_cache,
+                                  init_paged_cache, layer_plan)
 
 __all__ = ["Engine", "PagedEngine", "SamplingParams", "count_generated",
            "chunk_plan", "chunk_buckets_for", "sample", "resolve_device",
@@ -171,6 +175,12 @@ def _as_tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(tokens, np.int32), device=device)
 
 
+def _as_embeds(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
 class Engine:
     """Dense serving engine: per-slot K/V buffers of ``max_len`` positions,
     batched prefill, one decode step for the whole batch, and slot inserts.
@@ -195,6 +205,7 @@ class Engine:
         self._shapes: dict[str, set] = collections.defaultdict(set)
         self.n_decode_calls = 0
         self.cache = None
+        self._enc_out = None       # encoder-decoder: (B, T, d) encoder output
 
     def trace_count(self, name: str) -> int:
         """Distinct input-shape signatures ``name`` (prefill | decode |
@@ -210,32 +221,51 @@ class Engine:
         return init_cache(self.cfg, self.batch, self.max_len,
                           device=self.device)
 
-    def ensure_batch(self) -> None:
+    def ensure_batch(self, *, enc_len: int | None = None) -> None:
         """Allocate the empty live batch (all slots free, zero lengths) so
-        insert-driven serving can start without a full-batch prefill."""
+        insert-driven serving can start without a full-batch prefill.  An
+        encoder-decoder model's ``enc_len`` sizes the encoder-output buffer
+        the inserts splice into (zeros in the compute dtype)."""
         if self.cache is None:
             cache = self.fresh_cache()
             cache["len"] = torch.zeros((self.batch,), dtype=torch.int32,
                                        device=self.device)
             self.cache = cache
+        if self.cfg.family == "encdec" and self._enc_out is None:
+            if enc_len is None:
+                raise ValueError("encdec ensure_batch() needs enc_len to "
+                                 "size the encoder-output buffer")
+            self._enc_out = torch.zeros(
+                (self.batch, enc_len, self.cfg.d_model),
+                dtype=dtype_of(self.cfg.compute_dtype), device=self.device)
 
-    def _prefill(self, cache: dict, tokens: torch.Tensor, last_idx: int):
+    def _prefill(self, cache: dict, tokens: torch.Tensor, last_idx: int,
+                 enc_embeds=None):
         """Batched prefill of ``tokens`` (B, S) into the fresh ``cache``:
         the logits at the true last token ``last_idx`` (the pad tail of a
         bucketed prompt picks nothing, and SSM layers mask it out of the
-        state), and ``len`` broadcast to (B,)."""
+        state), ``len`` broadcast to (B,), and an encoder-decoder model's
+        encoder output of ``enc_embeds`` (None for the other families)."""
         self._shapes["prefill"].add(tuple(tokens.shape))
+        enc_out = None
+        if self.cfg.family == "encdec":
+            if enc_embeds is None:
+                raise ValueError(f"{self.cfg.name}: an encoder-decoder "
+                                 f"prefill needs enc_embeds")
+            enc_out = encode(self.cfg, self.params,
+                             _as_embeds(enc_embeds, self.device))
         logits, cache = decode_step(self.cfg, self.params, cache, tokens,
-                                    valid_len=last_idx + 1)
+                                    valid_len=last_idx + 1, enc_out=enc_out)
         cache["len"] = cache["len"].expand(tokens.shape[0]).clone()
-        return logits[:, last_idx:last_idx + 1], cache
+        return logits[:, last_idx:last_idx + 1], cache, enc_out
 
-    def prefill(self, tokens) -> torch.Tensor:
-        """tokens: (batch, S).  Returns the last position's logits
-        (batch, 1, V)."""
+    def prefill(self, tokens, *, enc_embeds=None) -> torch.Tensor:
+        """tokens: (batch, S); an encoder-decoder model's ``enc_embeds``
+        (batch, T, d).  Returns the last position's logits (batch, 1,
+        V)."""
         tokens = _as_tokens(tokens, self.device)
-        logits, self.cache = self._prefill(self.fresh_cache(), tokens,
-                                           tokens.shape[1] - 1)
+        logits, self.cache, self._enc_out = self._prefill(
+            self.fresh_cache(), tokens, tokens.shape[1] - 1, enc_embeds)
         return logits
 
     def decode(self, tokens) -> torch.Tensor:
@@ -246,22 +276,23 @@ class Engine:
                                     tuple(self.cache["len"].shape)))
         self.n_decode_calls += 1
         logits, self.cache = decode_step(self.cfg, self.params, self.cache,
-                                         tokens)
+                                         tokens, enc_out=self._enc_out)
         return logits
 
     # -- sampling --------------------------------------------------------------
     def generate(self, tokens, *, max_new: int,
                  sp: SamplingParams = SamplingParams(),
-                 generator: torch.Generator | None = None) -> np.ndarray:
-        """Greedy or temperature generation for a full batch: prefill, then
-        ``max_new`` tokens (the first sampled from the prefill's logits).
-        Returns (batch, max_new) ids, stop-token padded after a row stops;
-        stops early once every row has.  Temperature > 0 draws from
-        ``generator`` (one seeded with 0 on the engine's device when
-        None)."""
+                 generator: torch.Generator | None = None,
+                 enc_embeds=None) -> np.ndarray:
+        """Greedy or temperature generation for a full batch: prefill (with
+        an encoder-decoder model's ``enc_embeds``), then ``max_new`` tokens
+        (the first sampled from the prefill's logits).  Returns (batch,
+        max_new) ids, stop-token padded after a row stops; stops early once
+        every row has.  Temperature > 0 draws from ``generator`` (one
+        seeded with 0 on the engine's device when None)."""
         if sp.temperature > 0 and generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        logits = self.prefill(tokens)
+        logits = self.prefill(tokens, enc_embeds=enc_embeds)
         out = []
         done = np.zeros((logits.shape[0],), bool)
         for _ in range(max_new):
@@ -278,16 +309,19 @@ class Engine:
         return np.stack(out, axis=1)
 
     # -- continuous batching -----------------------------------------------------
-    def insert(self, slot: int, tokens_1xS, *,
-               true_len: int | None = None) -> torch.Tensor:
+    def insert(self, slot: int, tokens_1xS, *, true_len: int | None = None,
+               enc_embeds=None) -> torch.Tensor:
         """Prefill one request into slot ``slot`` without disturbing the
         other slots: a batched prefill into a fresh batch-1 cache, spliced
         into the slot's row in place.
 
         ``tokens_1xS`` may be right-padded to a bucket length; ``true_len``
         is the unpadded prompt length (the full width by default), and the
-        slot's ``len`` becomes it.  Returns the logits of the true last
-        prompt token, (1, 1, V)."""
+        slot's ``len`` becomes it.  An encoder-decoder model needs the
+        request's ``enc_embeds`` (1, T, d), T the live batch's encoder
+        length: its encoder output is spliced into the slot's row beside
+        the cache.  Returns the logits of the true last prompt token, (1,
+        1, V)."""
         if self.cache is None:
             raise RuntimeError("insert() needs a live batch; call prefill() "
                                "first")
@@ -298,19 +332,36 @@ class Engine:
             raise ValueError(f"true_len {true_len} outside (0, {S}]")
         if not 0 <= slot < self.batch:
             raise ValueError(f"slot {slot} outside [0, {self.batch})")
+        if self.cfg.family == "encdec":
+            if enc_embeds is None:
+                raise ValueError(
+                    "inserting into an encdec engine requires enc_embeds — "
+                    "the slot's encoder output must be spliced alongside its "
+                    "KV cache")
+            if self._enc_out is None:
+                raise RuntimeError("encdec insert() needs a live batch with "
+                                   "encoder output; call prefill() first")
+            if enc_embeds.shape[1] != self._enc_out.shape[1]:
+                raise ValueError(
+                    f"enc_embeds length {enc_embeds.shape[1]} != batch "
+                    f"encoder length {self._enc_out.shape[1]}")
         mini = init_cache(self.cfg, 1, self.max_len, device=self.device)
-        logits, mini = self._prefill(mini, tokens, true_len - 1)
-        self._splice(mini, slot, true_len)
+        logits, mini, enc_out = self._prefill(mini, tokens, true_len - 1,
+                                              enc_embeds)
+        self._splice(mini, enc_out, slot, true_len)
         return logits
 
-    def _splice(self, mini: dict, slot: int, true_len: int) -> None:
-        """Copy a batch-1 cache into row ``slot`` of the live cache."""
+    def _splice(self, mini: dict, enc_out, slot: int, true_len: int) -> None:
+        """Copy a batch-1 cache (and an encoder-decoder model's encoder
+        output row) into row ``slot`` of the live batch."""
         self._shapes["splice"].add(tuple(tuple(t.shape)
                                          for t in mini.values()))
         for key, full in self.cache.items():
             if key != "len":
                 full[:, slot] = mini[key][:, 0]
         self.cache["len"][slot] = true_len
+        if enc_out is not None:
+            self._enc_out[slot] = enc_out[0]
 
 
 class PagedEngine:
@@ -332,6 +383,9 @@ class PagedEngine:
         if mesh is not None:
             raise NotImplementedError("multi-device serving (mesh=) is not "
                                       "ported yet")
+        if cfg.family == "encdec":
+            raise NotImplementedError("paged serving for encdec models "
+                                      "(cross-attention buffers)")
         check_supported(cfg)
         if prefill_chunk % page_size:
             raise ValueError(f"prefill_chunk {prefill_chunk} must be a "

@@ -92,6 +92,7 @@ class Request:
     tokens: np.ndarray              # (S,) int32 prompt
     max_new: int                    # realised generation length
     arrival_s: float = 0.0          # scheduler-clock arrival time
+    enc_embeds: Any = None          # encdec: (1, T, d) encoder input
     # declared generation cap: what ADMISSION must budget for.  Clients
     # declare a conservative cap (vLLM's max_tokens) while most requests
     # stop far short of it — full-lifetime reservation pays pages for the
@@ -961,7 +962,7 @@ class ServeScheduler:
         return n
 
     # -- submission ------------------------------------------------------------
-    def submit(self, tokens, max_new: int, *,
+    def submit(self, tokens, max_new: int, *, enc_embeds=None,
                arrival_s: float | None = None,
                budget_new: int | None = None,
                ttft_deadline_s: float | None = None,
@@ -973,7 +974,7 @@ class ServeScheduler:
         which)."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         req = Request(rid=self.queue.next_rid(), tokens=tokens,
-                      max_new=max_new,
+                      max_new=max_new, enc_embeds=enc_embeds,
                       budget_new=budget_new,
                       arrival_s=self.clock() if arrival_s is None
                       else arrival_s,
@@ -1116,12 +1117,17 @@ class ServeScheduler:
 
     def _insert(self, req: Request, slot: int) -> None:
         """Dense path: prefill the prompt, right-padded to its bucket, into
-        the slot in one ``insert`` and sample the first token."""
+        the slot in one ``insert`` (with an encoder-decoder request's
+        ``enc_embeds``) and sample the first token."""
         S = len(req.tokens)
         padded = np.zeros((1, self._bucket_len(S)), np.int32)
         padded[0, :S] = req.tokens
-        self.engine.ensure_batch()
-        logits = self.engine.insert(slot, padded, true_len=S)
+        if self.engine.cfg.family == "encdec":
+            self.engine.ensure_batch(enc_len=req.enc_embeds.shape[1])
+        else:
+            self.engine.ensure_batch()
+        logits = self.engine.insert(slot, padded, true_len=S,
+                                    enc_embeds=req.enc_embeds)
         self._admit_seq += 1
         self.slots[slot].admit_seq = self._admit_seq
         self._first_token(self.slots[slot], req, logits)

@@ -7,7 +7,10 @@ afresh.
   the reference stacks on a leading axis under ``params["groups"]`` (one
   stacked tree a position of the layer pattern) and the ``params["tail"]``
   blocks become one dict per layer, in the order ``layer_kinds`` gives;
-  a hybrid model's ``params["shared"]`` block comes across as it is.
+  a hybrid model's ``params["shared"]`` block comes across as it is, and
+  an encoder-decoder model's stacked ``enc_groups`` become
+  ``params["enc_layers"]`` beside ``enc_norm_f``, ``enc_pos`` and
+  ``dec_pos`` (its decoder blocks carry their ``cross`` leaves).
 * :func:`train_state_from_jax_numpy` does the same for a reference
   ``TrainState`` (parameters, optimizer state, step), so a test can start
   both trainers from one state.
@@ -61,6 +64,12 @@ def _unstack(tree_np: dict, cfg: ModelConfig, device) -> dict:
            "norm_f": _tensors(tree_np["norm_f"], device)}
     if "shared" in tree_np:
         out["shared"] = _tensors(tree_np["shared"], device)
+    if "enc_groups" in tree_np:
+        (enc,) = tree_np["enc_groups"]       # the encoder's one-kind pattern
+        out["enc_layers"] = [_tensors(enc, device, g)
+                             for g in range(plan.enc_groups)]
+        for key in ("enc_norm_f", "enc_pos", "dec_pos"):
+            out[key] = _tensors(tree_np[key], device)
     return out
 
 

@@ -109,14 +109,8 @@ def _greedy(logits):
 # ---------------------------------------------------------------------------
 
 
-GEMMA3_LATER = ("gemma3-4b's local/global windows come with ROADMAP item "
-                "12, after the flash forward takes its head width D 256 "
-                "(queue B)")
-
-
 @pytest.mark.parametrize("arch", [
-    *ARCHS, "zamba2-1.2b", "mixtral-8x7b", "qwen2-moe-a2.7b",
-    pytest.param("gemma3-4b", marks=pytest.mark.skip(reason=GEMMA3_LATER)),
+    *ARCHS, "zamba2-1.2b", "mixtral-8x7b", "qwen2-moe-a2.7b", "gemma3-4b",
 ])
 def test_batched_prefill_then_decode_matches_forward(arch_models, arch):
     """prefill(prompt) + decode(next) must equal forward(prompt+next), and
@@ -209,10 +203,40 @@ def test_insert_returns_true_last_token_logits(arch_models, arch):
     _close(lg_padded, want)
 
 
-@pytest.mark.skip(reason="encdec (whisper) comes with ROADMAP item 12; the "
-                         "port's check_supported refuses it")
-def test_insert_splices_enc_out_for_encdec():
-    pass
+def test_insert_splices_enc_out_for_encdec(arch_models):
+    """An insert splices the new request's encoder output into its slot's
+    row (the others untouched), equal to a standalone encode of it, and
+    its logits equal the JAX package's; an insert without enc_embeds
+    fails loudly instead of decoding against stale encoder state."""
+    jc, tc, jp, tp = arch_models("whisper-base")
+    rng = np.random.default_rng(0)
+    enc_len = 8
+    enc = rng.standard_normal((2, enc_len, tc.d_model), dtype=np.float32)
+    toks = _ints(1, (2, 6), tc.vocab_size)
+    eng = Engine(tc, tp, batch=2, max_len=32, device="cpu")
+    je = JaxEngine(jc, jp, batch=2, max_len=32, donate_cache=False)
+    eng.prefill(toks, enc_embeds=enc)
+    je.prefill(jnp.asarray(toks), enc_embeds=jnp.asarray(enc))
+    enc_before = eng._enc_out.clone()
+
+    new_enc = rng.standard_normal((1, enc_len, tc.d_model), dtype=np.float32)
+    new_prompt = _ints(2, (1, 6), tc.vocab_size)
+    lg = eng.insert(1, new_prompt, enc_embeds=new_enc)
+    _close(lg, je.insert(1, jnp.asarray(new_prompt),
+                         enc_embeds=jnp.asarray(new_enc)))
+    enc_after = eng._enc_out
+    assert torch.equal(enc_after[0], enc_before[0])      # slot 0 untouched
+    assert not torch.equal(enc_after[1], enc_before[1])  # slot 1 spliced
+    np.testing.assert_allclose(enc_after.numpy(), np.asarray(je._enc_out),
+                               atol=1e-5, rtol=1e-5)
+
+    # the spliced row equals a standalone encode of the new input
+    ref = Engine(tc, tp, batch=1, max_len=32, device="cpu")
+    ref.prefill(new_prompt, enc_embeds=new_enc)
+    np.testing.assert_allclose(enc_after[1].numpy(), ref._enc_out[0].numpy(),
+                               atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="enc_embeds"):
+        eng.insert(0, new_prompt)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -318,7 +342,7 @@ def test_stepwise_prefill_matches_batched_and_jax(arch_models, arch):
     jc, tc, jp, tp = arch_models(arch)
     toks = _ints(5, (2, 9), jc.vocab_size)
     jcache, jlast, _ = jax_prefill(jc, jp, jnp.asarray(toks), max_len=24)
-    cache, last = prefill(tc, tp, torch.as_tensor(toks), max_len=24)
+    cache, last, _ = prefill(tc, tp, torch.as_tensor(toks), max_len=24)
     _close(last, jlast)
     assert int(cache["len"]) == 9 == int(jcache["len"])
     eng = Engine(tc, tp, batch=2, max_len=24, device="cpu")

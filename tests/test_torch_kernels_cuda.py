@@ -73,6 +73,16 @@ MHA_CASES = [
      False, 0),
 ]
 
+# card only: gemma3-4b's decode (bf16 serving; KV 4, G 2, D 256) at the
+# serving batch and page size, contexts of 1,000-1,500 tokens and a free
+# slot, without a window (global layers) and under the local layers'
+# window of 1,024
+GEMMA3_CASES = [
+    (8, 8, 4, 256, 16, 96, (1500, 1400, 1300, 1200, 1100, 1024, 1000, 0),
+     window, False, 0)
+    for window in (None, 1024)
+]
+
 
 def paged_case(seed, B, H, KV, D, page_size, n_slot_pages, kv_lens, *,
                share=False, trash_tail=0):
@@ -137,16 +147,37 @@ PPS_GRID = [c["pages_per_split"]
 @pytest.mark.parametrize("pps", PPS_GRID)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", PA_CASES + SPLIT_CASES + STAGING_CASES
-                         + MHA_CASES,
+                         + MHA_CASES + GEMMA3_CASES,
                          ids=[f"paged{i}" for i in
                               range(len(PA_CASES + SPLIT_CASES
-                                        + STAGING_CASES + MHA_CASES))])
+                                        + STAGING_CASES + MHA_CASES
+                                        + GEMMA3_CASES))])
 def test_cuda_kernel_matches_plain(case, dtype, pps):
     """The hand-written kernel against its plain version, on the card, at
     every pages-a-split value of the tuner's grid."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     _kernel_vs_plain(case, dtype, pps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GEMMA3_CASES, ids=["global", "local"])
+def test_cuda_paged_kernel_at_gemma3_is_bit_identical_on_repeat(case):
+    """gemma3's decode shape in bf16 at the default split: two calls on
+    one input give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    B, H, KV, D, ps, n, lens, window, share, trash = case
+    q, kp, vp, tbl, kv_len, _, _ = paged_case(17, B, H, KV, D, ps, n, lens)
+    qg = torch.from_numpy(q.reshape(B, KV, H // KV, D) / np.sqrt(D))
+    args = [t.to(torch.bfloat16).cuda() for t in [qg] + _torch(kp, vp)]
+    args += [t.cuda() for t in _torch(tbl, kv_len)]
+    first = paged_attention_kernel(*args, window=window)
+    again = paged_attention_kernel(*args, window=window)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -468,10 +499,32 @@ FA_SERVE_CASES = [
     (8, 1024, 1024, 32, 32, 64, True, None),
 ]
 
+# head dim 256 (gemma3-4b): causal and under its local window of 1,024
+# over two windows' worth of rows; a window of 16 on ragged S > T (the last
+# row sees no key); non-causal under a window; and, card only, gemma3's
+# batched prefill of 8 prompts of 2,048 tokens, global and local
+FA_WIDE_CASES = [
+    (2, 1100, 1100, 8, 4, 256, True, None),
+    (2, 1100, 1100, 8, 4, 256, True, 1024),
+    (1, 77, 61, 4, 2, 256, True, 16),
+    (1, 200, 131, 4, 4, 256, False, 50),
+]
+FA_GEMMA3_CASES = [(8, 2048, 2048, 8, 4, 256, True, w) for w in (None, 1024)]
+
+# whisper-base (H = KV 8, D 64, non-causal, 1,500 encoder frames): the
+# encoder's self-attention, and the decoder's cross-attention of a 64-token
+# prompt and of one decode token over the frames
+FA_WHISPER_CASES = [
+    (8, 1500, 1500, 8, 8, 64, False, None),
+    (8, 64, 1500, 8, 8, 64, False, None),
+    (8, 1, 1500, 8, 8, 64, False, None),
+]
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FA_CASES + FA_SERVE_CASES)
+@pytest.mark.parametrize("case", FA_CASES + FA_SERVE_CASES + FA_WIDE_CASES
+                         + FA_GEMMA3_CASES + FA_WHISPER_CASES)
 def test_cuda_flash_kernel_matches_plain(case, dtype):
     """The hand-written flash kernel against its plain version, on the
     card: output at the reference's tolerance, LSE at 1e-4, rows with no
@@ -543,6 +596,63 @@ def test_cuda_flash_kernel_every_launch_shape(case, blocks):
                                atol=FA_TOL["bfloat16"],
                                rtol=FA_TOL["bfloat16"])
     torch.testing.assert_close(lse, lse_p, atol=FA_LSE_TOL, rtol=FA_LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", FA_BLOCKS)
+@pytest.mark.parametrize("case", FA_WIDE_CASES + FA_GEMMA3_CASES)
+def test_cuda_flash_kernel_head_dim_256_every_launch_shape(case, blocks):
+    """The bf16 forward at D 256 at every (q_block, kv_block) of the
+    tuner's grid: 64-key tiles match the plain version and give the same
+    bits on a repeat call; 128-key tiles are refused before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain,
+                                                     kernel)
+    B, S, T, H, KV, D, causal, window = case
+    q, k, v = fa_case(27, B, S, T, H, KV, D, "bfloat16")
+    qb, kb = blocks
+    before = kernel.launches["flash_attention"]
+    if kb == 128:
+        with pytest.raises(ValueError, match="kv_block 128"):
+            flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                   q_block=qb, kv_block=kb)
+        assert kernel.launches["flash_attention"] == before
+        return
+    out, lse = flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                      q_block=qb, kv_block=kb)
+    again, lse_again = flash_attention_kernel(q, k, v, causal=causal,
+                                              window=window, q_block=qb,
+                                              kv_block=kb)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    out_p, lse_p = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+    torch.testing.assert_close(out.float(), out_p.float(),
+                               atol=FA_TOL["bfloat16"],
+                               rtol=FA_TOL["bfloat16"])
+    torch.testing.assert_close(lse, lse_p, atol=FA_LSE_TOL, rtol=FA_LSE_TOL)
+    if window is not None and S > T + window - 1:
+        assert (out[:, T + window - 1:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_WIDE_CASES + FA_WHISPER_CASES)
+def test_cuda_flash_kernel_is_bit_identical_on_repeat(case, dtype):
+    """Two calls of the forward on one input, at D 256 and at whisper's
+    non-causal shapes with S != T, give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    B, S, T, H, KV, D, causal, window = case
+    q, k, v = fa_case(28, B, S, T, H, KV, D, dtype)
+    first = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    again = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -669,7 +779,7 @@ def test_cuda_flash_wrapper_refuses_what_the_kernel_does_not_take():
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     q, k, v = fa_case(23, 1, 16, 16, 2, 2, 32, "float32")
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention_kernel(*fa_case(23, 1, 16, 16, 2, 2, 256,
+        flash_attention_kernel(*fa_case(23, 1, 16, 16, 2, 2, 264,
                                          "float32"))
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_kernel(*fa_case(23, 1, 16, 16, 2, 2, 20, "float32"))
@@ -1082,4 +1192,92 @@ def test_cuda_moe_and_hybrid_engines_run_their_kernels(arch):
     (want, n_plain), (got, n_kernel) = out["ref"], out["auto"]
     assert n_plain.tolist() == [0, 0]
     assert n_kernel.tolist() == [n_attn, n_ssm]
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_gemma3_engines_run_their_kernels():
+    """gemma3 (smoke widths, window 16, fp32) on the card: a paged decode
+    step runs the paged kernel once a layer, local and global alike, and
+    matches the gather path; the dense engine's batched prefill of 40
+    tokens (past the window) runs the flash forward once a layer and
+    matches ``impl="ref"``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.paged_attention import kernel as pa
+    from repro_torch.serve import PagedEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _smoke_model("gemma3-4b", "float32")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size - 1, (40,))
+    logits = {}
+    for impl in ("kernel", "ref"):
+        eng = PagedEngine(cfg, params, batch=2, max_len=64, page_size=8,
+                          prefill_chunk=16, attn_impl=impl)
+        first = eng.insert(0, prompt, page_ids=list(range(1, 8)), max_new=8)
+        before = pa.launches
+        toks = np.zeros((2, 1), np.int32)
+        toks[0, 0] = int(first[0, -1].argmax())
+        out = [first[0, -1]]
+        for _ in range(4):
+            lg = eng.decode(toks)
+            out.append(lg[0, -1])
+            toks[0, 0] = int(lg[0, -1].argmax())
+        torch.cuda.synchronize()
+        assert pa.launches - before == (4 * cfg.n_layers if impl == "kernel"
+                                        else 0)
+        logits[impl] = torch.stack(out).float()
+    got, want = logits["kernel"], logits["ref"]
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+    out = _prefill_paths(cfg, params, 2, 40, ("ref", "auto"),
+                         lambda: fa.launches["flash_attention"])
+    (want, n_plain), (got, n_kernel) = out["ref"], out["auto"]
+    assert (n_plain, n_kernel) == (0, cfg.n_layers)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_engine_runs_the_flash_kernel():
+    """whisper (smoke widths, fp32) on the card's dense engine: a batched
+    prefill runs the flash forward once an encoder layer, twice a decoder
+    layer (self- and cross-attention), an insert the same, a decode step
+    once a decoder layer (cross-attention over the frames; the S == 1
+    self-attention is plain); the logits match ``impl="ref"``'s path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models.transformer import decode_step, encode, init_cache
+    from repro_torch.serve import Engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _smoke_model("whisper-base", "float32")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size - 1, (2, 9)).astype(np.int32)
+    enc = rng.standard_normal((2, 40, cfg.d_model), dtype=np.float32)
+    count = lambda: fa.launches["flash_attention"]
+    per_prefill = cfg.n_encoder_layers + 2 * cfg.n_layers
+    eng = Engine(cfg, params, batch=2, max_len=32)
+    before = count()
+    eng.prefill(toks, enc_embeds=enc)
+    assert count() - before == per_prefill
+    before = count()
+    eng.insert(1, toks[:1, :5], enc_embeds=enc[:1])
+    assert count() - before == per_prefill
+    before = count()
+    lg = eng.decode(toks[:, :1])
+    assert count() - before == cfg.n_layers
+    assert torch.isfinite(lg.float()).all()
+    # the kernel path against the plain one, prefill then a decode step
+    out = {}
+    for impl in ("auto", "ref"):
+        e = encode(cfg, eng.params, torch.as_tensor(enc, device="cuda"),
+                   impl=impl)
+        cache = init_cache(cfg, 2, 32, device="cuda")
+        t = torch.as_tensor(toks, device="cuda")
+        a, cache = decode_step(cfg, eng.params, cache, t, impl=impl,
+                               enc_out=e)
+        b, _ = decode_step(cfg, eng.params, cache, t[:, :1], impl=impl,
+                           enc_out=e)
+        out[impl] = torch.cat([a[:, -1], b[:, -1]]).float()
+    got, want = out["auto"], out["ref"]
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-4

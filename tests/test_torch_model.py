@@ -21,6 +21,7 @@ from repro.models.transformer import init_params as jax_init
 from repro.serve import PagedEngine as JaxPagedEngine
 from repro.serve import chunk_plan as jax_chunk_plan
 from repro_torch.configs import get_smoke_config
+from repro_torch.models.transformer import init_paged_cache
 from repro_torch.serve import PagedEngine, chunk_plan
 from repro_torch.weights import from_jax_numpy, init_params
 
@@ -114,9 +115,14 @@ def test_engine_defaults_to_cuda_and_refuses_what_is_not_ported(models):
             PagedEngine(tc, tp, batch=1, max_len=16)
     with pytest.raises(NotImplementedError):
         PagedEngine(tc, tp, batch=1, max_len=16, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
-        PagedEngine(get_smoke_config("gemma3-4b"), tp, batch=1,
+    # encoder-decoder models serve on the dense engine only, as in the
+    # reference (cross-attention has no paged buffers)
+    with pytest.raises(NotImplementedError, match="encdec"):
+        PagedEngine(get_smoke_config("whisper-base"), tp, batch=1,
                     max_len=16, device="cpu")
+    with pytest.raises(NotImplementedError, match="encdec"):
+        init_paged_cache(get_smoke_config("whisper-base"), 1, num_pages=4,
+                         page_size=8, device="cpu")
 
 
 #: dense archs the port runs beyond qwen2: qk-norm (chameleon), a wide

@@ -24,7 +24,7 @@ from repro.optim import OptimizerSpec as JaxSpec
 from repro.train import HyParTrainer as JaxHyParTrainer
 from repro.train import TrainState as JaxTrainState
 from repro.train import make_train_step as jax_make_train_step
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import VirtualCluster
 from repro_torch.data import DataConfig, SyntheticLMStream, to_device
 from repro_torch.models.config import ModelConfig
@@ -130,14 +130,19 @@ def test_remat_full_and_none_give_the_same_gradients(smoke):
 
 def test_forward_refuses_other_families():
     """The forward runs every family the port serves; training (the loss)
-    takes the dense family only, and the forward refuses block kinds not
-    ported yet."""
+    takes the dense family only, at head dims the flash backward kernel
+    takes."""
     tokens = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="dense family"):
         cfg = get_smoke_config("mamba2-370m")
         loss_fn(cfg, {}, {"tokens": tokens, "labels": tokens})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        forward(get_smoke_config("gemma3-4b"), {}, tokens=tokens)
+    # gemma3's head dim 256 is wider than the flash backward kernel's
+    with pytest.raises(NotImplementedError, match="head dim 256"):
+        loss_fn(get_config("gemma3-4b"), {},
+                {"tokens": tokens, "labels": tokens})
+    with pytest.raises(NotImplementedError, match="dense family"):
+        loss_fn(get_smoke_config("whisper-base"), {},
+                {"tokens": tokens, "labels": tokens})
 
 
 # ---------------------------------------------------------------------------
