@@ -112,8 +112,9 @@ and prints one JSON line per phase:
    and zamba2-1.2b's KV 32 x D 64) at every pages-a-split value and the
    default, SSD at zamba2's chunk (1, 64, 256, 64, 64) at every row tile,
    the flash forward at the dense engine's batched prefill (bf16, causal,
-   B 8, S 1,024, H = KV 16 x D 128 and 32 x D 64) at every launch shape;
-   each against its plain version, timed beside it, its bound and, where
+   B 8, S 1,024, H = KV 16 x D 128 and 32 x D 64) at every launch shape
+   (the default timed); each against its plain version, timed beside it,
+   its bound and, where
    there is one, its library call (a ``model`` field names the model);
 10d. ``serve_moe`` and ``serve_hybrid`` — qwen2-moe-a2.7b (24 MoE
    layers, 60 experts top-4 and 4 shared, d 2048, 16 heads of 128) and
@@ -136,7 +137,8 @@ and prints one JSON line per phase:
    (``gemma3_whisper_kernel_phase``) — the flash forward at gemma3's
    batched prefill (B 8, S 2,048, H 8, KV 4, D 256; causal, and under the
    local window of 1,024) in bf16 and fp32 at every launch shape of the
-   tuner's grid (128-key tiles must be refused at D 256), and at
+   tuner's grid (128-key tiles must be refused at D 256; each bf16 shape
+   timed), and at
    whisper's non-causal shapes (bf16, B 8, H = KV 8, D 64: 1,500 encoder
    frames over themselves, 64 and 1 decoder rows over them); the paged
    kernel at gemma3's decode (bf16, B 8, KV 4, G 2, D 256, page 16,
@@ -269,6 +271,7 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 KERNEL_TOL = 1e-4                # kernel vs plain, attention output and m
@@ -291,7 +294,9 @@ JACOBI_RES_TOL = 1e-4            # exact residual / ‖b‖
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T_START}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -1936,15 +1941,18 @@ def case_summary(case: dict, err: float) -> dict:
 
 
 def flash_timed_case(gen, *, B, S, T, H, KV, D, causal, window, dtype,
-                     model: str, case_name: str) -> tuple[dict, float]:
-    """The flash forward at one shape of a served model: every launch shape
-    of the tuner's grid and the default against its plain version
-    (``FA_TOL``, LSE ``FA_LSE_TOL``; a shape the kernel does not take at
-    this head dim, 128-key tiles at D 256, must be refused before any
-    launch), then each shape it takes timed, the default beside its plain
-    version, its bound and one ``scaled_dot_product_attention`` call (the
-    window as a boolean ``attn_mask``).  Emits a ``kernels`` line and
-    returns it with the largest error."""
+                     model: str, case_id: str,
+                     time_grid: bool) -> tuple[dict, float]:
+    """The flash forward at one shape of a served model (the ``kernels``
+    line's ``case`` is ``case_id``): every launch shape of the tuner's
+    grid and the default against its plain version (``FA_TOL``, LSE
+    ``FA_LSE_TOL``; a shape the kernel does not take at this head dim,
+    128-key tiles at D 256, must be refused before any launch), then the
+    default timed beside its plain version, its bound and one
+    ``scaled_dot_product_attention`` call (the window as a boolean
+    ``attn_mask``), and with ``time_grid`` (bf16 only) each launch shape it
+    takes.  Emits a ``kernels`` line and returns it with the largest
+    error."""
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -1976,8 +1984,8 @@ def flash_timed_case(gen, *, B, S, T, H, KV, D, causal, window, dtype,
         if (out.shape != q.shape or not torch.isfinite(out.float()).all()
                 or err > FA_TOL[dtype] or lse_err > FA_LSE_TOL):
             raise AssertionError(f"flash kernel disagrees with plain at "
-                                 f"{model}'s {case_name} shape ({name}, "
-                                 f"{dtype}): {err}, {lse_err}")
+                                 f"{case_id} ({name}, {dtype}): {err}, "
+                                 f"{lse_err}")
     copies = _rotating((q, k, v))
     heads = [tuple(t.transpose(1, 2).contiguous() for t in c)
              for c in copies]
@@ -1990,8 +1998,8 @@ def flash_timed_case(gen, *, B, S, T, H, KV, D, causal, window, dtype,
     ms_by = {f"{c['q_block']}x{c['kv_block']}": cuda_ms(
         lambda i, c=c: flash_attention_kernel(
             *copies[i % len(copies)], causal=causal, window=window, **c), 20)
-        for c in (taken if bf16 else [])}
-    case = {"case": f"{model}_{case_name}", "B": B, "S": S, "T": T, "H": H,
+        for c in (taken if bf16 and time_grid else [])}
+    case = {"case": case_id, "B": B, "S": S, "T": T, "H": H,
             "KV": KV, "D": D, "causal": causal, "window": window,
             "dtype": str(dtype).replace("torch.", ""), "tol": FA_TOL[dtype],
             "lse_tol": FA_LSE_TOL, "err_by_launch_shape": errs,
@@ -2054,7 +2062,7 @@ def family_kernel_phase() -> dict:
         case, err = flash_timed_case(
             gen, B=WAVE_BATCH, S=WAVE_PROMPT, T=WAVE_PROMPT, H=H, KV=H, D=D,
             causal=True, window=None, dtype=torch.bfloat16, model=model,
-            case_name="serve")
+            case_id=f"serve_{model}", time_grid=False)
         out["flash_attention"][model] = case_summary(case, err)
     emit("family_kernels", seconds=time.perf_counter() - t0)
     return out
@@ -2104,7 +2112,7 @@ def gemma3_whisper_kernel_phase() -> dict:
             case, err = flash_timed_case(
                 gen, B=WAVE_BATCH, S=GEMMA3_WAVE_PROMPT, T=GEMMA3_WAVE_PROMPT,
                 H=8, KV=4, D=256, causal=True, window=window, dtype=dtype,
-                model=GEMMA3, case_name=tag)
+                model=GEMMA3, case_id=f"{GEMMA3}_{tag}", time_grid=True)
             out["flash_attention"][f"{GEMMA3} {tag}"] = dict(
                 case_summary(case, err),
                 ms_by_launch_shape=case["ms_by_launch_shape"],
@@ -2114,7 +2122,7 @@ def gemma3_whisper_kernel_phase() -> dict:
         case, err = flash_timed_case(
             gen, B=WAVE_BATCH, S=S, T=WHISPER_FRAMES, H=8, KV=8, D=64,
             causal=False, window=None, dtype=torch.bfloat16, model=WHISPER,
-            case_name=name)
+            case_id=f"{WHISPER}_{name}", time_grid=False)
         out["flash_attention"][f"{WHISPER} {name}"] = case_summary(case, err)
     pps_grid = [c["pages_per_split"]
                 for c in DEFAULT_CANDIDATES["paged_attention"]]

@@ -70,11 +70,9 @@ NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
 ATTN_IMPLS = ("auto", "dense", "tiled", "kernel", "pallas", "ref")
 
 
-def init_attention(generator, cfg: ModelConfig, device, *,
-                   cross: bool = False) -> dict:
+def init_attention(generator, cfg: ModelConfig, device) -> dict:
     """q/k/v/o projections (and the qk-norm scales).  A cross-attention
-    layer (``cross``) has the same parameters: its K/V read the encoder
-    output."""
+    layer has the same parameters: its K/V read the encoder output."""
     d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     p = {
         "q": init_dense(generator, d, H * hd, cfg, device, bias=cfg.qkv_bias),
@@ -302,8 +300,7 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
               cache: dict | None, cache_len=None, window: int | None = None,
               paged_impl: str = "auto", causal: bool = True,
               impl: str = "auto", chunk_continue: bool = False,
-              kv_x: torch.Tensor | None = None, kv_positions=None,
-              rope: bool | None = None):
+              kv_x: torch.Tensor | None = None, rope: bool | None = None):
     """Full attention layer: qkv projection -> RoPE -> core -> output
     projection.  ``rope`` (default ``cfg.use_rope``) turns RoPE on or off.
 
@@ -312,8 +309,8 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
     ``positions``, through the core ``impl`` picks (see the module
     docstring), and the result is ``(out, None)``.  With ``kv_x`` (B, T, d)
     it is cross-attention: K/V are projected from ``kv_x`` at key
-    positions ``kv_positions`` (default ``arange(T)``), RoPE (if on)
-    rotates the queries only, and the result is ``(out, None)``.
+    positions ``arange(T)``, RoPE (if on) rotates the queries only, and
+    the result is ``(out, None)``.
 
     Otherwise it runs against one layer's cache and returns ``(out, (kt,
     vt))`` — the step's K/V in the cache layout (B, KV, S, D), for the
@@ -349,10 +346,8 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
 
     if cache is None:
         pos = positions[0] if positions.dim() > 1 else positions
-        k_pos = pos
-        if kv_x is not None:
-            k_pos = (torch.arange(k.shape[1], device=q.device)
-                     if kv_positions is None else kv_positions)
+        k_pos = (pos if kv_x is None
+                 else torch.arange(k.shape[1], device=q.device))
         out = _attn_core(q, k, v, pos, k_pos, causal=causal, window=window,
                          impl=impl)
         return dense(p["o"], out.reshape(B, S, H * hd), cd), None

@@ -152,7 +152,7 @@ def init_block(generator, cfg: ModelConfig, device, kind: str) -> dict:
         p["mlp"] = init_mlp(generator, cfg, device)
     if kind == "dec":
         p["ln_cross"] = init_norm(cfg, device)
-        p["cross"] = init_attention(generator, cfg, device, cross=True)
+        p["cross"] = init_attention(generator, cfg, device)
     return p
 
 
@@ -425,13 +425,12 @@ def _new_cache(cfg: ModelConfig, batch: int, lens: torch.Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device, enc_len: int = 0) -> dict:
+               device) -> dict:
     """Dense serving cache: per-slot K/V buffers (B, KV, max_len, D) per
     attention layer, per-slot SSM state per SSM layer, and a scalar
     ``len`` of 0 (the dense engine broadcasts it to (B,) after a
-    prefill).  ``enc_len`` is taken for the reference's signature and
-    sizes nothing: cross K/V are recomputed from the encoder output, so an
-    encoder-decoder cache holds the decoder's self-attention K/V only."""
+    prefill).  An encoder-decoder cache holds the decoder's self-attention
+    K/V only: cross K/V are recomputed from the encoder output."""
     return _new_cache(cfg, batch,
                       torch.zeros((), dtype=torch.int32, device=device),
                       batch, max_len, device)

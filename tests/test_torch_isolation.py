@@ -147,6 +147,18 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok"' not in out.stdout
 
 
+@pytest.mark.parametrize("kernel", ["flash_fwd", "ssd"])
+def test_kernel_ab_fails_without_a_card(kernel):
+    """The A/B script refuses to time anything without a CUDA device, and
+    rejects a kernel it does not know."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.benchmarks import kernel_ab
+    assert kernel_ab.main([kernel, "--label", "t"]) == 1
+    with pytest.raises(SystemExit):
+        kernel_ab.main(["rmsnorm"])
+
+
 def test_launcher_defaults_to_cuda():
     from repro_torch.launch.serve import main
     if torch.cuda.is_available():
