@@ -205,6 +205,17 @@ and prints one JSON line per phase:
    1e-3, grad norm 2e-2); then one step under ``torch.profiler``: busy
    share, the device time of each flash half, three device kernels a
    backward call, and no einsum;
+15a. ``train_families`` — one line per model: mamba2-370m (48 layers),
+   zamba2-1.2b (38), whisper-base (6 + 6; 1,500 frames, 448 decoder
+   tokens) and qwen2-moe-a2.7b cut to 2 layers, each at full width,
+   trained as in phase 15 for 3 steps: the plain path's step 1 first
+   (``impl="ref"``: every kernel's plain version; loss 1e-3, grad norm
+   2e-2), then the kernel path with the flash forward launched steps x 2
+   x attention layers x 2, its backward steps x 2 x attention layers and
+   SSD steps x 2 x SSM layers x 2 (its backward is the plain version's
+   derivative); finite losses and grad norms; step time, tokens/s, peak
+   memory; one more mamba2 step profiled: the SSD plain backward's device
+   time beside the kernels';
 16. ``train_hypar`` — ``HyParTrainer`` (sync) against the fused step at
    the same widths, 4 layers, 3 steps of 2 micro-batches: seconds of each,
    HyPar's overhead, final params within 1e-6 (and whether to the bit),
@@ -584,8 +595,8 @@ def ssd_bound_ms(BC, H, Q, P, N):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def ssd_timed_case(gen, BC, H, Q, P, N, grid,
-                   model: str | None = None) -> tuple[dict, float]:
+def ssd_timed_case(gen, BC, H, Q, P, N, grid, model: str | None = None,
+                   case_id: str | None = None) -> tuple[dict, float]:
     """One shape of the SSD kernel: every row tile of the tuner's grid and
     the default against its plain version (``SSD_TOL``), then timed at
     each beside its plain version and its bound.  Emits a ``kernels`` line
@@ -637,6 +648,8 @@ def ssd_timed_case(gen, BC, H, Q, P, N, grid,
                 library_ms=None)
     extra = {} if model is None else {"model": model,
                                       "seconds": time.perf_counter() - t0}
+    if case_id is not None:
+        extra["case"] = case_id
     emit("kernels", kernel="ssd_scan", **extra, **case)
     del copies
     return case, max_err
@@ -645,8 +658,8 @@ def ssd_timed_case(gen, BC, H, Q, P, N, grid,
 def ssd_kernel_phase(n_layers: int) -> dict:
     """The SSD kernel at every row tile of the tuner's grid and at its
     default, against its plain version (``SSD_TOL``), at mamba2-370m's
-    serving shapes; timed at each, beside its plain version and its
-    bound."""
+    serving shapes and at mamba2's and zamba2's training shapes; timed at
+    each, beside its plain version and its bound."""
     from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -662,6 +675,13 @@ def ssd_kernel_phase(n_layers: int) -> dict:
         max_err = max(max_err, err)
         if (BC, Q) == (1, 256):
             main_case = case        # what a full prefill chunk runs
+    # training at seq 4096 and micro-batch 2: 32 chunks of 256 at once
+    train = {}
+    for model, H, N in (("mamba2-370m", 32, 128), ("zamba2-1.2b", 64, 64)):
+        case, err = ssd_timed_case(gen, 32, H, 256, 64, N, grid, model=model,
+                                   case_id=f"train_{model}")
+        max_err = max(max_err, err)
+        train[model] = dict(case_summary(case, err), row_tile=case["row_tile"])
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:57",
@@ -673,7 +693,7 @@ def ssd_kernel_phase(n_layers: int) -> dict:
                             "intra-chunk dual form",
             "row_tile": main_case["row_tile"],
             "ms_by_launch_shape": main_case["ms_by_launch_shape"],
-            "launches_per_chunk": n_layers}
+            "launches_per_chunk": n_layers, "train_shapes": train}
 
 
 # ---------------------------------------------------------------------------
@@ -2695,7 +2715,10 @@ FA_GRAD_TOL = 1e-4               # Function (kernel forward) vs autograd
 FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # name, B, S, T, H, KV, D, causal, window, dtype: the training shape
 # (qwen2-1.5b at seq 4096, micro-batch 2), fp32, a sliding window, ragged
-# S, the smoke configs' head width, and S > T with rows that see no key
+# S, the smoke configs' head width, S > T with rows that see no key, and
+# the other families' training shapes at micro-batch 2: zamba2's shared
+# block and qwen2-moe (H = KV), whisper's encoder, cross-attention (448
+# decoder tokens over 1,500 frames, non-causal) and decoder
 FA_CASES = [
     ("train", 2, 4096, 4096, 12, 2, 128, True, None, torch.bfloat16),
     ("fp32", 1, 1024, 1024, 12, 2, 128, True, None, torch.float32),
@@ -2703,6 +2726,14 @@ FA_CASES = [
     ("ragged", 2, 1000, 1000, 12, 2, 128, True, None, torch.bfloat16),
     ("d24", 4, 512, 512, 4, 2, 24, True, None, torch.bfloat16),
     ("no_visible_key", 1, 300, 100, 4, 2, 64, True, 64, torch.bfloat16),
+    ("train_zamba2", 2, 4096, 4096, 32, 32, 64, True, None, torch.bfloat16),
+    ("train_qwen2_moe", 2, 4096, 4096, 16, 16, 128, True, None,
+     torch.bfloat16),
+    ("train_whisper_enc", 2, 1500, 1500, 8, 8, 64, False, None,
+     torch.bfloat16),
+    ("train_whisper_cross", 2, 448, 1500, 8, 8, 64, False, None,
+     torch.bfloat16),
+    ("train_whisper_dec", 2, 448, 448, 8, 8, 64, True, None, torch.bfloat16),
 ]
 TRAIN_ARCH = "qwen2-1.5b"
 TRAIN_SEQ = 4096                 # the repo's train_4k cell
@@ -2722,6 +2753,27 @@ PROC_PARAM_TOL = 1e-6            # process workers vs threads, rel
 PROC_JOB_TIMEOUT_S = 600.0
 PROC_BOOT_S = 120.0
 FA_BWD_KERNELS = 3               # device kernels a backward call
+# training runs, each at full width through the fused step, seq 4096,
+# global batch 4 in 2 micro-batches, AdamW, remat="full": (phase, model,
+# depth cut or None, the plain path's impl, steps, one more step under
+# torch.profiler); qwen2-moe at 4 layers peaked at 67.4 GiB (72.4 GB) of
+# the card's 80 GB
+TRAIN_RUNS = (
+    ("train", TRAIN_ARCH, None, "tiled", TRAIN_STEPS, True),
+    ("train_families", "mamba2-370m", None, "ref", 3, True),
+    ("train_families", "zamba2-1.2b", None, "ref", 3, False),
+    ("train_families", "whisper-base", None, "ref", 3, False),
+    ("train_families", "qwen2-moe-a2.7b", 2, "ref", 3, False),
+)
+# kernel vs plain path, step 1's gradients leaf by leaf, max|Δ| / max|plain|
+# of the worst leaf: bf16 products put it at 0.010-0.055 in the attention
+# models and up to 0.151 in mamba2 (conv_b), while halving one of the flash
+# backward's or SSD backward's outputs puts it at 0.330-0.69.  The Mamba-2
+# mixer's per-head scalars (TRAIN_HEAD_LEAVES) sum every token and channel
+# of a head, which cancels: up to 0.372 unchanged, 4.5 with SSD's da halved
+TRAIN_LEAF_TOL = 0.25
+TRAIN_HEAD_LEAVES = ("dt_bias", "A_log", "D")
+TRAIN_HEAD_LEAF_TOL = 1.0
 
 
 def visible_pairs(S, T, causal, window) -> int:
@@ -2830,6 +2882,7 @@ def flash_kernel_phase() -> tuple[dict, dict]:
     grid = [(qb, kb) for qb in BLOCKS for kb in BLOCKS]
     default = f"{DEFAULT_Q_BLOCK}x{DEFAULT_KV_BLOCK}"
     entry = None
+    families = {"fwd": {}, "bwd": {}}     # the other families' training
     for name, B, S, T, H, KV, D, causal, window, dtype in FA_CASES:
         q, k, v = fa_inputs(gen, B, S, T, H, KV, D, dtype)
         dout = torch.randn(q.shape, generator=gen, device=DEV).to(dtype)
@@ -2925,6 +2978,13 @@ def flash_kernel_phase() -> tuple[dict, dict]:
             case.update(fa_backward_times(bcopies, heads[0]))
             entry = case
             del heads
+        if name.startswith("train_"):
+            families["fwd"][name] = {k: case[k] for k in (
+                "max_abs_err", "ms", "bound_ms", "bound_by")}
+            families["bwd"][name] = {
+                "max_abs_err": max(case["bwd_rel_err_dq_dk_dv"]),
+                **{k: case[f"bwd_{k}"] for k in ("ms", "bound_ms",
+                                                 "bound_by")}}
         emit("kernels", kernel="flash_attention", **case)
         del copies, bcopies, q, k, v, out, lse, out_p, lse_p, dout, got
         del want, again
@@ -2938,7 +2998,8 @@ def flash_kernel_phase() -> tuple[dict, dict]:
                            "enable_gqa=True)",
            **{k: entry[k] for k in ("max_abs_err", "ms", "ms_by_launch_shape",
                                     "plain_ms", "library_ms", "bound_ms",
-                                    "bound_by", "bytes_bound_ms")}}
+                                    "bound_by", "bytes_bound_ms")},
+           "train_shapes": families["fwd"]}
     bwd = {"name": "flash_attention_bwd", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
            "replaces": "none: the reference differentiates its plain paths "
@@ -2952,7 +3013,8 @@ def flash_kernel_phase() -> tuple[dict, dict]:
            "library_ms": entry["library_bwd_ms"],
            "bound_ms": entry["bwd_bound_ms"],
            "bound_by": entry["bwd_bound_by"],
-           "bytes_bound_ms": entry["bwd_bytes_bound_ms"]}
+           "bytes_bound_ms": entry["bwd_bytes_bound_ms"],
+           "train_shapes": families["bwd"]}
     return fwd, bwd
 
 
@@ -3009,17 +3071,6 @@ def read_launches(mods) -> dict:
     return out
 
 
-def device_time(prof) -> tuple[float, float, float]:
-    """(device ms of every kernel and copy, of the flash forward kernels,
-    of the flash backward kernels) in a profiled window."""
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
-    busy = sum(dev_us(e) for e in events) / 1e3
-    fwd = sum(dev_us(e) for e in events if "flash_fwd" in e.key) / 1e3
-    bwd = sum(dev_us(e) for e in events if "flash_bwd" in e.key) / 1e3
-    return busy, fwd, bwd
-
-
 def train_batches(cfg, n_steps):
     from repro_torch.data import DataConfig, SyntheticLMStream, to_device
     stream = SyntheticLMStream(cfg, DataConfig(
@@ -3027,115 +3078,271 @@ def train_batches(cfg, n_steps):
     return [to_device(stream.batch(s), DEV) for s in range(n_steps)]
 
 
+def train_counts(cfg) -> tuple[int, int]:
+    """(flash-attention calls, SSD calls) of one micro-batch's forward:
+    every attention layer (each invocation of a shared block; an
+    encoder-decoder model's encoder layers and its decoder's self- and
+    cross-attention) and every SSM layer once."""
+    n_attn, n_ssm = layer_counts(cfg)
+    if cfg.family == "encdec":
+        n_attn += cfg.n_encoder_layers + cfg.n_layers
+    return n_attn, n_ssm
+
+
+def step1_gaps(cfg, params, batch, plain: str) -> dict:
+    """Step 1's loss and gradients by the plain path (``impl=plain``) and
+    by the kernel path on the same parameters and batch, no update: both
+    losses and grad norms, and each gradient leaf's max|Δ| / max|plain|:
+    the worst of the leaves in ``TRAIN_HEAD_LEAVES`` and of the others,
+    and the worst five named."""
+    from repro_torch.optim import global_norm
+    from repro_torch.train import compute_grads
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads_p, loss_p, _ = compute_grads(cfg, params, batch,
+                                       accum=TRAIN_ACCUM, impl=plain)
+    torch.cuda.synchronize()
+    out = {"plain_path_s": time.perf_counter() - t0,
+           "plain_path_peak_memory_gib": torch.cuda.max_memory_allocated()
+           / 2**30,
+           "plain_path_step1_loss": float(loss_p),
+           "plain_path_step1_grad_norm": float(global_norm(grads_p))}
+    grads_k, loss_k, _ = compute_grads(cfg, params, batch,
+                                       accum=TRAIN_ACCUM)
+    out.update(kernel_path_step1_loss=float(loss_k),
+               kernel_path_step1_grad_norm=float(global_norm(grads_k)))
+    rel = {}
+    for (path, gp), gk in zip(tree_paths(grads_p), tree_leaves(grads_k)):
+        scale = float(gp.abs().max())
+        diff = float((gk - gp).abs().max())
+        rel[path] = (diff / scale if scale else
+                     0.0 if diff == 0 else math.inf)
+    head = [p for p in rel if p.rsplit("/", 1)[-1] in TRAIN_HEAD_LEAVES]
+    worst = sorted(rel, key=rel.get, reverse=True)[:5]
+    out.update(grad_leaves=len(rel),
+               grad_leaf_rel_err=max(v for p, v in rel.items()
+                                     if p not in head),
+               grad_leaf_tol=TRAIN_LEAF_TOL,
+               grad_head_leaf_rel_err=max((rel[p] for p in head),
+                                          default=None),
+               grad_head_leaf_tol=TRAIN_HEAD_LEAF_TOL,
+               grad_leaf_worst={p: rel[p] for p in worst})
+    del grads_p, grads_k
+    torch.cuda.empty_cache()
+    return out
+
+
+def step1_ok(loss_err: float, gnorm_err: float, gaps: dict) -> bool:
+    """Step 1 of the kernel path within the limits of the plain path's:
+    loss, grad norm and every gradient leaf (``step1_gaps``)."""
+    return (loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GNORM_TOL
+            and gaps["grad_leaf_rel_err"] <= TRAIN_LEAF_TOL
+            and (gaps["grad_head_leaf_rel_err"] or 0.0)
+            <= TRAIN_HEAD_LEAF_TOL)
+
+
+def train_profile(prof, wall: float, launches: dict) -> dict:
+    """A profiled training step: wall and device-busy ms, the top device
+    kernels, the device ms of the flash forward, of its backward (and its
+    device kernels a backward call) and of the SSD kernels, the SSD plain
+    backward (the profiler range around ``SsdIntraChunkFn.backward``: its
+    children's device time) and its calls, and the einsum calls."""
+    from repro_torch.kernels.ssd_scan.ops import BACKWARD_RANGE
+
+    rows = prof.key_averages()
+    events = [e for e in rows if str(e.device_type).endswith("CUDA")
+              and dev_us(e) > 0 and e.key != BACKWARD_RANGE]
+    busy = sum(dev_us(e) for e in events) / 1e3
+    rng = [e for e in rows if e.key == BACKWARD_RANGE
+           and not str(e.device_type).endswith("CUDA")]
+    ssd_bwd_ms = sum(float(getattr(e, "device_time_total",
+                                   getattr(e, "cuda_time_total", 0.0)))
+                     for e in rng) / 1e3
+
+    def kernels(*names):
+        mine = [e for e in events if any(n in e.key for n in names)]
+        return sum(dev_us(e) for e in mine) / 1e3, sum(e.count for e in mine)
+
+    fwd_ms, _ = kernels("flash_fwd")
+    bwd_ms, bwd_kernels = kernels("flash_bwd")
+    bwd_calls = launches["flash_attention_bwd"]
+    top = sorted(events, key=dev_us, reverse=True)[:10]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall * 1e3),
+            "flash_fwd_kernel_ms": fwd_ms, "flash_bwd_kernel_ms": bwd_ms,
+            "flash_fwd_share_of_device": fwd_ms / busy if busy else None,
+            "flash_bwd_share_of_device": bwd_ms / busy if busy else None,
+            "flash_bwd_calls": bwd_calls,
+            "flash_bwd_kernels_per_call": (bwd_kernels / bwd_calls
+                                           if bwd_calls else None),
+            "ssd_kernels_ms": kernels("ssd_cb_kernel", "ssd_main_kernel")[0],
+            "ssd_plain_backward_ms": ssd_bwd_ms,
+            "ssd_plain_backward_calls": sum(e.count for e in rng),
+            "ssd_plain_backward_calls_expected": launches["ssd_scan"] // 2,
+            "ssd_plain_backward_share_of_device": (ssd_bwd_ms / busy
+                                                   if busy else None),
+            "einsum_calls": sum(e.count for e in rows
+                                if e.key == "aten::einsum"),
+            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                             "ms": dev_us(e) / 1e3} for e in top]}
+
+
+def check_train_profile(name: str, prof: dict, n_attn: int,
+                        n_ssm: int) -> None:
+    """The profiled step went through the kernels: three device kernels a
+    flash backward call; each SSD call's plain backward once; no einsum
+    (the plain attention's score tiles) in a model without SSM layers."""
+    bad = []
+    if n_attn and (prof["flash_bwd_kernels_per_call"] != FA_BWD_KERNELS
+                   or prof["flash_bwd_kernel_ms"] <= 0):
+        bad.append(f"{prof['flash_bwd_kernels_per_call']} flash backward "
+                   f"kernels a call (expected {FA_BWD_KERNELS}), "
+                   f"{prof['flash_bwd_kernel_ms']} ms of them")
+    if n_ssm and (prof["ssd_plain_backward_calls"]
+                  != prof["ssd_plain_backward_calls_expected"]
+                  or prof["ssd_plain_backward_ms"] <= 0):
+        bad.append(f"{prof['ssd_plain_backward_calls']} SSD plain backward "
+                   f"calls (expected "
+                   f"{prof['ssd_plain_backward_calls_expected']}), "
+                   f"{prof['ssd_plain_backward_ms']} ms")
+    if not n_ssm and prof["einsum_calls"]:
+        bad.append(f"{prof['einsum_calls']} einsum calls")
+    if bad:
+        raise AssertionError(f"{name}: profiled step: {'; '.join(bad)}")
+
+
 def train_phase(mods) -> dict:
-    """Full-width qwen2-1.5b training through the fused step on the card:
-    the plain path's step-1 loss and grad norm first (``impl="tiled"``, no
-    update), then ``TRAIN_STEPS`` kernel-path steps with the launch counts
-    set to 0 just before and read just after, then one more step under
-    ``torch.profiler``: the device time of each flash half, three device
-    kernels a backward call, and no einsum (the plain paths' score tiles)
-    in the step.  Returns the launch counts of the timed steps."""
+    """Every family trained at full width by the fused step on the card,
+    one ``TRAIN_RUNS`` entry after another: qwen2-1.5b (``train``),
+    mamba2-370m (48 layers), zamba2-1.2b (38), whisper-base (6 + 6; 1,500
+    frames and 448 decoder tokens, as the stream cuts them) and
+    qwen2-moe-a2.7b cut to 2 layers (``train_families``; at 4, its 2.9 B
+    parameters' fp32 values, gradients and AdamW moments, 46 GB, and a
+    step's activations peaked at 72 GB).  For each: step 1's loss and
+    gradients by the plain path and by the kernel path, no update
+    (``step1_gaps``); then its steps with the counts set to 0 just before
+    and read just after: the flash forward steps x 2 x attention layers x
+    2 (the remat recompute), its backward steps x 2 x attention layers,
+    SSD steps x 2 x SSM layers x 2 (its backward is the plain version's
+    derivative: no launch); finite losses and grad norms; step 1 within
+    ``TRAIN_LOSS_TOL`` / ``TRAIN_GNORM_TOL`` of the plain path and every
+    gradient leaf within ``TRAIN_LEAF_TOL`` (``TRAIN_HEAD_LEAF_TOL`` for
+    the Mamba-2 mixer's per-head scalars).  A profiled run takes
+    one more step under ``torch.profiler`` (``check_train_profile``).
+    Returns each model's counts."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.optim import OptimizerSpec, global_norm
-    from repro_torch.train import TrainState, compute_grads, make_train_step
+    from repro_torch.optim import OptimizerSpec
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.tree import tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(TRAIN_ARCH)
     spec = OptimizerSpec(kind="adamw", lr=TRAIN_LR)
-    batches = train_batches(cfg, TRAIN_STEPS + 1)
-    state = TrainState.create(cfg, spec,
-                              torch.Generator(device=DEV).manual_seed(0), DEV)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    grads, loss_plain, _ = compute_grads(cfg, state.params, batches[0],
-                                         accum=TRAIN_ACCUM, impl="tiled")
-    gnorm_plain = float(global_norm(grads))
-    loss_plain = float(loss_plain)
-    plain_s = time.perf_counter() - t0
-    del grads
-    torch.cuda.empty_cache()
+    out = {}
+    for phase, arch, depth, plain, n_steps, profiled in TRAIN_RUNS:
+        t_model = time.perf_counter()
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        batches = train_batches(cfg, n_steps + profiled)
+        state = TrainState.create(
+            cfg, spec, torch.Generator(device=DEV).manual_seed(0), DEV)
+        n_params = sum(t.numel() for t in tree_leaves(state.params))
+        gaps = step1_gaps(cfg, state.params, batches[0], plain)
 
-    step = make_train_step(cfg, spec, grad_accum=TRAIN_ACCUM)
-    torch.cuda.reset_peak_memory_stats()
-    secs, losses, gnorms = [], [], []
-    reset_launches(mods)
-    for b in batches[:TRAIN_STEPS]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, b)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        losses.append(float(m["loss_total"]))
-        gnorms.append(float(m["grad_norm"]))
-    launches = read_launches(mods)
-    peak = torch.cuda.max_memory_allocated()
-    want = TRAIN_STEPS * TRAIN_ACCUM * cfg.n_layers * 2
-    want_bwd = TRAIN_STEPS * TRAIN_ACCUM * cfg.n_layers
-    step_s = float(np.median(secs[1:]))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    attn_ops = 3 * 4 * TRAIN_BATCH * cfg.n_heads * cfg.hd * cfg.n_layers * (
-        TRAIN_SEQ * (TRAIN_SEQ + 1) // 2)
-    flops = 6 * cfg.n_params() * tokens + attn_ops
-    loss_err = abs(losses[0] - loss_plain) / abs(loss_plain)
-    gnorm_err = abs(gnorms[0] - gnorm_plain) / gnorm_plain
-    emit("train", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-         d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=cfg.n_params(),
-         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
-         remat=cfg.remat, optimizer="adamw", lr=TRAIN_LR, seq=TRAIN_SEQ,
-         global_batch=TRAIN_BATCH, grad_accum=TRAIN_ACCUM, steps=TRAIN_STEPS,
-         step_s=secs, step_s_median_2_on=step_s,
-         tokens_per_s=tokens / step_s, flops_per_step=flops,
-         mfu=flops / step_s / H100_BF16_FLOPS, peak_memory_gib=peak / 2**30,
-         loss=losses, grad_norm=gnorms, plain_path_step1_loss=loss_plain,
-         plain_path_step1_grad_norm=gnorm_plain, plain_path_s=plain_s,
-         loss_rel_err=loss_err, loss_tol=TRAIN_LOSS_TOL,
-         grad_norm_rel_err=gnorm_err, grad_norm_tol=TRAIN_GNORM_TOL,
-         launches=launches, launches_expected=want,
-         bwd_calls_expected=want_bwd)
-    if not all(math.isfinite(x) for x in losses + gnorms):
-        raise AssertionError(f"training losses not finite: {losses}")
-    if launches["flash_attention"] != want:
-        raise AssertionError(f"flash kernel launched "
-                             f"{launches['flash_attention']} times, "
-                             f"expected {want} (steps x grad_accum x layers "
-                             f"x 2 for the remat recompute)")
-    if launches["flash_attention_bwd"] != want_bwd:
-        raise AssertionError(f"flash backward kernel called "
-                             f"{launches['flash_attention_bwd']} times, "
-                             f"expected {want_bwd} (steps x grad_accum x "
-                             f"layers)")
-    if loss_err > TRAIN_LOSS_TOL or gnorm_err > TRAIN_GNORM_TOL:
-        raise AssertionError(f"kernel path vs plain path at step 1: loss "
-                             f"{loss_err}, grad norm {gnorm_err}")
-
-    reset_launches(mods)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _ = step(state, batches[TRAIN_STEPS])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    calls = read_launches(mods)["flash_attention_bwd"]
-    busy, fwd, bwd = device_time(prof)
-    per_call = emit_profile("profile_train", prof, wall, "steps", 1, "step",
-                            focus="flash_bwd", focus_calls=calls)
-    einsums = sum(e.count for e in prof.key_averages()
-                  if e.key == "aten::einsum")
-    emit("profile_train_shares", wall_ms=wall * 1e3, device_busy_ms=busy,
-         device_busy_share=busy / (wall * 1e3), flash_fwd_kernel_ms=fwd,
-         flash_bwd_kernel_ms=bwd,
-         flash_fwd_share_of_device=fwd / busy if busy else None,
-         flash_bwd_share_of_device=bwd / busy if busy else None,
-         flash_bwd_kernels_per_call=per_call, einsum_calls=einsums)
-    if per_call != FA_BWD_KERNELS or bwd <= 0 or einsums:
-        raise AssertionError(f"profiled step: {per_call} flash backward "
-                             f"kernels a call (expected {FA_BWD_KERNELS}), "
-                             f"{bwd} ms of them, {einsums} einsum calls")
-    del state, batches, step
-    torch.cuda.empty_cache()
-    return launches
+        step = make_train_step(cfg, spec, grad_accum=TRAIN_ACCUM)
+        torch.cuda.reset_peak_memory_stats()
+        secs, losses, gnorms = [], [], []
+        reset_launches(mods)
+        for b in batches[:n_steps]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss_total"]))
+            gnorms.append(float(m["grad_norm"]))
+        launches = read_launches(mods)
+        peak = torch.cuda.max_memory_allocated()
+        n_attn, n_ssm = train_counts(cfg)
+        micro = n_steps * TRAIN_ACCUM
+        want = {"flash_attention": micro * n_attn * 2,
+                "flash_attention_bwd": micro * n_attn,
+                "ssd_scan": micro * n_ssm * 2}
+        got = {k: launches[k] for k in want}
+        tokens = batches[0]["tokens"].numel()
+        step_s = float(np.median(secs[1:]))
+        flops = None
+        if cfg.family == "dense":     # 6·N a token and the causal scores
+            flops = 6 * cfg.n_params() * tokens + 3 * 4 * TRAIN_BATCH * (
+                cfg.n_heads * cfg.hd * cfg.n_layers
+                * (TRAIN_SEQ * (TRAIN_SEQ + 1) // 2))
+        loss_plain = gaps["plain_path_step1_loss"]
+        gnorm_plain = gaps["plain_path_step1_grad_norm"]
+        loss_err = abs(losses[0] - loss_plain) / abs(loss_plain)
+        gnorm_err = abs(gnorms[0] - gnorm_plain) / gnorm_plain
+        line = dict(
+            model=cfg.name, layers=cfg.n_layers,
+            encoder_layers=cfg.n_encoder_layers, depth_cut=depth,
+            d_model=cfg.d_model, params=n_params,
+            param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+            remat=cfg.remat, optimizer="adamw", lr=TRAIN_LR,
+            seq=TRAIN_SEQ, decoder_tokens=batches[0]["tokens"].shape[1],
+            encoder_frames=(batches[0]["enc_embeds"].shape[1]
+                            if "enc_embeds" in batches[0] else None),
+            global_batch=TRAIN_BATCH, grad_accum=TRAIN_ACCUM,
+            steps=n_steps, step_s=secs, step_s_median_2_on=step_s,
+            tokens_per_s=tokens / step_s, flops_per_step=flops,
+            mfu=flops / step_s / H100_BF16_FLOPS if flops else None,
+            peak_memory_gib=peak / 2**30, loss=losses, grad_norm=gnorms,
+            plain_impl=plain, **gaps, loss_rel_err=loss_err,
+            loss_tol=TRAIN_LOSS_TOL, grad_norm_rel_err=gnorm_err,
+            grad_norm_tol=TRAIN_GNORM_TOL,
+            attention_layers_per_micro_batch=n_attn,
+            ssm_layers_per_micro_batch=n_ssm, launches=got,
+            launches_expected=want)
+        prof = None
+        if profiled:
+            reset_launches(mods)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as trace:
+                t0 = time.perf_counter()
+                state, _ = step(state, batches[n_steps])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            prof = train_profile(trace, wall, read_launches(mods))
+            del trace
+        line["seconds"] = time.perf_counter() - t_model
+        emit(phase, **line)
+        if prof is not None:
+            emit(f"profile_{phase}", model=cfg.name, **prof)
+        if not all(math.isfinite(x)
+                   for x in losses + gnorms + [loss_plain, gnorm_plain]):
+            raise AssertionError(f"{cfg.name}: training losses or grad "
+                                 f"norms not finite: {losses}, {gnorms}")
+        if got != want:
+            raise AssertionError(f"{cfg.name}: kernel launches {got}, "
+                                 f"expected {want} (flash: steps x "
+                                 f"grad_accum x attention layers x 2 for "
+                                 f"the remat recompute; its backward: "
+                                 f"steps x grad_accum x attention layers; "
+                                 f"SSD: steps x grad_accum x SSM layers x 2)")
+        if not step1_ok(loss_err, gnorm_err, gaps):
+            raise AssertionError(f"{cfg.name}: kernel path vs plain path at "
+                                 f"step 1: loss {loss_err}, grad norm "
+                                 f"{gnorm_err}, gradient leaves "
+                                 f"{gaps['grad_leaf_worst']}")
+        if prof is not None:
+            check_train_profile(cfg.name, prof, n_attn, n_ssm)
+        out[cfg.name] = got
+        del state, batches, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def train_hypar_phase(mods) -> None:
@@ -3801,7 +4008,9 @@ def main() -> int:
 
     mods = (pa_kernel, ssd_kernel, jacobi_kernel, fa_kernel)
     fa_entry, fa_bwd_entry = flash_kernel_phase()
-    launches = train_phase(mods)
+    # every family's training: counts read per model
+    trained = train_phase(mods)
+    launches = trained.pop(TRAIN_ARCH)
     for e in (fa_entry, fa_bwd_entry):
         e["launches"] = launches[e["name"]]
         e["launches_per_step"] = e["launches"] / TRAIN_STEPS
@@ -3815,6 +4024,11 @@ def main() -> int:
     fa_entry["by_model"] = {**family_shapes["flash_attention"],
                             **slice_shapes["flash_attention"]}
     fa_bwd_entry["device_kernels_per_call"] = FA_BWD_KERNELS
+    for e, key in ((fa_entry, "flash_attention"),
+                   (fa_bwd_entry, "flash_attention_bwd"),
+                   (ssd_entry, "ssd_scan")):
+        e["launches_train_families"] = {m: n[key]
+                                        for m, n in trained.items()}
     train_hypar_phase(mods)
     train_proc_phase()
     train_launcher_phase(mods)

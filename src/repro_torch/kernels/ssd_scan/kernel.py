@@ -11,8 +11,11 @@ strides (x, B and C need a unit stride along their last axis only), and
 ``y``/``S`` come back as views of (BC, Q, H, P) and (BC, H, P, N) memory,
 the layouts the model's chunked scan reshapes them to.  The launch shape
 is ``row_tile``, the rows of a tile of the second pass (:data:`ROW_TILES`).
-The library is built at the first launch, never at import (this module
-must import on machines with no CUDA toolkit).
+The binding itself has no gradient: it refuses inputs that require
+grad while grad mode is on, and :class:`.ops.SsdIntraChunkFn` (whose
+forward runs with grad mode off) gives the kernel's outputs one.  The
+library is built at the first launch, never at import (this module must
+import on machines with no CUDA toolkit).
 
 ``launches`` counts calls of :func:`ssd_intra_chunk_kernel` (the one place
 the kernels are launched): one a call, although a call launches two device
@@ -98,6 +101,12 @@ def ssd_intra_chunk_kernel(xh: torch.Tensor, dt: torch.Tensor,
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in tensors.values()):
+        raise RuntimeError("the SSD kernel has no autograd of its own: call "
+                           "it through ops.SsdIntraChunkFn (ssd_intra_chunk "
+                           "does), or on tensors that do not require grad, "
+                           "or under torch.no_grad()")
     if xh.dim() != 4:
         raise ValueError(f"xh must be (BC, H, Q, P), got {tuple(xh.shape)}")
     BC, H, Q, P = xh.shape

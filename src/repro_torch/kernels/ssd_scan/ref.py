@@ -24,8 +24,11 @@ def ssd_intra_chunk_plain(xh: torch.Tensor, dt: torch.Tensor,
         y   = ((C Bᵀ) ⊙ L) (dt ⊙ x)
         S   = (B ⊙ dt ⊙ exp(cum_end - cum))ᵀ x
 
-    ``exp`` is taken above the diagonal too and then replaced by 0 with a
-    select, never a product, as the reference does."""
+    Above the diagonal the exponent is replaced by 0 with a select before
+    ``exp`` and the result by 0 with a select after it, never a product:
+    the reference selects after ``exp`` only, with the same values, but
+    there ``exp`` overflows under strong decay and its gradient becomes
+    ``0 · inf = NaN``; here it stays finite."""
     x = xh.float()
     dtf = dt[..., 0].float()                                # (BC, H, Q)
     af = a[..., 0].float()
@@ -35,7 +38,8 @@ def ssd_intra_chunk_plain(xh: torch.Tensor, dt: torch.Tensor,
     cum = torch.cumsum(af, dim=-1)                          # (BC, H, Q)
     seg = cum[..., :, None] - cum[..., None, :]             # (BC, H, Q, Q)
     tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    L = torch.where(tri, torch.exp(seg), torch.zeros((), device=x.device))
+    zero = torch.zeros((), device=x.device)
+    L = torch.where(tri, torch.exp(torch.where(tri, seg, zero)), zero)
     CB = torch.einsum("bqn,bsn->bqs", C, B)                 # (BC, Q, Q)
     M = CB[:, None] * L                                     # (BC, H, Q, Q)
     y = torch.einsum("bhqs,bhs,bhsp->bhqp", M, dtf, x)

@@ -112,11 +112,15 @@ def ssd_chunked(xh, dt, A, Bm, Cm, *, chunk: int, initial_state=None,
         S_chunk = Sk.transpose(2, 3).reshape(B_, nc, H, P, N)
     else:
         # ---- intra-chunk (dual quadratic form) ----------------------------
-        # L[t,s] = exp(cum[t] - cum[s]) for s<=t else 0
+        # L[t,s] = exp(cum[t] - cum[s]) for s<=t else 0; the exponent is
+        # selected to 0 above the diagonal before exp as well, so that exp
+        # cannot overflow there and its gradient stays finite (the
+        # reference selects after exp only: the same values)
         seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Q,Q,H)
-        tri = torch.ones((Q, Q), dtype=torch.bool, device=xh.device).tril()
-        L = torch.where(tri[None, None, :, :, None], torch.exp(seg),
-                        torch.zeros((), device=xh.device))
+        tri = torch.ones((Q, Q), dtype=torch.bool,
+                         device=xh.device).tril()[None, None, :, :, None]
+        zero = torch.zeros((), device=xh.device)
+        L = torch.where(tri, torch.exp(torch.where(tri, seg, zero)), zero)
         CB = torch.einsum("bcqn,bcsn->bcqs", Cc, Bc)          # (B,nc,Q,Q)
         M = CB[..., None] * L                                 # (B,nc,Q,Q,H)
         y_intra = torch.einsum("bcqsh,bcsh,bcshp->bcqhp", M, dtc, xc)

@@ -45,10 +45,12 @@ recomputed from it on every step, as in the reference, so its caches
 hold the decoder's self-attention K/V only, and it has no paged form.
 
 ``forward`` runs the whole sequence with no cache and returns the MoE
-blocks' summed auxiliary loss; ``loss_fn`` (the training path) takes the
-dense family only (``check_trainable``).  ``cfg.remat == "full"``
-recomputes each layer in the backward pass (``torch.utils.checkpoint``),
-so its attention kernel runs twice a layer.
+blocks' summed auxiliary loss; ``loss_fn`` (the training path) takes
+every family but gemma3-4b, whose head dim the flash backward kernel does
+not take (``check_trainable``).  ``cfg.remat == "full"`` recomputes each
+layer in the backward pass (``torch.utils.checkpoint``), so its attention
+and SSD kernels run twice a layer; ``"save_dots"`` recomputes it too but
+keeps its 2-D products (``SAVE_DOTS_OPS``).
 
 The serving steps UPDATE THE CACHE IN PLACE (buffers, pools, SSM state and
 ``len``) and return the same dict — the reference returns a new cache.
@@ -61,7 +63,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                      create_selective_checkpoint_contexts)
 
 from ..kernels.flash_attention.kernel import MAX_D_BWD
 from ..kernels.runtime import resolve_impl
@@ -276,43 +279,69 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
+REMATS = ("none", "full", "save_dots")
+
+#: the products ``save_dots`` keeps from the forward: a 2-D product with no
+#: batch dimension (the ``x @ w`` projections fold to ``mm``, a biased one
+#: to ``addmm``), as ``jax.checkpoint_policies.
+#: dots_with_no_batch_dims_saveable`` keeps the reference's dots with no
+#: batch dims; ``bmm`` (the attention, SSD and expert einsums), the kernels
+#: and every other op are recomputed
+SAVE_DOTS_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
 def _check_remat(cfg: ModelConfig) -> None:
-    if cfg.remat not in ("none", "full"):
+    if cfg.remat not in REMATS:
         raise NotImplementedError(f"remat={cfg.remat!r} is not ported (the "
-                                  f"port runs 'none' and 'full')")
+                                  f"port runs {REMATS})")
+
+
+def _save_dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in SAVE_DOTS_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_dots_contexts():
+    return create_selective_checkpoint_contexts(_save_dots_policy)
 
 
 def check_trainable(cfg: ModelConfig) -> None:
     """The training entry points (``loss_fn``, the fused step, the HyPar
-    trainer) take the dense family at head dims the flash backward kernel
-    takes; training the other families, and gemma3 (head dim 256), comes
-    with later slices (ROADMAP item 17).  Refused up front, so a step
-    never fails halfway through on the card."""
+    trainer) take every block kind and every remat policy, at head dims
+    the flash backward kernel takes: a model with attention layers wider
+    than ``MAX_D_BWD`` (gemma3-4b, head dim 256) waits for a wider
+    backward (ROADMAP item 28).  Refused up front, so a step never fails
+    halfway through on the card.  An attention-free model (mamba2) has no
+    head dim to check."""
     check_supported(cfg)
-    if cfg.hd > MAX_D_BWD:
+    has_attn = any(k != "ssm" for k in layer_kinds(cfg))
+    if has_attn and cfg.hd > MAX_D_BWD:
         raise NotImplementedError(
             f"{cfg.name}: head dim {cfg.hd} is wider than the flash "
             f"backward kernel's {MAX_D_BWD}; training it comes with ROADMAP "
-            f"item 17")
-    if set(layer_kinds(cfg)) != {"dense"}:
-        raise NotImplementedError(f"{cfg.name}: training runs the dense "
-                                  f"family only")
+            f"item 28")
     _check_remat(cfg)
 
 
 def _run_stack(cfg: ModelConfig, blocks, x, positions, *, impl: str,
                enc_out=None):
-    """Every ``(kind, params)`` of ``blocks`` in order, each recomputed in
-    the backward pass under ``remat="full"``.  Returns ``(x, aux)``: the
-    MoE blocks' summed auxiliary loss (0 for the other families)."""
+    """Every ``(kind, params)`` of ``blocks`` in order.  Under grad, each
+    block is recomputed in the backward pass under ``remat="full"``, and
+    recomputed but for its 2-D products (:data:`SAVE_DOTS_OPS`) under
+    ``remat="save_dots"``.  Returns ``(x, aux)``: the MoE blocks' summed
+    auxiliary loss (0 for the other families)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat if torch.is_grad_enabled() else "none"
     for kind, p in blocks:
         def block(h, p=p, kind=kind):
             return apply_block(cfg, kind, p, h, positions=positions,
                                cache=None, cache_len=None, impl=impl,
                                enc_out=enc_out)
-        if cfg.remat == "full" and torch.is_grad_enabled():
+        if remat == "full":
             x, _, a = checkpoint(block, x, use_reentrant=False)
+        elif remat == "save_dots":
+            x, _, a = checkpoint(block, x, use_reentrant=False,
+                                 context_fn=_save_dots_contexts)
         else:
             x, _, a = block(x)
         if a is not None:
@@ -378,11 +407,14 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     """Next-token cross-entropy: the mask-weighted mean NLL over
     ``batch["tokens"]`` / ``"labels"`` / ``"mask"`` (optional), with the
     padded vocabulary masked out of the softmax.  Returns ``(total,
-    {"loss", "aux", "tokens"})``.  A training entry point: the dense
-    family only."""
+    {"loss", "aux", "tokens"})``: ``total`` adds ``router_aux_weight``
+    times the MoE blocks' auxiliary loss.  An encoder-decoder model reads
+    its encoder input from ``batch["enc_embeds"]``.  A training entry
+    point (:func:`check_trainable`)."""
     check_trainable(cfg)
     logits, aux = forward(cfg, params, tokens=batch.get("tokens"),
-                          embeds=batch.get("embeds"), impl=impl)
+                          embeds=batch.get("embeds"),
+                          enc_embeds=batch.get("enc_embeds"), impl=impl)
     logits = logits.float()
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e9

@@ -159,6 +159,14 @@ def test_kernel_ab_fails_without_a_card(kernel):
         kernel_ab.main(["rmsnorm"])
 
 
+def test_grad_gate_fails_without_a_card():
+    """The gate check refuses to run anything without a CUDA device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.benchmarks import grad_gate
+    assert grad_gate.main() == 1
+
+
 def test_launcher_defaults_to_cuda():
     from repro_torch.launch.serve import main
     if torch.cuda.is_available():

@@ -390,6 +390,59 @@ def test_cuda_ssd_chunked_kernel_path_matches_plain_path():
     assert _rel(yk, yr) <= SSD_TOL and _rel(fk, fr) <= SSD_TOL
 
 
+# SsdIntraChunkFn's cases: SSD_CASES and mamba2-370m's training shape
+# (micro-batch 2 at seq 4096: 32 chunks of 256); zamba2-1.2b's, (32, 64,
+# 256, 64, 64), is in SSD_CASES already
+SSD_GRAD_CASES = SSD_CASES + [(32, 32, 256, 64, 128)]
+SSD_GRAD_TOL = 1e-4   # max|Δ| / max|plain| of each input's gradient
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("case", SSD_GRAD_CASES)
+def test_cuda_ssd_intra_chunk_fn_gradients_match_autograd(case, strong):
+    """The kernel path under grad (``SsdIntraChunkFn``: the kernel's
+    forward, the plain version's derivative as backward) against autograd
+    through the plain version, fp32: every input's gradient within 1e-4
+    of max|plain| and finite under the strong decays; one kernel call,
+    none in the backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.ssd_scan import kernel, ssd_intra_chunk
+    args = [t.cuda().requires_grad_()
+            for t in _torch(*ssd_case(25, *case, strong=strong))]
+    before = kernel.launches
+    y, S = ssd_intra_chunk(*args)
+    gen = torch.Generator("cuda").manual_seed(26)
+    dy = torch.randn(y.shape, device="cuda", generator=gen)
+    dS = torch.randn(S.shape, device="cuda", generator=gen)
+    got = torch.autograd.grad((y, S), args, (dy, dS))
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    y_p, S_p = ssd_intra_chunk_plain(*args)
+    want = torch.autograd.grad((y_p, S_p), args, (dy, dS))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert _rel(g, w) <= SSD_GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_refuses_inputs_that_need_a_gradient():
+    """Called directly under grad, the binding refuses: it has no
+    gradient of its own, and a dropped one would go unnoticed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.ssd_scan import kernel
+    args = [t.cuda() for t in _torch(*ssd_case(27, 1, 2, 16, 64, 128))]
+    args[0].requires_grad_()
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match="SsdIntraChunkFn"):
+        kernel.ssd_intra_chunk_kernel(*args)
+    with torch.no_grad():
+        kernel.ssd_intra_chunk_kernel(*args)
+    assert kernel.launches == before + 1
+
+
 # N, A dtype, x dtype: ragged N (every row of an odd N starts off a 16-byte
 # boundary), N 1, the bf16 cases of the JAX kernel tests, and the paper's
 # largest size
@@ -563,6 +616,10 @@ FA_BWD_CASES = FA_CASES + [
     (1, 150, 93, 6, 3, 24, True, 40),
     (2, 200, 200, 6, 2, 40, True, None),
     (1, 150, 93, 6, 3, 40, True, 40),
+    # whisper-base's training shapes at micro-batch 2: cross-attention of
+    # 448 decoder tokens over 1,500 frames, and the encoder's 1,500 frames
+    (2, 448, 1500, 8, 8, 64, False, None),
+    (2, 1500, 1500, 8, 8, 64, False, None),
 ]
 
 
@@ -824,6 +881,78 @@ def test_cuda_train_step_runs_the_kernel_and_matches_the_plain_path():
                                 + 2 * cfg.n_layers)}
     assert abs(float(m["loss_total"]) / float(loss_p) - 1) < 1e-3
     assert abs(float(m["grad_norm"]) / float(global_norm(grads)) - 1) < 2e-2
+
+
+# arch: the SSD layers (mamba2, zamba2), the MoE blocks, whisper's encoder
+# and cross-attention (non-causal flash, S != T)
+TRAIN_FAMILIES = ["qwen2-moe-a2.7b", "mamba2-370m", "zamba2-1.2b",
+                  "whisper-base"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_cuda_train_step_of_each_family_runs_its_kernels(arch):
+    """One fused step (2 micro-batches) of each family's smoke config in
+    fp32 on the card: the flash forward twice and the backward once an
+    attention layer and a micro-batch, the SSD kernel twice an SSM layer
+    and a micro-batch (the remat recompute; its backward is plain); loss
+    and grad norm as on the plain path (``impl="ref"``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.data import DataConfig, SyntheticLMStream, to_device
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.models.transformer import layer_kinds, layer_plan
+    from repro_torch.optim import OptimizerSpec, global_norm
+    from repro_torch.train import TrainState, compute_grads, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, _ = _smoke_model(arch, "float32")
+    spec = OptimizerSpec(lr=1e-3)
+    batch = to_device(SyntheticLMStream(cfg, DataConfig(
+        global_batch=4, seq_len=100)).batch(0), "cuda")
+    state = TrainState.create(cfg, spec,
+                              torch.Generator("cuda").manual_seed(0), "cuda")
+    grads, loss_p, _ = compute_grads(cfg, state.params, batch, accum=2,
+                                     impl="ref")
+    kinds = layer_kinds(cfg)
+    n_ssm = kinds.count("ssm")
+    n_attn = len(kinds) - n_ssm + (layer_plan(cfg).enc_groups
+                                   + kinds.count("dec"))
+    before = (dict(fa_kernel.launches), ssd_kernel.launches)
+    state, m = make_train_step(cfg, spec, grad_accum=2)(state, batch)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == {
+        "flash_attention": before[0]["flash_attention"] + 2 * n_attn * 2,
+        "flash_attention_bwd": before[0]["flash_attention_bwd"] + 2 * n_attn}
+    assert ssd_kernel.launches == before[1] + 2 * n_ssm * 2
+    assert abs(float(m["loss_total"]) / float(loss_p) - 1) < 1e-4
+    assert abs(float(m["grad_norm"]) / float(global_norm(grads)) - 1) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "zamba2-1.2b"])
+def test_cuda_save_dots_matches_full_through_the_kernels(arch):
+    """``remat="save_dots"`` on the card, with the flash and SSD kernels
+    recomputed and the 2-D products kept: the gradients of ``full``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import dataclasses
+
+    from repro_torch.data import DataConfig, SyntheticLMStream, to_device
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _smoke_model(arch, "float32")
+    batch = to_device(SyntheticLMStream(cfg, DataConfig(
+        global_batch=2, seq_len=100)).batch(0), "cuda")
+    out = []
+    for remat in ("full", "save_dots"):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        total, _ = loss_fn(dataclasses.replace(cfg, remat=remat),
+                           tree_unflatten(params, leaves), batch)
+        out.append(torch.autograd.grad(total, leaves))
+    for a, b in zip(*out):
+        assert _rel(b, a) <= 1e-6
 
 
 # R, d, dtype: chip_smoke.py's cases (the kernel bench's shape, qwen2-1.5b's

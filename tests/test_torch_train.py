@@ -28,7 +28,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import VirtualCluster
 from repro_torch.data import DataConfig, SyntheticLMStream, to_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import forward, loss_fn
+from repro_torch.models.transformer import forward, init_params, loss_fn
 from repro_torch.optim import OptimizerSpec
 from repro_torch.train import HyParTrainer, TrainState, make_train_step
 from repro_torch.tree import tree_leaves
@@ -123,25 +123,41 @@ def test_remat_full_and_none_give_the_same_gradients(smoke):
         out.append(torch.autograd.grad(total, leaves))
     for a, b in zip(*out):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
-    with pytest.raises(NotImplementedError, match="save_dots"):
-        loss_fn(dataclasses.replace(cfg, remat="save_dots"), params,
+    # save_dots (recompute all but the 2-D products) gives them too; a
+    # policy the reference does not have is refused
+    params = from_jax_numpy(_np(params_j), cfg, CPU)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    total, _ = loss_fn(dataclasses.replace(cfg, remat="save_dots"), params,
+                       to_device(batch, CPU))
+    for a, b in zip(torch.autograd.grad(total, leaves), out[0]):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    with pytest.raises(NotImplementedError, match="save_everything"):
+        loss_fn(dataclasses.replace(cfg, remat="save_everything"), params,
                 to_device(batch, CPU))
 
 
 def test_forward_refuses_other_families():
-    """The forward runs every family the port serves; training (the loss)
-    takes the dense family only, at head dims the flash backward kernel
-    takes."""
+    """The forward and the loss run every family: the loss of mamba2 and
+    whisper (its frames from ``batch["enc_embeds"]``) is finite, and a
+    whisper batch without frames is refused as the forward refuses it.
+    Only gemma3-4b's head dim 256, wider than the flash backward
+    kernel's, is refused for training."""
+    gen = torch.Generator().manual_seed(0)
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="dense family"):
-        cfg = get_smoke_config("mamba2-370m")
-        loss_fn(cfg, {}, {"tokens": tokens, "labels": tokens})
+    for arch in ("mamba2-370m", "whisper-base"):
+        cfg = get_smoke_config(arch)
+        params = init_params(cfg, gen, CPU)
+        batch = {"tokens": tokens, "labels": tokens}
+        if cfg.family == "encdec":
+            with pytest.raises(ValueError, match="enc_embeds"):
+                loss_fn(cfg, params, batch)
+            batch["enc_embeds"] = torch.randn((1, 6, cfg.d_model),
+                                              generator=gen)
+        total, _ = loss_fn(cfg, params, batch)
+        assert torch.isfinite(total)
     # gemma3's head dim 256 is wider than the flash backward kernel's
     with pytest.raises(NotImplementedError, match="head dim 256"):
         loss_fn(get_config("gemma3-4b"), {},
-                {"tokens": tokens, "labels": tokens})
-    with pytest.raises(NotImplementedError, match="dense family"):
-        loss_fn(get_smoke_config("whisper-base"), {},
                 {"tokens": tokens, "labels": tokens})
 
 
