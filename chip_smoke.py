@@ -2009,11 +2009,7 @@ def flash_timed_case(gen, *, B, S, T, H, KV, D, causal, window, dtype,
     copies = _rotating((q, k, v))
     heads = [tuple(t.transpose(1, 2).contiguous() for t in c)
              for c in copies]
-    mask = None
-    if window is not None:
-        i = torch.arange(S, device=DEV)[:, None]
-        j = torch.arange(T, device=DEV)[None, :]
-        mask = (i - j < window) & ((i >= j) if causal else True)
+    mask = sdpa_mask(S, T, causal, window)
     bf16 = dtype == torch.bfloat16
     ms_by = {f"{c['q_block']}x{c['kv_block']}": cuda_ms(
         lambda i, c=c: flash_attention_kernel(
@@ -2718,7 +2714,8 @@ FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # S, the smoke configs' head width, S > T with rows that see no key, and
 # the other families' training shapes at micro-batch 2: zamba2's shared
 # block and qwen2-moe (H = KV), whisper's encoder, cross-attention (448
-# decoder tokens over 1,500 frames, non-causal) and decoder
+# decoder tokens over 1,500 frames, non-causal) and decoder, gemma3's
+# global and local (window 1,024) layers at head dim 256
 FA_CASES = [
     ("train", 2, 4096, 4096, 12, 2, 128, True, None, torch.bfloat16),
     ("fp32", 1, 1024, 1024, 12, 2, 128, True, None, torch.float32),
@@ -2734,6 +2731,9 @@ FA_CASES = [
     ("train_whisper_cross", 2, 448, 1500, 8, 8, 64, False, None,
      torch.bfloat16),
     ("train_whisper_dec", 2, 448, 448, 8, 8, 64, True, None, torch.bfloat16),
+    ("train_gemma3", 2, 4096, 4096, 8, 4, 256, True, None, torch.bfloat16),
+    ("train_gemma3_local", 2, 4096, 4096, 8, 4, 256, True, 1024,
+     torch.bfloat16),
 ]
 TRAIN_ARCH = "qwen2-1.5b"
 TRAIN_SEQ = 4096                 # the repo's train_4k cell
@@ -2749,6 +2749,11 @@ HYPAR_PARAM_TOL = 1e-6           # HyPar vs fused final params, rel
 PROC_LAYERS = 1                  # train_proc: depth and steps cut for the
 PROC_STEPS = 1                   # store's traffic (see train_proc_phase)
 PROC_WORKERS = 2
+# train_proc's optimizer: Adafactor's factored moments, not AdamW's two
+# full-size ones, so the optimizer jobs' state that crosses the process
+# boundary and is hashed into the store is small (the phase is bound by
+# those bytes: 105.3 s with AdamW)
+PROC_OPTIMIZER = "adafactor"
 PROC_PARAM_TOL = 1e-6            # process workers vs threads, rel
 PROC_JOB_TIMEOUT_S = 600.0
 PROC_BOOT_S = 120.0
@@ -2757,13 +2762,17 @@ FA_BWD_KERNELS = 3               # device kernels a backward call
 # global batch 4 in 2 micro-batches, AdamW, remat="full": (phase, model,
 # depth cut or None, the plain path's impl, steps, one more step under
 # torch.profiler); qwen2-moe at 4 layers peaked at 67.4 GiB (72.4 GB) of
-# the card's 80 GB
+# the card's 80 GB; gemma3-4b at 12 layers is two periods of 5 local
+# layers and 1 global (at 34, its 3.0 B parameters' fp32 values,
+# gradients and AdamW moments alone take 48 GB, and the fp32 loss over
+# 262,144 logits a token about 25 more)
 TRAIN_RUNS = (
     ("train", TRAIN_ARCH, None, "tiled", TRAIN_STEPS, True),
     ("train_families", "mamba2-370m", None, "ref", 3, True),
     ("train_families", "zamba2-1.2b", None, "ref", 3, False),
     ("train_families", "whisper-base", None, "ref", 3, False),
     ("train_families", "qwen2-moe-a2.7b", 2, "ref", 3, False),
+    ("train_families", "gemma3-4b", 12, "ref", 3, False),
 )
 # kernel vs plain path, step 1's gradients leaf by leaf, max|Δ| / max|plain|
 # of the worst leaf: bf16 products put it at 0.010-0.055 in the attention
@@ -2874,16 +2883,18 @@ def flash_kernel_phase() -> tuple[dict, dict]:
         flash_attention_backward_plain, flash_attention_kernel,
         flash_attention_plain)
     from repro_torch.kernels.flash_attention.kernel import (
-        BLOCKS, DEFAULT_KV_BLOCK, DEFAULT_Q_BLOCK)
+        BLOCKS, WIDE_D, default_blocks)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(4)
-    grid = [(qb, kb) for qb in BLOCKS for kb in BLOCKS]
-    default = f"{DEFAULT_Q_BLOCK}x{DEFAULT_KV_BLOCK}"
     entry = None
     families = {"fwd": {}, "bwd": {}}     # the other families' training
     for name, B, S, T, H, KV, D, causal, window, dtype in FA_CASES:
+        # the launch shapes the forward takes at this head dim, its default
+        grid = [(qb, kb) for qb in BLOCKS for kb in BLOCKS
+                if D <= WIDE_D or kb == 64]
+        default = "{}x{}".format(*default_blocks(D))
         q, k, v = fa_inputs(gen, B, S, T, H, KV, D, dtype)
         dout = torch.randn(q.shape, generator=gen, device=DEV).to(dtype)
         out_p, lse_p = flash_attention_plain(q, k, v, causal=causal,
@@ -2949,8 +2960,7 @@ def flash_kernel_phase() -> tuple[dict, dict]:
                                      "key")
 
         copies = _rotating((q, k, v))
-        shapes = grid if name == "train" else [(DEFAULT_Q_BLOCK,
-                                                DEFAULT_KV_BLOCK)]
+        shapes = grid if name == "train" else [default_blocks(D)]
         case["ms_by_launch_shape"] = {
             f"{qb}x{kb}": cuda_ms(lambda i, qb=qb, kb=kb: (
                 flash_attention_kernel(*copies[i % len(copies)],
@@ -2966,25 +2976,35 @@ def flash_kernel_phase() -> tuple[dict, dict]:
         if name == "fp32":
             case.update(fa_grad_check(FlashAttentionFn, flash_attention_plain,
                                       q, k, v))
-        if name == "train":
+        # the training shape, and gemma3's (the kernels' widest): beside
+        # the plain versions and SDPA, forward and backward (the window as
+        # a boolean attn_mask)
+        yardsticks = name == "train" or name.startswith("train_gemma3")
+        if yardsticks:
             case["plain_ms"] = cuda_ms(lambda i: flash_attention_plain(
-                *copies[i % len(copies)], causal=True), 3)
+                *copies[i % len(copies)], causal=causal, window=window), 3)
             heads = [tuple(t.transpose(1, 2).contiguous() for t in c)
                      for c in copies]
+            mask = sdpa_mask(S, T, causal, window)
             case["library_ms"] = cuda_ms(
                 lambda i: F.scaled_dot_product_attention(
-                    *heads[i % len(heads)], is_causal=True, enable_gqa=True),
-                20)
-            case.update(fa_backward_times(bcopies, heads[0]))
-            entry = case
+                    *heads[i % len(heads)], attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=True), 20)
+            case.update(fa_backward_times(bcopies, heads[0], causal, window))
             del heads
+        if name == "train":
+            entry = case
         if name.startswith("train_"):
+            extra = ("plain_ms", "library_ms") if yardsticks else ()
             families["fwd"][name] = {k: case[k] for k in (
-                "max_abs_err", "ms", "bound_ms", "bound_by")}
+                "max_abs_err", "ms", "bound_ms", "bound_by", *extra)}
             families["bwd"][name] = {
                 "max_abs_err": max(case["bwd_rel_err_dq_dk_dv"]),
                 **{k: case[f"bwd_{k}"] for k in ("ms", "bound_ms",
-                                                 "bound_by")}}
+                                                 "bound_by")},
+                **({"plain_ms": case["plain_bwd_ms"],
+                    "library_ms": case["library_bwd_ms"]}
+                   if yardsticks else {})}
         emit("kernels", kernel="flash_attention", **case)
         del copies, bcopies, q, k, v, out, lse, out_p, lse_p, dout, got
         del want, again
@@ -2993,7 +3013,8 @@ def flash_kernel_phase() -> tuple[dict, dict]:
     fwd = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
-           "shape": shape, "launch_shape": default,
+           "shape": shape, "launch_shape": "{}x{}".format(
+               *default_blocks(entry["D"])),
            "library_call": "F.scaled_dot_product_attention(is_causal=True, "
                            "enable_gqa=True)",
            **{k: entry[k] for k in ("max_abs_err", "ms", "ms_by_launch_shape",
@@ -3035,15 +3056,27 @@ def fa_grad_check(fn_cls, plain, q, k, v) -> dict:
     return {"grad_rel_err_qkv": errs, "grad_tol": FA_GRAD_TOL}
 
 
-def fa_backward_times(bcopies, heads) -> dict:
+def sdpa_mask(S, T, causal, window):
+    """SDPA's boolean ``attn_mask`` for a window (None without one: the
+    call takes ``is_causal`` then)."""
+    if window is None:
+        return None
+    i = torch.arange(S, device=DEV)[:, None]
+    j = torch.arange(T, device=DEV)[None, :]
+    return (i - j < window) & ((i >= j) if causal else True)
+
+
+def fa_backward_times(bcopies, heads, causal, window) -> dict:
     """The plain backward (torch ops over query tiles) and SDPA's backward
-    (the yardstick; the port never calls it) at the training shape."""
+    (the yardstick; the port never calls it; the window as its mask)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_plain)
     plain_ms = cuda_ms(lambda i: flash_attention_backward_plain(
-        *bcopies[i % len(bcopies)], causal=True, window=None), 3)
+        *bcopies[i % len(bcopies)], causal=causal, window=window), 3)
     qh, kh, vh = (t.detach().requires_grad_() for t in heads)
-    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+    mask = sdpa_mask(qh.shape[2], kh.shape[2], causal, window)
+    oh = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                        is_causal=causal and mask is None,
                                         enable_gqa=True)
     doh = bcopies[0][5].transpose(1, 2).contiguous()
     lib_ms = cuda_ms(lambda i: torch.autograd.grad(
@@ -3218,10 +3251,11 @@ def train_phase(mods) -> dict:
     """Every family trained at full width by the fused step on the card,
     one ``TRAIN_RUNS`` entry after another: qwen2-1.5b (``train``),
     mamba2-370m (48 layers), zamba2-1.2b (38), whisper-base (6 + 6; 1,500
-    frames and 448 decoder tokens, as the stream cuts them) and
-    qwen2-moe-a2.7b cut to 2 layers (``train_families``; at 4, its 2.9 B
-    parameters' fp32 values, gradients and AdamW moments, 46 GB, and a
-    step's activations peaked at 72 GB).  For each: step 1's loss and
+    frames and 448 decoder tokens, as the stream cuts them),
+    qwen2-moe-a2.7b cut to 2 layers (at 4, its 2.9 B parameters' fp32
+    values, gradients and AdamW moments, 46 GB, and a step's activations
+    peaked at 72 GB) and gemma3-4b cut to 12 layers (two periods of 5
+    local and 1 global; ``train_families``).  For each: step 1's loss and
     gradients by the plain path and by the kernel path, no update
     (``step1_gaps``); then its steps with the counts set to 0 just before
     and read just after: the flash forward steps x 2 x attention layers x
@@ -3236,6 +3270,7 @@ def train_phase(mods) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
+    from repro_torch.models.transformer import _window_for, layer_kinds
     from repro_torch.optim import OptimizerSpec
     from repro_torch.train import TrainState, make_train_step
     from repro_torch.tree import tree_leaves
@@ -3277,10 +3312,12 @@ def train_phase(mods) -> dict:
         tokens = batches[0]["tokens"].numel()
         step_s = float(np.median(secs[1:]))
         flops = None
-        if cfg.family == "dense":     # 6·N a token and the causal scores
-            flops = 6 * cfg.n_params() * tokens + 3 * 4 * TRAIN_BATCH * (
-                cfg.n_heads * cfg.hd * cfg.n_layers
-                * (TRAIN_SEQ * (TRAIN_SEQ + 1) // 2))
+        if cfg.family == "dense":     # 6·N a token and the visible scores
+            pairs = sum(visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True,
+                                      _window_for(cfg, kind))
+                        for kind in layer_kinds(cfg))
+            flops = 6 * n_params * tokens + 3 * 4 * TRAIN_BATCH * (
+                cfg.n_heads * cfg.hd * pairs)
         loss_plain = gaps["plain_path_step1_loss"]
         gnorm_plain = gaps["plain_path_step1_grad_norm"]
         loss_err = abs(losses[0] - loss_plain) / abs(loss_plain)
@@ -3435,9 +3472,10 @@ def train_proc_phase() -> None:
     thread trainer from the same start; then a second run over the same
     store, which must serve every job from it.  The widths and seq are
     ``train_hypar``'s; depth and steps are cut to ``PROC_LAYERS`` and
-    ``PROC_STEPS``, because every job result crosses the process boundary
-    and lands in the store (at full width the embedding alone is 0.93 GB
-    in fp32, and the optimizer job's inputs hold it five times).  The
+    ``PROC_STEPS``, and the optimizer is ``PROC_OPTIMIZER``, because every
+    job result crosses the process boundary and lands in the store (at
+    full width the embedding alone is 0.93 GB in fp32, and under AdamW the
+    optimizer job's inputs hold it five times).  The
     children take their device from ``resolve_device("cuda")`` and the
     model's ``impl="auto"``, so their gradients run the flash forward and
     backward kernels; the parent's launch counters cannot see them."""
@@ -3450,7 +3488,7 @@ def train_proc_phase() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=PROC_LAYERS)
-    spec = OptimizerSpec(kind="adamw", lr=TRAIN_LR)
+    spec = OptimizerSpec(kind=PROC_OPTIMIZER, lr=TRAIN_LR)
     batches = train_batches(cfg, PROC_STEPS)
     mb = TRAIN_BATCH // TRAIN_ACCUM
     micro = [[{k: v[m * mb:(m + 1) * mb] for k, v in b.items()}
@@ -3523,7 +3561,8 @@ def train_proc_phase() -> None:
     emit("train_proc", model=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab_size, params=cfg.n_params(),
          seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, n_micro=TRAIN_ACCUM,
-         steps=PROC_STEPS, workers=PROC_WORKERS, device_of_workers=DEV,
+         steps=PROC_STEPS, optimizer=PROC_OPTIMIZER, workers=PROC_WORKERS,
+         device_of_workers=DEV,
          thread_s=thread_s, runs=runs, store_rows=counts,
          store_inline_bytes=nbytes["inline"],
          store_spilled_bytes=nbytes["spilled"], store_leaks=leaks,

@@ -34,6 +34,8 @@ WRONG = {
     "whisper-base": [("cross-attention dv x 0.5", "flash", 2, True),
                      ("cross-attention dk x 0.5", "flash", 1, True)],
     "qwen2-moe-a2.7b": [("flash dv x 0.5", "flash", 2, False)],
+    "gemma3-4b": [("flash dq x 0.5", "flash", 0, False),
+                  ("flash dk x 0.5", "flash", 1, False)],
 }
 
 

@@ -3,7 +3,7 @@ versions of it can be compared on one card.
 
     python3 src/repro_torch/benchmarks/kernel_ab.py KERNEL [--src DIR] [--label NAME]
 
-``KERNEL`` is ``flash_fwd`` or ``ssd``.  ``--src`` (default: this
+``KERNEL`` is ``flash_fwd``, ``flash_bwd`` or ``ssd``.  ``--src`` (default: this
 checkout's ``src``) goes first on the import path, so ``repro_torch`` and
 the kernel it builds (into that tree's ``build/``) are that tree's.  Run
 it once a tree in one command, in the order parent, change, change,
@@ -18,6 +18,13 @@ events over back-to-back calls rotating over input copies larger than the
   and zamba2-1.2b, H = KV 32, D 64; all causal) and each launch shape
   ``(q_block, kv_block)`` of ``FLASH_BLOCKS``: ms and the largest gap to
   the plain version.
+* ``flash_bwd``: the bf16 backward at each shape of ``FLASH_BWD_SHAPES``
+  (the training shape at D 128, and gemma3-4b's at D 256: B 2, S 4,096,
+  H 8, KV 4, causal, and under its window of 1,024), on the kernel
+  forward's output and LSE and one seeded dO: ms, the largest of dq's,
+  dk's and dv's max|Δ| / max|plain| against the plain backward, and the
+  device ms of each of its three device kernels (Dᵢ, the dK/dV pass, the
+  dQ pass) from a profiled window of ``FLASH_REPS`` calls.
 * ``ssd``: ``kernel_ms``, the SSD wrapper at one mamba2-370m prefill chunk
   (BC 1, H 32, Q 256, P 64, N 128); then a profiled window of ``--chunks``
   full-width 256-token prefill chunks (``chunk_prefill_step``, bf16,
@@ -45,6 +52,10 @@ FLASH_SHAPES = {"train_d128": (2, 4096, 12, 2, 128),
                 "serve_d64": (8, 1024, 32, 32, 64)}
 FLASH_BLOCKS = ((64, 64), (64, 128), (128, 64), (128, 128))
 FLASH_REPS = 20
+#: B, S, H, KV, D, window of the flash backward's shapes, all causal
+FLASH_BWD_SHAPES = {"train_d128": (2, 4096, 12, 2, 128, None),
+                    "train_gemma3": (2, 4096, 8, 4, 256, None),
+                    "train_gemma3_local": (2, 4096, 8, 4, 256, 1024)}
 
 
 def _dev_us(ev) -> float:
@@ -84,6 +95,57 @@ def flash_fwd(args) -> dict:
         del copies, want
         torch.cuda.empty_cache()
     return {"flash_fwd": result}
+
+
+def flash_bwd(args) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_kernel, flash_attention_backward_plain,
+        flash_attention_kernel)
+    from repro_torch.kernels.tuning import device_seconds
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    result = {}
+    for name, (B, S, H, KV, D, window) in FLASH_BWD_SHAPES.items():
+        q, dout = (torch.randn((B, S, H, D), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(2))
+        k, v = (torch.randn((B, S, KV, D), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        out, lse = flash_attention_kernel(q, k, v, causal=True,
+                                          window=window)
+        inputs = (q, k, v, out, lse, dout)
+        got = flash_attention_backward_kernel(*inputs, causal=True,
+                                              window=window)
+        want = flash_attention_backward_plain(*inputs, causal=True,
+                                              window=window)
+        err = max(float((g.float() - w.float()).abs().max()
+                        / w.float().abs().max()) for g, w in zip(got, want))
+        del got, want
+        n = max(2, math.ceil(100e6 / sum(t.numel() * t.element_size()
+                                          for t in inputs)))
+        copies = [tuple(t.clone() for t in inputs) for _ in range(n)]
+
+        def call(i):
+            return flash_attention_backward_kernel(*copies[i % n],
+                                                   causal=True,
+                                                   window=window)
+        ms = device_seconds(call, FLASH_REPS) / FLASH_REPS * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(FLASH_REPS):
+                call(i)
+            torch.cuda.synchronize()
+        kernels = {e.key[:60]: _dev_us(e) / 1e3 / FLASH_REPS
+                   for e in prof.key_averages()
+                   if "flash_bwd" in e.key and _dev_us(e) > 0}
+        result[name] = {"shape": [B, S, H, KV, D, window], "ms": ms,
+                        "max_rel_err": err, "device_ms_by_kernel": kernels}
+        del copies, inputs
+        torch.cuda.empty_cache()
+    return {"flash_bwd": result}
 
 
 def ssd(args) -> dict:
@@ -169,7 +231,7 @@ def ssd(args) -> dict:
                         for e in mine]}
 
 
-KERNELS = {"flash_fwd": flash_fwd, "ssd": ssd}
+KERNELS = {"flash_fwd": flash_fwd, "flash_bwd": flash_bwd, "ssd": ssd}
 
 
 def main(argv=None) -> int:

@@ -25,6 +25,8 @@
 // against about 100 MB of inputs and outputs (0.03 ms at 3.35 TB/s): the
 // tensor cores bound it.  The scheme below has no atomics, so the dQ pass
 // recomputes S and dP: it issues 14·D a pair, whose floor is 0.365 ms.
+// gemma3-4b's (B 2, S 4096, H 8, KV 4, D 256): 0.3475 ms causal, 0.1520
+// under its window of 1,024 (0.487 and 0.213 issued).
 //
 // Design (deterministic: no atomics, so two calls give the same bits).
 // Three launches from one C call, on the caller's stream:
@@ -42,8 +44,8 @@
 //
 // bf16 runs on TMA, mbarriers and `wgmma` (the forward's building blocks,
 // hopper_common.cuh).  Every tile is brought by TMA in the 128-byte swizzle,
-// zero-filled past S, T and D (D is padded to 64 or 128), and every product
-// is `wgmma.mma_async` with fp32 accumulators:
+// zero-filled past S, T and D (D is padded to 64, 128 or 256), and every
+// product is `wgmma.mma_async` with fp32 accumulators:
 //
 // * dK/dV pass (`flash_bwd_dkdv_wgmma`, 384 threads): two consumer
 //   warpgroups own the same 64 keys and take alternate (head, query tile)
@@ -70,13 +72,34 @@
 // * dQ pass (`flash_bwd_dq_wgmma`, the forward's 128-row shape): two
 //   consumer warpgroups of 64 query rows and a producer warpgroup
 //   (`setmaxnreg` 40 / 232).  Q and dO come once, K and V (64 keys a tile)
-//   through a two-stage ring that both consumers read.  S = Q·Kᵀ and dP =
+//   through two-stage rings of their own that both consumers read (V,
+//   read by dP alone, frees its stage first).  S = Q·Kᵀ and dP =
 //   dO·Vᵀ from shared memory (two groups again), dS = P ∘ (dP − Dᵢ) in
 //   registers, dQ += dS·K with dS the register A operand and K through the
 //   transpose flag.  Blocks start from the last query tile, the one with
 //   the most kv tiles under causal.  Blocks of 64 rows (a producer warp,
 //   two blocks a multiprocessor) spill at the 168 registers that leaves a
 //   thread; 128-key tiles spill as well.
+// * At D 256 (gemma3) a 64-row tile is 32 KB and a 64 x 256 fp32
+//   accumulator 128 registers a thread, so both passes change shape:
+//   - dK/dV (`flash_bwd_dkdv_split_wgmma`): the two consumer warpgroups
+//     split the accumulators, not the walk.  Warpgroup 0 owns dV: Sᵀ =
+//     K·Qᵀ, Pᵀ, then dV += Pᵀ·dO; it hands Pᵀ (bf16, 8 KB) to warpgroup 1
+//     through shared memory on an mbarrier pair a stage.  Warpgroup 1 owns
+//     dK: dPᵀ = V·dOᵀ, then dK += dSᵀ·Q with dSᵀ = Pᵀ ∘ (dPᵀ − Dᵢ).  Each
+//     holds 128 accumulators and one score tile (176 live; the D 128
+//     layout would hold dK and dV, 256, beside S and dP); both read one
+//     (Q, dO) ring of two stages (K, V, the ring and two Pᵀ buffers: 210
+//     KB); each writes its own output, so the swap through the ring goes.
+//   - dQ: 128 rows as at D 128.  Q and dO take 128 KB, so the K ring
+//     keeps two tiles and the V ring one (225 KB): the next K lands
+//     during a tile, the next V during its dS and dQ products (one shared
+//     (K, V) stage left every copy exposed, and the pass took 1.42x as
+//     long at gemma3's training shape on an H100).  dP is issued after P
+//     is rounded to bf16 (176 live accumulators, not 192), so its product
+//     does not overlap the exponentials.
+//   dSᵀ and dS are formed from the bf16 P here, which the products read
+//   anyway.
 // * Between the products, a tile's elementwise step is what bounds it: the
 //   exponential is `ex2.approx.ftz` computed for every element and then
 //   selected (a conditional `exp2f` compiled to a branch, a load and an
@@ -200,7 +223,6 @@ __global__ void __launch_bounds__(256) flash_bwd_dot(const Params p) {
 // ---------------------------------------------------------------------------
 
 constexpr int kRing = 4;     // (Q, dO) stages of the dK/dV pass: two a consumer
-constexpr int kStages = 2;   // (K, V) stages of the dQ pass
 
 struct Maps {
   CUtensorMap q, k, v, dout;
@@ -250,22 +272,25 @@ struct DkdvShape {
   static_assert(2 * kChunks * 32 * 128 * 4 <= 2 * kRing * kTileBytes, "");
 };
 
-template <int DP>
+// the producer warp of a dK/dV block: K and V once, then the walk's (Q, dO)
+// tiles and their LSE·log2e and Dᵢ rows into a ring of `Ring` stages
+template <int DP, int Ring>
 __device__ __forceinline__ void dkdv_produce(
     const Maps& maps, const Params& p, uint8_t* ks, uint8_t* vs,
     uint8_t* ring, float* stats, uint64_t* kv_full, uint64_t* full,
     uint64_t* empty, int k0, int kvh, int b, int first, int nq, int total) {
-  using Sh = DkdvShape<DP>;
+  constexpr int kChunks = DP / 64;
+  constexpr int kTileBytes = kChunks * kBox;
   const int lane = threadIdx.x % 32;
   if (lane == 0) {
-    mbar_expect_tx(kv_full, 2 * Sh::kTileBytes);
-    for (int c = 0; c < Sh::kChunks; ++c) {
+    mbar_expect_tx(kv_full, 2 * kTileBytes);
+    for (int c = 0; c < kChunks; ++c) {
       tma_load(ks + c * kBox, &maps.k, kv_full, c * 64, kvh, k0, b);
       tma_load(vs + c * kBox, &maps.v, kv_full, c * 64, kvh, k0, b);
     }
   }
   for (int it = 0; it < total; ++it) {
-    const int st = it % kRing;
+    const int st = it % Ring;
     const int h = kvh * p.G + it / nq;
     const int qs = (first + it % nq) * 64;
     const long long at = (static_cast<long long>(b) * p.H + h) * p.S + qs;
@@ -279,17 +304,17 @@ __device__ __forceinline__ void dkdv_produce(
       l2[r] = ok ? p.lse[at + row] * kLog2e : INFINITY;
       di[r] = ok ? p.di[at + row] : 0.f;
     }
-    if (it >= kRing) mbar_wait(&empty[st], ((it / kRing) & 1) ^ 1);
+    if (it >= Ring) mbar_wait(&empty[st], ((it / Ring) & 1) ^ 1);
     float* sl = stats + st * 128;
     sl[lane] = l2[0];
     sl[lane + 32] = l2[1];
     sl[64 + lane] = di[0];
     sl[96 + lane] = di[1];
     if (lane == 0) {
-      uint8_t* qt = ring + 2 * st * Sh::kTileBytes;
-      uint8_t* ot = qt + Sh::kTileBytes;
-      mbar_expect_tx(&full[st], 2 * Sh::kTileBytes);
-      for (int c = 0; c < Sh::kChunks; ++c) {
+      uint8_t* qt = ring + 2 * st * kTileBytes;
+      uint8_t* ot = qt + kTileBytes;
+      mbar_expect_tx(&full[st], 2 * kTileBytes);
+      for (int c = 0; c < kChunks; ++c) {
         tma_load(qt + c * kBox, &maps.q, &full[st], c * 64, h, qs, b);
         tma_load(ot + c * kBox, &maps.dout, &full[st], c * 64, h, qs, b);
       }
@@ -469,12 +494,204 @@ __global__ void __launch_bounds__(DkdvShape<DP>::kThreadsAll, 1)
     // 40 + 2 x 232 registers a thread fit the register file
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x / 32 == 8)
-      dkdv_produce<DP>(maps, p, ks, vs, ring, stats, kv_full, full, empty,
-                       k0, kvh, b, first, nq, total);
+      dkdv_produce<DP, kRing>(maps, p, ks, vs, ring, stats, kv_full, full,
+                              empty, k0, kvh, b, first, nq, total);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     dkdv_consume<DP>(p, ks, vs, ring, stats, kv_full, full, empty, k0, kvh,
                      b, first, nq, total, wg);
+  }
+}
+
+// dK/dV at head dim 256 (see the design note above): warpgroup 0 owns dV,
+// warpgroup 1 dK, both take every step of the walk.  Pᵀ has a buffer a
+// ring stage, with a "full" and a "free" mbarrier, so warpgroup 0 runs up
+// to two steps ahead.
+constexpr int kSplitRing = 2;   // (Q, dO) stages: 64 KB each
+
+template <int DP>
+struct DkdvSplitShape {
+  static constexpr int kChunks = DP / 64;
+  static constexpr int kTileBytes = kChunks * kBox;   // 64 rows of K, V, Q, dO
+  static constexpr int kPWords = 16 * 128;            // a Pᵀ tile, bf16 pairs
+  static constexpr int kThreadsAll = 3 * 128;
+  // K, V, the ring of (Q, dO), the Pᵀ buffers, a stage's LSE·log2e and Dᵢ
+  // rows, barriers
+  static constexpr int kSmem = 1024 + (2 + 2 * kSplitRing) * kTileBytes +
+                               kSplitRing * kPWords * 4 +
+                               kSplitRing * 2 * 64 * 4 +
+                               (1 + 4 * kSplitRing) * 8;
+  static_assert(kSmem <= 232448, "tiles exceed the shared memory of a block");
+};
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// consumer warpgroup wg: 0 owns dV, 1 owns dK
+template <int DP>
+__device__ __forceinline__ void dkdv_split_consume(
+    const Params& p, uint8_t* ks, uint8_t* vs, uint8_t* ring,
+    const float* stats, uint32_t* pt, uint64_t* kv_full, uint64_t* full,
+    uint64_t* empty, uint64_t* p_full, uint64_t* p_free, int k0, int kvh,
+    int b, int first, int nq, int total, int wg) {
+  using Sh = DkdvSplitShape<DP>;
+  constexpr int kChunks = Sh::kChunks;
+  const int tid = threadIdx.x % 128;
+  const int t = tid % 4;
+  const int key0 = k0 + (tid / 32) * 16 + (tid % 32) / 4;   // and key0 + 8
+  // Sᵀ = K·Qᵀ (warpgroup 0) or dPᵀ = V·dOᵀ (warpgroup 1)
+  const uint32_t a_addr = smem_u32(wg == 0 ? ks : vs);
+
+  float acc[kChunks][32];   // dV or dK
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+
+  mbar_wait(kv_full, 0);   // also when the walk is empty: no copy outlives us
+  for (int it = 0; it < total; ++it) {
+    const int st = it % kSplitRing;
+    const int ph = (it / kSplitRing) & 1;
+    const int qs = (first + it % nq) * 64;
+    const uint32_t q_addr = smem_u32(ring + 2 * st * Sh::kTileBytes);
+    const uint32_t o_addr = q_addr + Sh::kTileBytes;
+    mbar_wait(&full[st], ph);
+
+    float s[32];
+    const uint32_t b_addr = wg == 0 ? q_addr : o_addr;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss(s, sw128_desc(a_addr + (kk / 4) * kBox + (kk % 4) * 32),
+               sw128_desc(b_addr + (kk / 4) * kBox + (kk % 4) * 32), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // element i is key key0 + 8 ((i >> 1) & 1) and query qs + 8 (i / 4) +
+    // 2t + (i & 1); word j of a thread's Pᵀ or dSᵀ packs elements 2j, 2j + 1
+    const float2* lse2 = reinterpret_cast<const float2*>(stats + st * 128);
+    const float2* di = lse2 + 32;
+    uint32_t* pbuf = pt + st * Sh::kPWords;
+    uint32_t w[16];
+    if (wg == 0) {
+      // Pᵀ: every exponential computed, then selected (no branch)
+      if (tile_needs_mask(p, qs, 64, k0, 64)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float2 l = lse2[4 * (i / 4) + t];
+          const int qc = 8 * (i / 4) + 2 * t + (i & 1);
+          const float e = fast_exp2(s[i] * p.scale_log2 - (i & 1 ? l.y : l.x));
+          s[i] = visible(p, qs + qc, key0 + 8 * ((i >> 1) & 1)) ? e : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float2 l = lse2[4 * (i / 4) + t];
+          s[i] = fast_exp2(s[i] * p.scale_log2 - (i & 1 ? l.y : l.x));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) w[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+      if (it >= kSplitRing) mbar_wait(&p_free[st], ph ^ 1);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) pbuf[j * 128 + tid] = w[j];
+      mbar_arrive(&p_full[st]);
+    } else {
+      mbar_wait(&p_full[st], ph);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) w[j] = pbuf[j * 128 + tid];
+      mbar_arrive(&p_free[st]);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 d = di[4 * (j / 2) + t];
+        w[j] = pack_bf16(bf16_lo(w[j]) * (s[2 * j] - d.x),
+                         bf16_hi(w[j]) * (s[2 * j + 1] - d.y));
+      }
+    }
+
+    // dV += Pᵀ·dO (warpgroup 0) or dK += dSᵀ·Q (warpgroup 1), 16 queries
+    // a step, the packed tile as the register A operand
+    const uint32_t c_addr = wg == 0 ? o_addr : q_addr;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {w[4 * kk], w[4 * kk + 1], w[4 * kk + 2],
+                             w[4 * kk + 3]};
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+        wgmma_rs_tb(acc[c], a, sw128_desc(c_addr + c * kBox + kk * 2048));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    mbar_arrive(&empty[st]);
+  }
+
+  if (wg == 0)
+    store_rows<kChunks>(acc,
+                        static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb +
+                            kvh * p.dv_sh,
+                        p.dv_st, key0, p.T, p.D, 1.f);
+  else
+    store_rows<kChunks>(acc,
+                        static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb +
+                            kvh * p.dk_sh,
+                        p.dk_st, key0, p.T, p.D, p.scale);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(DkdvSplitShape<DP>::kThreadsAll, 1)
+    flash_bwd_dkdv_split_wgmma(const __grid_constant__ Maps maps,
+                               const Params p) {
+  using Sh = DkdvSplitShape<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);   // swizzled tiles: 1024-byte aligned
+  uint8_t* vs = ks + Sh::kTileBytes;
+  uint8_t* ring = vs + Sh::kTileBytes;   // stage st: Q at 2st, dO at 2st + 1
+  uint32_t* pt =
+      reinterpret_cast<uint32_t*>(ring + 2 * kSplitRing * Sh::kTileBytes);
+  float* stats = reinterpret_cast<float*>(pt + kSplitRing * Sh::kPWords);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + kSplitRing * 128);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kSplitRing;
+  uint64_t* p_full = empty + kSplitRing;
+  uint64_t* p_free = p_full + kSplitRing;
+
+  // key tiles vary slowest, so the heaviest under causal (tile 0) go first
+  const int nb = p.KV * p.B;
+  const int k0 = (blockIdx.x / nb) * 64;
+  const int kvh = (blockIdx.x % nb) % p.KV;
+  const int b = (blockIdx.x % nb) / p.KV;
+  int first, last;
+  q_tile_range(p, k0, 64, 64, &first, &last);
+  const int nq = last - first;
+  const int total = p.G * nq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kSplitRing; ++s) {
+      mbar_init(&full[s], 33);    // the copies' expect_tx, 32 lanes' stats
+      mbar_init(&empty[s], 256);  // both consumer warpgroups
+      mbar_init(&p_full[s], 128);
+      mbar_init(&p_free[s], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x / 32 == 8)
+      dkdv_produce<DP, kSplitRing>(maps, p, ks, vs, ring, stats, kv_full,
+                                   full, empty, k0, kvh, b, first, nq, total);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    dkdv_split_consume<DP>(p, ks, vs, ring, stats, pt, kv_full, full, empty,
+                           p_full, p_free, k0, kvh, b, first, nq, total, wg);
   }
 }
 
@@ -488,8 +705,20 @@ struct DqShape {
   static constexpr int kThreadsAll = 3 * 128;
   static constexpr int kQBytes = kChunks * kDqRows * 128;   // Q, and dO
   static constexpr int kTileBytes = kChunks * kBox;   // 64 keys of K or V
-  static constexpr int kSmem = 1024 + 2 * kQBytes + 2 * kStages * kTileBytes +
-                               (1 + 2 * kStages) * 8;
+  // K and V come through rings of their own: V is read by dP alone and
+  // frees its stage before K, which dQ's product reads too.  At D 256 Q
+  // and dO take 128 KB, so two K tiles and one V tile (96 KB) fit: the
+  // next K lands during a tile, the next V during its dS and dQ
+  static constexpr int kKStages = 2;
+  static constexpr int kVStages = DP > 128 ? 1 : 2;
+  // dP issued beside the exponentials of P: S, dP and dQ live at once
+  // (192 accumulators at D 256, past the 232 registers with addressing),
+  // so at D 256 dP is issued after P is packed to bf16
+  static constexpr bool kOverlap = DP <= 128;
+  static constexpr int kSmem = 1024 + 2 * kQBytes +
+                               (kKStages + kVStages) * kTileBytes +
+                               (1 + 2 * kKStages + 2 * kVStages) * 8;
+  static_assert(kSmem <= 232448, "tiles exceed the shared memory of a block");
 };
 
 // consumer warpgroup wg: query rows q0 + 64 wg + [0, 64)
@@ -497,9 +726,12 @@ template <int DP>
 __device__ __forceinline__ void dq_consume(const Params& p, uint8_t* qs,
                                            uint8_t* os, uint8_t* ks,
                                            uint8_t* vs, uint64_t* q_full,
-                                           uint64_t* full, uint64_t* empty,
-                                           int q0, int h, int b, int wg,
-                                           int first, int last) {
+                                           uint64_t* k_full,
+                                           uint64_t* k_empty,
+                                           uint64_t* v_full,
+                                           uint64_t* v_empty, int q0, int h,
+                                           int b, int wg, int first,
+                                           int last) {
   using Sh = DqShape<DP>;
   constexpr int kChunks = Sh::kChunks;
   const int tid = threadIdx.x % 128;
@@ -524,35 +756,41 @@ __device__ __forceinline__ void dq_consume(const Params& p, uint8_t* qs,
 #pragma unroll
     for (int i = 0; i < 32; ++i) dq[c][i] = 0.f;
 
+  // acc (+)= A·Bᵀ, A the warpgroup's 64 rows of Q or dO, B a K or V tile
+  auto rows_x_keys = [&](float (&acc)[32], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * kDqRows * 128 + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * kBox + (kk % 4) * 32;
+      wgmma_ss(acc, sw128_desc(a_addr + a_off), sw128_desc(b_addr + b_off),
+               kk > 0);
+    }
+    wgmma_commit();
+  };
+
   mbar_wait(q_full, 0);   // also when the walk is empty: no copy outlives us
   for (int it = 0; it < last - first; ++it) {
-    const int st = it % kStages;
+    const int sk = it % Sh::kKStages;
+    const int sv = it % Sh::kVStages;
+    const int k_phase = (it / Sh::kKStages) & 1;
+    const int v_phase = (it / Sh::kVStages) & 1;
     const int k0 = (first + it) * 64;
-    const uint32_t k_addr = smem_u32(ks + st * Sh::kTileBytes);
-    const uint32_t v_addr = smem_u32(vs + st * Sh::kTileBytes);
-    mbar_wait(&full[st], (it / kStages) & 1);
+    const uint32_t k_addr = smem_u32(ks + sk * Sh::kTileBytes);
+    const uint32_t v_addr = smem_u32(vs + sv * Sh::kTileBytes);
+    mbar_wait(&k_full[sk], k_phase);
 
-    // S = Q·Kᵀ and dP = dO·Vᵀ (64 rows x 64 keys), two groups, so that P
-    // is computed while dP runs
+    // S = Q·Kᵀ and dP = dO·Vᵀ (64 rows x 64 keys); with kOverlap two
+    // groups, so that P is computed while dP runs
     float s[32], dp[32];
+    if constexpr (Sh::kOverlap) mbar_wait(&v_full[sv], v_phase);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const uint32_t a_off = (kk / 4) * kDqRows * 128 + (kk % 4) * 32;
-      const uint32_t b_off = (kk / 4) * kBox + (kk % 4) * 32;
-      wgmma_ss(s, sw128_desc(q_addr + a_off), sw128_desc(k_addr + b_off),
-               kk > 0);
+    rows_x_keys(s, q_addr, k_addr);
+    if constexpr (Sh::kOverlap) {
+      rows_x_keys(dp, o_addr, v_addr);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
     }
-    wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const uint32_t a_off = (kk / 4) * kDqRows * 128 + (kk % 4) * 32;
-      const uint32_t b_off = (kk / 4) * kBox + (kk % 4) * 32;
-      wgmma_ss(dp, sw128_desc(o_addr + a_off), sw128_desc(v_addr + b_off),
-               kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<1>();
 
     // P, then dS = P ∘ (dP − Dᵢ), in place of s; every exponential is
     // computed, then selected, so the loop has no branch
@@ -569,25 +807,43 @@ __device__ __forceinline__ void dq_consume(const Params& p, uint8_t* qs,
       for (int i = 0; i < 32; ++i)
         s[i] = fast_exp2(s[i] * p.scale_log2 - lse2[(i >> 1) & 1]);
     }
-    wgmma_wait<0>();
+    // dS = P ∘ (dP − Dᵢ), packed to bf16 pairs (word j: elements 2j, 2j + 1)
+    uint32_t w[16];
+    if constexpr (Sh::kOverlap) {
+      wgmma_wait<0>();
+      mbar_arrive(&v_empty[sv]);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] *= dp[i] - di[(i >> 1) & 1];
+      for (int j = 0; j < 16; ++j)
+        w[j] = pack_bf16(s[2 * j] * (dp[2 * j] - di[j & 1]),
+                         s[2 * j + 1] * (dp[2 * j + 1] - di[j & 1]));
+    } else {
+      // P to bf16 first, so that its fp32 tile is dead while dP runs
+#pragma unroll
+      for (int j = 0; j < 16; ++j) w[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+      mbar_wait(&v_full[sv], v_phase);
+      wgmma_fence();
+      rows_x_keys(dp, o_addr, v_addr);
+      wgmma_wait<0>();
+      mbar_arrive(&v_empty[sv]);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        w[j] = pack_bf16(bf16_lo(w[j]) * (dp[2 * j] - di[j & 1]),
+                         bf16_hi(w[j]) * (dp[2 * j + 1] - di[j & 1]));
+    }
 
     // dQ += dS·K, 16 keys a step
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]),
-                             pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
-                             pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
-                             pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+      const uint32_t a[4] = {w[4 * kk], w[4 * kk + 1], w[4 * kk + 2],
+                             w[4 * kk + 3]};
 #pragma unroll
       for (int c = 0; c < kChunks; ++c)
         wgmma_rs_tb(dq[c], a, sw128_desc(k_addr + c * kBox + kk * 2048));
     }
     wgmma_commit();
     wgmma_wait<0>();
-    mbar_arrive(&empty[st]);
+    mbar_arrive(&k_empty[sk]);
   }
   store_rows<kChunks>(dq,
                       static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb +
@@ -603,12 +859,16 @@ __global__ void __launch_bounds__(DqShape<DP>::kThreadsAll, 1)
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = align1024(smem_raw);   // [chunk][128][64]
   uint8_t* os = qs + Sh::kQBytes;
+  constexpr int kKStages = Sh::kKStages;
+  constexpr int kVStages = Sh::kVStages;
   uint8_t* ks = os + Sh::kQBytes;      // [stage][chunk][64][64]
-  uint8_t* vs = ks + kStages * Sh::kTileBytes;
+  uint8_t* vs = ks + kKStages * Sh::kTileBytes;
   uint64_t* q_full =
-      reinterpret_cast<uint64_t*>(vs + kStages * Sh::kTileBytes);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kStages;
+      reinterpret_cast<uint64_t*>(vs + kVStages * Sh::kTileBytes);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + kKStages;
+  uint64_t* v_full = k_empty + kKStages;
+  uint64_t* v_empty = v_full + kVStages;
 
   // query tiles vary slowest and run from the last, the one with the most
   // kv tiles under causal
@@ -622,9 +882,13 @@ __global__ void __launch_bounds__(DqShape<DP>::kThreadsAll, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 256);
+    for (int s = 0; s < kKStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], 256);
+    }
+    for (int s = 0; s < kVStages; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], 256);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -644,21 +908,27 @@ __global__ void __launch_bounds__(DqShape<DP>::kThreadsAll, 1)
           tma_load(os + at, &maps.dout, q_full, c * 64, h, q0 + r * 64, b);
         }
       for (int it = 0; it < last - first; ++it) {
-        const int st = it % kStages;
+        const int sk = it % kKStages;
+        const int sv = it % kVStages;
         const int k0 = (first + it) * 64;
-        if (it >= kStages) mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(&full[st], 2 * Sh::kTileBytes);
-        for (int c = 0; c < kChunks; ++c) {
-          const int at = st * Sh::kTileBytes + c * kBox;
-          tma_load(ks + at, &maps.k, &full[st], c * 64, kvh, k0, b);
-          tma_load(vs + at, &maps.v, &full[st], c * 64, kvh, k0, b);
-        }
+        if (it >= kKStages)
+          mbar_wait(&k_empty[sk], ((it / kKStages) & 1) ^ 1);
+        mbar_expect_tx(&k_full[sk], Sh::kTileBytes);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load(ks + sk * Sh::kTileBytes + c * kBox, &maps.k, &k_full[sk],
+                   c * 64, kvh, k0, b);
+        if (it >= kVStages)
+          mbar_wait(&v_empty[sv], ((it / kVStages) & 1) ^ 1);
+        mbar_expect_tx(&v_full[sv], Sh::kTileBytes);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load(vs + sv * Sh::kTileBytes + c * kBox, &maps.v, &v_full[sv],
+                   c * 64, kvh, k0, b);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    dq_consume<DP>(p, qs, os, ks, vs, q_full, full, empty, q0, h, b,
-                           wg, first, last);
+    dq_consume<DP>(p, qs, os, ks, vs, q_full, k_full, k_empty, v_full,
+                   v_empty, q0, h, b, wg, first, last);
   }
 }
 
@@ -882,10 +1152,17 @@ cudaError_t launch_wgmma(K kernel, long long blocks, int threads, int bytes,
 template <int DP>
 cudaError_t launch_bf16(const Maps& maps, const Params& p,
                         cudaStream_t stream) {
-  cudaError_t err = launch_wgmma(
-      flash_bwd_dkdv_wgmma<DP>,
-      static_cast<long long>((p.T + 63) / 64) * p.KV * p.B,
-      DkdvShape<DP>::kThreadsAll, DkdvShape<DP>::kSmem, maps, p, stream);
+  const long long key_blocks =
+      static_cast<long long>((p.T + 63) / 64) * p.KV * p.B;
+  cudaError_t err;
+  if constexpr (DP > 128)
+    err = launch_wgmma(flash_bwd_dkdv_split_wgmma<DP>, key_blocks,
+                       DkdvSplitShape<DP>::kThreadsAll,
+                       DkdvSplitShape<DP>::kSmem, maps, p, stream);
+  else
+    err = launch_wgmma(flash_bwd_dkdv_wgmma<DP>, key_blocks,
+                       DkdvShape<DP>::kThreadsAll, DkdvShape<DP>::kSmem,
+                       maps, p, stream);
   if (err != cudaSuccess) return err;
   return launch_wgmma(
       flash_bwd_dq_wgmma<DP>,
@@ -912,7 +1189,8 @@ extern "C" {
 // scratch (B, H, S) fp32 contiguous).  strides (elements, batch, sequence,
 // head) of q, k, v, o, dout, dq, dk, dv, the last dimension contiguous; for
 // bf16 every pointer is 16-byte aligned and every stride a multiple of 8.
-// dims: B, S, T, H, KV, D, causal, window (0: none), is_bf16.  Launches
+// dims: B, S, T, H, KV, D (a multiple of 8 up to 256), causal, window (0:
+// none), is_bf16.  Launches
 // the three kernels on `stream` without synchronising and returns the
 // first cudaError_t (0 on success).
 int flash_attention_bwd_launch(const void* const* ptrs,
@@ -945,7 +1223,7 @@ int flash_attention_bwd_launch(const void* const* ptrs,
   p.window = dims[7];
   const int is_bf16 = dims[8];
   if (p.B < 1 || p.S < 1 || p.T < 1 || p.KV < 1 || p.H % p.KV != 0 ||
-      p.D < 8 || p.D > 128 || p.D % 8 != 0 || p.B > 65535 || p.H > 65535 ||
+      p.D < 8 || p.D > 256 || p.D % 8 != 0 || p.B > 65535 || p.H > 65535 ||
       p.window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   p.G = p.H / p.KV;
@@ -964,14 +1242,17 @@ int flash_attention_bwd_launch(const void* const* ptrs,
         !encode_map(&maps.dout, p.dout, p.B, p.S, p.H, p.D, p.do_sb,
                     p.do_ss, p.do_sh))
       return static_cast<int>(cudaErrorInvalidValue);
-    err = p.D <= 64 ? launch_bf16<64>(maps, p, stream)
-                    : launch_bf16<128>(maps, p, stream);
+    err = p.D <= 64    ? launch_bf16<64>(maps, p, stream)
+          : p.D <= 128 ? launch_bf16<128>(maps, p, stream)
+                       : launch_bf16<256>(maps, p, stream);
   } else if (p.D <= 32) {
     err = launch_f32<32>(p, stream);
   } else if (p.D <= 64) {
     err = launch_f32<64>(p, stream);
-  } else {
+  } else if (p.D <= 128) {
     err = launch_f32<128>(p, stream);
+  } else {
+    err = launch_f32<256>(p, stream);
   }
   return static_cast<int>(err);
 }

@@ -11,12 +11,13 @@ tensor cores (``wgmma``, tiles brought by TMA), at the launch shape
 head dims that are multiples of 8 up to 256 (gemma3's 256 among them); at
 D > 128 the bf16 kernel's tiles are 64 keys (:func:`check_blocks`).
 
-The backward (``csrc/flash_attention_bwd.cu``, D up to 128) has no Pallas
-counterpart:
+The backward (``csrc/flash_attention_bwd.cu``) has no Pallas counterpart:
 the reference differentiates its plain paths.  It computes dq, dk and dv
 from the forward's output and LSE in three device kernels a call (the
 rowsum of dO∘O, the dK/dV pass, the dQ pass; in bf16 on TMA, an mbarrier
-ring and ``wgmma``, in fp32 on FMA), with no atomics.
+ring and ``wgmma``, in fp32 on FMA), with no atomics, at the forward's
+head dims (up to 256; at D > 128 the bf16 dK/dV pass gives dK and dV to
+separate warpgroups).
 
 Libraries are built at the first launch, never at import (this module must
 import on machines with no CUDA toolkit).  ``launches`` counts calls of
@@ -50,7 +51,7 @@ DEFAULT_Q_BLOCK = 64
 DEFAULT_KV_BLOCK = 64
 #: the widest head dim of the forward and of the backward
 MAX_D = 256
-MAX_D_BWD = 128
+MAX_D_BWD = 256
 #: head dims above this take 64-key tiles only: a 128-key K and V tile of
 #: D 256 (64 KB each) leaves no room for a second stage
 WIDE_D = 128
@@ -209,9 +210,9 @@ def flash_attention_backward_kernel(q, k, v, out, lse, dout, *,
     q, out, dout: (B, S, H, D); k/v: (B, T, KV, D); lse: (B, H, S) fp32
     from the forward; all CUDA on one device, q, k, v, out and dout of one
     dtype (float32 or bfloat16), last dimension contiguous, D a multiple
-    of 8 up to :data:`MAX_D_BWD`.  Returns ``(dq, dk, dv)`` in the inputs'
-    dtype — what
-    :func:`.ref.flash_attention_backward_plain` computes."""
+    of 8 up to :data:`MAX_D_BWD` (256: gemma3's head dim; wider is
+    refused before any build).  Returns ``(dq, dk, dv)`` in the inputs'
+    dtype — what :func:`.ref.flash_attention_backward_plain` computes."""
     B, S, H, D = q.shape
     if lse.dtype != torch.float32 or lse.shape != (B, H, S):
         raise TypeError(f"lse must be float32 of shape {(B, H, S)}, got "

@@ -46,8 +46,8 @@ hold the decoder's self-attention K/V only, and it has no paged form.
 
 ``forward`` runs the whole sequence with no cache and returns the MoE
 blocks' summed auxiliary loss; ``loss_fn`` (the training path) takes
-every family but gemma3-4b, whose head dim the flash backward kernel does
-not take (``check_trainable``).  ``cfg.remat == "full"`` recomputes each
+every family, at head dims the flash backward kernel takes
+(``check_trainable``).  ``cfg.remat == "full"`` recomputes each
 layer in the backward pass (``torch.utils.checkpoint``), so its attention
 and SSD kernels run twice a layer; ``"save_dots"`` recomputes it too but
 keeps its 2-D products (``SAVE_DOTS_OPS``).
@@ -308,18 +308,16 @@ def _save_dots_contexts():
 def check_trainable(cfg: ModelConfig) -> None:
     """The training entry points (``loss_fn``, the fused step, the HyPar
     trainer) take every block kind and every remat policy, at head dims
-    the flash backward kernel takes: a model with attention layers wider
-    than ``MAX_D_BWD`` (gemma3-4b, head dim 256) waits for a wider
-    backward (ROADMAP item 28).  Refused up front, so a step never fails
-    halfway through on the card.  An attention-free model (mamba2) has no
-    head dim to check."""
+    the flash backward kernel takes (up to ``MAX_D_BWD``, 256: every
+    configuration of the repo, gemma3-4b's 256 the widest).  A wider head
+    dim is refused up front, so a step never fails halfway through on the
+    card.  An attention-free model (mamba2) has no head dim to check."""
     check_supported(cfg)
     has_attn = any(k != "ssm" for k in layer_kinds(cfg))
     if has_attn and cfg.hd > MAX_D_BWD:
         raise NotImplementedError(
             f"{cfg.name}: head dim {cfg.hd} is wider than the flash "
-            f"backward kernel's {MAX_D_BWD}; training it comes with ROADMAP "
-            f"item 28")
+            f"backward kernel's {MAX_D_BWD}")
     _check_remat(cfg)
 
 

@@ -102,11 +102,17 @@ def test_rows_with_no_visible_key_are_zero_and_finite():
 
 
 GRAD_CASES = [
-    # B, S, H, KV, D, causal, window, q_tile of the backward
-    (2, 40, 4, 2, 24, True, None, 1024),
-    (1, 64, 4, 1, 32, True, 9, 16),
-    (2, 33, 6, 3, 16, False, None, 8),
-    (1, 50, 2, 2, 8, False, 7, 12),
+    # B, S, T, H, KV, D, causal, window, q_tile of the backward
+    (2, 40, 40, 4, 2, 24, True, None, 1024),
+    (1, 64, 64, 4, 1, 32, True, 9, 16),
+    (2, 33, 33, 6, 3, 16, False, None, 8),
+    (1, 50, 50, 2, 2, 8, False, 7, 12),
+    # head dim 256 (gemma3): causal GQA; a window of 16 with S > T (every
+    # row still sees a key, where the reference's oracle is defined);
+    # non-causal
+    (2, 40, 40, 4, 2, 256, True, None, 16),
+    (1, 48, 40, 4, 2, 256, True, 16, 16),
+    (2, 33, 33, 2, 2, 256, False, None, 1024),
 ]
 
 
@@ -116,8 +122,8 @@ def test_flash_fn_gradients_match_torch_and_jax(case):
     ``FlashAttentionFn``'s backward (plain forward on the CPU) against
     torch autograd through ``_dense_attn`` and ``jax.grad`` of JAX's
     ``attention_ref``, at 1e-5."""
-    B, S, H, KV, D, causal, window, q_tile = case
-    q, k, v = qkv(34, B, S, S, H, KV, D)
+    B, S, T, H, KV, D, causal, window, q_tile = case
+    q, k, v = qkv(34, B, S, T, H, KV, D)
     dout = np.random.default_rng(35).standard_normal((B, S, H, D)).astype(
         np.float32)
     tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
@@ -127,9 +133,8 @@ def test_flash_fn_gradients_match_torch_and_jax(case):
         torch.from_numpy(dout), causal=causal, window=window, q_tile=q_tile)
     grads_fn = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
 
-    pos = torch.arange(S)
-    out_d = tattn._dense_attn(tq, tk, tv, pos, pos, causal=causal,
-                              window=window)
+    out_d = tattn._dense_attn(tq, tk, tv, torch.arange(S), torch.arange(T),
+                              causal=causal, window=window)
     grads_d = torch.autograd.grad(out_d, (tq, tk, tv), torch.from_numpy(dout))
 
     def f(q_, k_, v_):
@@ -194,7 +199,7 @@ def test_flash_fn_on_the_cpu_routes_ref_to_the_plain_backward(monkeypatch):
 BWD_REFUSED = [
     ("cpu", {}, ValueError, "CUDA tensor"),
     ("mixed_dtype", {"k": torch.bfloat16}, TypeError, "differs"),
-    ("d256", {"D": 256}, ValueError, "head dim"),
+    ("d264", {"D": 264}, ValueError, "head dim"),
     ("d20", {"D": 20}, ValueError, "head dim"),
     ("half", {"all": torch.float16}, TypeError, "not supported"),
     ("lse_dtype", {"lse": torch.bfloat16}, TypeError, "lse"),

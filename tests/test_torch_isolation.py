@@ -147,7 +147,7 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok"' not in out.stdout
 
 
-@pytest.mark.parametrize("kernel", ["flash_fwd", "ssd"])
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd", "ssd"])
 def test_kernel_ab_fails_without_a_card(kernel):
     """The A/B script refuses to time anything without a CUDA device, and
     rejects a kernel it does not know."""

@@ -607,10 +607,15 @@ FA_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of max|plain|
 FA_BLOCKS = [(q, kv) for q in (64, 128) for kv in (64, 128)]
 
 
-# the backward's cases: FA_CASES, the training shape, and head dims below
-# 64 (TMA zero-fills columns D..63) with S and T off every tile edge,
-# causal and under a window
-FA_BWD_CASES = FA_CASES + [
+# gemma3-4b's training shapes at micro-batch 2 (global and local layers)
+FA_GEMMA3_TRAIN_CASES = [(2, 4096, 4096, 8, 4, 256, True, w)
+                         for w in (None, 1024)]
+
+# the backward's cases: FA_CASES, the training shape, head dims below 64
+# (TMA zero-fills columns D..63) with S and T off every tile edge, causal
+# and under a window, and D 256 (FA_WIDE_CASES: rows that see no key, S
+# and T off the tile edges, non-causal; gemma3's training shapes)
+FA_BWD_CASES = FA_CASES + FA_WIDE_CASES + FA_GEMMA3_TRAIN_CASES + [
     (2, 4096, 4096, 12, 2, 128, True, None),
     (2, 200, 200, 6, 2, 24, True, None),
     (1, 150, 93, 6, 3, 24, True, 40),
@@ -747,8 +752,9 @@ def test_cuda_flash_backward_kernel_matches_plain(case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_flash_backward_kernel_reads_strided_inputs(dtype):
+def test_cuda_flash_backward_kernel_reads_strided_inputs(dtype, D):
     """q, k and v as views of one fused projection, dO a transposed view:
     the backward kernel matches the plain backward on contiguous copies."""
     if not torch.cuda.is_available():
@@ -756,7 +762,7 @@ def test_cuda_flash_backward_kernel_reads_strided_inputs(dtype):
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_kernel, flash_attention_backward_plain,
         flash_attention_kernel)
-    B, S, H, KV, D = 2, 300, 4, 2, 64
+    B, S, H, KV = 2, 300, 4, 2
     rng = np.random.default_rng(26)
     qkv = torch.from_numpy(rng.standard_normal(
         (B, S, H + 2 * KV, D)).astype(np.float32)).cuda().to(

@@ -7,6 +7,8 @@ Both sides start from one state: the JAX package draws it, and it is
 carried over through numpy (``repro_torch.weights``); batches come from the
 same synthetic stream (numpy, bit for bit the same on both sides).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +30,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import VirtualCluster
 from repro_torch.data import DataConfig, SyntheticLMStream, to_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import forward, init_params, loss_fn
+from repro_torch.models.transformer import (check_trainable, forward,
+                                            init_params, loss_fn)
 from repro_torch.optim import OptimizerSpec
 from repro_torch.train import HyParTrainer, TrainState, make_train_step
 from repro_torch.tree import tree_leaves
@@ -64,7 +67,6 @@ def smoke():
     """qwen2's smoke config at fp32 compute with a vocabulary of 500 (so
     the padded rows up to 512 are masked), its JAX weights, one batch."""
     from repro.configs import get_smoke_config as jax_smoke
-    import dataclasses
     jcfg = dataclasses.replace(jax_smoke("qwen2-1.5b"),
                                compute_dtype="float32", vocab_size=500)
     cfg = dataclasses.replace(get_smoke_config("qwen2-1.5b"),
@@ -140,8 +142,9 @@ def test_forward_refuses_other_families():
     """The forward and the loss run every family: the loss of mamba2 and
     whisper (its frames from ``batch["enc_embeds"]``) is finite, and a
     whisper batch without frames is refused as the forward refuses it.
-    Only gemma3-4b's head dim 256, wider than the flash backward
-    kernel's, is refused for training."""
+    gemma3-4b (head dim 256) trains; only a head dim wider than the flash
+    backward kernel's (264 here) is refused, before any parameter is
+    read."""
     gen = torch.Generator().manual_seed(0)
     tokens = torch.zeros((1, 4), dtype=torch.int32)
     for arch in ("mamba2-370m", "whisper-base"):
@@ -155,10 +158,11 @@ def test_forward_refuses_other_families():
                                               generator=gen)
         total, _ = loss_fn(cfg, params, batch)
         assert torch.isfinite(total)
-    # gemma3's head dim 256 is wider than the flash backward kernel's
-    with pytest.raises(NotImplementedError, match="head dim 256"):
-        loss_fn(get_config("gemma3-4b"), {},
-                {"tokens": tokens, "labels": tokens})
+    # gemma3's head dim 256 is the flash backward kernel's widest
+    check_trainable(get_config("gemma3-4b"))
+    with pytest.raises(NotImplementedError, match="head dim 264"):
+        loss_fn(dataclasses.replace(get_config("gemma3-4b"), head_dim=264),
+                {}, {"tokens": tokens, "labels": tokens})
 
 
 # ---------------------------------------------------------------------------

@@ -93,7 +93,20 @@ def _batch(jcfg, batch, seq, seed=0, step=0):
 
 @pytest.mark.parametrize("arch,seq", FAMILIES, ids=[a for a, _ in FAMILIES])
 def test_loss_and_gradients_match_jax(arch, seq):
-    jcfg, cfg = _configs(arch)
+    _check_loss_and_gradients(*_configs(arch), seq)
+
+
+def test_gemma3_at_head_dim_256_matches_jax():
+    """gemma3's smoke config at its full model's head dim (256, the flash
+    backward kernel's widest), on both sides: the loss and every gradient
+    against ``jax.grad`` at 1e-5, past its window of 16."""
+    jcfg, cfg = (dataclasses.replace(c, head_dim=256)
+                 for c in _configs("gemma3-4b"))
+    assert cfg.hd == MAX_D_BWD
+    _check_loss_and_gradients(jcfg, cfg, 40)
+
+
+def _check_loss_and_gradients(jcfg, cfg, seq):
     params_j = jax_init_params(jcfg, jax.random.PRNGKey(0))
     batch = _batch(jcfg, 2, seq)
     if cfg.family == "encdec":
@@ -404,17 +417,17 @@ def test_ssd_gradients_stay_finite_under_strong_decay():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_every_config_trains_but_gemma3(arch):
-    """Every config of the repo passes ``check_trainable``, mamba2 (one
-    "head" of 1,024, but no attention layer) among them; gemma3-4b is
-    refused by its head dim, which the flash backward kernel does not
-    take; its smoke config (head dim 16) trains."""
+    """Named when gemma3-4b was refused; every config of the repo passes
+    ``check_trainable`` now: mamba2 (one "head" of 1,024, but no attention
+    layer) and gemma3-4b, whose head dim 256 is the flash backward
+    kernel's widest, among them.  A head dim past it is refused."""
     cfg = get_config(arch)
-    if arch == "gemma3-4b":
-        assert cfg.hd > MAX_D_BWD
-        with pytest.raises(NotImplementedError, match="head dim 256"):
-            check_trainable(cfg)
-    else:
-        check_trainable(cfg)
+    assert cfg.family == "ssm" or cfg.hd <= MAX_D_BWD
+    check_trainable(cfg)
+    if cfg.family != "ssm":
+        with pytest.raises(NotImplementedError, match="head dim"):
+            check_trainable(dataclasses.replace(cfg,
+                                                head_dim=MAX_D_BWD + 8))
     check_trainable(get_smoke_config(arch))
     for remat in ("none", "full", "save_dots"):
         check_trainable(dataclasses.replace(get_smoke_config(arch),
