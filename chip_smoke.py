@@ -107,6 +107,18 @@ and prints one JSON line per phase:
    ``Engine`` and over ``PagedEngine`` (the paged kernel decoding);
    greedy streams and outcomes must be identical, a mismatch printed with
    the request, the token and both engines' top-2 logit gap;
+10b'. ``kernels`` at a tensor-parallel position and ``serve_mesh`` — the
+   paged kernel at qwen2-1.5b's decode split over TP=2 (bf16, B 8, KV 1,
+   G 6, D 128, contexts 1,000-1,500) against its plain version, timed
+   beside its bound, plain version and SDPA; then the serving mesh with
+   every grid position on the card (``devices=[cuda:0] * size``):
+   qwen2-1.5b (28 layers) in fp32 at TP=2, DP=2 and TP=2 x DP=2 against no
+   mesh (8 requests of 64-512 tokens, 16 greedy tokens; streams equal,
+   no page leaked, paged launches decode steps x 28 x tp x dp, 8
+   teacher-forced decode steps within 1e-3 of max|logit|, TP=2's
+   per-position pool bytes half); bf16: a 1 x 1 mesh bit-equal to no
+   mesh, TP=2's tok/s and stream agreement reported; mamba2-370m (48
+   layers, fp32) at DP=2: equal streams, SSD launches chunks x 48;
 10c. ``kernels`` at the MoE and hybrid shapes — the paged kernel (bf16,
    batch 8, page 16, max_len 2048, G 1: qwen2-moe-a2.7b's KV 16 x D 128
    and zamba2-1.2b's KV 32 x D 64) at every pages-a-split value and the
@@ -205,7 +217,8 @@ and prints one JSON line per phase:
    1e-3, grad norm 2e-2); then one step under ``torch.profiler``: busy
    share, the device time of each flash half, three device kernels a
    backward call, and no einsum;
-15a. ``train_families`` — one line per model: mamba2-370m (48 layers),
+15a. ``train_families`` — one line per model: mamba2-370m (24 of its 48
+   layers),
    zamba2-1.2b (38), whisper-base (6 + 6; 1,500 frames, 448 decoder
    tokens) and qwen2-moe-a2.7b cut to 2 layers, each at full width,
    trained as in phase 15 for 3 steps: the plain path's step 1 first
@@ -1185,6 +1198,301 @@ def serve_groups_parity_phase(mods) -> dict:
     return total
 
 
+# the serving mesh (DESIGN.md §13): qwen2-1.5b at full width on a (dp, tp)
+# grid whose every position is the one card, against the meshless engine
+MESH_ARCH = "qwen2-1.5b"
+MESH_SSM_ARCH = "mamba2-370m"
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))      # (tp, dp)
+MESH_REQUESTS = 8
+MESH_PROMPT_RANGE = (64, 512)
+MESH_NEW = 16
+MESH_TF_STEPS = 8                           # teacher-forced decode steps
+MESH_MAX_LEN = 1024
+# the paged kernel at a TP=2 position of qwen2-1.5b's decode (12 query
+# and 2 KV heads split in two), contexts of 1,000-1,500 tokens
+MESH_SHARD_LENS = [1500, 1431, 1362, 1293, 1224, 1155, 1086, 1000]
+
+
+def mesh_engine(cfg, params, shape):
+    """A ``PagedEngine`` (batch 8, page 16, chunk 256, max_len 1,024)
+    without a mesh (``shape`` None) or on a ``shape`` = (tp, dp) mesh
+    whose every position is the card."""
+    from repro_torch.serve import PagedEngine
+    from repro_torch.serve.mesh import MeshSpec, build_serve_mesh
+
+    mesh = None
+    if shape is not None:
+        spec = MeshSpec(*shape)
+        mesh = build_serve_mesh(spec, devices=[torch.device(DEV)]
+                                * spec.size)
+    return PagedEngine(cfg, params, batch=8, max_len=MESH_MAX_LEN,
+                       page_size=16, prefill_chunk=256, mesh=mesh,
+                       device=DEV)
+
+
+def mesh_run(eng, prompts, mods, dp: int) -> dict:
+    """One drain of ``prompts`` (MESH_NEW greedy tokens each) by a fresh
+    ``ServeScheduler`` with ``dp`` device groups, the launches of ``mods``
+    set to 0 just before and read just after.  Fails unless every request
+    gets its tokens and no group leaks a page."""
+    from repro_torch.serve import ServeScheduler
+
+    sched = ServeScheduler(eng, device_groups=dp)
+    steps0, chunks0 = eng.n_decode_calls, eng.n_chunk_calls
+    reset_launches(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        sched.submit(p, max_new=MESH_NEW)
+    results = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(mods)
+    tag = f"{eng.cfg.name} mesh {getattr(eng.mesh, 'spec', None)}"
+    if (len(results) != len(prompts)
+            or any(r.n_generated != MESH_NEW for r in results)):
+        raise AssertionError(f"{tag}: {len(results)} of {len(prompts)} "
+                             f"requests, tokens "
+                             f"{[r.n_generated for r in results]}")
+    leaks = [g.allocator.n_outstanding for g in sched.groups]
+    if any(leaks):
+        raise AssertionError(f"{tag}: pages outstanding {leaks}")
+    n_tok = sum(r.n_generated for r in results)
+    return {"streams": {r.rid: list(r.tokens) for r in results},
+            "decode_steps": eng.n_decode_calls - steps0,
+            "chunk_calls": eng.n_chunk_calls - chunks0,
+            "launches": launches, "wall_s": wall, "tok_per_s": n_tok / wall,
+            "ttft_p50_s": float(np.median([r.ttft_s for r in results]))}
+
+
+def mesh_teacher_forced(eng, prompts, forced=None):
+    """Each prompt inserted into its slot (pages from its DP=2 row's range,
+    which every mesh of the phase accepts), then MESH_TF_STEPS decode steps
+    fed ``forced`` (steps x batch tokens; the engine's own greedy tokens
+    when None).  Returns the chunk logits (batch, V), the decode logits
+    (steps, batch, V) and the tokens fed."""
+    from repro_torch.serve.mesh import row_ranges
+
+    nxt = {r: rows[1].start for r, rows in
+           enumerate(row_ranges(eng.batch, eng.num_pages, 2))}
+    half = -(-eng.batch // 2)
+    firsts = []
+    with torch.no_grad():
+        for slot, p in enumerate(prompts):
+            r = 0 if slot < half else 1
+            n = eng.pages_needed(len(p), MESH_TF_STEPS + 1)
+            pages = list(range(nxt[r], nxt[r] + n))
+            nxt[r] += n
+            firsts.append(eng.insert(slot, p, page_ids=pages,
+                                     max_new=MESH_TF_STEPS + 1)[:, -1])
+        chunk = torch.cat(firsts).float()
+        toks = chunk.argmax(-1).to(torch.int32).cpu().numpy()[:, None]
+        decode, fed = [], []
+        for i in range(MESH_TF_STEPS):
+            if forced is not None:
+                toks = forced[i]
+            fed.append(toks.copy())
+            lg = eng.decode(toks)[:, -1].float()
+            decode.append(lg)
+            toks = lg.argmax(-1).to(torch.int32).cpu().numpy()[:, None]
+    return chunk, torch.stack(decode), fed
+
+
+def mesh_kernel_case() -> dict:
+    """The paged kernel at the TP=2 position's shape (bf16, B 8, KV 1, G 6,
+    D 128, page 16, contexts 1,000-1,500) against its plain version, timed
+    beside its bound, its plain version and SDPA (``paged_timed_case``)."""
+    from repro_torch.kernels.paged_attention.kernel import \
+        default_pages_per_split
+    from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(28)
+    grid = [c["pages_per_split"]
+            for c in DEFAULT_CANDIDATES["paged_attention"]]
+    case, err = paged_timed_case(
+        gen, B=8, KV=1, G=6, D=128, ps=16, n_pages=96,
+        kv_lens=MESH_SHARD_LENS, dtype=torch.bfloat16, window=None,
+        trash_tail=0, grid=grid, default_pps=default_pages_per_split(8, 1,
+                                                                     96),
+        model=f"{MESH_ARCH} TP=2 position")
+    return dict(case_summary(case, err),
+                pages_per_split=case["pages_per_split"],
+                ms_by_pages_per_split=case["ms_by_pages_per_split"])
+
+
+def serve_mesh_phase(mods) -> dict:
+    """The serving mesh on the card, every grid position on it
+    (``devices=[cuda:0] * size``), against the meshless engine:
+
+    * qwen2-1.5b (28 layers) in fp32 compute (TF32 off) at TP=2, DP=2 and
+      TP=2 x DP=2: MESH_REQUESTS prompts of 64-512 tokens (numpy seed 28),
+      MESH_NEW greedy tokens through ``ServeScheduler`` with ``dp`` device
+      groups — streams equal to the meshless run's, every request its
+      tokens, no page leaked, the paged kernel launched decode steps x 28
+      x tp x dp times; then MESH_TF_STEPS teacher-forced decode steps fed
+      the meshless engine's tokens, chunk and decode logits within
+      PARITY_TOL of max|logit|; TP=2's ``per_device_pool_bytes`` half of
+      the meshless engine's;
+    * bf16 compute: a 1 x 1 mesh's streams and teacher-forced logits
+      bit-equal to no mesh; TP=2's tok/s and stream agreement beside the
+      meshless run's, reported (partial sums in bf16 may flip a token);
+    * mamba2-370m (48 layers, fp32) at DP=2: streams equal to the
+      meshless run's, the SSD kernel launched chunk calls x 48 times.
+
+    Returns the phase's paged and SSD launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.weights import init_params
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    total = {"paged_attention": 0, "ssd_scan": 0}
+    rng = np.random.default_rng(28)
+    lo, hi = MESH_PROMPT_RANGE
+    lens = rng.integers(lo, hi + 1, MESH_REQUESTS)
+    out: dict = {"prompt_lens": [int(n) for n in lens]}
+    failures = []
+
+    # fp32: every mesh against no mesh
+    cfg = dataclasses.replace(get_config(MESH_ARCH), compute_dtype="float32")
+    n_layers = cfg.n_layers
+    prompts = [rng.integers(0, cfg.vocab_size - 1, (int(n),)).astype(
+        np.int32) for n in lens]
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(28),
+                         DEV)
+    eng = mesh_engine(cfg, params, None)
+    mesh_run(eng, prompts[:2], mods, 1)                 # warm-up
+    base = mesh_run(eng, prompts, mods, 1)
+    base_chunk, base_decode, fed = mesh_teacher_forced(eng, prompts)
+    base_bytes = eng.per_device_pool_bytes()
+    scale = float(base_decode.abs().max())
+    total["paged_attention"] += base["launches"]["paged_attention"]
+    if base["launches"]["paged_attention"] != base["decode_steps"] * n_layers:
+        failures.append(f"fp32 no mesh: paged launches "
+                        f"{base['launches']['paged_attention']} != "
+                        f"{base['decode_steps']} x {n_layers}")
+    runs = [{"mesh": None, **{k: v for k, v in base.items()
+                              if k != "streams"},
+             "per_device_pool_bytes": base_bytes}]
+    del eng
+    for tp, dp in MESH_SHAPES:
+        eng = mesh_engine(cfg, params, (tp, dp))
+        run = mesh_run(eng, prompts, mods, dp)
+        chunk, decode, _ = mesh_teacher_forced(eng, prompts, fed)
+        want_launches = run["decode_steps"] * cfg.n_layers * tp * dp
+        row = {"mesh": f"{tp},{dp}",
+               **{k: v for k, v in run.items() if k != "streams"},
+               "expected_paged_launches": want_launches,
+               "per_device_pool_bytes": eng.per_device_pool_bytes(),
+               "total_pool_bytes": eng.total_pool_bytes(),
+               "streams_equal": run["streams"] == base["streams"],
+               "chunk_max_rel_logit_err": float(
+                   (chunk - base_chunk).abs().max()) / scale,
+               "decode_max_rel_logit_err": float(
+                   (decode - base_decode).abs().max()) / scale}
+        runs.append(row)
+        total["paged_attention"] += run["launches"]["paged_attention"]
+        if not row["streams_equal"]:
+            failures.append(f"fp32 {tp},{dp}: streams differ")
+        if run["launches"]["paged_attention"] != want_launches:
+            failures.append(f"fp32 {tp},{dp}: paged launches "
+                            f"{run['launches']['paged_attention']} != "
+                            f"{want_launches}")
+        if max(row["chunk_max_rel_logit_err"],
+               row["decode_max_rel_logit_err"]) > PARITY_TOL:
+            failures.append(f"fp32 {tp},{dp}: logits past {PARITY_TOL}")
+        if (tp, dp) == (2, 1) and 2 * row["per_device_pool_bytes"] \
+                != base_bytes:
+            failures.append(f"TP=2 per-position pool bytes "
+                            f"{row['per_device_pool_bytes']} not half of "
+                            f"{base_bytes}")
+        del eng
+        gc.collect()
+    out["fp32"] = runs
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16: a 1 x 1 mesh is no mesh, bit for bit; TP=2 reported
+    cfg = get_config(MESH_ARCH)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(28),
+                         DEV, cast=True)
+    bf16 = {}
+    for name, shape, dp in (("none", None, 1), ("1,1", (1, 1), 1),
+                            ("2,1", (2, 1), 1)):
+        eng = mesh_engine(cfg, params, shape)
+        mesh_run(eng, prompts[:2], mods, dp)            # warm-up
+        run = mesh_run(eng, prompts, mods, dp)
+        chunk, decode, fed = mesh_teacher_forced(
+            eng, prompts, None if name == "none" else bf16["none"]["fed"])
+        bf16[name] = {**run, "chunk": chunk, "decode": decode, "fed": fed}
+        del eng
+    ref = bf16["none"]
+    one = bf16["1,1"]
+    out["bf16"] = {
+        name: {"tok_per_s": r["tok_per_s"], "wall_s": r["wall_s"],
+               "decode_steps": r["decode_steps"],
+               "paged_launches": r["launches"]["paged_attention"],
+               "streams_equal_to_no_mesh": sum(
+                   r["streams"][rid] == toks
+                   for rid, toks in ref["streams"].items())}
+        for name, r in bf16.items()}
+    out["bf16"]["1,1"]["logits_bit_equal"] = bool(
+        torch.equal(one["chunk"], ref["chunk"])
+        and torch.equal(one["decode"], ref["decode"]))
+    out["bf16"]["2,1"]["decode_max_rel_logit_err"] = float(
+        (bf16["2,1"]["decode"] - ref["decode"]).abs().max()
+        / ref["decode"].abs().max())
+    for r in bf16.values():
+        total["paged_attention"] += r["launches"]["paged_attention"]
+    if one["streams"] != ref["streams"] \
+            or not out["bf16"]["1,1"]["logits_bit_equal"]:
+        failures.append("bf16 1,1 mesh not bit-equal to no mesh")
+    del bf16, ref, one, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # mamba2-370m at DP=2: the SSD kernel on each row's chunks
+    cfg = dataclasses.replace(get_config(MESH_SSM_ARCH),
+                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(28),
+                         DEV)
+    ssm_prompts = [p % cfg.vocab_size for p in prompts]
+    ssm = {}
+    for name, shape, dp in (("none", None, 1), ("1,2", (1, 2), 2)):
+        eng = mesh_engine(cfg, params, shape)
+        ssm[name] = mesh_run(eng, ssm_prompts, mods, dp)
+        del eng
+    dp2 = ssm["1,2"]
+    out["ssm"] = {"model": cfg.name, "layers": cfg.n_layers,
+                  "compute": "float32",
+                  **{name: {k: v for k, v in r.items() if k != "streams"}
+                     for name, r in ssm.items()},
+                  "streams_equal": dp2["streams"] == ssm["none"]["streams"],
+                  "expected_ssd_launches": dp2["chunk_calls"] * cfg.n_layers}
+    total["ssd_scan"] += sum(r["launches"]["ssd_scan"] for r in ssm.values())
+    if not out["ssm"]["streams_equal"]:
+        failures.append("mamba2 DP=2 streams differ")
+    if dp2["launches"]["ssd_scan"] != dp2["chunk_calls"] * cfg.n_layers:
+        failures.append(f"mamba2 DP=2 SSD launches "
+                        f"{dp2['launches']['ssd_scan']} != "
+                        f"{dp2['chunk_calls']} x {cfg.n_layers}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emit("serve_mesh", model=MESH_ARCH, layers=n_layers, batch=8,
+         page_size=16,
+         prefill_chunk=256, max_len=MESH_MAX_LEN, requests=MESH_REQUESTS,
+         max_new=MESH_NEW, teacher_forced_steps=MESH_TF_STEPS,
+         devices=f"{DEV} at every position", tol=PARITY_TOL, **out,
+         failures=failures, seconds=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError(f"serve_mesh: {failures}")
+    return total
+
+
 # ---------------------------------------------------------------------------
 # the dense engine: waves, the dense trace, dense against paged
 # ---------------------------------------------------------------------------
@@ -1620,6 +1928,7 @@ def prefill_through(eng, slot: int, prompt, page_ids, impl: str):
     from repro_torch.serve import chunk_plan
 
     eng.ensure_batch()
+    (mrow,) = eng.rows              # no mesh: one row, local page ids
     row = torch.zeros((1, eng.max_pages), dtype=torch.int32, device=DEV)
     row[0, :len(page_ids)] = torch.tensor(page_ids, dtype=torch.int32)
     logits = None
@@ -1627,10 +1936,10 @@ def prefill_through(eng, slot: int, prompt, page_ids, impl: str):
                                         eng.chunk_buckets):
         ck = np.zeros((1, blen), np.int32)
         ck[0, :vlen] = prompt[start:start + vlen]
-        logits, eng.cache = chunk_prefill_step(
-            eng.cfg, eng.params, eng.cache, torch.tensor(ck, device=DEV),
+        logits, mrow.cache = chunk_prefill_step(
+            eng.cfg, mrow.params, mrow.cache, torch.tensor(ck, device=DEV),
             slot=slot, start=start, valid_len=vlen, pages_row=row,
-            page_size=eng.page_size, impl=impl)
+            page_size=eng.page_size, impl=impl, shards=mrow.shards)
     eng.commit_slot(slot, page_ids)
     return logits
 
@@ -1658,11 +1967,14 @@ def prefill_chunk_paths(eng, rng, kernel_mod, n_pairs: int = 4,
     chunks = [torch.tensor(prompt[None, i * C:(i + 1) * C].astype(np.int32),
                            device=DEV) for i in range(2)]
 
+    (mrow,) = eng.rows
+
     def run(impl):
         for i, ck in enumerate(chunks):
-            chunk_prefill_step(eng.cfg, eng.params, eng.cache, ck, slot=0,
+            chunk_prefill_step(eng.cfg, mrow.params, mrow.cache, ck, slot=0,
                                start=i * C, valid_len=C, pages_row=row,
-                               page_size=eng.page_size, impl=impl)
+                               page_size=eng.page_size, impl=impl,
+                               shards=mrow.shards)
 
     run("kernel")
     run("ref")
@@ -2761,14 +3073,15 @@ FA_BWD_KERNELS = 3               # device kernels a backward call
 # training runs, each at full width through the fused step, seq 4096,
 # global batch 4 in 2 micro-batches, AdamW, remat="full": (phase, model,
 # depth cut or None, the plain path's impl, steps, one more step under
-# torch.profiler); qwen2-moe at 4 layers peaked at 67.4 GiB (72.4 GB) of
+# torch.profiler); mamba2-370m at 24 of its 48 layers (62.5 s of the run
+# at 48) makes room for serve_mesh; qwen2-moe at 4 layers peaked at 67.4 GiB (72.4 GB) of
 # the card's 80 GB; gemma3-4b at 12 layers is two periods of 5 local
 # layers and 1 global (at 34, its 3.0 B parameters' fp32 values,
 # gradients and AdamW moments alone take 48 GB, and the fp32 loss over
 # 262,144 logits a token about 25 more)
 TRAIN_RUNS = (
     ("train", TRAIN_ARCH, None, "tiled", TRAIN_STEPS, True),
-    ("train_families", "mamba2-370m", None, "ref", 3, True),
+    ("train_families", "mamba2-370m", 24, "ref", 3, True),
     ("train_families", "zamba2-1.2b", None, "ref", 3, False),
     ("train_families", "whisper-base", None, "ref", 3, False),
     ("train_families", "qwen2-moe-a2.7b", 2, "ref", 3, False),
@@ -3250,7 +3563,7 @@ def check_train_profile(name: str, prof: dict, n_attn: int,
 def train_phase(mods) -> dict:
     """Every family trained at full width by the fused step on the card,
     one ``TRAIN_RUNS`` entry after another: qwen2-1.5b (``train``),
-    mamba2-370m (48 layers), zamba2-1.2b (38), whisper-base (6 + 6; 1,500
+    mamba2-370m cut to 24 of its 48 layers, zamba2-1.2b (38), whisper-base (6 + 6; 1,500
     frames and 448 decoder tokens, as the stream cuts them),
     qwen2-moe-a2.7b cut to 2 layers (at 4, its 2.9 B parameters' fp32
     values, gradients and AdamW moments, 46 GB, and a step's activations
@@ -3987,6 +4300,13 @@ def main() -> int:
     ssd_entry["launches_serve_waves_ssm"] = serve_waves_phase(
         "mamba2-370m", serve_mods, "ref", "serve_waves_ssm")["ssd_scan"]
     dense_vs_paged_phase(serve_mods)
+    # the serving mesh: the paged kernel at a TP=2 position's shape, then
+    # qwen2 and mamba2 served on meshes whose positions share the card
+    # (counts read per run)
+    mesh_shard = mesh_kernel_case()
+    mesh_launches = serve_mesh_phase(serve_mods)
+    entry["launches_serve_mesh"] = mesh_launches["paged_attention"]
+    ssd_entry["launches_serve_mesh"] = mesh_launches["ssd_scan"]
 
     # the MoE and hybrid families: the three serving kernels at their
     # shapes, paged serving and the dense engine's waves (counts read per
@@ -4007,6 +4327,7 @@ def main() -> int:
     entry["launches_serve_moe"] = family["serve_moe"]["paged_attention"]
     entry["launches_serve_hybrid"] = family["serve_hybrid"]["paged_attention"]
     entry["by_model"] = family_shapes["paged_attention"]
+    entry["by_model"][f"{MESH_ARCH} TP=2 position"] = mesh_shard
     ssd_entry["launches_serve_hybrid"] = family["serve_hybrid"]["ssd_scan"]
     ssd_entry["launches_serve_waves_hybrid"] = \
         family["serve_waves_hybrid"]["ssd_scan"]

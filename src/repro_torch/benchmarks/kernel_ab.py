@@ -3,7 +3,7 @@ versions of it can be compared on one card.
 
     python3 src/repro_torch/benchmarks/kernel_ab.py KERNEL [--src DIR] [--label NAME]
 
-``KERNEL`` is ``flash_fwd``, ``flash_bwd`` or ``ssd``.  ``--src`` (default: this
+``KERNEL`` is ``flash_fwd``, ``flash_bwd``, ``ssd`` or ``paged_decode``.  ``--src`` (default: this
 checkout's ``src``) goes first on the import path, so ``repro_torch`` and
 the kernel it builds (into that tree's ``build/``) are that tree's.  Run
 it once a tree in one command, in the order parent, change, change,
@@ -31,6 +31,13 @@ events over back-to-back calls rotating over input copies larger than the
   random weights from seed 0) through the kernel path: wall and
   device-busy ms a chunk, the SSD device kernels' ms a chunk by kernel
   name, and the device kernels a wrapper call.
+* ``paged_decode``: the paged kernel on its main path, a ``PagedEngine``
+  without a mesh at full width (qwen2-1.5b, bf16, random weights from
+  seed 0; batch 8, page 16, every slot holding a prompt of 1,000-1,500
+  tokens): ``--steps`` decode steps after 8 of warm-up, each step's wall
+  ms (synchronized), their median and the decode tok/s, and the paged
+  kernel's launches a step.  Only the engine's public calls are used, so
+  it runs on any tree with ``PagedEngine``.
 
 It exits non-zero without a CUDA device.
 """
@@ -196,11 +203,14 @@ def ssd(args) -> dict:
     chunks = [torch.tensor(prompt[None, i * C:(i + 1) * C].astype(np.int32),
                            device=dev) for i in range(2)]
 
+    (mrow,) = eng.rows
+
     def run():
         for i, ck in enumerate(chunks):
-            chunk_prefill_step(cfg, eng.params, eng.cache, ck, slot=0,
+            chunk_prefill_step(cfg, mrow.params, mrow.cache, ck, slot=0,
                                start=i * C, valid_len=C, pages_row=row,
-                               page_size=eng.page_size, impl="kernel")
+                               page_size=eng.page_size, impl="kernel",
+                               shards=mrow.shards)
 
     for _ in range(2):
         run()
@@ -231,7 +241,53 @@ def ssd(args) -> dict:
                         for e in mine]}
 
 
-KERNELS = {"flash_fwd": flash_fwd, "flash_bwd": flash_bwd, "ssd": ssd}
+def paged_decode(args) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import kernel as paged_kernel
+    from repro_torch.serve import PagedEngine
+    from repro_torch.weights import init_params
+
+    cfg = get_config("qwen2-1.5b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    batch, page, max_len = 8, 16, 2048
+    eng = PagedEngine(cfg, params, batch=batch, max_len=max_len,
+                      page_size=page, prefill_chunk=256, device="cuda")
+    del params
+    rng = np.random.default_rng(0)
+    lens = np.linspace(1000, 1500, batch).astype(int)
+    next_page = 1
+    tok = np.zeros((batch, 1), np.int32)
+    for slot, n in enumerate(lens):
+        need = eng.pages_needed(int(n), args.steps + 16)
+        ids = list(range(next_page, next_page + need))
+        next_page += need
+        lg = eng.insert(slot, rng.integers(1, cfg.vocab_size - 1, int(n)),
+                        page_ids=ids, max_new=args.steps + 16)
+        tok[slot, 0] = int(lg[0, -1].argmax())
+    for _ in range(8):
+        tok = eng.decode(tok)[:, -1].argmax(-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    launches0 = paged_kernel.launches
+    step_ms = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        tok = eng.decode(tok)[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"model": "qwen2-1.5b bf16", "batch": batch,
+            "contexts": [int(n) for n in lens], "steps": args.steps,
+            "step_ms": step_ms, "median_step_ms": float(np.median(step_ms)),
+            "tok_per_s": batch * args.steps / (sum(step_ms) / 1e3),
+            "paged_launches_per_step":
+                (paged_kernel.launches - launches0) / args.steps}
+
+
+KERNELS = {"flash_fwd": flash_fwd, "flash_bwd": flash_bwd, "ssd": ssd,
+           "paged_decode": paged_decode}
 
 
 def main(argv=None) -> int:
@@ -242,6 +298,8 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="", help="a name for the output")
     ap.add_argument("--chunks", type=int, default=8,
                     help="ssd: prefill chunks in the profiled window (even)")
+    ap.add_argument("--steps", type=int, default=64,
+                    help="paged_decode: timed decode steps")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.src).resolve()))
 

@@ -50,8 +50,16 @@ repeatedly fails over and rejoins by a health probe), and
 ``--max-restarts`` caps the fault evictions a request may take before it
 ends ``failed``.  The stats report the outcome histogram, the watchdog
 trips and the group failovers and rejoins, as the reference's do.
-``--mesh`` (a device mesh under the engine, and with it more than one
-device group from the command line) is not ported.
+
+``--mesh TP,DP`` (paged only, DESIGN.md §13) shards the engine over a
+``(DP, TP)`` grid of devices (``serve/mesh.py``): ``cuda:0`` … on
+``--device cuda``, which raises where the machine has fewer cards than
+positions, or the CPU at every position on ``--device cpu``.  KV heads
+split over TP, slots and pages over DP, with ``device_groups = DP``.  The
+stats then carry ``mesh``, ``per_device_pool_bytes`` and the per-device
+``kv_budget_tokens``, and a ``mesh=`` line is printed.  (A mesh on fewer
+cards than positions, e.g. TP=2 on one card, is built in Python with
+``build_serve_mesh(spec, devices=[torch.device("cuda:0")] * 2)``.)
 """
 from __future__ import annotations
 
@@ -68,6 +76,7 @@ from ..serve import (Engine, HyParRequestTracker, PagedEngine, Request,
                      RequestQueue, SamplingParams, ServeScheduler,
                      count_generated)
 from ..serve.engine import resolve_device
+from ..serve.mesh import MeshSpec, build_serve_mesh
 from ..models.transformer import param_count
 from ..weights import init_params
 
@@ -147,10 +156,16 @@ def warmup_requests(rng: np.random.Generator, cfg, *, prompt_lens,
 
 def make_scheduler(cfg, params, args, *, sp: SamplingParams,
                    max_len: int) -> ServeScheduler:
+    mesh = None
+    device_groups = 1
+    if args.mesh and args.paged:
+        spec = MeshSpec.parse(args.mesh)
+        mesh = build_serve_mesh(spec, device=args.device)
+        device_groups = spec.dp
     if args.paged:
         eng = PagedEngine(cfg, params, batch=args.batch, max_len=max_len,
                           page_size=args.page_size, num_pages=args.num_pages,
-                          prefill_chunk=args.prefill_chunk,
+                          prefill_chunk=args.prefill_chunk, mesh=mesh,
                           attn_impl=args.paged_attn_impl, device=args.device)
     else:
         eng = Engine(cfg, params, batch=args.batch, max_len=max_len,
@@ -178,6 +193,7 @@ def make_scheduler(cfg, params, args, *, sp: SamplingParams,
                           admit_watermark=args.admit_watermark,
                           prefix_cache=args.prefix_cache,
                           prefix_admit=args.prefix_admit,
+                          device_groups=device_groups,
                           enforce_deadlines=args.enforce_deadlines,
                           watchdog_budget_s=args.watchdog_budget,
                           max_restarts=args.max_restarts)
@@ -306,6 +322,9 @@ def trace_stats(args, sched, snap) -> dict:
         "lat_p50_s": float(np.percentile(lats, 50)),
         "lat_p95_s": float(np.percentile(lats, 95)),
         "reserve": sched.reserve,
+        # the mesh that was built: paged only (a size-1 --mesh passes the
+        # launcher's check without --paged and shards nothing)
+        "mesh": (args.mesh or None) if sched.paged else None,
         "device_groups": len(sched.groups),
         "prefix_cache": sched.prefix_cache_active,
         "prefix_hit_rate": (snap["prefix_hits"] / snap["prefix_lookups"]
@@ -315,8 +334,17 @@ def trace_stats(args, sched, snap) -> dict:
         "enforce_deadlines": sched.enforce_deadlines,
     })
     if sched.paged:
-        stats["total_pool_bytes"] = eng.total_pool_bytes()
-        stats["kv_budget_tokens"] = eng.num_pages * eng.page_size
+        # per-device KV budget: pool tokens scaled by the byte fraction one
+        # grid position holds — TP=2 halves it over kv_heads; DP splits it
+        # over pages
+        total_b = eng.total_pool_bytes()
+        dev_b = eng.per_device_pool_bytes()
+        pool_tokens = eng.num_pages * eng.page_size
+        stats["total_pool_bytes"] = total_b
+        stats["per_device_pool_bytes"] = dev_b
+        stats["kv_budget_tokens"] = (
+            int(round(pool_tokens * dev_b / total_b)) if total_b else
+            pool_tokens)
     return stats
 
 
@@ -436,6 +464,12 @@ def main(argv=None):
     ap.add_argument("--admit-watermark", type=int, default=0)
     ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--prefix-admit", type=int, default=1)
+    ap.add_argument("--mesh", default=None, metavar="TP,DP",
+                    help="paged: shard the engine over a TPxDP device mesh "
+                         "— KV heads over TP (one model replica), batch "
+                         "slots + page pool over DP device groups "
+                         "(DESIGN.md §13).  '1,1' is the engine's own "
+                         "one-device grid (the same as no mesh)")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--stats-json", default="",
                     help="dump the stats dict to this path as JSON")
@@ -469,6 +503,14 @@ def main(argv=None):
         ap.error("--shared-prefix-len requires --trace")
     if args.prefix_admit < 1:
         ap.error("--prefix-admit must be >= 1")
+    if args.mesh:
+        try:
+            spec = MeshSpec.parse(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+        if spec.size > 1 and not args.paged:
+            ap.error("--mesh with more than one device requires --paged "
+                     "(the sharding rules cover the paged pool)")
     if not args.trace and (args.ttft_deadline is not None
                            or args.total_deadline is not None
                            or args.watchdog_budget is not None
@@ -500,6 +542,12 @@ def main(argv=None):
           f"(+{stats['n_rejected']} shed) tokens={stats['gen_tokens']} "
           f"decode_steps={stats['decode_steps']} "
           f"traces={stats['trace_counts']}")
+    if stats["mesh"]:
+        occ = ", ".join(f"{x*100:.0f}%" for x in stats["group_occupancy"])
+        print(f"mesh={stats['mesh']} groups={stats['device_groups']} "
+              f"group_occupancy=[{occ}] per_device_pool="
+              f"{stats.get('per_device_pool_bytes', 0)}B "
+              f"kv_budget={stats.get('kv_budget_tokens', 0)} tokens")
     if stats["paged"]:
         print(f"reserve={stats['reserve']} "
               f"preempts={stats['preempt_count']} "

@@ -24,7 +24,9 @@ runs the plain PyTorch path::
         --store /tmp/run.sqlite
 
 The reference's mesh flags (``--data-axis``, ``--model-axis``) are not
-ported yet.
+ported yet: the port's device mesh serves (``launch.serve --mesh``); the
+training mesh, which would read the optimizer state's axes from
+``repro_torch.parallel.partition``, is still to come.
 """
 from __future__ import annotations
 

@@ -46,9 +46,17 @@ Pallas kernel; its ``auto`` takes the plain cores.)
 
 Cache writes stay deltas: ``attention`` returns the step's own K/V and the
 caller writes them into the pool.
+
+Tensor parallelism (the serving mesh's ``model`` axis, DESIGN.md §13)
+splits a layer by head: ``split_attention`` gives shard i of n its query
+heads, its KV heads (a GQA group never straddles two shards), the matching
+columns of q/k/v and rows of o; ``attention_tp`` runs every shard on its
+own device over its own cache and sums the partial output projections in
+shard order.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -62,7 +70,8 @@ from .layers import (apply_norm, apply_rope, dense, dtype_of, init_dense,
                      init_norm, rope_freqs)
 
 __all__ = ["NEG_INF", "ATTN_IMPLS", "init_attention", "attention",
-           "gather_pages", "resolve_attn_impl"]
+           "attention_tp", "split_attention", "gather_pages",
+           "resolve_attn_impl"]
 
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
 
@@ -375,3 +384,63 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
                                      window=window)
     out = dense(p["o"], out.reshape(B, S, H * hd), cd)
     return out, (kt, vt)
+
+
+def split_attention(cfg: ModelConfig, p: dict, n: int, i: int):
+    """Shard ``i`` of ``n`` of one attention layer's parameters, split by
+    head: query heads ``[i·H/n, (i+1)·H/n)`` and KV heads ``[i·KV/n,
+    (i+1)·KV/n)`` — the query heads of those KV heads' groups —, the
+    matching columns of q/k/v (weights and biases) and rows of o.  o's
+    bias goes to shard 0 alone, so :func:`attention_tp`'s sum adds it
+    once.  The qk-norm scales are per head dim and shared by every shard.
+    Returns ``(cfg_s, p_s)``: ``cfg_s`` has the shard's head counts and
+    pins ``head_dim`` (``cfg.hd`` falls back to d_model // n_heads).  One
+    shard of one is the layer itself, ``(cfg, p)``: no copy."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if H % n or KV % n or not 0 <= i < n:
+        raise ValueError(f"shard {i} of {n} does not split {H} query and "
+                         f"{KV} KV heads")
+    if n == 1:
+        return cfg, p
+    hq, hk = H // n, KV // n
+
+    def cols(d: dict, heads: int) -> dict:
+        lo, hi = i * heads * hd, (i + 1) * heads * hd
+        out = {"w": d["w"][:, lo:hi].contiguous()}
+        if "b" in d:
+            out["b"] = d["b"][lo:hi].contiguous()
+        return out
+
+    o = {"w": p["o"]["w"][i * hq * hd:(i + 1) * hq * hd].contiguous()}
+    if i == 0 and "b" in p["o"]:
+        o["b"] = p["o"]["b"]
+    p_s = {**p, "q": cols(p["q"], hq), "k": cols(p["k"], hk),
+           "v": cols(p["v"], hk), "o": o}
+    return dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hk,
+                               head_dim=hd), p_s
+
+
+def attention_tp(shards, x: torch.Tensor, *, caches: list, positions,
+                 cache_len=None, **kw):
+    """One attention layer over tensor-parallel shards.  ``shards``:
+    ``(cfg_s, p_s, device)`` of each shard (:func:`split_attention`), in
+    shard order; ``caches``: each shard's cache, in a form ``attention``
+    takes, on its device.  Each shard runs its heads on its device (x,
+    positions and a tensor ``cache_len`` moved there), and the partial
+    output projections are summed in shard order on x's device (shard 0's
+    carries o's bias); one shard is ``attention`` itself.  The other
+    keywords go to ``attention``.  Returns ``(out, [(kt, vt) of each shard
+    on its device])`` for the caller to write into the shards' pools."""
+    outs, kvs = [], []
+    for (cfg_s, p_s, dev), cache in zip(shards, caches, strict=True):
+        clen = (cache_len.to(dev) if isinstance(cache_len, torch.Tensor)
+                else cache_len)
+        out, kv = attention(cfg_s, p_s, x.to(dev),
+                            positions=positions.to(dev), cache=cache,
+                            cache_len=clen, **kw)
+        outs.append(out.to(x.device))
+        kvs.append(kv)
+    out = outs[0]
+    for part in outs[1:]:
+        out = out + part
+    return out, kvs

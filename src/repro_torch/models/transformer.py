@@ -36,8 +36,19 @@ Two serving caches, both with the SSM layers' per-slot state ``"conv"``:
 
 ``cache["k"][i]`` is the i-th attention layer's buffer or pool,
 ``cache["state"][i]`` the i-th SSM layer's state.  ``decode_step`` runs
-either cache: without ``pages`` S == 1 decodes and S > 1 is a batched
-prefill from a fresh cache.
+the dense cache: S == 1 decodes and S > 1 is a batched prefill from a
+fresh cache.
+
+The paged steps (``decode_step`` with ``pages``, ``chunk_prefill_step``)
+take the pools apart from the cache, in ``shards``: the tensor-parallel
+positions of one data row of the serving mesh (``serve/mesh.py``,
+:class:`AttnShard`), each with its heads' attention weights and its own
+page pools on its device; ``PagedEngine`` without a mesh runs one shard
+that holds every head.  The attention layers run split by head
+(``attention_tp``), each shard writing its K/V into its own pools, while
+the norms, MLPs, experts, SSM layers, embedding and unembedding run once,
+on the device of the cache (the row's lead), which then holds ``"len"``
+and the SSM state alone (``init_paged_cache(pools=False)``).
 
 An encoder-decoder model's serving steps take the encoder output
 (``enc_out``, from :func:`encode`) beside the cache: its cross K/V are
@@ -61,6 +72,7 @@ order.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -69,7 +81,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..kernels.flash_attention.kernel import MAX_D_BWD
 from ..kernels.runtime import resolve_impl
 from ..tree import tree_leaves
-from .attention import attention, gather_pages, init_attention
+from .attention import attention, attention_tp, gather_pages, init_attention
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, cast_weights, dtype_of, embed,
                      init_embedding, init_mlp, init_norm, truncated_normal,
@@ -77,11 +89,11 @@ from .layers import (apply_mlp, apply_norm, cast_weights, dtype_of, embed,
 from .moe import apply_moe, init_moe
 from .ssm import apply_mamba2, init_mamba2, init_ssm_cache, mamba2_decode_step
 
-__all__ = ["LayerPlan", "layer_plan", "layer_kinds", "init_block",
-           "apply_block", "init_params", "param_count", "init_cache",
-           "init_paged_cache", "decode_step", "prefill", "encode",
-           "chunk_prefill_step", "check_supported", "check_trainable",
-           "forward", "loss_fn"]
+__all__ = ["LayerPlan", "AttnShard", "layer_plan", "layer_kinds",
+           "init_block", "apply_block", "init_params", "param_count",
+           "init_cache", "init_paged_cache", "paged_pools", "decode_step",
+           "prefill", "encode", "chunk_prefill_step", "check_supported",
+           "check_trainable", "forward", "loss_fn"]
 
 #: block kinds the port runs
 PORTED_KINDS = ("dense", "local", "global", "moe", "ssm", "shared", "enc",
@@ -95,6 +107,26 @@ class LayerPlan:
     tail: tuple[str, ...]
     enc_pattern: tuple[str, ...] = ()
     enc_groups: int = 0
+
+
+@dataclasses.dataclass
+class AttnShard:
+    """One tensor-parallel position of a serving mesh's data row (a
+    ``PagedEngine`` without a mesh has one, holding every head): the
+    shard's config (its head counts, ``attention.split_attention``), its
+    device, its attention weights (one dict an attention layer, in layer
+    order; each invocation of a shared block is a layer) and its page pools
+    ``k``/``v`` (n_attn, P, KV/n, ps, D), None until allocated."""
+    cfg: ModelConfig
+    device: torch.device
+    attn: list
+    k: torch.Tensor | None = None
+    v: torch.Tensor | None = None
+
+    def layer(self, i: int) -> tuple:
+        """``(cfg, attention weights, device)`` of attention layer ``i``:
+        what ``attention_tp`` takes of a shard."""
+        return self.cfg, self.attn[i], self.device
 
 
 def layer_plan(cfg: ModelConfig) -> LayerPlan:
@@ -223,7 +255,7 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
                 positions, cache: dict | None, cache_len,
                 paged_impl: str = "auto", impl: str = "auto",
                 valid_len: int | None = None, chunk_continue: bool = False,
-                enc_out: torch.Tensor | None = None):
+                enc_out: torch.Tensor | None = None, tp=None):
     """One pre-norm residual block.  Returns ``(x, update, aux)``: ``aux``
     is a MoE block's load-balancing loss (an fp32 scalar) and None for the
     other kinds.
@@ -241,7 +273,12 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
     and from zeros otherwise (the dense engine's batched prefill and the
     forward), with positions >= ``valid_len`` masked out of the state, and
     ``impl`` picks its intra-chunk path.  ``chunk_continue`` likewise tells
-    an attention block's S > 1 chunk from a batched prefill."""
+    an attention block's S > 1 chunk from a batched prefill.
+
+    ``tp`` (a list of each tensor-parallel shard's ``(cfg, attention
+    weights, device)``) runs the block's self-attention split by head
+    through ``attention_tp``: ``cache`` is then a list of each shard's
+    cache, and ``update`` the list of each shard's K/V delta."""
     if kind == "ssm":
         h = apply_norm(cfg, p["ln1"], x)
         if cache is not None and x.shape[1] == 1:
@@ -252,12 +289,14 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
                 valid_len=valid_len, impl=impl)
         return x + out, new_cache, None
     h = apply_norm(cfg, p["ln1"], x)
-    out, kv = attention(cfg, p["attn"], h, positions=positions, cache=cache,
-                        cache_len=cache_len, window=_window_for(cfg, kind),
-                        paged_impl=paged_impl, impl=impl,
-                        chunk_continue=chunk_continue,
-                        causal=kind != "enc",
-                        rope=cfg.use_rope and kind not in ("enc", "dec"))
+    kw = dict(positions=positions, cache_len=cache_len,
+              window=_window_for(cfg, kind), paged_impl=paged_impl,
+              impl=impl, chunk_continue=chunk_continue, causal=kind != "enc",
+              rope=cfg.use_rope and kind not in ("enc", "dec"))
+    if tp is None:
+        out, kv = attention(cfg, p["attn"], h, cache=cache, **kw)
+    else:
+        out, kv = attention_tp(tp, h, caches=cache, **kw)
     x = x + out
     if kind == "dec" and enc_out is not None:
         h = apply_norm(cfg, p["ln_cross"], x)
@@ -432,26 +471,44 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
 
 
 def _new_cache(cfg: ModelConfig, batch: int, lens: torch.Tensor,
-               kv_rows: int, kv_cols: int, device) -> dict:
+               kv_rows: int, kv_cols: int, device, *,
+               kv: bool = True) -> dict:
     """``{"len": lens}`` plus zero K/V of shape (n_attn, kv_rows, KV,
     kv_cols, D) for the attention layers and zero per-slot SSM state for
     the SSM layers, each stacked on a leading layer axis.  Every
     invocation of a shared block is an attention layer of its own, with
     its own K/V (the reference stacks them over its groups)."""
     check_supported(cfg)
-    kinds = layer_kinds(cfg)
-    n_ssm = kinds.count("ssm")
-    n_attn = len(kinds) - n_ssm
+    n_ssm = layer_kinds(cfg).count("ssm")
     cache = {"len": lens}
-    if n_attn:
-        dt = dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype)
-        shape = (n_attn, kv_rows, cfg.n_kv_heads, kv_cols, cfg.hd)
-        cache["k"] = torch.zeros(shape, dtype=dt, device=device)
-        cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    if kv:
+        cache.update(_kv_buffers(cfg, kv_rows, kv_cols, device))
     if n_ssm:
         for key, t in init_ssm_cache(cfg, batch, device).items():
             cache[key] = t[None].repeat((n_ssm,) + (1,) * t.dim())
     return cache
+
+
+def _kv_buffers(cfg: ModelConfig, kv_rows: int, kv_cols: int,
+                device) -> dict:
+    """Zero ``"k"``/``"v"`` (n_attn, kv_rows, KV, kv_cols, D), KV
+    ``cfg.n_kv_heads``; none for an attention-free model."""
+    kinds = layer_kinds(cfg)
+    n_attn = len(kinds) - kinds.count("ssm")
+    if not n_attn:
+        return {}
+    dt = dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype)
+    shape = (n_attn, kv_rows, cfg.n_kv_heads, kv_cols, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def paged_pools(cfg: ModelConfig, *, num_pages: int, page_size: int,
+                device) -> dict:
+    """The paged cache's zero page pools alone, ``{"k", "v"}`` (n_attn, P,
+    KV, page_size, D) with KV ``cfg.n_kv_heads`` (a tensor-parallel
+    shard's config gives its own); empty for an attention-free model."""
+    return _kv_buffers(cfg, num_pages, page_size, device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -467,19 +524,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, *, num_pages: int,
-                     page_size: int, device) -> dict:
+                     page_size: int, device, pools: bool = True) -> dict:
     """Paged serving cache: one shared page pool (P, KV, page_size, D) per
     attention layer and per K/V, stacked on a leading layer axis; dense
     per-slot conv tail and SSD state per SSM layer, stacked likewise; and
-    per-slot lengths.  An attention-free model gets no pool.  Page 0 is
-    the trash page.  Encoder-decoder models are refused, as in the
+    per-slot lengths.  An attention-free model gets no pool, and neither
+    does ``pools=False`` (a serving mesh's row, whose pools its
+    tensor-parallel shards hold: :func:`paged_pools`).  Page 0 is the
+    trash page.  Encoder-decoder models are refused, as in the
     reference."""
     if cfg.family == "encdec":
         raise NotImplementedError("paged KV for encdec (cross-attention "
                                   "buffers) is not implemented")
     return _new_cache(cfg, batch,
                       torch.zeros((batch,), dtype=torch.int32, device=device),
-                      num_pages, page_size, device)
+                      num_pages, page_size, device, kv=pools)
 
 
 def _write_kv(buf, delta, pos) -> None:
@@ -533,12 +592,21 @@ def _write_kv_paged(pool, delta, pos, pages, page_size: int) -> None:
     pool[pid, :, off, :] = delta[:, :, 0, :].to(pool.dtype)
 
 
+def _check_shards(cfg: ModelConfig, shards) -> None:
+    """A paged step of a model with attention layers needs the shards that
+    hold their pools."""
+    if not shards and any(k != "ssm" for k in layer_kinds(cfg)):
+        raise ValueError("a paged step reads the attention pools from its "
+                         "shards (AttnShard): pass shards")
+
+
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor, *, pages: torch.Tensor | None = None,
                 page_size: int | None = None, paged_impl: str = "auto",
                 update_mask=None, impl: str = "auto",
                 valid_len: int | None = None,
-                enc_out: torch.Tensor | None = None):
+                enc_out: torch.Tensor | None = None,
+                shards: Sequence[AttnShard] = ()):
     """One cache-extending step for every slot.  tokens: (B, S) int.
 
     Dense cache (``pages=None``): S == 1 decodes against the per-slot
@@ -550,7 +618,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     length) masked out of the state.
 
     Paged cache: ``pages`` (B, n_pages) int32 page table on the cache's
-    device, S == 1.  Every slot, free ones included, reads its pages,
+    device, S == 1, and ``shards``, the tensor-parallel shards that hold
+    the attention layers' weights and page pools (see the module
+    docstring; one shard holds every head), each of which gets ``pages``
+    on its device.  Every slot, free ones included, reads its pages,
     writes its token's K/V through the table and has its ``len`` bumped —
     free slots' rows point at the trash page.  ``paged_impl``: ``auto``
     (the kernel on a CUDA cache, the gather oracle on the CPU), ``kernel``
@@ -568,6 +639,11 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     if pages is not None and S != 1:
         raise ValueError("a paged decode_step takes one token per slot "
                          "(S == 1)")
+    if pages is not None:
+        _check_shards(cfg, shards)
+    elif shards:
+        raise ValueError("tensor-parallel shards hold page pools: pass "
+                         "pages")
     # ``len`` may be a scalar (uniform batch) or (B,) (per-slot lengths
     # under continuous batching); vector lengths are decode-only
     if pos.dim() == 1 and S > 1:
@@ -578,6 +654,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     x = _add_dec_pos(cfg, params, x, positions)
     if pages is not None:
         paged_impl = resolve_impl(paged_impl, pos.device)
+        shard_io = [(pages.to(sh.device), pos.to(sh.device))
+                    for sh in shards]
     ai = si = 0
     for kind, p in _blocks(cfg, params):
         if kind == "ssm":
@@ -588,24 +666,27 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             _write_ssm_state(lc, new, update_mask)
             si += 1
             continue
+        if pages is not None:
+            lcs = [{"k": gather_pages(sh.k[ai], pg),
+                    "v": gather_pages(sh.v[ai], pg)} if paged_impl == "ref"
+                   else {"k_pool": sh.k[ai], "v_pool": sh.v[ai], "pages": pg}
+                   for sh, (pg, _) in zip(shards, shard_io)]
+            x, kvs, _ = apply_block(cfg, kind, p, x, positions=positions,
+                                    cache=lcs, cache_len=pos,
+                                    paged_impl=paged_impl, impl=impl,
+                                    tp=[sh.layer(ai) for sh in shards])
+            for sh, (pg, sp), (kt, vt) in zip(shards, shard_io, kvs):
+                _write_kv_paged(sh.k[ai], kt, sp, pg, page_size)
+                _write_kv_paged(sh.v[ai], vt, sp, pg, page_size)
+            ai += 1
+            continue
         kb, vb = cache["k"][ai], cache["v"][ai]
         ai += 1
-        if pages is None:
-            lc = {"k": kb, "v": vb}
-        elif paged_impl == "ref":
-            lc = {"k": gather_pages(kb, pages), "v": gather_pages(vb, pages)}
-        else:
-            lc = {"k_pool": kb, "v_pool": vb, "pages": pages}
         x, (kt, vt), _ = apply_block(cfg, kind, p, x, positions=positions,
-                                     cache=lc, cache_len=pos,
-                                     paged_impl=paged_impl, impl=impl,
-                                     enc_out=enc_out)
-        if pages is None:
-            _write_kv(kb, kt, pos)
-            _write_kv(vb, vt, pos)
-        else:
-            _write_kv_paged(kb, kt, pos, pages, page_size)
-            _write_kv_paged(vb, vt, pos, pages, page_size)
+                                     cache={"k": kb, "v": vb}, cache_len=pos,
+                                     impl=impl, enc_out=enc_out)
+        _write_kv(kb, kt, pos)
+        _write_kv(vb, vt, pos)
     x = apply_norm(cfg, params["norm_f"], x)
     logits = unembed(cfg, params["embed"], x)
     cache["len"] += S
@@ -652,7 +733,8 @@ def _write_kv_chunk_paged(pool, delta, start: int, pages_1d, page_size: int):
 def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
                        tokens: torch.Tensor, *, slot: int, start: int,
                        valid_len: int, pages_row: torch.Tensor,
-                       page_size: int, impl: str = "auto"):
+                       page_size: int, impl: str = "auto",
+                       shards: Sequence[AttnShard] = ()):
     """One prompt chunk of a chunked prefill into batch slot ``slot``.
 
     tokens: (1, C) — the chunk, right-padded to its bucket; ``start`` (a
@@ -667,18 +749,21 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
     of the state, and write the new state back into the slot's row;
     ``impl`` picks their intra-chunk SSD path (``auto``: the kernel on
     CUDA, the einsum form on the CPU; ``kernel``; ``ref``).  The slot's
-    ``len`` becomes ``start + valid_len``.  Updates the cache in place;
+    ``len`` becomes ``start + valid_len``.  ``shards``: the
+    tensor-parallel shards that hold the attention layers' weights and
+    page pools, as in :func:`decode_step`.  Updates the cache in place;
     returns ``(logits (1, 1, V) at the true last chunk token, cache)``.
     Encoder-decoder models are refused, as in the reference."""
     if cfg.family == "encdec":
         raise NotImplementedError("chunked prefill for encdec models")
+    _check_shards(cfg, shards)
     x = embed(cfg, params["embed"], tokens)
     C = x.shape[1]
     positions = start + torch.arange(C, device=x.device)
     # pages below ``start`` are all the chunk may read; the reference
     # gathers the whole row and masks positions >= start, which adds only
     # exact zeros
-    read = pages_row[:, :start // page_size]
+    shard_rows = [pages_row.to(sh.device) for sh in shards]
     ai = si = 0
     for kind, p in _blocks(cfg, params):
         if kind == "ssm":
@@ -694,15 +779,18 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
             _write_ssm_state(rows, new, None)
             si += 1
             continue
-        kp, vp = cache["k"][ai], cache["v"][ai]
+        lcs = [{"k": gather_pages(sh.k[ai], r[:, :start // page_size]),
+                "v": gather_pages(sh.v[ai], r[:, :start // page_size])}
+               if start > 0 else {}
+               for sh, r in zip(shards, shard_rows)]
+        x, kvs, _ = apply_block(cfg, kind, p, x, positions=positions,
+                                cache=lcs, cache_len=start,
+                                chunk_continue=True,
+                                tp=[sh.layer(ai) for sh in shards])
+        for sh, r, (kt, vt) in zip(shards, shard_rows, kvs):
+            _write_kv_chunk_paged(sh.k[ai], kt, start, r[0], page_size)
+            _write_kv_chunk_paged(sh.v[ai], vt, start, r[0], page_size)
         ai += 1
-        lc = ({"k": gather_pages(kp, read), "v": gather_pages(vp, read)}
-              if start > 0 else {})
-        x, (kt, vt), _ = apply_block(cfg, kind, p, x, positions=positions,
-                                     cache=lc, cache_len=start,
-                                     chunk_continue=True)
-        _write_kv_chunk_paged(kp, kt, start, pages_row[0], page_size)
-        _write_kv_chunk_paged(vp, vt, start, pages_row[0], page_size)
     x = apply_norm(cfg, params["norm_f"], x)
     last = x[:, valid_len - 1:valid_len]
     logits = unembed(cfg, params["embed"], last)

@@ -36,6 +36,16 @@ chunks of a long prompt.  During a multi-chunk prefill the slot's live
 table row stays on the trash page; ``commit_slot`` installs its real row
 after the last chunk.
 
+``PagedEngine(mesh=)`` (DESIGN.md §13) spans a ``(dp, tp)`` device grid
+(``serve/mesh.py``) from this one process: data row r holds the slots and
+pages of the scheduler's device group r, with its own cache, and splits
+each attention layer by KV head over its tensor-parallel positions, each
+with its own page pools.  Every call routes a slot to its row (its local
+slot index and local page ids), and ``decode`` runs each row over its own
+slots and returns the logits in slot order.  Without a mesh the engine
+runs the same code on the 1 x 1 grid of its device: one row of every slot
+and page, with one shard of every head.
+
 Both engines count their decode calls and the shape signatures of their
 steps (``trace_count``).  They run on the card unless the caller asks for the
 CPU: ``device="cuda"`` (the default) raises where no CUDA device exists.
@@ -55,7 +65,11 @@ from ..models.config import ModelConfig
 from ..models.layers import cast_weights, dtype_of
 from ..models.transformer import (check_supported, chunk_prefill_step,
                                   decode_step, encode, init_cache,
-                                  init_paged_cache, layer_plan)
+                                  layer_plan)
+from ..parallel.sharding import ShardingRules
+from .mesh import (MeshRow, ServeMesh, kv_head_split, local_mesh,
+                   per_device_pool_bytes, row_ranges, serve_rules,
+                   shard_paged_cache, shard_params)
 
 __all__ = ["Engine", "PagedEngine", "SamplingParams", "count_generated",
            "chunk_plan", "chunk_buckets_for", "sample", "resolve_device",
@@ -374,15 +388,21 @@ class PagedEngine:
     parameters (``weights.init_params`` or ``weights.from_jax_numpy``); the
     engine keeps a copy on ``device`` with the weights cast to the compute
     dtype.
+
+    ``mesh`` (a :class:`~repro_torch.serve.mesh.ServeMesh`) shards the
+    engine over its grid: ``device`` must be its first position's (its
+    type, and its index where both name one); the weights are placed per
+    row and shard (``mesh.shard_params``) and the caches per row
+    (``mesh.shard_paged_cache``).  ``ServeScheduler`` must then split the
+    slots and pages into ``dp`` device groups whose ranges are the rows'
+    (:meth:`check_groups`).  Without a mesh the grid is ``device`` alone
+    (``mesh.local_mesh``).  ``params`` is row 0's copy of the weights.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, batch: int, max_len: int,
                  page_size: int = 16, num_pages: int | None = None,
                  prefill_chunk: int = 64, mesh=None, attn_impl: str = "auto",
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("multi-device serving (mesh=) is not "
-                                      "ported yet")
         if cfg.family == "encdec":
             raise NotImplementedError("paged serving for encdec models "
                                       "(cross-attention buffers)")
@@ -392,8 +412,6 @@ class PagedEngine:
                              f"multiple of page_size {page_size}")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = cast_weights(
-            _to_device(params, self.device), dtype_of(cfg.compute_dtype))
         self.batch, self.max_len = batch, max_len
         self.page_size = page_size
         self.attn_impl = attn_impl
@@ -402,6 +420,39 @@ class PagedEngine:
         # default pool: batch × max_len tokens plus the trash page
         self.num_pages = (1 + batch * self.max_pages if num_pages is None
                           else num_pages)
+        self.mesh = mesh
+        if mesh is None:
+            grid = local_mesh(self.device)
+        else:
+            if not isinstance(mesh, ServeMesh):
+                raise TypeError(f"mesh must be a ServeMesh "
+                                f"(serve.mesh.build_serve_mesh), got "
+                                f"{type(mesh).__name__}")
+            lead = mesh.devices[0][0]
+            if (self.device.type != lead.type
+                    or None not in (self.device.index, lead.index)
+                    and self.device.index != lead.index):
+                raise ValueError(f"device {device!r} disagrees with the "
+                                 f"mesh's first position {lead}")
+            self.device = lead
+            grid = mesh
+        ranges = row_ranges(batch, self.num_pages, grid.spec.dp)
+        if not all(slots and pages for slots, pages in ranges):
+            raise ValueError(f"{batch} slots and {self.num_pages - 1} "
+                             f"usable pages cannot cover {grid.spec.dp} "
+                             f"data rows")
+        rules = ShardingRules(mesh=grid, rules=serve_rules())
+        n_split = kv_head_split(cfg, rules, num_pages=self.num_pages,
+                                page_size=page_size)
+        self.rows: list[MeshRow] = [
+            MeshRow(slots=slots, pages=pages, devices=devs,
+                    params=row_params, shards=shards)
+            for (slots, pages), devs, (row_params, shards) in zip(
+                ranges, grid.devices, shard_params(cfg, params, grid,
+                                                   n_split))]
+        self.params = self.rows[0].params
+        self._row_of_slot = [r for r, row in enumerate(self.rows)
+                             for _ in row.slots]
         self.chunk_buckets = chunk_buckets_for(prefill_chunk, page_size)
         # host-side page table; all-zero rows = trash page (slot empty)
         self.page_table = np.zeros((batch, self.max_pages), np.int32)
@@ -416,7 +467,6 @@ class PagedEngine:
         self._shapes: dict[str, set] = collections.defaultdict(set)
         # device copy of the page table, refreshed only when it changed
         self._pt_device = None
-        self.cache = None
 
     def trace_count(self, name: str) -> int:
         """Distinct input-shape signatures ``name`` (chunk_prefill |
@@ -424,32 +474,77 @@ class PagedEngine:
         bucket, one decode."""
         return len(self._shapes[name])
 
-    def probe_device(self) -> bool:
-        """Health probe of the engine's device (see :func:`probe_device`):
-        ``ServeScheduler.probe_group`` calls it before a quarantined group
-        rejoins."""
-        return probe_device(self.device)
+    def probe_device(self, group: int | None = None) -> bool:
+        """Health probe (see :func:`probe_device`) of every device of the
+        grid, or of data row ``group``'s alone where the grid has more
+        than one row: ``ServeScheduler.probe_group`` calls it before a
+        quarantined group rejoins."""
+        rows = (self.rows if group is None or len(self.rows) == 1
+                else [self.rows[group]])
+        return all(probe_device(d) for d in
+                   dict.fromkeys(d for row in rows for d in row.devices))
 
     # -- lifecycle -------------------------------------------------------------
     def ensure_batch(self) -> None:
         """Allocate the empty live batch (all slots free, zero lengths,
         every table row on the trash page)."""
-        if self.cache is None:
-            self.cache = init_paged_cache(self.cfg, self.batch,
-                                          num_pages=self.num_pages,
-                                          page_size=self.page_size,
-                                          device=self.device)
+        if self.rows[0].cache is None:
+            shard_paged_cache(self.cfg, self.rows, page_size=self.page_size)
 
     def _pools(self) -> list[torch.Tensor]:
-        """The attention page pools (K and V; none for an attention-free
-        model)."""
+        """The attention page pools (K and V of every shard; none for an
+        attention-free model)."""
         self.ensure_batch()
-        return [self.cache[k] for k in ("k", "v") if k in self.cache]
+        return [t for row in self.rows for sh in row.shards
+                for t in (sh.k, sh.v)]
 
     def total_pool_bytes(self) -> int:
-        """Attention page-pool bytes (K and V, every layer; 0 for pure-SSM
-        models — their dense per-slot state is not paged)."""
+        """Attention page-pool bytes (K and V, every layer, every shard of
+        a mesh; 0 for pure-SSM models — their dense per-slot state is not
+        paged)."""
         return sum(t.numel() * t.element_size() for t in self._pools())
+
+    def per_device_pool_bytes(self) -> int:
+        """The most attention-pool bytes one grid position holds (the
+        total without a mesh; TP=2 halves it when kv_heads divides, also
+        where the positions share a card)."""
+        self.ensure_batch()
+        return per_device_pool_bytes(self.rows)
+
+    def check_groups(self, groups) -> None:
+        """Where the grid has more than one data row, fail unless the
+        scheduler's device groups are the rows: ``dp`` of them, each with
+        its row's slots and its pages inside its row's range
+        (``pool_pages`` may shrink the ranges, not move them).  Each group
+        is ``(slot_ids, page_lo, page_hi)``.  One row holds every slot and
+        page, so any groups fit it.  The reference's GSPMD serves any
+        split; this engine places each row's pages on its own devices."""
+        if len(self.rows) == 1:
+            return
+        if len(groups) != len(self.rows):
+            raise ValueError(f"a mesh with {len(self.rows)} data rows needs "
+                             f"device_groups={len(self.rows)}, got "
+                             f"{len(groups)}")
+        for gid, ((slot_ids, lo, hi), row) in enumerate(zip(groups,
+                                                            self.rows)):
+            if tuple(slot_ids) != tuple(row.slots):
+                raise ValueError(f"group {gid} slots {tuple(slot_ids)} are "
+                                 f"not mesh row {gid}'s {tuple(row.slots)}")
+            if not (row.pages.start <= lo and hi <= row.pages.stop):
+                raise ValueError(
+                    f"group {gid} pages [{lo}, {hi}) leave mesh row {gid}'s "
+                    f"[{row.pages.start}, {row.pages.stop}) (pool_pages "
+                    f"moved the groups' ranges)")
+
+    def _row(self, slot: int, page_ids=()) -> tuple[MeshRow, int]:
+        """The mesh row of ``slot`` and the slot's index in it; fails if a
+        page of ``page_ids`` lies outside the row's range."""
+        row = self.rows[self._row_of_slot[slot]]
+        bad = [int(p) for p in page_ids if int(p) not in row.pages]
+        if bad:
+            raise ValueError(f"slot {slot}: page id(s) {bad} outside its mesh "
+                             f"row's [{row.pages.start}, {row.pages.stop})")
+        return row, slot - row.slots.start
 
     def pages_needed(self, true_len: int, max_new: int) -> int:
         """Pages a request needs to hold ``true_len`` prompt tokens plus
@@ -472,13 +567,16 @@ class PagedEngine:
         ids = self._check_page_row(slot, page_ids)
         row = np.zeros((1, self.max_pages), np.int32)
         row[0, :len(ids)] = ids
-        tokens = _as_tokens(tokens_1xC, self.device)
+        mrow, local = self._row(slot, ids)
+        tokens = _as_tokens(tokens_1xC, mrow.device)
         self._shapes["chunk_prefill"].add(tuple(tokens.shape))
-        logits, self.cache = chunk_prefill_step(
-            self.cfg, self.params, self.cache, tokens, slot=slot,
+        logits, mrow.cache = chunk_prefill_step(
+            self.cfg, mrow.params, mrow.cache, tokens, slot=local,
             start=int(start), valid_len=int(valid_in_chunk),
-            pages_row=torch.as_tensor(row, device=self.device),
-            page_size=self.page_size)
+            pages_row=torch.as_tensor(mrow.local_pages(row),
+                                      device=mrow.device),
+            page_size=self.page_size, shards=mrow.shards)
+        logits = logits.to(self.device)
         self.n_chunk_calls += 1
         return logits
 
@@ -502,6 +600,7 @@ class PagedEngine:
         """Install the slot's pages into the live table — decode reads (and
         writes) go through them from the next step on."""
         ids = self._check_page_row(slot, page_ids)
+        self._row(slot, ids)
         row = np.zeros((self.max_pages,), np.int32)
         row[:len(ids)] = ids
         self.page_table[slot] = row
@@ -526,6 +625,7 @@ class PagedEngine:
         if n >= self.max_pages:
             raise ValueError(f"slot {slot} table is full "
                              f"({self.max_pages} pages)")
+        self._row(slot, [page_id])
         self.page_table[slot, n] = page_id
         self._pt_device = None
 
@@ -539,8 +639,14 @@ class PagedEngine:
                                  f"(0, {self.num_pages})")
         if src == dst:
             raise ValueError(f"copy_page onto itself (page {src})")
-        for pool in self._pools():
-            pool[:, dst] = pool[:, src]
+        self.ensure_batch()
+        (row,) = [r for r in self.rows if src in r.pages]
+        if dst not in row.pages:
+            raise ValueError(f"copy_page {src} -> {dst} crosses mesh rows")
+        s, d = row.local_pages([src, dst])
+        for sh in row.shards:
+            for pool in (sh.k, sh.v):
+                pool[:, d] = pool[:, s]
 
     def remap_slot_page(self, slot: int, idx: int, page_id: int) -> None:
         """Replace ONE live table-row entry (COW remap: shared original ->
@@ -553,6 +659,7 @@ class PagedEngine:
             raise ValueError(f"slot {slot} row index {idx} is not live "
                              f"(trash page) — remap only swaps existing "
                              f"mappings")
+        self._row(slot, [page_id])
         self.page_table[slot, idx] = page_id
         self._pt_device = None
 
@@ -593,19 +700,29 @@ class PagedEngine:
         table parks them on the trash page).  Defaults to all-live.
         Returns logits (batch, 1, V) on the engine's device."""
         self.ensure_batch()
-        if self._pt_device is None:
-            self._pt_device = torch.tensor(self.page_table,
-                                              device=self.device)
         tokens = _as_tokens(tokens, self.device)
         self._shapes["decode"].add(tuple(tokens.shape))
         mask = (None if live_mask is None else torch.as_tensor(
             np.asarray(live_mask, bool), device=self.device))
-        logits, self.cache = decode_step(
-            self.cfg, self.params, self.cache, tokens, pages=self._pt_device,
-            page_size=self.page_size, paged_impl=self.attn_impl,
-            update_mask=mask)
+        if self._pt_device is None:
+            # each row's local page table on its lead, refreshed only when
+            # the table changed
+            self._pt_device = [
+                torch.tensor(row.local_pages(
+                    self.page_table[row.slots.start:row.slots.stop]),
+                    device=row.device) for row in self.rows]
+        out = []
+        for row, pt in zip(self.rows, self._pt_device):
+            sl = slice(row.slots.start, row.slots.stop)
+            logits, row.cache = decode_step(
+                self.cfg, row.params, row.cache, tokens[sl].to(row.device),
+                pages=pt, page_size=self.page_size,
+                paged_impl=self.attn_impl,
+                update_mask=None if mask is None else mask[sl].to(row.device),
+                shards=row.shards)
+            out.append(logits.to(self.device))
         self.n_decode_calls += 1
-        return logits
+        return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def _to_device(tree, device):

@@ -46,9 +46,12 @@ rejoins through a health probe (:meth:`ServeScheduler.probe_group`) at a
 backed-off interval, a per-request restart budget (``max_restarts``) ends
 a request that faults evict too often as ``failed``, and a
 :class:`~repro_torch.core.fault.ServeChaosInjector` (``chaos=``) injects
-group kills, slow steps and allocator pressure.  Not ported: the
-reference's device mesh (``--mesh``), which shards one engine over the
-groups' devices; here every group shares the engine's one device.
+group kills, slow steps and allocator pressure.  Under a paged engine
+with a device mesh (``PagedEngine(mesh=)``, DESIGN.md §13) group g is the
+mesh's data row g: ``device_groups`` must equal the mesh's ``dp``, the
+groups' slot and page ranges must be the rows' (``check_groups``), and a
+group's probe reaches its row's devices.  Without a mesh every group
+shares the engine's one device.
 """
 from __future__ import annotations
 
@@ -67,6 +70,7 @@ from ..core.scheduler import (CostModelParams, MasterScheduler, ResultStore,
                               VirtualCluster)
 from ..core.store import JobStore
 from .engine import Engine, PagedEngine, SamplingParams, chunk_plan, sample
+from .mesh import row_ranges
 from .prefix import PrefixCache
 
 __all__ = [
@@ -841,26 +845,23 @@ class ServeScheduler:
         if self.paged:
             usable = (engine.num_pages if pool_pages is None
                       else min(pool_pages, engine.num_pages))
-            slot_parts = np.array_split(np.arange(engine.batch),
-                                        device_groups)
-            page_parts = np.array_split(np.arange(1, usable), device_groups)
-            for gid in range(device_groups):
-                pages_g = page_parts[gid]
-                if len(pages_g) == 0:
+            for gid, (slots_g, pages_g) in enumerate(
+                    row_ranges(engine.batch, usable, device_groups)):
+                if not pages_g:
                     raise ValueError(f"pool of {usable} usable pages cannot "
                                      f"cover {device_groups} device groups "
                                      f"(group {gid} would own none)")
-                alloc = PageAllocator(int(pages_g[-1]) + 1,
-                                      n_reserved=int(pages_g[0]),
+                alloc = PageAllocator(pages_g.stop, n_reserved=pages_g.start,
                                       watermark=admit_watermark)
                 pref = (PrefixCache(engine.page_size,
                                     admit_after=prefix_admit)
                         if prefix_cache and engine.supports_prefix_cache
                         else None)
                 self.groups.append(DeviceGroup(
-                    gid=gid,
-                    slot_ids=tuple(int(s) for s in slot_parts[gid]),
-                    allocator=alloc, prefix=pref))
+                    gid=gid, slot_ids=tuple(slots_g), allocator=alloc,
+                    prefix=pref))
+            engine.check_groups([(g.slot_ids, g.page_lo, g.page_hi)
+                                 for g in self.groups])
         else:
             self.groups.append(DeviceGroup(
                 gid=0, slot_ids=tuple(range(engine.batch)), allocator=None))
@@ -1808,7 +1809,8 @@ class ServeScheduler:
     def probe_group(self, gid: int) -> bool:
         """Health probe for an unhealthy group: the chaos gate (is the
         injected fault still active?), a real device round-trip through the
-        engine (:meth:`PagedEngine.probe_device`), and the quarantine
+        engine (:meth:`PagedEngine.probe_device`: the group's own devices
+        under a mesh, else the engine's one device), and the quarantine
         invariant (allocator fully drained).  On success the group rejoins
         admission with its trip counter cleared; on failure the probe
         interval re-arms and the backoff multiplier doubles (capped at
@@ -1823,7 +1825,8 @@ class ServeScheduler:
             g.backoff_wall = None
         if ((self.chaos is not None
              and not self.chaos.group_healthy(self, gid))
-                or not self.engine.probe_device()):
+                or not (self.engine.probe_device(group=gid) if self.paged
+                        else self.engine.probe_device())):
             g.down_step = self.step_calls
             g.probe_backoff = min(g.probe_backoff * 2,
                                   self.rejoin_backoff_cap)

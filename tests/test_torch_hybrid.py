@@ -205,7 +205,8 @@ def _paged_steps(models, chunk, lens, *, steps=4):
     for kk in ("k", "v"):
         want = np.asarray(je.cache["groups"][shared_pos]["self"][kk])
         # every real page (not the trash page 0)
-        np.testing.assert_allclose(te.cache[kk][:, 1:].numpy(),
+        np.testing.assert_allclose(getattr(te.rows[0].shards[0], kk)[:, 1:]
+                                   .numpy(),
                                    want[:, 1:], **TOL)
     return plans
 

@@ -47,7 +47,9 @@ def test_import_with_jax_unavailable():
             "repro_torch.core.procworker, repro_torch.core._procworker_child, "
             "repro_torch.apps.procdemo, repro_torch.train.procfns, "
             "repro_torch.serve.engine, repro_torch.serve.scheduler, "
-            "repro_torch.models.transformer, repro_torch.models.moe; "
+            "repro_torch.models.transformer, repro_torch.models.moe, "
+            "repro_torch.parallel, repro_torch.parallel.partition, "
+            "repro_torch.serve.mesh; "
             "from repro_torch.serve import Engine, DEFAULT_BUCKETS; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -94,6 +96,42 @@ def test_chaos_scheduler_imports_no_jax():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "3 []"
+
+
+def test_mesh_engine_imports_no_jax():
+    """The serving mesh — the rules, the grid, a TP=2 x DP=2 engine under
+    the scheduler — runs with JAX unavailable and pulls in nothing of JAX
+    or the JAX package."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        "import numpy as np, torch\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.parallel.partition import tree_specs\n"
+        "from repro_torch.serve import PagedEngine, ServeScheduler\n"
+        "from repro_torch.serve.mesh import (MeshSpec, build_serve_mesh,\n"
+        "                                    serve_rules)\n"
+        "from repro_torch.parallel import ShardingRules\n"
+        "from repro_torch.weights import init_params\n"
+        "cfg = get_smoke_config('qwen2-1.5b')\n"
+        "params = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "mesh = build_serve_mesh(MeshSpec(2, 2), device='cpu')\n"
+        "specs = tree_specs(params, ShardingRules(mesh, serve_rules()))\n"
+        "eng = PagedEngine(cfg, params, batch=2, max_len=32, page_size=8,\n"
+        "                  prefill_chunk=16, mesh=mesh, device='cpu')\n"
+        "sched = ServeScheduler(eng, device_groups=2)\n"
+        "for n in (5, 9, 12):\n"
+        "    sched.submit(np.arange(n) % 50, max_new=3)\n"
+        "sched.run()\n"
+        "bad = sorted(m for m in sys.modules if m is not None\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "             and sys.modules[m] is not None)\n"
+        "print(len(sched.results), specs['embed']['table'], bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "3 ('model', 'data') []"
 
 
 PROBE = """

@@ -192,6 +192,26 @@ def test_cuda_paged_kernel_long_context(pps):
     _kernel_vs_plain(case, "float32", pps)
 
 
+# card only: qwen2-1.5b's decode on a TP=2 position of the serving mesh
+# (its 12 query and 2 KV heads split in two: KV 1, G 6, D 128) at the
+# serving batch and page size, contexts of 1,000-1,500 tokens and a free
+# slot
+TP_SHARD_CASE = (8, 6, 1, 128, 16, 96,
+                 (1500, 1431, 1362, 1293, 1224, 1155, 1000, 0), None, False,
+                 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pps", PPS_GRID + [None])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_kernel_at_a_tp_shard(dtype, pps):
+    """The kernel at the TP=2 shard's shape (KV 1: half the blocks of the
+    unsplit decode) against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _kernel_vs_plain(TP_SHARD_CASE, dtype, pps)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_wrapper_launches_kernel_and_matches_ref(dtype):
@@ -1416,3 +1436,41 @@ def test_cuda_whisper_engine_runs_the_flash_kernel():
         out[impl] = torch.cat([a[:, -1], b[:, -1]]).float()
     got, want = out["auto"], out["ref"]
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_engine_on_one_card():
+    """qwen2 smoke (fp32) served by a TP=2 x DP=2 mesh with every grid
+    position on cuda:0: the streams equal the meshless engine's, no group
+    leaks a page, TP=2 halves the per-position pool bytes, and the paged
+    kernel runs once a layer a decode step on each row's each shard."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.serve import PagedEngine, ServeScheduler
+    from repro_torch.serve.mesh import MeshSpec, build_serve_mesh
+    cfg, params = _smoke_model("qwen2-1.5b", "float32")
+
+    def run(mesh, groups):
+        eng = PagedEngine(cfg, params, batch=4, max_len=64, page_size=8,
+                          num_pages=26, prefill_chunk=16, mesh=mesh)
+        sched = ServeScheduler(eng, reserve="demand", device_groups=groups)
+        rng = np.random.default_rng(7)
+        for _ in range(8):
+            sched.submit(rng.integers(1, 50, 12), 6)
+        steps0, launches0 = eng.n_decode_calls, kernel.launches
+        results = sched.run()
+        assert all(g.allocator.n_outstanding == 0 for g in sched.groups)
+        return ({r.rid: r.tokens for r in results},
+                eng.n_decode_calls - steps0, kernel.launches - launches0,
+                eng.per_device_pool_bytes())
+
+    base, _, _, base_bytes = run(None, 1)
+    mesh = build_serve_mesh(MeshSpec(tp=2, dp=2),
+                            devices=[torch.device("cuda:0")] * 4)
+    streams, steps, launches, nbytes = run(mesh, 2)
+    assert streams == base
+    assert steps > 0 and launches == steps * cfg.n_layers * 2 * 2
+    tp2 = build_serve_mesh(MeshSpec(tp=2, dp=1),
+                           devices=[torch.device("cuda:0")] * 2)
+    assert 2 * run(tp2, 1)[3] == base_bytes

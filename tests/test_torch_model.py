@@ -99,13 +99,16 @@ def test_chunked_prefill_then_decode_matches_jax(models):
         np.testing.assert_allclose(lt, lj, **TOL)
         toks[:2, 0] = np.argmax(lj[:2, -1], axis=-1)
     # the free slot ran past its table (4 pages of 8) without raising
-    assert int(te.cache["len"][2]) == lens[2] + steps > max_len
-    np.testing.assert_array_equal(te.cache["len"].numpy(),
+    (row,) = te.rows                    # no mesh: one row, one shard
+    (shard,) = row.shards
+    assert int(row.cache["len"][2]) == lens[2] + steps > max_len
+    np.testing.assert_array_equal(row.cache["len"].numpy(),
                                   np.asarray(je.cache["len"]))
     # every real page (not the trash page 0) holds the same K/V
     for kk in ("k", "v"):
         want = np.asarray(je.cache["groups"][0]["self"][kk])[:, 1:]
-        np.testing.assert_allclose(te.cache[kk][:, 1:].numpy(), want, **TOL)
+        np.testing.assert_allclose(getattr(shard, kk)[:, 1:].numpy(), want,
+                                   **TOL)
 
 
 def test_engine_defaults_to_cuda_and_refuses_what_is_not_ported(models):
@@ -113,7 +116,7 @@ def test_engine_defaults_to_cuda_and_refuses_what_is_not_ported(models):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             PagedEngine(tc, tp, batch=1, max_len=16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="ServeMesh"):
         PagedEngine(tc, tp, batch=1, max_len=16, device="cpu", mesh=object())
     # encoder-decoder models serve on the dense engine only, as in the
     # reference (cross-attention has no paged buffers)

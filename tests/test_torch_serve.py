@@ -128,7 +128,8 @@ def test_scheduler_refuses_what_is_not_ported(models):
     """The scheduler's refusals are the reference's: device groups, the
     chaos harness, the watchdog and the restart budget are accepted, and
     out-of-range values of their knobs raise the JAX package's errors with
-    its messages.  (What stays unported is the engine's ``mesh=``.)"""
+    its messages.  The engine's ``mesh=`` takes a ``ServeMesh`` and
+    refuses anything else."""
     from repro.core.fault import ServeChaosInjector as JaxChaos
     from repro_torch.core.fault import ServeChaosInjector
 
@@ -156,8 +157,11 @@ def test_scheduler_refuses_what_is_not_ported(models):
         with pytest.raises(ValueError) as got:
             ServeScheduler(eng, **bad)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="ServeMesh"):
         PagedEngine(tc, tp, device="cpu", mesh=object(), **kw)
+    from repro_torch.serve.mesh import MeshSpec, build_serve_mesh
+    PagedEngine(tc, tp, device="cpu", **kw,
+                mesh=build_serve_mesh(MeshSpec(1, 1), device="cpu"))
     # the dense engine has nothing to append: demand reservation is
     # refused, as in the reference
     dense = Engine(tc, tp, batch=2, max_len=32, device="cpu")

@@ -306,11 +306,12 @@ def test_chunked_prefill_then_decode_matches_jax(models):
         lt = te.decode(toks).numpy()
         np.testing.assert_allclose(lt, lj, **MODEL_TOL)
         toks[:2, 0] = np.argmax(lj[:2, -1], axis=-1)
-    np.testing.assert_array_equal(te.cache["len"].numpy(),
+    (row,) = te.rows                    # no mesh: one row
+    np.testing.assert_array_equal(row.cache["len"].numpy(),
                                   np.asarray(je.cache["len"]))
     for key in ("conv", "state"):
         want = np.asarray(je.cache["groups"][0][key])
-        np.testing.assert_allclose(te.cache[key].numpy(), want, **MODEL_TOL)
+        np.testing.assert_allclose(row.cache[key].numpy(), want, **MODEL_TOL)
     te.copy_page(1, 2)                  # no attention pool: nothing to copy
 
 
@@ -382,7 +383,7 @@ def test_paged_slot_reuse_resets_state(models):
     for _ in range(3):
         lg = used.decode(tok)
         tok = lg[:, -1].argmax(-1).to(torch.int32).numpy()[:, None]
-    assert float(used.cache["state"].abs().max()) > 0
+    assert float(used.rows[0].cache["state"].abs().max()) > 0
     alloc.free(pages)
     used.free_slot(0)
     torch.testing.assert_close(insert_b(used, alloc), want, **TOL)
