@@ -297,9 +297,14 @@ def jacobi_hypar(A, b, *, iters: int = 500, tol: float = 0.0,
 # ---------------------------------------------------------------------------
 
 
-def jacobi_spmd(A, b, *, iters: int = 500, tol: float = 0.0) -> JacobiResult:
+def jacobi_spmd(A, b, *, iters: int = 500, tol: float = 0.0,
+                mesh=None) -> JacobiResult:
     """The iterative segment fused by :meth:`SpmdExecutor.run_iterative`
-    on A's device (one device: there is no mesh)."""
+    over ``mesh`` (a :class:`~repro_torch.launch.mesh.DeviceMesh`; the 1 x
+    1 grid of A's device by default): the loop runs on the mesh's lead,
+    where A and b are moved, as the reference's runs its loop whole."""
+    ex = SpmdExecutor(A.device if mesh is None else mesh, FunctionRegistry())
+    A, b = A.to(ex.device), b.to(ex.device)
     diag = torch.diagonal(A)
 
     def body(carry):
@@ -310,7 +315,6 @@ def jacobi_spmd(A, b, *, iters: int = 500, tol: float = 0.0) -> JacobiResult:
     def cond(carry):
         return carry[1] > tol         # lagged residual ‖b - A·x_{k-1}‖
 
-    ex = SpmdExecutor(A.device, FunctionRegistry())
     x0 = (torch.zeros_like(b), torch.tensor(float("inf"), device=b.device))
     # warm-up: one iteration, outside the timing
     _sync(ex.run_iterative(IterativeSpec(body, cond, max_iters=1), x0)[0][0])

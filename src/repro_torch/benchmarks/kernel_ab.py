@@ -3,7 +3,8 @@ versions of it can be compared on one card.
 
     python3 src/repro_torch/benchmarks/kernel_ab.py KERNEL [--src DIR] [--label NAME]
 
-``KERNEL`` is ``flash_fwd``, ``flash_bwd``, ``ssd`` or ``paged_decode``.  ``--src`` (default: this
+``KERNEL`` is ``flash_fwd``, ``flash_bwd``, ``ssd``, ``paged_decode`` or
+``train_step``.  ``--src`` (default: this
 checkout's ``src``) goes first on the import path, so ``repro_torch`` and
 the kernel it builds (into that tree's ``build/``) are that tree's.  Run
 it once a tree in one command, in the order parent, change, change,
@@ -38,6 +39,13 @@ events over back-to-back calls rotating over input copies larger than the
   ms (synchronized), their median and the decode tok/s, and the paged
   kernel's launches a step.  Only the engine's public calls are used, so
   it runs on any tree with ``PagedEngine``.
+* ``train_step``: the flash kernels on their training path, the meshless
+  fused step at full width (qwen2-1.5b, fp32 params, bf16 compute, AdamW
+  at 3e-4, ``remat="full"``, seq 4,096, batch 4 in 2 micro-batches, random
+  weights from seed 0): ``--steps`` timed steps after one of warm-up, each
+  step's wall s (synchronized), their median, tokens/s and the flash
+  launches a step.  Only ``TrainState.create`` and ``make_train_step``
+  are used, so it runs on any tree of the port that trains.
 
 It exits non-zero without a CUDA device.
 """
@@ -286,8 +294,48 @@ def paged_decode(args) -> dict:
                 (paged_kernel.launches - launches0) / args.steps}
 
 
+def train_step(args) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream, to_device
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.optim import OptimizerSpec
+    from repro_torch.train import TrainState, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen2-1.5b")
+    spec = OptimizerSpec(kind="adamw", lr=3e-4)
+    stream = SyntheticLMStream(cfg, DataConfig(seed=0, global_batch=4,
+                                               seq_len=4096))
+    batches = [to_device(stream.batch(s), "cuda")
+               for s in range(args.steps + 1)]
+    state = TrainState.create(
+        cfg, spec, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    step = make_train_step(cfg, spec, grad_accum=2)
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    before = dict(fa_kernel.launches)
+    secs = []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    tokens = batches[0]["tokens"].numel()
+    return {"model": "qwen2-1.5b", "seq": 4096, "global_batch": 4,
+            "grad_accum": 2, "steps": args.steps, "step_s": secs,
+            "median_step_s": float(np.median(secs)),
+            "tokens_per_s": tokens / float(np.median(secs)),
+            "loss": float(m["loss_total"]),
+            "flash_launches_per_step": {
+                k: (fa_kernel.launches[k] - before[k]) / args.steps
+                for k in before}}
+
+
 KERNELS = {"flash_fwd": flash_fwd, "flash_bwd": flash_bwd, "ssd": ssd,
-           "paged_decode": paged_decode}
+           "paged_decode": paged_decode, "train_step": train_step}
 
 
 def main(argv=None) -> int:
@@ -299,7 +347,8 @@ def main(argv=None) -> int:
     ap.add_argument("--chunks", type=int, default=8,
                     help="ssd: prefill chunks in the profiled window (even)")
     ap.add_argument("--steps", type=int, default=64,
-                    help="paged_decode: timed decode steps")
+                    help="paged_decode: timed decode steps; train_step: "
+                         "timed training steps")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.src).resolve()))
 

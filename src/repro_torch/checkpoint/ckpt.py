@@ -7,7 +7,10 @@ file).  Writes are atomic (tmp dir + rename) and the ``LATEST`` pointer is
 written last, so a crash mid-write never corrupts the restore path — the
 previous complete step stays live.  bf16 (which numpy lacks) is stored as
 its raw bytes.  Restore reads on the host and places every tensor on the
-device it is given, in place of the reference's ``sharding_fn``.
+device it is given, or, given a training mesh, by its specs on the mesh
+(``parallel.partition.place_state``), in place of the reference's
+``sharding_fn``.  A checkpoint holds whole leaves: a placed state is
+saved through ``TrainState.tree()``, which gathers them.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import threading
 import numpy as np
 import torch
 
+from ..parallel.partition import place_state
 from ..tree import tree_map, tree_paths
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
@@ -117,10 +121,13 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore_checkpoint(directory: str, like, *, step: int | None = None,
-                       device=None, verify: bool = True):
-    """Restore into the structure of ``like`` (a tree of tensors: each leaf
-    gives the dtype, and the device unless ``device`` is given).  Returns
-    ``(tree, step)``."""
+                       device=None, mesh=None, verify: bool = True):
+    """Restore into the structure of ``like`` (a tree of tensors or of
+    placed leaves: each leaf gives the dtype, and the device unless
+    ``device`` is given).  ``mesh``: ``like`` is a training state's tree
+    (``{"params", "opt_state", "step"}``), and every leaf is placed on the
+    mesh by its specs (on a 1 x 1 grid, put on its device), whatever mesh
+    saved it.  Returns ``(tree, step)``."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -151,11 +158,15 @@ def restore_checkpoint(directory: str, like, *, step: int | None = None,
         raise KeyError(f"checkpoint missing leaves: {sorted(missing)[:5]} ...")
     paths = iter(k for k, _ in tree_paths(like))
 
+    if mesh is not None:
+        device = mesh.lead if mesh.size == 1 else torch.device("cpu")
+
     def place(leaf):
         t = data[next(paths)]
         dev = device if device is not None else getattr(leaf, "device", None)
         return t.to(device=dev, dtype=getattr(leaf, "dtype", t.dtype))
-    return tree_map(place, like), step
+    tree = tree_map(place, like)
+    return (tree if mesh is None else place_state(tree, mesh)), step
 
 
 class AsyncCheckpointer:

@@ -21,8 +21,9 @@ from .registry import ControlContext, FunctionKind, FunctionRegistry
 from .parser import format_job_text, parse_job_file, parse_job_text
 from .scheduler import (CostModelParams, MasterScheduler, Placement,
                         ResultStore, SchedulerProc, VirtualCluster, Worker)
-from .executor import (BaseExecutor, ExecutionReport, IterativeSpec,
-                       LocalExecutor, SpmdExecutor, run_while_loop)
+from .executor import (BaseExecutor, ChunkBlocks, ExecutionReport,
+                       IterativeSpec, LocalExecutor, SpmdExecutor,
+                       run_while_loop)
 from .fault import ChaosLocalExecutor, FaultInjector, Heartbeat
 from .store import JobStore, job_key
 from .procworker import ProcessExecutor, WorkerFunctionError
@@ -34,7 +35,8 @@ __all__ = [
     "BaseExecutor", "CostModelParams", "MasterScheduler", "Placement",
     "ResultStore", "SchedulerProc",
     "VirtualCluster", "Worker", "ExecutionReport", "IterativeSpec",
-    "LocalExecutor", "SpmdExecutor", "run_while_loop", "ChaosLocalExecutor",
+    "LocalExecutor", "SpmdExecutor", "ChunkBlocks", "run_while_loop",
+    "ChaosLocalExecutor",
     "FaultInjector", "Heartbeat", "JobStore", "job_key", "ProcessExecutor",
     "WorkerFunctionError",
 ]

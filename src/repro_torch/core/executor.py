@@ -32,8 +32,9 @@ apps never special-case the runtime (DESIGN.md §2).
 
 * :class:`SpmdExecutor` — the *beyond-paper* runtime.  A whole parallel
   segment is fused: same-function chunkwise jobs are batched over a stacked
-  chunk axis and run as one ``torch.func.vmap`` call on one device (the
-  generalisation of the paper's worker co-scheduling).  Self-re-enqueueing
+  chunk axis and run as one ``torch.func.vmap`` call a block of that axis,
+  the blocks split over a device mesh (the generalisation of the paper's
+  worker co-scheduling).  Self-re-enqueueing
   iterative patterns (the Jacobi J3) run as one host loop that never
   waits for the device between its sparse condition checks
   (:func:`run_while_loop`).
@@ -47,8 +48,11 @@ import threading
 import time
 from typing import Any, Callable, Iterable, Mapping
 
+import numpy as np
 import torch
 
+from ..launch.mesh import DeviceMesh
+from ..tree import tree_map
 from .job import ChunkedData, DataChunk, GraphValidationError, Job, JobGraph
 from .registry import ControlContext, FunctionKind, FunctionRegistry
 from .scheduler import (CostModelParams, MasterScheduler, Placement,
@@ -60,6 +64,7 @@ __all__ = [
     "BaseExecutor",
     "LocalExecutor",
     "SpmdExecutor",
+    "ChunkBlocks",
     "IterativeSpec",
     "run_while_loop",
 ]
@@ -621,21 +626,89 @@ class IterativeSpec:
     max_iters: int = 10_000
 
 
+@dataclasses.dataclass
+class ChunkBlocks:
+    """A stacked result left where it was computed (``no_send_back`` on a
+    mesh): its chunk axis cut into ``blocks``, each on its grid position,
+    in chunk order.  Slicing keeps the pieces where they are; ``gather``
+    (or ``np.asarray``) assembles the whole."""
+
+    blocks: list
+
+    def __len__(self) -> int:
+        return sum(b.shape[0] for b in self.blocks)
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self),) + tuple(self.blocks[0].shape[1:])
+
+    def __getitem__(self, index: slice) -> "ChunkBlocks":
+        lo, hi, _ = index.indices(len(self))
+        out, off = [], 0
+        for b in self.blocks:
+            a, z = max(lo - off, 0), min(hi - off, b.shape[0])
+            if a < z:
+                out.append(b[a:z])
+            off += b.shape[0]
+        return ChunkBlocks(out)
+
+    def gather(self, device) -> torch.Tensor:
+        return torch.cat([b.to(device) for b in self.blocks])
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(self.gather("cpu").numpy(), dtype=dtype)
+
+
 class SpmdExecutor(BaseExecutor):
-    """Fuse segments into batched computations on one device.
+    """Fuse segments into batched computations over a device mesh.
 
     Same-function chunkwise job groups in a segment are stacked over the
-    chunk axis and executed as ONE ``torch.func.vmap`` call over the
-    chunks.  On one device there is no mesh to shard over and nothing to
-    gather, so ``no_send_back`` and sent-back results alike stay where they
-    were computed.
+    chunk axis and executed as ONE ``torch.func.vmap`` call a block: the
+    chunk axis is split over the longest prefix of ``chunk_axes`` (all the
+    mesh's axes by default) whose extents' product divides the stacked
+    chunk count, as the reference's ``_chunk_sharding`` shards it, and each
+    block runs on the first position of its coordinates on those axes.
+    ``no_send_back`` results stay there, as :class:`ChunkBlocks`;
+    sent-back results are gathered onto the mesh's lead, as are the inputs
+    of the next segment's jobs.  ``mesh_or_device`` is a
+    :class:`~repro_torch.launch.mesh.DeviceMesh` or a device, which means
+    the 1 x 1 grid of that device (one block: every result a tensor on
+    it).
     """
 
-    def __init__(self, device, registry: FunctionRegistry):
-        self.device = indexed_device(device)
+    def __init__(self, mesh_or_device, registry: FunctionRegistry, *,
+                 chunk_axes: tuple[str, ...] | None = None):
+        if isinstance(mesh_or_device, DeviceMesh):
+            self.mesh = mesh_or_device
+        else:
+            self.mesh = DeviceMesh(
+                devices=(indexed_device(mesh_or_device),),
+                axis_names=("data",))
+        self.device = self.mesh.lead
         self.registry = registry
+        self.chunk_axes = (tuple(chunk_axes) if chunk_axes is not None
+                           else self.mesh.axis_names)
         self.results: dict[str, Any] = {}     # job name -> stacked tensor
         self._fused: dict[Any, Callable] = {}
+
+    # -- sharding helpers --------------------------------------------------------
+    def _block_devices(self, n_chunks: int) -> list[torch.device]:
+        """The device of each block of an ``n_chunks`` chunk axis."""
+        axes, size = [], 1
+        for a in self.chunk_axes:
+            s = self.mesh.shape[a]
+            if n_chunks % (size * s):
+                break
+            axes.append(a)
+            size *= s
+        out: dict[tuple, torch.device] = {}
+        for c, dev in zip(self.mesh.coords(), self.mesh.flat):
+            out.setdefault(tuple(c[a] for a in axes), dev)
+        return list(out.values())
+
+    def _on_lead(self, val):
+        return val.gather(self.device) if isinstance(val, ChunkBlocks) \
+            else val
 
     # -- execution ----------------------------------------------------------------
     def _stacked_input(self, job: Job, graph: JobGraph) -> list[Any]:
@@ -649,13 +722,26 @@ class SpmdExecutor(BaseExecutor):
             val = self.results[ref.job]
             if not ref.whole:
                 val = val[ref.lo:ref.hi]
-            arrs.append(val)
+            arrs.append(self._on_lead(val))
         return arrs
 
     def _fused_chunkwise(self, fid) -> Callable:
         if fid not in self._fused:
             self._fused[fid] = torch.func.vmap(self.registry[fid].fn)
         return self._fused[fid]
+
+    def _run_blocks(self, fid, stacked: list, send_back: bool):
+        """The fused call over the chunk axis, a block a position."""
+        devs = self._block_devices(stacked[0].shape[0])
+        fn = self._fused_chunkwise(fid)
+        if len(devs) == 1:
+            return fn(*stacked)
+        outs = [fn(*(t.to(dev) for t in parts))
+                for dev, *parts in zip(devs, *(t.chunk(len(devs))
+                                               for t in stacked))]
+        if send_back:
+            return torch.cat([o.to(self.device) for o in outs])
+        return ChunkBlocks(outs)
 
     def run(self, graph: JobGraph) -> tuple[dict[str, Any], ExecutionReport]:
         report = ExecutionReport(mode="spmd")
@@ -680,7 +766,8 @@ class SpmdExecutor(BaseExecutor):
                 counts = [i[0].shape[0] for i in ins]
                 stacked = [torch.cat([i[k] for i in ins], dim=0)
                            for k in range(len(ins[0]))]
-                out = self._fused_chunkwise(fid)(*stacked)
+                out = self._run_blocks(
+                    fid, stacked, not all(j.no_send_back for j in jobs))
                 # split the fused result back to per-job results
                 off = 0
                 for j, c in zip(jobs, counts):
@@ -719,7 +806,10 @@ class SpmdExecutor(BaseExecutor):
         The paper expresses iteration by letting a control job re-enqueue the
         body segments; a host round trip per iteration is the price.  Here
         body and condition run as one host loop (:func:`run_while_loop`)
-        that synchronises only every ``CHECK_EVERY`` iterations.  Returns
+        that synchronises only every ``CHECK_EVERY`` iterations, on the
+        mesh's lead (the carry's tensors are moved there).  Returns
         ``(final carry, n_iters)``.
         """
+        carry = tree_map(lambda t: t.to(self.device)
+                         if isinstance(t, torch.Tensor) else t, carry)
         return run_while_loop(spec.body, spec.cond, carry, spec.max_iters)

@@ -23,15 +23,23 @@ runs the plain PyTorch path::
         --steps 2 --batch 4 --seq 32 --grad-accum 2 --engine proc \\
         --store /tmp/run.sqlite
 
-The reference's mesh flags (``--data-axis``, ``--model-axis``) are not
-ported yet: the port's device mesh serves (``launch.serve --mesh``); the
-training mesh, which would read the optimizer state's axes from
-``repro_torch.parallel.partition``, is still to come.
+The fused engine trains on a ``(data, model)`` mesh of ``--data-axis``
+(0: every device on ``data``) by ``--model-axis`` positions, one process
+driving them all (``train/step.py``): the state is placed by the
+reference's specs, each data row runs its slice of the batch, its blocks
+split over its positions.  ``--device cpu`` puts every position on the CPU;
+a CUDA mesh needs a card a position.  The mesh is built before the engine
+branch, as the reference builds it, and ``--engine hypar``/``proc``
+ignore it::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --steps 6 --batch 4 --seq 32 --data-axis 2 --model-axis 2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import shutil
 import time
@@ -42,6 +50,7 @@ from ..checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
 from ..configs import ARCHS, get_config, get_smoke_config
 from ..data import DataConfig, Prefetcher, SyntheticLMStream, to_device
 from ..models.config import ModelConfig
+from .mesh import compat_make_mesh
 from ..optim import OptimizerSpec, cosine_schedule
 from ..serve.engine import resolve_device
 from ..train import HyParTrainer, TrainState, make_train_step
@@ -87,6 +96,9 @@ def main(argv=None):
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--data-axis", type=int, default=0,
+                    help="0 = use all devices on the data axis")
+    ap.add_argument("--model-axis", type=int, default=1)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--smoke", action="store_true",
@@ -141,25 +153,31 @@ def main(argv=None):
     spec = OptimizerSpec(kind=cfg.optimizer, lr=args.lr)
     dc = DataConfig(seed=args.seed, global_batch=args.batch, seq_len=args.seq)
     stream = SyntheticLMStream(cfg, dc)
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    data_ax = args.data_axis or max(1, n_dev // args.model_axis)
+    mesh = compat_make_mesh((data_ax, args.model_axis), ("data", "model"),
+                            device=device)
     if args.engine in ("hypar", "proc"):
         return _run_hypar(cfg, spec, stream, args, device)
 
     step_fn = make_train_step(
         cfg, spec, grad_accum=args.grad_accum,
         schedule=lambda s: cosine_schedule(s, base_lr=args.lr, warmup=50,
-                                           total=args.steps))
+                                           total=args.steps), mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = TrainState.create(cfg, spec, gen, device)
+    state = TrainState.create(cfg, spec, gen, mesh.lead, mesh=mesh)
     start = 0
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
-        tree, start = restore_checkpoint(args.ckpt_dir, state.tree(),
-                                         device=device)
+        like = {"params": state.params, "opt_state": state.opt_state,
+                "step": torch.zeros((), dtype=torch.int32)}
+        tree, start = restore_checkpoint(args.ckpt_dir, like, mesh=mesh)
         state = TrainState.from_tree(tree)
         print(f"resumed from checkpoint step {start}")
 
     ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
-    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    n_params = sum(math.prod(x.shape) for x in tree_leaves(state.params))
     print(f"device={device} arch={cfg.name} params={n_params / 1e6:.1f}M "
+          f"devices={n_dev} mesh=({data_ax},{args.model_axis}) "
           f"steps={args.steps}")
     it = Prefetcher((stream.batch(s) for s in range(start, args.steps)),
                     depth=2)
@@ -167,7 +185,7 @@ def main(argv=None):
     tokens_done = 0
     metrics = None
     for s, host_batch in zip(range(start, args.steps), it):
-        state, metrics = step_fn(state, to_device(host_batch, device))
+        state, metrics = step_fn(state, to_device(host_batch, mesh.lead))
         tokens_done += args.batch * args.seq
         if (s + 1) % args.log_every == 0 or s + 1 == args.steps:
             dt = time.time() - t0

@@ -18,6 +18,7 @@ from .config import ModelConfig
 
 __all__ = [
     "DTYPES", "dtype_of", "init_norm", "apply_norm", "init_mlp", "apply_mlp",
+    "split_mlp", "apply_mlp_tp",
     "init_embedding", "embed", "unembed", "rope_freqs", "apply_rope",
     "init_dense", "dense", "truncated_normal", "cast_weights",
 ]
@@ -132,6 +133,45 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return dense(p["down"], h, cd)
 
 
+def split_mlp(p: dict, n: int, i: int) -> dict:
+    """Shard ``i`` of ``n`` of an MLP, split by ``d_ff``: the i-th block of
+    the ``up`` and ``gate`` columns (weights and biases) and of the
+    ``down`` rows.  ``down``'s bias goes to shard 0 alone, so
+    :func:`apply_mlp_tp`'s sum adds it once.  The blocks are views of
+    ``p``; one shard of one is ``p`` itself."""
+    if n == 1:
+        return p
+    ff = p["up"]["w"].shape[1]
+    if ff % n or not 0 <= i < n:
+        raise ValueError(f"shard {i} of {n} does not split d_ff {ff}")
+    lo, hi = i * ff // n, (i + 1) * ff // n
+
+    def cols(d: dict) -> dict:
+        out = {"w": d["w"][:, lo:hi]}
+        if "b" in d:
+            out["b"] = d["b"][lo:hi]
+        return out
+
+    out = {"up": cols(p["up"]), "down": {"w": p["down"]["w"][lo:hi]}}
+    if "gate" in p:
+        out["gate"] = cols(p["gate"])
+    if i == 0 and "b" in p["down"]:
+        out["down"]["b"] = p["down"]["b"]
+    return out
+
+
+def apply_mlp_tp(cfg: ModelConfig, shards, x: torch.Tensor) -> torch.Tensor:
+    """An MLP over tensor-parallel shards: ``shards`` holds ``(params,
+    device)`` of each shard (:func:`split_mlp`), in shard order.  Each
+    shard runs on its device (x moved there), and the partial outputs are
+    summed in shard order on x's device."""
+    out = None
+    for p_s, dev in shards:
+        part = apply_mlp(cfg, p_s, x.to(dev)).to(x.device)
+        out = part if out is None else out + part
+    return out
+
+
 # -- embeddings -------------------------------------------------------------------
 
 
@@ -148,8 +188,14 @@ def init_embedding(generator, cfg: ModelConfig, device) -> dict:
 
 
 def embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' rows of the table in the compute dtype.  The rows are
+    gathered and then cast (the reference casts the whole table and then
+    gathers: the same values), so the gradient's scatter-add over repeated
+    tokens runs in the table's dtype, fp32 for training, and not in bf16,
+    where a frequent token's thousands of rows lose most of their sum to
+    rounding, and differently for each split of the batch."""
     cd = dtype_of(cfg.compute_dtype)
-    x = p["table"].to(cd)[tokens.long()]
+    x = p["table"][tokens.long()].to(cd)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
     return x

@@ -18,7 +18,9 @@ and combines on its own):
   gate computed in fp32;
 * the Switch load-balancing loss is taken from the first choice.
 
-``apply_moe`` returns ``(out, aux)``.
+``apply_moe`` returns ``(out, aux)``; with ``sums=True`` its ``aux`` is
+the sums the loss is made of (``transformer.loss_from_sums``), for a
+batch split over the data rows of a training mesh.
 """
 from __future__ import annotations
 
@@ -88,9 +90,12 @@ def _route(cfg: ModelConfig, p: dict, x: torch.Tensor, C: int):
 
 
 def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-              capacity_factor: float | None = None):
+              capacity_factor: float | None = None, sums: bool = False):
     """x: (B, S, d) -> ``(out (B, S, d) in the compute dtype, aux fp32
-    scalar)``."""
+    scalar)``.  ``sums``: ``aux`` is instead ``(Σ router probabilities,
+    Σ top-1 one-hots)`` over the B·S tokens, each (E,) fp32: the
+    load-balancing loss of several row slices of one batch is ``E · Σ
+    (Σ_rows probs / N) · (Σ_rows one-hots / N)``, N their tokens."""
     cd = dtype_of(cfg.compute_dtype)
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -122,6 +127,9 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         sgate = torch.sigmoid(x.float() @ p["shared_gate"].float())
         out = out + sh * sgate.to(cd)
 
+    if sums:
+        return out, (probs.sum(dim=(0, 1)),
+                     F.one_hot(experts[..., 0], E).float().sum(dim=(0, 1)))
     me = probs.mean(dim=(0, 1))                                        # (E,)
     ce = F.one_hot(experts[..., 0], E).float().mean(dim=(0, 1))
     aux = E * (me * ce).sum()

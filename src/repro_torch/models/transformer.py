@@ -58,10 +58,16 @@ hold the decoder's self-attention K/V only, and it has no paged form.
 ``forward`` runs the whole sequence with no cache and returns the MoE
 blocks' summed auxiliary loss; ``loss_fn`` (the training path) takes
 every family, at head dims the flash backward kernel takes
-(``check_trainable``).  ``cfg.remat == "full"`` recomputes each
-layer in the backward pass (``torch.utils.checkpoint``), so its attention
-and SSD kernels run twice a layer; ``"save_dots"`` recomputes it too but
-keeps its 2-D products (``SAVE_DOTS_OPS``).
+(``check_trainable``).  ``loss_sums`` and
+``loss_from_sums`` are its two halves for a batch split over the data
+rows of a training mesh (``train/step.py``): each row's forward gives the
+sums, ``tp_devices`` (the row's tensor-parallel positions) splitting each
+block's self-attention by head and its MLP by ``d_ff``, and one scalar,
+the loss of the whole batch, is made of every row's.  ``cfg.remat ==
+"full"`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``), so its attention and SSD kernels run twice a
+layer; ``"save_dots"`` recomputes it too but keeps its 2-D products
+(``SAVE_DOTS_OPS``).
 
 The serving steps UPDATE THE CACHE IN PLACE (buffers, pools, SSM state and
 ``len``) and return the same dict — the reference returns a new cache.
@@ -80,12 +86,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..kernels.flash_attention.kernel import MAX_D_BWD
 from ..kernels.runtime import resolve_impl
-from ..tree import tree_leaves
-from .attention import attention, attention_tp, gather_pages, init_attention
+from ..tree import tree_leaves, tree_map
+from .attention import (attention, attention_tp, gather_pages, init_attention,
+                        split_attention)
 from .config import ModelConfig
-from .layers import (apply_mlp, apply_norm, cast_weights, dtype_of, embed,
-                     init_embedding, init_mlp, init_norm, truncated_normal,
-                     unembed)
+from .layers import (apply_mlp, apply_mlp_tp, apply_norm, cast_weights,
+                     dtype_of, embed, init_embedding, init_mlp, init_norm,
+                     split_mlp, truncated_normal, unembed)
 from .moe import apply_moe, init_moe
 from .ssm import apply_mamba2, init_mamba2, init_ssm_cache, mamba2_decode_step
 
@@ -93,7 +100,8 @@ __all__ = ["LayerPlan", "AttnShard", "layer_plan", "layer_kinds",
            "init_block", "apply_block", "init_params", "param_count",
            "init_cache", "init_paged_cache", "paged_pools", "decode_step",
            "prefill", "encode", "chunk_prefill_step", "check_supported",
-           "check_trainable", "forward", "loss_fn"]
+           "check_trainable", "forward", "loss_fn", "loss_sums",
+           "loss_from_sums"]
 
 #: block kinds the port runs
 PORTED_KINDS = ("dense", "local", "global", "moe", "ssm", "shared", "enc",
@@ -255,7 +263,8 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
                 positions, cache: dict | None, cache_len,
                 paged_impl: str = "auto", impl: str = "auto",
                 valid_len: int | None = None, chunk_continue: bool = False,
-                enc_out: torch.Tensor | None = None, tp=None):
+                enc_out: torch.Tensor | None = None, tp=None,
+                mlp_tp=None, moe_sums: bool = False):
     """One pre-norm residual block.  Returns ``(x, update, aux)``: ``aux``
     is a MoE block's load-balancing loss (an fp32 scalar) and None for the
     other kinds.
@@ -278,7 +287,10 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
     ``tp`` (a list of each tensor-parallel shard's ``(cfg, attention
     weights, device)``) runs the block's self-attention split by head
     through ``attention_tp``: ``cache`` is then a list of each shard's
-    cache, and ``update`` the list of each shard's K/V delta."""
+    cache (None for the cache-less form), and ``update`` the list of each
+    shard's K/V delta.  ``mlp_tp`` (each shard's ``(MLP weights,
+    device)``) runs its MLP split by ``d_ff`` (``apply_mlp_tp``);
+    ``moe_sums`` gives a MoE block's ``aux`` as ``apply_moe``'s sums."""
     if kind == "ssm":
         h = apply_norm(cfg, p["ln1"], x)
         if cache is not None and x.shape[1] == 1:
@@ -296,7 +308,8 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
     if tp is None:
         out, kv = attention(cfg, p["attn"], h, cache=cache, **kw)
     else:
-        out, kv = attention_tp(tp, h, caches=cache, **kw)
+        out, kv = attention_tp(tp, h, caches=[None] * len(tp)
+                               if cache is None else cache, **kw)
     x = x + out
     if kind == "dec" and enc_out is not None:
         h = apply_norm(cfg, p["ln_cross"], x)
@@ -307,7 +320,9 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
     h = apply_norm(cfg, p["ln2"], x)
     aux = None
     if kind == "moe":
-        out, aux = apply_moe(cfg, p["moe"], h)
+        out, aux = apply_moe(cfg, p["moe"], h, sums=moe_sums)
+    elif mlp_tp is not None:
+        out = apply_mlp_tp(cfg, mlp_tp, h)
     else:
         out = apply_mlp(cfg, p["mlp"], h)
     return x + out, kv, aux
@@ -360,20 +375,47 @@ def check_trainable(cfg: ModelConfig) -> None:
     _check_remat(cfg)
 
 
+def _tp_shards(cfg: ModelConfig, p: dict, devices) -> tuple:
+    """A block's self-attention and MLP split over a data row's
+    tensor-parallel positions ``devices`` (training's TP): ``(attention
+    shards or None, MLP shards or None)`` for :func:`apply_block`.  A part
+    that ``len(devices)`` does not divide (query or KV heads, ``d_ff``)
+    runs whole on the row's lead, as the serving mesh runs it.  The
+    shards are copies (``.to`` their device, the split's own copies), built
+    inside the block so that a recompute rebuilds them instead of keeping
+    them; a shard on the lead's device is not moved."""
+    n = len(devices) if devices else 1
+    attn = mlp = None
+    if n > 1 and "attn" in p and not (cfg.n_heads % n or cfg.n_kv_heads % n):
+        attn = []
+        for i, dev in enumerate(devices):
+            cfg_s, p_s = split_attention(cfg, p["attn"], n, i)
+            attn.append((cfg_s, tree_map(lambda t: t.to(dev), p_s), dev))
+    if n > 1 and "mlp" in p and not p["mlp"]["up"]["w"].shape[1] % n:
+        mlp = [(tree_map(lambda t: t.to(dev), split_mlp(p["mlp"], n, i)), dev)
+               for i, dev in enumerate(devices)]
+    return attn, mlp
+
+
 def _run_stack(cfg: ModelConfig, blocks, x, positions, *, impl: str,
-               enc_out=None):
+               enc_out=None, tp_devices=None, moe_sums: bool = False):
     """Every ``(kind, params)`` of ``blocks`` in order.  Under grad, each
     block is recomputed in the backward pass under ``remat="full"``, and
     recomputed but for its 2-D products (:data:`SAVE_DOTS_OPS`) under
     ``remat="save_dots"``.  Returns ``(x, aux)``: the MoE blocks' summed
-    auxiliary loss (0 for the other families)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    auxiliary loss (0 for the other families), or under ``moe_sums`` the
+    list of each MoE block's sums.  ``tp_devices`` splits each block over
+    those positions (:func:`_tp_shards`)."""
+    aux = ([] if moe_sums
+           else torch.zeros((), dtype=torch.float32, device=x.device))
     remat = cfg.remat if torch.is_grad_enabled() else "none"
     for kind, p in blocks:
         def block(h, p=p, kind=kind):
+            tp, mlp_tp = _tp_shards(cfg, p, tp_devices)
             return apply_block(cfg, kind, p, h, positions=positions,
                                cache=None, cache_len=None, impl=impl,
-                               enc_out=enc_out)
+                               enc_out=enc_out, tp=tp, mlp_tp=mlp_tp,
+                               moe_sums=moe_sums)
         if remat == "full":
             x, _, a = checkpoint(block, x, use_reentrant=False)
         elif remat == "save_dots":
@@ -381,13 +423,17 @@ def _run_stack(cfg: ModelConfig, blocks, x, positions, *, impl: str,
                                  context_fn=_save_dots_contexts)
         else:
             x, _, a = block(x)
-        if a is not None:
+        if a is None:
+            continue
+        if moe_sums:
+            aux.append(a)
+        else:
             aux = aux + a
     return x, aux
 
 
 def encode(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor, *,
-           impl: str = "auto") -> torch.Tensor:
+           impl: str = "auto", tp_devices=None) -> torch.Tensor:
     """An encoder-decoder model's encoder: ``enc_embeds`` (B, T, d) plus
     ``enc_pos[:T]`` through the encoder blocks (non-causal, ``impl``
     picking their attention core) and the final encoder norm.  Returns
@@ -397,7 +443,8 @@ def encode(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor, *,
     e = e + params["enc_pos"][:e.shape[1]].to(e.dtype)[None]
     kinds = plan.enc_pattern * plan.enc_groups
     e, _ = _run_stack(cfg, zip(kinds, params["enc_layers"]), e,
-                      torch.arange(e.shape[1], device=e.device), impl=impl)
+                      torch.arange(e.shape[1], device=e.device), impl=impl,
+                      tp_devices=tp_devices)
     return apply_norm(cfg, params["enc_norm_f"], e)
 
 
@@ -411,13 +458,16 @@ def _add_dec_pos(cfg: ModelConfig, params: dict, x, positions):
 
 
 def forward(cfg: ModelConfig, params: dict, *, tokens=None, embeds=None,
-            positions=None, enc_embeds=None, impl: str = "auto"):
+            positions=None, enc_embeds=None, impl: str = "auto",
+            tp_devices=None, moe_sums: bool = False):
     """Full-sequence forward (train / prefill).  ``tokens`` (B, S) int, or
     ``embeds`` (B, S, d); an encoder-decoder model also takes
     ``enc_embeds`` (B, T, d), its encoder input.  Returns ``(logits (B, S,
     padded_vocab) in the compute dtype, aux)``, aux the MoE blocks' summed
     load-balancing loss; ``impl`` picks every layer's attention core (and
-    the SSM layers' intra-chunk path)."""
+    the SSM layers' intra-chunk path).  ``tp_devices`` and ``moe_sums`` as
+    in :func:`_run_stack` (under ``moe_sums``, aux is the list of each MoE
+    block's sums)."""
     check_supported(cfg)
     _check_remat(cfg)
     if embeds is None:
@@ -431,10 +481,12 @@ def forward(cfg: ModelConfig, params: dict, *, tokens=None, embeds=None,
         if enc_embeds is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
                              f"enc_embeds")
-        enc_out = encode(cfg, params, enc_embeds, impl=impl)
+        enc_out = encode(cfg, params, enc_embeds, impl=impl,
+                         tp_devices=tp_devices)
         x = _add_dec_pos(cfg, params, x, positions)
     x, aux = _run_stack(cfg, _blocks(cfg, params), x, positions, impl=impl,
-                        enc_out=enc_out)
+                        enc_out=enc_out, tp_devices=tp_devices,
+                        moe_sums=moe_sums)
     x = apply_norm(cfg, params["norm_f"], x)
     return unembed(cfg, params["embed"], x), aux
 
@@ -452,17 +504,70 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     logits, aux = forward(cfg, params, tokens=batch.get("tokens"),
                           embeds=batch.get("embeds"),
                           enc_embeds=batch.get("enc_embeds"), impl=impl)
-    logits = logits.float()
-    if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e9
-    logz = torch.logsumexp(logits, dim=-1)
-    labels = batch["labels"].long()
-    nll = logz - logits.gather(-1, labels[..., None])[..., 0]
+    nll = _nll(cfg, logits, batch["labels"])
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.float()
     loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
     total = loss + cfg.router_aux_weight * aux
     return total, {"loss": loss, "aux": aux, "tokens": mask.sum()}
+
+
+def _nll(cfg: ModelConfig, logits: torch.Tensor, labels) -> torch.Tensor:
+    """Each token's negative log-likelihood in fp32, the padded vocabulary
+    masked out of the softmax."""
+    logits = logits.float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e9
+    logz = torch.logsumexp(logits, dim=-1)
+    labels = labels.long()
+    return logz - logits.gather(-1, labels[..., None])[..., 0]
+
+
+def loss_sums(cfg: ModelConfig, params: dict, batch: dict, *,
+              impl: str = "auto", tp_devices=None) -> dict:
+    """One data row's share of :func:`loss_fn`'s loss for its slice of the
+    batch: ``{"nll": Σ nll·mask, "mask": Σ mask, "n": the slice's tokens,
+    "moe": each MoE block's (Σ router probs, Σ top-1 one-hots)}``, what
+    adds up over the rows (:func:`loss_from_sums`).  ``tp_devices``: the
+    row's tensor-parallel positions, the lead first (where ``params``
+    live)."""
+    check_trainable(cfg)
+    logits, moe = forward(cfg, params, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"),
+                          enc_embeds=batch.get("enc_embeds"), impl=impl,
+                          tp_devices=tp_devices, moe_sums=True)
+    nll = _nll(cfg, logits, batch["labels"])
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    return {"nll": (nll * mask).sum(), "mask": mask.sum(),
+            "n": nll.numel(), "moe": moe}
+
+
+def loss_from_sums(cfg: ModelConfig, rows: list[dict], device):
+    """:func:`loss_fn`'s ``(total, metrics)`` of a batch split over data
+    rows, from each row's :func:`loss_sums`, added on ``device`` in row
+    order: the masked NLL sum over the whole mask sum, and each MoE block's
+    load-balancing loss ``E · Σ me·ce`` from the probabilities and top-1
+    one-hots averaged over every row's tokens (a mean of the rows' own
+    means would be another loss)."""
+    def total_of(values):
+        out = None
+        for v in values:
+            v = v.to(device)
+            out = v if out is None else out + v
+        return out
+
+    nll = total_of(r["nll"] for r in rows)
+    mask = total_of(r["mask"] for r in rows)
+    loss = nll / mask.clamp_min(1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+    n = sum(r["n"] for r in rows)
+    for layer in zip(*(r["moe"] for r in rows)):
+        me = total_of(probs for probs, _ in layer) / n
+        ce = total_of(top1 for _, top1 in layer) / n
+        aux = aux + cfg.n_experts * (me * ce).sum()
+    total = loss + cfg.router_aux_weight * aux
+    return total, {"loss": loss, "aux": aux, "tokens": mask}
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,11 @@ train step uses to hold one copy of the model's state.
 Adafactor's update-RMS clip runs per parameter tensor.  The reference
 stacks layers on a leading axis, so there it runs over one tensor of all
 the layers of a group; the two agree on every tensor that is not stacked.
+
+A training mesh's state (``train/step.py``) holds
+:class:`~repro_torch.parallel.partition.Placed` leaves, one block a grid
+position: ``global_norm`` counts each element of such a leaf once, and
+``opt_update_placed`` updates every block on its position.
 """
 from __future__ import annotations
 
@@ -19,10 +24,12 @@ import math
 
 import torch
 
+from ..parallel.partition import Placed
 from ..tree import tree_leaves, tree_leaves_like, tree_map, tree_unflatten
 
-__all__ = ["OptimizerSpec", "init_opt_state", "opt_update", "cosine_schedule",
-           "global_norm", "clip_by_global_norm"]
+__all__ = ["OptimizerSpec", "init_opt_state", "opt_update",
+           "opt_update_placed", "cosine_schedule", "global_norm",
+           "clip_by_global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +60,25 @@ def cosine_schedule(step, *, base_lr: float, warmup: int = 100,
     return float(base_lr * warm * cos)
 
 
+def _square_sum(x, device) -> torch.Tensor:
+    """Σ x² in fp32; a :class:`Placed` leaf's each element once (one block
+    a region, in position order), summed on ``device``."""
+    if not isinstance(x, Placed):
+        return x.float().square().sum()
+    out = None
+    for k in x.distinct():
+        v = x.blocks[k].float().square().sum().to(device)
+        out = v if out is None else out + v
+    return out
+
+
 def global_norm(tree) -> torch.Tensor:
-    sq = [x.float().square().sum() for x in tree_leaves(tree)]
+    """The L2 norm of every leaf together; over :class:`Placed` leaves it
+    is summed on their mesh's lead."""
+    leaves = tree_leaves(tree)
+    first = leaves[0]
+    dev = first.mesh.lead if isinstance(first, Placed) else first.device
+    sq = [_square_sum(x, dev) for x in leaves]
     return torch.stack(sq).sum().sqrt()
 
 
@@ -179,6 +203,30 @@ def _state_tree(spec, params, leaf_states: list[dict], count):
     return {"count": count}
 
 
+def _updater(spec: OptimizerSpec, count: torch.Tensor, lr):
+    """The leaf update ``upd(g, p, st) -> (p, st)`` of ``spec.kind`` at
+    step ``count`` (the count after this update)."""
+    if spec.kind == "adamw":
+        cf = count.float()
+        one = torch.ones((), dtype=torch.float32, device=cf.device)
+        return _adamw_leaf(spec, 1 - (one * spec.b1) ** cf,
+                           1 - (one * spec.b2) ** cf, lr)
+    if spec.kind == "adafactor":
+        return _adafactor_leaf(spec, 1.0 - count.float() ** -0.8, lr)
+    if spec.kind == "sgd":
+        def upd(g, p, st):
+            return (p.float() - lr * g.float()).to(p.dtype), st
+        return upd
+    raise ValueError(spec.kind)
+
+
+def _clip_scale(spec: OptimizerSpec, gnorm: torch.Tensor):
+    if not spec.clip_norm:
+        return None
+    return torch.clamp(spec.clip_norm / torch.clamp(gnorm, min=1e-9),
+                       max=1.0)
+
+
 @torch.no_grad()
 def opt_update(spec: OptimizerSpec, grads, state, params, lr=None, *,
                inplace: bool = False):
@@ -188,23 +236,9 @@ def opt_update(spec: OptimizerSpec, grads, state, params, lr=None, *,
     so that no second copy of the model's state is ever held."""
     lr = lr if lr is not None else spec.lr
     gnorm = global_norm(grads)
-    scale = None
-    if spec.clip_norm:
-        scale = torch.clamp(spec.clip_norm / torch.clamp(gnorm, min=1e-9),
-                            max=1.0)
+    scale = _clip_scale(spec, gnorm)
     count = state["count"] + 1
-    if spec.kind == "adamw":
-        cf = count.float()
-        one = torch.ones((), dtype=torch.float32, device=cf.device)
-        upd = _adamw_leaf(spec, 1 - (one * spec.b1) ** cf,
-                          1 - (one * spec.b2) ** cf, lr)
-    elif spec.kind == "adafactor":
-        upd = _adafactor_leaf(spec, 1.0 - count.float() ** -0.8, lr)
-    elif spec.kind == "sgd":
-        def upd(g, p, st):
-            return (p.float() - lr * g.float()).to(p.dtype), st
-    else:
-        raise ValueError(spec.kind)
+    upd = _updater(spec, count, lr)
     new_p, new_st = [], []
     for g, p, st in zip(tree_leaves(grads), tree_leaves(params),
                         _leaf_states(spec, state, params)):
@@ -224,3 +258,48 @@ def opt_update(spec: OptimizerSpec, grads, state, params, lr=None, *,
         return params, state, metrics
     return (tree_unflatten(params, new_p),
             _state_tree(spec, params, new_st, count), metrics)
+
+
+@torch.no_grad()
+def opt_update_placed(spec: OptimizerSpec, grads, state, params, lr=None
+                      ) -> dict:
+    """:func:`opt_update` with ``inplace=True`` over a training mesh's
+    state, whose tensors are all :class:`Placed` on one mesh: writes the
+    new parameters and state into their blocks and returns ``{"grad_norm",
+    "lr"}``.  The norm is :func:`global_norm`'s (each element once, on the
+    lead); AdamW and SGD update each block on its position; Adafactor's
+    factored moments and update-RMS clip read whole rows, columns and
+    tensors, so each of its leaves is updated whole on the lead and
+    written back into every block.  Copies of a replicated region get the
+    same inputs and the same update, so they cannot drift."""
+    lr = lr if lr is not None else spec.lr
+    gnorm = global_norm(grads)
+    scale = _clip_scale(spec, gnorm)
+    mesh = state["count"].mesh
+    count = state["count"].blocks[0] + 1
+    upds = {dev: _updater(spec, count.to(dev), lr)
+            for dev in mesh.unique_devices()}
+    for g, p, st in zip(tree_leaves(grads), tree_leaves(params),
+                        _leaf_states(spec, state, params)):
+        if spec.kind == "adafactor":
+            gw = g.gather()
+            if scale is not None:
+                gw = (gw.float() * scale).to(gw.dtype)
+            p2, st2 = upds[mesh.lead](gw, p.gather(),
+                                      {k: v.gather() for k, v in st.items()})
+            p.scatter_(p2)
+            for key, t in st2.items():
+                st[key].scatter_(t)
+            continue
+        for k, dev in enumerate(mesh.flat):
+            gb = g.blocks[k]
+            if scale is not None:
+                gb = (gb.float() * scale.to(dev)).to(gb.dtype)
+            p2, st2 = upds[dev](gb, p.blocks[k],
+                                {key: v.blocks[k] for key, v in st.items()})
+            p.blocks[k].copy_(p2)
+            for key, t in st2.items():
+                st[key].blocks[k].copy_(t)
+    for k, dev in enumerate(mesh.flat):
+        state["count"].blocks[k].copy_(count.to(dev))
+    return {"grad_norm": gnorm, "lr": torch.tensor(lr)}

@@ -13,16 +13,36 @@ parameters are unstacked (``layers/<i>/…``, one dict a layer; see
 ``pad`` gives it the axes the reference gives its stacked counterpart,
 less the group axis.  The serving cache stacks its layers on a leading
 axis, as the reference's groups are stacked.
+
+Placing a tree by its specs (the reference's ``jax.device_put`` with
+``tree_shardings``, done here by hand): :func:`place_tree` splits each
+leaf into one block a position of a
+:class:`~repro_torch.launch.mesh.DeviceMesh`.  Each dim goes over the mesh
+axes its spec names (``spec_for`` has already dropped every axis that does
+not divide it); a dim its spec leaves ``None`` is held whole on every
+position, as the reference replicates it, so a position holds exactly the
+reference's ``shard_shape`` bytes.  Positions that share a region hold
+equal copies of their own.  On a 1 x 1 grid a leaf is placed as itself.
+
+A reference quirk kept line for line: ``_leaf_axes`` strips the optimizer
+keys ``m``, ``v``, ``f``, ``vr``, ``vc`` from a leaf's path to find its
+parameter, so it strips the attention's ``v`` projection's key too, and
+the V projection's weight and bias (and their moments) are replicated
+where Q, K and O split over ``heads_flat``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Sequence
 
-from .sharding import ShardingRules
+import torch
+
+from .sharding import DEFAULT_RULES, ShardingRules
 
 __all__ = ["axes_for_path", "tree_logical_axes", "tree_specs",
-           "batch_logical_axes"]
+           "batch_logical_axes", "Placed", "place_leaf", "place_tree",
+           "place_state", "gather_tree", "position_bytes", "spec_bytes"]
 
 
 def _last(path: Sequence[str], *names: str) -> bool:
@@ -181,3 +201,163 @@ def tree_specs(tree, rules: ShardingRules, *, kind: str = "params"):
 def batch_logical_axes(batch) -> Any:
     return _walk(batch, (), lambda keys, leaf:
                  ("batch",) + (None,) * (len(leaf.shape) - 1))
+
+
+# ---------------------------------------------------------------------------
+# Placing a tree on a device grid by its specs
+# ---------------------------------------------------------------------------
+
+
+def _spec_axes(spec: tuple, ndim: int) -> list[tuple[str, ...]]:
+    """The mesh axes of each of ``ndim`` dims (``()`` for a whole dim)."""
+    out = []
+    for d in range(ndim):
+        e = spec[d] if d < len(spec) else None
+        out.append(() if e is None else tuple(e) if isinstance(e, tuple)
+                   else (e,))
+    return out
+
+
+def regions(mesh, spec: tuple, shape) -> list[tuple[slice, ...]]:
+    """Each position's region of a tensor of ``shape`` placed by ``spec``:
+    a dim over axes ``(a, b)`` is cut into ``size(a)·size(b)`` equal
+    blocks, and the position takes the block its coordinates on ``a`` and
+    ``b`` index (row-major)."""
+    sizes = mesh.shape
+    axes = _spec_axes(spec, len(shape))
+    out = []
+    for c in mesh.coords():
+        region = []
+        for n, dim_axes in zip(shape, axes):
+            parts, idx = 1, 0
+            for a in dim_axes:
+                idx = idx * sizes[a] + c[a]
+                parts *= sizes[a]
+            step = n // parts
+            region.append(slice(idx * step, (idx + 1) * step))
+        out.append(tuple(region))
+    return out
+
+
+@dataclasses.dataclass
+class Placed:
+    """A tensor placed on ``mesh`` by ``spec``: ``blocks[k]`` lives on the
+    mesh's k-th position and holds its region (:func:`regions`); positions
+    that share a region hold equal copies."""
+
+    mesh: Any
+    spec: tuple
+    shape: torch.Size
+    blocks: list
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    def regions(self) -> list[tuple[slice, ...]]:
+        return regions(self.mesh, self.spec, self.shape)
+
+    def distinct(self) -> list[int]:
+        """The first position of each region, in position order: each
+        element of the tensor once."""
+        seen, out = set(), []
+        for k, r in enumerate(self.regions()):
+            key = tuple((s.start, s.stop) for s in r)
+            if key not in seen:
+                seen.add(key)
+                out.append(k)
+        return out
+
+    @torch.no_grad()
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole tensor on ``device`` (the mesh's lead by default)."""
+        device = self.mesh.lead if device is None else device
+        regs = self.regions()
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        for k in self.distinct():
+            out[regs[k]].copy_(self.blocks[k])
+        return out
+
+    @torch.no_grad()
+    def scatter_(self, whole: torch.Tensor) -> None:
+        """Write ``whole`` into every position's block."""
+        for blk, reg in zip(self.blocks, self.regions()):
+            blk.copy_(whole[reg])
+
+
+@torch.no_grad()
+def place_leaf(t: torch.Tensor, mesh, spec: tuple):
+    """``t`` placed on ``mesh`` by ``spec``: a :class:`Placed` whose
+    blocks are copies on their positions; ``t`` itself on a 1 x 1 grid."""
+    if mesh.size == 1:
+        return t
+    blocks = []
+    for dev, reg in zip(mesh.flat, regions(mesh, spec, t.shape)):
+        blk = torch.empty(tuple(s.stop - s.start for s in reg),
+                          dtype=t.dtype, device=dev)
+        blocks.append(blk.copy_(t[reg]))
+    return Placed(mesh=mesh, spec=spec, shape=t.shape, blocks=blocks)
+
+
+def place_tree(tree, mesh, rules: ShardingRules, *, kind: str = "params"):
+    """Every tensor leaf of ``tree`` placed by its ``tree_specs`` spec
+    (other leaves, such as a step count held as an int, stay as they
+    are); the tree itself on a 1 x 1 grid."""
+    if mesh.size == 1:
+        return tree
+    def one(keys, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        spec = rules.spec_for(_leaf_axes(keys, leaf, kind), dims=leaf.shape)
+        return place_leaf(leaf, mesh, spec)
+    return _walk(_as_tree(tree), (), one)
+
+
+def place_state(tree, mesh):
+    """A training state's tree (``{"params", "opt_state"[, "step"]}``)
+    placed on ``mesh`` by its ``kind="state"`` specs under the default
+    rules, as the reference's launcher places its ``TrainState``."""
+    return place_tree(tree, mesh, ShardingRules(mesh=mesh,
+                                                rules=dict(DEFAULT_RULES)),
+                      kind="state")
+
+
+def gather_tree(tree, device=None):
+    """``tree`` with every :class:`Placed` leaf gathered whole on
+    ``device`` (its mesh's lead by default)."""
+    return _walk(_as_tree(tree), (), lambda keys, leaf: leaf.gather(device)
+                 if isinstance(leaf, Placed) else leaf)
+
+
+def position_bytes(tree) -> list[int]:
+    """The bytes each grid position holds of the :class:`Placed` leaves of
+    ``tree``."""
+    out: list[int] = []
+
+    def add(keys, leaf):
+        if isinstance(leaf, Placed):
+            out.extend([0] * (len(leaf.blocks) - len(out)))
+            for k, b in enumerate(leaf.blocks):
+                out[k] += b.numel() * b.element_size()
+    _walk(_as_tree(tree), (), add)
+    return out
+
+
+def spec_bytes(tree, rules: ShardingRules, *, kind: str = "params") -> int:
+    """The bytes one position of ``rules.mesh`` holds of ``tree``'s tensor
+    leaves (tensors or :class:`Placed`) placed by their specs: each leaf's
+    reference ``shard_shape`` times its item size, summed."""
+    sizes = rules.mesh.shape
+    total = 0
+
+    def add(keys, leaf):
+        nonlocal total
+        if not isinstance(leaf, (torch.Tensor, Placed)):
+            return
+        spec = rules.spec_for(_leaf_axes(keys, leaf, kind), dims=leaf.shape)
+        n = leaf.dtype.itemsize
+        for dim, axes in zip(leaf.shape, _spec_axes(spec, len(leaf.shape))):
+            n *= dim // math.prod(sizes[a] for a in axes)
+        total += n
+    _walk(_as_tree(tree), (), add)
+    return total

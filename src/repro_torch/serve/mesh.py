@@ -46,6 +46,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..launch.mesh import DeviceMesh, grid_devices
 from ..models.attention import split_attention
 from ..models.config import ModelConfig
 from ..models.layers import cast_weights, dtype_of
@@ -87,25 +88,16 @@ class MeshSpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class ServeMesh:
-    """A ``(dp, tp)`` grid of devices over the axes ``("data", "model")``:
-    ``devices[r][i]`` is data row r's tensor-parallel position i."""
+class ServeMesh(DeviceMesh):
+    """A ``(dp, tp)`` grid of devices over the axes ``("data", "model")``
+    (a :class:`~repro_torch.launch.mesh.DeviceMesh`): ``devices[r][i]`` is
+    data row r's tensor-parallel position i."""
 
-    spec: MeshSpec
-    devices: tuple[tuple[torch.device, ...], ...]
     axis_names: tuple[str, str] = ("data", "model")
 
     @property
-    def shape(self) -> dict[str, int]:
-        return {"data": self.spec.dp, "model": self.spec.tp}
-
-    @property
-    def size(self) -> int:
-        return self.spec.size
-
-    def unique_devices(self) -> list[torch.device]:
-        """Every device of the grid once, in grid order."""
-        return list(dict.fromkeys(d for row in self.devices for d in row))
+    def spec(self) -> MeshSpec:
+        return MeshSpec(tp=len(self.devices[0]), dp=len(self.devices))
 
 
 def build_serve_mesh(spec: MeshSpec, *, device="cuda",
@@ -116,42 +108,18 @@ def build_serve_mesh(spec: MeshSpec, *, device="cuda",
     ``device="cuda"`` and the CPU at every position for ``device="cpu"``
     (the reference's forced host devices share one CPU too).  A CUDA mesh
     raises where there are fewer CUDA devices than positions — there is no
-    fallback to the CPU."""
-    if devices is None:
-        kind = torch.device(device).type
-        if kind == "cpu":
-            devices = [torch.device("cpu")] * spec.size
-        elif kind == "cuda":
-            n_dev = torch.cuda.device_count() if torch.cuda.is_available() \
-                else 0
-            if spec.size > n_dev:
-                raise ValueError(
-                    f"mesh {spec.tp}x{spec.dp} needs {spec.size} CUDA "
-                    f"devices, {n_dev} visible — pass devices= (a device "
-                    f"may repeat: [torch.device('cuda:0')] * {spec.size} "
-                    f"runs the mesh on one card)")
-            devices = [torch.device("cuda", i) for i in range(spec.size)]
-        else:
-            raise ValueError(f"device {device!r}: a serving mesh runs on "
-                             f"'cuda' or 'cpu'")
-    devices = [torch.device(d) for d in devices]
-    if len(devices) != spec.size:
-        raise ValueError(f"mesh {spec.tp}x{spec.dp} needs {spec.size} "
-                         f"devices, got {len(devices)}")
-    for d in devices:
-        if d.type == "cuda" and not (torch.cuda.is_available()
-                                     and (d.index or 0)
-                                     < torch.cuda.device_count()):
-            raise ValueError(f"mesh device {d} is not available")
+    fallback to the CPU (:func:`~repro_torch.launch.mesh.grid_devices`)."""
+    devices = grid_devices(spec.size, device=device, devices=devices,
+                           label=f"{spec.tp}x{spec.dp}")
     grid = tuple(tuple(devices[r * spec.tp:(r + 1) * spec.tp])
                  for r in range(spec.dp))
-    return ServeMesh(spec=spec, devices=grid)
+    return ServeMesh(devices=grid)
 
 
 def local_mesh(device) -> ServeMesh:
     """The 1 x 1 grid of one device: what a ``PagedEngine`` without a mesh
     runs on."""
-    return ServeMesh(spec=MeshSpec(), devices=((torch.device(device),),))
+    return ServeMesh(devices=((torch.device(device),),))
 
 
 def serve_rules() -> dict:

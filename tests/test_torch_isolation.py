@@ -49,7 +49,7 @@ def test_import_with_jax_unavailable():
             "repro_torch.serve.engine, repro_torch.serve.scheduler, "
             "repro_torch.models.transformer, repro_torch.models.moe, "
             "repro_torch.parallel, repro_torch.parallel.partition, "
-            "repro_torch.serve.mesh; "
+            "repro_torch.serve.mesh, repro_torch.launch.mesh; "
             "from repro_torch.serve import Engine, DEFAULT_BUCKETS; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -132,6 +132,43 @@ def test_mesh_engine_imports_no_jax():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "3 ('model', 'data') []"
+
+
+def test_train_mesh_imports_no_jax():
+    """The training mesh — a 2 x 2 grid, the placed state, a step with
+    grad_accum 2, the SPMD executor over the grid — runs with JAX
+    unavailable and pulls in nothing of JAX or the JAX package."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        "import numpy as np, torch\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.core import FunctionRegistry, SpmdExecutor\n"
+        "from repro_torch.data import DataConfig, SyntheticLMStream\n"
+        "from repro_torch.launch.mesh import make_test_mesh\n"
+        "from repro_torch.optim import OptimizerSpec\n"
+        "from repro_torch.parallel.partition import position_bytes\n"
+        "from repro_torch.train import TrainState, make_train_step\n"
+        "cfg = get_smoke_config('qwen2-1.5b')\n"
+        "mesh = make_test_mesh(2, 2)\n"
+        "spec = OptimizerSpec()\n"
+        "state = TrainState.create(cfg, spec, torch.Generator(), 'cpu',\n"
+        "                          mesh=mesh)\n"
+        "batch = {k: torch.as_tensor(v) for k, v in SyntheticLMStream(\n"
+        "    cfg, DataConfig(global_batch=4, seq_len=16)).batch(0).items()}\n"
+        "state, m = make_train_step(cfg, spec, grad_accum=2,\n"
+        "                           mesh=mesh)(state, batch)\n"
+        "SpmdExecutor(mesh, FunctionRegistry())\n"
+        "bad = sorted(m for m in sys.modules if m is not None\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "             and sys.modules[m] is not None)\n"
+        "print(np.isfinite(float(m['loss'])), len(set(position_bytes(\n"
+        "    state.params))), bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True 1 []"
 
 
 PROBE = """

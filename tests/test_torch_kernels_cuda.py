@@ -1474,3 +1474,89 @@ def test_cuda_mesh_engine_on_one_card():
     tp2 = build_serve_mesh(MeshSpec(tp=2, dp=1),
                            devices=[torch.device("cuda:0")] * 2)
     assert 2 * run(tp2, 1)[3] == base_bytes
+
+
+# the training mesh's flash shapes for qwen2-1.5b at seq 4096: a TP=2
+# shard's heads (H 6, KV 1: G 6) at a micro-batch of 2, a DP=2 row's
+# micro-batch of 1 at the whole heads (H 12, KV 2), and a TP=2 x DP=2
+# row's shard at micro-batch 1
+FA_TP_SHARD_CASES = [(2, 4096, 4096, 6, 1, 128, True, None),
+                     (1, 4096, 4096, 12, 2, 128, True, None),
+                     (1, 4096, 4096, 6, 1, 128, True, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_TP_SHARD_CASES)
+def test_cuda_flash_kernels_at_a_train_mesh_shard(case):
+    """Both flash kernels at the shapes the training mesh gives them: the
+    forward in bf16 within 2e-2 of its plain version (LSE 1e-4), the
+    backward in fp32 within 1e-4 of max|plain|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_kernel, flash_attention_backward_plain,
+        flash_attention_kernel, flash_attention_plain)
+    B, S, T, H, KV, D, causal, window = case
+    q, k, v = fa_case(29, B, S, T, H, KV, D, "bfloat16")
+    out, lse = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    out_p, lse_p = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+    torch.testing.assert_close(out.float(), out_p.float(),
+                               atol=FA_TOL["bfloat16"],
+                               rtol=FA_TOL["bfloat16"])
+    torch.testing.assert_close(lse, lse_p, atol=FA_LSE_TOL, rtol=FA_LSE_TOL)
+    q, k, v, dout = _fa_bwd_inputs(case, "float32")
+    out, lse = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    got = flash_attention_backward_kernel(q, k, v, out, lse, dout,
+                                          causal=causal, window=window)
+    want = flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                          causal=causal, window=window)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and _rel(g, w) <= FA_BWD_TOL["float32"]
+
+
+@pytest.mark.cuda
+def test_cuda_train_mesh_step_on_one_card():
+    """One fused step (2 micro-batches) of the qwen2 smoke config in fp32
+    on a TP=2 x DP=2 training mesh with every position on cuda:0: the
+    flash forward runs micro-batches x layers x 2 (remat) x tp x dp times,
+    its backward micro-batches x layers x tp x dp, and the parameters, the
+    loss and the grad norm are the meshless step's (1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.data import DataConfig, SyntheticLMStream, to_device
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import OptimizerSpec
+    from repro_torch.parallel.partition import gather_tree
+    from repro_torch.train import TrainState, make_train_step, shard_state
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, _ = _smoke_model("qwen2-1.5b", "float32")
+    spec = OptimizerSpec(lr=1e-3, eps=1e-6)
+    batch = to_device(SyntheticLMStream(cfg, DataConfig(
+        global_batch=4, seq_len=200)).batch(0), "cuda")
+    mesh = make_test_mesh(2, 2, device="cuda",
+                          devices=[torch.device("cuda:0")] * 4)
+    fresh = TrainState.create(cfg, spec, torch.Generator("cuda").manual_seed(
+        0), "cuda")
+    plain = TrainState(params=tree_map(torch.clone, fresh.params),
+                       opt_state=tree_map(torch.clone, fresh.opt_state))
+    placed = shard_state(fresh, mesh)
+    plain, m_p = make_train_step(cfg, spec, grad_accum=2)(plain, batch)
+    before = dict(kernel.launches)
+    placed, m = make_train_step(cfg, spec, grad_accum=2, mesh=mesh)(placed,
+                                                                    batch)
+    torch.cuda.synchronize()
+    assert kernel.launches == {
+        "flash_attention": (before["flash_attention"]
+                            + 2 * cfg.n_layers * 2 * 4),
+        "flash_attention_bwd": (before["flash_attention_bwd"]
+                                + 2 * cfg.n_layers * 4)}
+    got = tree_leaves(gather_tree(placed.params))
+    want = tree_leaves(plain.params)
+    scale = max(float(w.abs().max()) for w in want)
+    assert max(float((g - w).abs().max())
+               for g, w in zip(got, want)) <= 1e-5 * scale
+    assert abs(float(m["loss_total"]) / float(m_p["loss_total"]) - 1) < 1e-5
+    assert abs(float(m["grad_norm"]) / float(m_p["grad_norm"]) - 1) < 1e-5
