@@ -112,13 +112,16 @@ and prints one JSON line per phase:
    G 6, D 128, contexts 1,000-1,500) against its plain version, timed
    beside its bound, plain version and SDPA; then the serving mesh with
    every grid position on the card (``devices=[cuda:0] * size``):
-   qwen2-1.5b (28 layers) in fp32 at TP=2, DP=2 and TP=2 x DP=2 against no
-   mesh (8 requests of 64-512 tokens, 16 greedy tokens; streams equal,
-   no page leaked, paged launches decode steps x 28 x tp x dp, 8
-   teacher-forced decode steps within 1e-3 of max|logit|, TP=2's
-   per-position pool bytes half); bf16: a 1 x 1 mesh bit-equal to no
-   mesh, TP=2's tok/s and stream agreement reported; mamba2-370m (48
-   layers, fp32) at DP=2: equal streams, SSD launches chunks x 48;
+   qwen2-1.5b (8 of its 28 layers; its vocabulary split at TP=2) in fp32
+   at TP=2, DP=2 and TP=2 x DP=2 against no mesh (8 requests of 64-512
+   tokens, 16 greedy tokens; streams equal, no page leaked, paged
+   launches decode steps x 8 x tp x dp, 8 teacher-forced decode steps
+   within 1e-3 of max|logit|, TP=2's per-position pool bytes half); bf16:
+   a 1 x 1 mesh bit-equal to no mesh, TP=2's tok/s and stream agreement
+   reported; qwen2-moe-a2.7b at TP=2 (its experts split 30 / 30): fp32 at
+   4 layers with streams equal to no mesh, bf16 at full depth with tok/s,
+   each position's weight bytes and no expert on the lead; mamba2-370m
+   (48 layers, fp32) at DP=2: equal streams, SSD launches chunks x 48;
 10c. ``kernels`` at the MoE and hybrid shapes — the paged kernel (bf16,
    batch 8, page 16, max_len 2048, G 1: qwen2-moe-a2.7b's KV 16 x D 128
    and zamba2-1.2b's KV 32 x D 64) at every pages-a-split value and the
@@ -245,7 +248,15 @@ and prints one JSON line per phase:
    parameters after 2 steps within 1e-5 of max|param|.  The flash shapes
    of a TP=2 shard, a DP=2 row and a TP=2 x DP=2 row are phase 14's
    ``train_qwen2_tp2``, ``train_qwen2_dp2`` and ``train_qwen2_tp2_dp2``
-   cases;
+   cases.  The model axis beyond attention and MLPs at TP=2: qwen2's
+   vocabulary (its embedding, logits and cross-entropy by vocab shard);
+   ``train_mesh_moe``, qwen2-moe-a2.7b at 2 of its 24 layers (30 experts
+   a position, the positions' expert bytes the specs'); ``train_mesh_ssm``,
+   mamba2-370m at 8 of 48 (16 SSD heads a position, SSD launched steps x
+   2 x 8 x 2 x 2 times; the SSD shard's shape is phase 7's
+   ``train_mamba2_tp2``), each at the same gates (the mixers' per-head
+   scalars at 1.0); ``train_mesh_fp32`` adds both at 2 layers, TP=2,
+   sequences of 1,024;
 16. ``train_hypar`` — ``HyParTrainer`` (sync) against the fused step at
    the same widths, 4 layers, 3 steps of 2 micro-batches: seconds of each,
    HyPar's overhead, final params within 1e-6 (and whether to the bit),
@@ -688,8 +699,10 @@ def ssd_timed_case(gen, BC, H, Q, P, N, grid, model: str | None = None,
 def ssd_kernel_phase(n_layers: int) -> dict:
     """The SSD kernel at every row tile of the tuner's grid and at its
     default, against its plain version (``SSD_TOL``), at mamba2-370m's
-    serving shapes and at mamba2's and zamba2's training shapes; timed at
-    each, beside its plain version and its bound."""
+    serving shapes and at mamba2's and zamba2's training shapes (and a
+    TP=2 head shard of mamba2's, ``train_mamba2_tp2``: its fp32 inputs,
+    as ``ssd_chunked`` casts them in bf16 training); timed at each, beside
+    its plain version and its bound."""
     from repro_torch.kernels.tuning import DEFAULT_CANDIDATES
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -707,9 +720,13 @@ def ssd_kernel_phase(n_layers: int) -> dict:
             main_case = case        # what a full prefill chunk runs
     # training at seq 4096 and micro-batch 2: 32 chunks of 256 at once
     train = {}
-    for model, H, N in (("mamba2-370m", 32, 128), ("zamba2-1.2b", 64, 64)):
+    # and a TP=2 shard of mamba2's training mesh: 16 of its 32 heads
+    for model, H, N, case_id in (
+            ("mamba2-370m", 32, 128, "train_mamba2-370m"),
+            ("zamba2-1.2b", 64, 64, "train_zamba2-1.2b"),
+            ("mamba2-370m TP=2 shard", 16, 128, "train_mamba2_tp2")):
         case, err = ssd_timed_case(gen, 32, H, 256, 64, N, grid, model=model,
-                                   case_id=f"train_{model}")
+                                   case_id=case_id)
         max_err = max(max_err, err)
         train[model] = dict(case_summary(case, err), row_tile=case["row_tile"])
     return {"name": "ssd_scan", "route": "cuda",
@@ -1218,7 +1235,10 @@ def serve_groups_parity_phase(mods) -> dict:
 # the serving mesh (DESIGN.md §13): qwen2-1.5b at full width on a (dp, tp)
 # grid whose every position is the one card, against the meshless engine
 MESH_ARCH = "qwen2-1.5b"
+MESH_LAYERS = 8                             # qwen2's depth cut, of 28
 MESH_SSM_ARCH = "mamba2-370m"
+MESH_MOE_ARCH = "qwen2-moe-a2.7b"
+MESH_MOE_FP32_LAYERS = 4                    # its fp32 gate's depth cut
 MESH_SHAPES = ((2, 1), (1, 2), (2, 2))      # (tp, dp)
 MESH_REQUESTS = 8
 MESH_PROMPT_RANGE = (64, 512)
@@ -1338,11 +1358,143 @@ def mesh_kernel_case() -> dict:
                 ms_by_pages_per_split=case["ms_by_pages_per_split"])
 
 
+def mesh_weight_bytes(eng) -> list[dict]:
+    """Row 0's weight bytes by grid position: the lead's own copy of the
+    model (``lead_params``), then each position's attention heads,
+    experts and vocabulary rows, and the lead's expert bytes."""
+    from repro_torch.models.moe import EXPERT_KEYS
+    from repro_torch.tree import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    row = eng.rows[0]
+    out = [{"lead_params": 0, "attention": 0, "experts": 0, "vocab": 0}
+           for _ in row.devices]
+    out[0]["lead_params"] = nbytes(row.params)
+    out[0]["lead_experts"] = sum(
+        nbytes(p["moe"][k]) for p in row.params["layers"] if "moe" in p
+        for k in EXPERT_KEYS if k in p["moe"])
+    if len(row.shards) > 1:        # one shard holds the lead's own heads
+        for i, sh in enumerate(row.shards):
+            out[i]["attention"] = nbytes(sh.attn)
+    for _, shards in row.split.experts.values():
+        for i, (p_s, _) in enumerate(shards):
+            out[i]["experts"] += nbytes(p_s)
+    for i, (rows, _, _) in enumerate(row.split.vocab or []):
+        out[i]["vocab"] = nbytes(rows)
+    return out
+
+
+def serve_mesh_moe(mods, prompts) -> tuple[dict, list, int]:
+    """qwen2-moe-a2.7b at TP=2 against no mesh: its experts split 30 / 30
+    and its vocabulary in halves.  fp32 at ``MESH_MOE_FP32_LAYERS``
+    layers: streams equal to the meshless run's, paged launches decode
+    steps x layers x 2, 8 teacher-forced decode steps' logits reported
+    beside the meshless ones; bf16 at full depth: tok/s of both, each
+    position's weight bytes, the lead holding no expert, each position's
+    expert bytes the specs'.  Returns ``(line, failures, paged
+    launches)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import EXPERT_KEYS
+    from repro_torch.parallel import DEFAULT_RULES, ShardingRules
+    from repro_torch.parallel.partition import spec_bytes
+    from repro_torch.serve.mesh import MeshSpec, build_serve_mesh
+    from repro_torch.weights import init_params
+
+    failures, paged = [], 0
+    cfg = dataclasses.replace(get_config(MESH_MOE_ARCH),
+                              n_layers=MESH_MOE_FP32_LAYERS,
+                              compute_dtype="float32")
+    prompts = [p % cfg.vocab_size for p in prompts]
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(28),
+                         DEV)
+    fp32 = {}
+    for name, shape in (("none", None), ("2,1", (2, 1))):
+        eng = mesh_engine(cfg, params, shape)
+        run = mesh_run(eng, prompts, mods, 1)
+        chunk, decode, fed = mesh_teacher_forced(
+            eng, prompts, None if name == "none" else fp32["none"]["fed"])
+        fp32[name] = {**run, "chunk": chunk, "decode": decode, "fed": fed}
+        paged += run["launches"]["paged_attention"]
+        want = run["decode_steps"] * cfg.n_layers * (1 if shape is None
+                                                     else 2)
+        if run["launches"]["paged_attention"] != want:
+            failures.append(f"{cfg.name} fp32 {name}: paged launches "
+                            f"{run['launches']['paged_attention']} != "
+                            f"{want}")
+        del eng
+    ref, tp2 = fp32["none"], fp32["2,1"]
+    scale = float(ref["decode"].abs().max())
+    line = {"model": cfg.name, "fp32": {
+        "layers": cfg.n_layers,
+        **{name: {k: r[k] for k in ("decode_steps", "chunk_calls",
+                                    "launches", "wall_s", "tok_per_s")}
+           for name, r in fp32.items()},
+        "streams_equal": tp2["streams"] == ref["streams"],
+        "chunk_max_rel_logit_err": float(
+            (tp2["chunk"] - ref["chunk"]).abs().max()) / scale,
+        "decode_max_rel_logit_err": float(
+            (tp2["decode"] - ref["decode"]).abs().max()) / scale}}
+    if not line["fp32"]["streams_equal"]:
+        failures.append(f"{cfg.name} fp32 TP=2: streams differ")
+    del fp32, ref, tp2, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config(MESH_MOE_ARCH)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(28),
+                         DEV, cast=True)
+    experts = {"layers": [{"moe": {k: p["moe"][k] for k in EXPERT_KEYS}}
+                          for p in params["layers"]]}
+    row_mesh = build_serve_mesh(MeshSpec(2, 1), devices=[torch.device(DEV)]
+                                * 2)
+    want_experts = spec_bytes(experts, ShardingRules(row_mesh,
+                                                     dict(DEFAULT_RULES)))
+    del experts
+    bf16 = {}
+    for name, shape in (("none", None), ("2,1", (2, 1))):
+        eng = mesh_engine(cfg, params, shape)
+        if shape is not None:
+            del params           # the lead keeps no expert: free the drawn
+            gc.collect()         # ones, the positions hold their copies
+            torch.cuda.empty_cache()
+        mesh_run(eng, prompts[:2], mods, 1)             # warm-up
+        run = mesh_run(eng, prompts, mods, 1)
+        paged += run["launches"]["paged_attention"]
+        bf16[name] = {**{k: run[k] for k in ("decode_steps", "launches",
+                                             "wall_s", "tok_per_s",
+                                             "ttft_p50_s")},
+                      "streams": run["streams"],
+                      "weight_bytes_by_position": mesh_weight_bytes(eng),
+                      "memory_allocated_gib":
+                          torch.cuda.memory_allocated() / 2**30}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    by_pos = bf16["2,1"]["weight_bytes_by_position"]
+    line["bf16"] = {
+        "layers": cfg.n_layers, "expert_spec_bytes": want_experts,
+        **{name: {k: v for k, v in r.items() if k != "streams"}
+           for name, r in bf16.items()},
+        "streams_equal_to_no_mesh": sum(
+            bf16["2,1"]["streams"][rid] == toks
+            for rid, toks in bf16["none"]["streams"].items())}
+    if by_pos[0]["lead_experts"]:
+        failures.append(f"{cfg.name} TP=2: the lead holds "
+                        f"{by_pos[0]['lead_experts']} bytes of experts")
+    if [p["experts"] for p in by_pos] != [want_experts] * 2:
+        failures.append(f"{cfg.name} TP=2: expert bytes "
+                        f"{[p['experts'] for p in by_pos]}, the specs' "
+                        f"{want_experts}")
+    return line, failures, paged
+
+
 def serve_mesh_phase(mods) -> dict:
     """The serving mesh on the card, every grid position on it
     (``devices=[cuda:0] * size``), against the meshless engine:
 
-    * qwen2-1.5b (28 layers) in fp32 compute (TF32 off) at TP=2, DP=2 and
+    * qwen2-1.5b (8 of its 28 layers, ``MESH_LAYERS``; its vocabulary
+      split at TP=2) in fp32 compute (TF32 off) at TP=2, DP=2 and
       TP=2 x DP=2: MESH_REQUESTS prompts of 64-512 tokens (numpy seed 28),
       MESH_NEW greedy tokens through ``ServeScheduler`` with ``dp`` device
       groups — streams equal to the meshless run's, every request its
@@ -1354,6 +1506,9 @@ def serve_mesh_phase(mods) -> dict:
     * bf16 compute: a 1 x 1 mesh's streams and teacher-forced logits
       bit-equal to no mesh; TP=2's tok/s and stream agreement beside the
       meshless run's, reported (partial sums in bf16 may flip a token);
+    * qwen2-moe-a2.7b at TP=2 (``serve_mesh_moe``): fp32 streams at 4
+      layers equal to the meshless run's; bf16 at full depth: tok/s, each
+      position's weight bytes, no expert on the lead;
     * mamba2-370m (48 layers, fp32) at DP=2: streams equal to the
       meshless run's, the SSD kernel launched chunk calls x 48 times.
 
@@ -1372,7 +1527,8 @@ def serve_mesh_phase(mods) -> dict:
     failures = []
 
     # fp32: every mesh against no mesh
-    cfg = dataclasses.replace(get_config(MESH_ARCH), compute_dtype="float32")
+    cfg = dataclasses.replace(get_config(MESH_ARCH), compute_dtype="float32",
+                              n_layers=MESH_LAYERS)
     n_layers = cfg.n_layers
     prompts = [rng.integers(0, cfg.vocab_size - 1, (int(n),)).astype(
         np.int32) for n in lens]
@@ -1432,7 +1588,7 @@ def serve_mesh_phase(mods) -> dict:
     torch.cuda.empty_cache()
 
     # bf16: a 1 x 1 mesh is no mesh, bit for bit; TP=2 reported
-    cfg = get_config(MESH_ARCH)
+    cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_LAYERS)
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(28),
                          DEV, cast=True)
     bf16 = {}
@@ -1470,6 +1626,12 @@ def serve_mesh_phase(mods) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    out["moe"], fails, n = serve_mesh_moe(mods, prompts)
+    failures += fails
+    total["paged_attention"] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # mamba2-370m at DP=2: the SSD kernel on each row's chunks
     cfg = dataclasses.replace(get_config(MESH_SSM_ARCH),
                               compute_dtype="float32")
@@ -1499,7 +1661,9 @@ def serve_mesh_phase(mods) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    emit("serve_mesh", model=MESH_ARCH, layers=n_layers, batch=8,
+    emit("serve_mesh", model=MESH_ARCH, layers=n_layers,
+         depth_cut=f"{n_layers} of {get_config(MESH_ARCH).n_layers}",
+         batch=8,
          page_size=16,
          prefill_chunk=256, max_len=MESH_MAX_LEN, requests=MESH_REQUESTS,
          max_new=MESH_NEW, teacher_forced_steps=MESH_TF_STEPS,
@@ -3730,6 +3894,11 @@ TRAIN_MESH_PARAM_TOL = 1e-5      # of max|param|, after 2 fp32 steps
 # 1e-8 AdamW steps them by about ±lr in the direction of their rounding
 # noise (tests/test_torch_train_families.py)
 TRAIN_MESH_CHECK_EPS = 1e-6
+# the model axis beyond attention and MLPs, at TP=2: (arch, depth cut)
+TRAIN_MESH_MOE = ("qwen2-moe-a2.7b", 2)     # experts split 30 / 30
+TRAIN_MESH_SSM = ("mamba2-370m", 8)         # SSD heads split 16 / 16
+TRAIN_MESH_FP32_FAMILIES = (("qwen2-moe-a2.7b", 2), ("mamba2-370m", 2))
+TRAIN_MESH_FP32_SEQ = 1024
 
 
 def _mesh_of(data: int, model: int):
@@ -3738,31 +3907,14 @@ def _mesh_of(data: int, model: int):
                           devices=[torch.device(DEV)] * (data * model))
 
 
-def _host_state(cfg, spec, seed: int = 0):
-    """A fresh state drawn on the card from a seeded generator, as host
-    copies ``(params, opt_state)``: every run of a comparison starts from
-    them."""
-    from repro_torch.train import TrainState
-    from repro_torch.tree import tree_map
+def _fresh_state(cfg, spec, mesh=None, seed: int = 0):
+    """A fresh state drawn on the card from a seeded generator (the same
+    values on every call: the runs of a comparison start from it),
+    placed on ``mesh`` when one is given (the drawn copy freed after)."""
+    from repro_torch.train import TrainState, shard_state
     state = TrainState.create(
         cfg, spec, torch.Generator(device=DEV).manual_seed(seed), DEV)
-    host = (tree_map(lambda t: t.cpu(), state.params),
-            tree_map(lambda t: t.cpu(), state.opt_state))
-    del state
-    torch.cuda.empty_cache()
-    return host
-
-
-def _state_on(host, mesh):
-    """A state on ``mesh`` (None: on the card, no mesh) from host copies."""
-    from repro_torch.train import TrainState, shard_state
-    from repro_torch.tree import tree_map
-    params, opt = host
-    if mesh is None:
-        return TrainState(
-            params=tree_map(lambda t: t.to(DEV, copy=True), params),
-            opt_state=tree_map(lambda t: t.to(DEV, copy=True), opt))
-    return shard_state(TrainState(params=params, opt_state=opt), mesh)
+    return state if mesh is None else shard_state(state, mesh)
 
 
 def mesh_state_bytes(state, mesh) -> dict:
@@ -3775,152 +3927,249 @@ def mesh_state_bytes(state, mesh) -> dict:
                 mesh, dict(DEFAULT_RULES)), kind="state")}
 
 
-def train_mesh_phase(mods) -> dict:
-    """qwen2-1.5b trained at full width on the training mesh, every
-    position on the card: TP=2, DP=2, TP=2 x DP=2 (``TRAIN_MESH_SHAPES``),
-    each from the meshless run's initial state and batches.  Per grid:
-    step 1's loss, grad norm and gradient leaves against the meshless step
-    1 (``step1_ok``), then ``TRAIN_MESH_STEPS`` steps with the flash
-    counts set to 0 just before and read just after (forward steps x 2 x
-    28 x 2 x tp x dp, backward steps x 2 x 28 x tp x dp), each position's
-    state bytes against the specs', step s, tokens/s and peak memory.
-    Then each grid's 4-layer fp32-compute run against its meshless run
-    (parameters within ``TRAIN_MESH_PARAM_TOL`` of max|param| after 2
-    steps).  Returns the launches of each grid's run."""
-    from repro_torch.configs import get_config
-    from repro_torch.optim import OptimizerSpec, global_norm
-    from repro_torch.parallel.partition import gather_tree
-    from repro_torch.train import (compute_grads, compute_grads_mesh,
-                                   make_train_step)
-    from repro_torch.tree import tree_leaves, tree_paths
+def _mesh_reference(cfg, spec, batch):
+    """The meshless step 1 of a fresh state (``_fresh_state``): ``{"loss",
+    "gnorm", "grads": [(path, gradient on the host)]}``."""
+    from repro_torch.optim import global_norm
+    from repro_torch.train import compute_grads
+    from repro_torch.tree import tree_paths
 
-    t_phase = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(TRAIN_ARCH)
-    spec = OptimizerSpec(kind="adamw", lr=TRAIN_LR)
-    batches = train_batches(cfg, TRAIN_MESH_STEPS)
-    tokens = batches[0]["tokens"].numel()
-    host = _host_state(cfg, spec)
-    state = _state_on(host, None)
-    grads, loss_ref, _ = compute_grads(cfg, state.params, batches[0],
-                                       accum=TRAIN_ACCUM)
-    gnorm_ref = float(global_norm(grads))
-    loss_ref = float(loss_ref)
-    grads_ref = [(path, g.cpu()) for path, g in tree_paths(grads)]
+    state = _fresh_state(cfg, spec)
+    grads, loss, _ = compute_grads(cfg, state.params, batch,
+                                   accum=TRAIN_ACCUM)
+    ref = {"loss": float(loss), "gnorm": float(global_norm(grads)),
+           "grads": [(path, g.cpu()) for path, g in tree_paths(grads)]}
     del state, grads
     gc.collect()
     torch.cuda.empty_cache()
-    n_attn, _ = train_counts(cfg)
-    out, failures, lines = {}, [], []
-    for data, model in TRAIN_MESH_SHAPES:
-        t_run = time.perf_counter()
-        mesh = _mesh_of(data, model)
-        tag = f"TP={model} x DP={data}"
-        state = _state_on(host, mesh)
-        torch.cuda.reset_peak_memory_stats()
-        grads, loss, _ = compute_grads_mesh(cfg, state.params, batches[0],
-                                            mesh, accum=TRAIN_ACCUM)
-        gnorm = float(global_norm(grads))
-        rel = {}
-        for (path, want), got in zip(grads_ref, tree_leaves(grads)):
-            want = want.to(DEV)
-            scale = float(want.abs().max())
-            diff = float((got.gather() - want).abs().max())
-            rel[path] = (diff / scale if scale else
-                         0.0 if diff == 0 else math.inf)
-        del grads, want
-        torch.cuda.empty_cache()
-        worst = sorted(rel, key=rel.get, reverse=True)[:5]
-        gaps = {"grad_leaf_rel_err": max(rel.values()),
-                "grad_head_leaf_rel_err": None,
-                "grad_leaf_worst": {p: rel[p] for p in worst}}
-        loss_err = abs(float(loss) - loss_ref) / abs(loss_ref)
-        gnorm_err = abs(gnorm - gnorm_ref) / gnorm_ref
+    return ref
+
+
+def expert_bytes(state, mesh) -> dict:
+    """Each position's bytes of the expert tensors (parameters and AdamW
+    moments) against the specs' shard bytes."""
+    from repro_torch.models.moe import EXPERT_KEYS
+    from repro_torch.parallel import DEFAULT_RULES, ShardingRules
+    from repro_torch.parallel.partition import position_bytes, spec_bytes
+
+    def experts(tree):
+        return {"layers": [{"moe": {k: p["moe"][k] for k in EXPERT_KEYS}}
+                           for p in tree["layers"] if "moe" in p]}
+    tree = {"params": experts(state.params),
+            "opt_state": {k: experts(v) for k, v in state.opt_state.items()
+                          if isinstance(v, dict) and "layers" in v}}
+    return {"expert_position_bytes": position_bytes(tree),
+            "expert_spec_bytes": spec_bytes(tree, ShardingRules(
+                mesh, dict(DEFAULT_RULES)), kind="state")}
+
+
+def mesh_grid_run(cfg, spec, ref, batches, data, model, mods,
+                  phase) -> tuple[dict, list, dict]:
+    """One grid of a training-mesh case: step 1's loss, grad norm and
+    gradient leaves against the meshless step 1 (``step1_ok``; the
+    Mamba-2 mixer's per-head scalars at ``TRAIN_HEAD_LEAF_TOL``), then
+    ``len(batches)`` steps with the counts set to 0 just before and read
+    just after: the flash forward steps x 2 x attention layers x 2 x tp x
+    dp, its backward steps x 2 x attention layers x tp x dp, SSD steps x
+    2 x SSM layers x 2 x tp x dp (each head shard runs its own scan), each
+    position's state bytes against the specs'.  Emits ``phase`` and
+    returns ``(line, failures, launches)``."""
+    from repro_torch.optim import global_norm
+    from repro_torch.train import compute_grads_mesh, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    t_run = time.perf_counter()
+    mesh = _mesh_of(data, model)
+    tag = f"TP={model} x DP={data}"
+    state = _fresh_state(cfg, spec, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    grads, loss, _ = compute_grads_mesh(cfg, state.params, batches[0],
+                                        mesh, accum=TRAIN_ACCUM)
+    gnorm = float(global_norm(grads))
+    rel = {}
+    for (path, want), got in zip(ref["grads"], tree_leaves(grads)):
+        want = want.to(DEV)
+        scale = float(want.abs().max())
+        diff = float((got.gather() - want).abs().max())
+        rel[path] = (diff / scale if scale else
+                     0.0 if diff == 0 else math.inf)
+    del grads, want
+    torch.cuda.empty_cache()
+    head = [p for p in rel if p.rsplit("/", 1)[-1] in TRAIN_HEAD_LEAVES]
+    worst = sorted(rel, key=rel.get, reverse=True)[:5]
+    gaps = {"grad_leaf_rel_err": max(v for p, v in rel.items()
+                                     if p not in head),
+            "grad_head_leaf_rel_err": max((rel[p] for p in head),
+                                          default=None),
+            "grad_leaf_worst": {p: rel[p] for p in worst}}
+    loss_err = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+    gnorm_err = abs(gnorm - ref["gnorm"]) / ref["gnorm"]
+    step = make_train_step(cfg, spec, grad_accum=TRAIN_ACCUM, mesh=mesh)
+    secs, losses, gnorms = [], [], []
+    reset_launches(mods)
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss_total"]))
+        gnorms.append(float(m["grad_norm"]))
+    launches = read_launches(mods)
+    n_attn, n_ssm = train_counts(cfg)
+    micro = len(batches) * TRAIN_ACCUM * model * data
+    want_launches = {"flash_attention": micro * n_attn * 2,
+                     "flash_attention_bwd": micro * n_attn,
+                     "ssd_scan": micro * n_ssm * 2}
+    got_launches = {k: launches[k] for k in want_launches}
+    nbytes = mesh_state_bytes(state, mesh)
+    if cfg.is_moe:
+        nbytes.update(expert_bytes(state, mesh))
+    tokens = batches[0]["tokens"].numel()
+    line = dict(
+        model=cfg.name, mesh=tag, data=data, tp=model,
+        devices=[str(d) for d in mesh.flat], layers=cfg.n_layers,
+        seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, grad_accum=TRAIN_ACCUM,
+        steps=len(batches), step_s=secs, tokens_per_s=tokens / secs[-1],
+        loss=losses, grad_norm=gnorms,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        step1_loss=float(loss), meshless_step1_loss=ref["loss"],
+        loss_rel_err=loss_err, loss_tol=TRAIN_LOSS_TOL,
+        step1_grad_norm=gnorm, meshless_step1_grad_norm=ref["gnorm"],
+        grad_norm_rel_err=gnorm_err, grad_norm_tol=TRAIN_GNORM_TOL,
+        grad_leaf_tol=TRAIN_LEAF_TOL, grad_head_leaf_tol=TRAIN_HEAD_LEAF_TOL,
+        **gaps, launches=got_launches, launches_expected=want_launches,
+        **nbytes)
+    failures = []
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        failures.append(f"{cfg.name} {tag}: losses or grad norms not "
+                        f"finite")
+    if not step1_ok(loss_err, gnorm_err, gaps):
+        failures.append(f"{cfg.name} {tag}: step 1 against no mesh: loss "
+                        f"{loss_err}, grad norm {gnorm_err}, leaves "
+                        f"{gaps['grad_leaf_worst']}")
+    if got_launches != want_launches:
+        failures.append(f"{cfg.name} {tag}: launches {got_launches}, "
+                        f"expected {want_launches}")
+    if nbytes["position_bytes"] != [nbytes["spec_bytes"]] * mesh.size:
+        failures.append(f"{cfg.name} {tag}: position bytes {nbytes}")
+    if cfg.is_moe and nbytes["expert_position_bytes"] \
+            != [nbytes["expert_spec_bytes"]] * mesh.size:
+        failures.append(f"{cfg.name} {tag}: expert bytes {nbytes}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t_run
+    emit(phase, **line)
+    return line, failures, got_launches
+
+
+def mesh_fp32_parity(cfg, spec, shapes, seq: int) -> dict:
+    """``cfg`` in fp32 compute, 2 steps on no mesh and on each grid of
+    ``shapes`` from one initial state and batch stream (global batch
+    ``TRAIN_BATCH``, sequences of ``seq``): each grid's final parameters'
+    max|Δ| / max|param| against no mesh's, and that scale."""
+    from repro_torch.data import DataConfig, SyntheticLMStream, to_device
+    from repro_torch.parallel.partition import gather_tree
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    stream = SyntheticLMStream(cfg, DataConfig(
+        seed=0, global_batch=TRAIN_BATCH, seq_len=seq))
+    batches = [to_device(stream.batch(s), DEV)
+               for s in range(TRAIN_MESH_STEPS)]
+    ref, errs = None, {}
+    for shape in (None, *shapes):
+        mesh = None if shape is None else _mesh_of(*shape)
+        state = _fresh_state(cfg, spec, mesh)
         step = make_train_step(cfg, spec, grad_accum=TRAIN_ACCUM, mesh=mesh)
-        secs, losses, gnorms = [], [], []
-        reset_launches(mods)
         for b in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step(state, b)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            losses.append(float(m["loss_total"]))
-            gnorms.append(float(m["grad_norm"]))
-        launches = read_launches(mods)
-        scale = TRAIN_MESH_STEPS * TRAIN_ACCUM * n_attn * model * data
-        want_launches = {"flash_attention": scale * 2,
-                         "flash_attention_bwd": scale}
-        got_launches = {k: launches[k] for k in want_launches}
-        nbytes = mesh_state_bytes(state, mesh)
-        line = dict(
-            mesh=tag, data=data, tp=model, devices=[str(d) for d in
-                                                    mesh.flat],
-            layers=cfg.n_layers, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-            grad_accum=TRAIN_ACCUM, steps=TRAIN_MESH_STEPS, step_s=secs,
-            tokens_per_s=tokens / secs[-1], loss=losses, grad_norm=gnorms,
-            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
-            step1_loss=float(loss), meshless_step1_loss=loss_ref,
-            loss_rel_err=loss_err, loss_tol=TRAIN_LOSS_TOL,
-            step1_grad_norm=gnorm, meshless_step1_grad_norm=gnorm_ref,
-            grad_norm_rel_err=gnorm_err, grad_norm_tol=TRAIN_GNORM_TOL,
-            grad_leaf_tol=TRAIN_LEAF_TOL, **gaps, launches=got_launches,
-            launches_expected=want_launches, **nbytes)
-        if not all(math.isfinite(x) for x in losses + gnorms):
-            failures.append(f"{tag}: losses or grad norms not finite")
-        if not step1_ok(loss_err, gnorm_err, gaps):
-            failures.append(f"{tag}: step 1 against no mesh: loss "
-                            f"{loss_err}, grad norm {gnorm_err}, leaves "
-                            f"{gaps['grad_leaf_worst']}")
-        if got_launches != want_launches:
-            failures.append(f"{tag}: flash launches {got_launches}, "
-                            f"expected {want_launches}")
-        if nbytes["position_bytes"] != [nbytes["spec_bytes"]] * mesh.size:
-            failures.append(f"{tag}: position bytes {nbytes}")
+            state, _ = step(state, b)
+        final = tree_leaves(gather_tree(state.params))
         del state, step
+        if ref is None:
+            ref = final
+            pscale = max(float(t.abs().max()) for t in ref)
+        else:
+            errs[f"TP={shape[1]} x DP={shape[0]}"] = max(
+                float((a - b).abs().max()) for a, b in zip(final, ref)) \
+                / pscale
+        del final
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+    return {"param_rel_err": errs, "max_abs_param": pscale}
+
+
+def train_mesh_phase(mods) -> dict:
+    """The training mesh at full width, every position on the card, each
+    grid from the meshless run's initial state and batches
+    (``mesh_grid_run``: step 1 against the meshless step 1 at the
+    training gates, then ``TRAIN_MESH_STEPS`` steps with exact kernel
+    counts, position bytes against the specs', step s, tokens/s, peak
+    memory):
+
+    * ``train_mesh``: qwen2-1.5b at TP=2, DP=2, TP=2 x DP=2
+      (``TRAIN_MESH_SHAPES``); its embedding, logits and cross-entropy
+      split by vocabulary at TP=2;
+    * ``train_mesh_moe``: qwen2-moe-a2.7b at 2 of its 24 layers, TP=2: 30
+      of its 60 experts a position (each position's expert bytes the
+      specs');
+    * ``train_mesh_ssm``: mamba2-370m at 8 of its 48 layers, TP=2: 16 of
+      its 32 SSD heads a position, the SSD kernel launched steps x 2 x 8
+      x 2 x tp times;
+    * ``train_mesh_fp32``: fp32-compute runs against their meshless runs,
+      parameters after 2 steps within ``TRAIN_MESH_PARAM_TOL`` of
+      max|param|: qwen2 at 4 layers on every grid, qwen2-moe and mamba2
+      at 2 layers at TP=2 (sequences of ``TRAIN_MESH_FP32_SEQ``: their
+      fp32 activations at 4,096 do not fit beside the state).
+
+    Returns the launches of each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptimizerSpec
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = OptimizerSpec(kind="adamw", lr=TRAIN_LR)
+    out, failures = {}, []
+    cases = [("train_mesh", TRAIN_ARCH, None, TRAIN_MESH_SHAPES),
+             ("train_mesh_moe", *TRAIN_MESH_MOE, ((1, 2),)),
+             ("train_mesh_ssm", *TRAIN_MESH_SSM, ((1, 2),))]
+    for phase, arch, depth, shapes in cases:
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        batches = train_batches(cfg, TRAIN_MESH_STEPS)
+        ref = _mesh_reference(cfg, spec, batches[0])
+        for data, model in shapes:
+            _, fails, launches = mesh_grid_run(cfg, spec, ref, batches, data,
+                                               model, mods, phase)
+            failures += fails
+            out[f"{cfg.name} TP={model} x DP={data}"] = launches
+        del ref, batches
         gc.collect()
         torch.cuda.empty_cache()
-        line["seconds"] = time.perf_counter() - t_run
-        emit("train_mesh", model=cfg.name, **line)
-        lines.append(line)
-        out[tag] = got_launches
-    del host, grads_ref
-    gc.collect()
 
-    # the fp32 parity runs: 4 layers, 2 steps, each grid against no mesh
     t_run = time.perf_counter()
-    cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_MESH_CHECK_LAYERS,
-                               compute_dtype="float32")
-    spec4 = dataclasses.replace(spec, eps=TRAIN_MESH_CHECK_EPS)
-    batches4 = train_batches(cfg4, TRAIN_MESH_STEPS)
-    host = _host_state(cfg4, spec4)
-    finals = {}
-    for shape in (None, *TRAIN_MESH_SHAPES):
-        mesh = None if shape is None else _mesh_of(*shape)
-        state = _state_on(host, mesh)
-        step = make_train_step(cfg4, spec4, grad_accum=TRAIN_ACCUM,
-                               mesh=mesh)
-        for b in batches4:
-            state, _ = step(state, b)
-        finals[shape] = [t.cpu() for t in
-                         tree_leaves(gather_tree(state.params))]
-        del state, step
-        torch.cuda.empty_cache()
-    ref = finals.pop(None)
-    pscale = max(float(t.abs().max()) for t in ref)
-    parity = {f"TP={m} x DP={d}": max(float((a - b).abs().max())
-                                      for a, b in zip(finals[(d, m)], ref))
-              / pscale for d, m in TRAIN_MESH_SHAPES}
-    for tag, err in parity.items():
-        if not err <= TRAIN_MESH_PARAM_TOL:
-            failures.append(f"{tag}: fp32 parameters after "
-                            f"{TRAIN_MESH_STEPS} steps {err} of max|param| "
-                            f"from no mesh")
-    emit("train_mesh_fp32", model=cfg.name, layers=cfg4.n_layers,
-         compute_dtype="float32", eps=TRAIN_MESH_CHECK_EPS,
-         steps=TRAIN_MESH_STEPS, param_rel_err=parity,
-         tol=TRAIN_MESH_PARAM_TOL, max_abs_param=pscale,
-         seconds=time.perf_counter() - t_run,
+    spec32 = dataclasses.replace(spec, eps=TRAIN_MESH_CHECK_EPS)
+    parity = {}
+    for arch, depth, shapes, seq in (
+            (TRAIN_ARCH, TRAIN_MESH_CHECK_LAYERS, TRAIN_MESH_SHAPES,
+             TRAIN_SEQ),
+            *((arch, depth, ((1, 2),), TRAIN_MESH_FP32_SEQ)
+              for arch, depth in TRAIN_MESH_FP32_FAMILIES)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth,
+                                  compute_dtype="float32")
+        parity[cfg.name] = dict(mesh_fp32_parity(cfg, spec32, shapes, seq),
+                                layers=depth, seq=seq)
+        for tag, err in parity[cfg.name]["param_rel_err"].items():
+            if not err <= TRAIN_MESH_PARAM_TOL:
+                failures.append(f"{cfg.name} {tag}: fp32 parameters after "
+                                f"{TRAIN_MESH_STEPS} steps {err} of "
+                                f"max|param| from no mesh")
+    emit("train_mesh_fp32", compute_dtype="float32",
+         eps=TRAIN_MESH_CHECK_EPS, steps=TRAIN_MESH_STEPS, by_model=parity,
+         tol=TRAIN_MESH_PARAM_TOL, seconds=time.perf_counter() - t_run,
          phase_seconds=time.perf_counter() - t_phase, failures=failures)
     if failures:
         raise AssertionError(f"train_mesh: {failures}")
@@ -4621,13 +4870,15 @@ def main() -> int:
                    (ssd_entry, "ssd_scan")):
         e["launches_train_families"] = {m: n[key]
                                         for m, n in trained.items()}
-    # the training mesh: qwen2-1.5b on TP=2, DP=2, TP=2 x DP=2 (counts
-    # read per grid)
+    # the training mesh: qwen2-1.5b on TP=2, DP=2, TP=2 x DP=2, qwen2-moe
+    # and mamba2 at TP=2 (counts read per grid)
     mesh_trained = train_mesh_phase(mods)
     for e, key in ((fa_entry, "flash_attention"),
-                   (fa_bwd_entry, "flash_attention_bwd")):
+                   (fa_bwd_entry, "flash_attention_bwd"),
+                   (ssd_entry, "ssd_scan")):
         e["launches_train_mesh"] = {m: n[key]
-                                    for m, n in mesh_trained.items()}
+                                    for m, n in mesh_trained.items()
+                                    if n[key]}
     train_hypar_phase(mods)
     train_proc_phase()
     train_launcher_phase(mods)

@@ -429,12 +429,16 @@ def attention_tp(shards, x: torch.Tensor, *, caches: list, positions,
     positions and a tensor ``cache_len`` moved there), and the partial
     output projections are summed in shard order on x's device (shard 0's
     carries o's bias); one shard is ``attention`` itself.  The other
-    keywords go to ``attention``.  Returns ``(out, [(kt, vt) of each shard
-    on its device])`` for the caller to write into the shards' pools."""
+    keywords go to ``attention``, a cross-attention's ``kv_x`` moved to
+    each shard's device.  Returns ``(out, [(kt, vt) of each shard on its
+    device])`` for the caller to write into the shards' pools."""
     outs, kvs = [], []
+    kv_x = kw.pop("kv_x", None)
     for (cfg_s, p_s, dev), cache in zip(shards, caches, strict=True):
         clen = (cache_len.to(dev) if isinstance(cache_len, torch.Tensor)
                 else cache_len)
+        if kv_x is not None:
+            kw["kv_x"] = kv_x.to(dev)
         out, kv = attention(cfg_s, p_s, x.to(dev),
                             positions=positions.to(dev), cache=cache,
                             cache_len=clen, **kw)

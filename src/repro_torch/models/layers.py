@@ -14,12 +14,14 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.partition import model_axis_dim
 from .config import ModelConfig
 
 __all__ = [
     "DTYPES", "dtype_of", "init_norm", "apply_norm", "init_mlp", "apply_mlp",
     "split_mlp", "apply_mlp_tp",
-    "init_embedding", "embed", "unembed", "rope_freqs", "apply_rope",
+    "init_embedding", "embed", "unembed", "vocab_split", "split_vocab",
+    "embed_tp", "unembed_tp", "rope_freqs", "apply_rope",
     "init_dense", "dense", "truncated_normal", "cast_weights",
 ]
 
@@ -205,6 +207,57 @@ def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     cd = dtype_of(cfg.compute_dtype)
     table = p.get("unembed", p["table"])
     return x.to(cd) @ table.to(cd).T
+
+
+def vocab_split(p: dict, n: int) -> bool:
+    """Whether ``n`` tensor-parallel positions split the embedding (``p``)
+    by ``vocab``: where the table's spec puts ``model`` on its rows (an
+    untied ``unembed`` has the table's shape and spec)."""
+    return "table" in p and model_axis_dim(("embed", "table"),
+                                           p["table"].shape, n) == 0
+
+
+def split_vocab(p: dict, n: int, i: int) -> tuple[dict, int]:
+    """Shard ``i`` of ``n`` of the embedding, split by ``vocab``: rows
+    ``[lo, hi)`` (``lo = i·V/n``) of the table, and of ``unembed`` where
+    the tables are not tied, as views.  Returns ``(rows, lo)``."""
+    V = p["table"].shape[0]
+    if V % n or not 0 <= i < n:
+        raise ValueError(f"shard {i} of {n} does not split a vocabulary "
+                         f"of {V}")
+    lo, hi = i * V // n, (i + 1) * V // n
+    return {k: t[lo:hi] for k, t in p.items()}, lo
+
+
+def embed_tp(cfg: ModelConfig, shards, tokens: torch.Tensor) -> torch.Tensor:
+    """:func:`embed` over vocab shards (``[(rows, lo, device), ...]`` in
+    shard order, :func:`split_vocab`): each shard gathers the tokens in
+    its row range and zero elsewhere, in the table's dtype, then casts;
+    the parts are summed in shard order on ``tokens``' device (exact:
+    one term of a token is nonzero), and ``embed_scale`` is applied after
+    the sum.  The gradient of each shard's rows accumulates in their
+    dtype, as :func:`embed`'s does."""
+    cd = dtype_of(cfg.compute_dtype)
+    x = None
+    for rows, lo, dev in shards:
+        t = tokens.to(dev).long() - lo
+        table = rows["table"]
+        inside = ((t >= 0) & (t < table.shape[0]))[..., None]
+        part = torch.where(inside, table[t.clamp(0, table.shape[0] - 1)],
+                           torch.zeros((), dtype=table.dtype, device=dev))
+        part = part.to(cd).to(tokens.device)
+        x = part if x is None else x + part
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
+    return x
+
+
+def unembed_tp(cfg: ModelConfig, shards, x: torch.Tensor) -> list:
+    """:func:`unembed` over vocab shards: each shard's logits (..., V/n)
+    over its rows, on its device, in shard order."""
+    cd = dtype_of(cfg.compute_dtype)
+    return [x.to(dev).to(cd) @ rows.get("unembed", rows["table"]).to(cd).T
+            for rows, _, dev in shards]
 
 
 def cast_weights(params, compute_dtype: torch.dtype):

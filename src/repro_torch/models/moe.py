@@ -21,6 +21,19 @@ and combines on its own):
 ``apply_moe`` returns ``(out, aux)``; with ``sums=True`` its ``aux`` is
 the sums the loss is made of (``transformer.loss_from_sums``), for a
 batch split over the data rows of a training mesh.
+
+Over a row's tensor-parallel positions (``tp=``, :func:`split_experts`)
+the three expert products split where the expert tensors' spec puts
+``model`` (:func:`expert_axis`): by ``experts`` (expert parallel: each
+position runs its experts' slice of the (E, rows x C, d) buffer, and the
+outputs are concatenated in expert order; experts never mix, so nothing
+is summed), or, where the experts do not divide, by ``d_ff`` (each
+position runs every expert's slice of ``d_ff``, and the partial ``down``
+outputs are summed in shard order).  The router, the capacity, the
+dispatch gathers, the shared experts and the sums stay on x's device.
+The reference stores the experts by ``experts`` too but constrains the
+hidden over ``d_ff`` and leaves the compute's placement to GSPMD; the
+values are the same.
 """
 from __future__ import annotations
 
@@ -29,11 +42,16 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.partition import model_axis_dim
 from .config import ModelConfig
 from .layers import (_act, apply_mlp, dtype_of, init_dense, init_mlp,
                      truncated_normal)
 
-__all__ = ["init_moe", "apply_moe", "moe_capacity"]
+__all__ = ["init_moe", "apply_moe", "moe_capacity", "expert_axis",
+           "split_experts", "EXPERT_KEYS"]
+
+#: the expert tensors, (E, d, ff) / (E, d, ff) / (E, ff, d)
+EXPERT_KEYS = ("gate", "up", "down")
 
 
 def init_moe(generator, cfg: ModelConfig, device) -> dict:
@@ -68,6 +86,67 @@ def moe_capacity(cfg: ModelConfig, S: int,
     return min(C, S)
 
 
+def expert_axis(p: dict, n: int) -> str | None:
+    """How ``n`` tensor-parallel positions split a MoE block's experts
+    (``p`` its ``moe`` params): ``"experts"`` where the expert tensors'
+    spec puts ``model`` on the expert axis, ``"d_ff"`` where it falls to
+    ``d_ff`` (the experts do not divide), None where neither divides."""
+    dim = model_axis_dim(("moe", "gate"), p["gate"].shape, n)
+    return {0: "experts", 2: "d_ff"}.get(dim)
+
+
+def split_experts(p: dict, n: int, i: int, axis: str) -> dict:
+    """Shard ``i`` of ``n`` of a MoE block's expert tensors (views of
+    ``p``): experts ``[i·E/n, (i+1)·E/n)`` whole under ``axis="experts"``,
+    or every expert's ``d_ff`` columns of ``gate``/``up`` and rows of
+    ``down`` ``[i·ff/n, (i+1)·ff/n)`` under ``"d_ff"``."""
+    E, _, ff = p["gate"].shape
+    size = E if axis == "experts" else ff
+    if axis not in ("experts", "d_ff") or size % n or not 0 <= i < n:
+        raise ValueError(f"shard {i} of {n} does not split {axis} "
+                         f"({E} experts, d_ff {ff})")
+    lo, hi = i * size // n, (i + 1) * size // n
+    if axis == "experts":
+        return {k: p[k][lo:hi] for k in EXPERT_KEYS}
+    return {"gate": p["gate"][:, :, lo:hi], "up": p["up"][:, :, lo:hi],
+            "down": p["down"][:, lo:hi]}
+
+
+def _experts(cfg: ModelConfig, p: dict, buf: torch.Tensor) -> torch.Tensor:
+    """The gated expert MLPs over every expert's buffer: (E, rows, d) ->
+    (E, rows, d) in the compute dtype."""
+    cd = dtype_of(cfg.compute_dtype)
+    h = _act(cfg.act, torch.bmm(buf, p["gate"].to(cd))) \
+        * torch.bmm(buf, p["up"].to(cd))
+    return torch.bmm(h, p["down"].to(cd))
+
+
+def _experts_tp(cfg: ModelConfig, tp, buf: torch.Tensor) -> torch.Tensor:
+    """:func:`_experts` over tensor-parallel shards: ``tp`` is ``(axis,
+    [(expert tensors, device), ...])`` in shard order.  Under
+    ``"experts"`` each shard runs its experts' rows of ``buf`` (moved to
+    its device) and the outputs are concatenated in expert order on
+    ``buf``'s device; under ``"d_ff"`` each runs the whole buffer and the
+    partial outputs are summed in shard order there."""
+    axis, shards = tp
+    if axis == "experts":
+        parts, lo = [], 0
+        for p_s, dev in shards:
+            hi = lo + p_s["gate"].shape[0]
+            parts.append(_experts(cfg, p_s, buf[lo:hi].to(dev))
+                         .to(buf.device))
+            lo = hi
+        if lo != buf.shape[0]:
+            raise ValueError(f"expert shards hold {lo} of {buf.shape[0]} "
+                             f"experts")
+        return torch.cat(parts)
+    out = None
+    for p_s, dev in shards:
+        part = _experts(cfg, p_s, buf.to(dev)).to(buf.device)
+        out = part if out is None else out + part
+    return out
+
+
 def _route(cfg: ModelConfig, p: dict, x: torch.Tensor, C: int):
     """The router, per row: ``(probs (B, S, E) fp32, gates (B, S, K)
     renormalised, experts (B, S, K), slot (B, S·K), keep (B, S·K))`` —
@@ -90,12 +169,16 @@ def _route(cfg: ModelConfig, p: dict, x: torch.Tensor, C: int):
 
 
 def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-              capacity_factor: float | None = None, sums: bool = False):
+              capacity_factor: float | None = None, sums: bool = False,
+              tp=None):
     """x: (B, S, d) -> ``(out (B, S, d) in the compute dtype, aux fp32
     scalar)``.  ``sums``: ``aux`` is instead ``(Σ router probabilities,
     Σ top-1 one-hots)`` over the B·S tokens, each (E,) fp32: the
     load-balancing loss of several row slices of one batch is ``E · Σ
-    (Σ_rows probs / N) · (Σ_rows one-hots / N)``, N their tokens."""
+    (Σ_rows probs / N) · (Σ_rows one-hots / N)``, N their tokens.
+    ``tp``: ``(axis, [(expert tensors, device), ...])``, the expert
+    products split over tensor-parallel shards (:func:`_experts_tp`); ``p``
+    then needs no expert tensors of its own."""
     cd = dtype_of(cfg.compute_dtype)
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -112,9 +195,8 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         1, table[:, :E * C, None].expand(-1, -1, d))            # (B, EC, d)
     # every expert's buffer over the batch rows: (E, B*C, d)
     buf = gathered.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
-    h = _act(cfg.act, torch.bmm(buf, p["gate"].to(cd))) \
-        * torch.bmm(buf, p["up"].to(cd))
-    out_e = torch.bmm(h, p["down"].to(cd))                      # (E, BC, d)
+    out_e = (_experts(cfg, p, buf) if tp is None
+             else _experts_tp(cfg, tp, buf))                    # (E, BC, d)
     flat_out = out_e.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
     # each (token, choice) reads its slot; a dropped pair the zero row
     flat_out = torch.cat([flat_out, flat_out.new_zeros((B, 1, d))], dim=1)

@@ -21,12 +21,14 @@ import torch.nn.functional as F
 
 from ..kernels.runtime import resolve_impl
 from ..kernels.ssd_scan import ssd_intra_chunk
+from ..parallel.partition import model_axis_dim
 from .config import ModelConfig
 from .layers import apply_norm, dense, dtype_of, init_dense, init_norm, \
     truncated_normal
 
 __all__ = ["init_mamba2", "apply_mamba2", "mamba2_decode_step",
-           "init_ssm_cache", "ssd_chunked"]
+           "init_ssm_cache", "ssd_chunked", "ssm_head_split",
+           "split_mamba2", "apply_mamba2_tp"]
 
 
 def init_mamba2(generator: torch.Generator, cfg: ModelConfig,
@@ -165,25 +167,17 @@ def _causal_conv(x, w, b, hist=None):
     return out + b[None, None, :]
 
 
-def apply_mamba2(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-                 cache: dict | None = None, valid_len: int | None = None,
-                 impl: str = "auto"):
-    """Full Mamba-2 mixer over a prompt chunk.  x: (B, S, d).  Returns
-    ``(out (B, S, d), cache)``: the decode cache (conv tail + final SSD
-    state) a later chunk or decode step continues from.
-
-    ``cache``: continue from a prior chunk's decode cache — the causal conv
-    reads the cached ``conv`` tail as left context and the SSD scan starts
-    from the cached ``state`` (chunked prefill); None starts from zeros.
-    ``valid_len``: positions >= ``valid_len`` are right-padding: their
-    ``dt`` is forced to 0 so they decay nothing into the state, and the
-    returned conv tail is sliced at the true end.  ``impl`` goes to
-    :func:`ssd_chunked`."""
+def _mixer_core(cfg: ModelConfig, p: dict, x: torch.Tensor, *, di: int,
+                H: int, cache: dict | None, valid_len: int | None,
+                impl: str):
+    """The Mamba-2 mixer up to its gated norm, for ``H`` heads of
+    ``d_inner`` ``di`` (the whole mixer's, or a head shard's: its
+    ``in_proj`` columns are laid out ``[z, x, B, C, dt]`` either way).
+    Returns ``(y · silu(z) (B, S, di) in the compute dtype, conv tail,
+    final SSD state)``."""
     cd = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
-    di, N, H = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads
-    P = cfg.ssm_head_dim
-    W = cfg.ssm_conv
+    N, P, W = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_conv
 
     proj = dense(p["in_proj"], x, cd)
     z, xBC_raw, dt = torch.split(proj, [di, di + 2 * N, H], dim=-1)
@@ -213,13 +207,120 @@ def apply_mamba2(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                             initial_state=initial_state, impl=impl)
     y = y + xh.float().to(cd) * p["D"].to(cd)[None, None, :, None]
     y = y.reshape(B, S, di)
-    y = apply_norm(cfg, p["norm"], y * F.silu(z))
-    out = dense(p["out_proj"], y, cd)
     # rows of [hist, xBC] run from position -(W-1); the last W-1 real
     # inputs are rows [end, end + W - 1) with end the true length
     end = S if valid_len is None else int(valid_len)
     tail = torch.cat([hist, xBC_f32], dim=1)[:, end:end + W - 1, :]
+    return y * F.silu(z), tail, fstate
+
+
+def apply_mamba2(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                 cache: dict | None = None, valid_len: int | None = None,
+                 impl: str = "auto"):
+    """Full Mamba-2 mixer over a prompt chunk.  x: (B, S, d).  Returns
+    ``(out (B, S, d), cache)``: the decode cache (conv tail + final SSD
+    state) a later chunk or decode step continues from.
+
+    ``cache``: continue from a prior chunk's decode cache — the causal conv
+    reads the cached ``conv`` tail as left context and the SSD scan starts
+    from the cached ``state`` (chunked prefill); None starts from zeros.
+    ``valid_len``: positions >= ``valid_len`` are right-padding: their
+    ``dt`` is forced to 0 so they decay nothing into the state, and the
+    returned conv tail is sliced at the true end.  ``impl`` goes to
+    :func:`ssd_chunked`."""
+    cd = dtype_of(cfg.compute_dtype)
+    g, tail, fstate = _mixer_core(cfg, p, x, di=cfg.ssm_d_inner,
+                                  H=cfg.ssm_n_heads, cache=cache,
+                                  valid_len=valid_len, impl=impl)
+    y = apply_norm(cfg, p["norm"], g)
+    out = dense(p["out_proj"], y, cd)
     return out, {"conv": tail, "state": fstate}
+
+
+def ssm_head_split(cfg: ModelConfig, p: dict, n: int) -> bool:
+    """Whether ``n`` tensor-parallel positions split a mixer by head: where
+    the ``in_proj`` and ``out_proj`` specs put ``model`` on
+    ``ssm_inner``.  A split that the heads do not divide, or a mixer whose
+    gated norm is not an RMSNorm, raises instead of running whole."""
+    if (model_axis_dim(("mixer", "in_proj", "w"), p["in_proj"]["w"].shape,
+                       n) != 1
+            or model_axis_dim(("mixer", "out_proj", "w"),
+                              p["out_proj"]["w"].shape, n) != 0):
+        return False
+    if cfg.ssm_n_heads % n or cfg.norm != "rmsnorm":
+        raise ValueError(f"{cfg.name}: the specs split the SSM mixer over "
+                         f"{n} positions, which do not split its "
+                         f"{cfg.ssm_n_heads} heads' {cfg.norm} gated norm")
+    return True
+
+
+def split_mamba2(cfg: ModelConfig, p: dict, n: int, i: int) -> dict:
+    """Shard ``i`` of ``n`` of a Mamba-2 mixer, split by head: heads
+    ``[i·H/n, (i+1)·H/n)``, their ``z``, ``x`` and ``dt`` columns of the
+    fused ``in_proj`` with the ``B`` and ``C`` columns whole (one group,
+    read by every head), the matching ``conv_w``/``conv_b`` channels (x,
+    then B and C), their ``dt_bias``, ``A_log``, ``D`` and slice of the
+    gated norm's scale, and their rows of ``out_proj`` (its bias on shard
+    0 alone)."""
+    di, N, H = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads
+    if H % n or not 0 <= i < n:
+        raise ValueError(f"shard {i} of {n} does not split {H} SSM heads")
+    ds, hs = di // n, H // n
+    z = (i * ds, (i + 1) * ds)
+    xc = (di + i * ds, di + (i + 1) * ds)
+    bc = (2 * di, 2 * di + 2 * N)
+    dt = (2 * di + 2 * N + i * hs, 2 * di + 2 * N + (i + 1) * hs)
+
+    def take(t, spans, dim=-1):
+        return torch.cat([t.narrow(dim, a, b - a) for a, b in spans], dim)
+
+    conv = [(xc[0] - di, xc[1] - di), (di, di + 2 * N)]
+    heads = slice(i * hs, (i + 1) * hs)
+    ip = {"w": take(p["in_proj"]["w"], [z, xc, bc, dt])}
+    if "b" in p["in_proj"]:
+        ip["b"] = take(p["in_proj"]["b"], [z, xc, bc, dt])
+    op = {"w": p["out_proj"]["w"][z[0]:z[1]]}
+    if i == 0 and "b" in p["out_proj"]:
+        op["b"] = p["out_proj"]["b"]
+    return {"in_proj": ip, "conv_w": take(p["conv_w"], conv),
+            "conv_b": take(p["conv_b"], conv),
+            "A_log": p["A_log"][heads], "D": p["D"][heads],
+            "dt_bias": p["dt_bias"][heads],
+            "norm": {"scale": p["norm"]["scale"][z[0]:z[1]]},
+            "out_proj": op}
+
+
+def apply_mamba2_tp(cfg: ModelConfig, shards, x: torch.Tensor, *,
+                    impl: str = "auto", eps: float = 1e-6):
+    """:func:`apply_mamba2` from zeros (the training forward) over
+    tensor-parallel head shards: ``shards`` holds ``(params, device)`` of
+    each (:func:`split_mamba2`), in shard order.  Each shard runs its
+    heads' projection, conv and SSD scan on its device (x moved there).
+    The gated RMSNorm normalises over the whole ``d_inner``: each shard's
+    Σ y² is added in shard order on x's device, and every shard scales by
+    the shared rsqrt and its own slice of the scale (a norm over a shard's
+    own heads would be another function).  The partial ``out_proj``
+    outputs are summed in shard order there.  Returns ``out`` (no cache:
+    nothing continues from a training forward)."""
+    if cfg.norm != "rmsnorm":
+        raise ValueError(f"{cfg.name}: the head split runs an RMSNorm "
+                         f"gated norm, not {cfg.norm}")
+    cd = dtype_of(cfg.compute_dtype)
+    di, H, n = cfg.ssm_d_inner, cfg.ssm_n_heads, len(shards)
+    parts = [(_mixer_core(cfg, p_s, x.to(dev), di=di // n, H=H // n,
+                          cache=None, valid_len=None, impl=impl)[0], p_s, dev)
+             for p_s, dev in shards]
+    ss = None
+    for g, _, _ in parts:
+        part = g.float().square().sum(dim=-1, keepdim=True).to(x.device)
+        ss = part if ss is None else ss + part
+    r = torch.rsqrt(ss / di + eps)
+    out = None
+    for g, p_s, dev in parts:
+        y = (g.float() * r.to(dev) * p_s["norm"]["scale"].float()).to(g.dtype)
+        part = dense(p_s["out_proj"], y, cd).to(x.device)
+        out = part if out is None else out + part
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -45,10 +45,13 @@ positions of one data row of the serving mesh (``serve/mesh.py``,
 :class:`AttnShard`), each with its heads' attention weights and its own
 page pools on its device; ``PagedEngine`` without a mesh runs one shard
 that holds every head.  The attention layers run split by head
-(``attention_tp``), each shard writing its K/V into its own pools, while
-the norms, MLPs, experts, SSM layers, embedding and unembedding run once,
-on the device of the cache (the row's lead), which then holds ``"len"``
-and the SSM state alone (``init_paged_cache(pools=False)``).
+(``attention_tp``), each shard writing its K/V into its own pools; where
+the mesh splits them, ``split`` (:class:`RowSplit`) holds the row's
+positions' experts and vocabulary rows, which run the MoE blocks' expert
+products and the embedding and logits; the norms, dense MLPs, routers,
+shared experts and SSM layers run once, on the device of the cache (the
+row's lead), which then holds ``"len"`` and the SSM state alone
+(``init_paged_cache(pools=False)``).
 
 An encoder-decoder model's serving steps take the encoder output
 (``enc_out``, from :func:`encode`) beside the cache: its cross K/V are
@@ -62,7 +65,10 @@ every family, at head dims the flash backward kernel takes
 ``loss_from_sums`` are its two halves for a batch split over the data
 rows of a training mesh (``train/step.py``): each row's forward gives the
 sums, ``tp_devices`` (the row's tensor-parallel positions) splitting each
-block's self-attention by head and its MLP by ``d_ff``, and one scalar,
+block's self-attention by head and its MLP by ``d_ff``, and, where their
+specs put ``model`` on them, its experts, SSM heads and cross-attention
+heads, and the embedding and the cross-entropy by ``vocab``
+(:func:`_tp_shards`, :func:`_vocab_shards`, :func:`_nll_tp`); one scalar,
 the loss of the whole batch, is made of every row's.  ``cfg.remat ==
 "full"`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``), so its attention and SSD kernels run twice a
@@ -86,17 +92,20 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..kernels.flash_attention.kernel import MAX_D_BWD
 from ..kernels.runtime import resolve_impl
+from ..parallel.partition import model_axis_dim
 from ..tree import tree_leaves, tree_map
 from .attention import (attention, attention_tp, gather_pages, init_attention,
                         split_attention)
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_mlp_tp, apply_norm, cast_weights,
-                     dtype_of, embed, init_embedding, init_mlp, init_norm,
-                     split_mlp, truncated_normal, unembed)
-from .moe import apply_moe, init_moe
-from .ssm import apply_mamba2, init_mamba2, init_ssm_cache, mamba2_decode_step
+                     dtype_of, embed, embed_tp, init_embedding, init_mlp,
+                     init_norm, split_mlp, split_vocab, truncated_normal,
+                     unembed, unembed_tp, vocab_split)
+from .moe import apply_moe, expert_axis, init_moe, split_experts
+from .ssm import (apply_mamba2, apply_mamba2_tp, init_mamba2, init_ssm_cache,
+                  mamba2_decode_step, split_mamba2, ssm_head_split)
 
-__all__ = ["LayerPlan", "AttnShard", "layer_plan", "layer_kinds",
+__all__ = ["LayerPlan", "AttnShard", "RowSplit", "layer_plan", "layer_kinds",
            "init_block", "apply_block", "init_params", "param_count",
            "init_cache", "init_paged_cache", "paged_pools", "decode_step",
            "prefill", "encode", "chunk_prefill_step", "check_supported",
@@ -135,6 +144,18 @@ class AttnShard:
         """``(cfg, attention weights, device)`` of attention layer ``i``:
         what ``attention_tp`` takes of a shard."""
         return self.cfg, self.attn[i], self.device
+
+
+@dataclasses.dataclass
+class RowSplit:
+    """What a serving mesh row's tensor-parallel positions hold beside
+    the attention shards: ``experts`` maps a MoE layer's index (in layer
+    order) to its expert shards ``(axis, [(expert tensors, device),
+    ...])`` (``moe.split_experts``), and ``vocab`` holds the embedding's
+    shards ``[(rows, lo, device), ...]`` (``layers.split_vocab``), None
+    where the vocabulary is whole on the row's lead."""
+    experts: dict = dataclasses.field(default_factory=dict)
+    vocab: list | None = None
 
 
 def layer_plan(cfg: ModelConfig) -> LayerPlan:
@@ -264,7 +285,8 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
                 paged_impl: str = "auto", impl: str = "auto",
                 valid_len: int | None = None, chunk_continue: bool = False,
                 enc_out: torch.Tensor | None = None, tp=None,
-                mlp_tp=None, moe_sums: bool = False):
+                mlp_tp=None, moe_tp=None, ssm_tp=None, cross_tp=None,
+                moe_sums: bool = False):
     """One pre-norm residual block.  Returns ``(x, update, aux)``: ``aux``
     is a MoE block's load-balancing loss (an fp32 scalar) and None for the
     other kinds.
@@ -290,9 +312,19 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
     cache (None for the cache-less form), and ``update`` the list of each
     shard's K/V delta.  ``mlp_tp`` (each shard's ``(MLP weights,
     device)``) runs its MLP split by ``d_ff`` (``apply_mlp_tp``);
-    ``moe_sums`` gives a MoE block's ``aux`` as ``apply_moe``'s sums."""
+    ``moe_tp`` a MoE block's expert products (``apply_moe``'s ``tp``);
+    ``ssm_tp`` (each shard's ``(mixer weights, device)``) an SSM block's
+    mixer by head (``apply_mamba2_tp``: the cache-less forward, no cache
+    update); ``cross_tp`` (as ``tp``) a decoder block's cross-attention
+    by head.  ``moe_sums`` gives a MoE block's ``aux`` as ``apply_moe``'s
+    sums."""
     if kind == "ssm":
         h = apply_norm(cfg, p["ln1"], x)
+        if ssm_tp is not None:
+            if cache is not None:
+                raise ValueError("the SSM head split runs the cache-less "
+                                 "forward")
+            return x + apply_mamba2_tp(cfg, ssm_tp, h, impl=impl), None, None
         if cache is not None and x.shape[1] == 1:
             out, new_cache = mamba2_decode_step(cfg, p["mixer"], h, cache)
         else:
@@ -313,14 +345,18 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
     x = x + out
     if kind == "dec" and enc_out is not None:
         h = apply_norm(cfg, p["ln_cross"], x)
-        out, _ = attention(cfg, p["cross"], h, positions=positions,
-                           cache=None, kv_x=enc_out, causal=False,
-                           rope=False, impl=impl)
+        ckw = dict(positions=positions, kv_x=enc_out, causal=False,
+                   rope=False, impl=impl)
+        if cross_tp is None:
+            out, _ = attention(cfg, p["cross"], h, cache=None, **ckw)
+        else:
+            out, _ = attention_tp(cross_tp, h,
+                                  caches=[None] * len(cross_tp), **ckw)
         x = x + out
     h = apply_norm(cfg, p["ln2"], x)
     aux = None
     if kind == "moe":
-        out, aux = apply_moe(cfg, p["moe"], h, sums=moe_sums)
+        out, aux = apply_moe(cfg, p["moe"], h, sums=moe_sums, tp=moe_tp)
     elif mlp_tp is not None:
         out = apply_mlp_tp(cfg, mlp_tp, h)
     else:
@@ -375,26 +411,84 @@ def check_trainable(cfg: ModelConfig) -> None:
     _check_remat(cfg)
 
 
-def _tp_shards(cfg: ModelConfig, p: dict, devices) -> tuple:
-    """A block's self-attention and MLP split over a data row's
-    tensor-parallel positions ``devices`` (training's TP): ``(attention
-    shards or None, MLP shards or None)`` for :func:`apply_block`.  A part
-    that ``len(devices)`` does not divide (query or KV heads, ``d_ff``)
-    runs whole on the row's lead, as the serving mesh runs it.  The
-    shards are copies (``.to`` their device, the split's own copies), built
-    inside the block so that a recompute rebuilds them instead of keeping
-    them; a shard on the lead's device is not moved."""
+def _placed(tree, dev):
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def _heads_split(cfg: ModelConfig, n: int) -> bool:
+    return not (cfg.n_heads % n or cfg.n_kv_heads % n)
+
+
+def _tp_shards(cfg: ModelConfig, p: dict, devices) -> dict:
+    """A block split over a data row's tensor-parallel positions
+    ``devices`` (training's TP), as :func:`apply_block`'s keywords: its
+    self-attention by head (``tp``) and MLP by ``d_ff`` (``mlp_tp``) where
+    ``len(devices)`` divides the heads and ``d_ff``, as the serving mesh
+    splits them; and, where the leaves' specs put ``model`` on their axis
+    (``partition.model_axis_dim``), its experts by ``experts`` or ``d_ff``
+    (``moe_tp``), its SSM mixer by head (``ssm_tp``, on ``ssm_inner``) and
+    its cross-attention by head (``cross_tp``, on ``heads_flat``, where the
+    heads divide too).  A part left out runs whole on the row's lead.  The
+    shards are copies (``.to`` their device, the split's own copies),
+    built inside the block so that a recompute rebuilds them instead of
+    keeping them; a shard on the lead's device is not moved."""
     n = len(devices) if devices else 1
-    attn = mlp = None
-    if n > 1 and "attn" in p and not (cfg.n_heads % n or cfg.n_kv_heads % n):
-        attn = []
+    out: dict = {}
+    if n == 1:
+        return out
+    if "attn" in p and _heads_split(cfg, n):
+        out["tp"] = []
         for i, dev in enumerate(devices):
             cfg_s, p_s = split_attention(cfg, p["attn"], n, i)
-            attn.append((cfg_s, tree_map(lambda t: t.to(dev), p_s), dev))
-    if n > 1 and "mlp" in p and not p["mlp"]["up"]["w"].shape[1] % n:
-        mlp = [(tree_map(lambda t: t.to(dev), split_mlp(p["mlp"], n, i)), dev)
-               for i, dev in enumerate(devices)]
-    return attn, mlp
+            out["tp"].append((cfg_s, _placed(p_s, dev), dev))
+    if "mlp" in p and not p["mlp"]["up"]["w"].shape[1] % n:
+        out["mlp_tp"] = [(_placed(split_mlp(p["mlp"], n, i), dev), dev)
+                         for i, dev in enumerate(devices)]
+    if "moe" in p:
+        axis = expert_axis(p["moe"], n)
+        if axis is not None:
+            out["moe_tp"] = (axis, [
+                (_placed(split_experts(p["moe"], n, i, axis), dev), dev)
+                for i, dev in enumerate(devices)])
+    if "mixer" in p and ssm_head_split(cfg, p["mixer"], n):
+        out["ssm_tp"] = [(_placed(split_mamba2(cfg, p["mixer"], n, i), dev),
+                          dev) for i, dev in enumerate(devices)]
+    if ("cross" in p and _heads_split(cfg, n)
+            and model_axis_dim(("cross", "q", "w"),
+                               p["cross"]["q"]["w"].shape, n) == 1):
+        out["cross_tp"] = []
+        for i, dev in enumerate(devices):
+            cfg_s, p_s = split_attention(cfg, p["cross"], n, i)
+            out["cross_tp"].append((cfg_s, _placed(p_s, dev), dev))
+    return out
+
+
+def _vocab_shards(p: dict, devices) -> list | None:
+    """The embedding split by ``vocab`` over a row's tensor-parallel
+    positions ``devices``, ``[(rows, lo, device), ...]`` for
+    :func:`~repro_torch.models.layers.embed_tp`/``unembed_tp``, where the
+    table's spec puts ``model`` on ``vocab``; None where it stays whole."""
+    n = len(devices) if devices else 1
+    if not vocab_split(p, n):
+        return None
+    return [(_placed(rows, dev), lo, dev)
+            for i, dev in enumerate(devices)
+            for rows, lo in [split_vocab(p, n, i)]]
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens, vocab):
+    if vocab is None:
+        return embed(cfg, params["embed"], tokens)
+    return embed_tp(cfg, vocab, tokens)
+
+
+def _logits(cfg: ModelConfig, params: dict, x, vocab):
+    """The logits over the whole vocabulary on x's device: one product, or
+    the vocab shards' slices concatenated in order."""
+    if vocab is None:
+        return unembed(cfg, params["embed"], x)
+    return torch.cat([part.to(x.device)
+                      for part in unembed_tp(cfg, vocab, x)], dim=-1)
 
 
 def _run_stack(cfg: ModelConfig, blocks, x, positions, *, impl: str,
@@ -411,11 +505,10 @@ def _run_stack(cfg: ModelConfig, blocks, x, positions, *, impl: str,
     remat = cfg.remat if torch.is_grad_enabled() else "none"
     for kind, p in blocks:
         def block(h, p=p, kind=kind):
-            tp, mlp_tp = _tp_shards(cfg, p, tp_devices)
             return apply_block(cfg, kind, p, h, positions=positions,
                                cache=None, cache_len=None, impl=impl,
-                               enc_out=enc_out, tp=tp, mlp_tp=mlp_tp,
-                               moe_sums=moe_sums)
+                               enc_out=enc_out, moe_sums=moe_sums,
+                               **_tp_shards(cfg, p, tp_devices))
         if remat == "full":
             x, _, a = checkpoint(block, x, use_reentrant=False)
         elif remat == "save_dots":
@@ -467,11 +560,23 @@ def forward(cfg: ModelConfig, params: dict, *, tokens=None, embeds=None,
     load-balancing loss; ``impl`` picks every layer's attention core (and
     the SSM layers' intra-chunk path).  ``tp_devices`` and ``moe_sums`` as
     in :func:`_run_stack` (under ``moe_sums``, aux is the list of each MoE
-    block's sums)."""
+    block's sums); ``tp_devices`` also splits the embedding and the
+    logits by ``vocab`` (:func:`_vocab_shards`), whose slices are then
+    concatenated on the lead."""
+    vocab = _vocab_shards(params["embed"], tp_devices)
+    x, aux = _trunk(cfg, params, tokens=tokens, embeds=embeds,
+                    positions=positions, enc_embeds=enc_embeds, impl=impl,
+                    tp_devices=tp_devices, moe_sums=moe_sums, vocab=vocab)
+    return _logits(cfg, params, x, vocab), aux
+
+
+def _trunk(cfg: ModelConfig, params: dict, *, tokens, embeds, positions,
+           enc_embeds, impl: str, tp_devices, moe_sums: bool, vocab):
+    """:func:`forward` up to the final norm: ``(x (B, S, d), aux)``."""
     check_supported(cfg)
     _check_remat(cfg)
     if embeds is None:
-        x = embed(cfg, params["embed"], tokens)
+        x = _embed(cfg, params, tokens, vocab)
     else:
         x = embeds.to(dtype_of(cfg.compute_dtype))
     if positions is None:
@@ -487,8 +592,7 @@ def forward(cfg: ModelConfig, params: dict, *, tokens=None, embeds=None,
     x, aux = _run_stack(cfg, _blocks(cfg, params), x, positions, impl=impl,
                         enc_out=enc_out, tp_devices=tp_devices,
                         moe_sums=moe_sums)
-    x = apply_norm(cfg, params["norm_f"], x)
-    return unembed(cfg, params["embed"], x), aux
+    return apply_norm(cfg, params["norm_f"], x), aux
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
@@ -523,6 +627,39 @@ def _nll(cfg: ModelConfig, logits: torch.Tensor, labels) -> torch.Tensor:
     return logz - logits.gather(-1, labels[..., None])[..., 0]
 
 
+def _nll_tp(cfg: ModelConfig, vocab: list, x: torch.Tensor,
+            labels) -> torch.Tensor:
+    """:func:`_nll` over vocab shards, each token's on x's device: every
+    shard makes its logits slice (the padded vocabulary masked by global
+    index on the shard that holds it), its max mᵢ and its sum sᵢ of
+    exp(logit − mᵢ), and the logit of the labels it holds (0 for the
+    others); logz = m + log Σᵢ sᵢ·exp(mᵢ − m) and the label's logit are
+    added up in shard order.  The maxes are constants to the gradient, as
+    in a log-sum-exp."""
+    stats = []
+    for logits, (_, lo, dev) in zip(unembed_tp(cfg, vocab, x), vocab):
+        lf = logits.float()
+        n = lf.shape[-1]
+        if lo + n > cfg.vocab_size:
+            lf[..., max(cfg.vocab_size - lo, 0):] = -1e9
+        m = lf.detach().amax(dim=-1)
+        s = torch.exp(lf - m[..., None]).sum(dim=-1)
+        lab = labels.to(dev).long() - lo
+        inside = (lab >= 0) & (lab < n)
+        picked = lf.gather(-1, lab.clamp(0, n - 1)[..., None])[..., 0]
+        ll = torch.where(inside, picked, torch.zeros((), device=dev))
+        stats.append((m.to(x.device), s.to(x.device), ll.to(x.device)))
+    m = stats[0][0]
+    for mi, _, _ in stats[1:]:
+        m = torch.maximum(m, mi)
+    total = ll = None
+    for mi, si, li in stats:
+        t = si * torch.exp(mi - m)
+        total = t if total is None else total + t
+        ll = li if ll is None else ll + li
+    return m + torch.log(total) - ll
+
+
 def loss_sums(cfg: ModelConfig, params: dict, batch: dict, *,
               impl: str = "auto", tp_devices=None) -> dict:
     """One data row's share of :func:`loss_fn`'s loss for its slice of the
@@ -530,13 +667,19 @@ def loss_sums(cfg: ModelConfig, params: dict, batch: dict, *,
     "moe": each MoE block's (Σ router probs, Σ top-1 one-hots)}``, what
     adds up over the rows (:func:`loss_from_sums`).  ``tp_devices``: the
     row's tensor-parallel positions, the lead first (where ``params``
-    live)."""
+    live); where they split the vocabulary, the NLL comes from the vocab
+    shards' log-sum-exp (:func:`_nll_tp`) and no position makes the whole
+    vocabulary's logits."""
     check_trainable(cfg)
-    logits, moe = forward(cfg, params, tokens=batch.get("tokens"),
-                          embeds=batch.get("embeds"),
-                          enc_embeds=batch.get("enc_embeds"), impl=impl,
-                          tp_devices=tp_devices, moe_sums=True)
-    nll = _nll(cfg, logits, batch["labels"])
+    vocab = _vocab_shards(params["embed"], tp_devices)
+    x, moe = _trunk(cfg, params, tokens=batch.get("tokens"),
+                    embeds=batch.get("embeds"), positions=None,
+                    enc_embeds=batch.get("enc_embeds"), impl=impl,
+                    tp_devices=tp_devices, moe_sums=True, vocab=vocab)
+    if vocab is None:
+        nll = _nll(cfg, unembed(cfg, params["embed"], x), batch["labels"])
+    else:
+        nll = _nll_tp(cfg, vocab, x, batch["labels"])
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.float()
     return {"nll": (nll * mask).sum(), "mask": mask.sum(),
@@ -711,7 +854,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 update_mask=None, impl: str = "auto",
                 valid_len: int | None = None,
                 enc_out: torch.Tensor | None = None,
-                shards: Sequence[AttnShard] = ()):
+                shards: Sequence[AttnShard] = (),
+                split: RowSplit | None = None):
     """One cache-extending step for every slot.  tokens: (B, S) int.
 
     Dense cache (``pages=None``): S == 1 decodes against the per-slot
@@ -736,9 +880,12 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     slots (mid-prefill slots between their chunks); None advances every
     slot.  An encoder-decoder model adds ``dec_pos`` at each slot's
     positions and attends over ``enc_out`` (B, T, d) in every decoder
-    block.  Updates the cache in place; returns ``(logits (B, S, V),
-    cache)``."""
-    x = embed(cfg, params["embed"], tokens)
+    block.  ``split`` (a serving mesh row's :class:`RowSplit`) runs the
+    MoE blocks' expert products and the embedding and logits over the
+    row's positions, the logits' slices concatenated on the lead.
+    Updates the cache in place; returns ``(logits (B, S, V), cache)``."""
+    split = split or RowSplit()
+    x = _embed(cfg, params, tokens, split.vocab)
     S = x.shape[1]
     pos = cache["len"]
     if pages is not None and S != 1:
@@ -762,7 +909,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         shard_io = [(pages.to(sh.device), pos.to(sh.device))
                     for sh in shards]
     ai = si = 0
-    for kind, p in _blocks(cfg, params):
+    for li, (kind, p) in enumerate(_blocks(cfg, params)):
         if kind == "ssm":
             lc = {"conv": cache["conv"][si], "state": cache["state"][si]}
             x, new, _ = apply_block(cfg, kind, p, x, positions=positions,
@@ -779,7 +926,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             x, kvs, _ = apply_block(cfg, kind, p, x, positions=positions,
                                     cache=lcs, cache_len=pos,
                                     paged_impl=paged_impl, impl=impl,
-                                    tp=[sh.layer(ai) for sh in shards])
+                                    tp=[sh.layer(ai) for sh in shards],
+                                    moe_tp=split.experts.get(li))
             for sh, (pg, sp), (kt, vt) in zip(shards, shard_io, kvs):
                 _write_kv_paged(sh.k[ai], kt, sp, pg, page_size)
                 _write_kv_paged(sh.v[ai], vt, sp, pg, page_size)
@@ -789,11 +937,12 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         ai += 1
         x, (kt, vt), _ = apply_block(cfg, kind, p, x, positions=positions,
                                      cache={"k": kb, "v": vb}, cache_len=pos,
-                                     impl=impl, enc_out=enc_out)
+                                     impl=impl, enc_out=enc_out,
+                                     moe_tp=split.experts.get(li))
         _write_kv(kb, kt, pos)
         _write_kv(vb, vt, pos)
     x = apply_norm(cfg, params["norm_f"], x)
-    logits = unembed(cfg, params["embed"], x)
+    logits = _logits(cfg, params, x, split.vocab)
     cache["len"] += S
     return logits, cache
 
@@ -839,7 +988,8 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
                        tokens: torch.Tensor, *, slot: int, start: int,
                        valid_len: int, pages_row: torch.Tensor,
                        page_size: int, impl: str = "auto",
-                       shards: Sequence[AttnShard] = ()):
+                       shards: Sequence[AttnShard] = (),
+                       split: RowSplit | None = None):
     """One prompt chunk of a chunked prefill into batch slot ``slot``.
 
     tokens: (1, C) — the chunk, right-padded to its bucket; ``start`` (a
@@ -856,13 +1006,15 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
     CUDA, the einsum form on the CPU; ``kernel``; ``ref``).  The slot's
     ``len`` becomes ``start + valid_len``.  ``shards``: the
     tensor-parallel shards that hold the attention layers' weights and
-    page pools, as in :func:`decode_step`.  Updates the cache in place;
-    returns ``(logits (1, 1, V) at the true last chunk token, cache)``.
-    Encoder-decoder models are refused, as in the reference."""
+    page pools, and ``split``, as in :func:`decode_step`.  Updates the
+    cache in place; returns ``(logits (1, 1, V) at the true last chunk
+    token, cache)``.  Encoder-decoder models are refused, as in the
+    reference."""
     if cfg.family == "encdec":
         raise NotImplementedError("chunked prefill for encdec models")
     _check_shards(cfg, shards)
-    x = embed(cfg, params["embed"], tokens)
+    split = split or RowSplit()
+    x = _embed(cfg, params, tokens, split.vocab)
     C = x.shape[1]
     positions = start + torch.arange(C, device=x.device)
     # pages below ``start`` are all the chunk may read; the reference
@@ -870,7 +1022,7 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
     # exact zeros
     shard_rows = [pages_row.to(sh.device) for sh in shards]
     ai = si = 0
-    for kind, p in _blocks(cfg, params):
+    for li, (kind, p) in enumerate(_blocks(cfg, params)):
         if kind == "ssm":
             rows = {key: cache[key][si, slot:slot + 1]
                     for key in ("conv", "state")}
@@ -891,13 +1043,14 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
         x, kvs, _ = apply_block(cfg, kind, p, x, positions=positions,
                                 cache=lcs, cache_len=start,
                                 chunk_continue=True,
-                                tp=[sh.layer(ai) for sh in shards])
+                                tp=[sh.layer(ai) for sh in shards],
+                                moe_tp=split.experts.get(li))
         for sh, r, (kt, vt) in zip(shards, shard_rows, kvs):
             _write_kv_chunk_paged(sh.k[ai], kt, start, r[0], page_size)
             _write_kv_chunk_paged(sh.v[ai], vt, start, r[0], page_size)
         ai += 1
     x = apply_norm(cfg, params["norm_f"], x)
     last = x[:, valid_len - 1:valid_len]
-    logits = unembed(cfg, params["embed"], last)
+    logits = _logits(cfg, params, last, split.vocab)
     cache["len"][slot] = start + valid_len
     return logits, cache

@@ -40,8 +40,8 @@ import torch
 
 from .sharding import DEFAULT_RULES, ShardingRules
 
-__all__ = ["axes_for_path", "tree_logical_axes", "tree_specs",
-           "batch_logical_axes", "Placed", "place_leaf", "place_tree",
+__all__ = ["axes_for_path", "model_axis_dim", "tree_logical_axes",
+           "tree_specs", "batch_logical_axes", "Placed", "place_leaf", "place_tree",
            "place_state", "gather_tree", "position_bytes", "spec_bytes"]
 
 
@@ -115,6 +115,35 @@ def axes_for_path(path: tuple[str, ...], ndim: int) -> tuple[Any, ...]:
 
     # --- norms / scalars ---------------------------------------------------------
     return pad((None,) * max(ndim, 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class _ModelRow:
+    """The ``model`` axis of a row of ``n`` tensor-parallel positions, as
+    a mesh ``spec_for`` reads: only its axis sizes matter."""
+    n: int
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"model": self.n}
+
+
+def model_axis_dim(path: Sequence[str], shape, n: int) -> int | None:
+    """The dim of a parameter leaf at ``path`` (only its names matter:
+    ``("moe", "gate")``, ``("mixer", "in_proj", "w")``, ``("embed",
+    "table")`` …) with ``shape`` that ``DEFAULT_RULES`` put on ``model``
+    in a row of ``n`` tensor-parallel positions; None where the leaf stays
+    whole (``spec_for`` drops an axis ``n`` does not divide, and the
+    ``data``/``pod`` axes never take ``model``'s place)."""
+    if n <= 1:
+        return None
+    rules = ShardingRules(mesh=_ModelRow(n), rules=dict(DEFAULT_RULES))
+    spec = rules.spec_for(axes_for_path(tuple(path), len(shape)),
+                          dims=tuple(shape))
+    for d, e in enumerate(spec):
+        if e == "model" or isinstance(e, tuple) and "model" in e:
+            return d
+    return None
 
 
 # KV / SSM cache leaves -------------------------------------------------------

@@ -40,7 +40,8 @@ after the last chunk.
 (``serve/mesh.py``) from this one process: data row r holds the slots and
 pages of the scheduler's device group r, with its own cache, and splits
 each attention layer by KV head over its tensor-parallel positions, each
-with its own page pools.  Every call routes a slot to its row (its local
+with its own page pools, and the experts and vocabulary where their specs
+split them.  Every call routes a slot to its row (its local
 slot index and local page ids), and ``decode`` runs each row over its own
 slots and returns the logits in slot order.  Without a mesh the engine
 runs the same code on the 1 x 1 grid of its device: one row of every slot
@@ -446,8 +447,8 @@ class PagedEngine:
                                 page_size=page_size)
         self.rows: list[MeshRow] = [
             MeshRow(slots=slots, pages=pages, devices=devs,
-                    params=row_params, shards=shards)
-            for (slots, pages), devs, (row_params, shards) in zip(
+                    params=row_params, shards=shards, split=split)
+            for (slots, pages), devs, (row_params, shards, split) in zip(
                 ranges, grid.devices, shard_params(cfg, params, grid,
                                                    n_split))]
         self.params = self.rows[0].params
@@ -575,7 +576,7 @@ class PagedEngine:
             start=int(start), valid_len=int(valid_in_chunk),
             pages_row=torch.as_tensor(mrow.local_pages(row),
                                       device=mrow.device),
-            page_size=self.page_size, shards=mrow.shards)
+            page_size=self.page_size, shards=mrow.shards, split=mrow.split)
         logits = logits.to(self.device)
         self.n_chunk_calls += 1
         return logits
@@ -719,7 +720,7 @@ class PagedEngine:
                 pages=pt, page_size=self.page_size,
                 paged_impl=self.attn_impl,
                 update_mask=None if mask is None else mask[sl].to(row.device),
-                shards=row.shards)
+                shards=row.shards, split=row.split)
             out.append(logits.to(self.device))
         self.n_decode_calls += 1
         return out[0] if len(out) == 1 else torch.cat(out)

@@ -9,10 +9,15 @@ driven by one process:
   their ``kv_heads`` axis, so one model replica's decode splits per-KV-head
   attention across the row's positions (GQA groups stay on one position;
   only the output projection reduces, a sum of the partial outputs in
-  position order on the row's lead position, ``grid[r][0]``).  This is TP
-  of the cache and the attention compute: the norms, MLPs, experts, SSM
-  layers, embedding and unembedding run once a row, on its lead, where the
-  reference keeps them replicated.
+  position order on the row's lead position, ``grid[r][0]``).  Where the
+  specs split them, the MoE blocks' experts (by ``experts``, or by
+  ``d_ff`` where the experts do not divide) and the embedding and
+  unembedding tables (by ``vocab``) live on the row's positions too
+  (:class:`~repro_torch.models.transformer.RowSplit`): each runs its
+  experts' products and its slice of the logits, and the lead keeps no
+  copy.  The norms, dense MLPs, routers, shared experts and SSM layers
+  (with their state and conv caches) run once a row, on its lead, where
+  the reference keeps them replicated or splits them by head.
 * **data parallel** (``"data"`` axis) — batch slots and the page pool
   partition over the rows.  Row ``r`` holds the slots and the usable page
   range the scheduler's device group ``r`` owns (``np.array_split`` of
@@ -49,9 +54,10 @@ import torch
 from ..launch.mesh import DeviceMesh, grid_devices
 from ..models.attention import split_attention
 from ..models.config import ModelConfig
-from ..models.layers import cast_weights, dtype_of
-from ..models.transformer import (AttnShard, _blocks, init_paged_cache,
-                                  paged_pools)
+from ..models.layers import cast_weights, dtype_of, split_vocab, vocab_split
+from ..models.moe import EXPERT_KEYS, expert_axis, split_experts
+from ..models.transformer import (AttnShard, RowSplit, _blocks,
+                                  init_paged_cache, paged_pools)
 from ..parallel.sharding import DEFAULT_RULES, ShardingRules
 from ..tree import tree_map
 
@@ -155,16 +161,18 @@ def kv_head_split(cfg: ModelConfig, rules: ShardingRules, *,
 class MeshRow:
     """One data row of a serving mesh: its slots and global pages, its
     grid positions' devices (the first is its lead), the model's weights
-    on the lead (without the attention weights when they are split: the
-    shards hold them), its slots' cache (``len`` and the SSM state; the
-    pools are the shards'), and its tensor-parallel shards (none for an
-    attention-free model)."""
+    on the lead (without the attention weights, experts or tables its
+    positions hold split), its slots' cache (``len`` and the SSM state;
+    the pools are the shards'), its tensor-parallel attention shards (none
+    for an attention-free model) and its experts' and vocabulary's split
+    (``split``)."""
 
     slots: range
     pages: range
     devices: tuple[torch.device, ...]
     params: dict
     shards: list[AttnShard]
+    split: RowSplit = dataclasses.field(default_factory=RowSplit)
     cache: dict | None = None
 
     @property
@@ -184,17 +192,25 @@ def _to_device(tree, device):
 
 
 def shard_params(cfg: ModelConfig, params, mesh: ServeMesh, n_split: int
-                 ) -> list[tuple[dict, list[AttnShard]]]:
+                 ) -> list[tuple[dict, list[AttnShard], RowSplit]]:
     """Place the weights on the grid: each row's lead gets the model cast
     to the compute dtype, and each of the row's first ``n_split``
     positions an :class:`AttnShard` with its heads of every attention
     layer (``split_attention``; each invocation of a shared block is a
     layer) and no pools yet.  One shard (``n_split`` 1) holds the lead's
     attention weights themselves; split shards hold copies of their
-    heads, and the lead's copy then keeps no attention weights.  Rows and
-    positions on one device share one copy of the weights.  Returns
-    ``(params, shards)`` a row."""
+    heads, and the lead's copy then keeps no attention weights.
+
+    Where the specs put ``model`` on them (``partition.model_axis_dim`` at
+    the row's ``tp``), each of the row's positions also gets its experts
+    of every MoE layer (``moe.split_experts``: by ``experts``, or by
+    ``d_ff``) and its rows of the embedding table (and of ``unembed`` when
+    it is not tied; ``layers.split_vocab``), cast to the compute dtype,
+    and the lead's copy keeps none of them.  Rows and positions on one
+    device share one copy of the weights.  Returns ``(params, attention
+    shards, split)`` a row."""
     dt = dtype_of(cfg.compute_dtype)
+    tp = len(mesh.devices[0])
     by_device: dict = {}
     split: dict = {}
     out = []
@@ -217,11 +233,46 @@ def shard_params(cfg: ModelConfig, params, mesh: ServeMesh, n_split: int
                 layers.append(split[key][1])
             if layers:
                 shards.append(AttnShard(split[key][0], dev, layers))
-        out.append((row_params, shards))
-    if n_split > 1:
-        for row_params in by_device.values():
-            for kind, p in _blocks(cfg, row_params):
+        out.append((row_params, shards, _row_split(row_params, row, tp,
+                                                   split)))
+    for row_params in by_device.values():
+        for kind, p in _blocks(cfg, row_params):
+            if n_split > 1:
                 p.pop("attn", None)
+            if "moe" in p and expert_axis(p["moe"], tp) is not None:
+                for k in EXPERT_KEYS:
+                    p["moe"].pop(k)
+        if vocab_split(row_params["embed"], tp):
+            row_params["embed"] = {}
+    return out
+
+
+def _row_split(row_params: dict, row, tp: int, made: dict) -> RowSplit:
+    """A row's :class:`RowSplit` from its lead's cast weights (which still
+    hold every expert and table): copies of each position's experts and
+    vocabulary rows on its device, shared by rows on the same devices
+    through ``made``."""
+    def copy(tree, dev, key):
+        if key not in made:
+            made[key] = {k: t.to(dev, copy=True) for k, t in tree.items()}
+        return made[key]
+
+    out = RowSplit()
+    for li, layer in enumerate(row_params["layers"]):
+        moe = layer.get("moe")
+        axis = None if moe is None else expert_axis(moe, tp)
+        if axis is not None:
+            out.experts[li] = (axis, [
+                (copy(split_experts(moe, tp, i, axis), dev,
+                      (dev, i, id(moe))), dev)
+                for i, dev in enumerate(row)])
+    if vocab_split(row_params["embed"], tp):
+        out.vocab = []
+        for i, dev in enumerate(row):
+            rows, lo = split_vocab(row_params["embed"], tp, i)
+            out.vocab.append((copy(rows, dev, (dev, i,
+                                               id(row_params["embed"]))),
+                              lo, dev))
     return out
 
 

@@ -20,7 +20,9 @@ FSDP over ``data``, TP over ``model``), each leaf a
 A step (:func:`compute_grads_mesh`) gathers the whole parameters on each
 data row's lead, runs the row's slice of every micro-batch there, its
 blocks' self-attention split by head and MLPs by ``d_ff`` over the row's
-positions, makes the loss of the whole micro-batch from every row's sums
+positions (and, where their specs put ``model`` on them, the experts,
+SSM heads, cross-attention heads and the vocabulary: the embedding, the
+logits and the cross-entropy), makes the loss of the whole micro-batch from every row's sums
 and runs one backward over all rows; the rows' gradients are summed in
 row order on the mesh's lead, divided, and placed by the parameters'
 specs, and each block is updated on its position

@@ -268,6 +268,9 @@ SSD_CASES = [
     # engine's batched prefill of 8 prompts of 1,024 tokens (32 chunks)
     (1, 64, 256, 64, 64),
     (32, 64, 256, 64, 64),
+    # a TP=2 head shard of mamba2-370m's training mesh: 16 of its 32 heads
+    # over micro-batch 2 at seq 4096 (forward here, gradients below)
+    (32, 16, 256, 64, 128),
 ]
 SSD_ROW_TILES = [c["row_tile"] for c in DEFAULT_CANDIDATES["ssd_scan"]]
 SSD_TOL = 1e-4        # max|Δ| / max|plain|, y and S: the cumsum's order
@@ -1560,3 +1563,46 @@ def test_cuda_train_mesh_step_on_one_card():
                for g, w in zip(got, want)) <= 1e-5 * scale
     assert abs(float(m["loss_total"]) / float(m_p["loss_total"]) - 1) < 1e-5
     assert abs(float(m["grad_norm"]) / float(m_p["grad_norm"]) - 1) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_moe_train_mesh_step1_matches_no_mesh():
+    """Step 1 (2 micro-batches) of the qwen2-moe smoke config in fp32 at
+    TP=2, both positions on cuda:0 (its 8 experts split 4 / 4, its
+    vocabulary in halves), against the meshless step 1: the loss, the
+    grad norm and every gradient leaf within 1e-5 (of max|g| for the
+    leaves); the flash forward runs micro-batches x layers x 2 (remat) x
+    tp times.  In bf16 at these smoke widths the router's gradient alone
+    moves 0.12 of its max|g| with a TP split's rounding, so the bf16
+    gates are held at full width (``chip_smoke.py`` ``train_mesh_moe``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.data import DataConfig, SyntheticLMStream, to_device
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.moe import expert_axis
+    from repro_torch.optim import global_norm
+    from repro_torch.parallel.partition import gather_tree, place_state
+    from repro_torch.train import compute_grads, compute_grads_mesh
+    from repro_torch.tree import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _smoke_model("qwen2-moe-a2.7b", "float32")
+    assert expert_axis(params["layers"][0]["moe"], 2) == "experts"
+    batch = to_device(SyntheticLMStream(cfg, DataConfig(
+        global_batch=4, seq_len=200)).batch(0), "cuda")
+    grads, loss, _ = compute_grads(cfg, params, batch, accum=2)
+    mesh = make_test_mesh(1, 2, device="cuda",
+                          devices=[torch.device("cuda:0")] * 2)
+    placed = place_state({"params": params}, mesh)["params"]
+    before = dict(kernel.launches)
+    mgrads, mloss, _ = compute_grads_mesh(cfg, placed, batch, mesh, accum=2)
+    torch.cuda.synchronize()
+    assert kernel.launches["flash_attention"] == (
+        before["flash_attention"] + 2 * cfg.n_layers * 2 * 2)
+    assert abs(float(mloss) / float(loss) - 1) <= 1e-5
+    assert abs(float(global_norm(mgrads)) / float(global_norm(grads))
+               - 1) <= 1e-5
+    got, want = tree_leaves(gather_tree(mgrads)), tree_leaves(grads)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * scale

@@ -10,8 +10,9 @@ trace (batch 2, ``max_len`` 64, page 8, 26 pages, chunk 16, 4 requests of
 identical to the meshless engine's, TP=2 halving the per-position pool
 bytes and no group leaking a page.  Then against the JAX package: one
 subprocess runs the reference's ``PagedEngine(mesh=…)`` on 4 forced host
-devices, and its streams and TP=2 pool bytes must be the port's on the
-JAX package's weights.
+devices (qwen2, mamba2, and the MoE models qwen2-moe and mixtral, whose
+experts and vocabulary the port splits at TP=2), and its streams and TP=2
+pool bytes must be the port's on the JAX package's weights.
 """
 import dataclasses
 import json
@@ -232,11 +233,13 @@ def test_tp_lead_holds_no_whole_attention_weight(models):
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-370m",
                                   "zamba2-1.2b", "gemma3-4b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "mixtral-8x7b"])
 def test_mesh_streams_equal_the_meshless_streams(models, arch):
     """``_sharded_driver.py``'s trace; gemma3 adds the shared qk-norm scales
     and local windows to the split, qwen2-moe the split biases beside the
-    experts, zamba2 its shared block's invocations."""
+    experts split by ``experts`` (and a shared expert on the lead),
+    mixtral its experts split and its window, zamba2 its shared block's
+    invocations; every model's vocabulary splits at TP=2."""
     cfg, params = models(arch)
     base, base_bytes, _, _ = run_variant(cfg, params, None)
     for tp, dp in MESHES:
@@ -310,7 +313,9 @@ def test_scheduler_groups_must_be_the_mesh_rows(models):
 # ---------------------------------------------------------------------------
 
 JAX_RUNS = [("qwen2-1.5b", 2, 1), ("qwen2-1.5b", 1, 2),
-            ("qwen2-1.5b", 2, 2), ("mamba2-370m", 1, 2)]
+            ("qwen2-1.5b", 2, 2), ("mamba2-370m", 1, 2)] + [
+    (arch, tp, dp) for arch in ("qwen2-moe-a2.7b", "mixtral-8x7b")
+    for tp, dp in MESHES]
 
 JAX_DRIVER = textwrap.dedent("""
     import os
