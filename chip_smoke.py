@@ -273,6 +273,16 @@ and prints one JSON line per phase:
 17. ``train_launcher`` — ``repro_torch.launch.train.main`` at ``--smoke``:
    6 steps with a checkpoint every 3, then a resume to 8, the forward and
    backward counts of each run;
+17a. ``dryrun_check`` — the dry-run (``launch/dryrun.py``) against the
+   card on one training step of qwen2-1.5b at full width cut to 4 layers,
+   1 x 1 grid, one ``train_4k`` micro-batch of one production position
+   (1 x 4,096 tokens), bf16 compute: the operation counter run live on the
+   card (the kernels record their ``cost()`` and launch) counts the flops
+   and collective bytes of the meta trace of the same step; the median of
+   5 steps is at least the H100 roofline's ``step_s`` (the ratio
+   printed); the predicted peak (state and batch bytes plus the trace's
+   live-byte peak) is within 15% of ``max_memory_allocated``; and
+   ``plan_jobfile`` on the default ``VirtualCluster`` prints a plan;
 18. ``kernels`` (``rmsnorm``) and ``norm_switch`` — the RMSNorm kernel
    against its plain version (fp32 1e-5, bf16 2e-2 of max|plain|) at the
    kernel bench's (4096, 1024) fp32, qwen2-1.5b's (8192, 1536) bf16,
@@ -398,30 +408,22 @@ def paged_inputs(gen, *, B, KV, G, D, ps, n_pages, kv_lens, dtype,
             torch.tensor(kv_lens, dtype=torch.int32, device=DEV))
 
 
-def bound_ms(pages, kv_len, *, B, KV, G, D, ps, window, elt):
-    """Least time for the kernel's work on these inputs: the larger of its
-    bytes over the card's memory rate and its fp32 operations over the
-    fp32 rate.  Bytes: K and V rows of every page the kernel must read
-    (pages that can hold a visible position, the trash page excluded — it
-    reads as zeros), their table entries, q, kv_len, and the fp32 outputs.
-    Operations: 4*G*D per position of a page read (q.k and p.v)."""
-    tbl = pages.cpu().numpy()
-    lens = kv_len.cpu().numpy()
-    n_read = n_run = 0
-    for b in range(B):
-        for j in range(tbl.shape[1]):
-            if j * ps >= lens[b]:
-                break
-            if window is not None and (j + 1) * ps - 1 < lens[b] + 1 - window:
-                continue
-            n_run += 1
-            n_read += int(tbl[b, j] != 0)
-    nbytes = (2 * n_read * KV * ps * D * elt + n_run * 4 + B * KV * G * D * elt
-              + B * 4 + B * KV * G * (D + 2) * 4)
-    flops = 4 * n_run * KV * G * ps * D
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
+def fp32_bound_ms(cost: dict) -> tuple[float, str]:
+    """Least time for a kernel's ``cost()`` (its ``flops`` on the fp32
+    units, its ``bytes``): the larger of its bytes over the card's memory
+    rate and its operations over the fp32 rate, and which of the two."""
+    t_bytes = cost["bytes"] / H100_BYTES_PER_S * 1e3
+    t_ops = cost["flops"] / H100_FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_ms(pages, kv_len, *, B, KV, G, D, ps, window, elt):
+    """Least time for the paged kernel's work on these inputs, from its
+    ``cost()`` (the pages it must read, their table entries, q, kv_len
+    and the fp32 outputs; 4*G*D fp32 operations per position read)."""
+    from repro_torch.kernels.paged_attention import cost
+    return fp32_bound_ms(cost(pages, kv_len, B=B, KV=KV, G=G, D=D, ps=ps,
+                              window=window, elt=elt))
 
 
 def wrapper_case(gen, q, k_pool, v_pool, pages, kv_len, window, pps):
@@ -620,20 +622,11 @@ def ssd_inputs(gen, BC, H, Q, P, N):
 
 
 def ssd_bound_ms(BC, H, Q, P, N):
-    """Least time for the SSD function on these shapes: the larger of its
-    bytes over the card's memory rate and its fp32 operations over the
-    fp32 rate.  Bytes: every input read once and y, S written once (fp32).
-    Operations (an exp counted as one): C Bᵀ once per chunk over the causal
-    half, Q(Q+1)/2 * 2N; per head, the causal entries' weights and the
-    product with x, Q(Q+1)/2 * (2P + 3), and the state, Q * (2NP + N + 3)
-    (weights, the product and the cumsum)."""
-    nbytes = 4 * BC * (2 * H * Q * P + 2 * H * Q + 2 * Q * N + H * N * P)
-    causal = Q * (Q + 1) // 2
-    flops = BC * (causal * 2 * N
-                  + H * (causal * (2 * P + 3) + Q * (2 * N * P + N + 3)))
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """Least time for the SSD function on these shapes, from the kernel's
+    ``cost()`` (inputs read once, y and S written once; its fp32
+    operations)."""
+    from repro_torch.kernels.ssd_scan import cost
+    return fp32_bound_ms(cost(BC, H, Q, P, N))
 
 
 def ssd_timed_case(gen, BC, H, Q, P, N, grid, model: str | None = None,
@@ -2866,15 +2859,11 @@ def jacobi_inputs(gen, n, a_dtype, x_dtype):
 
 
 def jacobi_bound_ms(inputs, outputs):
-    """Least time for one sweep on these tensors: the larger of its bytes
-    over the card's memory rate (A, x, b and d read once; x', and the fused
-    kernel's fp32 partials, written once) and its 2N² fp32 operations over
-    the fp32 rate."""
-    n = inputs[0].shape[0]
-    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = 2.0 * n * n / H100_FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """Least time for one sweep on these tensors, from the kernels'
+    ``cost()`` (A, x, b and d read once; x', and the fused kernel's fp32
+    partials, written once; 2N² fp32 operations)."""
+    from repro_torch.kernels.jacobi_sweep import cost
+    return fp32_bound_ms(cost(inputs, outputs))
 
 
 def jacobi_kernel_phase() -> list[dict]:
@@ -3288,14 +3277,6 @@ TRAIN_HEAD_LEAVES = ("dt_bias", "A_log", "D")
 TRAIN_HEAD_LEAF_TOL = 1.0
 
 
-def visible_pairs(S, T, causal, window) -> int:
-    """(query, key) pairs the masks leave visible, for these sizes."""
-    i = np.arange(S)
-    hi = np.minimum(i + 1, T) if causal else np.full(S, T)
-    lo = np.maximum(i - window + 1, 0) if window else np.zeros(S, int)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
 def _bound(flops, nbytes, dtype) -> dict:
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
@@ -3306,24 +3287,24 @@ def _bound(flops, nbytes, dtype) -> dict:
 
 
 def fa_bound(B, S, T, H, KV, D, causal, window, dtype) -> dict:
-    """Least time for the forward on these inputs: operations (4·D per
-    visible pair: q·k and p·v) over the peak of the dtype's units (tensor
-    cores for bf16, FMA for fp32), against q, k, v read once and the
-    output and LSE written once over the memory rate."""
-    elt = torch.tensor([], dtype=dtype).element_size()
-    flops = 4 * B * H * D * visible_pairs(S, T, causal, window)
-    nbytes = (2 * B * S * H * D + 2 * B * T * KV * D) * elt + B * H * S * 4
-    return _bound(flops, nbytes, dtype)
+    """Least time for the forward on these inputs, from the kernel's
+    ``cost()``: operations (4·D per visible pair) over the peak of the
+    dtype's units (tensor cores for bf16, FMA for fp32), against q, k, v
+    read once and the output and LSE written once over the memory
+    rate."""
+    from repro_torch.kernels.flash_attention import cost
+    c = cost(B, S, T, H, KV, D, causal, window, dtype)
+    return _bound(c["flops"], c["bytes"], dtype)
 
 
 def fa_bwd_bound(B, S, T, H, KV, D, causal, window, dtype) -> dict:
-    """Least time for the backward: 10·D operations per visible pair (q·k
-    and dO·vᵀ recomputed, dV, dQ, dK), against q, k, v, O, dO and LSE read
-    once and dq, dk, dv written once."""
-    elt = torch.tensor([], dtype=dtype).element_size()
-    flops = 10 * B * H * D * visible_pairs(S, T, causal, window)
-    nbytes = (4 * B * S * H * D + 4 * B * T * KV * D) * elt + B * H * S * 4
-    return {f"bwd_{k}": v for k, v in _bound(flops, nbytes, dtype).items()}
+    """Least time for the backward, from the kernel's ``cost()``: 10·D
+    operations per visible pair, against q, k, v, O, dO and LSE read once
+    and dq, dk, dv written once."""
+    from repro_torch.kernels.flash_attention import cost
+    c = cost(B, S, T, H, KV, D, causal, window, dtype, backward=True)
+    return {f"bwd_{k}": v
+            for k, v in _bound(c["flops"], c["bytes"], dtype).items()}
 
 
 def fa_inputs(gen, B, S, T, H, KV, D, dtype):
@@ -3774,6 +3755,7 @@ def train_phase(mods) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import visible_pairs
     from repro_torch.models.transformer import _window_for, layer_kinds
     from repro_torch.optim import OptimizerSpec
     from repro_torch.train import TrainState, make_train_step
@@ -4373,6 +4355,149 @@ def train_proc_phase() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# dryrun_check: the dry-run's counts and bounds against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_LAYERS = 4                # qwen2-1.5b at full width, depth cut
+DRYRUN_STEPS = 5                 # timed steps, after one warm-up
+DRYRUN_PEAK_TOL = 0.15           # |predicted / measured peak - 1|
+DRYRUN_JOBS = """J1(1,2,0), J2(1,2,0), J3(2,1,0);
+J4(3,2,R1 R2 R3);"""
+
+
+def dryrun_check_phase() -> dict:
+    """The dry-run (``launch/dryrun.py``) against the card on one step:
+    qwen2-1.5b at full width cut to 4 layers, on a 1 x 1 grid, one
+    ``train_4k`` micro-batch of one production position (the row's batch
+    over its micro-batches: 1 x 4,096 tokens), bf16 compute, fp32 AdamW.
+    (a) the operation counter run live on the card (the kernels record
+    their ``cost()`` and launch) counts the same flops and collective
+    bytes as the meta trace of the same step; (b) the median of 5 timed
+    steps is at least the roofline's ``step_s`` (the H100 data-sheet
+    peaks), the ratio printed; (c) the predicted peak (the state's and
+    batch's bytes plus the trace's peak of live bytes) is within 15% of
+    ``max_memory_allocated`` for the step; (d) ``plan_jobfile`` on the
+    default ``VirtualCluster`` (every CUDA device) prints a plan."""
+    import contextlib
+    import io
+    from repro_torch.analysis.opcount import OpCounter
+    from repro_torch.analysis.roofline import H100, roofline_from_counts
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream, to_device
+    from repro_torch.data import make_batch_specs
+    from repro_torch.launch.dryrun import plan_jobfile
+    from repro_torch.launch.specs import choose_grad_accum, model_flops_for
+    from repro_torch.models.config import SHAPE_CELLS
+    from repro_torch.optim import OptimizerSpec
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=DRYRUN_LAYERS)
+    cell = SHAPE_CELLS["train_4k"]
+    rows = 16                                    # the 16 x 16 grid's rows
+    accum = choose_grad_accum(full, cell, rows)
+    batch_size = max(1, cell.global_batch // rows // accum)
+    spec = OptimizerSpec(kind=cfg.optimizer)
+    step = make_train_step(cfg, spec, grad_accum=1)
+    failures = []
+
+    # the meta trace of the step
+    meta_state = TrainState.create(cfg, spec, None, "meta")
+    with OpCounter() as counter:
+        step(meta_state, make_batch_specs(cfg, batch_size, cell.seq_len))
+    meta = counter.analysis()
+    terms = roofline_from_counts(meta, hw=H100, n_chips=1,
+                                 model_flops=model_flops_for(
+                                     cfg, dataclasses.replace(
+                                         cell, global_batch=batch_size)))
+    del meta_state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = _fresh_state(cfg, spec)
+    stream = SyntheticLMStream(cfg, DataConfig(
+        seed=0, global_batch=batch_size, seq_len=cell.seq_len))
+    batch = to_device(stream.batch(0), DEV)
+    static = sum(t.numel() * t.element_size()
+                 for t in (*tree_leaves(state.params),
+                           *tree_leaves(state.opt_state), *batch.values())
+                 if isinstance(t, torch.Tensor))
+    step(state, batch)                           # warm-up
+    torch.cuda.synchronize()
+
+    # (a) the counter live on the card
+    with OpCounter() as counter:
+        step(state, batch)
+        torch.cuda.synchronize()
+    live = counter.analysis()
+    if live.flops != meta.flops:
+        failures.append(f"flops live {live.flops} != meta {meta.flops}")
+    if live.collectives.total_bytes != meta.collectives.total_bytes:
+        failures.append("collective bytes differ")
+
+    # (b) the measured step against the bound, (c) the peak
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(DRYRUN_STEPS):
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    measured_peak = torch.cuda.max_memory_allocated() - base
+    step_s = float(np.median(times))
+    ratio = step_s / terms.step_s
+    if ratio < 1.0:
+        failures.append(f"measured step {step_s} s under the bound "
+                        f"{terms.step_s} s")
+    predicted_peak = static + meta.peak_bytes
+    peak_gap = predicted_peak / measured_peak - 1.0
+    if abs(peak_gap) > DRYRUN_PEAK_TOL:
+        failures.append(f"predicted peak {predicted_peak} B is "
+                        f"{peak_gap:+.3f} off the measured {measured_peak} B")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the job-file planner on the card's cluster
+    job_path = ROOT / "build" / "dryrun_check_jobs.txt"
+    job_path.parent.mkdir(exist_ok=True)
+    job_path.write_text(DRYRUN_JOBS)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        plans = plan_jobfile(str(job_path), n_workers=2)
+    job_path.unlink()
+    plan = out.getvalue().splitlines()
+    if (sum(len(p) for p in plans) != 4
+            or sum("-> worker" in line for line in plan) != 4):
+        failures.append(f"plan_jobfile printed {plan}")
+
+    fields = dict(
+        model=f"{TRAIN_ARCH} {DRYRUN_LAYERS} layers", batch=batch_size,
+        seq=cell.seq_len, flops_live=live.flops, flops_meta=meta.flops,
+        collective_bytes_live=live.collectives.total_bytes,
+        collective_bytes_meta=meta.collectives.total_bytes,
+        traffic_bytes_live=live.traffic_bytes,
+        traffic_bytes_meta=meta.traffic_bytes,
+        step_s_median=step_s, step_s_all=times,
+        roofline_step_s=terms.step_s, compute_s=terms.compute_s,
+        memory_s=terms.memory_s, collective_s=terms.collective_s,
+        dominant=terms.dominant, step_over_bound=ratio,
+        peak_predicted=predicted_peak, peak_measured=measured_peak,
+        peak_static=static, peak_trace=meta.peak_bytes, peak_gap=peak_gap,
+        plan=plan, seconds=time.perf_counter() - t0, failures=failures)
+    emit("dryrun_check", **fields)
+    if failures:
+        raise AssertionError(f"dryrun_check: {failures}")
+    return fields
+
+
 def train_launcher_phase(mods) -> None:
     """``repro_torch.launch.train.main`` on the card at ``--smoke``: 6 steps
     with a checkpoint every 3, then a resume to 8 from the same directory
@@ -4433,13 +4558,11 @@ JACOBI_COST_N = 2709
 
 
 def rms_bound_ms(R: int, d: int, elt: int) -> tuple[float, str]:
-    """Least time for RMSNorm on (R, d): x read once, the output written
-    once and the fp32 gain read once over the memory rate, against 4
-    operations an element (square-add, the mean's scale, two multiplies)
-    over the fp32 rate."""
-    t_bytes = (2 * R * d * elt + 4 * d) / H100_BYTES_PER_S * 1e3
-    t_ops = 4.0 * R * d / H100_FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """Least time for RMSNorm on (R, d), from the kernel's ``cost()``: x
+    read once, the output written once and the fp32 gain read once,
+    against 4 fp32 operations an element."""
+    from repro_torch.kernels.rmsnorm import cost
+    return fp32_bound_ms(cost(R, d, elt))
 
 
 def rmsnorm_kernel_phase() -> dict:
@@ -4882,6 +5005,7 @@ def main() -> int:
     train_hypar_phase(mods)
     train_proc_phase()
     train_launcher_phase(mods)
+    dryrun_check_phase()
 
     mods = (*mods, rms_kernel)
     rms_entry = rmsnorm_kernel_phase()

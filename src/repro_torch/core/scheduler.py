@@ -238,7 +238,9 @@ class CostModelParams:
     """Hardware constants for the cost-model placement strategy.
 
     The three terms are a roofline decomposition (compute / memory /
-    interconnect).  The values are a conservative host-CPU profile so the
+    interconnect), as in ``repro_torch.analysis.roofline``; use
+    :meth:`from_hw` to derive them from one of its ``HW`` profiles (e.g.
+    ``H100``).  The defaults are a conservative host-CPU profile so the
     model produces sane *relative* costs out of the box.
     """
 
@@ -246,6 +248,14 @@ class CostModelParams:
     mem_bw: float = 20e9          # B/s local (worker-resident) reads
     link_bw: float = 5e9          # B/s cross-worker transfers
     dispatch_s: float = 50e-6     # fixed per-job dispatch overhead
+
+    @classmethod
+    def from_hw(cls, hw) -> "CostModelParams":
+        """Build from any object with ``peak_flops`` / ``hbm_bw`` /
+        ``ici_bw`` attributes (duck-typed, so ``core`` never imports
+        ``analysis``)."""
+        return cls(peak_flops=hw.peak_flops, mem_bw=hw.hbm_bw,
+                   link_bw=hw.ici_bw)
 
 
 class MasterScheduler:

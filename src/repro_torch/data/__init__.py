@@ -1,3 +1,5 @@
-from .pipeline import DataConfig, Prefetcher, SyntheticLMStream, to_device
+from .pipeline import (DataConfig, Prefetcher, SyntheticLMStream,
+                       make_batch_specs, to_device)
 
-__all__ = ["DataConfig", "Prefetcher", "SyntheticLMStream", "to_device"]
+__all__ = ["DataConfig", "Prefetcher", "SyntheticLMStream",
+           "make_batch_specs", "to_device"]

@@ -4,7 +4,9 @@ A copy of the reference's ``repro/data/pipeline.py`` (numpy only; the port
 keeps its own copy): the stream is a pure function of (seed, step, host),
 so a restart resumes bit-identically and the same seed gives the same
 batches, bit for bit, as the reference.  Token streams are Zipf-distributed
-with a masked tail.  :func:`to_device` turns a batch into tensors.
+with a masked tail.  :func:`to_device` turns a batch into tensors, and
+:func:`make_batch_specs` gives a batch's stand-ins on the meta device (the
+dry-run's inputs).
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 
 from ..models.config import ModelConfig
 
-__all__ = ["DataConfig", "SyntheticLMStream", "Prefetcher", "to_device"]
+__all__ = ["DataConfig", "SyntheticLMStream", "Prefetcher", "to_device",
+           "make_batch_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +82,29 @@ def to_device(batch: dict, device) -> dict[str, torch.Tensor]:
     """A batch of numpy arrays as tensors on ``device``."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def make_batch_specs(cfg: ModelConfig, batch: int, seq: int, *,
+                     kind: str = "train") -> dict[str, torch.Tensor]:
+    """Meta tensors of the shapes and dtypes of :class:`SyntheticLMStream`
+    batches (the reference's ``ShapeDtypeStruct`` stand-ins)."""
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    f32, i32 = torch.float32, torch.int32
+    if cfg.family == "encdec":
+        dec = min(cfg.decoder_len, seq)
+        specs = {"enc_embeds": spec((batch, seq, cfg.d_model), f32),
+                 "tokens": spec((batch, dec), i32)}
+        if kind == "train":
+            specs["labels"] = spec((batch, dec), i32)
+            specs["mask"] = spec((batch, dec), f32)
+        return specs
+    specs = {"tokens": spec((batch, seq), i32)}
+    if kind == "train":
+        specs["labels"] = spec((batch, seq), i32)
+        specs["mask"] = spec((batch, seq), f32)
+    return specs
 
 
 class Prefetcher:

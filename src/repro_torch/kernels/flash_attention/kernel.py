@@ -24,20 +24,25 @@ import on machines with no CUDA toolkit).  ``launches`` counts calls of
 :func:`flash_attention_kernel` (``flash_attention``) and of
 :func:`flash_attention_backward_kernel` (``flash_attention_bwd``, one a
 call, although a call launches three device kernels), the one place each
-is launched, so a run can show that its main path went through them.
+is launched, so a run can show that its main path went through them.  On
+meta tensors (the dry-run) both functions record :func:`cost` with the
+operation counter and return meta outputs, launching nothing.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from ...analysis import opcount
 from .. import build
+from ..runtime import on_card
 
 __all__ = ["BLOCKS", "DEFAULT_Q_BLOCK", "DEFAULT_KV_BLOCK", "MAX_D",
            "MAX_D_BWD", "WIDE_D", "WIDE_Q_BLOCK", "check_blocks",
-           "default_blocks", "flash_attention_kernel",
-           "flash_attention_backward_kernel", "launches"]
+           "cost", "default_blocks", "flash_attention_kernel",
+           "flash_attention_backward_kernel", "launches", "visible_pairs"]
 
 #: kernel name -> calls since import (or the last reset)
 launches = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -106,6 +111,33 @@ def check_blocks(q_block: int | None, kv_block: int | None,
                          f"(64 above {WIDE_D})")
 
 
+def visible_pairs(S: int, T: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the masks leave visible, for these sizes."""
+    i = np.arange(S)
+    hi = np.minimum(i + 1, T) if causal else np.full(S, T)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(S, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def cost(B, S, T, H, KV, D, causal, window, dtype, *,
+         backward: bool = False) -> dict:
+    """The forward's work on these sizes: 4·D operations per visible pair
+    (q·k and p·v), q, k, v read once and the output and fp32 LSE written
+    once.  ``backward``: 10·D operations per visible pair (q·k and dO·vᵀ
+    recomputed, dV, dQ, dK), q, k, v, O, dO and LSE read once and dq, dk,
+    dv written once.  The operations run on the dtype's units (tensor
+    cores for bf16, FMA for fp32)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    pairs = visible_pairs(S, T, causal, window)
+    if backward:
+        return {"flops": 10 * B * H * D * pairs,
+                "bytes": ((4 * B * S * H * D + 4 * B * T * KV * D) * elt
+                          + B * H * S * 4)}
+    return {"flops": 4 * B * H * D * pairs,
+            "bytes": ((2 * B * S * H * D + 2 * B * T * KV * D) * elt
+                      + B * H * S * 4)}
+
+
 def _check(q, k, v, *extra, max_d: int = MAX_D) -> None:
     """Shapes and dtypes first, then the device: q (B, S, H, D), k/v
     (B, T, KV, D) and every ``(name, tensor)`` in ``extra`` shaped like q,
@@ -139,7 +171,7 @@ def _check(q, k, v, *extra, max_d: int = MAX_D) -> None:
     if min(B, S, T) < 1 or B > 65535 or H > 65535:
         raise ValueError(f"unsupported sizes B={B} S={S} T={T} H={H}")
     for name, t in named:
-        if not t.is_cuda or t.device != q.device:
+        if not (t.is_cuda or t.is_meta) or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
                              f"got {t.device}")
 
@@ -186,6 +218,11 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if opcount.active():
+        opcount.kernel("flash_attention",
+                       cost(B, S, T, H, KV, D, causal, window, q.dtype))
+    if not on_card(q):
+        return out, lse
     q_default, kv_default = default_blocks(D)
     lib = _load("flash_attention")
     with torch.cuda.device(q.device):
@@ -219,7 +256,7 @@ def flash_attention_backward_kernel(q, k, v, out, lse, dout, *,
                         f"{lse.dtype} {tuple(lse.shape)}")
     _check(q, k, v, ("out", out), ("dout", dout), max_d=MAX_D_BWD)
     T, KV = k.shape[1], k.shape[2]
-    if not lse.is_cuda or lse.device != q.device:
+    if lse.device != q.device:
         raise ValueError(f"lse must be a CUDA tensor on {q.device}")
     if window is not None and window < 1:
         raise ValueError(f"window {window} must be >= 1")
@@ -229,6 +266,12 @@ def flash_attention_backward_kernel(q, k, v, out, lse, dout, *,
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if opcount.active():
+        opcount.kernel("flash_attention_bwd",
+                       cost(B, S, T, H, KV, D, causal, window, q.dtype,
+                            backward=True))
+    if not on_card(q):
+        return dq, dk, dv
     tensors = (q, k, v, out, dout, lse, di, dq, dk, dv)
     ptrs = (ctypes.c_void_p * 10)(*(t.data_ptr() for t in tensors))
     strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, out, dout, dq, dk,

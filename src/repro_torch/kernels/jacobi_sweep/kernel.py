@@ -11,7 +11,9 @@ must import on machines with no CUDA toolkit).
 
 ``launches`` counts the launches of each kernel made through the two
 functions below (the one place each is launched), so a run can show that
-its main path went through the kernel.
+its main path went through the kernel.  On meta tensors (the dry-run) the
+functions record :func:`cost` with the operation counter and return meta
+outputs, launching nothing.
 """
 from __future__ import annotations
 
@@ -19,16 +21,36 @@ import ctypes
 
 import torch
 
+from ...analysis import opcount
 from .. import build
+from ..runtime import on_card
 
-__all__ = ["jacobi_sweep_kernel", "jacobi_sweep_residual_kernel",
-           "launches"]
+__all__ = ["ROWS_PER_BLOCK", "cost", "jacobi_sweep_kernel",
+           "jacobi_sweep_residual_kernel", "launches", "n_blocks"]
 
 #: kernel name -> launches since import (or the last reset)
 launches = {"jacobi_sweep": 0, "jacobi_sweep_residual": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
+#: rows a block (8 warps of 2 rows), as ``csrc/jacobi_sweep.cu`` has it
+ROWS_PER_BLOCK = 16
 _lib = None
+
+
+def n_blocks(n: int) -> int:
+    """Row blocks, and fused partials, for size n
+    (``jacobi_sweep_n_blocks``)."""
+    return -(-n // ROWS_PER_BLOCK)
+
+
+def cost(inputs, outputs) -> dict:
+    """One sweep's work on these tensors: the bytes of A, x, b and d read
+    once and of x' (and the fused kernel's fp32 partials) written once,
+    and its 2N² operations (fp32)."""
+    n = inputs[0].shape[0]
+    return {"flops": 2.0 * n * n,
+            "bytes": sum(t.numel() * t.element_size()
+                         for t in (*inputs, *outputs))}
 
 
 def _load():
@@ -49,7 +71,7 @@ def _load():
 def _launch(name: str, A, x, b, diag, *, fused: bool):
     tensors = {"A": A, "x": x, "b": b, "diag": diag}
     for key, t in tensors.items():
-        if not t.is_cuda or t.device != A.device:
+        if not (t.is_cuda or t.is_meta) or t.device != A.device:
             raise ValueError(f"{key} must be a CUDA tensor on {A.device}, "
                              f"got {t.device}")
         if t.dtype not in _DTYPES:
@@ -65,10 +87,18 @@ def _launch(name: str, A, x, b, diag, *, fused: bool):
         if tensors[key].shape != (N,):
             raise ValueError(f"{key} must be ({N},), got "
                              f"{tuple(tensors[key].shape)}")
-    lib = _load()
     out = torch.empty_like(x)
-    partials = (torch.empty(lib.jacobi_sweep_n_blocks(N), dtype=torch.float32,
+    partials = (torch.empty(n_blocks(N), dtype=torch.float32,
                             device=A.device) if fused else None)
+    if opcount.active():
+        opcount.kernel(name, cost((A, x, b, diag),
+                                  (out,) + ((partials,) if fused else ())))
+    if not on_card(A):
+        return out, partials
+    lib = _load()
+    if fused and lib.jacobi_sweep_n_blocks(N) != partials.numel():
+        raise RuntimeError("the library's row blocking differs from "
+                           "ROWS_PER_BLOCK")
     is_bf16 = [int(t.dtype == torch.bfloat16) for t in (A, x, b, diag)]
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream

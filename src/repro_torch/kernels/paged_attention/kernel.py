@@ -14,17 +14,23 @@ with no CUDA toolkit).
 ``launches`` counts calls of the two entry points (:func:`paged_attention_kernel`
 and :func:`paged_decode_kernel`, the only places the kernels are
 launched): one a call, although a call launches two device kernels, so a
-run can show that its main path went through the kernel.
+run can show that its main path went through the kernel.  On meta tensors
+(the dry-run) the entry points record :func:`cost` with the operation
+counter and return meta outputs, the split partials allocated as on the
+card, launching nothing.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from ...analysis import opcount
 from .. import build
+from ..runtime import on_card
 
-__all__ = ["paged_attention_kernel", "paged_decode_kernel",
+__all__ = ["cost", "paged_attention_kernel", "paged_decode_kernel",
            "default_pages_per_split", "launches"]
 
 #: number of calls of the entry points since import (or the last reset)
@@ -62,9 +68,36 @@ def default_pages_per_split(batch: int, kv_heads: int, n_pages: int) -> int:
     return 1
 
 
+def cost(pages, kv_len, *, B, KV, G, D, ps, window, elt) -> dict:
+    """The kernel's work on these inputs (fp32 operations).  Bytes: K and
+    V rows of every page the kernel must read (pages that can hold a
+    visible position, the trash page excluded — it reads as zeros), their
+    table entries, q, kv_len, and the fp32 outputs.  Operations: 4*G*D
+    per position of a page read (q.k and p.v).  On meta tensors, whose
+    values are unknown (the dry-run), every slot's context fills its
+    table and no entry is the trash page."""
+    n_pages = pages.shape[1]
+    if pages.is_meta or kv_len.is_meta:
+        tbl = np.ones((B, n_pages), np.int64)
+        lens = np.full(B, n_pages * ps, np.int64)
+    else:
+        tbl = pages.cpu().numpy()
+        lens = kv_len.cpu().numpy().astype(np.int64)
+    j = np.arange(n_pages)
+    run = j[None, :] * ps < lens[:, None]
+    if window is not None:
+        run &= ~((j[None, :] + 1) * ps - 1 < lens[:, None] + 1 - window)
+    n_run = int(run.sum())
+    n_read = int((run & (tbl != 0)).sum())
+    return {"flops": 4 * n_run * KV * G * ps * D,
+            "bytes": (2 * n_read * KV * ps * D * elt + n_run * 4
+                      + B * KV * G * D * elt + B * 4
+                      + B * KV * G * (D + 2) * 4)}
+
+
 def _check_device(tensors: dict, dev: torch.device) -> None:
     for name, t in tensors.items():
-        if not t.is_cuda or t.device != dev:
+        if not (t.is_cuda or t.is_meta) or t.device != dev:
             raise ValueError(f"{name} must be a CUDA tensor on {dev}, "
                              f"got {t.device}")
         if not t.is_contiguous():
@@ -126,6 +159,12 @@ def _run(q, k_pool, v_pool, pages, kv_len, *, KV, G, window,
         out = torch.empty_like(q)
         ptrs = (kt.data_ptr(), vt.data_ptr(), _DTYPES[vt.dtype],
                 out.data_ptr(), None, None, None)
+    if opcount.active():
+        opcount.kernel("paged_attention", cost(
+            pages, kv_len, B=B, KV=KV, G=G, D=D, ps=ps, window=window,
+            elt=q.element_size()))
+    if not on_card(q):
+        return out if kt is not None else (acc, m, l)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -162,7 +201,7 @@ def paged_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
     _, KV, G, _ = q.shape
     res = _run(q, k_pool, v_pool, pages, kv_len, KV=KV, G=G, window=window,
                pages_per_split=pages_per_split, scale=1.0)
-    launches += 1
+    launches += on_card(q)
     return res
 
 
@@ -196,5 +235,5 @@ def paged_decode_kernel(q: torch.Tensor, k_pool: torch.Tensor,
     res = _run(q, k_pool, v_pool, pages, kv_len, KV=KV, G=H // KV,
                window=window, pages_per_split=pages_per_split, scale=scale,
                kt=kt, vt=vt)
-    launches += 1
+    launches += on_card(q)
     return res

@@ -12,7 +12,9 @@ toolkit).
 
 ``launches`` counts kernel launches made through :func:`rmsnorm_kernel`
 (the one place the kernel is launched), so a run can show that its main
-path went through the kernel.
+path went through the kernel.  On meta tensors (the dry-run) it records
+:func:`cost` with the operation counter and returns meta outputs,
+launching nothing.
 """
 from __future__ import annotations
 
@@ -20,9 +22,11 @@ import ctypes
 
 import torch
 
+from ...analysis import opcount
 from .. import build
+from ..runtime import on_card
 
-__all__ = ["MAX_ROW_BLOCK", "rmsnorm_kernel", "launches"]
+__all__ = ["MAX_ROW_BLOCK", "cost", "rmsnorm_kernel", "launches"]
 
 #: number of launches of the CUDA kernel since import (or the last reset)
 launches = 0
@@ -31,6 +35,13 @@ MAX_ROW_BLOCK = 32
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
+
+
+def cost(R: int, d: int, elt: int) -> dict:
+    """RMSNorm's work on (R, d) of ``elt``-byte elements: x read once, the
+    output written once and the fp32 gain read once; 4 operations an
+    element (square-add, the mean's scale, two multiplies), fp32."""
+    return {"flops": 4.0 * R * d, "bytes": 2 * R * d * elt + 4 * d}
 
 
 def _load():
@@ -55,7 +66,7 @@ def rmsnorm_kernel(x2d: torch.Tensor, gain: torch.Tensor, *, eps: float,
     (R, d) in x2d's dtype — what :func:`.ref.rmsnorm_plain` computes."""
     global launches
     for name, t in (("x2d", x2d), ("gain", gain)):
-        if not t.is_cuda or t.device != x2d.device:
+        if not (t.is_cuda or t.is_meta) or t.device != x2d.device:
             raise ValueError(f"{name} must be a CUDA tensor on {x2d.device}, "
                              f"got {t.device}")
         if not t.is_contiguous():
@@ -80,6 +91,10 @@ def rmsnorm_kernel(x2d: torch.Tensor, gain: torch.Tensor, *, eps: float,
         raise ValueError(f"row_block {row_block} outside 1..{MAX_ROW_BLOCK}")
     out = torch.empty_like(x2d)
     if R == 0:
+        return out
+    if opcount.active():
+        opcount.kernel("rmsnorm", cost(R, d, x2d.element_size()))
+    if not on_card(x2d):
         return out
     lib = _load()
     with torch.cuda.device(x2d.device):

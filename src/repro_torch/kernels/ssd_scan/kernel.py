@@ -20,6 +20,8 @@ import on machines with no CUDA toolkit).
 ``launches`` counts calls of :func:`ssd_intra_chunk_kernel` (the one place
 the kernels are launched): one a call, although a call launches two device
 kernels, so a run can show that its main path went through the kernel.
+On meta tensors (the dry-run) it records :func:`cost` with the operation
+counter and returns meta outputs, launching nothing.
 """
 from __future__ import annotations
 
@@ -27,9 +29,11 @@ import ctypes
 
 import torch
 
+from ...analysis import opcount
 from .. import build
+from ..runtime import on_card
 
-__all__ = ["ROW_TILES", "check_row_tile", "default_row_tile",
+__all__ = ["ROW_TILES", "check_row_tile", "cost", "default_row_tile",
            "ssd_intra_chunk_kernel", "launches"]
 
 #: number of calls of the entry point since import (or the last reset)
@@ -80,9 +84,24 @@ def default_row_tile(BC: int, H: int, Q: int, P: int, N: int) -> int:
     return 64 if blocks <= 2 * _SMS else 32
 
 
+def cost(BC: int, H: int, Q: int, P: int, N: int) -> dict:
+    """The SSD function's work on these shapes (fp32).  Bytes: every input
+    read once and y, S written once.  Operations (an exp counted as one):
+    C Bᵀ once per chunk over the causal half, Q(Q+1)/2 * 2N; per head,
+    the causal entries' weights and the product with x, Q(Q+1)/2 * (2P +
+    3), and the state, Q * (2NP + N + 3) (weights, the product and the
+    cumsum)."""
+    causal = Q * (Q + 1) // 2
+    return {"flops": BC * (causal * 2 * N
+                           + H * (causal * (2 * P + 3)
+                                  + Q * (2 * N * P + N + 3))),
+            "bytes": 4 * BC * (2 * H * Q * P + 2 * H * Q + 2 * Q * N
+                               + H * N * P)}
+
+
 def _check_device(tensors: dict, dev: torch.device) -> None:
     for name, t in tensors.items():
-        if not t.is_cuda or t.device != dev:
+        if not (t.is_cuda or t.is_meta) or t.device != dev:
             raise ValueError(f"{name} must be a CUDA tensor on {dev}, "
                              f"got {t.device}")
 
@@ -132,6 +151,10 @@ def ssd_intra_chunk_kernel(xh: torch.Tensor, dt: torch.Tensor,
     y = torch.empty((BC, Q, H, P), **f32).transpose(1, 2)
     S = torch.empty((BC, H, P, N), **f32).transpose(2, 3)
     cb = torch.empty((BC, Qp, Qp), **f32)
+    if opcount.active():
+        opcount.kernel("ssd_intra_chunk", cost(BC, H, Q, P, N))
+    if not on_card(xh):
+        return y, S
     strides = (*xh.stride()[:3], *dt.stride()[:3], *a.stride()[:3],
                *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3],
                *S.stride())

@@ -15,8 +15,11 @@ the CPU, as the reference's forced host devices share one CPU.  A CUDA
 mesh with more positions than visible cards raises unless ``devices=`` is
 given; there is no fallback to the CPU.
 
-Not ported here: ``make_production_mesh`` (16 x 16 and 2 x 16 x 16), which
-only the reference's compile dry-run and diagnosis tools read.
+A ``meta`` grid (``device="meta"``) places every position on PyTorch's
+meta device: tensors with shapes and no memory, the counterpart of the
+reference's forced host devices in its dry-run.
+:func:`make_production_mesh` gives the production grids (16 x 16 and
+2 x 16 x 16) on it, for ``launch/dryrun.py`` and its tools.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["DeviceMesh", "compat_make_mesh", "make_test_mesh",
-           "grid_devices"]
+__all__ = ["DeviceMesh", "compat_make_mesh", "make_production_mesh",
+           "make_test_mesh", "grid_devices"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,14 +95,15 @@ def grid_devices(size: int, *, device="cuda", devices: Sequence | None = None,
                  label: str = "") -> list[torch.device]:
     """``size`` devices for a grid's positions, row-major: ``devices``
     (``size`` entries; a device may repeat) when given, else ``cuda:0 …
-    cuda:{size-1}`` for ``device="cuda"`` and the CPU at every position for
-    ``device="cpu"``.  A CUDA grid raises where there are fewer CUDA
-    devices than positions, and on a CUDA device that is not there."""
+    cuda:{size-1}`` for ``device="cuda"``, and the CPU or the meta device
+    (placeholders: shapes, no memory) at every position for ``device="cpu"``
+    or ``"meta"``.  A CUDA grid raises where there are fewer CUDA devices
+    than positions, and on a CUDA device that is not there."""
     what = f"mesh {label}" if label else "mesh"
     if devices is None:
         kind = torch.device(device).type
-        if kind == "cpu":
-            devices = [torch.device("cpu")] * size
+        if kind in ("cpu", "meta"):
+            devices = [torch.device(kind)] * size
         elif kind == "cuda":
             n_dev = torch.cuda.device_count() if torch.cuda.is_available() \
                 else 0
@@ -111,8 +115,8 @@ def grid_devices(size: int, *, device="cuda", devices: Sequence | None = None,
                     f"one card)")
             devices = [torch.device("cuda", i) for i in range(size)]
         else:
-            raise ValueError(f"device {device!r}: a mesh runs on 'cuda' or "
-                             f"'cpu'")
+            raise ValueError(f"device {device!r}: a mesh runs on 'cuda', "
+                             f"'cpu' or 'meta'")
     devices = [torch.device(d) for d in devices]
     if len(devices) != size:
         raise ValueError(f"{what} needs {size} devices, got {len(devices)}")
@@ -143,6 +147,15 @@ def compat_make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
     flat = grid_devices(math.prod(shape), device=device, devices=devices,
                         label="x".join(map(str, shape)))
     return DeviceMesh(devices=_nest(flat, shape), axis_names=axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The production grid on meta devices: 16 x 16 over ``("data",
+    "model")``, or 2 x 16 x 16 over ``("pod", "data", "model")`` with
+    ``multi_pod`` (the ``pod`` axis the outer data axis)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return compat_make_mesh(shape, axes, device="meta")
 
 
 def make_test_mesh(data: int = 2, model: int = 2, pod: int = 1, *,

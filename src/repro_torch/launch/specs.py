@@ -1,0 +1,311 @@
+"""Meta-tensor stand-ins and step functions for every (arch × cell), the
+JAX package's ``launch/specs.py`` for the eager dry-run.
+
+The reference hands XLA ``ShapeDtypeStruct`` trees with their shardings
+over the whole production mesh and compiles one partitioned program a
+device.  The port traces the step it really runs, eagerly, on meta tensors
+(``launch/dryrun.py``).  One process drives a grid row by row, so the
+traced program is ONE data row of the production grid: its tensor-parallel
+positions (16 on ``"model"``), with the row's share of the batch — the
+counterpart of the reference's per-device program.  A :class:`CellSpec`
+holds that row's step, its meta arguments and the bytes each production
+position holds before the step:
+
+* **train** — the fused step (``make_train_step(mesh=)``) on a state drawn
+  on meta and placed on the row; the row's micro-batches are the
+  reference's ``choose_grad_accum`` where they divide the row's batch.
+  The data axis's gradient all-reduce over the rows that are not traced
+  is reckoned from each position's gradient bytes (:func:`build_cell`);
+* **prefill** — the row's forward under ``no_grad`` over the parameters
+  placed on the row and gathered on its lead (bf16), returning the last
+  position's logits;
+* **decode** — the paged ``decode_step`` of a serving-mesh row
+  (``serve.mesh.shard_params``/``shard_paged_cache``: KV heads over the
+  row's positions where they divide, experts and vocabulary where their
+  specs say so), each slot's pages covering ``seq_len``.  An
+  encoder-decoder model, which the paged engine refuses (as the
+  reference's does), decodes on the dense cache on the row's lead.
+
+Deviations, each in ROADMAP queue C: the eager trace replaces the
+compile; the decode cells run the paged serve-mesh row, not the
+reference's dense stacked cache; ``long_500k``'s ``kv_seq_long`` split
+(the KV sequence over every position) has no counterpart: each position
+holds its slot's KV sequence whole; the work the port does not split
+(norms, routers, a row's gathered parameters) runs on the row's lead; and
+the data axis's gradient reduction is reckoned, not traced.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from ..analysis import opcount
+from ..data.pipeline import make_batch_specs
+from ..models.config import SHAPE_CELLS, ModelConfig, ShapeCell
+from ..models.layers import dtype_of
+from ..models.transformer import decode_step, forward, init_cache, init_params
+from ..optim import OptimizerSpec
+from ..parallel.partition import (gather_tree, place_tree, position_bytes,
+                                  spec_bytes)
+from ..parallel.sharding import DEFAULT_RULES, ShardingRules
+from ..serve.mesh import (MeshRow, ServeMesh, kv_head_split, shard_paged_cache,
+                          shard_params)
+from ..train.step import TrainState, make_train_step
+from .mesh import DeviceMesh, compat_make_mesh
+
+__all__ = ["CellSpec", "PAGE_SIZE", "build_cell", "choose_grad_accum",
+           "model_flops_for", "row_mesh", "rules_for_cell"]
+
+#: the serving engine's default page size (``PagedEngine``)
+PAGE_SIZE = 16
+
+
+@dataclasses.dataclass
+class CellSpec:
+    """Everything needed to trace one (arch × shape × mesh) cell: ``fn``
+    run on ``args`` is one step of one data row (``row``) of the
+    production grid ``mesh``.  ``static_bytes[k]``: what the row's
+    position k holds before the step (parameters, optimizer state, cache),
+    by the production placement."""
+
+    arch: str
+    cell: ShapeCell
+    fn: Callable
+    args: tuple
+    mesh: DeviceMesh
+    row: DeviceMesh
+    static_bytes: list[int]
+    model_flops: float
+    grad_accum: int = 1
+    row_batch: int = 1
+    row_accum: int = 1
+    notes: tuple[str, ...] = ()
+
+
+def rules_for_cell(mesh, cell: ShapeCell,
+                   cfg: ModelConfig | None = None) -> ShardingRules:
+    rules = dict(DEFAULT_RULES)
+    if cell.kind == "decode" and cell.global_batch == 1:
+        # long-context decode, batch 1: shard the KV sequence over everything
+        rules["kv_seq"] = ("data", "model")
+    if cfg is not None and not cfg.activation_seq_shard:
+        rules["seq"] = None          # Megatron-style replicated residual
+    return ShardingRules(mesh=mesh, rules=rules)
+
+
+def choose_grad_accum(cfg: ModelConfig, cell: ShapeCell, n_data_shards: int,
+                      *, tokens_per_device_micro: int = 8_192) -> int:
+    """Pick microbatching so live activations fit: target <= ~8k tokens per
+    device per microbatch, scaled down for very wide models (fp32 logits
+    and saved layer boundaries are the live-set drivers)."""
+    per_dev = cell.tokens // max(n_data_shards, 1)
+    target = tokens_per_device_micro
+    if cfg.d_model >= 8192:
+        target //= 8
+    elif cfg.d_model >= 4096:
+        target //= 2
+    if cfg.padded_vocab >= 150_000:
+        target = min(target, 4_096)      # fp32 logits dominate
+    accum = max(1, per_dev // target)
+    # accum must divide the per-shard batch
+    b = cell.global_batch
+    while b % accum and accum > 1:
+        accum -= 1
+    return accum
+
+
+def model_flops_for(cfg: ModelConfig, cell: ShapeCell) -> float:
+    """6·N·D (train) / 2·N·D (inference), N = active params."""
+    n = cfg.active_params()
+    if cell.kind == "train":
+        return 6.0 * n * cell.tokens
+    if cell.kind == "prefill":
+        return 2.0 * n * cell.tokens
+    return 2.0 * n * cell.global_batch          # decode: one token per slot
+
+
+def _data_shards(rules: ShardingRules) -> int:
+    return rules.axis_size(rules.rules.get("batch"))
+
+
+def row_mesh(mesh: DeviceMesh) -> DeviceMesh:
+    """One data row of ``mesh``: its axes with every extent but
+    ``"model"``'s cut to 1, on meta devices."""
+    shape = [n if a == "model" else 1
+             for a, n in zip(mesh.axis_names, mesh.dims)]
+    return compat_make_mesh(shape, mesh.axis_names, device="meta")
+
+
+def _row_accum(accum: int, row_batch: int) -> int:
+    """The reference's micro-batch count where it divides the row's batch,
+    else the largest count below it that does."""
+    n = min(accum, row_batch)
+    while row_batch % n:
+        n -= 1
+    return n
+
+
+def _tensor_bytes(tree, seen: set | None = None) -> int:
+    """The bytes of the tensors of ``tree``, each storage once (also
+    across calls that share ``seen``)."""
+    seen = set() if seen is None else seen
+    if isinstance(tree, torch.Tensor):
+        key = tree.untyped_storage()._cdata
+        if key in seen:
+            return 0
+        seen.add(key)
+        return opcount.tensor_bytes(tree)
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v, seen) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v, seen) for v in tree)
+    return 0
+
+
+def _train_cell(arch, cfg, cell, rules, row) -> CellSpec:
+    spec = OptimizerSpec(kind=cfg.optimizer)
+    shards = _data_shards(rules)
+    accum = choose_grad_accum(cfg, cell, shards)
+    row_batch = max(1, cell.global_batch // shards)
+    row_accum = _row_accum(accum, row_batch)
+    state = TrainState.create(cfg, spec, None, "meta", mesh=row)
+    tree = {"params": state.params, "opt_state": state.opt_state}
+    static = spec_bytes(tree, rules, kind="state")
+    grad_bytes = (position_bytes(state.params) if row.size > 1
+                  else [_tensor_bytes(state.params)])
+    step = make_train_step(cfg, spec, grad_accum=row_accum, mesh=row)
+
+    def train_fn(state, batch):
+        out = step(state, batch)
+        if shards > 1:
+            # the rows not traced: the reference's all-reduce of each
+            # position's gradient over the data axis
+            for k, nbytes in enumerate(grad_bytes):
+                opcount.collective("all-reduce", nbytes=nbytes,
+                                   site="grad_data_axis", position=k)
+        return out
+
+    return CellSpec(
+        arch=arch, cell=cell, fn=train_fn,
+        args=(state, make_batch_specs(cfg, row_batch, cell.seq_len,
+                                      kind="train")),
+        mesh=rules.mesh, row=row, static_bytes=[static] * row.size,
+        model_flops=model_flops_for(cfg, cell), grad_accum=accum,
+        row_batch=row_batch, row_accum=row_accum)
+
+
+def _serving_params(cfg: ModelConfig) -> dict:
+    """Inference serves in the compute dtype, as the engines cast it."""
+    return init_params(cfg, None, "meta", cast=True)
+
+
+def _prefill_cell(arch, cfg, cell, rules, row) -> CellSpec:
+    row_batch = max(1, cell.global_batch // _data_shards(rules))
+    params = _serving_params(cfg)
+    static = spec_bytes(params, rules, kind="params")
+    row_rules = ShardingRules(mesh=row, rules=dict(rules.rules))
+    placed = place_tree(params, row, row_rules, kind="params")
+    devices = list(row.flat)
+
+    @torch.no_grad()
+    def prefill_fn(placed, batch):
+        whole = gather_tree(placed)
+        logits, _ = forward(cfg, whole, tokens=batch.get("tokens"),
+                            enc_embeds=batch.get("enc_embeds"),
+                            tp_devices=devices if row.size > 1 else None)
+        # serving returns only the last position (next-token)
+        return logits[:, -1, :]
+
+    return CellSpec(
+        arch=arch, cell=cell, fn=prefill_fn,
+        args=(placed, make_batch_specs(cfg, row_batch, cell.seq_len,
+                                       kind="prefill")),
+        mesh=rules.mesh, row=row, static_bytes=[static] * row.size,
+        model_flops=model_flops_for(cfg, cell), row_batch=row_batch)
+
+
+def _row_static_bytes(row: MeshRow, width: int) -> list[int]:
+    """What each of a serving row's positions holds: the lead the row's
+    weights and cache, each position its attention shard (weights and
+    pools) and its experts and vocabulary rows."""
+    seen = [set() for _ in range(width)]
+    out = [0] * width
+    out[0] = _tensor_bytes([row.params, row.cache], seen[0])
+    for i, sh in enumerate(row.shards):
+        out[i] += _tensor_bytes([sh.attn, sh.k, sh.v], seen[i])
+    for _, parts in row.split.experts.values():
+        for i, (p, _) in enumerate(parts):
+            out[i] += _tensor_bytes(p, seen[i])
+    for i, (rows, _, _) in enumerate(row.split.vocab or ()):
+        out[i] += _tensor_bytes(rows, seen[i])
+    return out
+
+
+def _decode_cell(arch, cfg, cell, rules, row) -> CellSpec:
+    S = cell.seq_len
+    row_batch = max(1, cell.global_batch // _data_shards(rules))
+    params = _serving_params(cfg)
+    tokens = torch.empty((row_batch, 1), dtype=torch.int32, device="meta")
+    notes = []
+    if cell.global_batch == 1:
+        notes.append("kv_seq_long not split: each position holds its "
+                     "slot's KV sequence whole")
+    common = dict(arch=arch, cell=cell, mesh=rules.mesh, row=row,
+                  model_flops=model_flops_for(cfg, cell),
+                  row_batch=row_batch)
+    if cfg.family == "encdec":
+        cache = init_cache(cfg, row_batch, S, device="meta")
+        # the dense engine decodes with one length a slot
+        cache["len"] = torch.zeros((row_batch,), dtype=torch.int32,
+                                   device="meta")
+        enc_out = torch.empty((row_batch, 1500, cfg.d_model),
+                              dtype=dtype_of(cfg.compute_dtype),
+                              device="meta")
+
+        @torch.no_grad()
+        def dense_fn(params, cache, tokens, enc_out):
+            return decode_step(cfg, params, cache, tokens, enc_out=enc_out)
+
+        notes.append("encoder-decoder: dense cache on the row's lead")
+        static = [_tensor_bytes(params) + _tensor_bytes(cache)]
+        static += [0] * (row.size - 1)
+        return CellSpec(fn=dense_fn, args=(params, cache, tokens, enc_out),
+                        static_bytes=static, notes=tuple(notes), **common)
+
+    n_slot_pages = -(-S // PAGE_SIZE)
+    num_pages = 1 + row_batch * n_slot_pages
+    serve = ServeMesh(devices=(tuple(row.flat),))
+    row_rules = ShardingRules(mesh=serve, rules=dict(rules.rules))
+    n_split = kv_head_split(cfg, row_rules, num_pages=num_pages,
+                            page_size=PAGE_SIZE)
+    row_params, shards, split = shard_params(cfg, params, serve, n_split)[0]
+    mrow = MeshRow(slots=range(row_batch), pages=range(1, num_pages),
+                   devices=serve.devices[0], params=row_params,
+                   shards=shards, split=split)
+    shard_paged_cache(cfg, [mrow], page_size=PAGE_SIZE)
+    pages = torch.empty((row_batch, n_slot_pages), dtype=torch.int32,
+                        device="meta")
+
+    @torch.no_grad()
+    def paged_fn(mrow, tokens, pages):
+        return decode_step(cfg, mrow.params, mrow.cache, tokens, pages=pages,
+                           page_size=PAGE_SIZE, shards=mrow.shards,
+                           split=mrow.split)
+
+    return CellSpec(fn=paged_fn, args=(mrow, tokens, pages),
+                    static_bytes=_row_static_bytes(mrow, row.size),
+                    notes=tuple(notes), **common)
+
+
+def build_cell(arch: str, cfg: ModelConfig, cell_name: str,
+               rules: ShardingRules) -> CellSpec:
+    """The traced row's step of one cell on ``rules.mesh`` (the production
+    grid)."""
+    cell = SHAPE_CELLS[cell_name]
+    row = row_mesh(rules.mesh)
+    build = {"train": _train_cell, "prefill": _prefill_cell,
+             "decode": _decode_cell}[cell.kind]
+    return build(arch, cfg, cell, rules, row)
+

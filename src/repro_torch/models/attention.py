@@ -62,6 +62,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..analysis import opcount
 from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.paged_attention import ops as pa_ops
 from ..kernels.runtime import resolve_impl
@@ -434,14 +435,19 @@ def attention_tp(shards, x: torch.Tensor, *, caches: list, positions,
     device])`` for the caller to write into the shards' pools."""
     outs, kvs = [], []
     kv_x = kw.pop("kv_x", None)
-    for (cfg_s, p_s, dev), cache in zip(shards, caches, strict=True):
+    for (cfg_s, p_s, dev), cache in opcount.each_position(
+            zip(shards, caches, strict=True)):
         clen = (cache_len.to(dev) if isinstance(cache_len, torch.Tensor)
                 else cache_len)
         if kv_x is not None:
-            kw["kv_x"] = kv_x.to(dev)
-        out, kv = attention(cfg_s, p_s, x.to(dev),
+            kv_s = opcount.shard_input(kv_x, "attention_tp_grad")
+            kw["kv_x"] = kv_s.to(dev)
+        xs = opcount.shard_input(x, "attention_tp_grad")
+        out, kv = attention(cfg_s, p_s, xs.to(dev),
                             positions=positions.to(dev), cache=cache,
                             cache_len=clen, **kw)
+        if len(shards) > 1:
+            opcount.collective("all-reduce", out, site="attention_tp")
         outs.append(out.to(x.device))
         kvs.append(kv)
     out = outs[0]

@@ -14,6 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..analysis import opcount
 from ..parallel.partition import model_axis_dim
 from .config import ModelConfig
 
@@ -168,8 +169,12 @@ def apply_mlp_tp(cfg: ModelConfig, shards, x: torch.Tensor) -> torch.Tensor:
     shard runs on its device (x moved there), and the partial outputs are
     summed in shard order on x's device."""
     out = None
-    for p_s, dev in shards:
-        part = apply_mlp(cfg, p_s, x.to(dev)).to(x.device)
+    for p_s, dev in opcount.each_position(shards):
+        part = apply_mlp(cfg, p_s,
+                         opcount.shard_input(x, "mlp_tp_grad").to(dev))
+        if len(shards) > 1:
+            opcount.collective("all-reduce", part, site="mlp_tp")
+        part = part.to(x.device)
         out = part if out is None else out + part
     return out
 
@@ -239,13 +244,15 @@ def embed_tp(cfg: ModelConfig, shards, tokens: torch.Tensor) -> torch.Tensor:
     dtype, as :func:`embed`'s does."""
     cd = dtype_of(cfg.compute_dtype)
     x = None
-    for rows, lo, dev in shards:
+    for rows, lo, dev in opcount.each_position(shards):
         t = tokens.to(dev).long() - lo
         table = rows["table"]
         inside = ((t >= 0) & (t < table.shape[0]))[..., None]
         part = torch.where(inside, table[t.clamp(0, table.shape[0] - 1)],
                            torch.zeros((), dtype=table.dtype, device=dev))
-        part = part.to(cd).to(tokens.device)
+        part = part.to(cd)
+        opcount.collective("all-reduce", part, site="embed_tp")
+        part = part.to(tokens.device)
         x = part if x is None else x + part
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
@@ -256,8 +263,9 @@ def unembed_tp(cfg: ModelConfig, shards, x: torch.Tensor) -> list:
     """:func:`unembed` over vocab shards: each shard's logits (..., V/n)
     over its rows, on its device, in shard order."""
     cd = dtype_of(cfg.compute_dtype)
-    return [x.to(dev).to(cd) @ rows.get("unembed", rows["table"]).to(cd).T
-            for rows, _, dev in shards]
+    return [opcount.shard_input(x, "unembed_tp_grad").to(dev).to(cd)
+            @ rows.get("unembed", rows["table"]).to(cd).T
+            for rows, _, dev in opcount.each_position(shards)]
 
 
 def cast_weights(params, compute_dtype: torch.dtype):

@@ -42,6 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..analysis import opcount
 from ..parallel.partition import model_axis_dim
 from .config import ModelConfig
 from .layers import (_act, apply_mlp, dtype_of, init_dense, init_mlp,
@@ -131,18 +132,25 @@ def _experts_tp(cfg: ModelConfig, tp, buf: torch.Tensor) -> torch.Tensor:
     axis, shards = tp
     if axis == "experts":
         parts, lo = [], 0
-        for p_s, dev in shards:
+        for p_s, dev in opcount.each_position(shards):
             hi = lo + p_s["gate"].shape[0]
-            parts.append(_experts(cfg, p_s, buf[lo:hi].to(dev))
-                         .to(buf.device))
+            part = _experts(cfg, p_s, buf[lo:hi].to(dev))
+            # each position ends with every expert's rows: buf's shape
+            opcount.collective("all-gather",
+                               nbytes=buf.numel() * part.element_size(),
+                               site="experts_tp")
+            parts.append(part.to(buf.device))
             lo = hi
         if lo != buf.shape[0]:
             raise ValueError(f"expert shards hold {lo} of {buf.shape[0]} "
                              f"experts")
         return torch.cat(parts)
     out = None
-    for p_s, dev in shards:
-        part = _experts(cfg, p_s, buf.to(dev)).to(buf.device)
+    for p_s, dev in opcount.each_position(shards):
+        part = _experts(cfg, p_s, opcount.shard_input(
+            buf, "experts_tp_grad").to(dev))
+        opcount.collective("all-reduce", part, site="experts_tp")
+        part = part.to(buf.device)
         out = part if out is None else out + part
     return out
 

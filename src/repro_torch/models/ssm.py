@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..analysis import opcount
 from ..kernels.runtime import resolve_impl
 from ..kernels.ssd_scan import ssd_intra_chunk
 from ..parallel.partition import model_axis_dim
@@ -307,18 +308,24 @@ def apply_mamba2_tp(cfg: ModelConfig, shards, x: torch.Tensor, *,
                          f"gated norm, not {cfg.norm}")
     cd = dtype_of(cfg.compute_dtype)
     di, H, n = cfg.ssm_d_inner, cfg.ssm_n_heads, len(shards)
-    parts = [(_mixer_core(cfg, p_s, x.to(dev), di=di // n, H=H // n,
+    parts = [(_mixer_core(cfg, p_s,
+                          opcount.shard_input(x, "mamba2_tp_grad").to(dev),
+                          di=di // n, H=H // n,
                           cache=None, valid_len=None, impl=impl)[0], p_s, dev)
-             for p_s, dev in shards]
+             for p_s, dev in opcount.each_position(shards)]
     ss = None
-    for g, _, _ in parts:
-        part = g.float().square().sum(dim=-1, keepdim=True).to(x.device)
+    for g, _, _ in opcount.each_position(parts):
+        part = g.float().square().sum(dim=-1, keepdim=True)
+        opcount.collective("all-reduce", part, site="mamba2_tp_norm")
+        part = part.to(x.device)
         ss = part if ss is None else ss + part
     r = torch.rsqrt(ss / di + eps)
     out = None
-    for g, p_s, dev in parts:
+    for g, p_s, dev in opcount.each_position(parts):
         y = (g.float() * r.to(dev) * p_s["norm"]["scale"].float()).to(g.dtype)
-        part = dense(p_s["out_proj"], y, cd).to(x.device)
+        part = dense(p_s["out_proj"], y, cd)
+        opcount.collective("all-reduce", part, site="mamba2_tp")
+        part = part.to(x.device)
         out = part if out is None else out + part
     return out
 

@@ -90,6 +90,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                       create_selective_checkpoint_contexts)
 
+from ..analysis import opcount
 from ..kernels.flash_attention.kernel import MAX_D_BWD
 from ..kernels.runtime import resolve_impl
 from ..parallel.partition import model_axis_dim
@@ -438,26 +439,28 @@ def _tp_shards(cfg: ModelConfig, p: dict, devices) -> dict:
         return out
     if "attn" in p and _heads_split(cfg, n):
         out["tp"] = []
-        for i, dev in enumerate(devices):
+        for i, dev in enumerate(opcount.each_position(devices)):
             cfg_s, p_s = split_attention(cfg, p["attn"], n, i)
             out["tp"].append((cfg_s, _placed(p_s, dev), dev))
     if "mlp" in p and not p["mlp"]["up"]["w"].shape[1] % n:
         out["mlp_tp"] = [(_placed(split_mlp(p["mlp"], n, i), dev), dev)
-                         for i, dev in enumerate(devices)]
+                         for i, dev in enumerate(
+                             opcount.each_position(devices))]
     if "moe" in p:
         axis = expert_axis(p["moe"], n)
         if axis is not None:
             out["moe_tp"] = (axis, [
                 (_placed(split_experts(p["moe"], n, i, axis), dev), dev)
-                for i, dev in enumerate(devices)])
+                for i, dev in enumerate(opcount.each_position(devices))])
     if "mixer" in p and ssm_head_split(cfg, p["mixer"], n):
-        out["ssm_tp"] = [(_placed(split_mamba2(cfg, p["mixer"], n, i), dev),
-                          dev) for i, dev in enumerate(devices)]
+        out["ssm_tp"] = [
+            (_placed(split_mamba2(cfg, p["mixer"], n, i), dev), dev)
+            for i, dev in enumerate(opcount.each_position(devices))]
     if ("cross" in p and _heads_split(cfg, n)
             and model_axis_dim(("cross", "q", "w"),
                                p["cross"]["q"]["w"].shape, n) == 1):
         out["cross_tp"] = []
-        for i, dev in enumerate(devices):
+        for i, dev in enumerate(opcount.each_position(devices)):
             cfg_s, p_s = split_attention(cfg, p["cross"], n, i)
             out["cross_tp"].append((cfg_s, _placed(p_s, dev), dev))
     return out
@@ -472,7 +475,7 @@ def _vocab_shards(p: dict, devices) -> list | None:
     if not vocab_split(p, n):
         return None
     return [(_placed(rows, dev), lo, dev)
-            for i, dev in enumerate(devices)
+            for i, dev in enumerate(opcount.each_position(devices))
             for rows, lo in [split_vocab(p, n, i)]]
 
 
@@ -487,8 +490,11 @@ def _logits(cfg: ModelConfig, params: dict, x, vocab):
     the vocab shards' slices concatenated in order."""
     if vocab is None:
         return unembed(cfg, params["embed"], x)
-    return torch.cat([part.to(x.device)
-                      for part in unembed_tp(cfg, vocab, x)], dim=-1)
+    out = torch.cat([part.to(x.device)
+                     for part in unembed_tp(cfg, vocab, x)], dim=-1)
+    for _ in opcount.each_position(vocab):
+        opcount.collective("all-gather", out, site="logits_tp")
+    return out
 
 
 def _run_stack(cfg: ModelConfig, blocks, x, positions, *, impl: str,
@@ -637,7 +643,8 @@ def _nll_tp(cfg: ModelConfig, vocab: list, x: torch.Tensor,
     added up in shard order.  The maxes are constants to the gradient, as
     in a log-sum-exp."""
     stats = []
-    for logits, (_, lo, dev) in zip(unembed_tp(cfg, vocab, x), vocab):
+    for logits, (_, lo, dev) in opcount.each_position(
+            zip(unembed_tp(cfg, vocab, x), vocab)):
         lf = logits.float()
         n = lf.shape[-1]
         if lo + n > cfg.vocab_size:
@@ -648,6 +655,7 @@ def _nll_tp(cfg: ModelConfig, vocab: list, x: torch.Tensor,
         inside = (lab >= 0) & (lab < n)
         picked = lf.gather(-1, lab.clamp(0, n - 1)[..., None])[..., 0]
         ll = torch.where(inside, picked, torch.zeros((), device=dev))
+        opcount.collective("all-reduce", m, s, ll, site="nll_tp")
         stats.append((m.to(x.device), s.to(x.device), ll.to(x.device)))
     m = stats[0][0]
     for mi, _, _ in stats[1:]:

@@ -36,6 +36,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..analysis import opcount
 from ..models.config import ModelConfig
 from ..models.transformer import (check_trainable, init_params, loss_fn,
                                   loss_from_sums, loss_sums)
@@ -121,7 +122,7 @@ def compute_grads(cfg: ModelConfig, params, batch: dict, *, accum: int = 1,
     alias = tree_unflatten(params, leaves)
     lsum = 0.0
     metrics = {}
-    for mb in _split_microbatches(batch, accum):
+    for mb in opcount.micro_batches(_split_microbatches(batch, accum)):
         total, metrics = loss_fn(cfg, alias, mb, impl=impl)
         total.backward()
         lsum = lsum + total.detach()
@@ -159,7 +160,9 @@ def compute_grads_mesh(cfg: ModelConfig, params, batch: dict, mesh, *,
     tensor-parallel devices), one scalar, the whole micro-batch's loss, is
     made of them on the mesh's lead (``loss_from_sums``), and one backward
     runs over every row's graph.  Each leaf's gradient is then the rows'
-    sum, added in row order on the lead, divided by ``accum``."""
+    sum, added in row order on the lead, divided by ``accum``; under the
+    operation counter that sum is recorded as the reference's all-reduce
+    of each position's gradient block, at its place in its row."""
     for p in tree_leaves(params):
         if p.dtype != torch.float32:
             raise TypeError(f"parameters must be fp32 (their gradients "
@@ -174,7 +177,7 @@ def compute_grads_mesh(cfg: ModelConfig, params, batch: dict, mesh, *,
                   for devs in rows]
     lsum = 0.0
     metrics = {}
-    for parts in micro:
+    for parts in opcount.micro_batches(micro):
         sums = [loss_sums(cfg, tree_unflatten(params, w),
                           {k: v.to(devs[0]) for k, v in part.items()},
                           impl=impl, tp_devices=devs)
@@ -192,6 +195,10 @@ def compute_grads_mesh(cfg: ModelConfig, params, batch: dict, mesh, *,
             g = part if g is None else g + part
             w[j] = None
         grads.append(place_leaf(g.div_(accum), mesh, leaf.spec))
+        if len(row_leaves) > 1:
+            for k, blk in enumerate(grads[-1].blocks):
+                opcount.collective("all-reduce", blk, site="grad_rows",
+                                   position=k % len(rows[0]))
         del g, part
     metrics = {k: v.detach() for k, v in metrics.items()}
     return tree_unflatten(params, grads), lsum / accum, metrics
