@@ -36,14 +36,14 @@ and prints one JSON line per phase:
    requests (prompts 64-1500 tokens, 32 new tokens each, greedy); every
    request must finish with its token count, and the kernel's launch count
    must equal decode steps x layers;
-5a. ``serve_hypar`` — the same engine configuration and trace, served four
-   times on one engine, each by a fresh ``ServeScheduler``: direct, HyPar
+5a. ``serve_hypar`` — the same engine configuration and trace (qwen2-1.5b
+   cut to 14 of its 28 layers), served four times on one engine, each by a fresh ``ServeScheduler``: direct, HyPar
    (``HyParRequestTracker``, cost strategy), HyPar, direct; then a fifth,
    HyPar run in which ``fail_slot(0)`` is called after the first decode
    step.  Every request gets its 32 tokens, every run's token streams
    equal the direct run's request by request (the failed slot's victim
    re-prefills to the same stream, ``n_recovered`` 1), launches equal
-   decode steps x 28 in each run, and after each HyPar run the tracker's
+   decode steps x 14 in each run, and after each HyPar run the tracker's
    graph is empty, its 16 result records released and never sent back,
    and ``serve.decode`` has an EWMA.  Tok/s, TTFT, the decode step and the
    tracker's host seconds of each run, and ``hypar_overhead_pct`` from the
@@ -178,6 +178,21 @@ and prints one JSON line per phase:
    output).  The flash forward must launch once an encoder layer and
    twice a decoder layer a prefill or insert, and once a decoder layer
    (cross-attention) a decode step, exactly;
+10i. ``kernels`` at llama3-405b's shapes (``llama3_kernel_phase``) — the
+   paged kernel on float8 e4m3 pools under a bf16 q at llama3-405b's
+   decode (B 8, KV 8, G 16, D 128, page 16, contexts 1,000-1,500), beside
+   the bf16-pool instance at the same shape, and e4m3 at G 1, G 6 and
+   D 256 (trash tails) and under a window of 512: each at its default
+   split against its plain version (the trash page NaN) and the wrapper
+   against its gather oracle, timed beside its bound, plain version and
+   SDPA over the gathered pages cast to bf16;
+10j. ``serve_llama3`` (``serve_paged_phase``) — llama3-405b at full width
+   on its e4m3 pools: ``parity_llama3`` at 2 layers in fp32 (the kernel
+   path's greedy tokens must equal the plain path's), then 4 of its 126
+   layers in bf16 (33.9 GB of weights), 8 requests of phase 5's trace,
+   16 greedy tokens, the paged kernel once a layer a decode step;
+   ``serve_llama3_pools``: the pools hold one byte an element, half a
+   bf16 pool's bytes;
 11. ``kernels`` (``jacobi_sweep``) — both Jacobi kernels (plain sweep and
    fused-residual sweep) against their plain versions at the paper's sizes
    N 2709, 4209 and 7209 in fp32, one bf16-x and one bf16-A case and a
@@ -257,6 +272,14 @@ and prints one JSON line per phase:
    ``train_mamba2_tp2``), each at the same gates (the mixers' per-head
    scalars at 1.0); ``train_mesh_fp32`` adds both at 2 layers, TP=2,
    sequences of 1,024;
+15c. ``train_llama3`` — llama3-405b at full width cut to 1 of its 126
+   layers with its own settings (bf16 parameters, Adafactor, remat
+   "full"): step 1's loss and gradients by the plain path and the kernel
+   path at 1,024 tokens (the plain path's 128 heads of fp32 scores and
+   two fp32 gradient sets do not fit the card at 4,096) within the
+   training gates; then 2 steps at seq 4,096, batch 2 in 2 micro-batches:
+   exact flash launches, fp32 gradient sums, bf16 parameters and fp32
+   optimizer state after; step s, tokens/s, mfu, peak memory;
 16. ``train_hypar`` — ``HyParTrainer`` (sync) against the fused step at
    the same widths, 4 layers, 3 steps of 2 micro-batches: seconds of each,
    HyPar's overhead, final params within 1e-6 (and whether to the bit),
@@ -336,6 +359,7 @@ ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
+H100_BF16_FLOPS = 989e12         # dense bf16 tensor-core peak
 KERNEL_TOL = 1e-4                # kernel vs plain, attention output and m
 # SSD kernel vs plain, max|Δ| / max|plain| of y and of S: the two take
 # cumsum(a) in different orders, and exp(cum_t - cum_s) carries the
@@ -374,8 +398,12 @@ def cuda_ms(fn, reps: int) -> float:
     calls, by the tuner's CUDA-event timer (``tuning.device_seconds``: one
     warm-up call, and the device held by a sleep kernel while the launches
     queue, so the events time the device's work, not the host's launch
-    rate)."""
+    rate).  One call runs before the timer's warm-up: the sleep is 1.5x
+    the warm-up's host time per rep, and a library call's first call at
+    a new shape (kernel selection, lazy loading) would make it 10 s."""
     from repro_torch.kernels.tuning import device_seconds
+    fn(0)
+    torch.cuda.synchronize()
     return device_seconds(fn, reps) / reps * 1e3
 
 
@@ -385,15 +413,21 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def paged_inputs(gen, *, B, KV, G, D, ps, n_pages, kv_lens, dtype,
-                 trash_tail=0):
+                 trash_tail=0, kv_dtype=None):
     """Serve-layout inputs on the card: each slot's pages are distinct pool
     pages, the rest of its row is the trash page 0, whose contents are NaN
-    (the kernel must read it as zeros)."""
+    (the kernel must read it as zeros).  The pools are in ``kv_dtype``
+    (default q's ``dtype``), cast as the cache writes them."""
+    from repro_torch.dtypes import cast_kv
+
     P = 1 + B * n_pages
-    k_pool = torch.randn((P, KV, ps, D), generator=gen, device=DEV).to(dtype)
-    v_pool = torch.randn((P, KV, ps, D), generator=gen, device=DEV).to(dtype)
-    k_pool[0] = float("nan")
-    v_pool[0] = float("nan")
+    kv_dtype = kv_dtype or dtype
+    k_pool, v_pool = (cast_kv(torch.randn((P, KV, ps, D), generator=gen,
+                                          device=DEV), kv_dtype)
+                      for _ in range(2))
+    nan = cast_kv(torch.full((), float("nan"), device=DEV), kv_dtype)
+    for pool in (k_pool, v_pool):
+        pool[0].copy_(nan.expand_as(pool[0]))
     table = np.zeros((B, n_pages), np.int32)
     nxt = 1
     for b, L in enumerate(kv_lens):
@@ -417,13 +451,28 @@ def fp32_bound_ms(cost: dict) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def bound_ms(pages, kv_len, *, B, KV, G, D, ps, window, elt):
+def _bound(flops, nbytes, dtype) -> dict:
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
+            "flops": flops, "bytes": nbytes}
+
+
+def bound_ms(pages, kv_len, *, B, KV, G, D, ps, window, elt, kv_elt=None):
     """Least time for the paged kernel's work on these inputs, from its
-    ``cost()`` (the pages it must read, their table entries, q, kv_len
-    and the fp32 outputs; 4*G*D fp32 operations per position read)."""
+    ``cost()``: the pages it must read at ``kv_elt`` bytes an element,
+    their table entries, q, kv_len and the fp32 outputs over the memory
+    rate, against its 4*G*D operations per position read over the peak
+    of q's type, as ``fa_bound`` counts them (the tensor cores' for a bf16
+    q, ``elt`` 2; the FMA units' for fp32: the binding takes no other)."""
     from repro_torch.kernels.paged_attention import cost
-    return fp32_bound_ms(cost(pages, kv_len, B=B, KV=KV, G=G, D=D, ps=ps,
-                              window=window, elt=elt))
+    c = cost(pages, kv_len, B=B, KV=KV, G=G, D=D, ps=ps, window=window,
+             elt=elt, kv_elt=kv_elt)
+    b = _bound(c["flops"], c["bytes"],
+               torch.bfloat16 if elt == 2 else torch.float32)
+    return b["bound_ms"], b["bound_by"]
 
 
 def wrapper_case(gen, q, k_pool, v_pool, pages, kv_len, window, pps):
@@ -438,13 +487,14 @@ def wrapper_case(gen, q, k_pool, v_pool, pages, kv_len, window, pps):
     moves the output by at most 2^-9 max|v|; both sides round the output to
     bf16, at most one bf16 spacing (2^-8 |out|) apart.  The stated bound is
     2^-8 (max|v| + max|out|)."""
+    from repro_torch.dtypes import cast_kv
     from repro_torch.kernels.paged_attention import paged_decode_attention
 
     B, KV, G, D = q.shape
     dtype = q.dtype
     qw = torch.randn((B, 1, KV * G, D), generator=gen, device=DEV).to(dtype)
-    kt = torch.randn((B, KV, 1, D), generator=gen, device=DEV).to(dtype)
-    vt = torch.randn((B, KV, 1, D), generator=gen, device=DEV).to(dtype)
+    kt, vt = (cast_kv(torch.randn((B, KV, 1, D), generator=gen, device=DEV),
+                      k_pool.dtype) for _ in range(2))
     out = paged_decode_attention(qw, k_pool, v_pool, pages, kv_len, kt, vt,
                                  window=window, impl="kernel",
                                  pages_per_split=pps)
@@ -482,12 +532,14 @@ def kernel_vs_plain(got, want) -> dict:
 
 def paged_timed_case(gen, *, B, KV, G, D, ps, n_pages, kv_lens, dtype,
                      window, trash_tail, grid, default_pps,
-                     model: str | None = None) -> tuple[dict, float]:
-    """One shape of the paged kernel: every pages-a-split value of the
-    tuner's grid and the default against its plain version
-    (``KERNEL_TOL``), the wrapper against its gather oracle, then timed at
-    each beside its plain version, its bound, one SDPA call over the
-    gathered view and the whole wrapper.  Emits a ``kernels`` line and
+                     model: str | None = None,
+                     kv_dtype=None) -> tuple[dict, float]:
+    """One shape of the paged kernel: every pages-a-split value of
+    ``grid`` and the default against its plain version (``KERNEL_TOL``),
+    the wrapper against its gather oracle, then timed at each beside its
+    plain version, its bound, one SDPA call over the gathered view (cast
+    to q's dtype: e4m3 pages to bf16) and the whole wrapper.  The pools
+    are in ``kv_dtype`` (default q's).  Emits a ``kernels`` line and
     returns it with the largest error."""
     from repro_torch.kernels.paged_attention import (paged_attention_kernel,
                                                      paged_attention_plain,
@@ -498,7 +550,8 @@ def paged_timed_case(gen, *, B, KV, G, D, ps, n_pages, kv_lens, dtype,
     max_err = 0.0
     q, kp, vp, pages, kv_len = paged_inputs(
         gen, B=B, KV=KV, G=G, D=D, ps=ps, n_pages=n_pages,
-        kv_lens=kv_lens, dtype=dtype, trash_tail=trash_tail)
+        kv_lens=kv_lens, dtype=dtype, trash_tail=trash_tail,
+        kv_dtype=kv_dtype)
     want = paged_attention_plain(q, kp, vp, pages, kv_len, window=window)
     errs = {}
     for pps in [None, *grid]:
@@ -513,6 +566,7 @@ def paged_timed_case(gen, *, B, KV, G, D, ps, n_pages, kv_lens, dtype,
                 f"{pps} ({dtype}, window={window}, D {D}): {e}")
         max_err = max(max_err, e["max_abs_err"])
     case = {"dtype": str(dtype).replace("torch.", ""),
+            "kv_dtype": str(kp.dtype).replace("torch.", ""),
             "window": window, "trash_tail": trash_tail,
             **errs["default"], "tol": KERNEL_TOL,
             "err_by_pages_per_split": errs}
@@ -546,12 +600,12 @@ def paged_timed_case(gen, *, B, KV, G, D, ps, n_pages, kv_lens, dtype,
         ok = ok & (pos >= kv_len[:, None] + 1 - window)
     mask = ok[:, None, None, :]
     qh = (q.reshape(B, KV * G, 1, D).float() * math.sqrt(D)).to(dtype)
-    views = [tuple(gather_pages_ref(p, pages).repeat_interleave(G, 1)
-                   for p in pair) for pair in pools]
+    views = [tuple(gather_pages_ref(p, pages).to(dtype).repeat_interleave(
+        G, 1) for p in pair) for pair in pools]
     library_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
         qh, *views[i % n_copies], attn_mask=mask), 50)
     bms, by = bound_ms(pages, kv_len, B=B, KV=KV, G=G, D=D, ps=ps,
-                       window=window, elt=elt)
+                       window=window, elt=q.element_size(), kv_elt=elt)
     case.update(ms=ms, pages_per_split=default_pps,
                 ms_by_pages_per_split=ms_by, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, library_ms=library_ms,
@@ -798,6 +852,9 @@ SERVE_MAX_NEW = 32
 
 
 SERVE_REQUESTS = 16
+# serve_hypar: qwen2-1.5b at full width, depth cut to 14 of its 28 layers
+# (43 s of the run at 28, 25 s at 14), to pay for the llama3-405b phases
+HYPAR_SERVE_LAYERS = 14
 
 
 def serve_trace(cfg, n_requests: int = SERVE_REQUESTS, rng=None):
@@ -843,7 +900,8 @@ def serve_hypar_phase(kernel_mod) -> None:
                                    ServeScheduler)
     from repro_torch.weights import init_params
 
-    cfg = get_config("qwen2-1.5b")                    # bf16 compute
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),   # bf16 compute
+                              n_layers=HYPAR_SERVE_LAYERS)
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
                          DEV)
     eng = PagedEngine(cfg, params, batch=8, max_len=2048, page_size=16,
@@ -1689,6 +1747,7 @@ class CallTimer:
     def __init__(self, obj, names):
         self.obj = obj
         self.original = {name: getattr(obj, name) for name in names}
+        self.own = {name for name in names if name in vars(obj)}
         self.seconds = {name: [] for name in names}
         for name in names:
             setattr(obj, name, self._wrap(name))
@@ -1709,8 +1768,15 @@ class CallTimer:
         return float(np.median(self.seconds[name][skip:]) * 1e3)
 
     def restore(self) -> None:
+        """Put the methods back: an instance attribute as it was, a
+        class's method by dropping the wrapper (a bound method stored on
+        its own instance would keep the engine alive until a collection
+        finds the cycle)."""
         for name, fn in self.original.items():
-            setattr(self.obj, name, fn)
+            if name in self.own:
+                setattr(self.obj, name, fn)
+            else:
+                delattr(self.obj, name)
 
 
 def prefill_check(cfg, params, prompts, max_len: int, plain: str) -> dict:
@@ -2293,6 +2359,7 @@ def parity_phase(phase: str, arch: str, depth: int | None = None,
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                              param_dtype="float32",
                               n_layers=depth or cfg.n_layers)
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(1),
                          DEV)
@@ -2310,7 +2377,9 @@ def parity_phase(phase: str, arch: str, depth: int | None = None,
 def serve_paged_phase(phase: str, arch: str, mods, *, requests: int,
                       parity: str, depth: int | None = None,
                       tag: str | None = None,
-                      parity_shape=(PARITY_PROMPTS, 1024)) -> dict:
+                      parity_shape=(PARITY_PROMPTS, 1024),
+                      layers: int | None = None,
+                      max_new: int = SERVE_MAX_NEW) -> dict:
     """One model served at full width through ``PagedEngine``.
 
     First ``parity_phase`` (emitted as ``parity``, at ``depth`` layers and
@@ -2320,8 +2389,10 @@ def serve_paged_phase(phase: str, arch: str, mods, *, requests: int,
     prefill_chunk=256, max_len=2048)``, weights from a generator seeded 0
     cast to bf16 block by block, serves the first ``requests`` requests of
     ``serve_trace`` (prompts 64-1500, 32 greedy tokens each) after its
-    two-request warm-up: every request gets its tokens, and, with the
-    counts set to 0 just before and read just after, the paged kernel runs
+    two-request warm-up (``layers`` of the model, all when None;
+    ``max_new`` greedy tokens each): every request gets its tokens, and,
+    with the counts set to 0 just before and read just after, the paged
+    kernel runs
     once an attention layer a decode step and SSD once an SSM layer a
     prefill chunk, each at least once where the model has such layers.
     Tok/s, TTFT p50/p95, the decode step and the prefill chunk; then
@@ -2329,7 +2400,8 @@ def serve_paged_phase(phase: str, arch: str, mods, *, requests: int,
     ``prefill_chunk_paths`` where it has SSM layers, their lines suffixed
     with ``tag`` (``_<phase>`` by default).  Returns the launches by
     kernel, the decode steps and chunk calls, the device kernels a wrapper
-    call each profile saw, and the serve figures."""
+    call each profile saw, the fp32 and bf16 path gaps, the engine's pool
+    bytes and elements, and the serve figures."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -2340,6 +2412,8 @@ def serve_paged_phase(phase: str, arch: str, mods, *, requests: int,
     tag = f"_{phase}" if tag is None else tag
     gate = parity_phase(parity, arch, depth, parity_shape)
     cfg = get_config(arch)                            # bf16 compute
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     n_attn, n_ssm = layer_counts(cfg)
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
                          DEV, cast=True)
@@ -2364,17 +2438,21 @@ def serve_paged_phase(phase: str, arch: str, mods, *, requests: int,
     reset_launches(mods)
     t0 = time.perf_counter()
     for p in prompts:
-        sched.submit(p, max_new=SERVE_MAX_NEW)
+        sched.submit(p, max_new=max_new)
     results = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(mods)
     timer.restore()
+    pools = eng._pools()
+    pool = {"pool_dtype": str(pools[0].dtype).replace("torch.", "")
+            if pools else None, "pool_bytes": eng.total_pool_bytes(),
+            "pool_elements": sum(t.numel() for t in pools)}
     steps = eng.n_decode_calls - steps0
     chunks = eng.n_chunk_calls - chunks0
 
     if len(results) != len(prompts) or any(
-            r.n_generated != SERVE_MAX_NEW for r in results):
+            r.n_generated != max_new for r in results):
         raise AssertionError(f"{phase}: {len(results)} requests done, "
                              f"{[r.n_generated for r in results]}")
     if any(o.outcome != "completed" for o in sched.outcomes.values()):
@@ -2400,7 +2478,7 @@ def serve_paged_phase(phase: str, arch: str, mods, *, requests: int,
          attention_layers=n_attn, ssm_layers=n_ssm, compute="bfloat16",
          batch=8, page_size=16, prefill_chunk=256, max_len=2048,
          requests=len(results), prompt_lens=[int(n) for n in lens],
-         max_new=SERVE_MAX_NEW, gen_tokens=n_tok, wall_s=wall,
+         max_new=max_new, gen_tokens=n_tok, wall_s=wall, **pool,
          chunk_calls=chunks, **figures,
          decode_ms_per_step_mean=float(
              np.mean(timer.seconds["decode"]) * 1e3),
@@ -2428,7 +2506,7 @@ def serve_paged_phase(phase: str, arch: str, mods, *, requests: int,
     return {"launches": {k: launches[k] for k in ("paged_attention",
                                                   "ssd_scan")},
             "chunk_calls": chunks, "device_kernels_per_call": per_call,
-            **figures}
+            "parity": gate, "bf16_paths": bf16_gap, **pool, **figures}
 
 
 # ---------------------------------------------------------------------------
@@ -2843,6 +2921,223 @@ def serve_whisper_phases(mods) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# llama3-405b's own dtypes: float8 e4m3 KV pools, bf16 parameters
+# ---------------------------------------------------------------------------
+
+
+LLAMA3 = "llama3-405b"
+LLAMA3_SERVE_LAYERS = 4          # of 126, full width: 33.9 GB of bf16 weights
+LLAMA3_PARITY_LAYERS = 2         # the fp32 gate: 42.5 GB of fp32 weights
+LLAMA3_REQUESTS = 8
+LLAMA3_NEW = 16
+# (model, KV, G, D, window, pool dtype, trash tail) at B 8, page 16, 96
+# pages a slot, contexts of 1,000-1,500 tokens, bf16 q: llama3-405b's
+# decode on its e4m3 pools and on bf16 pools (the same shape, for the
+# time), then e4m3 at G 1, G 6 and D 256 (trash tails) and under a window
+LLAMA3_PAGED_CASES = (
+    ("llama3-405b", 8, 16, 128, None, "float8_e4m3fn", 0),
+    ("llama3-405b bf16 pools", 8, 16, 128, None, "bfloat16", 0),
+    ("e4m3 G 1", 8, 1, 128, None, "float8_e4m3fn", 1),
+    ("e4m3 G 6", 2, 6, 128, None, "float8_e4m3fn", 1),
+    ("e4m3 D 256", 4, 2, 256, None, "float8_e4m3fn", 1),
+    ("llama3-405b window 512", 8, 16, 128, 512, "float8_e4m3fn", 0),
+)
+LLAMA3_TRAIN_LAYERS = 1          # of 126, full width: 7.39 B parameters
+LLAMA3_TRAIN_SEQ = 4096
+LLAMA3_TRAIN_BATCH = 2           # global, in TRAIN_ACCUM micro-batches
+LLAMA3_TRAIN_STEPS = 2
+# the step-1 gate's sequence: the plain path's attention holds fp32 scores
+# of 128 heads, (1, 128, S, S), and its gradients and the kernel path's
+# (29.6 GB of fp32 each) sit beside the bf16 parameters
+LLAMA3_GATE_SEQ = 1024
+
+
+def llama3_kernel_phase() -> dict:
+    """The paged kernel at ``LLAMA3_PAGED_CASES``: each at its default
+    split against its plain version (``KERNEL_TOL``, the trash page NaN),
+    the wrapper against its gather oracle, and timed beside its bound,
+    its plain version and SDPA over the gathered pages cast to bf16
+    (``paged_timed_case``; the tuner's grid runs in the ``-m cuda``
+    tests).  Returns each case's figures by name."""
+    from repro_torch.kernels.paged_attention.kernel import \
+        default_pages_per_split
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(32)
+    out = {}
+    for model, KV, G, D, window, kv, trash in LLAMA3_PAGED_CASES:
+        case, err = paged_timed_case(
+            gen, B=8, KV=KV, G=G, D=D, ps=16, n_pages=96,
+            kv_lens=MESH_SHARD_LENS, dtype=torch.bfloat16, window=window,
+            trash_tail=trash, grid=[],
+            default_pps=default_pages_per_split(8, KV, 96), model=model,
+            kv_dtype=getattr(torch, kv))
+        out[model] = dict(case_summary(case, err), kv_dtype=kv,
+                          pages_per_split=case["pages_per_split"],
+                          wrapper_ms=case["wrapper_ms"])
+    emit("llama3_kernels", seconds=time.perf_counter() - t0)
+    return out
+
+
+def serve_llama3_phase(mods) -> dict:
+    """llama3-405b served at full width on its e4m3 pools
+    (``serve_paged_phase``): the fp32 gate (kernel path vs plain path) at
+    ``LLAMA3_PARITY_LAYERS`` layers, whose greedy streams must agree; then
+    ``LLAMA3_SERVE_LAYERS`` layers in bf16, ``PagedEngine(batch=8,
+    page_size=16, prefill_chunk=256, max_len=2048)``, ``LLAMA3_REQUESTS``
+    requests of 64-1,500 tokens and ``LLAMA3_NEW`` greedy tokens, the
+    paged kernel launched exactly decode steps x layers; the pools hold
+    one byte an element, half a bf16 pool's bytes."""
+    out = serve_paged_phase("serve_llama3", LLAMA3, mods,
+                            requests=LLAMA3_REQUESTS, parity="parity_llama3",
+                            depth=LLAMA3_PARITY_LAYERS,
+                            layers=LLAMA3_SERVE_LAYERS, max_new=LLAMA3_NEW)
+    bf16_bytes = 2 * out["pool_elements"]
+    emit("serve_llama3_pools", pool_dtype=out["pool_dtype"],
+         pool_bytes=out["pool_bytes"], bf16_pool_bytes=bf16_bytes,
+         ratio=out["pool_bytes"] / bf16_bytes,
+         fp32_greedy_streams_agree=out["parity"]["greedy_streams_agree"],
+         bf16_greedy_token_match=out["bf16_paths"]["greedy_token_match"])
+    if (out["pool_dtype"] != "float8_e4m3fn"
+            or 2 * out["pool_bytes"] != bf16_bytes):
+        raise AssertionError(f"serve_llama3: pools {out['pool_dtype']}, "
+                             f"{out['pool_bytes']} B for "
+                             f"{out['pool_elements']} elements")
+    if not out["parity"]["greedy_streams_agree"]:
+        raise AssertionError(f"serve_llama3: the fp32 kernel path's greedy "
+                             f"tokens differ from the plain path's: "
+                             f"{out['parity']}")
+    return out
+
+
+def train_llama3_phase(mods) -> dict:
+    """llama3-405b trained at full width cut to ``LLAMA3_TRAIN_LAYERS``
+    layer with its own settings: bf16 parameters, Adafactor, remat
+    "full", bf16 compute.  Step 1's loss and gradients by the plain path
+    and the kernel path at ``LLAMA3_GATE_SEQ`` tokens (``step1_gaps``, the
+    plain gradients in host memory) within the training gates; then
+    ``LLAMA3_TRAIN_STEPS`` fused steps at ``LLAMA3_TRAIN_SEQ`` tokens,
+    global batch ``LLAMA3_TRAIN_BATCH`` in ``TRAIN_ACCUM`` micro-batches,
+    with the counts set to 0 just before and read just after: the flash
+    forward steps x 2 x layers x 2, its backward steps x 2 x layers; the
+    step's gradients fp32 sums (recorded from ``compute_grads``), the
+    parameters bf16 and the optimizer state fp32 after it.  Step s,
+    tokens/s, mfu and the peak memory.  Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream, to_device
+    from repro_torch.kernels.flash_attention.kernel import visible_pairs
+    from repro_torch.optim import OptimizerSpec
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.train import step as step_mod
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(LLAMA3),
+                              n_layers=LLAMA3_TRAIN_LAYERS)
+    spec = OptimizerSpec(kind=cfg.optimizer, lr=TRAIN_LR)
+
+    def batches(seq: int, n: int) -> list:
+        stream = SyntheticLMStream(cfg, DataConfig(
+            seed=0, global_batch=LLAMA3_TRAIN_BATCH, seq_len=seq))
+        return [to_device(stream.batch(i), DEV) for i in range(n)]
+
+    torch.cuda.reset_peak_memory_stats()
+    state = TrainState.create(cfg, spec,
+                              torch.Generator(device=DEV).manual_seed(0), DEV)
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    gaps = step1_gaps(cfg, state.params, batches(LLAMA3_GATE_SEQ, 1)[0],
+                      "ref", host=True)
+    loss_p = gaps["plain_path_step1_loss"]
+    gnorm_p = gaps["plain_path_step1_grad_norm"]
+    loss_err = abs(gaps["kernel_path_step1_loss"] - loss_p) / abs(loss_p)
+    gnorm_err = abs(gaps["kernel_path_step1_grad_norm"] - gnorm_p) / gnorm_p
+
+    grad_dtypes = []
+    compute_grads = step_mod.compute_grads
+
+    def recording(*args, **kw):
+        out = compute_grads(*args, **kw)
+        grad_dtypes.append(sorted({str(g.dtype).replace("torch.", "")
+                                   for g in tree_leaves(out[0])}))
+        return out
+
+    train = batches(LLAMA3_TRAIN_SEQ, LLAMA3_TRAIN_STEPS)
+    step = make_train_step(cfg, spec, grad_accum=TRAIN_ACCUM)
+    secs, losses, gnorms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    step_mod.compute_grads = recording
+    try:
+        reset_launches(mods)
+        for b in train:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss_total"]))
+            gnorms.append(float(m["grad_norm"]))
+        launches = read_launches(mods)
+    finally:
+        step_mod.compute_grads = compute_grads
+    peak = torch.cuda.max_memory_allocated()
+    param_dtypes = sorted({str(p.dtype).replace("torch.", "")
+                           for p in tree_leaves(state.params)})
+    state_dtypes = sorted({str(t.dtype).replace("torch.", "")
+                           for t in tree_leaves(state.opt_state["f"])})
+    n_attn = cfg.n_layers
+    micro = LLAMA3_TRAIN_STEPS * TRAIN_ACCUM
+    want = {"flash_attention": micro * n_attn * 2,
+            "flash_attention_bwd": micro * n_attn}
+    got = {k: launches[k] for k in want}
+    tokens = train[0]["tokens"].numel()
+    step_s = secs[-1]
+    pairs = n_attn * visible_pairs(LLAMA3_TRAIN_SEQ, LLAMA3_TRAIN_SEQ, True,
+                                   None)
+    flops = 6 * n_params * tokens + 3 * 4 * LLAMA3_TRAIN_BATCH * (
+        cfg.n_heads * cfg.hd * pairs)
+    emit("train_llama3", model=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=n_params,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+         optimizer=spec.kind, remat=cfg.remat, lr=TRAIN_LR,
+         seq=LLAMA3_TRAIN_SEQ, gate_seq=LLAMA3_GATE_SEQ,
+         global_batch=LLAMA3_TRAIN_BATCH, grad_accum=TRAIN_ACCUM,
+         steps=LLAMA3_TRAIN_STEPS, step_s=secs, step_s_last=step_s,
+         tokens_per_s=tokens / step_s, flops_per_step=flops,
+         mfu=flops / step_s / H100_BF16_FLOPS,
+         peak_memory_gib=peak / 2**30, loss=losses, grad_norm=gnorms,
+         param_dtypes=param_dtypes, opt_state_dtypes=state_dtypes,
+         step_grad_dtypes=grad_dtypes, **gaps, loss_rel_err=loss_err,
+         loss_tol=TRAIN_LOSS_TOL, grad_norm_rel_err=gnorm_err,
+         grad_norm_tol=TRAIN_GNORM_TOL, launches=got, launches_expected=want,
+         seconds=time.perf_counter() - t_phase)
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"train_llama3: losses or grad norms not "
+                             f"finite: {losses}, {gnorms}")
+    if got != want:
+        raise AssertionError(f"train_llama3: kernel launches {got}, "
+                             f"expected {want}")
+    if not step1_ok(loss_err, gnorm_err, gaps):
+        raise AssertionError(f"train_llama3: kernel path vs plain path at "
+                             f"step 1: loss {loss_err}, grad norm "
+                             f"{gnorm_err}, gradient leaves "
+                             f"{gaps['grad_leaf_worst']}")
+    if (param_dtypes != ["bfloat16"] or state_dtypes != ["float32"]
+            or grad_dtypes != [["float32"]] * LLAMA3_TRAIN_STEPS):
+        raise AssertionError(f"train_llama3: parameters {param_dtypes}, "
+                             f"optimizer state {state_dtypes}, the step's "
+                             f"gradients {grad_dtypes}")
+    del state, train, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+# ---------------------------------------------------------------------------
 # the job-model runtime and the paper's Jacobi solver
 # ---------------------------------------------------------------------------
 
@@ -3183,7 +3478,6 @@ def profile_jacobi(n: int, iters: int = 100) -> None:
 # training: flash attention, the fused step, HyPar, the launcher
 # ---------------------------------------------------------------------------
 
-H100_BF16_FLOPS = 989e12         # dense bf16 tensor-core peak
 FA_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # the reference's own
 FA_LSE_TOL = 1e-4
 FA_GRAD_TOL = 1e-4               # Function (kernel forward) vs autograd
@@ -3275,15 +3569,6 @@ TRAIN_RUNS = (
 TRAIN_LEAF_TOL = 0.08
 TRAIN_HEAD_LEAVES = ("dt_bias", "A_log", "D")
 TRAIN_HEAD_LEAF_TOL = 1.0
-
-
-def _bound(flops, nbytes, dtype) -> dict:
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
-            "flops": flops, "bytes": nbytes}
 
 
 def fa_bound(B, S, T, H, KV, D, causal, window, dtype) -> dict:
@@ -3607,15 +3892,18 @@ def train_counts(cfg) -> tuple[int, int]:
     return n_attn, n_ssm
 
 
-def step1_gaps(cfg, params, batch, plain: str) -> dict:
+def step1_gaps(cfg, params, batch, plain: str, *,
+               host: bool = False) -> dict:
     """Step 1's loss and gradients by the plain path (``impl=plain``) and
     by the kernel path on the same parameters and batch, no update: both
     losses and grad norms, and each gradient leaf's max|Δ| / max|plain|:
     the worst of the leaves in ``TRAIN_HEAD_LEAVES`` and of the others,
-    and the worst five named."""
+    and the worst five named.  ``host`` keeps the plain path's gradients
+    in host memory while the kernel path runs (two full sets of a large
+    model's fp32 gradients do not fit the card together)."""
     from repro_torch.optim import global_norm
     from repro_torch.train import compute_grads
-    from repro_torch.tree import tree_leaves, tree_paths
+    from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -3628,12 +3916,16 @@ def step1_gaps(cfg, params, batch, plain: str) -> dict:
            / 2**30,
            "plain_path_step1_loss": float(loss_p),
            "plain_path_step1_grad_norm": float(global_norm(grads_p))}
+    if host:
+        grads_p = tree_map(lambda g: g.cpu(), grads_p)
+        torch.cuda.empty_cache()
     grads_k, loss_k, _ = compute_grads(cfg, params, batch,
                                        accum=TRAIN_ACCUM)
     out.update(kernel_path_step1_loss=float(loss_k),
                kernel_path_step1_grad_norm=float(global_norm(grads_k)))
     rel = {}
     for (path, gp), gk in zip(tree_paths(grads_p), tree_leaves(grads_k)):
+        gp = gp.to(gk.device)
         scale = float(gp.abs().max())
         diff = float((gk - gp).abs().max())
         rel[path] = (diff / scale if scale else
@@ -4955,6 +5247,12 @@ def main() -> int:
     entry["launches_serve_gemma3"] = gemma3["paged_attention"]
     entry["by_model"].update(slice_shapes["paged_attention"])
 
+    # llama3-405b's e4m3 pools: the paged kernel's e4m3 instance at its
+    # decode shape and four more, then the model served at 4 layers
+    entry["by_model"].update(llama3_kernel_phase())
+    entry["launches_serve_llama3"] = serve_llama3_phase(
+        serve_mods)["launches"]["paged_attention"]
+
     jacobi_entries = jacobi_kernel_phase()
     jobmodel_phase()
     launches = jacobi_phase(jacobi_kernel)
@@ -5002,6 +5300,10 @@ def main() -> int:
         e["launches_train_mesh"] = {m: n[key]
                                     for m, n in mesh_trained.items()
                                     if n[key]}
+    # llama3-405b's bf16 parameters under Adafactor, one layer
+    for e, n in zip((fa_entry, fa_bwd_entry),
+                    train_llama3_phase(mods).values()):
+        e["launches_train_llama3"] = n
     train_hypar_phase(mods)
     train_proc_phase()
     train_launcher_phase(mods)

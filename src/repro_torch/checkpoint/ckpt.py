@@ -29,8 +29,9 @@ from ..tree import tree_map, tree_paths
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "AsyncCheckpointer"]
 
-#: dtypes numpy has no type for: stored as raw bytes
-_RAW = {"bfloat16": torch.bfloat16}
+#: dtypes numpy has no type for: stored as raw bytes, as the reference
+#: stores bfloat16 and float8 leaves
+_RAW = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn}
 
 
 def _host(leaf) -> torch.Tensor:

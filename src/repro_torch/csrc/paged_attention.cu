@@ -62,6 +62,19 @@
 // instructions a group spends on a position (q.k, its shuffle reduction,
 // the softmax update) and the fixed cost of a block set the time.
 //
+// Pool type.  The pages (and the current token's kt, vt) come in q's
+// dtype, or as float8 e4m3 under a bf16 or fp32 q (llama3-405b's
+// kv_cache_dtype): the split and merge passes take the pool type P apart
+// from q's type T.  An e4m3 page is staged by the same 16-byte cp.async
+// copies, 16 elements a copy where bf16 has 8, half the page bytes, and
+// widened in registers by cvt.rn.f16x2.e4m3x2 and then to fp32 (exact:
+// every e4m3 value is an fp16 value, NaN stays NaN).  A lane still takes
+// 8 columns of a row (VEC 8, as bf16), so its registers are bf16's.  The
+// arithmetic per position is unchanged, so at llama3's G 16 (about 32
+// fp32 operations a pool byte) halving the bytes should move the time
+// little.  The reference sends f8 pools to its plain path instead
+// (src/repro/kernels/paged_attention/ops.py).
+//
 // Merge pass: one block per (b, h, g); warp w merges splits w, w+4, ...
 // (several splits' loads in flight), the warps meet in shared memory.  It
 // is launched as a programmatic dependent of the split pass, so its launch
@@ -72,6 +85,8 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libpaged_attention.so paged_attention.cu
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,9 +103,21 @@ constexpr int kMaxRows = 8;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// one float8 e4m3 element (the pools' bytes, read raw)
+struct e4m3 {
+  __nv_fp8_storage_t x;
+};
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(e4m3 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.x, __NV_E4M3)));
+}
+// two e4m3 (low byte first) to fp32, by one cvt.rn.f16x2.e4m3x2
+__device__ __forceinline__ float2 e4m3x2_to_float2(unsigned short x) {
+  return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(x, __NV_E4M3)));
 }
 
 template <typename T>
@@ -111,24 +138,38 @@ __device__ __forceinline__ float scaled_q(T x, float scale) {
 }
 
 // VEC consecutive elements of T from shared memory, widened to fp32
+// (aligned to VEC elements, 16 bytes at most)
 template <typename T, int VEC>
 __device__ __forceinline__ void load_vec(const T* p, float* v) {
   if constexpr (VEC == 1) {
     v[0] = to_f32(p[0]);
   } else if constexpr (sizeof(T) == 4) {
-    static_assert(VEC == 4, "16 bytes of fp32");
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  } else {
+    static_assert(VEC % 4 == 0, "16-byte pieces of fp32");
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + i);
+      v[i] = t.x;
+      v[i + 1] = t.y;
+      v[i + 2] = t.z;
+      v[i + 3] = t.w;
+    }
+  } else if constexpr (sizeof(T) == 2) {
     static_assert(VEC == 8, "16 bytes of bf16");
     const uint4 t = *reinterpret_cast<const uint4*>(p);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else {
+    static_assert(VEC == 8, "8 bytes of e4m3");
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(&t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = e4m3x2_to_float2(h[i]);
       v[2 * i] = f.x;
       v[2 * i + 1] = f.y;
     }
@@ -213,26 +254,29 @@ struct SplitArgs {
   int n_gb, n_ds, lpr, n_chunk, n_stages;
 };
 
-// Stage physical page pid of kv head h into ring stage `st` (K then V).
-template <typename T, int VEC>
-__device__ __forceinline__ void stage_page(const SplitArgs& a, T* ring,
+// Stage physical page pid of kv head h into ring stage `st` (K then V),
+// in the pool's type P: by 16-byte copies (16 / sizeof(P) elements) when
+// VEC > 1, else element by element.
+template <typename P, int VEC>
+__device__ __forceinline__ void stage_page(const SplitArgs& a, P* ring,
                                            int st, int h, int pid) {
   const int page = a.ps * a.D;
-  T* ks = ring + (size_t)st * 2 * page;
-  T* vs = ks + page;
+  P* ks = ring + (size_t)st * 2 * page;
+  P* vs = ks + page;
   const size_t base = ((size_t)pid * a.KV + h) * page;
-  const T* kg = static_cast<const T*>(a.k_pool) + base;
-  const T* vg = static_cast<const T*>(a.v_pool) + base;
+  const P* kg = static_cast<const P*>(a.k_pool) + base;
+  const P* vg = static_cast<const P*>(a.v_pool) + base;
   if constexpr (VEC > 1) {
-    const int n16 = page / VEC;  // 16-byte pieces a page
+    constexpr int SV = 16 / sizeof(P);  // elements a 16-byte piece
+    const int n16 = page / SV;
     const int nbytes = pid != 0 ? 16 : 0;  // trash page: zero fill
     for (int i = threadIdx.x; i < n16; i += kThreads) {
-      cp_async16(ks + i * VEC, kg + i * VEC, nbytes);
-      cp_async16(vs + i * VEC, vg + i * VEC, nbytes);
+      cp_async16(ks + i * SV, kg + i * SV, nbytes);
+      cp_async16(vs + i * SV, vg + i * SV, nbytes);
     }
   } else {
     for (int i = threadIdx.x; i < page; i += kThreads) {
-      T kx = from_f32<T>(0.f), vx = from_f32<T>(0.f);
+      P kx{}, vx{};
       if (pid != 0) {  // trash page: zeros by select
         kx = kg[i];
         vx = vg[i];
@@ -246,8 +290,8 @@ __device__ __forceinline__ void stage_page(const SplitArgs& a, T* ring,
 // This lane's share of q.k of position t of the staged page for the
 // block's GB query rows, in log2 units (q_l2 carries log2(e)); 0 where
 // the position is not visible.
-template <typename T, int VEC, int GB>
-__device__ __forceinline__ void partial_score(const T* ks, const T* q_raw,
+template <typename T, typename P, int VEC, int GB>
+__device__ __forceinline__ void partial_score(const P* ks, const T* q_raw,
                                               const float (&q_l2)[GB][VEC],
                                               int t, bool ok, int D, int lig,
                                               int LPR, int n_chunk,
@@ -256,13 +300,13 @@ __device__ __forceinline__ void partial_score(const T* ks, const T* q_raw,
   for (int g = 0; g < GB; ++g) sc[g] = 0.f;
   if (!ok || lig >= n_chunk) return;
   float kv[VEC];
-  load_vec<T, VEC>(ks + (size_t)t * D + lig * VEC, kv);
+  load_vec<P, VEC>(ks + (size_t)t * D + lig * VEC, kv);
 #pragma unroll
   for (int g = 0; g < GB; ++g)
 #pragma unroll
     for (int e = 0; e < VEC; ++e) sc[g] = fmaf(q_l2[g][e], kv[e], sc[g]);
   for (int c = lig + LPR; c < n_chunk; c += LPR) {  // heads wider than 32
-    load_vec<T, VEC>(ks + (size_t)t * D + c * VEC, kv);  // chunks
+    load_vec<P, VEC>(ks + (size_t)t * D + c * VEC, kv);  // chunks
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
       float qv[VEC];
@@ -303,7 +347,7 @@ __device__ __forceinline__ void sum_pair(float (&sa)[GB], float (&sb)[GB],
   }
 }
 
-template <typename T, int VEC, int GB>
+template <typename T, typename P, int VEC, int GB>
 __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const SplitArgs a) {
   const int s = blockIdx.x;
@@ -328,7 +372,7 @@ paged_split_kernel(const SplitArgs a) {
   int* pid_s = reinterpret_cast<int*>(smem + q_bytes);
   const size_t head_bytes =
       q_bytes + ((size_t)a.pps * sizeof(int) + 15) / 16 * 16;
-  T* ring = reinterpret_cast<T*>(smem + head_bytes);
+  P* ring = reinterpret_cast<P*>(smem + head_bytes);
 
   // the independent loads first, so that their latencies overlap: the
   // slot's length, the split's page ids (read from shared memory when a
@@ -341,9 +385,10 @@ paged_split_kernel(const SplitArgs a) {
     pid_s[i] = a.pages[(size_t)b * a.n_pages + p0 + i];
   const T* qg = static_cast<const T*>(a.q) + (bh * G + g0) * D;
   if constexpr (VEC > 1) {
-    for (int i = tid; i < GB * D / VEC; i += kThreads)
-      cp_async16(q_raw + i * VEC, i * VEC < rows * D ? qg + i * VEC : qg,
-                 i * VEC < rows * D ? 16 : 0);
+    constexpr int QV = 16 / sizeof(T);  // q's elements a 16-byte piece
+    for (int i = tid; i < GB * D / QV; i += kThreads)
+      cp_async16(q_raw + i * QV, i * QV < rows * D ? qg + i * QV : qg,
+                 i * QV < rows * D ? 16 : 0);
   } else {
     for (int i = tid; i < GB * D; i += kThreads)
       q_raw[i] = i < rows * D ? qg[i] : from_f32<T>(0.f);
@@ -375,7 +420,7 @@ paged_split_kernel(const SplitArgs a) {
   // group)
   for (int i = 0; i < NS - 1; ++i) {
     if (j_lo + i < j_hi)
-      stage_page<T, VEC>(a, ring, i, h, pid_s[j_lo + i - p0]);
+      stage_page<P, VEC>(a, ring, i, h, pid_s[j_lo + i - p0]);
     cp_async_commit();
   }
 
@@ -403,12 +448,12 @@ paged_split_kernel(const SplitArgs a) {
         cp_async_wait<0>();
       __syncthreads();  // page `it` landed; stage (it - 1) % NS is free
       if (j + NS - 1 < j_hi)
-        stage_page<T, VEC>(a, ring, (it + NS - 1) % NS, h,
+        stage_page<P, VEC>(a, ring, (it + NS - 1) % NS, h,
                            pid_s[j + NS - 1 - p0]);
       cp_async_commit();
     } else {
       __syncthreads();  // the previous page's reads are done
-      stage_page<T, VEC>(a, ring, 0, h, pid_s[j - p0]);
+      stage_page<P, VEC>(a, ring, 0, h, pid_s[j - p0]);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
@@ -429,8 +474,8 @@ paged_split_kernel(const SplitArgs a) {
           q_l2[g][e] = to_f32(from_f32<T>(qv[e] * a.scale)) * kLog2e;
       }
     }
-    const T* ks = ring + (size_t)(it % NS) * 2 * page;
-    const T* vs = ks + page;
+    const P* ks = ring + (size_t)(it % NS) * 2 * page;
+    const P* vs = ks + page;
 
     // two positions of the page a group a step, one softmax update for
     // both; the loop bounds are uniform in the warp (the shuffles)
@@ -443,17 +488,17 @@ paged_split_kernel(const SplitArgs a) {
       const bool ok_b = act_b && pb < len &&
                         (a.window <= 0 || pb >= len + 1 - a.window);
       float sa[GB], sb[GB];
-      partial_score<T, VEC, GB>(ks, q_raw, q_l2, ta, ok_a, D, lig, LPR,
-                                n_chunk, a.scale, sa);
-      partial_score<T, VEC, GB>(ks, q_raw, q_l2, tb, ok_b, D, lig, LPR,
-                                n_chunk, a.scale, sb);
+      partial_score<T, P, VEC, GB>(ks, q_raw, q_l2, ta, ok_a, D, lig, LPR,
+                                   n_chunk, a.scale, sa);
+      partial_score<T, P, VEC, GB>(ks, q_raw, q_l2, tb, ok_b, D, lig, LPR,
+                                   n_chunk, a.scale, sb);
       sum_pair<GB>(sa, sb, lig, LPR);
       float va[VEC], vb[VEC];
 #pragma unroll
       for (int e = 0; e < VEC; ++e) va[e] = vb[e] = 0.f;
       if (cv < n_chunk) {
-        if (act_a) load_vec<T, VEC>(vs + (size_t)ta * D + cv * VEC, va);
-        if (act_b) load_vec<T, VEC>(vs + (size_t)tb * D + cv * VEC, vb);
+        if (act_a) load_vec<P, VEC>(vs + (size_t)ta * D + cv * VEC, va);
+        if (act_b) load_vec<P, VEC>(vs + (size_t)tb * D + cv * VEC, vb);
       }
       // masked positions count, as NEG_INF scores; positions past the
       // page (a group with none) add nothing
@@ -563,8 +608,9 @@ struct MergeArgs {
   const float* m_p;
   const float* l_p;
   int KV, G, D, n_split;
-  // self term: q (B, KV, G, D) unscaled, kt (B, KV, 1, D) in q's dtype,
-  // vt in fp32 (vt_dtype 0) or bf16 (1); out (B, 1, H, D) in q's dtype.
+  // self term: q (B, KV, G, D) unscaled, kt (B, KV, 1, D) in the pools'
+  // dtype, vt in fp32 (vt_dtype 0), bf16 (1) or e4m3 (2); out (B, 1, H,
+  // D) in q's dtype.
   // kt == null: write acc (B, KV, G, D), m, l (B, KV, G) instead.
   const void* q;
   const void* kt;
@@ -591,7 +637,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 // the log-sum-exp rule, its lanes over D in VEC-float pieces (the loads of
 // several splits in flight at once); the four warps' (m, l, acc) then meet
 // in shared memory.
-template <typename T, int VEC>
+template <typename T, typename P, int VEC>
 __global__ void __launch_bounds__(kThreads)
 paged_merge_kernel(const MergeArgs a) {
   const int g = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -607,12 +653,13 @@ paged_merge_kernel(const MergeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* part = reinterpret_cast<float*>(smem);  // (kWarps, D)
 
-  // the current token's score, (float(q)*scale rounded to T) . kt: its
+  // the current token's score, (float(q)*scale rounded to T) . kt (in P):
+  // its
   // loads go out with the partials'
   float dot = 0.f;
   if (a.kt != nullptr) {
     const T* qr = static_cast<const T*>(a.q) + row;
-    const T* kr = static_cast<const T*>(a.kt) + bh * D;
+    const P* kr = static_cast<const P*>(a.kt) + bh * D;
     for (int d = tid; d < D; d += kThreads)
       dot = fmaf(scaled_q(qr[d], a.scale), to_f32(kr[d]), dot);
   }
@@ -676,8 +723,10 @@ paged_merge_kernel(const MergeArgs a) {
     const float v =
         a.vt_dtype == 0
             ? static_cast<const float*>(a.vt)[bh * D + d]
-            : __bfloat162float(
-                  static_cast<const __nv_bfloat16*>(a.vt)[bh * D + d]);
+        : a.vt_dtype == 1
+            ? __bfloat162float(
+                  static_cast<const __nv_bfloat16*>(a.vt)[bh * D + d])
+            : to_f32(static_cast<const e4m3*>(a.vt)[bh * D + d]);
     out[d] = from_f32<T>((alpha * at + beta * v) / l_tot);
   }
 }
@@ -688,12 +737,11 @@ int next_pow2(int x) {
   return p;
 }
 
-template <typename T, int VEC, int GB>
+template <typename T, typename P, int VEC, int GB>
 cudaError_t launch_split(SplitArgs a, int B, cudaStream_t stream) {
-  const size_t elt = sizeof(T);
-  const size_t head = ((size_t)GB * a.D * elt + 15) / 16 * 16 +
+  const size_t head = ((size_t)GB * a.D * sizeof(T) + 15) / 16 * 16 +
                       ((size_t)a.pps * sizeof(int) + 15) / 16 * 16;
-  const size_t stage = 2 * (size_t)a.ps * a.D * elt;
+  const size_t stage = 2 * (size_t)a.ps * a.D * sizeof(P);
   const size_t scr =
       (size_t)kWarps * GB * (a.lpr * VEC + 2 + 1) * sizeof(float);
   // no more stages than the split has pages (plus the one consumed), all
@@ -706,16 +754,16 @@ cudaError_t launch_split(SplitArgs a, int B, cudaStream_t stream) {
   a.n_stages = ns;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_split_kernel<T, VEC, GB>,
+        paged_split_kernel<T, P, VEC, GB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(a.n_split, a.KV * a.n_gb * a.n_ds, B);
-  paged_split_kernel<T, VEC, GB><<<grid, kThreads, smem, stream>>>(a);
+  paged_split_kernel<T, P, VEC, GB><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int VEC>
+template <typename T, typename P, int VEC>
 cudaError_t launch_split_rows(SplitArgs a, int B, cudaStream_t stream) {
   // query rows a block: at most kMaxRows, as even as the row blocks go,
   // rounded up to an instance: 6 (qwen2-1.5b's group) or 8; the rows past
@@ -725,17 +773,17 @@ cudaError_t launch_split_rows(SplitArgs a, int B, cudaStream_t stream) {
   a.n_chunk = (a.D + VEC - 1) / VEC;
   a.lpr = next_pow2(a.n_chunk) < 32 ? next_pow2(a.n_chunk) : 32;
   a.n_ds = (a.n_chunk + a.lpr - 1) / a.lpr;
-  return rows <= 6 ? launch_split<T, VEC, 6>(a, B, stream)
-                   : launch_split<T, VEC, 8>(a, B, stream);
+  return rows <= 6 ? launch_split<T, P, VEC, 6>(a, B, stream)
+                   : launch_split<T, P, VEC, 8>(a, B, stream);
 }
 
-template <typename T, int VEC>
+template <typename T, typename P, int VEC>
 cudaError_t launch_merge(const MergeArgs& a, int B, cudaStream_t stream) {
   const size_t smem = (size_t)kWarps * a.D * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_merge_kernel<T, VEC>,
+        paged_merge_kernel<T, P, VEC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
@@ -750,25 +798,27 @@ cudaError_t launch_merge(const MergeArgs& a, int B, cudaStream_t stream) {
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, paged_merge_kernel<T, VEC>,
-                                             a);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, paged_merge_kernel<T, P, VEC>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t launch(SplitArgs sa, MergeArgs ma, int B, cudaStream_t stream) {
   const bool D4 = sa.D % 4 == 0;  // 16-byte rows of the fp32 partials
-  constexpr int kVec = 16 / sizeof(T);
-  const bool vec = (sa.D * sizeof(T)) % 16 == 0 &&
+  // columns a lane: 16 bytes of fp32 or bf16, 8 bytes of e4m3
+  constexpr int kVec = sizeof(P) == 4 ? 4 : 8;
+  const bool vec = (sa.D * sizeof(P)) % 16 == 0 &&
+                   (sa.D * sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(sa.q) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(sa.k_pool) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(sa.v_pool) % 16 == 0;
-  cudaError_t err = vec ? launch_split_rows<T, kVec>(sa, B, stream)
-                        : launch_split_rows<T, 1>(sa, B, stream);
+  cudaError_t err = vec ? launch_split_rows<T, P, kVec>(sa, B, stream)
+                        : launch_split_rows<T, P, 1>(sa, B, stream);
   if (err != cudaSuccess) return err;
-  return D4 ? launch_merge<T, 4>(ma, B, stream)
-            : launch_merge<T, 1>(ma, B, stream);
+  return D4 ? launch_merge<T, P, 4>(ma, B, stream)
+            : launch_merge<T, P, 1>(ma, B, stream);
 }
 
 }  // namespace
@@ -776,13 +826,15 @@ cudaError_t launch(SplitArgs sa, MergeArgs ma, int B, cudaStream_t stream) {
 extern "C" {
 
 // One call, two launches (split pass, merge pass) on `stream`.
-//   q (B, KV, G, D), pools (P, KV, ps, D), dtype 0 = float32, 1 = bfloat16;
+//   q (B, KV, G, D), pools (P, KV, ps, D); q's dtype 0 = float32,
+//   1 = bfloat16; pool_dtype q's, or 2 = float8 e4m3 (kt too);
 //   q is scaled by `scale` and rounded to its dtype on load.
 //   kv_len (B,) int32.  window <= 0: none.  pps: pages a split.
 //   acc_p, m_p, l_p: scratch for the partials, (B, KV, ceil(n_pages/pps),
 //   G, D) and (B, KV, ceil(n_pages/pps), G) fp32.
-//   kt non-null: merge the self term (kt in q's dtype, vt fp32 or bf16 by
-//   vt_dtype) and write out (B, 1, KV*G, D) in q's dtype; else write acc
+//   kt non-null: merge the self term (kt in the pools' dtype, vt fp32,
+//   bf16 or e4m3 by vt_dtype 0/1/2) and write out (B, 1, KV*G, D) in q's
+//   dtype; else write acc
 //   (B, KV, G, D), m, l (B, KV, G) fp32.
 // Returns the cudaError_t of the launches (0 on success).
 int paged_attention_launch(const void* q, const void* k_pool,
@@ -793,11 +845,11 @@ int paged_attention_launch(const void* q, const void* k_pool,
                            void* out, void* acc, void* m, void* l, int B,
                            int KV, int G, int D, int ps, int n_pages,
                            int window, int pps, float scale, int dtype,
-                           void* stream) {
+                           int pool_dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || KV <= 0 || G <= 0 || D <= 0 || ps <= 0 || n_pages <= 0 ||
       pps <= 0 || B > 65535 || (kt != nullptr && (vt_dtype < 0 ||
-                                                   vt_dtype > 1)))
+                                                   vt_dtype > 2)))
     return (int)cudaErrorInvalidValue;
   SplitArgs sa{};
   sa.q = q;
@@ -834,8 +886,14 @@ int paged_attention_launch(const void* q, const void* k_pool,
   ma.acc = static_cast<float*>(acc);
   ma.m = static_cast<float*>(m);
   ma.l = static_cast<float*>(l);
-  if (dtype == 0) return (int)launch<float>(sa, ma, B, st);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(sa, ma, B, st);
+  if (dtype == 0 && pool_dtype == 0)
+    return (int)launch<float, float>(sa, ma, B, st);
+  if (dtype == 1 && pool_dtype == 1)
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(sa, ma, B, st);
+  if (dtype == 0 && pool_dtype == 2)
+    return (int)launch<float, e4m3>(sa, ma, B, st);
+  if (dtype == 1 && pool_dtype == 2)
+    return (int)launch<__nv_bfloat16, e4m3>(sa, ma, B, st);
   return (int)cudaErrorInvalidValue;
 }
 

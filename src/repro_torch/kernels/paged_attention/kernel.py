@@ -18,6 +18,11 @@ run can show that its main path went through the kernel.  On meta tensors
 (the dry-run) the entry points record :func:`cost` with the operation
 counter and return meta outputs, the split partials allocated as on the
 card, launching nothing.
+
+The pools (and the current token's kt, vt) come in q's dtype, or as
+float8 e4m3 under a bf16 or fp32 q (llama3-405b's ``kv_cache_dtype``):
+the kernel reads e4m3 pages, where the reference's wrapper sends float8
+pools to its plain path.
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ __all__ = ["cost", "paged_attention_kernel", "paged_decode_kernel",
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the pools' (and kt's) dtype codes; vt takes any of them
+_KV_DTYPES = {**_DTYPES, torch.float8_e4m3fn: 2}
 #: Hopper's SM count; the default split aims at two blocks an SM or more
 _SMS = 132
 _lib = None
@@ -49,7 +56,7 @@ def _load():
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.paged_attention_launch.argtypes = (
             [vp] * 10 + [i32] + [vp] * 4 + [i32] * 8
-            + [ctypes.c_float, i32, vp])
+            + [ctypes.c_float, i32, i32, vp])
         lib.paged_attention_launch.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -68,11 +75,13 @@ def default_pages_per_split(batch: int, kv_heads: int, n_pages: int) -> int:
     return 1
 
 
-def cost(pages, kv_len, *, B, KV, G, D, ps, window, elt) -> dict:
+def cost(pages, kv_len, *, B, KV, G, D, ps, window, elt,
+         kv_elt: int | None = None) -> dict:
     """The kernel's work on these inputs (fp32 operations).  Bytes: K and
     V rows of every page the kernel must read (pages that can hold a
-    visible position, the trash page excluded — it reads as zeros), their
-    table entries, q, kv_len, and the fp32 outputs.  Operations: 4*G*D
+    visible position, the trash page excluded — it reads as zeros) at
+    ``kv_elt`` bytes an element (default ``elt``, q's: 1 for e4m3 pools),
+    their table entries, q, kv_len, and the fp32 outputs.  Operations: 4*G*D
     per position of a page read (q.k and p.v).  On meta tensors, whose
     values are unknown (the dry-run), every slot's context fills its
     table and no entry is the trash page."""
@@ -89,8 +98,9 @@ def cost(pages, kv_len, *, B, KV, G, D, ps, window, elt) -> dict:
         run &= ~((j[None, :] + 1) * ps - 1 < lens[:, None] + 1 - window)
     n_run = int(run.sum())
     n_read = int((run & (tbl != 0)).sum())
+    kv_elt = elt if kv_elt is None else kv_elt
     return {"flops": 4 * n_run * KV * G * ps * D,
-            "bytes": (2 * n_read * KV * ps * D * elt + n_run * 4
+            "bytes": (2 * n_read * KV * ps * D * kv_elt + n_run * 4
                       + B * KV * G * D * elt + B * 4
                       + B * KV * G * (D + 2) * 4)}
 
@@ -122,9 +132,10 @@ def _run(q, k_pool, v_pool, pages, kv_len, *, KV, G, window,
     if q.dtype not in _DTYPES:
         raise TypeError(f"q dtype {q.dtype} not supported (float32, "
                         f"bfloat16)")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"pool dtypes {k_pool.dtype}/{v_pool.dtype} differ "
-                        f"from q's {q.dtype}")
+    if (k_pool.dtype not in (q.dtype, torch.float8_e4m3fn)
+            or v_pool.dtype != k_pool.dtype):
+        raise TypeError(f"pool dtypes {k_pool.dtype}/{v_pool.dtype}: both "
+                        f"q's {q.dtype} or both float8_e4m3fn")
     if pages.dtype != torch.int32:
         raise TypeError("pages must be int32")
     ps = k_pool.shape[2]
@@ -157,12 +168,12 @@ def _run(q, k_pool, v_pool, pages, kv_len, *, KV, G, window,
                 l.data_ptr())
     else:
         out = torch.empty_like(q)
-        ptrs = (kt.data_ptr(), vt.data_ptr(), _DTYPES[vt.dtype],
+        ptrs = (kt.data_ptr(), vt.data_ptr(), _KV_DTYPES[vt.dtype],
                 out.data_ptr(), None, None, None)
     if opcount.active():
         opcount.kernel("paged_attention", cost(
             pages, kv_len, B=B, KV=KV, G=G, D=D, ps=ps, window=window,
-            elt=q.element_size()))
+            elt=q.element_size(), kv_elt=k_pool.element_size()))
     if not on_card(q):
         return out if kt is not None else (acc, m, l)
     lib = _load()
@@ -174,7 +185,7 @@ def _run(q, k_pool, v_pool, pages, kv_len, *, KV, G, window,
             acc_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr(), *ptrs, B, KV,
             G, D, ps, n_pages,
             0 if window is None else int(window), pps, float(scale),
-            _DTYPES[q.dtype], stream)
+            _DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {rc} "
                            f"({lib.paged_attention_error_string(rc).decode()})")
@@ -188,8 +199,8 @@ def paged_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
                            pages_per_split: int | None = None):
     """Launch the kernel on the current stream.
 
-    q: (B, KV, G, D) pre-scaled grouped queries; k/v_pool: (P, KV, ps, D)
-    of q's dtype (float32 or bfloat16); pages: (B, n_pages) int32 with ids
+    q: (B, KV, G, D) pre-scaled grouped queries (float32 or bfloat16);
+    k/v_pool: (P, KV, ps, D) of q's dtype or float8_e4m3fn; pages: (B, n_pages) int32 with ids
     in [0, P); kv_len: (B,) int32 OLD lengths.  All CUDA, one device,
     contiguous.  ``pages_per_split`` (default
     :func:`default_pages_per_split`) is the launch shape.  Returns fp32
@@ -213,8 +224,9 @@ def paged_decode_kernel(q: torch.Tensor, k_pool: torch.Tensor,
     """The whole decode attention in two launches: q (B, 1, H, D) as the
     layer gives it (scaled by ``scale`` and rounded to its dtype inside
     the split pass), the pools and table as for
-    :func:`paged_attention_kernel`, kv_len (B,) int32, kt (B, KV, 1, D) in q's dtype and vt (B, KV, 1, D)
-    float32 or bfloat16: the current token's K/V, merged as a self term.
+    :func:`paged_attention_kernel`, kv_len (B,) int32, kt (B, KV, 1, D)
+    in the pools' dtype and vt (B, KV, 1, D) float32, bfloat16 or
+    float8_e4m3fn: the current token's K/V, merged as a self term.
     Returns (B, 1, H, D) in q's dtype."""
     global launches
     if q.dim() != 4 or q.shape[1] != 1:
@@ -227,11 +239,12 @@ def paged_decode_kernel(q: torch.Tensor, k_pool: torch.Tensor,
         if t.shape != (B, KV, 1, D):
             raise ValueError(f"{name} {tuple(t.shape)} is not "
                              f"{(B, KV, 1, D)}")
-    if kt.dtype != q.dtype:
-        raise TypeError(f"kt dtype {kt.dtype} differs from q's {q.dtype}")
-    if vt.dtype not in _DTYPES:
+    if kt.dtype != k_pool.dtype:
+        raise TypeError(f"kt dtype {kt.dtype} differs from the pools' "
+                        f"{k_pool.dtype}")
+    if vt.dtype not in _KV_DTYPES:
         raise TypeError(f"vt dtype {vt.dtype} not supported (float32, "
-                        f"bfloat16)")
+                        f"bfloat16, float8_e4m3fn)")
     res = _run(q, k_pool, v_pool, pages, kv_len, KV=KV, G=H // KV,
                window=window, pages_per_split=pages_per_split, scale=scale,
                kt=kt, vt=vt)

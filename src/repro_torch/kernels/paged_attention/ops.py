@@ -22,7 +22,8 @@ import torch
 
 from ..runtime import resolve_impl
 from ..tuning import get_tuner
-from .kernel import _DTYPES, paged_decode_kernel
+from .kernel import _KV_DTYPES, paged_decode_kernel
+from ...dtypes import cast_kv
 from .ref import paged_decode_attention_ref
 
 __all__ = ["paged_decode_attention"]
@@ -64,9 +65,9 @@ def paged_decode_attention(q, k_pool, v_pool, pages, kv_len, kt, vt, *,
         kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1).expand(B)
     kv_len = kv_len.to(torch.int32).contiguous()
     # casts only where the caller's dtypes differ from the kernel's (the
-    # decode path hands over q, kt and vt in the pool's dtype already)
-    kt = kt.to(q.dtype)
-    if vt.dtype not in _DTYPES:
+    # decode path hands over kt and vt in the pools' dtype already)
+    kt = cast_kv(kt, k_pool.dtype)
+    if vt.dtype not in _KV_DTYPES:
         vt = vt.float()
     return paged_decode_kernel(q.contiguous(), k_pool, v_pool, pages, kv_len,
                                kt.contiguous(), vt.contiguous(),

@@ -63,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from ..analysis import opcount
+from ..dtypes import cast_kv
 from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.paged_attention import ops as pa_ops
 from ..kernels.runtime import resolve_impl
@@ -365,8 +366,8 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
     store = cache.get("k_pool", cache.get("k")) if cache else None
     kv_dtype = store.dtype if store is not None else dtype_of(
         cfg.kv_cache_dtype or cfg.compute_dtype)
-    kt = k.transpose(1, 2).to(kv_dtype)                    # (B, KV, S, D)
-    vt = v.transpose(1, 2).to(kv_dtype)
+    kt = cast_kv(k.transpose(1, 2), kv_dtype)       # (B, KV, S, D)
+    vt = cast_kv(v.transpose(1, 2), kv_dtype)
     if S == 1 and cache and "k_pool" in cache:
         out = pa_ops.paged_decode_attention(
             q, cache["k_pool"], cache["v_pool"], cache["pages"], cache_len,

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..analysis import opcount
+from ..dtypes import DTYPES, dtype_of
 from ..parallel.partition import model_axis_dim
 from .config import ModelConfig
 
@@ -25,16 +26,6 @@ __all__ = [
     "embed_tp", "unembed_tp", "rope_freqs", "apply_rope",
     "init_dense", "dense", "truncated_normal", "cast_weights",
 ]
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16}
-
-
-def dtype_of(name: str) -> torch.dtype:
-    if name not in DTYPES:
-        raise ValueError(f"dtype {name!r} not supported (pick from "
-                         f"{tuple(DTYPES)})")
-    return DTYPES[name]
 
 
 def truncated_normal(generator: torch.Generator, shape, scale: float,
@@ -194,15 +185,47 @@ def init_embedding(generator, cfg: ModelConfig, device) -> dict:
     return p
 
 
+class _RowsSumF32(torch.autograd.Function):
+    """``table[idx].to(cd)`` whose gradient is scatter-added in fp32 and
+    cast to the table's dtype once (a bf16 table's)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, cd):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        return table[idx].to(cd)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
+        acc.index_add_(0, idx.reshape(-1), g.reshape(-1, g.shape[-1]).float())
+        return acc.to(ctx.dtype), None, None
+
+
+def _take_rows(table: torch.Tensor, idx: torch.Tensor,
+               cd: torch.dtype) -> torch.Tensor:
+    """Rows ``idx`` of ``table`` in the compute dtype ``cd``, their
+    gradient summed in fp32 whatever the table's dtype: an fp32 table's
+    in its own dtype, a bf16 table's (bf16 parameters) through
+    :class:`_RowsSumF32`."""
+    if table.dtype == torch.float32 or not (torch.is_grad_enabled()
+                                            and table.requires_grad):
+        return table[idx].to(cd)
+    return _RowsSumF32.apply(table, idx, cd)
+
+
 def embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
     """The tokens' rows of the table in the compute dtype.  The rows are
     gathered and then cast (the reference casts the whole table and then
-    gathers: the same values), so the gradient's scatter-add over repeated
-    tokens runs in the table's dtype, fp32 for training, and not in bf16,
+    gathers: the same values), and the gradient's scatter-add over
+    repeated tokens runs in fp32 (:func:`_take_rows`) and not in bf16,
     where a frequent token's thousands of rows lose most of their sum to
-    rounding, and differently for each split of the batch."""
+    rounding, and differently for each split of the batch; a bf16 table's
+    gradient is that sum rounded once, as the reference's is at fp32
+    compute."""
     cd = dtype_of(cfg.compute_dtype)
-    x = p["table"][tokens.long()].to(cd)
+    x = _take_rows(p["table"], tokens.long(), cd)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
     return x
@@ -240,17 +263,17 @@ def embed_tp(cfg: ModelConfig, shards, tokens: torch.Tensor) -> torch.Tensor:
     its row range and zero elsewhere, in the table's dtype, then casts;
     the parts are summed in shard order on ``tokens``' device (exact:
     one term of a token is nonzero), and ``embed_scale`` is applied after
-    the sum.  The gradient of each shard's rows accumulates in their
-    dtype, as :func:`embed`'s does."""
+    the sum.  The gradient of each shard's rows accumulates in fp32, as
+    :func:`embed`'s does."""
     cd = dtype_of(cfg.compute_dtype)
     x = None
     for rows, lo, dev in opcount.each_position(shards):
         t = tokens.to(dev).long() - lo
         table = rows["table"]
         inside = ((t >= 0) & (t < table.shape[0]))[..., None]
-        part = torch.where(inside, table[t.clamp(0, table.shape[0] - 1)],
-                           torch.zeros((), dtype=table.dtype, device=dev))
-        part = part.to(cd)
+        part = torch.where(inside, _take_rows(
+            table, t.clamp(0, table.shape[0] - 1), cd),
+            torch.zeros((), dtype=cd, device=dev))
         opcount.collective("all-reduce", part, site="embed_tp")
         part = part.to(tokens.device)
         x = part if x is None else x + part

@@ -91,10 +91,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                       create_selective_checkpoint_contexts)
 
 from ..analysis import opcount
+from ..dtypes import cast_kv
 from ..kernels.flash_attention.kernel import MAX_D_BWD
 from ..kernels.runtime import resolve_impl
 from ..parallel.partition import model_axis_dim
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_leaves, tree_map, tree_paths
 from .attention import (attention, attention_tp, gather_pages, init_attention,
                         split_attention)
 from .config import ModelConfig
@@ -108,6 +109,7 @@ from .ssm import (apply_mamba2, apply_mamba2_tp, init_mamba2, init_ssm_cache,
 
 __all__ = ["LayerPlan", "AttnShard", "RowSplit", "layer_plan", "layer_kinds",
            "init_block", "apply_block", "init_params", "param_count",
+           "clip_groups",
            "init_cache", "init_paged_cache", "paged_pools", "decode_step",
            "prefill", "encode", "chunk_prefill_step", "check_supported",
            "check_trainable", "forward", "loss_fn", "loss_sums",
@@ -263,6 +265,30 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def param_count(params) -> int:
     return sum(t.numel() for t in tree_leaves(params))
+
+
+def clip_groups(cfg: ModelConfig, params) -> list[list[int]]:
+    """The leaves of ``params`` (indices in leaf order) that the reference
+    stacks into one leaf: the same path in the blocks of one position of
+    the layer pattern over its ``n_groups`` groups (the encoder's blocks
+    likewise), each group in layer order.  The tail blocks, a hybrid
+    model's shared block and the leaves outside the blocks stack with
+    nothing and are left out.  Adafactor takes one update-RMS over each
+    group (``optim.opt_update``'s ``clip_groups``)."""
+    plan = layer_plan(cfg)
+    n_stacked = len(plan.pattern) * plan.n_groups
+    groups: dict[tuple, list[int]] = {}
+    for i, (path, _) in enumerate(tree_paths(params)):
+        top, _, rest = path.partition("/")
+        if top not in ("layers", "enc_layers"):
+            continue
+        layer, _, inner = rest.partition("/")
+        layer = int(layer)
+        if top == "layers" and layer >= n_stacked:
+            continue
+        pos = layer % len(plan.pattern) if top == "layers" else -1
+        groups.setdefault((pos, inner), []).append(i)
+    return list(groups.values())
 
 
 def _blocks(cfg: ModelConfig, params: dict):
@@ -811,10 +837,11 @@ def _write_kv(buf, delta, pos) -> None:
         raise ValueError(f"{S} positions do not fit a cache of {T}")
     if pos.dim() == 0:
         start = min(max(int(pos), 0), T - S)
-        buf[:, :, start:start + S] = delta.to(buf.dtype)
+        buf[:, :, start:start + S] = cast_kv(delta, buf.dtype)
         return
     rows = torch.arange(buf.shape[0], device=buf.device)
-    buf[rows, :, pos.long().clamp(0, T - 1)] = delta[:, :, 0].to(buf.dtype)
+    buf[rows, :, pos.long().clamp(0, T - 1)] = cast_kv(delta[:, :, 0],
+                                                       buf.dtype)
 
 
 def _write_ssm_state(layer_cache: dict, new: dict, update_mask) -> None:
@@ -845,7 +872,7 @@ def _write_kv_paged(pool, delta, pos, pages, page_size: int) -> None:
     pid = pages.gather(1, idx.clamp(max=n_pages - 1)[:, None])[:, 0].long()
     pid = torch.where(inside, pid, torch.zeros_like(pid))
     off = (pos % page_size).long()
-    pool[pid, :, off, :] = delta[:, :, 0, :].to(pool.dtype)
+    pool[pid, :, off, :] = cast_kv(delta[:, :, 0, :], pool.dtype)
 
 
 def _check_shards(cfg: ModelConfig, shards) -> None:
@@ -989,7 +1016,7 @@ def _write_kv_chunk_paged(pool, delta, start: int, pages_1d, page_size: int):
     pids = pages_1d[first:first + n].long()
     _, KV, _, D = delta.shape
     val = delta[0].reshape(KV, n, page_size, D).transpose(0, 1)
-    pool[pids] = val.to(pool.dtype)
+    pool[pids] = cast_kv(val, pool.dtype)
 
 
 def chunk_prefill_step(cfg: ModelConfig, params: dict, cache: dict,

@@ -8,9 +8,15 @@ reference's is; with ``inplace=True`` it writes the new parameters and
 state into the tensors it was given (and returns them), which the fused
 train step uses to hold one copy of the model's state.
 
-Adafactor's update-RMS clip runs per parameter tensor.  The reference
-stacks layers on a leading axis, so there it runs over one tensor of all
-the layers of a group; the two agree on every tensor that is not stacked.
+Adafactor's update-RMS clip runs over each leaf of the reference's
+layout.  The reference stacks the layers of each position of its layer
+pattern on a leading axis, so its clip takes one RMS over the same tensor
+of every layer of a group; the port keeps a dict per layer, and
+``clip_groups`` (``models.transformer.clip_groups``) names the leaves
+that form one stacked leaf there, which then share one RMS.  Where the
+reference would factor a stacked vector (a 2-D (L, d) leaf with L and d
+both at least ``factored_min``: one column moment shared by the layers,
+which the port's per-layer state cannot hold) the update raises.
 
 A training mesh's state (``train/step.py``) holds
 :class:`~repro_torch.parallel.partition.Placed` leaves, one block a grid
@@ -25,7 +31,8 @@ import math
 import torch
 
 from ..parallel.partition import Placed
-from ..tree import tree_leaves, tree_leaves_like, tree_map, tree_unflatten
+from ..tree import (tree_leaves, tree_leaves_like, tree_map, tree_paths,
+                    tree_unflatten)
 
 __all__ = ["OptimizerSpec", "init_opt_state", "opt_update",
            "opt_update_placed", "cosine_schedule", "global_norm",
@@ -143,28 +150,102 @@ def _init_adafactor(params, spec):
     return {"f": tree_map(one, params), "count": _count(params)}
 
 
-def _adafactor_leaf(spec, beta2, lr):
-    def upd(g, p, st):
-        gf = g.float()
-        g2 = gf.square() + 1e-30
+@dataclasses.dataclass(frozen=True)
+class _Adafactor:
+    """One Adafactor step in three parts, so that leaves sharing one
+    update-RMS can be clipped together: the new moments, the direction
+    they give, and the clipped update of the parameter.  Each part holds
+    one leaf-sized fp32 temporary at a time where it can (in-place ops
+    that round as the reference's expressions do): at llama3-405b's width
+    the embedding alone is 2.1 B elements."""
+    spec: OptimizerSpec
+    beta2: torch.Tensor
+    lr: float
+
+    def moments(self, g, st) -> dict:
+        g2 = g.float().square().add_(1e-30)
+        b = self.beta2
         if "vr" in st:
-            vr = beta2 * st["vr"] + (1 - beta2) * g2.mean(dim=-1)
-            vc = beta2 * st["vc"] + (1 - beta2) * g2.mean(dim=-2)
+            return {"vr": b * st["vr"] + (1 - b) * g2.mean(dim=-1),
+                    "vc": b * st["vc"] + (1 - b) * g2.mean(dim=-2)}
+        return {"v": b * st["v"] + (1 - b) * g2}
+
+    @staticmethod
+    def direction(g, st) -> torch.Tensor:
+        gf = g.float()
+        if "vr" in st:
+            vr = st["vr"]
             rfac = torch.rsqrt(vr / vr.mean(dim=-1, keepdim=True) + 1e-30)
-            cfac = torch.rsqrt(vc + 1e-30)
-            step = gf * rfac[..., None] * cfac[..., None, :]
-            new_st = {"vr": vr, "vc": vc}
-        else:
-            v = beta2 * st["v"] + (1 - beta2) * g2
-            step = gf * torch.rsqrt(v + 1e-30)
-            new_st = {"v": v}
+            cfac = torch.rsqrt(st["vc"] + 1e-30)
+            return (gf * rfac[..., None]).mul_(cfac[..., None, :])
+        return gf * torch.rsqrt(st["v"] + 1e-30)
+
+    def apply(self, p, step, rms) -> torch.Tensor:
+        """``p - lr * step / max(rms, 1)`` in fp32, cast to p's dtype;
+        overwrites ``step``."""
         # update clipping (Adafactor's d = 1.0 RMS clip)
-        rms = torch.sqrt(step.square().mean() + 1e-30)
-        step = step / torch.clamp(rms, min=1.0)
-        if spec.weight_decay:
-            step = step + spec.weight_decay * p.float()
-        return (p.float() - lr * step).to(p.dtype), new_st
-    return upd
+        step = step.div_(torch.clamp(rms, min=1.0))
+        if self.spec.weight_decay:
+            step = step + self.spec.weight_decay * p.float()
+        pf = p.to(torch.float32, copy=True)
+        return pf.sub_(step.mul_(self.lr)).to(p.dtype)
+
+
+def _rms_groups(spec, params, clip_groups) -> list[list[int]]:
+    """Every leaf index of ``params`` in one group: ``clip_groups``'s, the
+    rest alone.  Raises where the reference would factor the stacked leaf
+    of a group (see the module docstring)."""
+    leaves = tree_leaves(params)
+    groups = [list(g) for g in (clip_groups or ()) if g]
+    seen = {i for g in groups for i in g}
+    if len(seen) != sum(map(len, groups)) or not seen <= set(
+            range(len(leaves))):
+        raise ValueError("clip_groups must name distinct leaf indices")
+    fmin = spec.factored_min
+    for g in groups:
+        for i in g:
+            shape = tuple(leaves[i].shape)
+            if len(g) >= fmin and len(shape) == 1 and shape[0] >= fmin:
+                path = list(tree_paths(params))[i][0]
+                raise ValueError(
+                    f"Adafactor: the reference factors the stacked "
+                    f"({len(g)}, {shape[0]}) leaf of {path} and its layers "
+                    f"share one column moment, which per-layer state "
+                    f"cannot hold (factored_min {fmin})")
+    return groups + [[i] for i in range(len(leaves)) if i not in seen]
+
+
+def _adafactor_update(af: _Adafactor, groups, read, write_state,
+                      write_param) -> None:
+    """Adafactor over ``groups`` of leaf indices, each group's update-RMS
+    taken over all its leaves.  ``read(i)`` gives leaf i's clipped
+    gradient, parameter and state (the new state once ``write_state(i,
+    st)`` has run); ``write_param(i, p)`` takes the new parameter.  A
+    group of several leaves is walked twice (moments and the squared
+    directions' sum, then the updates), so one direction is held at a
+    time."""
+    for grp in groups:
+        if len(grp) == 1:
+            g, p, st = read(grp[0])
+            st2 = af.moments(g, st)
+            step = af.direction(g, st2)
+            write_state(grp[0], st2)
+            write_param(grp[0], af.apply(
+                p, step, torch.sqrt(step.square().mean() + 1e-30)))
+            continue
+        sq, n = None, 0
+        for i in grp:
+            g, _, st = read(i)
+            st2 = af.moments(g, st)
+            write_state(i, st2)
+            part = af.direction(g, st2).square().sum()
+            sq = part if sq is None else sq + part.to(sq.device)
+            n += g.numel()
+        rms = torch.sqrt(sq / n + 1e-30)
+        for i in grp:
+            g, p, st = read(i)
+            write_param(i, af.apply(p, af.direction(g, st),
+                                    rms.to(p.device)))
 
 
 # ---------------------------------------------------------------------------
@@ -205,14 +286,15 @@ def _state_tree(spec, params, leaf_states: list[dict], count):
 
 def _updater(spec: OptimizerSpec, count: torch.Tensor, lr):
     """The leaf update ``upd(g, p, st) -> (p, st)`` of ``spec.kind`` at
-    step ``count`` (the count after this update)."""
+    step ``count`` (the count after this update); Adafactor's is an
+    :class:`_Adafactor`."""
     if spec.kind == "adamw":
         cf = count.float()
         one = torch.ones((), dtype=torch.float32, device=cf.device)
         return _adamw_leaf(spec, 1 - (one * spec.b1) ** cf,
                            1 - (one * spec.b2) ** cf, lr)
     if spec.kind == "adafactor":
-        return _adafactor_leaf(spec, 1.0 - count.float() ** -0.8, lr)
+        return _Adafactor(spec, 1.0 - count.float() ** -0.8, lr)
     if spec.kind == "sgd":
         def upd(g, p, st):
             return (p.float() - lr * g.float()).to(p.dtype), st
@@ -229,29 +311,63 @@ def _clip_scale(spec: OptimizerSpec, gnorm: torch.Tensor):
 
 @torch.no_grad()
 def opt_update(spec: OptimizerSpec, grads, state, params, lr=None, *,
-               inplace: bool = False):
+               inplace: bool = False, clip_groups=None):
     """Returns ``(new_params, new_state, {"grad_norm", "lr"})``.  The global
     norm is of the gradients before clipping.  ``inplace``: write the
     results into ``params`` and ``state`` leaf by leaf and return those,
-    so that no second copy of the model's state is ever held."""
+    so that no second copy of the model's state is ever held; the
+    global-norm clip then scales ``grads`` in place too (Adafactor reads
+    a leaf's gradient twice).  ``clip_groups``: lists of leaf indices (in
+    ``params``' leaf order) whose Adafactor update-RMS is taken together,
+    the reference's stacked leaves (``models.transformer.clip_groups``);
+    the other kinds ignore it.  Gradients may be in the parameters' dtype or fp32; the update is
+    computed in fp32 and cast to the parameter's dtype."""
     lr = lr if lr is not None else spec.lr
     gnorm = global_norm(grads)
     scale = _clip_scale(spec, gnorm)
     count = state["count"] + 1
     upd = _updater(spec, count, lr)
-    new_p, new_st = [], []
-    for g, p, st in zip(tree_leaves(grads), tree_leaves(params),
-                        _leaf_states(spec, state, params)):
-        if scale is not None:
-            g = (g.float() * scale).to(g.dtype)
-        p2, st2 = upd(g, p, st)
+    g_l, p_l = tree_leaves(grads), tree_leaves(params)
+    st_l = _leaf_states(spec, state, params)
+    new_p, new_st = [None] * len(p_l), [None] * len(p_l)
+    groups = (_rms_groups(spec, params, clip_groups)
+              if spec.kind == "adafactor" else None)
+
+    if inplace and scale is not None:   # the step's own gradients,
+        for g in g_l:                   # scaled once where they lie
+            if g.dtype == torch.float32:
+                g.mul_(scale)
+            else:
+                g.copy_(g.float() * scale)
+        scale = None
+
+    def clipped(g):
+        return g if scale is None else (g.float() * scale).to(g.dtype)
+
+    def write_state(i, st2):
         if inplace:
-            p.copy_(p2)
             for key, t in st2.items():
-                st[key].copy_(t)
+                st_l[i][key].copy_(t)
         else:
-            new_p.append(p2)
-            new_st.append(st2)
+            new_st[i] = st2
+
+    def write_param(i, p2):
+        if inplace:
+            p_l[i].copy_(p2)
+        else:
+            new_p[i] = p2
+
+    if spec.kind == "adafactor":
+        _adafactor_update(
+            upd, groups,
+            lambda i: (clipped(g_l[i]), p_l[i],
+                       st_l[i] if new_st[i] is None else new_st[i]),
+            write_state, write_param)
+    else:
+        for i, (g, p, st) in enumerate(zip(g_l, p_l, st_l)):
+            p2, st2 = upd(clipped(g), p, st)
+            write_param(i, p2)
+            write_state(i, st2)
     metrics = {"grad_norm": gnorm, "lr": torch.tensor(lr)}
     if inplace:
         state["count"].copy_(count)
@@ -261,8 +377,8 @@ def opt_update(spec: OptimizerSpec, grads, state, params, lr=None, *,
 
 
 @torch.no_grad()
-def opt_update_placed(spec: OptimizerSpec, grads, state, params, lr=None
-                      ) -> dict:
+def opt_update_placed(spec: OptimizerSpec, grads, state, params, lr=None,
+                      *, clip_groups=None) -> dict:
     """:func:`opt_update` with ``inplace=True`` over a training mesh's
     state, whose tensors are all :class:`Placed` on one mesh: writes the
     new parameters and state into their blocks and returns ``{"grad_norm",
@@ -270,8 +386,9 @@ def opt_update_placed(spec: OptimizerSpec, grads, state, params, lr=None
     lead); AdamW and SGD update each block on its position; Adafactor's
     factored moments and update-RMS clip read whole rows, columns and
     tensors, so each of its leaves is updated whole on the lead and
-    written back into every block.  Copies of a replicated region get the
-    same inputs and the same update, so they cannot drift."""
+    written back into every block (``clip_groups`` as for
+    :func:`opt_update`).  Copies of a replicated region get the same
+    inputs and the same update, so they cannot drift."""
     lr = lr if lr is not None else spec.lr
     gnorm = global_norm(grads)
     scale = _clip_scale(spec, gnorm)
@@ -279,27 +396,34 @@ def opt_update_placed(spec: OptimizerSpec, grads, state, params, lr=None
     count = state["count"].blocks[0] + 1
     upds = {dev: _updater(spec, count.to(dev), lr)
             for dev in mesh.unique_devices()}
-    for g, p, st in zip(tree_leaves(grads), tree_leaves(params),
-                        _leaf_states(spec, state, params)):
-        if spec.kind == "adafactor":
-            gw = g.gather()
+    g_l, p_l = tree_leaves(grads), tree_leaves(params)
+    st_l = _leaf_states(spec, state, params)
+    if spec.kind == "adafactor":
+        def read(i):
+            gw = g_l[i].gather()
             if scale is not None:
                 gw = (gw.float() * scale).to(gw.dtype)
-            p2, st2 = upds[mesh.lead](gw, p.gather(),
-                                      {k: v.gather() for k, v in st.items()})
-            p.scatter_(p2)
+            return gw, p_l[i].gather(), {k: v.gather()
+                                         for k, v in st_l[i].items()}
+
+        def write_state(i, st2):
             for key, t in st2.items():
-                st[key].scatter_(t)
-            continue
-        for k, dev in enumerate(mesh.flat):
-            gb = g.blocks[k]
-            if scale is not None:
-                gb = (gb.float() * scale.to(dev)).to(gb.dtype)
-            p2, st2 = upds[dev](gb, p.blocks[k],
-                                {key: v.blocks[k] for key, v in st.items()})
-            p.blocks[k].copy_(p2)
-            for key, t in st2.items():
-                st[key].blocks[k].copy_(t)
+                st_l[i][key].scatter_(t)
+
+        _adafactor_update(upds[mesh.lead],
+                          _rms_groups(spec, params, clip_groups), read,
+                          write_state, lambda i, p2: p_l[i].scatter_(p2))
+    else:
+        for g, p, st in zip(g_l, p_l, st_l):
+            for k, dev in enumerate(mesh.flat):
+                gb = g.blocks[k]
+                if scale is not None:
+                    gb = (gb.float() * scale.to(dev)).to(gb.dtype)
+                p2, st2 = upds[dev](gb, p.blocks[k], {
+                    key: v.blocks[k] for key, v in st.items()})
+                p.blocks[k].copy_(p2)
+                for key, t in st2.items():
+                    st[key].blocks[k].copy_(t)
     for k, dev in enumerate(mesh.flat):
         state["count"].blocks[k].copy_(count.to(dev))
     return {"grad_norm": gnorm, "lr": torch.tensor(lr)}

@@ -34,7 +34,7 @@ import torch
 from ..core import (ChunkedData, ChunkRef, FunctionRegistry, Job, JobGraph,
                     LocalExecutor, VirtualCluster)
 from ..models.config import ModelConfig
-from ..models.transformer import check_trainable, init_params
+from ..models.transformer import check_trainable, clip_groups, init_params
 from ..optim import OptimizerSpec, init_opt_state, opt_update
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from .step import compute_grads
@@ -86,7 +86,9 @@ class HyParTrainer:
                     a + b for a, b in zip(grads_sum, g)]
             grads = tree_unflatten(self._params_like,
                                    [g / len(grad_cds) for g in grads_sum])
-            new_p, new_o, _ = opt_update(spec, grads, opt_state, params)
+            new_p, new_o, _ = opt_update(
+                spec, grads, opt_state, params,
+                clip_groups=clip_groups(cfg, params))
             return ChunkedData.from_arrays(tree_leaves(new_p)
                                            + tree_leaves(new_o))
 

@@ -101,6 +101,7 @@ def grad(params_chunks, micro_chunks):
 
 
 def opt(params_chunks, opt_chunks, *grad_chunk_lists):
+    from ..models.transformer import clip_groups
     from ..optim import opt_update
     from ..tree import tree_leaves, tree_unflatten
 
@@ -114,7 +115,8 @@ def opt(params_chunks, opt_chunks, *grad_chunk_lists):
             a + b for a, b in zip(grads_sum, g)]
     grads = tree_unflatten(c.params_like,
                            [g / len(grad_chunk_lists) for g in grads_sum])
-    new_p, new_o, _ = opt_update(c.spec, grads, opt_state, params)
+    new_p, new_o, _ = opt_update(c.spec, grads, opt_state, params,
+                                 clip_groups=clip_groups(c.cfg, params))
     return tree_leaves(new_p) + tree_leaves(new_o)
 
 

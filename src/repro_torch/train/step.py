@@ -11,6 +11,13 @@ The step runs eagerly and UPDATES THE STATE IN PLACE under
 over the micro-batches, and the optimizer writes the new parameters and
 moments into the tensors it was given, so the model's state is held once.  (The reference's step is pure and returns a new state.)
 
+Parameters in bf16 (llama3-405b's ``param_dtype``) keep the reference's
+dtypes: with one micro-batch the gradients stay in the parameters' dtype;
+with more, each micro-batch's bf16 gradient is added into an fp32 buffer
+as autograd produces it (a post-accumulate hook, so no whole set of bf16
+gradients is held) and the sum is divided by the count.  The update is
+computed in fp32 and cast back; the optimizer state stays fp32.
+
 On a training mesh (``mesh=``, a ``("data", "model")``
 :class:`~repro_torch.launch.mesh.DeviceMesh`, one process driving every
 position) the state is placed by the reference's specs
@@ -38,8 +45,8 @@ import torch
 
 from ..analysis import opcount
 from ..models.config import ModelConfig
-from ..models.transformer import (check_trainable, init_params, loss_fn,
-                                  loss_from_sums, loss_sums)
+from ..models.transformer import (check_trainable, clip_groups, init_params,
+                                  loss_fn, loss_from_sums, loss_sums)
 from ..optim import OptimizerSpec, init_opt_state, opt_update, opt_update_placed
 from ..parallel import DEFAULT_RULES, ShardingRules
 from ..parallel.partition import Placed, gather_tree, place_leaf, place_state
@@ -107,18 +114,53 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
             for i in range(n)]
 
 
+def _fp32_sums(leaves: list, fold: bool) -> list:
+    """Where ``fold``, one fp32 sum a leaf that is not fp32: a
+    post-accumulate hook adds each gradient autograd gives the leaf into
+    it (the first one becomes it: ``0 + g`` in fp32) and frees the leaf's
+    ``.grad``.  Returns the list of sums, each None until its leaf's first
+    gradient; fp32 leaves (and every leaf without ``fold``) keep
+    accumulating in ``.grad``, as they always have."""
+    sums = [None] * len(leaves)
+    if not fold:
+        return sums
+
+    def hook_for(j):
+        def hook(p):
+            g = p.grad
+            sums[j] = g.float() if sums[j] is None else sums[j].add_(g)
+            p.grad = None
+        return hook
+
+    for j, p in enumerate(leaves):
+        if p.dtype != torch.float32:
+            p.register_post_accumulate_grad_hook(hook_for(j))
+    return sums
+
+
+def _summed(p, acc, fold: bool):
+    """A leaf's gradient sum: its fp32 fold (:func:`_fp32_sums`), else its
+    ``.grad``, else zeros (fp32 where the leaves ``fold``)."""
+    if acc is not None:
+        return acc
+    if p.grad is not None:
+        return p.grad
+    return torch.zeros(p.shape, device=p.device,
+                       dtype=torch.float32 if fold else p.dtype)
+
+
 def compute_grads(cfg: ModelConfig, params, batch: dict, *, accum: int = 1,
                   impl: str = "auto"):
-    """Mean gradients over ``accum`` micro-batches of ``batch``, accumulated
-    in fp32.  Returns ``(grads, mean total loss, the last micro-batch's
-    metrics)``; ``grads`` has the structure of ``params``.  The parameters
-    are read through detached aliases, so the caller's tensors are not
-    touched (their ``requires_grad`` and ``.grad`` included)."""
+    """Mean gradients over ``accum`` micro-batches of ``batch``.  Returns
+    ``(grads, mean total loss, the last micro-batch's metrics)``;
+    ``grads`` has the structure of ``params``.  fp32 parameters
+    accumulate in their fp32 gradients; others (bf16), as the reference
+    does, give gradients in their own dtype for one micro-batch and, for
+    more, fp32 sums divided by the count.  The parameters are read through
+    detached aliases, so the caller's tensors are not touched (their
+    ``requires_grad`` and ``.grad`` included)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    for p in leaves:
-        if p.dtype != torch.float32:
-            raise TypeError(f"parameters must be fp32 (their gradients "
-                            f"accumulate the micro-batches), got {p.dtype}")
+    sums = _fp32_sums(leaves, accum > 1)
     alias = tree_unflatten(params, leaves)
     lsum = 0.0
     metrics = {}
@@ -126,8 +168,8 @@ def compute_grads(cfg: ModelConfig, params, batch: dict, *, accum: int = 1,
         total, metrics = loss_fn(cfg, alias, mb, impl=impl)
         total.backward()
         lsum = lsum + total.detach()
-    grads = [p.grad.div_(accum) if p.grad is not None else torch.zeros_like(p)
-             for p in leaves]
+    grads = [_summed(p, acc, accum > 1).div_(accum)
+             for p, acc in zip(leaves, sums)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return tree_unflatten(params, grads), lsum / accum, metrics
 
@@ -155,18 +197,19 @@ def compute_grads_mesh(cfg: ModelConfig, params, batch: dict, mesh, *,
     micro-batches and the last one's metrics.
 
     Each data row that runs (:func:`_row_batches`) gathers the whole
-    parameters on its lead as fresh fp32 leaves; every micro-batch's row
+    parameters on its lead as fresh leaves in their own dtype; every
+    micro-batch's row
     slices run on their rows (``loss_sums``, the row's positions as its
     tensor-parallel devices), one scalar, the whole micro-batch's loss, is
     made of them on the mesh's lead (``loss_from_sums``), and one backward
     runs over every row's graph.  Each leaf's gradient is then the rows'
-    sum, added in row order on the lead, divided by ``accum``; under the
+    sum, added in row order on the lead, divided by ``accum``.  A leaf
+    that is not fp32 (bf16) folds each row's gradients into an fp32 sum
+    on the row as autograd gives them (:func:`_fp32_sums`), the rows'
+    sums are added in fp32, and with one micro-batch the result is cast
+    back to the leaf's dtype, as the meshless gradient is; under the
     operation counter that sum is recorded as the reference's all-reduce
     of each position's gradient block, at its place in its row."""
-    for p in tree_leaves(params):
-        if p.dtype != torch.float32:
-            raise TypeError(f"parameters must be fp32 (their gradients "
-                            f"accumulate the micro-batches), got {p.dtype}")
     rules = ShardingRules(mesh=mesh, rules=dict(DEFAULT_RULES))
     leaves = tree_leaves(params)
     rows = [[mesh.flat[k] for k in row] for row in mesh.rows()]
@@ -175,6 +218,7 @@ def compute_grads_mesh(cfg: ModelConfig, params, batch: dict, mesh, *,
     rows = rows[:len(micro[0])]
     row_leaves = [[leaf.gather(devs[0]).requires_grad_() for leaf in leaves]
                   for devs in rows]
+    row_sums = [_fp32_sums(w, True) for w in row_leaves]
     lsum = 0.0
     metrics = {}
     for parts in opcount.micro_batches(micro):
@@ -189,12 +233,14 @@ def compute_grads_mesh(cfg: ModelConfig, params, batch: dict, mesh, *,
     grads = []
     for j, leaf in enumerate(leaves):
         g = None
-        for w in row_leaves:
-            part = (w[j].grad if w[j].grad is not None
-                    else torch.zeros_like(w[j])).to(mesh.lead)
+        for w, sums in zip(row_leaves, row_sums):
+            part = _summed(w[j], sums[j], True).to(mesh.lead)
             g = part if g is None else g + part
-            w[j] = None
-        grads.append(place_leaf(g.div_(accum), mesh, leaf.spec))
+            w[j] = sums[j] = None
+        g = g.div_(accum)
+        if accum == 1:
+            g = g.to(leaf.dtype)
+        grads.append(place_leaf(g, mesh, leaf.spec))
         if len(row_leaves) > 1:
             for k, blk in enumerate(grads[-1].blocks):
                 opcount.collective("all-reduce", blk, site="grad_rows",
@@ -220,7 +266,8 @@ def make_train_step(cfg: ModelConfig, spec: OptimizerSpec, *,
     loss over the micro-batches).  ``mesh`` (more than one position)
     steps a state placed on it (:func:`shard_state`) through
     :func:`compute_grads_mesh` and ``opt_update_placed``; a 1 x 1 grid
-    steps as no mesh."""
+    steps as no mesh.  Adafactor's update-RMS runs over the reference's
+    stacked leaves (:func:`~repro_torch.models.transformer.clip_groups`)."""
     check_trainable(cfg)
     accum = grad_accum if grad_accum is not None else cfg.grad_accum
     accum = max(1, accum)
@@ -228,16 +275,18 @@ def make_train_step(cfg: ModelConfig, spec: OptimizerSpec, *,
 
     def step_fn(state: TrainState, batch: dict):
         lr = schedule(state.step) if schedule is not None else spec.lr
+        groups = (clip_groups(cfg, state.params)
+                  if spec.kind == "adafactor" else None)
         if placed:
             grads, loss, metrics = compute_grads_mesh(
                 cfg, state.params, batch, mesh, accum=accum, impl=impl)
             om = opt_update_placed(spec, grads, state.opt_state,
-                                   state.params, lr)
+                                   state.params, lr, clip_groups=groups)
         else:
             grads, loss, metrics = compute_grads(cfg, state.params, batch,
                                                  accum=accum, impl=impl)
             _, _, om = opt_update(spec, grads, state.opt_state, state.params,
-                                  lr, inplace=True)
+                                  lr, inplace=True, clip_groups=groups)
         metrics = dict(metrics)
         metrics.update(om)
         metrics["loss_total"] = loss

@@ -525,6 +525,23 @@ def test_paged_cost_gives_the_old_bound(shape, trash_every, chip_smoke):
     assert max(t_bytes, t_ops) == old[0]
 
 
+# llama3-405b's decode with e4m3 pools (with and without a window of 512),
+# and the same work with an fp32 q: G 16 makes 32 operations a pool byte
+@pytest.mark.parametrize("elt,window,by", [
+    (2, None, "bytes"), (2, 512, "bytes"), (4, None, "operations")])
+def test_paged_bound_takes_the_peak_of_qs_type(elt, window, by, chip_smoke):
+    shape = dict(B=8, KV=8, G=16, D=128, ps=16, window=window, elt=elt,
+                 kv_elt=1)
+    lens = np.linspace(1000, 1500, 8).astype(np.int32)
+    pages, kv_len = _serving_table(8, 96, 16, lens, 0)
+    c = paged_attention.cost(pages, kv_len, **shape)
+    peak = H100_BF16_FLOPS if elt == 2 else H100_FP32_FLOPS
+    t_bytes = c["bytes"] / H100_BYTES_PER_S * 1e3
+    t_ops = c["flops"] / peak * 1e3
+    assert chip_smoke.bound_ms(pages, kv_len, **shape) == (max(t_bytes,
+                                                               t_ops), by)
+
+
 def test_paged_cost_on_meta_reads_every_page():
     B, n_pages, ps = 4, 10, 16
     shape = dict(B=B, KV=2, G=3, D=64, ps=ps, window=None, elt=2)

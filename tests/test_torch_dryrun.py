@@ -193,12 +193,15 @@ def _smoke(arch):
         cfg = dataclasses.replace(cfg, ssm_chunk=256)
     if cfg.family == "encdec":
         cfg = dataclasses.replace(cfg, max_seq=get_config(arch).max_seq)
+    if arch == "llama3-405b":     # the full config's float8 pools (its
+        cfg = dataclasses.replace(  # smoke keeps bf16 ones); bf16 params
+            cfg, kv_cache_dtype=get_config(arch).kv_cache_dtype)
     return cfg
 
 
 SMOKE_CELLS = [(a, c) for a in ("qwen2-1.5b", "mamba2-370m",
                                 "qwen2-moe-a2.7b", "zamba2-1.2b",
-                                "gemma3-4b", "whisper-base")
+                                "gemma3-4b", "whisper-base", "llama3-405b")
                for c in cells_for(a)]
 RECORD_KEYS = {"arch", "cell", "mesh", "n_chips", "grad_accum", "trace_s",
                "bytes_per_device", "fits_hbm", "arg_bytes", "temp_bytes",

@@ -116,17 +116,21 @@ def _torch(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-def _kernel_vs_plain(case, dtype, pps, seed=15):
+def _kernel_vs_plain(case, dtype, pps, seed=15, kv_dtype=None):
     """The kernel's (acc, m, l) against its plain version's on ``case``
-    at ``pps`` pages a split (None: the kernel's default)."""
+    at ``pps`` pages a split (None: the kernel's default); the pools in
+    ``kv_dtype`` (default q's), cast as the cache writes them."""
+    from repro_torch.dtypes import cast_kv
     from repro_torch.kernels.paged_attention import paged_attention_kernel
     B, H, KV, D, ps, n, lens, window, share, trash = case
     q, kp, vp, tbl, kv_len, _, _ = paged_case(
         seed, B, H, KV, D, ps, n, lens, share=share, trash_tail=trash)
     dt = getattr(torch, dtype)
+    kdt = getattr(torch, kv_dtype) if kv_dtype else dt
     G = H // KV
     qg = torch.from_numpy(q.reshape(B, KV, G, D) / np.sqrt(D)).to(dt)
-    args = [qg] + [t.to(dt) for t in _torch(kp, vp)] + _torch(tbl, kv_len)
+    args = ([qg] + [cast_kv(t, kdt) for t in _torch(kp, vp)]
+            + _torch(tbl, kv_len))
     args = [a.cuda() for a in args]
     acc, m, l = paged_attention_kernel(*args, window=window,
                                        pages_per_split=pps)
@@ -250,6 +254,105 @@ def test_cuda_paged_wrapper_takes_every_length_form(pps):
         out = paged_decode_attention(q, kp, vp, tbl, kl, kt, vt,
                                      pages_per_split=pps)
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+# float8 e4m3 pools (llama3-405b's kv_cache_dtype) under a bf16 or fp32
+# q: llama3-405b's decode (B 8, KV 8, G 16, D 128, page 16, contexts of
+# 1,000-1,500 tokens and a free slot), multi-head attention (G 1, D 64)
+# with a trash tail, G 6 under a window, D 256, and D 40 (rows of 40
+# bytes: the scalar staging path)
+E4M3_CASES = [
+    (8, 128, 8, 128, 16, 96, (1500, 1431, 1362, 1293, 1224, 1155, 1000, 0),
+     None, False, 0),
+    (3, 4, 4, 64, 8, 6, (40, 23, 0), None, False, 1),
+    (4, 12, 2, 128, 16, 8, (100, 77, 16, 1), 33, False, 0),
+    (2, 4, 2, 256, 16, 6, (90, 41), 50, False, 0),
+    (2, 4, 2, 256, 16, 6, (90, 41), None, True, 0),
+    (2, 10, 2, 40, 4, 5, (19, 3), None, False, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pps", [1, 4, None])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", E4M3_CASES,
+                         ids=[f"e4m3_{i}" for i in range(len(E4M3_CASES))])
+def test_cuda_paged_kernel_reads_e4m3_pools(case, dtype, pps):
+    """e4m3 pages (the trash page NaN) under a bf16 or fp32 q against the
+    plain version, which widens the same bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _kernel_vs_plain(case, dtype, pps, kv_dtype="float8_e4m3fn")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_e4m3_wrapper_matches_ref(dtype):
+    """The decode wrapper over e4m3 pools, kt and vt (what the decode
+    path holds) against its gather oracle, one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.dtypes import cast_kv
+    from repro_torch.kernels.paged_attention import (kernel,
+                                                     paged_decode_attention)
+    dt, f8 = getattr(torch, dtype), torch.float8_e4m3fn
+    arrays = paged_case(18, 3, 32, 2, 128, 16, 5, (70, 33, 0))
+    q, kp, vp, tbl, kv_len, kt, vt = [a.cuda() for a in _torch(*arrays)]
+    q = q.to(dt)
+    kp, vp, kt, vt = (cast_kv(t, f8) for t in (kp, vp, kt, vt))
+    before = kernel.launches
+    out = paged_decode_attention(q, kp, vp, tbl, kv_len, kt, vt)
+    ref = paged_decode_attention(q, kp, vp, tbl, kv_len, kt, vt, impl="ref")
+    assert kernel.launches == before + 1
+    assert out.dtype == dt and torch.isfinite(out).all()
+    tol = 1e-5 if dt == torch.float32 else 1e-2     # one bf16 rounding
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dt, k_dt, v_dt, kt_dt", [
+    ("float32", "bfloat16", "bfloat16", "bfloat16"),
+    ("bfloat16", "float32", "float32", "float32"),
+    ("float16", "float8_e4m3fn", "float8_e4m3fn", "float8_e4m3fn"),
+    ("bfloat16", "float8_e4m3fn", "bfloat16", "float8_e4m3fn"),
+    ("bfloat16", "float8_e5m2", "float8_e5m2", "float8_e5m2"),
+    ("bfloat16", "float8_e4m3fn", "float8_e4m3fn", "bfloat16"),
+])
+def test_cuda_paged_binding_refuses_unbuilt_mixes(q_dt, k_dt, v_dt, kt_dt):
+    """q bf16 or fp32 over pools of its own dtype or e4m3 (kt the pools')
+    is what the library builds; every other mix raises TypeError before
+    a launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.paged_attention import kernel
+    dev = "cuda"
+    q = torch.zeros((2, 1, 4, 64), device=dev).to(getattr(torch, q_dt))
+    kp = torch.zeros((3, 2, 8, 64), device=dev).to(getattr(torch, k_dt))
+    vp = torch.zeros((3, 2, 8, 64), device=dev).to(getattr(torch, v_dt))
+    kt = torch.zeros((2, 2, 1, 64), device=dev).to(getattr(torch, kt_dt))
+    vt = torch.zeros((2, 2, 1, 64), device=dev)
+    tbl = torch.ones((2, 1), dtype=torch.int32, device=dev)
+    kl = torch.full((2,), 4, dtype=torch.int32, device=dev)
+    before = kernel.launches
+    with pytest.raises(TypeError):
+        kernel.paged_decode_kernel(q, kp, vp, tbl, kl, kt, vt, scale=0.125)
+    assert kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_paged_cost_counts_one_byte_an_e4m3_element():
+    """cost() counts the pools at their own element size: the e4m3 pools'
+    page bytes are half of bf16's, q's bytes unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.paged_attention import cost
+    tbl = torch.arange(1, 9, dtype=torch.int32, device="cuda").reshape(2, 4)
+    kl = torch.tensor([64, 30], dtype=torch.int32, device="cuda")
+    shape = dict(B=2, KV=2, G=4, D=128, ps=16, window=None, elt=2)
+    bf, f8 = cost(tbl, kl, **shape), cost(tbl, kl, kv_elt=1, **shape)
+    page_bytes = 2 * 6 * 2 * 16 * 128 * 2    # bf16 K and V, 6 pages read
+    assert bf["bytes"] - f8["bytes"] == page_bytes // 2
+    assert bf["flops"] == f8["flops"]
 
 
 # BC, H, Q, P, N: the serving shape at the largest and smallest chunk
