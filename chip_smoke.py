@@ -193,6 +193,27 @@ and prints one JSON line per phase:
    16 greedy tokens, the paged kernel once a layer a decode step;
    ``serve_llama3_pools``: the pools hold one byte an element, half a
    bf16 pool's bytes;
+10k. ``kernels`` at the split decode's shapes (``seq_split_kernel_phase``)
+   — the paged kernel at deepseek-coder-33b's decode (bf16, B 8, KV 8,
+   G 7, D 128, contexts 1,000-1,500), chameleon-34b's (G 8) and
+   mixtral-8x7b's (G 4, window 4,096, contexts 4,000-6,000), each held
+   and timed as phase 10i holds them;
+10l. ``decode_seq_split`` — distributed flash-decoding over a dense KV
+   cache split by sequence (``partition.place_cache`` by the dry-run's
+   cell specs, ``decode_step`` over it), every grid position on the
+   card: deepseek-coder-33b at its published widths cut to 2 of 62
+   layers, ``decode_32k``'s traced row (8 slots, T 32,768 over a 1 x 16
+   grid, 2,048 positions a block, lengths 30,000-32,700), and
+   mixtral-8x7b cut to 2 of 32 layers on ``long_500k``'s layout (1 slot,
+   T 524,288 over 2 data rows x 16 positions, length 520,000: the window
+   in the last block); caches drawn from a seeded generator.  4 steps
+   each, split and unsplit (the whole cache on the card) on the same
+   weights and cache: fp32 logits within 1e-5 of their scale and equal
+   greedy tokens; bf16 logits within 2^-6 of their scale and equal greedy
+   tokens wherever the whole run's top-2 margin exceeds the row's change
+   (every flip listed with both); nothing NaN, each position's cache
+   bytes the specs'; the step ms of both, the bytes a position and the
+   phase's seconds;
 11. ``kernels`` (``jacobi_sweep``) — both Jacobi kernels (plain sweep and
    fused-residual sweep) against their plain versions at the paper's sizes
    N 2709, 4209 and 7209 in fp32, one bf16-x and one bf16-A case and a
@@ -2980,6 +3001,202 @@ def llama3_kernel_phase() -> dict:
     return out
 
 
+#: the split decode's models at their decode shapes (B 8, KV 8, D 128,
+#: page 16): name, G, window, contexts, pages a slot
+SEQ_SPLIT_PAGED_CASES = (
+    ("deepseek-coder-33b decode", 7, None, MESH_SHARD_LENS, 96),
+    ("chameleon-34b decode", 8, None, MESH_SHARD_LENS, 96),
+    ("mixtral-8x7b decode window 4096", 4, 4096,
+     [6000, 5714, 5428, 5142, 4857, 4571, 4285, 4000], 384),
+)
+#: (arch, layers kept, cell, (data, model) grid, slots, lengths): the
+#: traced row of deepseek-coder-33b's decode_32k and mixtral-8x7b's
+#: long_500k layout.  mixtral's grid keeps the production model axis of
+#: 16: on a model axis of 8 its KV 8 would divide, and ``spec_for`` would
+#: split the heads there instead of the sequence
+SEQ_SPLIT_RUNS = (
+    ("deepseek-coder-33b", 2, "decode_32k", (1, 16), 8,
+     [30000 + 2700 * i // 7 for i in range(8)]),
+    ("mixtral-8x7b", 2, "long_500k", (2, 16), 1, [520000]),
+)
+SEQ_SPLIT_STEPS = 4
+SEQ_SPLIT_TOL = 1e-5             # split vs whole, fp32 logits / max|logit|
+# split vs whole, bf16 logits / max|logit|: two bf16 spacings.  In bf16
+# the greedy tokens must agree wherever the whole run's top-2 margin is
+# larger than the row's split-vs-whole change; at a near-tie (seen on an
+# H100 in deepseek-coder-33b's run: margins 0.0156 and an exact 0,
+# changes 0.0195 and 0.0215, under one spacing of 0.031) either token is
+# the bf16 answer
+SEQ_SPLIT_TOL_BF16 = 2.0 ** -6
+
+
+def seq_split_kernel_phase() -> dict:
+    """The paged kernel at ``SEQ_SPLIT_PAGED_CASES`` (bf16 q and pools),
+    each held and timed as ``llama3_kernel_phase`` holds its cases.
+    Returns each case's figures by name."""
+    from repro_torch.kernels.paged_attention.kernel import \
+        default_pages_per_split
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(33)
+    out = {}
+    for model, G, window, lens, n_pages in SEQ_SPLIT_PAGED_CASES:
+        case, err = paged_timed_case(
+            gen, B=8, KV=8, G=G, D=128, ps=16, n_pages=n_pages,
+            kv_lens=list(lens), dtype=torch.bfloat16, window=window,
+            trash_tail=0, grid=[],
+            default_pps=default_pages_per_split(8, 8, n_pages), model=model)
+        out[model] = dict(case_summary(case, err),
+                          pages_per_split=case["pages_per_split"],
+                          wrapper_ms=case["wrapper_ms"])
+    emit("seq_split_kernels", seconds=time.perf_counter() - t0)
+    return out
+
+
+def _timed_steps(cfg, params, cache, tokens, n: int) -> tuple:
+    """``n`` decode steps over ``cache`` fed ``tokens`` ((B, 1) each),
+    extended by each step's greedy token where they run out: each step's
+    logits, its synchronised host milliseconds and the tokens fed."""
+    from repro_torch.models.transformer import decode_step
+
+    tokens, logits, ms = list(tokens), [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = decode_step(cfg, params, cache, tokens[i])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(out[:, -1].float())
+        if len(tokens) == i + 1 and i + 1 < n:
+            tokens.append(logits[-1].argmax(-1, keepdim=True))
+    return logits, ms, tokens
+
+
+def seq_split_run(arch: str, layers: int, cell: str, grid, B: int,
+                  lens, mods) -> dict:
+    """One ``SEQ_SPLIT_RUNS`` entry: the model at its published widths
+    cut to ``layers``, a dense cache of the cell's length drawn from a
+    seeded generator, and ``SEQ_SPLIT_STEPS`` decode steps over it whole
+    and split by the cell's specs on a ``grid`` of positions on the
+    card, fed the whole run's greedy tokens; fp32 compute first, then
+    bf16 (weights and cache cast)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.launch.specs import rules_for_cell
+    from repro_torch.models.config import SHAPE_CELLS
+    from repro_torch.models.layers import cast_weights
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.parallel.partition import (place_cache, position_bytes,
+                                                spec_bytes)
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    sc = SHAPE_CELLS[cell]
+    T = sc.seq_len
+    mesh = compat_make_mesh(grid, ("data", "model"),
+                            devices=[torch.device(DEV)] * (grid[0] * grid[1]))
+    rules = rules_for_cell(mesh, sc, cfg)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params = init_params(cfg32, gen, DEV)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    base = init_cache(cfg32, B, T, device=DEV)
+    for key in ("k", "v"):
+        base[key].normal_(generator=gen)
+    base["len"] = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    tokens = [torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                            device=DEV)]
+    out = {"model": cfg.name, "layers": layers, "cell": cell,
+           "grid": list(grid), "slots": B, "seq": T, "lens": list(lens),
+           "params": n_params}
+    failures = []
+    for dt_name, c in (("fp32", cfg32), ("bf16", cfg)):
+        p = params if c is cfg32 else cast_weights(params, torch.bfloat16)
+        kv_dt = getattr(torch, c.compute_dtype)
+        whole = {k: v.to(kv_dt if k in ("k", "v") else v.dtype, copy=True)
+                 for k, v in base.items()}
+        split = place_cache({k: v.clone() for k, v in whole.items()}, mesh,
+                            rules)
+        blocks = split["k"].blocks
+        want_bytes = spec_bytes({"k": whole["k"], "v": whole["v"]}, rules,
+                                kind="cache")
+        got_bytes = position_bytes({"k": split["k"], "v": split["v"]})
+        # the fp32 whole run's greedy tokens feed every run
+        reset_launches(mods)
+        want, ms_whole, tokens = _timed_steps(c, p, whole, tokens,
+                                              SEQ_SPLIT_STEPS)
+        got, ms_split, _ = _timed_steps(c, p, split, tokens,
+                                        SEQ_SPLIT_STEPS)
+        launches = read_launches(mods)
+        scale = max(float(w.abs().max()) for w in want)
+        gap = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        # each (step, slot) whose greedy token differs: the whole run's
+        # top-2 gap there beside the row's largest split-vs-whole change
+        flips = [{"step": i, "slot": b, "top2_gap": top2_gap(w[b]),
+                  "row_diff": float((g[b] - w[b]).abs().max())}
+                 for i, (g, w) in enumerate(zip(got, want))
+                 for b in range(B)
+                 if int(g[b].argmax()) != int(w[b].argmax())]
+        decided = [f for f in flips if f["top2_gap"] > f["row_diff"]]
+        same = not flips
+        finite = (all(bool(torch.isfinite(g).all()) for g in got)
+                  and all(bool(torch.isfinite(b).all()) for b in blocks))
+        out[dt_name] = {
+            "logit_gap": gap / scale, "logit_scale": scale,
+            "greedy_tokens_equal": same, "flips": flips,
+            "flips_past_the_margin": decided,
+            "min_top2_gap": min(top2_gap(w[b]) for w in want
+                                for b in range(B)),
+            "finite": finite,
+            "step_ms_split": ms_split, "step_ms_whole": ms_whole,
+            "step_ms_split_median": float(np.median(ms_split)),
+            "step_ms_whole_median": float(np.median(ms_whole)),
+            "kv_bytes_by_position": got_bytes,
+            "kv_bytes_spec": want_bytes, "positions": len(blocks),
+            "block_seq": int(blocks[0].shape[3]),
+            "launches": launches}
+        tol = SEQ_SPLIT_TOL if dt_name == "fp32" else SEQ_SPLIT_TOL_BF16
+        out[dt_name]["logit_tol"] = tol
+        if gap > tol * scale:
+            failures.append(f"{dt_name} logits {gap / scale} of their scale")
+        if decided if dt_name == "bf16" else flips:
+            failures.append(f"{dt_name} greedy tokens differ: {flips}")
+        if not finite:
+            failures.append(f"{dt_name} NaN or inf")
+        if got_bytes != [want_bytes] * len(blocks):
+            failures.append(f"{dt_name} bytes {got_bytes} != {want_bytes}")
+        del whole, split, blocks, p
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    out["failures"] = failures
+    del params, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def seq_split_phase(mods) -> list:
+    """``decode_seq_split``: each of ``SEQ_SPLIT_RUNS`` (``seq_split_run``)
+    on one line, beside the card's name and power limit; raises on any
+    failed gate after both runs have reported."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi_line()
+    runs = []
+    for arch, layers, cell, grid, B, lens in SEQ_SPLIT_RUNS:
+        run = seq_split_run(arch, layers, cell, grid, B, lens, mods)
+        emit("decode_seq_split", card=smi, **run)
+        runs.append(run)
+    emit("decode_seq_split_done", seconds=time.perf_counter() - t0)
+    bad = [f"{r['model']}: {f}" for r in runs for f in r["failures"]]
+    if bad:
+        raise AssertionError(f"decode_seq_split: {bad}")
+    return runs
+
+
 def serve_llama3_phase(mods) -> dict:
     """llama3-405b served at full width on its e4m3 pools
     (``serve_paged_phase``): the fp32 gate (kernel path vs plain path) at
@@ -5252,6 +5469,13 @@ def main() -> int:
     entry["by_model"].update(llama3_kernel_phase())
     entry["launches_serve_llama3"] = serve_llama3_phase(
         serve_mods)["launches"]["paged_attention"]
+
+    # distributed flash-decoding over a cache split by sequence: the
+    # paged kernel at the three models' decode shapes, then
+    # deepseek-coder-33b's and mixtral-8x7b's split decode (no kernel on
+    # that path: its counts are read and reported)
+    entry["by_model"].update(seq_split_kernel_phase())
+    seq_split_phase(serve_mods)
 
     jacobi_entries = jacobi_kernel_phase()
     jobmodel_phase()

@@ -19,24 +19,31 @@ position holds before the step:
 * **prefill** — the row's forward under ``no_grad`` over the parameters
   placed on the row and gathered on its lead (bf16), returning the last
   position's logits;
-* **decode** — the paged ``decode_step`` of a serving-mesh row
-  (``serve.mesh.shard_params``/``shard_paged_cache``: KV heads over the
-  row's positions where they divide, experts and vocabulary where their
-  specs say so), each slot's pages covering ``seq_len``.  An
-  encoder-decoder model, which the paged engine refuses (as the
-  reference's does), decodes on the dense cache on the row's lead.
+* **decode** — ``decode_step`` over the reference's dense stacked cache
+  (``init_cache``) placed on the row by the cell's cache specs
+  (``partition.place_cache``: slots over ``data``, KV heads over
+  ``model`` where they divide, else the sequence), distributed
+  flash-decoding; the weights as a serving-mesh row places them
+  (``serve.mesh.shard_params``, attention on the lead, experts and
+  vocabulary over the positions where their specs say so).  Where the
+  spec sends the sequence over data rows too (``long_500k``:
+  ``("data", "model")``), the traced row is data row 0, holding the
+  first of the rows' contiguous ranges, and the merge of each position's
+  softmax state across the rows is reckoned as an all-reduce
+  (:func:`row_seq_parts`).  An encoder-decoder model (decoder context
+  448) decodes on the dense cache on the row's lead.
 
 Deviations, each in ROADMAP queue C: the eager trace replaces the
-compile; the decode cells run the paged serve-mesh row, not the
-reference's dense stacked cache; ``long_500k``'s ``kv_seq_long`` split
-(the KV sequence over every position) has no counterpart: each position
-holds its slot's KV sequence whole; the work the port does not split
-(norms, routers, a row's gathered parameters) runs on the row's lead; and
-the data axis's gradient reduction is reckoned, not traced.
+compile; the work the port does not split (norms, routers, q/k/v and the
+attention's output projection in a decode cell, the SSM caches, a row's
+gathered parameters) runs on the row's lead; and the data axis's
+reductions (the training gradient, the decode merge across data rows)
+are reckoned, not traced.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
@@ -47,19 +54,15 @@ from ..models.config import SHAPE_CELLS, ModelConfig, ShapeCell
 from ..models.layers import dtype_of
 from ..models.transformer import decode_step, forward, init_cache, init_params
 from ..optim import OptimizerSpec
-from ..parallel.partition import (gather_tree, place_tree, position_bytes,
-                                  spec_bytes)
+from ..parallel.partition import (cache_spec, gather_tree, place_cache,
+                                  place_tree, position_bytes, spec_bytes)
 from ..parallel.sharding import DEFAULT_RULES, ShardingRules
-from ..serve.mesh import (MeshRow, ServeMesh, kv_head_split, shard_paged_cache,
-                          shard_params)
+from ..serve.mesh import ServeMesh, shard_params
 from ..train.step import TrainState, make_train_step
 from .mesh import DeviceMesh, compat_make_mesh
 
-__all__ = ["CellSpec", "PAGE_SIZE", "build_cell", "choose_grad_accum",
-           "model_flops_for", "row_mesh", "rules_for_cell"]
-
-#: the serving engine's default page size (``PagedEngine``)
-PAGE_SIZE = 16
+__all__ = ["CellSpec", "build_cell", "choose_grad_accum", "model_flops_for",
+           "row_mesh", "row_seq_parts", "rules_for_cell"]
 
 
 @dataclasses.dataclass
@@ -226,21 +229,33 @@ def _prefill_cell(arch, cfg, cell, rules, row) -> CellSpec:
         model_flops=model_flops_for(cfg, cell), row_batch=row_batch)
 
 
-def _row_static_bytes(row: MeshRow, width: int) -> list[int]:
-    """What each of a serving row's positions holds: the lead the row's
-    weights and cache, each position its attention shard (weights and
-    pools) and its experts and vocabulary rows."""
+def _row_static_bytes(params: dict, split, lead_cache: dict,
+                      width: int) -> list[int]:
+    """What each of a serving row's positions holds besides its KV
+    blocks: the lead the row's weights and the rest of its cache, each
+    position its experts and vocabulary rows (``split``)."""
     seen = [set() for _ in range(width)]
     out = [0] * width
-    out[0] = _tensor_bytes([row.params, row.cache], seen[0])
-    for i, sh in enumerate(row.shards):
-        out[i] += _tensor_bytes([sh.attn, sh.k, sh.v], seen[i])
-    for _, parts in row.split.experts.values():
+    out[0] = _tensor_bytes([params, lead_cache], seen[0])
+    for _, parts in split.experts.values():
         for i, (p, _) in enumerate(parts):
             out[i] += _tensor_bytes(p, seen[i])
-    for i, (rows, _, _) in enumerate(row.split.vocab or ()):
+    for i, (rows, _, _) in enumerate(split.vocab or ()):
         out[i] += _tensor_bytes(rows, seen[i])
     return out
+
+
+def row_seq_parts(cfg: ModelConfig, cell: ShapeCell,
+                  rules: ShardingRules) -> int:
+    """Into how many data rows the cell's cache spec splits the KV
+    sequence: the extent of its ``kv_seq`` axes other than ``"model"``
+    (16 for ``long_500k``'s ``("data", "model")``, else 1)."""
+    spec = cache_spec("k", (1, cell.global_batch, cfg.n_kv_heads,
+                            cell.seq_len, cfg.hd), rules)
+    axes = spec[3] if len(spec) > 3 else None
+    axes = () if axes is None else axes if isinstance(axes, tuple) \
+        else (axes,)
+    return math.prod(rules.mesh.shape[a] for a in axes if a != "model")
 
 
 def _decode_cell(arch, cfg, cell, rules, row) -> CellSpec:
@@ -248,10 +263,6 @@ def _decode_cell(arch, cfg, cell, rules, row) -> CellSpec:
     row_batch = max(1, cell.global_batch // _data_shards(rules))
     params = _serving_params(cfg)
     tokens = torch.empty((row_batch, 1), dtype=torch.int32, device="meta")
-    notes = []
-    if cell.global_batch == 1:
-        notes.append("kv_seq_long not split: each position holds its "
-                     "slot's KV sequence whole")
     common = dict(arch=arch, cell=cell, mesh=rules.mesh, row=row,
                   model_flops=model_flops_for(cfg, cell),
                   row_batch=row_batch)
@@ -268,35 +279,52 @@ def _decode_cell(arch, cfg, cell, rules, row) -> CellSpec:
         def dense_fn(params, cache, tokens, enc_out):
             return decode_step(cfg, params, cache, tokens, enc_out=enc_out)
 
-        notes.append("encoder-decoder: dense cache on the row's lead")
         static = [_tensor_bytes(params) + _tensor_bytes(cache)]
         static += [0] * (row.size - 1)
         return CellSpec(fn=dense_fn, args=(params, cache, tokens, enc_out),
-                        static_bytes=static, notes=tuple(notes), **common)
+                        static_bytes=static,
+                        notes=("encoder-decoder: dense cache on the row's "
+                               "lead",), **common)
 
-    n_slot_pages = -(-S // PAGE_SIZE)
-    num_pages = 1 + row_batch * n_slot_pages
+    # the reference's dense stacked cache, the row's share of it: the
+    # data rows that split the sequence hold contiguous ranges of it, and
+    # the traced row (row 0) the first; its positions split it again
+    parts = row_seq_parts(cfg, cell, rules)
+    cache = init_cache(cfg, row_batch, S // parts, device="meta")
+    cache["len"] = torch.zeros((row_batch,), dtype=torch.int32,
+                               device="meta")
+    row_rules = ShardingRules(mesh=row, rules=dict(rules.rules))
+    cache = place_cache(cache, row, row_rules)
     serve = ServeMesh(devices=(tuple(row.flat),))
-    row_rules = ShardingRules(mesh=serve, rules=dict(rules.rules))
-    n_split = kv_head_split(cfg, row_rules, num_pages=num_pages,
-                            page_size=PAGE_SIZE)
-    row_params, shards, split = shard_params(cfg, params, serve, n_split)[0]
-    mrow = MeshRow(slots=range(row_batch), pages=range(1, num_pages),
-                   devices=serve.devices[0], params=row_params,
-                   shards=shards, split=split)
-    shard_paged_cache(cfg, [mrow], page_size=PAGE_SIZE)
-    pages = torch.empty((row_batch, n_slot_pages), dtype=torch.int32,
-                        device="meta")
+    row_params, _, split = shard_params(cfg, params, serve, 1)[0]
+    lead_cache = {k: v for k, v in cache.items() if k not in ("k", "v")}
+    static = _row_static_bytes(row_params, split, lead_cache, row.size)
+    if "k" in cache:
+        kv = position_bytes({"k": cache["k"], "v": cache["v"]}) \
+            if row.size > 1 else [_tensor_bytes([cache["k"], cache["v"]])]
+        static = [a + b for a, b in zip(static, kv)]
+    # each position's softmax state a layer, fp32 (m, l, acc)
+    n_attn = cache["k"].shape[0] if "k" in cache else 0
+    merge_bytes = n_attn * row_batch * cfg.n_heads * (cfg.hd + 2) * 4
+    notes = []
+    if parts > 1:
+        notes.append(f"KV sequence over {parts} data rows: the traced row "
+                     f"holds the first {S // parts} positions; the merge "
+                     f"across the rows is reckoned")
 
     @torch.no_grad()
-    def paged_fn(mrow, tokens, pages):
-        return decode_step(cfg, mrow.params, mrow.cache, tokens, pages=pages,
-                           page_size=PAGE_SIZE, shards=mrow.shards,
-                           split=mrow.split)
+    def split_fn(params, cache, tokens):
+        out = decode_step(cfg, params, cache, tokens, split=split)
+        if parts > 1 and n_attn:
+            # the rows not traced: the all-reduce of each position's
+            # softmax state across the data rows that split the sequence
+            for k in range(row.size):
+                opcount.collective("all-reduce", nbytes=merge_bytes,
+                                   site="seq_split_data_axis", position=k)
+        return out
 
-    return CellSpec(fn=paged_fn, args=(mrow, tokens, pages),
-                    static_bytes=_row_static_bytes(mrow, row.size),
-                    notes=tuple(notes), **common)
+    return CellSpec(fn=split_fn, args=(row_params, cache, tokens),
+                    static_bytes=static, notes=tuple(notes), **common)
 
 
 def build_cell(arch: str, cfg: ModelConfig, cell_name: str,

@@ -44,6 +44,16 @@ resolves to for S queries over T frames: the flash kernel on CUDA under
 ``auto``, with S != T.  (The reference's cross-attention never reaches its
 Pallas kernel; its ``auto`` takes the plain cores.)
 
+A dense cache split by sequence over a grid's positions (the reference's
+``kv_seq`` cache spec, placed by ``parallel.partition.place_cache``) comes
+as :class:`KVBlocks`; its decode is distributed flash-decoding, the
+reference's ``decode_attention`` / ``_decode_attn_plus_self`` over a
+sharded T: each position computes its block's fp32 softmax state ``(m, l,
+acc)`` (:func:`decode_partial`, masked by global position) on its device,
+and the caller's device merges the states in position order with the new
+token's own term (:func:`merge_partials`).  The lead computes q, k and v
+whole; only the partials run on the positions.
+
 Cache writes stay deltas: ``attention`` returns the step's own K/V and the
 caller writes them into the pool.
 
@@ -71,9 +81,10 @@ from .config import ModelConfig
 from .layers import (apply_norm, apply_rope, dense, dtype_of, init_dense,
                      init_norm, rope_freqs)
 
-__all__ = ["NEG_INF", "ATTN_IMPLS", "init_attention", "attention",
-           "attention_tp", "split_attention", "gather_pages",
-           "resolve_attn_impl"]
+__all__ = ["NEG_INF", "ATTN_IMPLS", "KVBlocks", "init_attention",
+           "attention", "attention_tp", "split_attention", "gather_pages",
+           "decode_attention", "decode_attention_split", "decode_partial",
+           "merge_partials", "resolve_attn_impl"]
 
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
 
@@ -291,6 +302,175 @@ def _decode_attn_plus_self(q, k_cache, v_cache, kv_len_old, kt, vt, *,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def decode_attention(q, k_cache, v_cache, kv_len, *,
+                     window: int | None = None):
+    """One-token attention against a whole KV cache, the reference's
+    ``decode_attention``: q (B, 1, H, D), caches (B, KV, T, D), ``kv_len``
+    a scalar or (B,), the number of valid entries (the new token's
+    included).  A float8 cache is cast to q's dtype, as the reference
+    casts the layer slice.  :func:`decode_attention_split` is its form
+    over a cache split by sequence."""
+    B, _, H, D = q.shape
+    KV, T = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    if k_cache.dtype != q.dtype:
+        k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
+    qf = (q.reshape(B, KV, G, D) * (1.0 / math.sqrt(D))).to(q.dtype)
+    s = torch.einsum("bkgd,bktd->bkgt", qf.float(), k_cache.float())
+    pos = torch.arange(T, device=q.device)[None, :]
+    kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1, 1)
+    valid = pos < kv_len
+    if window is not None:
+        valid = valid & (pos >= kv_len - window)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,bktd->bkgd", w.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+@dataclasses.dataclass
+class KVBlocks:
+    """One attention layer's dense K/V cache (B, KV, T, D) split over a
+    grid's positions (``parallel.partition.place_cache``): ``k[i]`` and
+    ``v[i]`` are position i's block, on its device, of the slots
+    ``regions[i][0]``, the KV heads ``regions[i][1]`` and the cache
+    positions ``regions[i][2]`` (slices of the whole cache).  ``merge``
+    lists the positions whose blocks hold distinct regions, in position
+    order: a position whose region another holds keeps an equal copy and
+    adds no partial."""
+
+    k: list
+    v: list
+    regions: list
+    merge: list
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.k[0].dtype
+
+    @property
+    def n_kv(self) -> int:
+        """The whole cache's KV heads: the end of the last head region."""
+        return max(r[1].stop for r in self.regions)
+
+
+def decode_partial(qf, k, v, t0: int, lo, hi):
+    """The softmax state of one position's cache block: ``qf`` (b, kv, G,
+    D), the query scaled in its dtype; ``k``/``v`` (b, kv, Tb, D), cache
+    positions ``t0 + arange(Tb)``; an entry counts where ``lo <= pos <
+    hi`` (``lo``, ``hi`` (b, 1); ``lo`` None for no window).  Returns fp32
+    ``(m, l, acc)``: the block's score maximum (b, kv, G), the sum of
+    ``exp(s - m)`` and its weighted sum of V (b, kv, G, D).  Masked
+    entries weigh exactly 0, so a block with no valid entry gives ``m =
+    NEG_INF``, ``l = 0``, ``acc = 0``: it adds exactly 0 to the merge."""
+    if k.dtype != qf.dtype:     # f8-stored caches: cast the block
+        k, v = k.to(qf.dtype), v.to(qf.dtype)
+    s = torch.einsum("bkgd,bktd->bkgt", qf.float(), k.float())
+    pos = t0 + torch.arange(k.shape[2], device=k.device)[None, :]
+    valid = pos < hi
+    if lo is not None:
+        valid = valid & (pos >= lo)
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bkgt,bktd->bkgd", p.to(v.dtype).float(), v.float())
+    return m, p.sum(dim=-1), acc
+
+
+def _split_partials(q, blocks: KVBlocks, lo, hi):
+    """Every merged position's :func:`decode_partial` on its device, back
+    on q's device with each partial's ``(slots, heads)`` region, in
+    position order.  ``lo``/``hi`` (B, 1) on q's device."""
+    B, _, H, D = q.shape
+    KV = blocks.n_kv
+    qf = (q.reshape(B, KV, H // KV, D) * (1.0 / math.sqrt(D))).to(q.dtype)
+    parts = []
+    merge = set(blocks.merge)
+    for i in opcount.each_position(range(len(blocks.k))):
+        if i not in merge:
+            continue
+        rb, rh, rt = blocks.regions[i]
+        dev = blocks.k[i].device
+        m, l, acc = decode_partial(
+            qf[rb, rh].to(dev), blocks.k[i], blocks.v[i], rt.start,
+            None if lo is None else lo[rb].to(dev), hi[rb].to(dev))
+        if len(merge) > 1:
+            # the reference's max / sum all-reduces over the split axes
+            opcount.collective("all-reduce", m, l, acc,
+                               site="seq_split_decode")
+        parts.append(((rb, rh), m.to(q.device), l.to(q.device),
+                      acc.to(q.device)))
+    return qf, parts
+
+
+def merge_partials(parts, shape, s_self=None, v_self=None):
+    """Merge the partials of :func:`_split_partials` on the lead, in
+    order: ``m`` the maximum of every ``mᵢ`` (and ``s_self``), ``l = Σ
+    lᵢ·exp(mᵢ − m) (+ exp(s_self − m))``, ``out = (Σ accᵢ·exp(mᵢ − m)
+    (+ exp(s_self − m)·v_self)) / l``, all fp32.  ``shape`` (B, KV, G,
+    D); ``s_self`` (B, KV, G) and ``v_self`` (B, KV, D) the new token's
+    own score and value, or None."""
+    B, KV, G, D = shape
+    dev = parts[0][1].device if parts else s_self.device
+    if s_self is None:
+        m = torch.full((B, KV, G), NEG_INF, dtype=torch.float32, device=dev)
+    else:
+        m = s_self.clone()
+    for (rb, rh), mi, _, _ in parts:
+        m[rb, rh] = torch.maximum(m[rb, rh], mi)
+    l = torch.zeros((B, KV, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, G, D), dtype=torch.float32, device=dev)
+    for (rb, rh), mi, li, ai in parts:
+        f = torch.exp(mi - m[rb, rh])
+        l[rb, rh] += li * f
+        acc[rb, rh] += ai * f[..., None]
+    if s_self is not None:
+        p_self = torch.exp(s_self - m)
+        l = l + p_self
+        acc = acc + p_self[..., None] * v_self[:, :, None, :]
+    return acc / l[..., None]
+
+
+def decode_attention_split(q, blocks: KVBlocks, kv_len, *,
+                           window: int | None = None):
+    """:func:`decode_attention` over a cache split by :class:`KVBlocks`:
+    each position's softmax state over its block, merged on q's device
+    in position order (distributed flash-decoding).  A slot with no
+    valid entry has no defined result (0/0), as the whole form softmaxes
+    nothing but masked scores."""
+    B, _, H, D = q.shape
+    kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1, 1)
+    kv_len = kv_len.expand(B, 1)
+    lo = None if window is None else kv_len - window
+    _, parts = _split_partials(q, blocks, lo, kv_len)
+    KV = blocks.n_kv
+    out = merge_partials(parts, (B, KV, H // KV, D))
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _decode_attn_plus_self_split(q, blocks: KVBlocks, kv_len_old, kt, vt, *,
+                                 window: int | None = None):
+    """:func:`_decode_attn_plus_self` over a cache split by
+    :class:`KVBlocks`: each position's softmax state over the old entries
+    of its block (global positions ``< kv_len_old``, and ``>= kv_len_old
+    + 1 - window`` with a window), merged on q's device in position order
+    with the new token's own term (kt/vt (B, KV, 1, D) on q's device)."""
+    B, _, H, D = q.shape
+    KV = blocks.n_kv
+    if kt.dtype != q.dtype:
+        kt, vt = kt.to(q.dtype), vt.to(q.dtype)
+    hi = torch.as_tensor(kv_len_old, device=q.device).reshape(-1, 1)
+    hi = hi.expand(B, 1)
+    lo = None if window is None else hi + 1 - window
+    qf, parts = _split_partials(q, blocks, lo, hi)
+    s_self = torch.einsum("bkgd,bktd->bkgt", qf.float(), kt.float())[..., 0]
+    out = merge_partials(parts, (B, KV, H // KV, D), s_self,
+                         vt[:, :, 0, :].float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
 def _attn_core(q, k, v, q_pos, k_pos, *, causal, window, impl):
     """q (B, S, H, D) over k/v (B, T, KV, D) with no cache, through the
     core ``impl`` resolves to for S x T: the sequence over its own K/V
@@ -325,7 +505,7 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
 
     Otherwise it runs against one layer's cache and returns ``(out, (kt,
     vt))`` — the step's K/V in the cache layout (B, KV, S, D), for the
-    caller to write.  ``cache`` takes one of two forms.  On the paged decode path (S == 1,
+    caller to write.  ``cache`` takes one of three forms.  On the paged decode path (S == 1,
     ``{"k_pool", "v_pool", "pages"}``) the pools and page table go straight
     to the paged flash-decode wrapper, whose ``paged_impl`` picks the
     kernel (by the tensor's device) or the gather oracle.  Otherwise it
@@ -333,7 +513,10 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
     S == 1 is decode over the view; S > 1 with ``chunk_continue`` a prefill
     chunk starting at the host int ``cache_len``, and without it the dense
     engine's batched prefill from a fresh cache (positions ``cache_len +
-    arange(S)``, no cache read, the core ``impl`` picks)."""
+    arange(S)``, no cache read, the core ``impl`` picks).  A
+    :class:`KVBlocks` (S == 1) is a dense cache split by sequence:
+    distributed flash-decoding over its blocks (see the module
+    docstring)."""
     cd = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -363,12 +546,20 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
                          impl=impl)
         return dense(p["o"], out.reshape(B, S, H * hd), cd), None
 
-    store = cache.get("k_pool", cache.get("k")) if cache else None
-    kv_dtype = store.dtype if store is not None else dtype_of(
-        cfg.kv_cache_dtype or cfg.compute_dtype)
+    split = isinstance(cache, KVBlocks)
+    if split and S != 1:
+        raise ValueError("a cache split by sequence takes one token per "
+                         "slot (S == 1)")
+    store = (None if split or not cache
+             else cache.get("k_pool", cache.get("k")))
+    kv_dtype = (cache.dtype if split else store.dtype if store is not None
+                else dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype))
     kt = cast_kv(k.transpose(1, 2), kv_dtype)       # (B, KV, S, D)
     vt = cast_kv(v.transpose(1, 2), kv_dtype)
-    if S == 1 and cache and "k_pool" in cache:
+    if split:
+        out = _decode_attn_plus_self_split(q, cache, cache_len, kt, vt,
+                                           window=window)
+    elif S == 1 and cache and "k_pool" in cache:
         out = pa_ops.paged_decode_attention(
             q, cache["k_pool"], cache["v_pool"], cache["pages"], cache_len,
             kt, vt, window=window, impl=paged_impl)

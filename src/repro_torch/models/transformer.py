@@ -37,7 +37,13 @@ Two serving caches, both with the SSM layers' per-slot state ``"conv"``:
 ``cache["k"][i]`` is the i-th attention layer's buffer or pool,
 ``cache["state"][i]`` the i-th SSM layer's state.  ``decode_step`` runs
 the dense cache: S == 1 decodes and S > 1 is a batched prefill from a
-fresh cache.
+fresh cache.  A dense cache placed on a grid by
+``parallel.partition.place_cache`` (the reference's decode cells' cache
+specs: its ``"k"``/``"v"`` are :class:`~repro_torch.parallel.partition.
+Placed`, split by slot, KV head and sequence, the rest whole on the
+lead) decodes by distributed flash-decoding: each position's softmax
+state over its block, merged on the lead (``models.attention``), and each
+step's K/V written into the block that holds its position.
 
 The paged steps (``decode_step`` with ``pages``, ``chunk_prefill_step``)
 take the pools apart from the cache, in ``shards``: the tensor-parallel
@@ -94,10 +100,10 @@ from ..analysis import opcount
 from ..dtypes import cast_kv
 from ..kernels.flash_attention.kernel import MAX_D_BWD
 from ..kernels.runtime import resolve_impl
-from ..parallel.partition import model_axis_dim
+from ..parallel.partition import Placed, model_axis_dim
 from ..tree import tree_leaves, tree_map, tree_paths
-from .attention import (attention, attention_tp, gather_pages, init_attention,
-                        split_attention)
+from .attention import (KVBlocks, attention, attention_tp, gather_pages,
+                        init_attention, split_attention)
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_mlp_tp, apply_norm, cast_weights,
                      dtype_of, embed, embed_tp, init_embedding, init_mlp,
@@ -844,6 +850,47 @@ def _write_kv(buf, delta, pos) -> None:
                                                        buf.dtype)
 
 
+def _layer_blocks(k: Placed, v: Placed, ai: int) -> KVBlocks:
+    """Attention layer ``ai``'s blocks of a cache placed by
+    ``partition.place_cache``: each position's (B, KV, T, D) block with
+    its slots, heads and cache positions."""
+    regions = [r[1:4] for r in k.regions()]
+    return KVBlocks(k=[b[ai] for b in k.blocks], v=[b[ai] for b in v.blocks],
+                    regions=regions, merge=k.distinct())
+
+
+def _int_view(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes as integers of its element's width, so a select
+    works for every cache dtype (float8 has no ``where`` on the CPU)."""
+    return t.view({1: torch.uint8, 2: torch.int16,
+                   4: torch.int32}[t.element_size()])
+
+
+def _write_kv_blocks(buf: Placed, ai: int, delta, pos) -> None:
+    """Write a decode step's K/V delta (B, KV, 1, D) into attention layer
+    ``ai`` of a placed cache, in place: slot b's entry lands at position
+    ``pos[b]`` (clamped to [0, T - 1], as :func:`_write_kv` clamps) in
+    the one block of each copy that holds it; every other block keeps its
+    bytes.  No host read, so the write traces on meta."""
+    T = buf.shape[3]
+    B = delta.shape[0]
+    pos = pos.expand(B) if pos.dim() == 0 else pos
+    pos = pos.long().clamp(0, T - 1)
+    for blk, reg in zip(buf.blocks, buf.regions()):
+        rb, rh, rt = reg[1:4]
+        layer = blk[ai]
+        dev = layer.device
+        local = pos[rb].to(dev) - rt.start
+        inside = (local >= 0) & (local < layer.shape[2])
+        idx = local.clamp(0, layer.shape[2] - 1)
+        rows = torch.arange(layer.shape[0], device=dev)
+        new = cast_kv(delta[rb, rh, 0].to(dev), layer.dtype)
+        old = layer[rows, :, idx]
+        keep = torch.where(inside[:, None, None], _int_view(new),
+                           _int_view(old))
+        layer[rows, :, idx] = keep.view(layer.dtype)
+
+
 def _write_ssm_state(layer_cache: dict, new: dict, update_mask) -> None:
     """Store an SSM layer's new per-slot state into its cache rows, in
     place; rows where ``update_mask`` (B,) is False keep their state."""
@@ -901,6 +948,12 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     zeros with positions >= ``valid_len`` (a right-padded prompt's true
     length) masked out of the state.
 
+    Dense cache placed by ``partition.place_cache`` (its ``"k"``/``"v"``
+    :class:`~repro_torch.parallel.partition.Placed`): S == 1 decodes by
+    distributed flash-decoding over the positions' blocks, the weights
+    and the rest of the cache on the lead; each slot's K/V lands in the
+    block holding position ``len`` (clamped to T - 1) of every copy.
+
     Paged cache: ``pages`` (B, n_pages) int32 page table on the cache's
     device, S == 1, and ``shards``, the tensor-parallel shards that hold
     the attention layers' weights and page pools (see the module
@@ -923,6 +976,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     x = _embed(cfg, params, tokens, split.vocab)
     S = x.shape[1]
     pos = cache["len"]
+    seq_split = isinstance(cache.get("k"), Placed)
+    if seq_split and (S != 1 or pages is not None):
+        raise ValueError("a cache placed by place_cache decodes one token "
+                         "per slot (S == 1), with no pages")
     if pages is not None and S != 1:
         raise ValueError("a paged decode_step takes one token per slot "
                          "(S == 1)")
@@ -968,14 +1025,21 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 _write_kv_paged(sh.v[ai], vt, sp, pg, page_size)
             ai += 1
             continue
-        kb, vb = cache["k"][ai], cache["v"][ai]
-        ai += 1
+        if seq_split:
+            lc = _layer_blocks(cache["k"], cache["v"], ai)
+        else:
+            lc = {"k": cache["k"][ai], "v": cache["v"][ai]}
         x, (kt, vt), _ = apply_block(cfg, kind, p, x, positions=positions,
-                                     cache={"k": kb, "v": vb}, cache_len=pos,
+                                     cache=lc, cache_len=pos,
                                      impl=impl, enc_out=enc_out,
                                      moe_tp=split.experts.get(li))
-        _write_kv(kb, kt, pos)
-        _write_kv(vb, vt, pos)
+        if seq_split:
+            _write_kv_blocks(cache["k"], ai, kt, pos)
+            _write_kv_blocks(cache["v"], ai, vt, pos)
+        else:
+            _write_kv(lc["k"], kt, pos)
+            _write_kv(lc["v"], vt, pos)
+        ai += 1
     x = apply_norm(cfg, params["norm_f"], x)
     logits = _logits(cfg, params, x, split.vocab)
     cache["len"] += S

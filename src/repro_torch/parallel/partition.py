@@ -23,6 +23,9 @@ not divide it); a dim its spec leaves ``None`` is held whole on every
 position, as the reference replicates it, so a position holds exactly the
 reference's ``shard_shape`` bytes.  Positions that share a region hold
 equal copies of their own.  On a 1 x 1 grid a leaf is placed as itself.
+:func:`place_cache` places a dense serving cache so, the reference's
+decode cells' ``tree_shardings(kind="cache")``: its K/V split by slot,
+KV head and sequence, ``len`` and the SSM state whole on the lead.
 
 A reference quirk kept line for line: ``_leaf_axes`` strips the optimizer
 keys ``m``, ``v``, ``f``, ``vr``, ``vc`` from a leaf's path to find its
@@ -42,7 +45,8 @@ from .sharding import DEFAULT_RULES, ShardingRules
 
 __all__ = ["axes_for_path", "model_axis_dim", "tree_logical_axes",
            "tree_specs", "batch_logical_axes", "Placed", "place_leaf", "place_tree",
-           "place_state", "gather_tree", "position_bytes", "spec_bytes"]
+           "place_cache", "cache_spec", "place_state", "gather_tree",
+           "position_bytes", "spec_bytes"]
 
 
 def _last(path: Sequence[str], *names: str) -> bool:
@@ -340,6 +344,28 @@ def place_tree(tree, mesh, rules: ShardingRules, *, kind: str = "params"):
         spec = rules.spec_for(_leaf_axes(keys, leaf, kind), dims=leaf.shape)
         return place_leaf(leaf, mesh, spec)
     return _walk(_as_tree(tree), (), one)
+
+
+def place_cache(cache: dict, mesh, rules: ShardingRules) -> dict:
+    """A dense serving cache (``models.transformer.init_cache``) placed on
+    ``mesh`` as the reference's decode cells place it
+    (``tree_shardings(cache, rules, kind="cache")``): the attention
+    layers' ``"k"``/``"v"`` (n_attn, B, KV, T, D) split into one block a
+    position by their ``("batch", "kv_heads", "kv_seq", None)`` specs
+    (:func:`place_leaf`), every other leaf (``len``, the SSM ``conv`` and
+    ``state``) whole on the mesh's lead, as a serving row holds them.
+    ``decode_step`` runs over the result by distributed flash-decoding."""
+    return {key: place_leaf(leaf, mesh, cache_spec(key, leaf.shape, rules))
+            if key in ("k", "v") else leaf.to(mesh.lead)
+            for key, leaf in cache.items()}
+
+
+def cache_spec(key: str, shape, rules: ShardingRules) -> tuple:
+    """The spec of a serving cache's leaf ``key`` (``"k"``, ``"v"``,
+    ``"conv"``, ``"state"``, ``"len"``) of ``shape`` under ``rules``: its
+    ``_cache_axes`` resolved by ``spec_for``, as the reference's
+    ``tree_shardings(kind="cache")`` resolves it."""
+    return rules.spec_for(_cache_axes((key,), len(shape)), dims=tuple(shape))
 
 
 def place_state(tree, mesh):

@@ -256,6 +256,82 @@ def test_cuda_paged_wrapper_takes_every_length_form(pps):
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
 
 
+# card only: the decode shapes of the three models that decode at full
+# width over a cache split by sequence (B 8, KV 8, D 128, page 16):
+# deepseek-coder-33b (G 7: one block of 8 rows, one row idle) and
+# chameleon-34b (G 8) at contexts of 1,000-1,500 tokens and a free slot,
+# mixtral-8x7b (G 4) under its window of 4,096 at contexts of 4,000-6,000
+DECODE_CASES = {
+    "deepseek_g7": (8, 56, 8, 128, 16, 96,
+                    (1500, 1431, 1362, 1293, 1224, 1155, 1000, 0), None,
+                    False, 0),
+    "chameleon_g8": (8, 64, 8, 128, 16, 96,
+                     (1500, 1431, 1362, 1293, 1224, 1155, 1000, 0), None,
+                     False, 0),
+    "mixtral_g4_window": (8, 32, 8, 128, 16, 384,
+                          (6000, 5714, 5428, 5142, 4857, 4571, 4285, 4000),
+                          4096, False, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pps", PPS_GRID + [None])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_cuda_paged_kernel_at_the_split_decode_shapes(case, dtype, pps):
+    """The kernel at deepseek-coder-33b's, chameleon-34b's and
+    mixtral-8x7b's decode shapes against its plain version, at every
+    pages-a-split value of the tuner's grid and the default."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _kernel_vs_plain(DECODE_CASES[case], dtype, pps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,cell", [((1, 8), "decode_32k"),
+                                       ((2, 4), "long_500k")])
+def test_cuda_split_decode_matches_the_whole_cache(grid, cell):
+    """mixtral-8x7b smoke decoding 3 steps on the card over a cache split
+    by sequence (every position on ``cuda:0``) against the same steps
+    over the whole cache: fp32 logits within 1e-5 of their scale, the
+    same greedy tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.launch.specs import rules_for_cell
+    from repro_torch.models.config import SHAPE_CELLS
+    from repro_torch.models.transformer import (decode_step, init_cache,
+                                                init_params)
+    from repro_torch.parallel.partition import place_cache
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_smoke_config("mixtral-8x7b"),
+                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    whole = init_cache(cfg, 2, 256, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for key in ("k", "v"):
+        whole[key].copy_(torch.randn(whole[key].shape, generator=gen,
+                                     device=dev))
+    whole["len"] = torch.tensor([40, 250], dtype=torch.int32, device=dev)
+    mesh = compat_make_mesh(grid, ("data", "model"),
+                            devices=[dev] * (grid[0] * grid[1]))
+    split = place_cache({k: v.clone() for k, v in whole.items()}, mesh,
+                        rules_for_cell(mesh, SHAPE_CELLS[cell], cfg))
+    tok = torch.tensor([[3], [5]], device=dev)
+    for _ in range(3):
+        want, whole = decode_step(cfg, params, whole, tok)
+        got, split = decode_step(cfg, params, split, tok)
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+        tok = want.argmax(-1)
+
+
 # float8 e4m3 pools (llama3-405b's kv_cache_dtype) under a bf16 or fp32
 # q: llama3-405b's decode (B 8, KV 8, G 16, D 128, page 16, contexts of
 # 1,000-1,500 tokens and a free slot), multi-head attention (G 1, D 64)
