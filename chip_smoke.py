@@ -279,7 +279,12 @@ and prints one JSON line per phase:
    ``TRAIN_LEAF_TOL`` of max|meshless| (``step1_ok``); 2 steps with the
    flash forward launched steps x 2 x 28 x 2 x tp x dp times and its
    backward steps x 2 x 28 x tp x dp; each position's state bytes equal
-   to the specs' shard bytes; step s, tokens/s, peak memory.  Then a
+   to the specs' shard bytes; step s, tokens/s, peak memory, the placed
+   state's and step 1's placed gradients' bytes a position, and each
+   position's gathered high-water mark (the bytes of gathered parameter
+   regions alive at once during step 1: a step gathers each block's
+   shards when the block runs), which must not exceed two of its gather
+   scopes (a block, the embedding, the logits).  Then a
    4-layer fp32-compute run of each grid against its meshless run:
    parameters after 2 steps within 1e-5 of max|param|.  The flash shapes
    of a TP=2 shard, a DP=2 row and a TP=2 x DP=2 row are phase 14's
@@ -325,8 +330,12 @@ and prints one JSON line per phase:
    and collective bytes of the meta trace of the same step; the median of
    5 steps is at least the H100 roofline's ``step_s`` (the ratio
    printed); the predicted peak (state and batch bytes plus the trace's
-   live-byte peak) is within 15% of ``max_memory_allocated``; and
-   ``plan_jobfile`` on the default ``VirtualCluster`` prints a plan;
+   live-byte peak) is within 15% of ``max_memory_allocated``; the same
+   step on a 1 x 2 grid (both positions on the card): the measured
+   ``max_memory_allocated`` lies between the largest position's predicted
+   bytes (its placed state, the batch on the lead, its trace peak) and
+   1.15 x their sum; and ``plan_jobfile`` on the default
+   ``VirtualCluster`` prints a plan;
 18. ``kernels`` (``rmsnorm``) and ``norm_switch`` — the RMSNorm kernel
    against its plain version (fp32 1e-5, bf16 2e-2 of max|plain|) at the
    kernel bench's (4096, 1024) fp32, qwen2-1.5b's (8192, 1536) bf16,
@@ -4463,9 +4472,13 @@ def mesh_grid_run(cfg, spec, ref, batches, data, model, mods,
     just after: the flash forward steps x 2 x attention layers x 2 x tp x
     dp, its backward steps x 2 x attention layers x tp x dp, SSD steps x
     2 x SSM layers x 2 x tp x dp (each head shard runs its own scan), each
-    position's state bytes against the specs'.  Emits ``phase`` and
+    position's state bytes against the specs'.  Step 1 runs under the
+    gathered high-water marks (``opcount.gather_marks``): a position's
+    must not exceed two of its gather scopes.  Emits ``phase`` and
     returns ``(line, failures, launches)``."""
+    from repro_torch.analysis import opcount
     from repro_torch.optim import global_norm
+    from repro_torch.parallel.partition import position_bytes
     from repro_torch.train import compute_grads_mesh, make_train_step
     from repro_torch.tree import tree_leaves
 
@@ -4474,8 +4487,11 @@ def mesh_grid_run(cfg, spec, ref, batches, data, model, mods,
     tag = f"TP={model} x DP={data}"
     state = _fresh_state(cfg, spec, mesh)
     torch.cuda.reset_peak_memory_stats()
-    grads, loss, _ = compute_grads_mesh(cfg, state.params, batches[0],
-                                        mesh, accum=TRAIN_ACCUM)
+    with opcount.gather_marks() as marks:
+        grads, loss, _ = compute_grads_mesh(cfg, state.params, batches[0],
+                                            mesh, accum=TRAIN_ACCUM)
+    gathered, scopes = marks.as_lists(mesh.size)
+    grad_bytes = position_bytes(grads)
     gnorm = float(global_norm(grads))
     rel = {}
     for (path, want), got in zip(ref["grads"], tree_leaves(grads)):
@@ -4530,8 +4546,13 @@ def mesh_grid_run(cfg, spec, ref, batches, data, model, mods,
         grad_norm_rel_err=gnorm_err, grad_norm_tol=TRAIN_GNORM_TOL,
         grad_leaf_tol=TRAIN_LEAF_TOL, grad_head_leaf_tol=TRAIN_HEAD_LEAF_TOL,
         **gaps, launches=got_launches, launches_expected=want_launches,
-        **nbytes)
+        grad_position_bytes=grad_bytes, gathered_peak_bytes=gathered,
+        gathered_scope_bytes=scopes, **nbytes)
     failures = []
+    over = [k for k in range(mesh.size) if gathered[k] > 2 * scopes[k]]
+    if over or not all(gathered):
+        failures.append(f"{cfg.name} {tag}: gathered high-water marks "
+                        f"{gathered} against two scopes of {scopes}")
     if not all(math.isfinite(x) for x in losses + gnorms):
         failures.append(f"{cfg.name} {tag}: losses or grad norms not "
                         f"finite")
@@ -4871,6 +4892,7 @@ def train_proc_phase() -> None:
 DRYRUN_LAYERS = 4                # qwen2-1.5b at full width, depth cut
 DRYRUN_STEPS = 5                 # timed steps, after one warm-up
 DRYRUN_PEAK_TOL = 0.15           # |predicted / measured peak - 1|
+DRYRUN_GRID_TOL = 1.15           # 1 x 2 grid: measured <= this x Σ predicted
 DRYRUN_JOBS = """J1(1,2,0), J2(1,2,0), J3(2,1,0);
 J4(3,2,R1 R2 R3);"""
 
@@ -4886,8 +4908,12 @@ def dryrun_check_phase() -> dict:
     steps is at least the roofline's ``step_s`` (the H100 data-sheet
     peaks), the ratio printed; (c) the predicted peak (the state's and
     batch's bytes plus the trace's peak of live bytes) is within 15% of
-    ``max_memory_allocated`` for the step; (d) ``plan_jobfile`` on the
-    default ``VirtualCluster`` (every CUDA device) prints a plan."""
+    ``max_memory_allocated`` for the step, and the same step on a 1 x 2
+    grid (both positions on the card) measures between its largest
+    position's predicted bytes (placed state, the batch on the lead, the
+    meta trace's peak there) and ``DRYRUN_GRID_TOL`` x their sum; (d)
+    ``plan_jobfile`` on the default ``VirtualCluster`` (every CUDA device)
+    prints a plan."""
     import contextlib
     import io
     from repro_torch.analysis.opcount import OpCounter
@@ -4896,7 +4922,9 @@ def dryrun_check_phase() -> dict:
     from repro_torch.data import DataConfig, SyntheticLMStream, to_device
     from repro_torch.data import make_batch_specs
     from repro_torch.launch.dryrun import plan_jobfile
+    from repro_torch.launch.mesh import compat_make_mesh
     from repro_torch.launch.specs import choose_grad_accum, model_flops_for
+    from repro_torch.parallel.partition import position_bytes
     from repro_torch.models.config import SHAPE_CELLS
     from repro_torch.optim import OptimizerSpec
     from repro_torch.train import TrainState, make_train_step
@@ -4974,6 +5002,43 @@ def dryrun_check_phase() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # (c) on a 1 x 2 grid: each position's prediction, the card's total
+    grid = compat_make_mesh((1, 2), ("data", "model"), device="meta")
+    meta_state = TrainState.create(cfg, spec, None, "meta", mesh=grid)
+    meta_batch = make_batch_specs(cfg, batch_size, cell.seq_len)
+    with OpCounter(grid.size) as counter:
+        make_train_step(cfg, spec, grad_accum=1, mesh=grid)(meta_state,
+                                                             meta_batch)
+    held = position_bytes({"params": meta_state.params,
+                           "opt_state": meta_state.opt_state})
+    batch_bytes = sum(t.numel() * t.element_size()
+                      for t in meta_batch.values())
+    grid_predicted = [h + p.peak_bytes + (batch_bytes if k == 0 else 0)
+                      for k, (h, p) in enumerate(
+                          zip(held, counter.analysis().positions))]
+    del meta_state
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    mesh = _mesh_of(1, 2)
+    grid_step = make_train_step(cfg, spec, grad_accum=1, mesh=mesh)
+    state = _fresh_state(cfg, spec, mesh)
+    batch = to_device(stream.batch(0), DEV)
+    grid_step(state, batch)                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    grid_step(state, batch)
+    torch.cuda.synchronize()
+    grid_measured = torch.cuda.max_memory_allocated() - base
+    if not (max(grid_predicted) <= grid_measured
+            <= DRYRUN_GRID_TOL * sum(grid_predicted)):
+        failures.append(f"1 x 2 grid: measured {grid_measured} B outside "
+                        f"[{max(grid_predicted)}, {DRYRUN_GRID_TOL} x "
+                        f"{sum(grid_predicted)}] B")
+    del state, batch, grid_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # (d) the job-file planner on the card's cluster
     job_path = ROOT / "build" / "dryrun_check_jobs.txt"
     job_path.parent.mkdir(exist_ok=True)
@@ -5000,6 +5065,8 @@ def dryrun_check_phase() -> dict:
         dominant=terms.dominant, step_over_bound=ratio,
         peak_predicted=predicted_peak, peak_measured=measured_peak,
         peak_static=static, peak_trace=meta.peak_bytes, peak_gap=peak_gap,
+        grid_1x2_predicted=grid_predicted, grid_1x2_measured=grid_measured,
+        grid_1x2_over_sum=grid_measured / sum(grid_predicted),
         plan=plan, seconds=time.perf_counter() - t0, failures=failures)
     emit("dryrun_check", **fields)
     if failures:

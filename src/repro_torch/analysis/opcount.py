@@ -30,7 +30,23 @@ traced grid row:
   ``memory_analysis()``'s temporaries; the caller adds the position's
   parameter, optimizer and cache bytes, which exist before the trace;
 * **a per-op table** (calls, flops, traffic by op name) for
-  ``launch/diagnose.py``.
+  ``launch/diagnose.py``;
+* **the gathered high-water mark** of each grid position
+  (:class:`GatherMarks`): the bytes of the parameter regions a training
+  mesh gathers (``parallel.partition.take_regions``) that are still alive,
+  freed through weakref finalizers as the peak of live bytes is, and the
+  most bytes one gather scope (a block, the embedding, the logits:
+  :func:`gather_scope`) gathers a position.  The marks also run without
+  a counter (:func:`gather_marks`), on the card.
+
+A trace of one data row that stands for a whole production grid (the
+dry-run's) is told so by :func:`production`: a Placed leaf's ``share`` is
+the fraction of its row block that a production position holds (the
+data axes the row does not have).  The gradient sums a row keeps at its
+blocks are then counted live at that share (:func:`scaled_live`), as the
+reference's reduce-scatter over ``data`` leaves them, and each gather
+records as an all-gather also the part of its region that a production
+position would fetch from the other data rows.
 
 Nothing of hlo.py's trip-count correction is ported, and neither is
 ``xla_cost_analysis``: the eager trace runs every layer, so its counts
@@ -56,20 +72,23 @@ runs on an autograd worker thread, which must see it too).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
 from collections import defaultdict
-from typing import Iterable, Iterator
+from typing import Callable, Iterable, Iterator
 
 import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["COLLECTIVES", "CollectiveStats", "OpAnalysis", "OpCounter",
-           "PositionCounts", "active", "collective", "current_position",
-           "each_position", "kernel", "micro_batches", "shard_input",
-           "tensor_bytes"]
+__all__ = ["COLLECTIVES", "CollectiveStats", "GatherMarks", "OpAnalysis",
+           "OpCounter", "PositionCounts", "active", "at_position",
+           "collective", "current_position", "each_position",
+           "gather_marks", "gather_scope", "gathered", "kernel",
+           "micro_batches", "production", "scaled_live", "shard_input",
+           "share", "tensor_bytes", "tracking"]
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -91,6 +110,7 @@ _SCATTERS = {"index_put", "index_put_", "_index_put_impl_", "index_add",
 
 _ACTIVE: "OpCounter | None" = None
 _POSITION: int | None = None
+_MARKS: "GatherMarks | None" = None
 
 
 def tensor_bytes(t: torch.Tensor) -> int:
@@ -102,6 +122,12 @@ def tensor_bytes(t: torch.Tensor) -> int:
 def active() -> "OpCounter | None":
     """The counter that is tracing, or None."""
     return _ACTIVE
+
+
+def tracking() -> bool:
+    """Whether a counter or gathered marks (:func:`gather_marks`) are
+    recording: the mesh code skips its records' arithmetic otherwise."""
+    return _ACTIVE is not None or _MARKS is not None
 
 
 def current_position() -> int:
@@ -133,6 +159,133 @@ def each_position(items: Iterable) -> Iterator:
             yield item
     finally:
         _POSITION = before
+
+
+@contextlib.contextmanager
+def at_position(pos: int):
+    """Count what runs inside at position ``pos`` (a position of the
+    traced row) whatever walk is current; nothing outside a counter."""
+    global _POSITION
+    if _ACTIVE is None:
+        yield
+        return
+    before = _POSITION
+    _POSITION = pos
+    try:
+        yield
+    finally:
+        _POSITION = before
+
+
+@contextlib.contextmanager
+def production(share_fn: Callable):
+    """Inside, the traced row stands for a production grid: ``share_fn(
+    leaf)`` is the fraction of a Placed leaf's row block that a production
+    position holds (:func:`share`).  A no-op outside a counter."""
+    counter = _ACTIVE
+    if counter is None:
+        yield
+        return
+    before = counter.share_fn
+    counter.share_fn = share_fn
+    try:
+        yield
+    finally:
+        counter.share_fn = before
+
+
+def share(leaf) -> float:
+    """The fraction of ``leaf``'s row block a production position holds:
+    1 outside :func:`production`."""
+    counter = _ACTIVE
+    if counter is None or counter.share_fn is None:
+        return 1.0
+    return float(counter.share_fn(leaf))
+
+
+@contextlib.contextmanager
+def scaled_live(factor: float):
+    """Count the storages made inside live at ``factor`` of their bytes
+    (a gradient sum at its production share); a no-op outside a
+    counter."""
+    counter = _ACTIVE
+    if counter is None or factor == 1.0:
+        yield
+        return
+    before = counter.live_scale
+    counter.live_scale = factor
+    try:
+        yield
+    finally:
+        counter.live_scale = before
+
+
+class GatherMarks:
+    """The gathered high-water mark of each grid position (keys are the
+    mesh's flat positions): ``live`` the bytes gathered and still alive,
+    ``peak`` their most, ``scope`` the most one :func:`gather_scope`
+    gathered there."""
+
+    def __init__(self):
+        self.live: dict[int, int] = defaultdict(int)
+        self.peak: dict[int, int] = defaultdict(int)
+        self.scope: dict[int, int] = defaultdict(int)
+        self._open: list[dict[int, int]] = []
+
+    def _freed(self, pos: int, nbytes: int) -> None:
+        self.live[pos] -= nbytes
+
+    def add(self, t: torch.Tensor, pos: int) -> None:
+        nbytes = tensor_bytes(t)
+        self.live[pos] += nbytes
+        self.peak[pos] = max(self.peak[pos], self.live[pos])
+        weakref.finalize(t.untyped_storage(), self._freed, pos, nbytes)
+        for sc in self._open:
+            sc[pos] = sc.get(pos, 0) + nbytes
+
+    def as_lists(self, n: int) -> tuple[list[int], list[int]]:
+        """``(peak, scope)`` of positions 0 .. n-1."""
+        return ([self.peak.get(k, 0) for k in range(n)],
+                [self.scope.get(k, 0) for k in range(n)])
+
+
+@contextlib.contextmanager
+def gather_marks():
+    """Track the gathered high-water marks of what runs inside (yields
+    the :class:`GatherMarks`), with or without a counter."""
+    global _MARKS
+    before, _MARKS = _MARKS, GatherMarks()
+    try:
+        yield _MARKS
+    finally:
+        _MARKS = before
+
+
+def gathered(t: torch.Tensor, pos: int) -> None:
+    """Record ``t``, a region a position gathered, alive at mesh position
+    ``pos`` until its storage is freed.  A no-op unless marks are
+    tracked."""
+    if _MARKS is not None:
+        _MARKS.add(t, pos)
+
+
+@contextlib.contextmanager
+def gather_scope():
+    """One gather scope (a block, the embedding, the logits): what each
+    position gathers inside is added up, and the most is kept
+    (``GatherMarks.scope``)."""
+    marks = _MARKS
+    if marks is None:
+        yield
+        return
+    sc: dict[int, int] = {}
+    marks._open.append(sc)
+    try:
+        yield
+    finally:
+        marks._open.remove(sc)
+        for pos, nbytes in sc.items():
+            marks.scope[pos] = max(marks.scope[pos], nbytes)
 
 
 def micro_batches(items: Iterable) -> Iterator:
@@ -232,6 +385,9 @@ class OpAnalysis:
     positions: list[PositionCounts]
     by_op: dict[str, dict]
     by_site: dict[tuple, dict]
+    #: each mesh position's gathered high-water mark and largest scope
+    gathered: list[int] = dataclasses.field(default_factory=list)
+    gathered_scope: list[int] = dataclasses.field(default_factory=list)
 
     def _max(self, key) -> float:
         return max((key(p) for p in self.positions), default=0.0)
@@ -317,28 +473,34 @@ class OpCounter(TorchDispatchMode):
             lambda: {"calls": 0, "bytes": 0.0})
         self._live: dict[int, tuple[int, int]] = {}
         self._tagger = _TagNodes()
+        #: see :func:`production` and :func:`scaled_live`
+        self.share_fn: Callable | None = None
+        self.live_scale = 1.0
+        self.marks = GatherMarks()
+        self._marks_before: GatherMarks | None = None
 
     # -- entering and leaving ------------------------------------------------
     def __enter__(self):
-        global _ACTIVE
+        global _ACTIVE, _MARKS
         if _ACTIVE is not None:
             raise RuntimeError("an OpCounter is already active")
         _ACTIVE = self
+        self._marks_before, _MARKS = _MARKS, self.marks
         self._tagger.__enter__()
         try:
             return super().__enter__()
         except BaseException:
             self._tagger.__exit__(None, None, None)
-            _ACTIVE = None
+            _ACTIVE, _MARKS = None, self._marks_before
             raise
 
     def __exit__(self, *exc):
-        global _ACTIVE
+        global _ACTIVE, _MARKS
         try:
             return super().__exit__(*exc)
         finally:
             self._tagger.__exit__(*exc)
-            _ACTIVE = None
+            _ACTIVE, _MARKS = None, self._marks_before
 
     def _at(self, pos: int) -> PositionCounts:
         return self.pos[min(pos, len(self.pos) - 1)]
@@ -384,7 +546,7 @@ class OpCounter(TorchDispatchMode):
             if key in seen or key in self._live:
                 continue
             seen.add(key)
-            nbytes = st.nbytes()
+            nbytes = int(st.nbytes() * self.live_scale)
             self._live[key] = (nbytes, pos)
             weakref.finalize(st, self._freed, key)
             p.live_bytes += nbytes
@@ -425,5 +587,8 @@ class OpCounter(TorchDispatchMode):
         return out
 
     def analysis(self) -> OpAnalysis:
+        n = max([len(self.pos), *(k + 1 for k in self.marks.peak)])
+        peak, scope = self.marks.as_lists(n)
         return OpAnalysis(positions=self.pos, by_op=dict(self.by_op),
-                          by_site=dict(self.by_site))
+                          by_site=dict(self.by_site), gathered=peak,
+                          gathered_scope=scope)

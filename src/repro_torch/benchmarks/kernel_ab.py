@@ -45,7 +45,10 @@ events over back-to-back calls rotating over input copies larger than the
   weights from seed 0): ``--steps`` timed steps after one of warm-up, each
   step's wall s (synchronized), their median, tokens/s and the flash
   launches a step.  Only ``TrainState.create`` and ``make_train_step``
-  are used, so it runs on any tree of the port that trains.
+  are used, so it runs on any tree of the port that trains.  ``--grid
+  DATA,MODEL`` steps it on a training mesh instead, every position on the
+  card (``make_test_mesh``; any tree with ``make_train_step(mesh=)``),
+  and adds the step's peak memory.
 
 It exits non-zero without a CUDA device.
 """
@@ -311,11 +314,19 @@ def train_step(args) -> dict:
                                                seq_len=4096))
     batches = [to_device(stream.batch(s), "cuda")
                for s in range(args.steps + 1)]
+    mesh = None
+    if args.grid:
+        from repro_torch.launch.mesh import make_test_mesh
+        data, model = (int(n) for n in args.grid.split(","))
+        mesh = make_test_mesh(data, model, device="cuda",
+                              devices=[torch.device("cuda")] * (data * model))
     state = TrainState.create(
-        cfg, spec, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    step = make_train_step(cfg, spec, grad_accum=2)
+        cfg, spec, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        mesh=mesh)
+    step = make_train_step(cfg, spec, grad_accum=2, mesh=mesh)
     state, _ = step(state, batches[0])
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     before = dict(fa_kernel.launches)
     secs = []
     for b in batches[1:]:
@@ -325,7 +336,9 @@ def train_step(args) -> dict:
         secs.append(time.perf_counter() - t0)
     tokens = batches[0]["tokens"].numel()
     return {"model": "qwen2-1.5b", "seq": 4096, "global_batch": 4,
-            "grad_accum": 2, "steps": args.steps, "step_s": secs,
+            "grad_accum": 2, "grid": args.grid or None,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "steps": args.steps, "step_s": secs,
             "median_step_s": float(np.median(secs)),
             "tokens_per_s": tokens / float(np.median(secs)),
             "loss": float(m["loss_total"]),
@@ -346,6 +359,9 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="", help="a name for the output")
     ap.add_argument("--chunks", type=int, default=8,
                     help="ssd: prefill chunks in the profiled window (even)")
+    ap.add_argument("--grid", default="",
+                    help="train_step: DATA,MODEL of a training mesh "
+                         "(default: no mesh)")
     ap.add_argument("--steps", type=int, default=64,
                     help="paged_decode: timed decode steps; train_step: "
                          "timed training steps")

@@ -19,7 +19,11 @@ has no counterpart.  Per-device figures are the maximum over the traced
 row's positions: the row's lead runs the work the port does not split.
 ``bytes_per_device`` is a position's parameter, optimizer and cache bytes
 (``arg_bytes``, by the production placement) plus the peak of the bytes
-the step makes live there (``temp_bytes``).
+the step makes live there (``temp_bytes``).  ``gathered_bytes_per_device``
+is the gathered high-water mark: the most bytes of gathered parameter
+regions a position held alive at once (a part of ``temp_bytes``; on a
+training or prefill row, about one block's shards, two at a block
+boundary), and ``gathered_by_position`` each position's.
 
 Usage::
 
@@ -93,6 +97,8 @@ def run_cell(arch: str, cell_name: str, *, multi_pod: bool = False,
         "bytes_per_device": per_dev, "fits_hbm": bool(fits),
         "arg_bytes": arg_b, "temp_bytes": tmp_b, "alias_bytes": 0,
         "bytes_by_position": per_pos,
+        "gathered_bytes_per_device": max(an.gathered, default=0),
+        "gathered_by_position": an.gathered[:spec.row.size],
         "op_flops_per_dev": terms.flops,
         "op_traffic_per_dev": terms.traffic_bytes,
         "collective_bytes_per_dev": terms.collective_bytes,
@@ -112,7 +118,8 @@ def run_cell(arch: str, cell_name: str, *, multi_pod: bool = False,
         print(f"   memory: args={arg_b / 2**30:.2f}GiB "
               f"temp={tmp_b / 2**30:.2f}GiB "
               f"per-dev={per_dev / 2**30:.2f}GiB (position {worst}) "
-              f"fits80G={fits}")
+              f"fits80G={fits} gathered="
+              f"{rec['gathered_bytes_per_device'] / 2**30:.2f}GiB")
         print(f"   roofline: compute={terms.compute_s * 1e3:.2f}ms "
               f"memory={terms.memory_s * 1e3:.2f}ms "
               f"collective={terms.collective_s * 1e3:.2f}ms "

@@ -14,11 +14,16 @@ position holds before the step:
 * **train** — the fused step (``make_train_step(mesh=)``) on a state drawn
   on meta and placed on the row; the row's micro-batches are the
   reference's ``choose_grad_accum`` where they divide the row's batch.
-  The data axis's gradient all-reduce over the rows that are not traced
-  is reckoned from each position's gradient bytes (:func:`build_cell`);
+  Each position gathers a block's shard when the block runs (and again in
+  its recompute) and adds the shard's gradient into fp32 sums at its own
+  blocks.  The traced row holds the row's model shards, 16 times a
+  production position's blocks: the trace counts the gradient sums at a
+  production position's share of them (``opcount.production``: the
+  reference's reduce-scatter over ``data``), and each gather's all-gather
+  also the part a production position fetches from the other data rows;
 * **prefill** — the row's forward under ``no_grad`` over the parameters
-  placed on the row and gathered on its lead (bf16), returning the last
-  position's logits;
+  (bf16) placed on the row, each block's shards gathered where it runs,
+  returning the last position's logits;
 * **decode** — ``decode_step`` over the reference's dense stacked cache
   (``init_cache``) placed on the row by the cell's cache specs
   (``partition.place_cache``: slots over ``data``, KV heads over
@@ -33,12 +38,21 @@ position holds before the step:
   (:func:`row_seq_parts`).  An encoder-decoder model (decoder context
   448) decodes on the dense cache on the row's lead.
 
+A position's ``temp_bytes`` is then what the reference's device holds
+beyond its stored state: the saved activations, one block's gathered
+shards (two at a block boundary), its gradient sums, and the transients
+(the logits, Adafactor's whole leaf on the lead).  The record's
+``gathered_bytes_per_device`` is the most of the gathered bytes a
+position held alive at once (``opcount.GatherMarks``).
+
 Deviations, each in ROADMAP queue C: the eager trace replaces the
 compile; the work the port does not split (norms, routers, q/k/v and the
-attention's output projection in a decode cell, the SSM caches, a row's
-gathered parameters) runs on the row's lead; and the data axis's
-reductions (the training gradient, the decode merge across data rows)
-are reckoned, not traced.
+attention's output projection in a decode cell, the SSM caches, the
+decode cell's weights, a training block's attention whose KV heads the
+row does not divide, Adafactor's update of a leaf) runs on the row's
+lead; and the data axis's share of the gathers and reductions (the
+parameter all-gathers, the gradient sums, the decode merge across data
+rows) is reckoned, not traced.
 """
 from __future__ import annotations
 
@@ -54,8 +68,9 @@ from ..models.config import SHAPE_CELLS, ModelConfig, ShapeCell
 from ..models.layers import dtype_of
 from ..models.transformer import decode_step, forward, init_cache, init_params
 from ..optim import OptimizerSpec
-from ..parallel.partition import (cache_spec, gather_tree, place_cache,
-                                  place_tree, position_bytes, spec_bytes)
+from ..parallel.partition import (cache_spec, place_cache, place_tree,
+                                  position_bytes, production_share,
+                                  spec_bytes)
 from ..parallel.sharding import DEFAULT_RULES, ShardingRules
 from ..serve.mesh import ServeMesh, shard_params
 from ..train.step import TrainState, make_train_step
@@ -167,6 +182,12 @@ def _tensor_bytes(tree, seen: set | None = None) -> int:
     return 0
 
 
+def _shares(rules: ShardingRules):
+    """``opcount.production``'s share of a leaf placed on the traced row
+    (``partition.production_share`` at ``rules``' production grid)."""
+    return lambda leaf: production_share(leaf, rules.mesh)
+
+
 def _train_cell(arch, cfg, cell, rules, row) -> CellSpec:
     spec = OptimizerSpec(kind=cfg.optimizer)
     shards = _data_shards(rules)
@@ -176,19 +197,11 @@ def _train_cell(arch, cfg, cell, rules, row) -> CellSpec:
     state = TrainState.create(cfg, spec, None, "meta", mesh=row)
     tree = {"params": state.params, "opt_state": state.opt_state}
     static = spec_bytes(tree, rules, kind="state")
-    grad_bytes = (position_bytes(state.params) if row.size > 1
-                  else [_tensor_bytes(state.params)])
     step = make_train_step(cfg, spec, grad_accum=row_accum, mesh=row)
 
     def train_fn(state, batch):
-        out = step(state, batch)
-        if shards > 1:
-            # the rows not traced: the reference's all-reduce of each
-            # position's gradient over the data axis
-            for k, nbytes in enumerate(grad_bytes):
-                opcount.collective("all-reduce", nbytes=nbytes,
-                                   site="grad_data_axis", position=k)
-        return out
+        with opcount.production(_shares(rules)):
+            return step(state, batch)
 
     return CellSpec(
         arch=arch, cell=cell, fn=train_fn,
@@ -214,10 +227,10 @@ def _prefill_cell(arch, cfg, cell, rules, row) -> CellSpec:
 
     @torch.no_grad()
     def prefill_fn(placed, batch):
-        whole = gather_tree(placed)
-        logits, _ = forward(cfg, whole, tokens=batch.get("tokens"),
-                            enc_embeds=batch.get("enc_embeds"),
-                            tp_devices=devices if row.size > 1 else None)
+        with opcount.production(_shares(rules)):
+            logits, _ = forward(cfg, placed, tokens=batch.get("tokens"),
+                                enc_embeds=batch.get("enc_embeds"),
+                                tp_devices=devices if row.size > 1 else None)
         # serving returns only the last position (next-token)
         return logits[:, -1, :]
 

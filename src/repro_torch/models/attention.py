@@ -77,6 +77,8 @@ from ..dtypes import cast_kv
 from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.paged_attention import ops as pa_ops
 from ..kernels.runtime import resolve_impl
+from ..parallel.partition import view_region
+from ..tree import tree_map
 from .config import ModelConfig
 from .layers import (apply_norm, apply_rope, dense, dtype_of, init_dense,
                      init_norm, rope_freqs)
@@ -579,7 +581,8 @@ def attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *, positions,
     return out, (kt, vt)
 
 
-def split_attention(cfg: ModelConfig, p: dict, n: int, i: int):
+def split_attention(cfg: ModelConfig, p: dict, n: int, i: int, *,
+                    take=view_region):
     """Shard ``i`` of ``n`` of one attention layer's parameters, split by
     head: query heads ``[i·H/n, (i+1)·H/n)`` and KV heads ``[i·KV/n,
     (i+1)·KV/n)`` — the query heads of those KV heads' groups —, the
@@ -588,7 +591,11 @@ def split_attention(cfg: ModelConfig, p: dict, n: int, i: int):
     once.  The qk-norm scales are per head dim and shared by every shard.
     Returns ``(cfg_s, p_s)``: ``cfg_s`` has the shard's head counts and
     pins ``head_dim`` (``cfg.hd`` falls back to d_model // n_heads).  One
-    shard of one is the layer itself, ``(cfg, p)``: no copy."""
+    shard of one is the layer itself, ``(cfg, p)``: no copy.
+
+    ``take(leaf, region)`` reads each region (``partition.region_spans``;
+    ``()`` the whole leaf): a slice of a tensor by default, a training
+    mesh's gather of a placed leaf (``transformer._tp_shards``)."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     if H % n or KV % n or not 0 <= i < n:
         raise ValueError(f"shard {i} of {n} does not split {H} query and "
@@ -598,16 +605,19 @@ def split_attention(cfg: ModelConfig, p: dict, n: int, i: int):
     hq, hk = H // n, KV // n
 
     def cols(d: dict, heads: int) -> dict:
-        lo, hi = i * heads * hd, (i + 1) * heads * hd
-        out = {"w": d["w"][:, lo:hi].contiguous()}
+        cut = slice(i * heads * hd, (i + 1) * heads * hd)
+        out = {"w": take(d["w"], (slice(None), cut)).contiguous()}
         if "b" in d:
-            out["b"] = d["b"][lo:hi].contiguous()
+            out["b"] = take(d["b"], (cut,)).contiguous()
         return out
 
-    o = {"w": p["o"]["w"][i * hq * hd:(i + 1) * hq * hd].contiguous()}
+    o = {"w": take(p["o"]["w"],
+                   (slice(i * hq * hd, (i + 1) * hq * hd),)).contiguous()}
     if i == 0 and "b" in p["o"]:
-        o["b"] = p["o"]["b"]
-    p_s = {**p, "q": cols(p["q"], hq), "k": cols(p["k"], hk),
+        o["b"] = take(p["o"]["b"], ())
+    p_s = {**{k: tree_map(lambda t: take(t, ()), v) for k, v in p.items()
+              if k not in ("q", "k", "v", "o")},
+           "q": cols(p["q"], hq), "k": cols(p["k"], hk),
            "v": cols(p["v"], hk), "o": o}
     return dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hk,
                                head_dim=hd), p_s

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from ..analysis import opcount
 from ..dtypes import DTYPES, dtype_of
-from ..parallel.partition import model_axis_dim
+from ..parallel.partition import model_axis_dim, view_region
 from .config import ModelConfig
 
 __all__ = [
@@ -127,30 +127,31 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return dense(p["down"], h, cd)
 
 
-def split_mlp(p: dict, n: int, i: int) -> dict:
+def split_mlp(p: dict, n: int, i: int, *, take=view_region) -> dict:
     """Shard ``i`` of ``n`` of an MLP, split by ``d_ff``: the i-th block of
     the ``up`` and ``gate`` columns (weights and biases) and of the
     ``down`` rows.  ``down``'s bias goes to shard 0 alone, so
     :func:`apply_mlp_tp`'s sum adds it once.  The blocks are views of
-    ``p``; one shard of one is ``p`` itself."""
+    ``p`` (``take``, as for ``attention.split_attention``, reads each
+    region); one shard of one is ``p`` itself."""
     if n == 1:
         return p
     ff = p["up"]["w"].shape[1]
     if ff % n or not 0 <= i < n:
         raise ValueError(f"shard {i} of {n} does not split d_ff {ff}")
-    lo, hi = i * ff // n, (i + 1) * ff // n
+    cut = slice(i * ff // n, (i + 1) * ff // n)
 
     def cols(d: dict) -> dict:
-        out = {"w": d["w"][:, lo:hi]}
+        out = {"w": take(d["w"], (slice(None), cut))}
         if "b" in d:
-            out["b"] = d["b"][lo:hi]
+            out["b"] = take(d["b"], (cut,))
         return out
 
-    out = {"up": cols(p["up"]), "down": {"w": p["down"]["w"][lo:hi]}}
+    out = {"up": cols(p["up"]), "down": {"w": take(p["down"]["w"], (cut,))}}
     if "gate" in p:
         out["gate"] = cols(p["gate"])
     if i == 0 and "b" in p["down"]:
-        out["down"]["b"] = p["down"]["b"]
+        out["down"]["b"] = take(p["down"]["b"], ())
     return out
 
 
@@ -245,16 +246,18 @@ def vocab_split(p: dict, n: int) -> bool:
                                            p["table"].shape, n) == 0
 
 
-def split_vocab(p: dict, n: int, i: int) -> tuple[dict, int]:
+def split_vocab(p: dict, n: int, i: int, *,
+                take=view_region) -> tuple[dict, int]:
     """Shard ``i`` of ``n`` of the embedding, split by ``vocab``: rows
     ``[lo, hi)`` (``lo = i·V/n``) of the table, and of ``unembed`` where
-    the tables are not tied, as views.  Returns ``(rows, lo)``."""
+    the tables are not tied, as views (``take`` reads each region, as for
+    ``attention.split_attention``).  Returns ``(rows, lo)``."""
     V = p["table"].shape[0]
     if V % n or not 0 <= i < n:
         raise ValueError(f"shard {i} of {n} does not split a vocabulary "
                          f"of {V}")
     lo, hi = i * V // n, (i + 1) * V // n
-    return {k: t[lo:hi] for k, t in p.items()}, lo
+    return {k: take(t, (slice(lo, hi),)) for k, t in p.items()}, lo
 
 
 def embed_tp(cfg: ModelConfig, shards, tokens: torch.Tensor) -> torch.Tensor:

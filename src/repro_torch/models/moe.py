@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..analysis import opcount
-from ..parallel.partition import model_axis_dim
+from ..parallel.partition import model_axis_dim, view_region
 from .config import ModelConfig
 from .layers import (_act, apply_mlp, dtype_of, init_dense, init_mlp,
                      truncated_normal)
@@ -96,21 +96,26 @@ def expert_axis(p: dict, n: int) -> str | None:
     return {0: "experts", 2: "d_ff"}.get(dim)
 
 
-def split_experts(p: dict, n: int, i: int, axis: str) -> dict:
+def split_experts(p: dict, n: int, i: int, axis: str, *,
+                  take=view_region) -> dict:
     """Shard ``i`` of ``n`` of a MoE block's expert tensors (views of
-    ``p``): experts ``[i·E/n, (i+1)·E/n)`` whole under ``axis="experts"``,
-    or every expert's ``d_ff`` columns of ``gate``/``up`` and rows of
-    ``down`` ``[i·ff/n, (i+1)·ff/n)`` under ``"d_ff"``."""
+    ``p``; ``take`` reads each region, as for
+    ``attention.split_attention``): experts ``[i·E/n, (i+1)·E/n)`` whole
+    under ``axis="experts"``, or every expert's ``d_ff`` columns of
+    ``gate``/``up`` and rows of ``down`` ``[i·ff/n, (i+1)·ff/n)`` under
+    ``"d_ff"``."""
     E, _, ff = p["gate"].shape
     size = E if axis == "experts" else ff
     if axis not in ("experts", "d_ff") or size % n or not 0 <= i < n:
         raise ValueError(f"shard {i} of {n} does not split {axis} "
                          f"({E} experts, d_ff {ff})")
-    lo, hi = i * size // n, (i + 1) * size // n
+    cut = slice(i * size // n, (i + 1) * size // n)
     if axis == "experts":
-        return {k: p[k][lo:hi] for k in EXPERT_KEYS}
-    return {"gate": p["gate"][:, :, lo:hi], "up": p["up"][:, :, lo:hi],
-            "down": p["down"][:, lo:hi]}
+        return {k: take(p[k], (cut,)) for k in EXPERT_KEYS}
+    whole = slice(None)
+    return {"gate": take(p["gate"], (whole, whole, cut)),
+            "up": take(p["up"], (whole, whole, cut)),
+            "down": take(p["down"], (whole, cut))}
 
 
 def _experts(cfg: ModelConfig, p: dict, buf: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from ..analysis import opcount
 from ..kernels.runtime import resolve_impl
 from ..kernels.ssd_scan import ssd_intra_chunk
-from ..parallel.partition import model_axis_dim
+from ..parallel.partition import model_axis_dim, view_region
 from .config import ModelConfig
 from .layers import apply_norm, dense, dtype_of, init_dense, init_norm, \
     truncated_normal
@@ -255,39 +255,41 @@ def ssm_head_split(cfg: ModelConfig, p: dict, n: int) -> bool:
     return True
 
 
-def split_mamba2(cfg: ModelConfig, p: dict, n: int, i: int) -> dict:
+def split_mamba2(cfg: ModelConfig, p: dict, n: int, i: int, *,
+                 take=view_region) -> dict:
     """Shard ``i`` of ``n`` of a Mamba-2 mixer, split by head: heads
     ``[i·H/n, (i+1)·H/n)``, their ``z``, ``x`` and ``dt`` columns of the
     fused ``in_proj`` with the ``B`` and ``C`` columns whole (one group,
     read by every head), the matching ``conv_w``/``conv_b`` channels (x,
     then B and C), their ``dt_bias``, ``A_log``, ``D`` and slice of the
     gated norm's scale, and their rows of ``out_proj`` (its bias on shard
-    0 alone)."""
+    0 alone).  ``take`` reads each region, as for
+    ``attention.split_attention``: the joined columns are one region."""
     di, N, H = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads
     if H % n or not 0 <= i < n:
         raise ValueError(f"shard {i} of {n} does not split {H} SSM heads")
     ds, hs = di // n, H // n
-    z = (i * ds, (i + 1) * ds)
-    xc = (di + i * ds, di + (i + 1) * ds)
-    bc = (2 * di, 2 * di + 2 * N)
-    dt = (2 * di + 2 * N + i * hs, 2 * di + 2 * N + (i + 1) * hs)
+    z = slice(i * ds, (i + 1) * ds)
+    xc = slice(di + i * ds, di + (i + 1) * ds)
+    bc = slice(2 * di, 2 * di + 2 * N)
+    dt = slice(2 * di + 2 * N + i * hs, 2 * di + 2 * N + (i + 1) * hs)
 
-    def take(t, spans, dim=-1):
-        return torch.cat([t.narrow(dim, a, b - a) for a, b in spans], dim)
+    def last(t, spans: list):
+        return take(t, (slice(None),) * (len(t.shape) - 1) + (spans,))
 
-    conv = [(xc[0] - di, xc[1] - di), (di, di + 2 * N)]
-    heads = slice(i * hs, (i + 1) * hs)
-    ip = {"w": take(p["in_proj"]["w"], [z, xc, bc, dt])}
+    conv = [slice(xc.start - di, xc.stop - di), slice(di, di + 2 * N)]
+    heads = (slice(i * hs, (i + 1) * hs),)
+    ip = {"w": last(p["in_proj"]["w"], [z, xc, bc, dt])}
     if "b" in p["in_proj"]:
-        ip["b"] = take(p["in_proj"]["b"], [z, xc, bc, dt])
-    op = {"w": p["out_proj"]["w"][z[0]:z[1]]}
+        ip["b"] = last(p["in_proj"]["b"], [z, xc, bc, dt])
+    op = {"w": take(p["out_proj"]["w"], (z,))}
     if i == 0 and "b" in p["out_proj"]:
-        op["b"] = p["out_proj"]["b"]
-    return {"in_proj": ip, "conv_w": take(p["conv_w"], conv),
-            "conv_b": take(p["conv_b"], conv),
-            "A_log": p["A_log"][heads], "D": p["D"][heads],
-            "dt_bias": p["dt_bias"][heads],
-            "norm": {"scale": p["norm"]["scale"][z[0]:z[1]]},
+        op["b"] = take(p["out_proj"]["b"], ())
+    return {"in_proj": ip, "conv_w": last(p["conv_w"], conv),
+            "conv_b": last(p["conv_b"], conv),
+            "A_log": take(p["A_log"], heads), "D": take(p["D"], heads),
+            "dt_bias": take(p["dt_bias"], heads),
+            "norm": {"scale": take(p["norm"]["scale"], (z,))},
             "out_proj": op}
 
 

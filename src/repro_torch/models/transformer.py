@@ -69,8 +69,10 @@ blocks' summed auxiliary loss; ``loss_fn`` (the training path) takes
 every family, at head dims the flash backward kernel takes
 (``check_trainable``).  ``loss_sums`` and
 ``loss_from_sums`` are its two halves for a batch split over the data
-rows of a training mesh (``train/step.py``): each row's forward gives the
-sums, ``tp_devices`` (the row's tensor-parallel positions) splitting each
+rows of a training mesh (``train/step.py``): each row's forward over the
+placed parameters gives the sums, each block gathered when it runs
+(:func:`_block_parts`), ``tp_devices`` (the row's tensor-parallel
+positions) splitting each
 block's self-attention by head and its MLP by ``d_ff``, and, where their
 specs put ``model`` on them, its experts, SSM heads and cross-attention
 heads, and the embedding and the cross-entropy by ``vocab``
@@ -100,8 +102,9 @@ from ..analysis import opcount
 from ..dtypes import cast_kv
 from ..kernels.flash_attention.kernel import MAX_D_BWD
 from ..kernels.runtime import resolve_impl
-from ..parallel.partition import Placed, model_axis_dim
-from ..tree import tree_leaves, tree_map, tree_paths
+from ..parallel.partition import (Placed, model_axis_dim, take_region,
+                                  take_regions)
+from ..tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 from .attention import (KVBlocks, attention, attention_tp, gather_pages,
                         init_attention, split_attention)
 from .config import ModelConfig
@@ -109,7 +112,7 @@ from .layers import (apply_mlp, apply_mlp_tp, apply_norm, cast_weights,
                      dtype_of, embed, embed_tp, init_embedding, init_mlp,
                      init_norm, split_mlp, split_vocab, truncated_normal,
                      unembed, unembed_tp, vocab_split)
-from .moe import apply_moe, expert_axis, init_moe, split_experts
+from .moe import EXPERT_KEYS, apply_moe, expert_axis, init_moe, split_experts
 from .ssm import (apply_mamba2, apply_mamba2_tp, init_mamba2, init_ssm_cache,
                   mamba2_decode_step, split_mamba2, ssm_head_split)
 
@@ -444,12 +447,68 @@ def check_trainable(cfg: ModelConfig) -> None:
     _check_remat(cfg)
 
 
-def _placed(tree, dev):
-    return tree_map(lambda t: t.to(dev), tree)
-
-
 def _heads_split(cfg: ModelConfig, n: int) -> bool:
     return not (cfg.n_heads % n or cfg.n_kv_heads % n)
+
+
+def _taker(i: int, dev):
+    """The split helpers' ``take`` for the i-th tensor-parallel position of
+    a row, on ``dev``: a tensor's slice moved there
+    (``partition.take_region``)."""
+    return lambda leaf, region: take_region(leaf, region, i, dev)
+
+
+class _Pending:
+    """A region a split helper asked for, gathered after it returns."""
+
+    def __init__(self, index: int):
+        self.index = index
+
+    def contiguous(self) -> "_Pending":
+        return self
+
+
+def _fill(x, got: list):
+    if isinstance(x, _Pending):
+        return got[x.index]
+    if isinstance(x, dict):
+        return {k: _fill(v, got) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_fill(v, got) for v in x)
+    return x
+
+
+def _has_placed(tree) -> bool:
+    return any(isinstance(t, Placed) for t in tree_leaves(tree))
+
+
+def _on_position(split, tree, i: int, dev):
+    """``split(take)`` (a split helper over ``tree``) for the i-th
+    tensor-parallel position of a row, on ``dev``: a tensor's regions
+    sliced and moved there (:func:`_taker`); a placed tree's regions
+    recorded, then gathered there in one call
+    (``partition.take_regions``)."""
+    if not _has_placed(tree):
+        return split(_taker(i, dev))
+    reqs: list = []
+
+    def record(leaf, region):
+        reqs.append((leaf, region))
+        return _Pending(len(reqs) - 1)
+    return _fill(split(record), take_regions(reqs, i))
+
+
+def _whole(tree):
+    """``tree`` as the row's lead computes with it: its placed leaves
+    gathered whole there in one call (for this use only), tensors as they
+    are."""
+    leaves = tree_leaves(tree)
+    placed = [t for t in leaves if isinstance(t, Placed)]
+    if not placed:
+        return tree
+    got = iter(take_regions([(t, ()) for t in placed], 0))
+    return tree_unflatten(tree, [next(got) if isinstance(t, Placed) else t
+                                 for t in leaves])
 
 
 def _tp_shards(cfg: ModelConfig, p: dict, devices) -> dict:
@@ -461,59 +520,101 @@ def _tp_shards(cfg: ModelConfig, p: dict, devices) -> dict:
     (``partition.model_axis_dim``), its experts by ``experts`` or ``d_ff``
     (``moe_tp``), its SSM mixer by head (``ssm_tp``, on ``ssm_inner``) and
     its cross-attention by head (``cross_tp``, on ``heads_flat``, where the
-    heads divide too).  A part left out runs whole on the row's lead.  The
-    shards are copies (``.to`` their device, the split's own copies),
-    built inside the block so that a recompute rebuilds them instead of
-    keeping them; a shard on the lead's device is not moved."""
+    heads divide too).  A part left out runs whole on the row's lead.
+    Each shard is read on its position by the split helpers' ``take``
+    (:func:`_on_position`): a placed part's regions gathered there (only
+    the shard: the blocks of its ``model`` column joined over the data
+    axis), a tensor's slices copied there.  They are built inside the
+    block, so that a recompute gathers them again instead of keeping
+    them."""
     n = len(devices) if devices else 1
     out: dict = {}
     if n == 1:
         return out
+
+    def shards(part: str, split) -> list:
+        return [(_on_position(lambda take: split(i, take), p[part], i, dev),
+                 dev) for i, dev in enumerate(opcount.each_position(devices))]
     if "attn" in p and _heads_split(cfg, n):
-        out["tp"] = []
-        for i, dev in enumerate(opcount.each_position(devices)):
-            cfg_s, p_s = split_attention(cfg, p["attn"], n, i)
-            out["tp"].append((cfg_s, _placed(p_s, dev), dev))
+        out["tp"] = [(*s, dev) for s, dev in shards(
+            "attn", lambda i, take: split_attention(cfg, p["attn"], n, i,
+                                                    take=take))]
     if "mlp" in p and not p["mlp"]["up"]["w"].shape[1] % n:
-        out["mlp_tp"] = [(_placed(split_mlp(p["mlp"], n, i), dev), dev)
-                         for i, dev in enumerate(
-                             opcount.each_position(devices))]
+        out["mlp_tp"] = shards("mlp", lambda i, take: split_mlp(
+            p["mlp"], n, i, take=take))
     if "moe" in p:
         axis = expert_axis(p["moe"], n)
         if axis is not None:
-            out["moe_tp"] = (axis, [
-                (_placed(split_experts(p["moe"], n, i, axis), dev), dev)
-                for i, dev in enumerate(opcount.each_position(devices))])
+            out["moe_tp"] = (axis, shards("moe", lambda i, take: split_experts(
+                p["moe"], n, i, axis, take=take)))
     if "mixer" in p and ssm_head_split(cfg, p["mixer"], n):
-        out["ssm_tp"] = [
-            (_placed(split_mamba2(cfg, p["mixer"], n, i), dev), dev)
-            for i, dev in enumerate(opcount.each_position(devices))]
+        out["ssm_tp"] = shards("mixer", lambda i, take: split_mamba2(
+            cfg, p["mixer"], n, i, take=take))
     if ("cross" in p and _heads_split(cfg, n)
             and model_axis_dim(("cross", "q", "w"),
                                p["cross"]["q"]["w"].shape, n) == 1):
-        out["cross_tp"] = []
-        for i, dev in enumerate(opcount.each_position(devices)):
-            cfg_s, p_s = split_attention(cfg, p["cross"], n, i)
-            out["cross_tp"].append((cfg_s, _placed(p_s, dev), dev))
+        out["cross_tp"] = [(*s, dev) for s, dev in shards(
+            "cross", lambda i, take: split_attention(cfg, p["cross"], n, i,
+                                                     take=take))]
     return out
+
+
+#: the parts of a block each tensor-parallel keyword runs in its shards
+_TP_PARTS = {"tp": "attn", "mlp_tp": "mlp", "ssm_tp": "mixer",
+             "cross_tp": "cross"}
+
+
+def _block_parts(cfg: ModelConfig, p: dict, devices) -> tuple:
+    """``(params, keywords)`` of one block for :func:`apply_block` over a
+    data row's positions ``devices``: the shards (:func:`_tp_shards`),
+    and every part the shards leave to the row's lead (norms, routers,
+    shared experts, a layer whose heads the row does not split) gathered
+    whole there (:func:`_whole`), for this block only."""
+    kw = _tp_shards(cfg, p, devices)
+    in_shards = {_TP_PARTS[k] for k in kw if k in _TP_PARTS}
+    lead = {}
+    for key, part in p.items():
+        if key in in_shards:
+            continue
+        if key == "moe" and "moe_tp" in kw:
+            part = {k: v for k, v in part.items() if k not in EXPERT_KEYS}
+        lead[key] = part
+    return _whole(lead), kw
 
 
 def _vocab_shards(p: dict, devices) -> list | None:
     """The embedding split by ``vocab`` over a row's tensor-parallel
     positions ``devices``, ``[(rows, lo, device), ...]`` for
     :func:`~repro_torch.models.layers.embed_tp`/``unembed_tp``, where the
-    table's spec puts ``model`` on ``vocab``; None where it stays whole."""
+    table's spec puts ``model`` on ``vocab``; None where it stays whole.
+    A placed table's rows are gathered on their positions (``p`` holds
+    the tables the caller uses: the table to embed, the table to make
+    logits with)."""
     n = len(devices) if devices else 1
     if not vocab_split(p, n):
         return None
-    return [(_placed(rows, dev), lo, dev)
+    return [(rows, lo, dev)
             for i, dev in enumerate(opcount.each_position(devices))
-            for rows, lo in [split_vocab(p, n, i)]]
+            for rows, lo in [_on_position(
+                lambda take: split_vocab(p, n, i, take=take), p, i, dev)]]
+
+
+def _in_table(p: dict) -> dict:
+    """The embedding's table that embeds the tokens."""
+    return {"table": p["table"]}
+
+
+def _out_table(p: dict) -> dict:
+    """The embedding's table that makes the logits (``unembed`` where the
+    tables are not tied), under the key ``"table"``."""
+    return {"table": p.get("unembed", p["table"])}
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens, vocab):
     if vocab is None:
-        return embed(cfg, params["embed"], tokens)
+        with opcount.gather_scope():
+            table = _whole(_in_table(params["embed"]))
+        return embed(cfg, table, tokens)
     return embed_tp(cfg, vocab, tokens)
 
 
@@ -521,12 +622,21 @@ def _logits(cfg: ModelConfig, params: dict, x, vocab):
     """The logits over the whole vocabulary on x's device: one product, or
     the vocab shards' slices concatenated in order."""
     if vocab is None:
-        return unembed(cfg, params["embed"], x)
+        with opcount.gather_scope():
+            table = _whole(_out_table(params["embed"]))
+        return unembed(cfg, table, x)
     out = torch.cat([part.to(x.device)
                      for part in unembed_tp(cfg, vocab, x)], dim=-1)
     for _ in opcount.each_position(vocab):
         opcount.collective("all-gather", out, site="logits_tp")
     return out
+
+
+def _out_shards(params: dict, devices) -> list | None:
+    """:func:`_vocab_shards` of the table that makes the logits, in a
+    gather scope of its own."""
+    with opcount.gather_scope():
+        return _vocab_shards(_out_table(params["embed"]), devices)
 
 
 def _run_stack(cfg: ModelConfig, blocks, x, positions, *, impl: str,
@@ -537,16 +647,22 @@ def _run_stack(cfg: ModelConfig, blocks, x, positions, *, impl: str,
     ``remat="save_dots"``.  Returns ``(x, aux)``: the MoE blocks' summed
     auxiliary loss (0 for the other families), or under ``moe_sums`` the
     list of each MoE block's sums.  ``tp_devices`` splits each block over
-    those positions (:func:`_tp_shards`)."""
+    those positions (:func:`_block_parts`): a block of placed leaves is
+    gathered inside the function that is checkpointed, so each position
+    holds its shards for that block only, and a recompute gathers them
+    again."""
     aux = ([] if moe_sums
            else torch.zeros((), dtype=torch.float32, device=x.device))
     remat = cfg.remat if torch.is_grad_enabled() else "none"
     for kind, p in blocks:
         def block(h, p=p, kind=kind):
+            kw = {}
+            if tp_devices is not None:
+                with opcount.gather_scope():
+                    p, kw = _block_parts(cfg, p, tp_devices)
             return apply_block(cfg, kind, p, h, positions=positions,
                                cache=None, cache_len=None, impl=impl,
-                               enc_out=enc_out, moe_sums=moe_sums,
-                               **_tp_shards(cfg, p, tp_devices))
+                               enc_out=enc_out, moe_sums=moe_sums, **kw)
         if remat == "full":
             x, _, a = checkpoint(block, x, use_reentrant=False)
         elif remat == "save_dots":
@@ -571,12 +687,15 @@ def encode(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor, *,
     ``enc_out`` (B, T, d) in the compute dtype."""
     plan = layer_plan(cfg)
     e = enc_embeds.to(dtype_of(cfg.compute_dtype))
-    e = e + params["enc_pos"][:e.shape[1]].to(e.dtype)[None]
+    pos = params["enc_pos"]
+    pos = (pos.take((slice(0, e.shape[1]),)) if isinstance(pos, Placed)
+           else pos[:e.shape[1]])
+    e = e + pos.to(e.dtype)[None]
     kinds = plan.enc_pattern * plan.enc_groups
     e, _ = _run_stack(cfg, zip(kinds, params["enc_layers"]), e,
                       torch.arange(e.shape[1], device=e.device), impl=impl,
                       tp_devices=tp_devices)
-    return apply_norm(cfg, params["enc_norm_f"], e)
+    return apply_norm(cfg, _whole(params["enc_norm_f"]), e)
 
 
 def _add_dec_pos(cfg: ModelConfig, params: dict, x, positions):
@@ -584,7 +703,7 @@ def _add_dec_pos(cfg: ModelConfig, params: dict, x, positions):
     an encoder-decoder model's token embeddings (others pass through)."""
     if cfg.family != "encdec":
         return x
-    pe = params["dec_pos"][positions.long()]
+    pe = _whole(params["dec_pos"])[positions.long()]
     return x + (pe if positions.dim() > 1 else pe[None]).to(x.dtype)
 
 
@@ -600,21 +719,27 @@ def forward(cfg: ModelConfig, params: dict, *, tokens=None, embeds=None,
     in :func:`_run_stack` (under ``moe_sums``, aux is the list of each MoE
     block's sums); ``tp_devices`` also splits the embedding and the
     logits by ``vocab`` (:func:`_vocab_shards`), whose slices are then
-    concatenated on the lead."""
-    vocab = _vocab_shards(params["embed"], tp_devices)
+    concatenated on the lead.  ``params`` may hold a training mesh's
+    :class:`~repro_torch.parallel.partition.Placed` leaves, with
+    ``tp_devices`` the positions of one of its data rows: each part is
+    then gathered where it is used, and only as much of it as each
+    position computes with."""
     x, aux = _trunk(cfg, params, tokens=tokens, embeds=embeds,
                     positions=positions, enc_embeds=enc_embeds, impl=impl,
-                    tp_devices=tp_devices, moe_sums=moe_sums, vocab=vocab)
-    return _logits(cfg, params, x, vocab), aux
+                    tp_devices=tp_devices, moe_sums=moe_sums)
+    return _logits(cfg, params, x, _out_shards(params, tp_devices)), aux
 
 
 def _trunk(cfg: ModelConfig, params: dict, *, tokens, embeds, positions,
-           enc_embeds, impl: str, tp_devices, moe_sums: bool, vocab):
+           enc_embeds, impl: str, tp_devices, moe_sums: bool):
     """:func:`forward` up to the final norm: ``(x (B, S, d), aux)``."""
     check_supported(cfg)
     _check_remat(cfg)
     if embeds is None:
+        with opcount.gather_scope():
+            vocab = _vocab_shards(_in_table(params["embed"]), tp_devices)
         x = _embed(cfg, params, tokens, vocab)
+        del vocab               # gathered rows: not kept through the blocks
     else:
         x = embeds.to(dtype_of(cfg.compute_dtype))
     if positions is None:
@@ -630,7 +755,7 @@ def _trunk(cfg: ModelConfig, params: dict, *, tokens, embeds, positions,
     x, aux = _run_stack(cfg, _blocks(cfg, params), x, positions, impl=impl,
                         enc_out=enc_out, tp_devices=tp_devices,
                         moe_sums=moe_sums)
-    return apply_norm(cfg, params["norm_f"], x), aux
+    return apply_norm(cfg, _whole(params["norm_f"]), x), aux
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
@@ -707,17 +832,18 @@ def loss_sums(cfg: ModelConfig, params: dict, batch: dict, *,
     "moe": each MoE block's (Σ router probs, Σ top-1 one-hots)}``, what
     adds up over the rows (:func:`loss_from_sums`).  ``tp_devices``: the
     row's tensor-parallel positions, the lead first (where ``params``
-    live); where they split the vocabulary, the NLL comes from the vocab
-    shards' log-sum-exp (:func:`_nll_tp`) and no position makes the whole
-    vocabulary's logits."""
+    live, or, for a training mesh's placed leaves, where the parts that
+    run whole are gathered); where they split the vocabulary, the NLL
+    comes from the vocab shards' log-sum-exp (:func:`_nll_tp`) and no
+    position makes the whole vocabulary's logits."""
     check_trainable(cfg)
-    vocab = _vocab_shards(params["embed"], tp_devices)
     x, moe = _trunk(cfg, params, tokens=batch.get("tokens"),
                     embeds=batch.get("embeds"), positions=None,
                     enc_embeds=batch.get("enc_embeds"), impl=impl,
-                    tp_devices=tp_devices, moe_sums=True, vocab=vocab)
+                    tp_devices=tp_devices, moe_sums=True)
+    vocab = _out_shards(params, tp_devices)
     if vocab is None:
-        nll = _nll(cfg, unembed(cfg, params["embed"], x), batch["labels"])
+        nll = _nll(cfg, _logits(cfg, params, x, None), batch["labels"])
     else:
         nll = _nll_tp(cfg, vocab, x, batch["labels"])
     mask = batch.get("mask")

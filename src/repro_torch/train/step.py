@@ -24,17 +24,27 @@ position) the state is placed by the reference's specs
 (``parallel.partition.place_state``: parameters and optimizer moments
 FSDP over ``data``, TP over ``model``), each leaf a
 :class:`~repro_torch.parallel.partition.Placed` of one block a position.
-A step (:func:`compute_grads_mesh`) gathers the whole parameters on each
-data row's lead, runs the row's slice of every micro-batch there, its
-blocks' self-attention split by head and MLPs by ``d_ff`` over the row's
-positions (and, where their specs put ``model`` on them, the experts,
-SSM heads, cross-attention heads and the vocabulary: the embedding, the
-logits and the cross-entropy), makes the loss of the whole micro-batch from every row's sums
-and runs one backward over all rows; the rows' gradients are summed in
-row order on the mesh's lead, divided, and placed by the parameters'
-specs, and each block is updated on its position
-(``optim.opt_update_placed``).  A 1 x 1 grid is no mesh: its state holds
-the tensors themselves and its step is the meshless one.
+A step (:func:`compute_grads_mesh`) runs each data row's slice of every
+micro-batch on the row, its blocks' self-attention split by head and MLPs
+by ``d_ff`` over the row's positions (and, where their specs put
+``model`` on them, the experts, SSM heads, cross-attention heads and the
+vocabulary: the embedding, the logits and the cross-entropy), makes the
+loss of the whole micro-batch from every row's sums and runs one backward
+over all rows.  No position gathers the model: each block's parameters
+are gathered when the block runs, each position only the shard it
+computes with (the blocks of its ``model`` column joined over the data
+axis), the parts the row runs whole (norms, routers, shared experts,
+attention whose heads the row does not split) on the row's lead, and
+they die when the block ends; under ``remat`` the backward gathers them
+again.  Each gathered region's gradient is added into fp32 sums at the
+position's own blocks (``partition.RegionSums``), so during a step a
+position holds its blocks of the state, one fp32 gradient sum of its
+blocks, the saved activations, and the shards of the block that runs
+(two at a boundary).  The sums are divided, placed as the parameters are,
+and each block is updated on its position (``optim.opt_update_placed``;
+Adafactor still updates a leaf whole on the lead, one leaf at a time).
+A 1 x 1 grid is no mesh: its state holds the tensors themselves and its
+step is the meshless one.
 """
 from __future__ import annotations
 
@@ -49,7 +59,8 @@ from ..models.transformer import (check_trainable, clip_groups, init_params,
                                   loss_fn, loss_from_sums, loss_sums)
 from ..optim import OptimizerSpec, init_opt_state, opt_update, opt_update_placed
 from ..parallel import DEFAULT_RULES, ShardingRules
-from ..parallel.partition import Placed, gather_tree, place_leaf, place_state
+from ..parallel.partition import (Placed, RegionSums, gather_tree,
+                                  place_state)
 from ..tree import tree_leaves, tree_unflatten
 
 __all__ = ["TrainState", "make_init_fn", "make_train_step", "compute_grads",
@@ -196,56 +207,44 @@ def compute_grads_mesh(cfg: ModelConfig, params, batch: dict, mesh, *,
     the parameters' specs), beside the mean total loss over the
     micro-batches and the last one's metrics.
 
-    Each data row that runs (:func:`_row_batches`) gathers the whole
-    parameters on its lead as fresh leaves in their own dtype; every
-    micro-batch's row
-    slices run on their rows (``loss_sums``, the row's positions as its
-    tensor-parallel devices), one scalar, the whole micro-batch's loss, is
+    Every micro-batch's row slices (:func:`_row_batches`) run on their
+    rows (``loss_sums`` over the placed tree, the row's positions as its
+    tensor-parallel devices: each block gathered when it runs, each
+    position's shard on it), one scalar, the whole micro-batch's loss, is
     made of them on the mesh's lead (``loss_from_sums``), and one backward
-    runs over every row's graph.  Each leaf's gradient is then the rows'
-    sum, added in row order on the lead, divided by ``accum``.  A leaf
-    that is not fp32 (bf16) folds each row's gradients into an fp32 sum
-    on the row as autograd gives them (:func:`_fp32_sums`), the rows'
-    sums are added in fp32, and with one micro-batch the result is cast
-    back to the leaf's dtype, as the meshless gradient is; under the
-    operation counter that sum is recorded as the reference's all-reduce
-    of each position's gradient block, at its place in its row."""
+    runs over every row's graph.  The backward of each gather adds the
+    region's gradient into the leaf's fp32 sums at the blocks it came from
+    (:class:`~repro_torch.parallel.partition.RegionSums`): in micro-batch
+    order, and within a micro-batch in the order the backward reaches the
+    rows' gathers.  Each sum is divided by ``accum`` and, with one
+    micro-batch, cast back to the leaf's dtype (bf16 parameters), as the
+    meshless gradient is.  Under the operation counter each gather records
+    its all-gather (``param_gather``) and each gradient its reduce-scatter
+    (``grad_scatter``)."""
     rules = ShardingRules(mesh=mesh, rules=dict(DEFAULT_RULES))
     leaves = tree_leaves(params)
-    rows = [[mesh.flat[k] for k in row] for row in mesh.rows()]
+    positions = mesh.rows()
+    rows = [[mesh.flat[k] for k in row] for row in positions]
     micro = [_row_batches(mb, rules, rows)
              for mb in _split_microbatches(batch, accum)]
-    rows = rows[:len(micro[0])]
-    row_leaves = [[leaf.gather(devs[0]).requires_grad_() for leaf in leaves]
-                  for devs in rows]
-    row_sums = [_fp32_sums(w, True) for w in row_leaves]
+    n_rows = len(micro[0])
+    handle = torch.zeros((), device=mesh.lead, requires_grad=True)
+    sums = [RegionSums(leaf, handle) for leaf in leaves]
+    row_params = [tree_unflatten(params, [leaf.for_row(row, s)
+                                          for leaf, s in zip(leaves, sums)])
+                  for row in positions[:n_rows]]
     lsum = 0.0
     metrics = {}
     for parts in opcount.micro_batches(micro):
-        sums = [loss_sums(cfg, tree_unflatten(params, w),
-                          {k: v.to(devs[0]) for k, v in part.items()},
-                          impl=impl, tp_devices=devs)
-                for w, devs, part in zip(row_leaves, rows, parts)]
-        total, metrics = loss_from_sums(cfg, sums, mesh.lead)
+        row_sums = [loss_sums(cfg, w,
+                              {k: v.to(devs[0]) for k, v in part.items()},
+                              impl=impl, tp_devices=devs)
+                    for w, devs, part in zip(row_params, rows, parts)]
+        total, metrics = loss_from_sums(cfg, row_sums, mesh.lead)
         total.backward()
         lsum = lsum + total.detach()
-        del sums, total
-    grads = []
-    for j, leaf in enumerate(leaves):
-        g = None
-        for w, sums in zip(row_leaves, row_sums):
-            part = _summed(w[j], sums[j], True).to(mesh.lead)
-            g = part if g is None else g + part
-            w[j] = sums[j] = None
-        g = g.div_(accum)
-        if accum == 1:
-            g = g.to(leaf.dtype)
-        grads.append(place_leaf(g, mesh, leaf.spec))
-        if len(row_leaves) > 1:
-            for k, blk in enumerate(grads[-1].blocks):
-                opcount.collective("all-reduce", blk, site="grad_rows",
-                                   position=k % len(rows[0]))
-        del g, part
+        del row_sums, total
+    grads = [s.placed(accum, cast=accum == 1) for s in sums]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return tree_unflatten(params, grads), lsum / accum, metrics
 

@@ -39,7 +39,6 @@ from repro_torch.kernels.runtime import resolve_impl
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.transformer import forward, init_params
 from repro_torch.optim import OptimizerSpec
-from repro_torch.parallel.partition import position_bytes
 from repro_torch.train.step import TrainState, make_train_step
 from repro_torch.tree import tree_leaves
 
@@ -239,9 +238,15 @@ def test_tp_collectives_of_a_forward_match_the_shapes():
 
 
 def test_gradient_rows_reduce_their_blocks():
-    """On a 2 x 2 grid the rows' gradient sum is recorded as the
-    reference's all-reduce of every position's gradient block."""
+    """On a 2 x 2 grid no row gathers the model or reduces a whole
+    gradient: every region a row gathers in the forward sends its
+    gradient back once, recorded as the reference's reduce-scatter onto
+    the blocks (each row reads every parameter once, the tied table
+    twice: the embedding and the logits), and the gathers record, as an
+    all-gather, the bytes that came from other positions, which are less
+    than what they gathered."""
     cfg = _qwen2_fp32()
+    assert cfg.tie_embeddings
     spec = OptimizerSpec(kind="adamw")
     mesh = make_test_mesh(2, 2)
     state = TrainState.create(cfg, spec, torch.Generator().manual_seed(0),
@@ -253,9 +258,15 @@ def test_gradient_rows_reduce_their_blocks():
     step = make_train_step(cfg, spec, mesh=mesh)
     with OpCounter(2) as c:
         step(state, batch)
-    rows = c.analysis().by_site[("all-reduce", "grad_rows")]
-    assert rows["bytes"] == 2 * sum(position_bytes(state.params))
-    assert rows["calls"] == mesh.size * len(tree_leaves(state.params))
+    sites = c.analysis().by_site
+    assert ("all-reduce", "grad_rows") not in sites
+    whole = sum(math.prod(leaf.shape) * 4
+                for leaf in tree_leaves(state.params))
+    table = math.prod(state.params["embed"]["table"].shape) * 4
+    scatter = sites[("reduce-scatter", "grad_scatter")]
+    assert scatter["bytes"] == 2 * (whole + table)
+    fetched = sites[("all-gather", "param_gather")]["bytes"]
+    assert 0 < fetched < scatter["bytes"]
 
 
 # -- the kernels on meta -----------------------------------------------------

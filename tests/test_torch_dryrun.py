@@ -225,9 +225,10 @@ def test_run_cell_traces_every_family_on_a_meta_grid(arch, cell):
     assert rec["dominant"] in ("compute", "memory", "collective")
     assert json.loads(json.dumps(rec)) == rec
     if SHAPE_CELLS[cell].kind == "train":
-        # the other data row's gradient reduction, reckoned
+        # the row's gathers and its gradients' reduce-scatter onto blocks
         assert rec["collective_counts"]["all-reduce"] > 0
-        assert rec["temp_bytes"] > 0
+        assert rec["collective_counts"]["reduce-scatter"] > 0
+        assert rec["temp_bytes"] > rec["gathered_bytes_per_device"] > 0
 
 
 def test_sweep_cli_writes_one_record_per_cell(tmp_path, monkeypatch, capsys):
