@@ -207,13 +207,15 @@ and prints one JSON line per phase:
    mixtral-8x7b cut to 2 of 32 layers on ``long_500k``'s layout (1 slot,
    T 524,288 over 2 data rows x 16 positions, length 520,000: the window
    in the last block); caches drawn from a seeded generator.  4 steps
-   each, split and unsplit (the whole cache on the card) on the same
-   weights and cache: fp32 logits within 1e-5 of their scale and equal
-   greedy tokens; bf16 logits within 2^-6 of their scale and equal greedy
-   tokens wherever the whole run's top-2 margin exceeds the row's change
-   (every flip listed with both); nothing NaN, each position's cache
-   bytes the specs'; the step ms of both, the bytes a position and the
-   phase's seconds;
+   each, split (the weights placed by their ``params`` specs, each block
+   gathered where it runs) and unsplit (whole weights, the whole cache on
+   the card) on the same weights and cache: fp32 logits within 1e-5 of
+   their scale and equal greedy tokens; bf16 logits within 2^-6 of their
+   scale and equal greedy tokens wherever the whole run's top-2 margin
+   exceeds the row's change (every flip listed with both); nothing NaN,
+   each position's cache and weight bytes the specs', each position's
+   gathered high-water mark at most two gather scopes; the step ms of
+   both, the bytes a position and the phase's seconds;
 11. ``kernels`` (``jacobi_sweep``) — both Jacobi kernels (plain sweep and
    fused-residual sweep) against their plain versions at the paper's sizes
    N 2709, 4209 and 7209 in fp32, one bf16-x and one bf16-A case and a
@@ -3087,17 +3089,21 @@ def seq_split_run(arch: str, layers: int, cell: str, grid, B: int,
     """One ``SEQ_SPLIT_RUNS`` entry: the model at its published widths
     cut to ``layers``, a dense cache of the cell's length drawn from a
     seeded generator, and ``SEQ_SPLIT_STEPS`` decode steps over it whole
-    and split by the cell's specs on a ``grid`` of positions on the
-    card, fed the whole run's greedy tokens; fp32 compute first, then
-    bf16 (weights and cache cast)."""
+    (whole weights) and split by the cell's specs on a ``grid`` of
+    positions on the card (the weights placed by their ``params`` specs,
+    each block gathered where it runs), fed the whole run's greedy
+    tokens; fp32 compute first, then bf16 (weights and cache cast).
+    Each position's weight and KV bytes must be the specs', and its
+    gathered high-water mark at most two gather scopes."""
+    from repro_torch.analysis import opcount
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import compat_make_mesh
     from repro_torch.launch.specs import rules_for_cell
     from repro_torch.models.config import SHAPE_CELLS
     from repro_torch.models.layers import cast_weights
     from repro_torch.models.transformer import init_cache, init_params
-    from repro_torch.parallel.partition import (place_cache, position_bytes,
-                                                spec_bytes)
+    from repro_torch.parallel.partition import (place_cache, place_tree,
+                                                position_bytes, spec_bytes)
     from repro_torch.tree import tree_leaves
 
     t0 = time.perf_counter()
@@ -3128,17 +3134,26 @@ def seq_split_run(arch: str, layers: int, cell: str, grid, B: int,
                  for k, v in base.items()}
         split = place_cache({k: v.clone() for k, v in whole.items()}, mesh,
                             rules)
+        # the split runs' weights placed by their params specs, each
+        # block gathered where it runs
+        placed = place_tree(p, mesh, rules, kind="params")
         blocks = split["k"].blocks
         want_bytes = spec_bytes({"k": whole["k"], "v": whole["v"]}, rules,
                                 kind="cache")
         got_bytes = position_bytes({"k": split["k"], "v": split["v"]})
+        want_w = spec_bytes(p, rules, kind="params")
+        got_w = position_bytes(placed)
         # the fp32 whole run's greedy tokens feed every run
         reset_launches(mods)
         want, ms_whole, tokens = _timed_steps(c, p, whole, tokens,
                                               SEQ_SPLIT_STEPS)
-        got, ms_split, _ = _timed_steps(c, p, split, tokens,
-                                        SEQ_SPLIT_STEPS)
+        with opcount.gather_marks() as marks:
+            got, ms_split, _ = _timed_steps(c, placed, split, tokens,
+                                            SEQ_SPLIT_STEPS)
         launches = read_launches(mods)
+        peak, scope = marks.as_lists(mesh.size)
+        row = mesh.rows()[0]
+        marks_ok = all(0 < peak[k] <= 2 * scope[k] for k in row)
         scale = max(float(w.abs().max()) for w in want)
         gap = max(float((g - w).abs().max()) for g, w in zip(got, want))
         # each (step, slot) whose greedy token differs: the whole run's
@@ -3163,7 +3178,11 @@ def seq_split_run(arch: str, layers: int, cell: str, grid, B: int,
             "step_ms_split_median": float(np.median(ms_split)),
             "step_ms_whole_median": float(np.median(ms_whole)),
             "kv_bytes_by_position": got_bytes,
-            "kv_bytes_spec": want_bytes, "positions": len(blocks),
+            "kv_bytes_spec": want_bytes,
+            "weight_bytes_by_position": got_w, "weight_bytes_spec": want_w,
+            "gathered_peak_bytes": [peak[k] for k in row],
+            "gathered_scope_bytes": [scope[k] for k in row],
+            "positions": len(blocks),
             "block_seq": int(blocks[0].shape[3]),
             "launches": launches}
         tol = SEQ_SPLIT_TOL if dt_name == "fp32" else SEQ_SPLIT_TOL_BF16
@@ -3176,7 +3195,12 @@ def seq_split_run(arch: str, layers: int, cell: str, grid, B: int,
             failures.append(f"{dt_name} NaN or inf")
         if got_bytes != [want_bytes] * len(blocks):
             failures.append(f"{dt_name} bytes {got_bytes} != {want_bytes}")
-        del whole, split, blocks, p
+        if got_w != [want_w] * len(blocks):
+            failures.append(f"{dt_name} weight bytes {got_w} != {want_w}")
+        if not marks_ok:
+            failures.append(f"{dt_name} gathered marks {peak} over two "
+                            f"scopes {scope}")
+        del whole, split, blocks, p, placed
         gc.collect()
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0

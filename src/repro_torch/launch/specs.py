@@ -24,19 +24,20 @@ position holds before the step:
 * **prefill** — the row's forward under ``no_grad`` over the parameters
   (bf16) placed on the row, each block's shards gathered where it runs,
   returning the last position's logits;
-* **decode** — ``decode_step`` over the reference's dense stacked cache
-  (``init_cache``) placed on the row by the cell's cache specs
-  (``partition.place_cache``: slots over ``data``, KV heads over
-  ``model`` where they divide, else the sequence), distributed
-  flash-decoding; the weights as a serving-mesh row places them
-  (``serve.mesh.shard_params``, attention on the lead, experts and
-  vocabulary over the positions where their specs say so).  Where the
-  spec sends the sequence over data rows too (``long_500k``:
-  ``("data", "model")``), the traced row is data row 0, holding the
-  first of the rows' contiguous ranges, and the merge of each position's
-  softmax state across the rows is reckoned as an all-reduce
-  (:func:`row_seq_parts`).  An encoder-decoder model (decoder context
-  448) decodes on the dense cache on the row's lead.
+* **decode** — ``decode_step`` under ``no_grad`` over the reference's
+  dense stacked cache (``init_cache``) placed on the row by the cell's
+  cache specs (``partition.place_cache``: slots over ``data``, KV heads
+  over ``model`` where they divide, else the sequence; the SSM state by
+  head and the conv tail by channel) and the parameters (bf16) placed on
+  the row by their ``params`` specs, each block's shards gathered where
+  it runs: distributed flash-decoding over the KV blocks, attention
+  split by head where the row divides the KV heads, else q, k and v on
+  the lead.  Where the spec sends the sequence over data rows too
+  (``long_500k``: ``("data", "model")``), the traced row is data row 0,
+  holding the first of the rows' contiguous ranges, and the merge of
+  each position's softmax state across the rows is reckoned as an
+  all-reduce (:func:`row_seq_parts`).  An encoder-decoder model's
+  encoder output is an input of the cell.
 
 A position's ``temp_bytes`` is then what the reference's device holds
 beyond its stored state: the saved activations, one block's gathered
@@ -46,13 +47,11 @@ shards (two at a block boundary), its gradient sums, and the transients
 position held alive at once (``opcount.GatherMarks``).
 
 Deviations, each in ROADMAP queue C: the eager trace replaces the
-compile; the work the port does not split (norms, routers, q/k/v and the
-attention's output projection in a decode cell, the SSM caches, the
-decode cell's weights, a training block's attention whose KV heads the
-row does not divide, Adafactor's update of a leaf) runs on the row's
-lead; and the data axis's share of the gathers and reductions (the
-parameter all-gathers, the gradient sums, the decode merge across data
-rows) is reckoned, not traced.
+compile; the work the port does not split (norms, routers, an attention
+layer whose KV heads the row does not divide, Adafactor's update of a
+leaf) runs on the row's lead; and the data axis's share of the gathers
+and reductions (the parameter all-gathers, the gradient sums, the decode
+merge across data rows) is reckoned, not traced.
 """
 from __future__ import annotations
 
@@ -72,7 +71,6 @@ from ..parallel.partition import (cache_spec, place_cache, place_tree,
                                   position_bytes, production_share,
                                   spec_bytes)
 from ..parallel.sharding import DEFAULT_RULES, ShardingRules
-from ..serve.mesh import ServeMesh, shard_params
 from ..train.step import TrainState, make_train_step
 from .mesh import DeviceMesh, compat_make_mesh
 
@@ -242,22 +240,6 @@ def _prefill_cell(arch, cfg, cell, rules, row) -> CellSpec:
         model_flops=model_flops_for(cfg, cell), row_batch=row_batch)
 
 
-def _row_static_bytes(params: dict, split, lead_cache: dict,
-                      width: int) -> list[int]:
-    """What each of a serving row's positions holds besides its KV
-    blocks: the lead the row's weights and the rest of its cache, each
-    position its experts and vocabulary rows (``split``)."""
-    seen = [set() for _ in range(width)]
-    out = [0] * width
-    out[0] = _tensor_bytes([params, lead_cache], seen[0])
-    for _, parts in split.experts.values():
-        for i, (p, _) in enumerate(parts):
-            out[i] += _tensor_bytes(p, seen[i])
-    for i, (rows, _, _) in enumerate(split.vocab or ()):
-        out[i] += _tensor_bytes(rows, seen[i])
-    return out
-
-
 def row_seq_parts(cfg: ModelConfig, cell: ShapeCell,
                   rules: ShardingRules) -> int:
     """Into how many data rows the cell's cache spec splits the KV
@@ -275,47 +257,27 @@ def _decode_cell(arch, cfg, cell, rules, row) -> CellSpec:
     S = cell.seq_len
     row_batch = max(1, cell.global_batch // _data_shards(rules))
     params = _serving_params(cfg)
+    row_rules = ShardingRules(mesh=row, rules=dict(rules.rules))
+    placed = place_tree(params, row, row_rules, kind="params")
     tokens = torch.empty((row_batch, 1), dtype=torch.int32, device="meta")
-    common = dict(arch=arch, cell=cell, mesh=rules.mesh, row=row,
-                  model_flops=model_flops_for(cfg, cell),
-                  row_batch=row_batch)
-    if cfg.family == "encdec":
-        cache = init_cache(cfg, row_batch, S, device="meta")
-        # the dense engine decodes with one length a slot
-        cache["len"] = torch.zeros((row_batch,), dtype=torch.int32,
-                                   device="meta")
-        enc_out = torch.empty((row_batch, 1500, cfg.d_model),
-                              dtype=dtype_of(cfg.compute_dtype),
-                              device="meta")
-
-        @torch.no_grad()
-        def dense_fn(params, cache, tokens, enc_out):
-            return decode_step(cfg, params, cache, tokens, enc_out=enc_out)
-
-        static = [_tensor_bytes(params) + _tensor_bytes(cache)]
-        static += [0] * (row.size - 1)
-        return CellSpec(fn=dense_fn, args=(params, cache, tokens, enc_out),
-                        static_bytes=static,
-                        notes=("encoder-decoder: dense cache on the row's "
-                               "lead",), **common)
-
     # the reference's dense stacked cache, the row's share of it: the
     # data rows that split the sequence hold contiguous ranges of it, and
     # the traced row (row 0) the first; its positions split it again
     parts = row_seq_parts(cfg, cell, rules)
     cache = init_cache(cfg, row_batch, S // parts, device="meta")
+    # the dense engine decodes with one length a slot
     cache["len"] = torch.zeros((row_batch,), dtype=torch.int32,
                                device="meta")
-    row_rules = ShardingRules(mesh=row, rules=dict(rules.rules))
     cache = place_cache(cache, row, row_rules)
-    serve = ServeMesh(devices=(tuple(row.flat),))
-    row_params, _, split = shard_params(cfg, params, serve, 1)[0]
-    lead_cache = {k: v for k, v in cache.items() if k not in ("k", "v")}
-    static = _row_static_bytes(row_params, split, lead_cache, row.size)
-    if "k" in cache:
-        kv = position_bytes({"k": cache["k"], "v": cache["v"]}) \
-            if row.size > 1 else [_tensor_bytes([cache["k"], cache["v"]])]
-        static = [a + b for a, b in zip(static, kv)]
+    # a position's parameters by the production specs (the traced row
+    # holds the row's model shards, as the prefill cell's does), its cache
+    # blocks, and the whole batch's ``len``, which every position holds
+    held = position_bytes(cache) or [_tensor_bytes(
+        [v for k, v in cache.items() if k != "len"])]
+    lens = torch.empty((cell.global_batch,), dtype=torch.int32,
+                       device="meta")
+    static = [spec_bytes(params, rules, kind="params") + b
+              + spec_bytes({"len": lens}, rules, kind="cache") for b in held]
     # each position's softmax state a layer, fp32 (m, l, acc)
     n_attn = cache["k"].shape[0] if "k" in cache else 0
     merge_bytes = n_attn * row_batch * cfg.n_heads * (cfg.hd + 2) * 4
@@ -324,10 +286,18 @@ def _decode_cell(arch, cfg, cell, rules, row) -> CellSpec:
         notes.append(f"KV sequence over {parts} data rows: the traced row "
                      f"holds the first {S // parts} positions; the merge "
                      f"across the rows is reckoned")
+    extra = ()
+    if cfg.family == "encdec":
+        # the encoder's output is an input of the cell, as in the
+        # reference's
+        extra = (torch.empty((row_batch, 1500, cfg.d_model),
+                             dtype=dtype_of(cfg.compute_dtype),
+                             device="meta"),)
 
     @torch.no_grad()
-    def split_fn(params, cache, tokens):
-        out = decode_step(cfg, params, cache, tokens, split=split)
+    def decode_fn(params, cache, tokens, enc_out=None):
+        with opcount.production(_shares(rules)):
+            out = decode_step(cfg, params, cache, tokens, enc_out=enc_out)
         if parts > 1 and n_attn:
             # the rows not traced: the all-reduce of each position's
             # softmax state across the data rows that split the sequence
@@ -336,8 +306,11 @@ def _decode_cell(arch, cfg, cell, rules, row) -> CellSpec:
                                    site="seq_split_data_axis", position=k)
         return out
 
-    return CellSpec(fn=split_fn, args=(row_params, cache, tokens),
-                    static_bytes=static, notes=tuple(notes), **common)
+    return CellSpec(arch=arch, cell=cell, fn=decode_fn,
+                    args=(placed, cache, tokens, *extra), mesh=rules.mesh,
+                    row=row, static_bytes=static, notes=tuple(notes),
+                    model_flops=model_flops_for(cfg, cell),
+                    row_batch=row_batch)
 
 
 def build_cell(arch: str, cfg: ModelConfig, cell_name: str,

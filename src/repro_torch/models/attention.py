@@ -340,12 +340,14 @@ class KVBlocks:
     positions ``regions[i][2]`` (slices of the whole cache).  ``merge``
     lists the positions whose blocks hold distinct regions, in position
     order: a position whose region another holds keeps an equal copy and
-    adds no partial."""
+    adds no partial.  ``positions``: each block's grid position, whose
+    work its partial is (the list's index where None)."""
 
     k: list
     v: list
     regions: list
     merge: list
+    positions: list | None = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -390,18 +392,20 @@ def _split_partials(q, blocks: KVBlocks, lo, hi):
     qf = (q.reshape(B, KV, H // KV, D) * (1.0 / math.sqrt(D))).to(q.dtype)
     parts = []
     merge = set(blocks.merge)
-    for i in opcount.each_position(range(len(blocks.k))):
+    where = blocks.positions or range(len(blocks.k))
+    for i, pos in enumerate(where):
         if i not in merge:
             continue
         rb, rh, rt = blocks.regions[i]
         dev = blocks.k[i].device
-        m, l, acc = decode_partial(
-            qf[rb, rh].to(dev), blocks.k[i], blocks.v[i], rt.start,
-            None if lo is None else lo[rb].to(dev), hi[rb].to(dev))
-        if len(merge) > 1:
-            # the reference's max / sum all-reduces over the split axes
-            opcount.collective("all-reduce", m, l, acc,
-                               site="seq_split_decode")
+        with opcount.at_position(pos):
+            m, l, acc = decode_partial(
+                qf[rb, rh].to(dev), blocks.k[i], blocks.v[i], rt.start,
+                None if lo is None else lo[rb].to(dev), hi[rb].to(dev))
+            if len(merge) > 1:
+                # the reference's max / sum all-reduces over the split axes
+                opcount.collective("all-reduce", m, l, acc,
+                                   site="seq_split_decode")
         parts.append(((rb, rh), m.to(q.device), l.to(q.device),
                       acc.to(q.device)))
     return qf, parts

@@ -28,8 +28,9 @@ from .layers import apply_norm, dense, dtype_of, init_dense, init_norm, \
     truncated_normal
 
 __all__ = ["init_mamba2", "apply_mamba2", "mamba2_decode_step",
-           "init_ssm_cache", "ssd_chunked", "ssm_head_split",
-           "split_mamba2", "apply_mamba2_tp"]
+           "mamba2_decode_step_tp", "init_ssm_cache", "ssd_chunked",
+           "ssm_head_split", "split_mamba2", "apply_mamba2_tp",
+           "ssm_shard_channels"]
 
 
 def init_mamba2(generator: torch.Generator, cfg: ModelConfig,
@@ -255,6 +256,16 @@ def ssm_head_split(cfg: ModelConfig, p: dict, n: int) -> bool:
     return True
 
 
+def ssm_shard_channels(cfg: ModelConfig, n: int, i: int) -> tuple:
+    """Head shard ``i`` of ``n``'s ``(conv channels, heads)``: the spans
+    of its x channels and of the B and C channels (read by every head) in
+    the conv layout ``[x, B, C]``, and the slice of its heads."""
+    di, N, H = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads
+    ds, hs = di // n, H // n
+    return ([slice(i * ds, (i + 1) * ds), slice(di, di + 2 * N)],
+            slice(i * hs, (i + 1) * hs))
+
+
 def split_mamba2(cfg: ModelConfig, p: dict, n: int, i: int, *,
                  take=view_region) -> dict:
     """Shard ``i`` of ``n`` of a Mamba-2 mixer, split by head: heads
@@ -277,8 +288,8 @@ def split_mamba2(cfg: ModelConfig, p: dict, n: int, i: int, *,
     def last(t, spans: list):
         return take(t, (slice(None),) * (len(t.shape) - 1) + (spans,))
 
-    conv = [slice(xc.start - di, xc.stop - di), slice(di, di + 2 * N)]
-    heads = (slice(i * hs, (i + 1) * hs),)
+    conv, heads = ssm_shard_channels(cfg, n, i)
+    heads = (heads,)
     ip = {"w": last(p["in_proj"]["w"], [z, xc, bc, dt])}
     if "b" in p["in_proj"]:
         ip["b"] = last(p["in_proj"]["b"], [z, xc, bc, dt])
@@ -308,28 +319,13 @@ def apply_mamba2_tp(cfg: ModelConfig, shards, x: torch.Tensor, *,
     if cfg.norm != "rmsnorm":
         raise ValueError(f"{cfg.name}: the head split runs an RMSNorm "
                          f"gated norm, not {cfg.norm}")
-    cd = dtype_of(cfg.compute_dtype)
     di, H, n = cfg.ssm_d_inner, cfg.ssm_n_heads, len(shards)
     parts = [(_mixer_core(cfg, p_s,
                           opcount.shard_input(x, "mamba2_tp_grad").to(dev),
                           di=di // n, H=H // n,
                           cache=None, valid_len=None, impl=impl)[0], p_s, dev)
              for p_s, dev in opcount.each_position(shards)]
-    ss = None
-    for g, _, _ in opcount.each_position(parts):
-        part = g.float().square().sum(dim=-1, keepdim=True)
-        opcount.collective("all-reduce", part, site="mamba2_tp_norm")
-        part = part.to(x.device)
-        ss = part if ss is None else ss + part
-    r = torch.rsqrt(ss / di + eps)
-    out = None
-    for g, p_s, dev in opcount.each_position(parts):
-        y = (g.float() * r.to(dev) * p_s["norm"]["scale"].float()).to(g.dtype)
-        part = dense(p_s["out_proj"], y, cd)
-        opcount.collective("all-reduce", part, site="mamba2_tp")
-        part = part.to(x.device)
-        out = part if out is None else out + part
-    return out
+    return _tp_norm_out(cfg, parts, x, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -349,14 +345,16 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, device) -> dict:
     }
 
 
-def mamba2_decode_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                       cache: dict):
-    """x: (B, 1, d); returns ``(out (B, 1, d), new_cache)`` — a new cache
-    dict; the old one is left untouched."""
+def _decode_core(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
+                 *, di: int, H: int):
+    """The one-token recurrence up to the gated norm, for ``H`` heads of
+    ``d_inner`` ``di`` (the whole mixer's, or a head shard's: its
+    ``in_proj`` columns ``[z, x, B, C, dt]``, its ``conv`` channels ``[x,
+    B, C]``).  Returns ``(y · silu(z) (B, 1, di) in the compute dtype,
+    new conv tail, new state)``."""
     cd = dtype_of(cfg.compute_dtype)
     B = x.shape[0]
-    di, N, H = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads
-    P = cfg.ssm_head_dim
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
 
     proj = dense(p["in_proj"], x, cd)[:, 0]                   # (B, ...)
     z, xBC, dt = torch.split(proj, [di, di + 2 * N, H], dim=-1)
@@ -380,6 +378,67 @@ def mamba2_decode_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
     y = y + xh * p["D"].float()[None, :, None]
 
     y = y.reshape(B, 1, di).to(cd)
-    y = apply_norm(cfg, p["norm"], y * F.silu(z[:, None, :]))
+    return y * F.silu(z[:, None, :]), new_conv, state
+
+
+def mamba2_decode_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                       cache: dict):
+    """x: (B, 1, d); returns ``(out (B, 1, d), new_cache)`` — a new cache
+    dict; the old one is left untouched."""
+    cd = dtype_of(cfg.compute_dtype)
+    g, new_conv, state = _decode_core(cfg, p, x, cache,
+                                      di=cfg.ssm_d_inner, H=cfg.ssm_n_heads)
+    y = apply_norm(cfg, p["norm"], g)
     out = dense(p["out_proj"], y, cd)
     return out, {"conv": new_conv, "state": state}
+
+
+def _tp_norm_out(cfg: ModelConfig, parts: list, x: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """The head shards' gated RMSNorm over the whole ``d_inner`` and their
+    ``out_proj``: ``parts`` holds ``(y · silu(z), params, device)`` of
+    each shard.  Each shard's Σ y² is added in shard order on x's device,
+    every shard scales by the shared rsqrt and its own slice of the
+    scale, and the partial outputs are summed in shard order there."""
+    cd = dtype_of(cfg.compute_dtype)
+    ss = None
+    for g, _, _ in opcount.each_position(parts):
+        part = g.float().square().sum(dim=-1, keepdim=True)
+        opcount.collective("all-reduce", part, site="mamba2_tp_norm")
+        part = part.to(x.device)
+        ss = part if ss is None else ss + part
+    r = torch.rsqrt(ss / cfg.ssm_d_inner + eps)
+    out = None
+    for g, p_s, dev in opcount.each_position(parts):
+        y = (g.float() * r.to(dev) * p_s["norm"]["scale"].float()).to(g.dtype)
+        part = dense(p_s["out_proj"], y, cd)
+        opcount.collective("all-reduce", part, site="mamba2_tp")
+        part = part.to(x.device)
+        out = part if out is None else out + part
+    return out
+
+
+def mamba2_decode_step_tp(cfg: ModelConfig, shards, x: torch.Tensor,
+                          caches: list, *, eps: float = 1e-6):
+    """:func:`mamba2_decode_step` over tensor-parallel head shards
+    (:func:`split_mamba2`): ``shards`` holds ``(params, device)`` of each,
+    ``caches`` each shard's ``{"conv", "state"}`` on its device: the conv
+    tail of its channels ``[x, B, C]`` (B, W-1, d_inner/n + 2N) and the
+    state of its heads (B, H/n, P, N).  Each shard runs the one-token
+    recurrence for its heads on its device (x moved there); the gated
+    norm and ``out_proj`` reduce as in :func:`apply_mamba2_tp`.  Returns
+    ``(out (B, 1, d) on x's device, [each shard's new {"conv",
+    "state"}])``: every shard's conv tail holds the B and C channels,
+    equal across the shards."""
+    if cfg.norm != "rmsnorm":
+        raise ValueError(f"{cfg.name}: the head split runs an RMSNorm "
+                         f"gated norm, not {cfg.norm}")
+    di, H, n = cfg.ssm_d_inner, cfg.ssm_n_heads, len(shards)
+    parts, news = [], []
+    for (p_s, dev), cache in opcount.each_position(
+            zip(shards, caches, strict=True)):
+        g, conv, state = _decode_core(cfg, p_s, x.to(dev), cache,
+                                      di=di // n, H=H // n)
+        parts.append((g, p_s, dev))
+        news.append({"conv": conv, "state": state})
+    return _tp_norm_out(cfg, parts, x, eps), news

@@ -40,10 +40,16 @@ the dense cache: S == 1 decodes and S > 1 is a batched prefill from a
 fresh cache.  A dense cache placed on a grid by
 ``parallel.partition.place_cache`` (the reference's decode cells' cache
 specs: its ``"k"``/``"v"`` are :class:`~repro_torch.parallel.partition.
-Placed`, split by slot, KV head and sequence, the rest whole on the
-lead) decodes by distributed flash-decoding: each position's softmax
-state over its block, merged on the lead (``models.attention``), and each
-step's K/V written into the block that holds its position.
+Placed`, split by slot, KV head and sequence, its ``"state"`` by slot and
+head and ``"conv"`` by slot and channel, ``len`` whole on the lead)
+decodes by distributed flash-decoding: each position's softmax state
+over its block, merged on the lead (``models.attention``), and each
+step's K/V written into the block that holds its position; an SSM layer
+reads the regions of its state and conv tail it computes with and writes
+them back.  The weights may be placed on the same grid by their
+``params`` specs: each block is then gathered when it runs, each
+position only the shard it computes with (:func:`_block_parts`), as the
+training forward gathers it.
 
 The paged steps (``decode_step`` with ``pages``, ``chunk_prefill_step``)
 take the pools apart from the cache, in ``shards``: the tensor-parallel
@@ -114,7 +120,8 @@ from .layers import (apply_mlp, apply_mlp_tp, apply_norm, cast_weights,
                      unembed, unembed_tp, vocab_split)
 from .moe import EXPERT_KEYS, apply_moe, expert_axis, init_moe, split_experts
 from .ssm import (apply_mamba2, apply_mamba2_tp, init_mamba2, init_ssm_cache,
-                  mamba2_decode_step, split_mamba2, ssm_head_split)
+                  mamba2_decode_step, mamba2_decode_step_tp, split_mamba2,
+                  ssm_head_split, ssm_shard_channels)
 
 __all__ = ["LayerPlan", "AttnShard", "RowSplit", "layer_plan", "layer_kinds",
            "init_block", "apply_block", "init_params", "param_count",
@@ -351,16 +358,23 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
     ``moe_tp`` a MoE block's expert products (``apply_moe``'s ``tp``);
     ``ssm_tp`` (each shard's ``(mixer weights, device)``) an SSM block's
     mixer by head (``apply_mamba2_tp``: the cache-less forward, no cache
-    update); ``cross_tp`` (as ``tp``) a decoder block's cross-attention
+    update; given ``cache``, a list of each shard's ``{"conv", "state"}``
+    of its channels and heads, the one-token decode by head,
+    ``mamba2_decode_step_tp``, whose ``update`` is each shard's new
+    cache); ``cross_tp`` (as ``tp``) a decoder block's cross-attention
     by head.  ``moe_sums`` gives a MoE block's ``aux`` as ``apply_moe``'s
     sums."""
     if kind == "ssm":
         h = apply_norm(cfg, p["ln1"], x)
         if ssm_tp is not None:
-            if cache is not None:
-                raise ValueError("the SSM head split runs the cache-less "
-                                 "forward")
-            return x + apply_mamba2_tp(cfg, ssm_tp, h, impl=impl), None, None
+            if cache is None:
+                return (x + apply_mamba2_tp(cfg, ssm_tp, h, impl=impl), None,
+                        None)
+            if x.shape[1] != 1:
+                raise ValueError("the SSM head split over a cache decodes "
+                                 "one token per slot (S == 1)")
+            out, news = mamba2_decode_step_tp(cfg, ssm_tp, h, cache)
+            return x + out, news, None
         if cache is not None and x.shape[1] == 1:
             out, new_cache = mamba2_decode_step(cfg, p["mixer"], h, cache)
         else:
@@ -703,7 +717,8 @@ def _add_dec_pos(cfg: ModelConfig, params: dict, x, positions):
     an encoder-decoder model's token embeddings (others pass through)."""
     if cfg.family != "encdec":
         return x
-    pe = _whole(params["dec_pos"])[positions.long()]
+    with opcount.gather_scope():
+        pe = _whole(params["dec_pos"])[positions.long()]
     return x + (pe if positions.dim() > 1 else pe[None]).to(x.dtype)
 
 
@@ -976,13 +991,30 @@ def _write_kv(buf, delta, pos) -> None:
                                                        buf.dtype)
 
 
-def _layer_blocks(k: Placed, v: Placed, ai: int) -> KVBlocks:
+def _layer_blocks(k: Placed, v: Placed, ai: int,
+                  shard: tuple[int, int] | None = None) -> KVBlocks:
     """Attention layer ``ai``'s blocks of a cache placed by
     ``partition.place_cache``: each position's (B, KV, T, D) block with
-    its slots, heads and cache positions."""
+    its slots, heads and cache positions.  ``shard`` ``(i, n)``: only the
+    blocks of head shard i of n (its KV heads ``[i·KV/n, (i+1)·KV/n)``,
+    the blocks of its ``model`` column), their head regions counted from
+    the shard's first head."""
     regions = [r[1:4] for r in k.regions()]
-    return KVBlocks(k=[b[ai] for b in k.blocks], v=[b[ai] for b in v.blocks],
-                    regions=regions, merge=k.distinct())
+    merge = set(k.distinct())
+    sel, lo = list(range(len(regions))), 0
+    if shard is not None:
+        i, n = shard
+        per = k.shape[2] // n
+        lo = i * per
+        sel = [j for j, r in enumerate(regions) if r[1].start // per == i]
+    return KVBlocks(k=[k.blocks[j][ai] for j in sel],
+                    v=[v.blocks[j][ai] for j in sel],
+                    regions=[(regions[j][0],
+                              slice(regions[j][1].start - lo,
+                                    regions[j][1].stop - lo), regions[j][2])
+                             for j in sel],
+                    merge=[m for m, j in enumerate(sel) if j in merge],
+                    positions=sel)
 
 
 def _int_view(t: torch.Tensor) -> torch.Tensor:
@@ -993,24 +1025,30 @@ def _int_view(t: torch.Tensor) -> torch.Tensor:
 
 
 def _write_kv_blocks(buf: Placed, ai: int, delta, pos) -> None:
-    """Write a decode step's K/V delta (B, KV, 1, D) into attention layer
-    ``ai`` of a placed cache, in place: slot b's entry lands at position
-    ``pos[b]`` (clamped to [0, T - 1], as :func:`_write_kv` clamps) in
-    the one block of each copy that holds it; every other block keeps its
-    bytes.  No host read, so the write traces on meta."""
+    """Write a decode step's K/V into attention layer ``ai`` of a placed
+    cache, in place: ``delta`` (B, KV, 1, D), or a list of each head
+    shard's (B, KV/n, 1, D) in shard order, each on its shard's device.
+    Slot b's entry lands at position ``pos[b]`` (clamped to [0, T - 1],
+    as :func:`_write_kv` clamps) in the one block of each copy that holds
+    it; every other block keeps its bytes.  No host read, so the write
+    traces on meta."""
+    parts = delta if isinstance(delta, list) else [delta]
+    per = parts[0].shape[1]
     T = buf.shape[3]
-    B = delta.shape[0]
+    B = parts[0].shape[0]
     pos = pos.expand(B) if pos.dim() == 0 else pos
     pos = pos.long().clamp(0, T - 1)
     for blk, reg in zip(buf.blocks, buf.regions()):
         rb, rh, rt = reg[1:4]
+        s = rh.start // per
+        heads = slice(rh.start - s * per, rh.stop - s * per)
         layer = blk[ai]
         dev = layer.device
         local = pos[rb].to(dev) - rt.start
         inside = (local >= 0) & (local < layer.shape[2])
         idx = local.clamp(0, layer.shape[2] - 1)
         rows = torch.arange(layer.shape[0], device=dev)
-        new = cast_kv(delta[rb, rh, 0].to(dev), layer.dtype)
+        new = cast_kv(parts[s][rb, heads, 0].to(dev), layer.dtype)
         old = layer[rows, :, idx]
         keep = torch.where(inside[:, None, None], _int_view(new),
                            _int_view(old))
@@ -1022,9 +1060,56 @@ def _write_ssm_state(layer_cache: dict, new: dict, update_mask) -> None:
     place; rows where ``update_mask`` (B,) is False keep their state."""
     for key, val in new.items():
         if update_mask is not None:
-            m = update_mask.reshape((-1,) + (1,) * (val.dim() - 1))
+            m = update_mask.to(val.device).reshape(
+                (-1,) + (1,) * (val.dim() - 1))
             val = torch.where(m, val, layer_cache[key])
         layer_cache[key].copy_(val)
+
+
+def _ssm_placed(cfg: ModelConfig, p: dict, x, cache: dict, si: int, kw: dict,
+                row: list, update_mask, **akw):
+    """SSM layer ``si`` of a decode step over a cache whose ``"conv"`` and
+    ``"state"`` are placed (``partition.place_cache``).  With ``kw``'s
+    ``ssm_tp`` (the row's head shards), each shard reads its heads'
+    state and its channels' conv tail (``ssm_shard_channels``) from the
+    blocks on its position ``row[i]`` (:meth:`Placed.read`: a part it
+    does not hold comes from the block that does), runs its heads'
+    recurrence, and writes back what it computed: its state and its x
+    channels' tail, and shard 0 the B and C channels' tail, each into
+    every block that holds a part of it.  Without it the row's lead reads
+    the layer's whole conv and state, runs the mixer and writes them
+    back.  Returns the block's output."""
+    conv, state = cache["conv"], cache["state"]
+    layer = slice(si, si + 1)
+    shards = kw.get("ssm_tp")
+    if shards is None:
+        lc = {"conv": conv.read((layer,), row[0])[0],
+              "state": state.read((layer,), row[0])[0]}
+        x, new, _ = apply_block(cfg, "ssm", p, x, cache=lc, **akw)
+        _write_ssm_state(lc, new, update_mask)
+        conv.write_((layer,), lc["conv"][None])
+        state.write_((layer,), lc["state"][None])
+        return x
+    n = len(shards)
+    whole = slice(None)
+    reads = []
+    for i in opcount.each_position(range(n)):
+        chans, heads = ssm_shard_channels(cfg, n, i)
+        reads.append({
+            "conv": conv.read((layer, whole, whole, chans), row[i])[0],
+            "state": state.read((layer, whole, heads), row[i])[0]})
+    x, news, _ = apply_block(cfg, "ssm", p, x, cache=reads, ssm_tp=shards,
+                             **akw)
+    ds = cfg.ssm_d_inner // n
+    for i in opcount.each_position(range(n)):
+        lc = reads[i]
+        _write_ssm_state(lc, news[i], update_mask)
+        (xc, bc), heads = ssm_shard_channels(cfg, n, i)
+        state.write_((layer, whole, heads), lc["state"][None])
+        conv.write_((layer, whole, whole, xc), lc["conv"][None, ..., :ds])
+        if i == 0:
+            conv.write_((layer, whole, whole, bc), lc["conv"][None, ..., ds:])
+    return x
 
 
 def _write_kv_paged(pool, delta, pos, pages, page_size: int) -> None:
@@ -1063,7 +1148,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 valid_len: int | None = None,
                 enc_out: torch.Tensor | None = None,
                 shards: Sequence[AttnShard] = (),
-                split: RowSplit | None = None):
+                split: RowSplit | None = None, tp_devices=None):
     """One cache-extending step for every slot.  tokens: (B, S) int.
 
     Dense cache (``pages=None``): S == 1 decodes against the per-slot
@@ -1074,11 +1159,25 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     zeros with positions >= ``valid_len`` (a right-padded prompt's true
     length) masked out of the state.
 
-    Dense cache placed by ``partition.place_cache`` (its ``"k"``/``"v"``
-    :class:`~repro_torch.parallel.partition.Placed`): S == 1 decodes by
-    distributed flash-decoding over the positions' blocks, the weights
-    and the rest of the cache on the lead; each slot's K/V lands in the
-    block holding position ``len`` (clamped to T - 1) of every copy.
+    Dense cache placed by ``partition.place_cache`` (its leaves but
+    ``len`` :class:`~repro_torch.parallel.partition.Placed`): S == 1.
+    The attention decodes by distributed flash-decoding over the
+    positions' K/V blocks, each slot's K/V landing in the block holding
+    position ``len`` (clamped to T - 1) of every copy; an SSM layer reads
+    its regions of ``conv`` and ``state`` and writes them back
+    (:func:`_ssm_placed`).  The weights are whole tensors, computed with
+    on the lead, or a tree placed by the ``params`` specs
+    (``partition.place_tree(..., kind="params")``, on the cache's grid):
+    then each block is gathered when it runs (:func:`_block_parts`, one
+    gather scope), split over ``tp_devices`` (default: the devices of the
+    first data row of the cache's grid, lead first) as the training
+    forward splits it, and so are the embedding and the logits by
+    ``vocab`` (:func:`_vocab_shards`).  Where the row splits a block's
+    heads, each position attends with its own q/k/v shard over the K/V
+    blocks of its heads (its ``model`` column), and writes its K/V there;
+    elsewhere the lead computes q, k and v whole and the positions their
+    partials.  ``tp_devices`` given with whole weights runs the same
+    split over their slices.
 
     Paged cache: ``pages`` (B, n_pages) int32 page table on the cache's
     device, S == 1, and ``shards``, the tensor-parallel shards that hold
@@ -1098,11 +1197,36 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     MoE blocks' expert products and the embedding and logits over the
     row's positions, the logits' slices concatenated on the lead.
     Updates the cache in place; returns ``(logits (B, S, V), cache)``."""
+    grid = next((leaf.mesh for leaf in cache.values()
+                 if isinstance(leaf, Placed)), None)
+    placed = _has_placed(params)
+    if placed and grid is None:
+        raise ValueError("placed weights decode over a cache placed by "
+                         "place_cache")
+    if (placed or tp_devices is not None) and (
+            split is not None or pages is not None or shards):
+        raise ValueError("placed weights and tp_devices take a placed "
+                         "cache, with no pages, shards or split")
+    row = None
+    if grid is not None:
+        row = grid.rows()[0]
+        if tp_devices is None and placed:
+            tp_devices = [grid.flat[k] for k in row]
+        if tp_devices is not None and len(tp_devices) != len(row):
+            raise ValueError(f"tp_devices: {len(tp_devices)} positions, the "
+                             f"cache's rows {len(row)}")
+    elif tp_devices is not None:
+        raise ValueError("tp_devices split a decode over a placed cache")
     split = split or RowSplit()
-    x = _embed(cfg, params, tokens, split.vocab)
+    vocab = split.vocab
+    if tp_devices is not None:
+        with opcount.gather_scope():
+            vocab = _vocab_shards(_in_table(params["embed"]), tp_devices)
+    x = _embed(cfg, params, tokens, vocab)
+    del vocab               # gathered rows: not kept through the blocks
     S = x.shape[1]
     pos = cache["len"]
-    seq_split = isinstance(cache.get("k"), Placed)
+    seq_split = grid is not None
     if seq_split and (S != 1 or pages is not None):
         raise ValueError("a cache placed by place_cache decodes one token "
                          "per slot (S == 1), with no pages")
@@ -1128,13 +1252,23 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                     for sh in shards]
     ai = si = 0
     for li, (kind, p) in enumerate(_blocks(cfg, params)):
+        kw = {"moe_tp": split.experts.get(li)}
+        if tp_devices is not None:
+            with opcount.gather_scope():
+                p, kw = _block_parts(cfg, p, tp_devices)
         if kind == "ssm":
-            lc = {"conv": cache["conv"][si], "state": cache["state"][si]}
-            x, new, _ = apply_block(cfg, kind, p, x, positions=positions,
-                                 cache=lc, cache_len=pos, impl=impl,
-                                 valid_len=valid_len)
-            _write_ssm_state(lc, new, update_mask)
+            akw = dict(positions=positions, cache_len=pos, impl=impl,
+                       valid_len=valid_len)
+            if seq_split:
+                x = _ssm_placed(cfg, p, x, cache, si, kw, row, update_mask,
+                                **akw)
+            else:
+                lc = {"conv": cache["conv"][si],
+                      "state": cache["state"][si]}
+                x, new, _ = apply_block(cfg, kind, p, x, cache=lc, **akw)
+                _write_ssm_state(lc, new, update_mask)
             si += 1
+            del p, kw
             continue
         if pages is not None:
             lcs = [{"k": gather_pages(sh.k[ai], pg),
@@ -1145,29 +1279,37 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                                     cache=lcs, cache_len=pos,
                                     paged_impl=paged_impl, impl=impl,
                                     tp=[sh.layer(ai) for sh in shards],
-                                    moe_tp=split.experts.get(li))
+                                    **kw)
             for sh, (pg, sp), (kt, vt) in zip(shards, shard_io, kvs):
                 _write_kv_paged(sh.k[ai], kt, sp, pg, page_size)
                 _write_kv_paged(sh.v[ai], vt, sp, pg, page_size)
             ai += 1
             continue
         if seq_split:
-            lc = _layer_blocks(cache["k"], cache["v"], ai)
+            n = len(kw.get("tp") or ())
+            lc = ([_layer_blocks(cache["k"], cache["v"], ai, (i, n))
+                   for i in range(n)] if n
+                  else _layer_blocks(cache["k"], cache["v"], ai))
         else:
             lc = {"k": cache["k"][ai], "v": cache["v"][ai]}
-        x, (kt, vt), _ = apply_block(cfg, kind, p, x, positions=positions,
-                                     cache=lc, cache_len=pos,
-                                     impl=impl, enc_out=enc_out,
-                                     moe_tp=split.experts.get(li))
+        x, kv, _ = apply_block(cfg, kind, p, x, positions=positions,
+                               cache=lc, cache_len=pos, impl=impl,
+                               enc_out=enc_out, **kw)
         if seq_split:
+            kt = [k for k, _ in kv] if isinstance(kv, list) else kv[0]
+            vt = [v for _, v in kv] if isinstance(kv, list) else kv[1]
             _write_kv_blocks(cache["k"], ai, kt, pos)
             _write_kv_blocks(cache["v"], ai, vt, pos)
         else:
-            _write_kv(lc["k"], kt, pos)
-            _write_kv(lc["v"], vt, pos)
+            _write_kv(lc["k"], kv[0], pos)
+            _write_kv(lc["v"], kv[1], pos)
         ai += 1
-    x = apply_norm(cfg, params["norm_f"], x)
-    logits = _logits(cfg, params, x, split.vocab)
+        del p, kw
+    with opcount.gather_scope():
+        x = apply_norm(cfg, _whole(params["norm_f"]), x)
+    vocab = split.vocab if tp_devices is None else _out_shards(params,
+                                                               tp_devices)
+    logits = _logits(cfg, params, x, vocab)
     cache["len"] += S
     return logits, cache
 

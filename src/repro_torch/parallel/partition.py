@@ -25,7 +25,8 @@ reference's ``shard_shape`` bytes.  Positions that share a region hold
 equal copies of their own.  On a 1 x 1 grid a leaf is placed as itself.
 :func:`place_cache` places a dense serving cache so, the reference's
 decode cells' ``tree_shardings(kind="cache")``: its K/V split by slot,
-KV head and sequence, ``len`` and the SSM state whole on the lead.
+KV head and sequence, the SSM state by slot and head and the conv tail
+by slot and channel, ``len`` whole on the lead.
 
 A training mesh's step does not gather a leaf whole: each position
 gathers only the region it computes with (:meth:`Placed.gather_region`,
@@ -512,20 +513,46 @@ class Placed:
         return take_regions([(self, region)], i)[0]
 
     @torch.no_grad()
+    def read(self, region: tuple, k: int) -> torch.Tensor:
+        """``region`` (:func:`region_spans`) of a placed cache leaf as a
+        new tensor on mesh position ``k``'s device, each part read from
+        ``k``'s own block where it holds it (:func:`_gather`, recorded at
+        site ``cache_read``; not a parameter gather)."""
+        return _gather([(self, region, k)], site="cache_read")[0]
+
+    @torch.no_grad()
+    def write_(self, region: tuple, value: torch.Tensor) -> None:
+        """Write ``value`` (the shape of ``region``, whose dims are each
+        one slice) into every block that holds a part of ``region``, each
+        copy of a part included, in place."""
+        spans = region_spans(region, self.shape)
+        dsts, srcs = [], []
+        for blk, reg in zip(self.blocks, self.regions()):
+            for dst, part in _overlap(spans, reg):
+                dsts.append(blk[part])
+                piece = value[dst]
+                srcs.append(piece if piece.device == blk.device
+                            else piece.to(blk.device))
+        if dsts:
+            torch._foreach_copy_(dsts, srcs)
+
+    @torch.no_grad()
     def scatter_(self, whole: torch.Tensor) -> None:
         """Write ``whole`` into every position's block."""
         for blk, reg in zip(self.blocks, self.regions()):
             blk.copy_(whole[reg])
 
 
-def _gather(reqs: list, device=None) -> list[torch.Tensor]:
+def _gather(reqs: list, device=None, *,
+            site: str = "param_gather") -> list[torch.Tensor]:
     """Each ``(leaf, region, position)`` of ``reqs`` as a new tensor on
     the position's device (``device`` where given), its parts copied from
     the blocks by one ``_foreach_copy_``.  Under a counter each records its
-    all-gather of the bytes that came from other positions (site
-    ``param_gather``; in a production trace also those a production
-    position fetches from the other data rows) and the gathered
-    high-water mark (``opcount.gathered``)."""
+    all-gather of the bytes that came from other positions (``site``;
+    in a production trace also those a production position fetches from
+    the other data rows) and, for a parameter region (site
+    ``param_gather``), the gathered high-water mark
+    (``opcount.gathered``)."""
     outs, owns, dsts, srcs = [], [], [], []
     for leaf, region, k in reqs:
         shape, pieces, own = leaf._layout().gather_plan(region, k)
@@ -544,9 +571,10 @@ def _gather(reqs: list, device=None) -> list[torch.Tensor]:
                 * out.element_size()
             if fetched > 0:
                 opcount.collective("all-gather", nbytes=int(round(fetched)),
-                                   site="param_gather",
+                                   site=site,
                                    position=leaf._layout().model[k])
-            opcount.gathered(out, k)
+            if site == "param_gather":
+                opcount.gathered(out, k)
     return outs
 
 
@@ -721,13 +749,17 @@ def place_cache(cache: dict, mesh, rules: ShardingRules) -> dict:
     """A dense serving cache (``models.transformer.init_cache``) placed on
     ``mesh`` as the reference's decode cells place it
     (``tree_shardings(cache, rules, kind="cache")``): the attention
-    layers' ``"k"``/``"v"`` (n_attn, B, KV, T, D) split into one block a
-    position by their ``("batch", "kv_heads", "kv_seq", None)`` specs
-    (:func:`place_leaf`), every other leaf (``len``, the SSM ``conv`` and
-    ``state``) whole on the mesh's lead, as a serving row holds them.
-    ``decode_step`` runs over the result by distributed flash-decoding."""
-    return {key: place_leaf(leaf, mesh, cache_spec(key, leaf.shape, rules))
-            if key in ("k", "v") else leaf.to(mesh.lead)
+    layers' ``"k"``/``"v"`` (n_attn, B, KV, T, D) by their ``("batch",
+    "kv_heads", "kv_seq", None)`` specs, the SSM layers' ``"state"``
+    (n_ssm, B, H, P, N) by ``("batch", "ssm_heads", None, None)`` and
+    ``"conv"`` (n_ssm, B, W-1, C) by ``("batch", None, "ssm_inner")``,
+    each split into one block a position (:func:`place_leaf`); ``len``
+    whole on the mesh's lead.  ``decode_step`` runs over the result: the
+    attention by distributed flash-decoding, the SSM layers reading their
+    regions of ``conv`` and ``state`` (:meth:`Placed.read`) and writing
+    them back (:meth:`Placed.write_`)."""
+    return {key: leaf.to(mesh.lead) if key == "len"
+            else place_leaf(leaf, mesh, cache_spec(key, leaf.shape, rules))
             for key, leaf in cache.items()}
 
 

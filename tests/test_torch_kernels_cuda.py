@@ -332,6 +332,67 @@ def test_cuda_split_decode_matches_the_whole_cache(grid, cell):
         tok = want.argmax(-1)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,grid,cell", [
+    ("mixtral-8x7b", (1, 8), "decode_32k"),
+    ("zamba2-1.2b", (2, 2), "decode_32k"),
+    ("mamba2-370m", (1, 4), "long_500k")], ids=lambda x: str(x))
+def test_cuda_placed_weights_split_decode(arch, grid, cell):
+    """Smoke decoding 3 steps on the card (every position on ``cuda:0``)
+    over weights placed by their ``params`` specs and a cache placed by
+    the cell's specs (the SSM conv and state too), each block gathered
+    where it runs, against the gathered weights run with the same split
+    (within 1e-6 of the logit scale) and the whole weights without a
+    split (1e-5): the same greedy tokens, the caches alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.launch.specs import rules_for_cell
+    from repro_torch.models.config import SHAPE_CELLS
+    from repro_torch.models.transformer import (decode_step, init_cache,
+                                                init_params)
+    from repro_torch.parallel.partition import (gather_tree, place_cache,
+                                                place_tree)
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    mesh = compat_make_mesh(grid, ("data", "model"),
+                            devices=[dev] * (grid[0] * grid[1]))
+    rules = rules_for_cell(mesh, SHAPE_CELLS[cell], cfg)
+    placed = place_tree(params, mesh, rules, kind="params")
+    base = init_cache(cfg, 2, 64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for key, t in base.items():
+        if key != "len":
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    base["len"] = torch.tensor([9, 50], dtype=torch.int32, device=dev)
+    caches = [place_cache({k: v.clone() for k, v in base.items()}, mesh,
+                          rules) for _ in range(3)]
+    tok = torch.tensor([[3], [5]], device=dev)
+    for _ in range(3):
+        got, _ = decode_step(cfg, placed, caches[0], tok)
+        same, _ = decode_step(cfg, gather_tree(placed), caches[1], tok,
+                              tp_devices=[dev] * grid[1])
+        whole, _ = decode_step(cfg, params, caches[2], tok)
+        scale = float(whole.abs().max())
+        assert float((got - same).abs().max()) <= 1e-6 * scale
+        assert float((got - whole).abs().max()) <= 1e-5 * scale
+        assert torch.equal(got.argmax(-1), whole.argmax(-1))
+        tok = whole.argmax(-1)
+    a, c = gather_tree(caches[0]), gather_tree(caches[2])
+    for key in a:
+        if key != "len":
+            scale = float(c[key].abs().max())
+            assert float((a[key] - c[key]).abs().max()) <= 1e-5 * scale
+    assert torch.equal(a["len"], c["len"])
+
+
 # float8 e4m3 pools (llama3-405b's kv_cache_dtype) under a bf16 or fp32
 # q: llama3-405b's decode (B 8, KV 8, G 16, D 128, page 16, contexts of
 # 1,000-1,500 tokens and a free slot), multi-head attention (G 1, D 64)

@@ -49,6 +49,18 @@ from repro_torch.weights import from_jax_numpy
 ARCH = "llama3-405b"
 F8 = torch.float8_e4m3fn
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's smoke-sized ops (several test
+    workers share the CPU)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # of max|logit|: fp32 compute; in bf16 the two frameworks round at other
 # places (llama3 smoke's paged prefill logits differ by 7.5e-3 of their
 # scale with a bf16 cache, 1.5e-2 with an e4m3 one, where a rounding
@@ -494,6 +506,20 @@ def _check_state(state, want, init_params, slack, spec, loss, want_loss):
         assert not bad.any(), (key, i, int(bad.sum()))
 
 
+@pytest.fixture(scope="module")
+def meshless_step(train_ref):
+    """:func:`_step_once` without a mesh by ``(opt, accum)``, each run
+    once for the module: the fused-step and the mesh tests read the same
+    steps (which nothing changes)."""
+    made = {}
+
+    def get(opt, accum):
+        if (opt, accum) not in made:
+            made[opt, accum] = _step_once(opt, accum, train_ref)
+        return made[opt, accum]
+    return get
+
+
 def _step_once(opt, accum, train_ref, mesh=None):
     """The port's fused step from the reference's initial state: the new
     state, its loss, the old parameters and the gradients' slack."""
@@ -515,11 +541,12 @@ def _step_once(opt, accum, train_ref, mesh=None):
 
 @pytest.mark.parametrize("accum", [1, 2])
 @pytest.mark.parametrize("opt", OPTS)
-def test_bf16_params_fused_step_matches_jax(train_ref, opt, accum):
+def test_bf16_params_fused_step_matches_jax(train_ref, meshless_step, opt,
+                                           accum):
     """One fused step of llama3 smoke with bf16 parameters (fp32 compute)
     under AdamW and Adafactor at grad_accum 1 and 2, against the
     reference's ``make_train_step`` (tolerances: ``_check_state``)."""
-    state, loss, p0, slack, spec = _step_once(opt, accum, train_ref)
+    state, loss, p0, slack, spec = meshless_step(opt, accum)
     want = train_state_from_jax_numpy(train_ref[opt, accum][0], _tcfg(),
                                       CPU)
     _check_state(state, want, p0, slack, spec, loss, train_ref[opt, accum][1])
@@ -562,7 +589,7 @@ def test_bf16_params_three_fused_steps_match_jax(three_steps_ref):
     cfg = _tcfg()
     spec = OptimizerSpec(kind="adafactor", lr=LR)
     step = make_train_step(cfg, spec, grad_accum=2)
-    chain = train_state_from_jax_numpy(states[0], cfg, CPU)
+    chain = None
     for k, b in enumerate(batches):
         batch = to_device(b, CPU)
         state = train_state_from_jax_numpy(states[k], cfg, CPU)
@@ -572,7 +599,11 @@ def test_bf16_params_three_fused_steps_match_jax(three_steps_ref):
         want = train_state_from_jax_numpy(states[k + 1], cfg, CPU)
         _check_state(state, want, p0, slack, spec, float(m["loss_total"]),
                      losses[k])
-        chain, m = step(chain, batch)
+        if chain is None:
+            # the chain's first step is this one: both from states[0]
+            chain = state
+        else:
+            chain, m = step(chain, batch)
         np.testing.assert_allclose(float(m["loss_total"]), losses[k],
                                    rtol=1e-5)
     assert int(chain.opt_state["count"]) == 3 == \
@@ -604,13 +635,14 @@ def test_bf16_params_keep_the_reference_dtypes(train_ref, accum):
 @pytest.mark.parametrize("accum", [1, 2])
 @pytest.mark.parametrize("grid", [(1, 2), (2, 1), (2, 2)],
                          ids=["tp2", "dp2", "tp2_dp2"])
-def test_bf16_params_on_a_training_mesh(train_ref, grid, accum):
+def test_bf16_params_on_a_training_mesh(train_ref, meshless_step, grid,
+                                        accum):
     """The fused step on a (data, model) grid with bf16 parameters under
     Adafactor: a row's lead gathers bf16 parameters, the rows' gradients
     are summed in fp32, and the result is the meshless step's within one
     bf16 rounding of each row's gradients (``_check_state`` with the
     meshless state as the reference)."""
-    base, loss, p0, _, spec = _step_once("adafactor", accum, train_ref)
+    base, loss, p0, _, spec = meshless_step("adafactor", accum)
     state, mloss, _, slack, _ = _step_once(
         "adafactor", accum, train_ref, mesh=make_test_mesh(*grid))
     _check_state(state, base, p0, slack, spec, mloss, loss)

@@ -61,8 +61,35 @@ def models():
     return get
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's smoke-sized ops (several test
+    workers share the CPU)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mesh(tp, dp):
     return build_serve_mesh(MeshSpec(tp=tp, dp=dp), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def variants(models):
+    """:func:`run_variant` at its defaults by ``(arch, tp, dp)`` (``tp``
+    None: no mesh), each run once for the module: the meshless and the
+    JAX package's comparisons read the same runs."""
+    made = {}
+
+    def get(arch, tp=None, dp=1):
+        if (arch, tp, dp) not in made:
+            cfg, params = models(arch)
+            made[arch, tp, dp] = run_variant(
+                cfg, params, None if tp is None else _mesh(tp, dp),
+                device_groups=dp)
+        return made[arch, tp, dp]
+    return get
 
 
 def run_variant(cfg, params, mesh, *, device_groups=1, batch=2,
@@ -234,17 +261,15 @@ def test_tp_lead_holds_no_whole_attention_weight(models):
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-370m",
                                   "zamba2-1.2b", "gemma3-4b",
                                   "qwen2-moe-a2.7b", "mixtral-8x7b"])
-def test_mesh_streams_equal_the_meshless_streams(models, arch):
+def test_mesh_streams_equal_the_meshless_streams(variants, arch):
     """``_sharded_driver.py``'s trace; gemma3 adds the shared qk-norm scales
     and local windows to the split, qwen2-moe the split biases beside the
     experts split by ``experts`` (and a shared expert on the lead),
     mixtral its experts split and its window, zamba2 its shared block's
     invocations; every model's vocabulary splits at TP=2."""
-    cfg, params = models(arch)
-    base, base_bytes, _, _ = run_variant(cfg, params, None)
+    base, base_bytes, _, _ = variants(arch)
     for tp, dp in MESHES:
-        toks, nbytes, eng, sched = run_variant(cfg, params, _mesh(tp, dp),
-                                               device_groups=dp)
+        toks, nbytes, eng, sched = variants(arch, tp, dp)
         assert toks == base, f"{arch} TP={tp} DP={dp} streams diverged"
         assert len(sched.groups) == dp
         if tp == 2 and dp == 1:
@@ -254,13 +279,13 @@ def test_mesh_streams_equal_the_meshless_streams(models, arch):
                                           for g in range(dp))
 
 
-def test_tp_that_does_not_divide_kv_keeps_the_whole_pool(models):
+def test_tp_that_does_not_divide_kv_keeps_the_whole_pool(models, variants):
     """qwen2 smoke has 2 KV heads: TP=4 drops ``kv_heads``, so one
     position holds the whole pool and runs every head."""
     cfg, params = models("qwen2-1.5b")
     assert cfg.n_kv_heads == 2
-    base, base_bytes, _, _ = run_variant(cfg, params, None)
-    toks, nbytes, eng, _ = run_variant(cfg, params, _mesh(4, 1))
+    base, base_bytes, _, _ = variants("qwen2-1.5b")
+    toks, nbytes, eng, _ = variants("qwen2-1.5b", 4, 1)
     assert toks == base
     assert nbytes == base_bytes == eng.total_pool_bytes()
     assert [len(row.shards) for row in eng.rows] == [1]
@@ -365,11 +390,9 @@ def jax_mesh_runs():
 
 @pytest.mark.parametrize("arch,tp,dp", JAX_RUNS,
                          ids=[f"{a}-tp{t}-dp{d}" for a, t, d in JAX_RUNS])
-def test_mesh_streams_equal_the_jax_packages(models, jax_mesh_runs, arch,
+def test_mesh_streams_equal_the_jax_packages(variants, jax_mesh_runs, arch,
                                              tp, dp):
-    cfg, params = models(arch)
-    toks, nbytes, _, _ = run_variant(cfg, params, _mesh(tp, dp),
-                                     device_groups=dp)
+    toks, nbytes, _, _ = variants(arch, tp, dp)
     want = jax_mesh_runs[f"{arch} {tp},{dp}"]
     assert [list(t) for t in toks] == want["streams"]
     if dp == 1:          # TP: the reference's pool bytes exactly

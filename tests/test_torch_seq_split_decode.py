@@ -5,19 +5,29 @@
 The reference's sharded decode equals its unsharded one (GSPMD changes no
 value), so its plain ``decode_step`` on one device is the yardstick, run
 in this process.  The port's seeded weights are handed to it in its own
-tree (``weights.from_jax_numpy`` gives them back); the cache is drawn once with numpy from a seed and handed to both sides (an
-e4m3 cache as its bytes).  Over 3 steps the split port's logits stay
+tree (``weights.from_jax_numpy`` gives them back); the cache is drawn
+once with numpy from a seed and handed to both sides (a bf16 or e4m3
+cache as its bytes).  Over 3 steps the split port's logits stay
 within 1e-5 of the logit scale of the reference's (fp32 compute) and the
-caches equal (fp32 to 1e-5 of their scale, e4m3 byte for byte), on grids
-that split the sequence 2, 4 and 8 ways, over two axes, by KV head, by
-slot, and not at all where the split does not divide T.
+caches equal (fp32 and bf16 to 1e-5 of their scale, e4m3 byte for
+byte), with the same greedy tokens, on grids that split the sequence 2, 4
+and 8 ways, over two axes, by KV head, by slot, and not at all where the
+split does not divide T; with whole weights, and with the weights placed
+by their ``params`` specs (``place_tree``), each block gathered as it
+runs, whose logits meet the reference's at 1e-4 of their scale (the
+tensor-parallel sum of partial outputs moves a bf16 cache entry across a
+rounding, by one bf16 spacing, 2^-9 of the cache's scale, and the logits
+by 3.0e-5 of theirs on llama3 smoke's 2 x 4 grid).  The SSM layers' ``conv`` and ``state`` are placed too, by channel
+and head.
 
 The placement is the reference's: every leaf's spec equals its
 ``_cache_axes`` resolved by its ``rules_for_cell(...).spec_for`` for every
-arch × decode cell, and the dry-run's decode cells hold those specs'
-bytes a position.
+arch × decode cell, the leaves placed on the 16 x 16 grid split into the
+reference's shard shapes, and the dry-run's decode cells hold the
+``params`` and ``cache`` specs' bytes a position.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -46,12 +56,16 @@ from repro_torch.models.attention import (NEG_INF, KVBlocks, decode_attention,
 from repro_torch.models.config import SHAPE_CELLS
 from repro_torch.models.transformer import decode_step, init_cache
 from repro_torch.parallel.partition import (Placed, cache_spec, gather_tree,
-                                            place_cache, position_bytes,
-                                            spec_bytes)
+                                            place_cache, place_tree,
+                                            position_bytes, spec_bytes)
 from repro_torch.tree import tree_leaves
 from repro_torch.weights import from_jax_numpy, init_params
 
 LOGIT_TOL = 1e-5            # of max|logit|, fp32 compute
+PLACED_LOGIT_TOL = 1e-4     # the same, the weights placed by their specs
+# a bf16 cache under placed weights: an entry whose fp32 value the
+# tensor-parallel sum moved across a bf16 rounding differs by one spacing
+PLACED_CACHE_TOL_BF16 = 2.0 ** -8
 CACHE_TOL = 1e-5            # of max|cache|, fp32 caches
 STEPS = 3
 F8 = torch.float8_e4m3fn
@@ -68,6 +82,9 @@ CASES = {
     "mixtral": ("mixtral-8x7b", {}, 2, 64, (20, 57)),
     "zamba2": ("zamba2-1.2b", {}, 2, 64, (9, 50)),
     "whisper": ("whisper-base", {}, 2, 32, (5, 26)),
+    "mamba2": ("mamba2-370m", {}, 2, 64, (9, 50)),
+    "llama3_bf16": ("llama3-405b", {"kv_cache_dtype": "bfloat16"}, 3, 64,
+                    (10, 40, 61)),
 }
 
 #: (data, model) grids and the cell whose rules place the cache there
@@ -78,6 +95,16 @@ GRIDS = {
     "two_axes": ((2, 4), "long_500k"),      # T over (data, model)
     "slots_and_seq": ((2, 2), "decode_32k"),  # B over data, T over model
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's smoke-sized ops (several test
+    workers share the CPU)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _layout(jc):
@@ -172,12 +199,17 @@ def _weights(tc, jc):
 def _np_of(t: torch.Tensor) -> np.ndarray:
     if t.dtype == F8:
         return t.view(torch.uint8).numpy().view(ml_dtypes.float8_e4m3fn)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
 
 
 def _torch_of(a: np.ndarray) -> torch.Tensor:
     if a.dtype == ml_dtypes.float8_e4m3fn:
         return torch.from_numpy(a.view(np.uint8).copy()).view(F8)
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16)
     return torch.from_numpy(a.copy())
 
 
@@ -190,12 +222,14 @@ def _close(got, want, tol):
     assert err <= tol, err
 
 
-def _check_cache(got: dict, want: dict):
+def _check_cache(got: dict, want: dict, *, placed: bool = False):
     for key, w in want.items():
         g = _np_of(got[key])
         if w.dtype == ml_dtypes.float8_e4m3fn:
             np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8),
                                           err_msg=key)
+        elif placed and w.dtype == ml_dtypes.bfloat16:
+            _close(g, w, PLACED_CACHE_TOL_BF16)
         else:
             _close(g, w, CACHE_TOL)
 
@@ -250,18 +284,26 @@ def _port_cache(port: dict) -> dict:
             for k, v in port.items()}
 
 
-def _run_split(reference, name, grid, cell):
+def _run_split(reference, name, grid, cell, *, placed: bool = False):
+    """The case's 3 steps over its cache placed on ``grid`` by ``cell``'s
+    specs, with whole weights or (``placed``) weights placed by the
+    ``params`` specs, against the reference's."""
+    tol = PLACED_LOGIT_TOL if placed else LOGIT_TOL
     tc, tp, port, enc, tokens, outs = reference(name)
     mesh = compat_make_mesh(grid, ("data", "model"), device="cpu")
     rules = rules_for_cell(mesh, SHAPE_CELLS[cell], tc)
     cache = place_cache(_port_cache(port), mesh, rules)
+    if placed:
+        tp = place_tree(tp, mesh, rules, kind="params")
     enc_out = None if enc is None else torch.from_numpy(enc)
     for s in range(STEPS):
         logits, cache = decode_step(tc, tp, cache, torch.from_numpy(
             tokens[s]), enc_out=enc_out)
         want_logits, want_cache = outs[s]
-        _close(logits.numpy(), want_logits, LOGIT_TOL)
-        _check_cache(gather_tree(cache), want_cache)
+        _close(logits.numpy(), want_logits, tol)
+        assert np.array_equal(logits.numpy().argmax(-1),
+                              want_logits.argmax(-1))
+        _check_cache(gather_tree(cache), want_cache, placed=placed)
     np.testing.assert_array_equal(cache["len"].numpy(),
                                   port["len"] + STEPS)
     return cache
@@ -275,8 +317,20 @@ def test_split_decode_matches_jax(reference, name, grid):
     equal after each step."""
     shape, cell = GRIDS[grid]
     cache = _run_split(reference, name, shape, cell)
-    assert isinstance(cache["k"], Placed)
-    assert len(cache["k"].blocks) == shape[0] * shape[1]
+    leaf = cache["k" if "k" in cache else "state"]
+    assert isinstance(leaf, Placed)
+    assert len(leaf.blocks) == shape[0] * shape[1]
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+@pytest.mark.parametrize("name", list(CASES))
+def test_placed_weights_split_decode_matches_jax(reference, name, grid):
+    """:func:`test_split_decode_matches_jax` with the weights placed by
+    their ``params`` specs too, each block gathered as it runs: logits
+    within 1e-4 of the reference's scale, the same greedy tokens, the
+    caches equal after each step."""
+    shape, cell = GRIDS[grid]
+    _run_split(reference, name, shape, cell, placed=True)
 
 
 @pytest.mark.parametrize("name", ["llama3", "mixtral"])
@@ -388,6 +442,14 @@ class _StandIn:
     shape = {"data": 16, "model": 16}
 
 
+def _shard_shape(shape, spec, sizes) -> tuple:
+    """A leaf of ``shape``'s block on a grid of axis ``sizes`` by
+    ``spec``: the reference's ``shard_shape``."""
+    return tuple(n // math.prod(sizes[a] for a in (
+        () if e is None else e if isinstance(e, tuple) else (e,)))
+        for n, e in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
 def _unstacked(spec, stacked: bool) -> tuple:
     spec = tuple(spec)
     return spec[1:] if stacked else spec
@@ -407,6 +469,7 @@ def test_cache_specs_match_the_reference(arch, cell):
     jrules = JaxRules(mesh=_StandIn(), rules=jrules.rules)
     struct = jax.eval_shape(lambda: jax_init_cache(jcfg, B, S))
     want: dict = {}
+    blocks: dict = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(struct)[0]:
         key = path[-1].key
         stacked = path[0].key == "groups"
@@ -415,6 +478,8 @@ def test_cache_specs_match_the_reference(arch, cell):
             dims=leaf.shape)
         want.setdefault(key, set()).add(
             tuple(spec) if key == "len" else _unstacked(spec, stacked))
+        blocks.setdefault(key, set()).add(_unstacked(_shard_shape(
+            leaf.shape, spec, _StandIn.shape), stacked))
     rules = rules_for_cell(_StandIn(), sc, cfg)
     port = init_cache(cfg, B, S, device="meta")
     assert set(port) == set(want)
@@ -422,21 +487,48 @@ def test_cache_specs_match_the_reference(arch, cell):
         spec = cache_spec(key, leaf.shape, rules)
         got = spec if key == "len" else _unstacked(spec, True)
         assert want[key] == {got}, (key, got, want[key])
+    # placed on the production grid: K/V and the SSM conv and state split
+    # into the reference's shards, len whole on the lead
+    mesh = make_production_mesh()
+    placed = place_cache(port, mesh, rules_for_cell(mesh, sc, cfg))
+    assert not isinstance(placed["len"], Placed)
+    for key, leaf in placed.items():
+        if key == "len":
+            continue
+        assert {_unstacked(leaf.spec, True)} == want[key], key
+        assert {tuple(b.shape[1:]) for b in leaf.blocks} == blocks[key], \
+            (key, blocks[key])
 
 
-@pytest.mark.parametrize("arch,cell", [
-    (a, c) for a, c in DECODE_CELLS if get_config(a).family not in (
-        "encdec", "ssm")], ids=lambda x: x)
+@pytest.mark.parametrize("arch,cell", DECODE_CELLS, ids=lambda x: x)
 def test_dryrun_decode_cells_hold_the_specs_bytes(arch, cell):
-    """The dry-run's decode row holds, at every position, the KV bytes
-    the cell's specs give a position of the 16 x 16 grid."""
+    """Every decode cell's row (the encoder-decoder and SSM ones too)
+    holds, at every position, the ``params`` specs' bytes of the 16 x 16
+    grid plus the ``cache`` specs' bytes of the cell's whole cache, and
+    each placed cache leaf's blocks are a production position's (the
+    layer axis whole); the KV bytes a position those specs'."""
     cfg = get_config(arch)
     mesh = make_production_mesh()
     sc = SHAPE_CELLS[cell]
     rules = rules_for_cell(mesh, sc, cfg)
     spec = build_cell(arch, cfg, cell, rules)
-    cache = spec.args[1]
+    params, cache = spec.args[0], spec.args[1]
     full = init_cache(cfg, sc.global_batch, sc.seq_len, device="meta")
-    want = spec_bytes({"k": full["k"], "v": full["v"]}, rules, kind="cache")
-    assert position_bytes({"k": cache["k"], "v": cache["v"]}) == \
-        [want] * spec.row.size
+    full["len"] = torch.zeros((sc.global_batch,), dtype=torch.int32,
+                              device="meta")
+    want = spec_bytes(params, rules) + spec_bytes(full, rules, kind="cache")
+    assert spec.static_bytes == [want] * spec.row.size
+    for key, leaf in cache.items():
+        if key == "len":
+            continue
+        assert isinstance(leaf, Placed), key
+        shard = _shard_shape(full[key].shape,
+                             cache_spec(key, full[key].shape, rules),
+                             mesh.shape)
+        assert tuple(leaf.blocks[0].shape[1:]) == shard[1:], key
+        assert {b.shape for b in leaf.blocks} == {leaf.blocks[0].shape}
+    if "k" in full:
+        kv = spec_bytes({"k": full["k"], "v": full["v"]}, rules,
+                        kind="cache")
+        assert position_bytes({"k": cache["k"], "v": cache["v"]}) == \
+            [kv] * spec.row.size

@@ -62,6 +62,17 @@ GRAD_TOL = dict(atol=1e-5, rtol=1e-5)
 STEP_TOL = 2e-5
 SSD_TOL = dict(atol=1e-5, rtol=1e-5)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's smoke-sized ops (several test
+    workers share the CPU)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # arch, sequence length: ssm chunks of 16 (40 is not a multiple), windows
 # of 16, whisper's smoke decoder of 32 positions under 48 frames, and 80
 # tokens a MoE row (capacity 25 < 80 · 2 / 8 · 1.25 rounded up: drops)
