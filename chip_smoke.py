@@ -2982,6 +2982,12 @@ LLAMA3_TRAIN_STEPS = 2
 # of 128 heads, (1, 128, S, S), and its gradients and the kernel path's
 # (29.6 GB of fp32 each) sit beside the bf16 parameters
 LLAMA3_GATE_SEQ = 1024
+# train_llama3_mesh's grid, (data, model): one step, each block's
+# Adafactor update on its position
+LLAMA3_MESH = (1, 2)
+# its update's transient over the meshless update's: each position holds
+# half of every leaf, so about 1 / tp (a whole-leaf update would give 1)
+LLAMA3_MESH_TRANSIENT_MAX = 0.6
 
 
 def llama3_kernel_phase() -> dict:
@@ -3261,6 +3267,24 @@ def serve_llama3_phase(mods) -> dict:
     return out
 
 
+def _measured(fn, out: list):
+    """``fn`` (an optimizer update) in a copy that appends ``(transient,
+    high-water mark before)`` of each call to ``out``: the bytes
+    ``max_memory_allocated`` reaches during the call beyond
+    ``memory_allocated`` before it, and the card's high-water mark that
+    the call's reset of the peak statistics cleared."""
+    def measured(*args, **kw):
+        torch.cuda.synchronize()
+        high = torch.cuda.max_memory_allocated()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        out.append((torch.cuda.max_memory_allocated() - before, high))
+        return res
+    return measured
+
+
 def train_llama3_phase(mods) -> dict:
     """llama3-405b trained at full width cut to ``LLAMA3_TRAIN_LAYERS``
     layer with its own settings: bf16 parameters, Adafactor, remat
@@ -3273,7 +3297,11 @@ def train_llama3_phase(mods) -> dict:
     forward steps x 2 x layers x 2, its backward steps x 2 x layers; the
     step's gradients fp32 sums (recorded from ``compute_grads``), the
     parameters bf16 and the optimizer state fp32 after it.  Step s,
-    tokens/s, mfu and the peak memory.  Returns the launches."""
+    tokens/s, mfu and the peak memory.  Then ``train_llama3_mesh``: one
+    such step on a TP=2 grid (``LLAMA3_MESH``) whose positions share the
+    card, each block updated on its position, against the meshless
+    update of the same gradients (:func:`train_llama3_mesh`).  Returns
+    the launches."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMStream, to_device
     from repro_torch.kernels.flash_attention.kernel import visible_pairs
@@ -3334,6 +3362,7 @@ def train_llama3_phase(mods) -> dict:
     finally:
         step_mod.compute_grads = compute_grads
     peak = torch.cuda.max_memory_allocated()
+    smi = nvidia_smi_line()
     param_dtypes = sorted({str(p.dtype).replace("torch.", "")
                            for p in tree_leaves(state.params)})
     state_dtypes = sorted({str(t.dtype).replace("torch.", "")
@@ -3349,7 +3378,7 @@ def train_llama3_phase(mods) -> dict:
                                    None)
     flops = 6 * n_params * tokens + 3 * 4 * LLAMA3_TRAIN_BATCH * (
         cfg.n_heads * cfg.hd * pairs)
-    emit("train_llama3", model=cfg.name, layers=cfg.n_layers,
+    emit("train_llama3", card=smi, model=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
          d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=n_params,
          param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
@@ -3381,10 +3410,164 @@ def train_llama3_phase(mods) -> dict:
         raise AssertionError(f"train_llama3: parameters {param_dtypes}, "
                              f"optimizer state {state_dtypes}, the step's "
                              f"gradients {grad_dtypes}")
-    del state, train, step
+    del state, step
     gc.collect()
     torch.cuda.empty_cache()
+    train_llama3_mesh(cfg, spec, train[0], mods,
+                      {"loss": losses[0], "grad_norm": gnorms[0]}, smi)
     return got
+
+
+def _bf16_rounding_ratio(got, want, before) -> float:
+    """max over the elements of |got - want| over the bf16 bound of
+    ``tests/test_torch_llama3_dtypes._check_state`` where both updates
+    read the same gradients: one bf16 spacing at |want|, or 2^-16 of
+    |before| where the update cancels the parameter (its own fp32 noise).
+    ``got`` may lie in host memory; taken in chunks of 2^26 elements."""
+    n, worst = 1 << 26, 0.0
+    g, w, b = (t.reshape(-1) for t in (got, want, before))
+    for i in range(0, w.numel(), n):
+        wi = w[i:i + n].float()
+        tol = torch.maximum(
+            torch.exp2(torch.floor(torch.log2(
+                wi.abs().clamp_min(2.0 ** -126))) - 7),
+            b[i:i + n].float().abs() * 2.0 ** -16)
+        d = g[i:i + n].to(w.device).float().sub_(wi).abs_().div_(tol)
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def train_llama3_mesh(cfg, spec, batch, mods, timed: dict,
+                      smi: str) -> None:
+    """``train_llama3``'s first step once more, outside its timed steps,
+    on the ``LLAMA3_MESH`` grid from a fresh state drawn from the same
+    seed, and the meshless update of the same gradients (the step's,
+    gathered into host memory before its update) from that state: each
+    update's transient measured (:func:`_measured`).  Against the timed
+    step 1 (``timed``: its loss and grad norm) at the training gates;
+    the update's transient at most ``LLAMA3_MESH_TRANSIENT_MAX`` of the
+    meshless one's; every bf16 parameter within the bf16 bound of
+    :func:`_bf16_rounding_ratio` of the meshless update's and every
+    moment within ``TRAIN_MESH_PARAM_TOL`` of max|moment|; launches steps
+    x 2 x layers x 2 x tp (forward) and steps x 2 x layers x tp
+    (backward); each position's state bytes the specs'.  ``step_s``
+    leaves out the gathering of the gradients.  Emits
+    ``train_llama3_mesh``."""
+    from repro_torch.train import make_train_step
+    from repro_torch.train import step as step_mod
+    from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+
+    t_run = time.perf_counter()
+    data, model = LLAMA3_MESH
+    mesh = _mesh_of(data, model)
+    state = _fresh_state(cfg, spec, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, spec, grad_accum=TRAIN_ACCUM, mesh=mesh)
+    updates, inputs = [], {}
+    update = step_mod.opt_update_placed
+    measured = _measured(update, updates)
+
+    def captured(spec_, grads, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inputs.update(grads=[g.gather().cpu() for g in tree_leaves(grads)],
+                      args=args[2:], kw=kw)
+        torch.cuda.synchronize()
+        inputs["seconds"] = time.perf_counter() - t0
+        return measured(spec_, grads, *args, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    step_mod.opt_update_placed = captured
+    try:
+        reset_launches(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0 - inputs["seconds"]
+        launches = read_launches(mods)
+    finally:
+        step_mod.opt_update_placed = update
+    (transient, high), = updates
+    peak = max(torch.cuda.max_memory_allocated(), high)
+    micro = TRAIN_ACCUM * model * data
+    want = {"flash_attention": micro * cfg.n_layers * 2,
+            "flash_attention_bwd": micro * cfg.n_layers}
+    got = {k: launches[k] for k in want}
+    nbytes = mesh_state_bytes(state, mesh)
+    loss, gnorm = float(m["loss_total"]), float(m["grad_norm"])
+    placed_p = [p.gather().cpu() for p in tree_leaves(state.params)]
+    placed_m = [t.gather().cpu() for t in tree_leaves(state.opt_state["f"])]
+    del state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ref = _fresh_state(cfg, spec)
+    grads = inputs.pop("grads")
+    leaves = []
+    while grads:
+        leaves.append(grads.pop(0).to(DEV))
+    grads = tree_unflatten(ref.params, leaves)
+    del leaves
+    updates = []
+    _measured(step_mod.opt_update, updates)(
+        spec, grads, ref.opt_state, ref.params, *inputs["args"],
+        inplace=True, **inputs["kw"])
+    (meshless_transient, _), = updates
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = _fresh_state(cfg, spec).params
+    rounding = {path: _bf16_rounding_ratio(g, w, b) for (path, w), g, b in
+                zip(tree_paths(ref.params), placed_p, tree_leaves(before))}
+    moments = tree_leaves(ref.opt_state["f"])
+    mscale = max(float(t.abs().max()) for t in moments)
+    moment_err = max(float((g.to(DEV) - t).abs().max())
+                     for g, t in zip(placed_m, moments)) / mscale
+    del ref, before, moments, placed_p, placed_m
+    worst = max(rounding, key=rounding.get)
+    loss_err = abs(loss - timed["loss"]) / abs(timed["loss"])
+    gnorm_err = abs(gnorm - timed["grad_norm"]) / timed["grad_norm"]
+    ratio = transient / meshless_transient
+    emit("train_llama3_mesh", card=smi, model=cfg.name, layers=cfg.n_layers,
+         mesh=f"TP={model} x DP={data}", optimizer=spec.kind,
+         param_dtype=cfg.param_dtype, seq=batch["tokens"].shape[1],
+         global_batch=batch["tokens"].shape[0], grad_accum=TRAIN_ACCUM,
+         step_s=secs, gradient_gather_s=inputs["seconds"], loss=loss,
+         grad_norm=gnorm, meshless_loss=timed["loss"],
+         loss_rel_err=loss_err, loss_tol=TRAIN_LOSS_TOL,
+         meshless_grad_norm=timed["grad_norm"], grad_norm_rel_err=gnorm_err,
+         grad_norm_tol=TRAIN_GNORM_TOL, update_transient_bytes=transient,
+         meshless_update_transient_bytes=meshless_transient,
+         transient_ratio=ratio, transient_ratio_max=LLAMA3_MESH_TRANSIENT_MAX,
+         param_rounding_ratio=rounding[worst], param_rounding_leaf=worst,
+         moment_rel_err=moment_err, max_abs_moment=mscale,
+         moment_tol=TRAIN_MESH_PARAM_TOL, peak_memory_gib=peak / 2**30,
+         launches=got, launches_expected=want, **nbytes,
+         seconds=time.perf_counter() - t_run)
+    failures = []
+    if not (loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GNORM_TOL):
+        failures.append(f"step 1 against no mesh: loss {loss_err}, grad "
+                        f"norm {gnorm_err}")
+    if not ratio <= LLAMA3_MESH_TRANSIENT_MAX:
+        failures.append(f"the update's transient {transient} B is {ratio} "
+                        f"of the meshless update's {meshless_transient}")
+    if not rounding[worst] <= 1.0:
+        failures.append(f"parameters against the meshless update of the "
+                        f"same gradients: {worst} {rounding[worst]} of the "
+                        f"bf16 bound")
+    if not moment_err <= TRAIN_MESH_PARAM_TOL:
+        failures.append(f"moments against the meshless update: "
+                        f"{moment_err} of max|moment|")
+    if got != want:
+        failures.append(f"launches {got}, expected {want}")
+    if nbytes["position_bytes"] != [nbytes["spec_bytes"]] * mesh.size:
+        failures.append(f"position bytes {nbytes}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"train_llama3_mesh: {failures}")
 
 
 # ---------------------------------------------------------------------------
@@ -4423,6 +4606,12 @@ TRAIN_MESH_MOE = ("qwen2-moe-a2.7b", 2)     # experts split 30 / 30
 TRAIN_MESH_SSM = ("mamba2-370m", 8)         # SSD heads split 16 / 16
 TRAIN_MESH_FP32_FAMILIES = (("qwen2-moe-a2.7b", 2), ("mamba2-370m", 2))
 TRAIN_MESH_FP32_SEQ = 1024
+# Adafactor's per-block update against no mesh (parameters and moments):
+# qwen2 at TRAIN_MESH_CHECK_LAYERS on this grid, without the QKV biases,
+# whose exact gradient is 0 and which Adafactor, having no eps, steps by
+# about ±lr in the direction of their rounding noise
+# (tests/test_torch_train_mesh.py)
+TRAIN_MESH_ADAFACTOR_SHAPES = ((2, 2),)
 
 
 def _mesh_of(data: int, model: int):
@@ -4604,7 +4793,8 @@ def mesh_fp32_parity(cfg, spec, shapes, seq: int) -> dict:
     """``cfg`` in fp32 compute, 2 steps on no mesh and on each grid of
     ``shapes`` from one initial state and batch stream (global batch
     ``TRAIN_BATCH``, sequences of ``seq``): each grid's final parameters'
-    max|Δ| / max|param| against no mesh's, and that scale."""
+    max|Δ| / max|param| against no mesh's, and that scale; under
+    Adafactor, its moments' likewise (over max|moment|)."""
     from repro_torch.data import DataConfig, SyntheticLMStream, to_device
     from repro_torch.parallel.partition import gather_tree
     from repro_torch.train import make_train_step
@@ -4614,7 +4804,13 @@ def mesh_fp32_parity(cfg, spec, shapes, seq: int) -> dict:
         seed=0, global_batch=TRAIN_BATCH, seq_len=seq))
     batches = [to_device(stream.batch(s), DEV)
                for s in range(TRAIN_MESH_STEPS)]
-    ref, errs = None, {}
+    moments = spec.kind == "adafactor"
+
+    def rel(got, want, scale):
+        return max(float((a - b).abs().max())
+                   for a, b in zip(got, want)) / scale
+
+    ref, errs, merrs = None, {}, {}
     for shape in (None, *shapes):
         mesh = None if shape is None else _mesh_of(*shape)
         state = _fresh_state(cfg, spec, mesh)
@@ -4622,19 +4818,26 @@ def mesh_fp32_parity(cfg, spec, shapes, seq: int) -> dict:
         for b in batches:
             state, _ = step(state, b)
         final = tree_leaves(gather_tree(state.params))
+        mom = [t for t in tree_leaves(gather_tree(state.opt_state))
+               if t.dim()] if moments else []
         del state, step
         if ref is None:
-            ref = final
+            ref, ref_mom = final, mom
             pscale = max(float(t.abs().max()) for t in ref)
+            mscale = max((float(t.abs().max()) for t in mom), default=None)
         else:
-            errs[f"TP={shape[1]} x DP={shape[0]}"] = max(
-                float((a - b).abs().max()) for a, b in zip(final, ref)) \
-                / pscale
-        del final
+            tag = f"TP={shape[1]} x DP={shape[0]}"
+            errs[tag] = rel(final, ref, pscale)
+            if moments:
+                merrs[tag] = rel(mom, ref_mom, mscale)
+        del final, mom
         torch.cuda.empty_cache()
-    del ref
+    del ref, ref_mom
     torch.cuda.empty_cache()
-    return {"param_rel_err": errs, "max_abs_param": pscale}
+    out = {"param_rel_err": errs, "max_abs_param": pscale}
+    if moments:
+        out.update(moment_rel_err=merrs, max_abs_moment=mscale)
+    return out
 
 
 def train_mesh_phase(mods) -> dict:
@@ -4658,7 +4861,11 @@ def train_mesh_phase(mods) -> dict:
       parameters after 2 steps within ``TRAIN_MESH_PARAM_TOL`` of
       max|param|: qwen2 at 4 layers on every grid, qwen2-moe and mamba2
       at 2 layers at TP=2 (sequences of ``TRAIN_MESH_FP32_SEQ``: their
-      fp32 activations at 4,096 do not fit beside the state).
+      fp32 activations at 4,096 do not fit beside the state); and qwen2
+      at 4 layers under Adafactor at TP=2 x DP=2 without its QKV biases
+      (``TRAIN_MESH_ADAFACTOR_SHAPES``), every block updated on its
+      position, parameters and moments within ``TRAIN_MESH_PARAM_TOL``
+      of their scales.
 
     Returns the launches of each run."""
     from repro_torch.configs import get_config
@@ -4688,22 +4895,33 @@ def train_mesh_phase(mods) -> dict:
 
     t_run = time.perf_counter()
     spec32 = dataclasses.replace(spec, eps=TRAIN_MESH_CHECK_EPS)
+    adafactor = OptimizerSpec(kind="adafactor", lr=TRAIN_LR)
     parity = {}
-    for arch, depth, shapes, seq in (
+    for arch, depth, shapes, seq, opt in (
             (TRAIN_ARCH, TRAIN_MESH_CHECK_LAYERS, TRAIN_MESH_SHAPES,
-             TRAIN_SEQ),
-            *((arch, depth, ((1, 2),), TRAIN_MESH_FP32_SEQ)
-              for arch, depth in TRAIN_MESH_FP32_FAMILIES)):
+             TRAIN_SEQ, spec32),
+            *((arch, depth, ((1, 2),), TRAIN_MESH_FP32_SEQ, spec32)
+              for arch, depth in TRAIN_MESH_FP32_FAMILIES),
+            (TRAIN_ARCH, TRAIN_MESH_CHECK_LAYERS,
+             TRAIN_MESH_ADAFACTOR_SHAPES, TRAIN_SEQ, adafactor)):
         cfg = dataclasses.replace(get_config(arch), n_layers=depth,
                                   compute_dtype="float32")
-        parity[cfg.name] = dict(mesh_fp32_parity(cfg, spec32, shapes, seq),
-                                layers=depth, seq=seq)
-        for tag, err in parity[cfg.name]["param_rel_err"].items():
-            if not err <= TRAIN_MESH_PARAM_TOL:
-                failures.append(f"{cfg.name} {tag}: fp32 parameters after "
-                                f"{TRAIN_MESH_STEPS} steps {err} of "
-                                f"max|param| from no mesh")
-    emit("train_mesh_fp32", compute_dtype="float32",
+        name = cfg.name
+        if opt.kind == "adafactor":
+            cfg = dataclasses.replace(cfg, qkv_bias=False)
+            name = f"{cfg.name} adafactor, no QKV biases"
+        parity[name] = dict(
+            mesh_fp32_parity(cfg, opt, shapes, seq),
+            layers=depth, seq=seq, optimizer=opt.kind)
+        for what in ("param", "moment"):
+            for tag, err in parity[name].get(f"{what}_rel_err",
+                                             {}).items():
+                if not err <= TRAIN_MESH_PARAM_TOL:
+                    failures.append(
+                        f"{name} {tag}: fp32 {what}s after "
+                        f"{TRAIN_MESH_STEPS} steps {err} of max|{what}| "
+                        f"from no mesh")
+    emit("train_mesh_fp32", card=nvidia_smi_line(), compute_dtype="float32",
          eps=TRAIN_MESH_CHECK_EPS, steps=TRAIN_MESH_STEPS, by_model=parity,
          tol=TRAIN_MESH_PARAM_TOL, seconds=time.perf_counter() - t_run,
          phase_seconds=time.perf_counter() - t_phase, failures=failures)

@@ -44,7 +44,8 @@ dry-run's) is told so by :func:`production`: a Placed leaf's ``share`` is
 the fraction of its row block that a production position holds (the
 data axes the row does not have).  The gradient sums a row keeps at its
 blocks are then counted live at that share (:func:`scaled_live`), as the
-reference's reduce-scatter over ``data`` leaves them, and each gather
+reference's reduce-scatter over ``data`` leaves them, and so are the
+optimizer's temporaries of each block it updates, and each gather
 records as an all-gather also the part of its region that a production
 position would fetch from the other data rows.
 

@@ -42,16 +42,17 @@ position holds before the step:
 A position's ``temp_bytes`` is then what the reference's device holds
 beyond its stored state: the saved activations, one block's gathered
 shards (two at a block boundary), its gradient sums, and the transients
-(the logits, Adafactor's whole leaf on the lead).  The record's
+(the logits, the update of one block: every block is updated on its
+position, counted at a production position's share).  The record's
 ``gathered_bytes_per_device`` is the most of the gathered bytes a
 position held alive at once (``opcount.GatherMarks``).
 
 Deviations, each in ROADMAP queue C: the eager trace replaces the
 compile; the work the port does not split (norms, routers, an attention
-layer whose KV heads the row does not divide, Adafactor's update of a
-leaf) runs on the row's lead; and the data axis's share of the gathers
-and reductions (the parameter all-gathers, the gradient sums, the decode
-merge across data rows) is reckoned, not traced.
+layer whose KV heads the row does not divide) runs on the row's lead; and
+the data axis's share of the gathers and reductions (the parameter
+all-gathers, the gradient sums, Adafactor's sums across blocks, the
+decode merge across data rows) is reckoned, not traced.
 """
 from __future__ import annotations
 

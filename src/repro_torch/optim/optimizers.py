@@ -21,15 +21,21 @@ which the port's per-layer state cannot hold) the update raises.
 A training mesh's state (``train/step.py``) holds
 :class:`~repro_torch.parallel.partition.Placed` leaves, one block a grid
 position: ``global_norm`` counts each element of such a leaf once, and
-``opt_update_placed`` updates every block on its position.
+``opt_update_placed`` updates every block on its position, Adafactor's
+too, as the reference's devices update their shards: its row and column
+sums, the row mean and the update-RMS are partial sums over the blocks,
+summed once and sent to every position that needs them (the reference's
+all-reduces), and no position holds a whole leaf.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import torch
 
+from ..analysis import opcount
 from ..parallel.partition import Placed
 from ..tree import (tree_leaves, tree_leaves_like, tree_map, tree_paths,
                     tree_unflatten)
@@ -67,14 +73,32 @@ def cosine_schedule(step, *, base_lr: float, warmup: int = 100,
     return float(base_lr * warm * cos)
 
 
+def _spans(region) -> tuple:
+    return tuple((s.start, s.stop) for s in region)
+
+
+@contextlib.contextmanager
+def _on_block(leaf: Placed, k: int, share: float):
+    """Count what runs inside at mesh position ``k``'s place in the traced
+    row, its storages at ``share`` (the leaf's production share,
+    ``opcount.share``): one production position's block.  Nothing
+    outside a counter."""
+    with opcount.at_position(leaf._layout().model[k]), \
+            opcount.scaled_live(share):
+        yield
+
+
 def _square_sum(x, device) -> torch.Tensor:
     """Σ x² in fp32; a :class:`Placed` leaf's each element once (one block
-    a region, in position order), summed on ``device``."""
+    a region, in position order, counted at its position), summed on
+    ``device``."""
     if not isinstance(x, Placed):
         return x.float().square().sum()
     out = None
+    share = opcount.share(x)
     for k in x.distinct():
-        v = x.blocks[k].float().square().sum().to(device)
+        with _on_block(x, k, share):
+            v = x.blocks[k].float().square().sum().to(device)
         out = v if out is None else out + v
     return out
 
@@ -162,20 +186,29 @@ class _Adafactor:
     beta2: torch.Tensor
     lr: float
 
+    def decay(self, st, means) -> dict:
+        """The moments of ``st`` moved toward ``means`` (the new squared
+        gradients' means, by key)."""
+        b = self.beta2
+        return {k: b * st[k] + (1 - b) * m for k, m in means.items()}
+
     def moments(self, g, st) -> dict:
         g2 = g.float().square().add_(1e-30)
-        b = self.beta2
         if "vr" in st:
-            return {"vr": b * st["vr"] + (1 - b) * g2.mean(dim=-1),
-                    "vc": b * st["vc"] + (1 - b) * g2.mean(dim=-2)}
-        return {"v": b * st["v"] + (1 - b) * g2}
+            return self.decay(st, {"vr": g2.mean(dim=-1),
+                                   "vc": g2.mean(dim=-2)})
+        return self.decay(st, {"v": g2})
 
     @staticmethod
-    def direction(g, st) -> torch.Tensor:
+    def direction(g, st, row_mean=None) -> torch.Tensor:
+        """The unclipped step; ``row_mean``: ``st["vr"]``'s mean over its
+        last dim (kept), where ``st["vr"]`` holds only some of the rows."""
         gf = g.float()
         if "vr" in st:
             vr = st["vr"]
-            rfac = torch.rsqrt(vr / vr.mean(dim=-1, keepdim=True) + 1e-30)
+            if row_mean is None:
+                row_mean = vr.mean(dim=-1, keepdim=True)
+            rfac = torch.rsqrt(vr / row_mean + 1e-30)
             cfac = torch.rsqrt(st["vc"] + 1e-30)
             return (gf * rfac[..., None]).mul_(cfac[..., None, :])
         return gf * torch.rsqrt(st["v"] + 1e-30)
@@ -376,6 +409,167 @@ def opt_update(spec: OptimizerSpec, grads, state, params, lr=None, *,
             _state_tree(spec, params, new_st, count), metrics)
 
 
+# ---------------------------------------------------------------------------
+# A training mesh: every block updated on its position
+# ---------------------------------------------------------------------------
+
+#: the site of the placed Adafactor's cross-block sums under a counter
+REDUCE_SITE = "adafactor_reduce"
+
+#: the part of its parameter's block (one span a dim) that a block of a
+#: state key covers on the same position
+_COVERS = {"v": lambda r: r, "vr": lambda r: r[:-1],
+           "vc": lambda r: r[:-2] + r[-1:]}
+
+
+def _reduce(acc: dict, key, part: torch.Tensor, leaf: Placed, k: int,
+            split: bool, share: float = 1.0) -> None:
+    """Add position k's partial sum ``part`` into ``acc[key]`` (on the
+    device of the key's first part).  Where ``split`` (the leaf's spec
+    cuts the dim summed over), a counter records the all-reduce of a
+    production position's part (``share`` of it)."""
+    if split:
+        opcount.collective(
+            "all-reduce", nbytes=int(opcount.tensor_bytes(part) * share),
+            site=REDUCE_SITE, position=leaf._layout().model[k])
+    have = acc.get(key)
+    acc[key] = part if have is None else have + part.to(have.device)
+
+
+def _split(leaf: Placed, dim: int) -> bool:
+    """Whether ``leaf``'s spec puts ``dim`` on a mesh axis."""
+    d = dim % len(leaf.shape)
+    return d < len(leaf.spec) and leaf.spec[d] is not None
+
+
+def _check_placement(path: str, g, p, st: dict) -> None:
+    """Raise unless, on every position, the gradient's block is the
+    parameter's and each state block covers the parameter block's rows
+    and columns (``_COVERS``): what a per-block update reads."""
+    want = [_spans(r) for r in p.regions()]
+    for key, t in (("gradient", g), *st.items()):
+        cover = _COVERS.get(key, _COVERS["v"])
+        if (not isinstance(t, Placed) or t.mesh != p.mesh
+                or [_spans(r) for r in t.regions()]
+                != [cover(r) for r in want]):
+            raise ValueError(
+                f"Adafactor: the {key} of {path} (spec "
+                f"{getattr(t, 'spec', None)}) is not placed over its "
+                f"parameter's blocks (spec {p.spec}), so its blocks cannot "
+                f"be updated where they lie")
+
+
+def _placed_moments(upds: dict, g, p, st: dict, clipped) -> dict | None:
+    """Write a placed leaf's new moments into every block of ``st``;
+    return a factored leaf's row means (``vr``'s mean over its last dim,
+    kept) by the spans of their leading dims, None for an unfactored
+    leaf."""
+    share = opcount.share(p)
+    regs = [_spans(r) for r in p.regions()]
+    if "v" in st:
+        v = st["v"]
+        for k, dev in enumerate(p.mesh.flat):
+            with _on_block(p, k, share):
+                new = upds[dev].moments(clipped(g, k), {"v": v.blocks[k]})
+                v.blocks[k].copy_(new["v"])
+                del new
+        return None
+    vr, vc = st["vr"], st["vc"]
+    rows, cols = {}, {}
+    for k in p.distinct():
+        with _on_block(p, k, share):
+            g2 = clipped(g, k).float().square().add_(1e-30)
+            part_r, part_c = g2.sum(dim=-1), g2.sum(dim=-2)
+            del g2
+        _reduce(rows, regs[k][:-1], part_r, p, k, _split(p, -1),
+                opcount.share(vr))
+        _reduce(cols, _COVERS["vc"](regs[k]), part_c, p, k, _split(p, -2),
+                opcount.share(vc))
+    n_rows, n_cols = p.shape[-2], p.shape[-1]
+    for k, dev in enumerate(p.mesh.flat):
+        with _on_block(p, k, share):
+            new = upds[dev].decay(
+                {"vr": vr.blocks[k], "vc": vc.blocks[k]},
+                {"vr": rows[regs[k][:-1]].to(dev) / n_cols,
+                 "vc": cols[_COVERS["vc"](regs[k])].to(dev) / n_rows})
+            vr.blocks[k].copy_(new["vr"])
+            vc.blocks[k].copy_(new["vc"])
+            del new
+    sums = {}
+    for k in vr.distinct():
+        with _on_block(p, k, share):
+            part = vr.blocks[k].sum(dim=-1)
+        _reduce(sums, regs[k][:-2], part, p, k, _split(p, -2))
+    return {key: (s / n_rows).unsqueeze(-1) for key, s in sums.items()}
+
+
+def _block_direction(g, st: dict, means: dict | None, k: int,
+                     clipped) -> torch.Tensor:
+    """Position k's unclipped step of a placed leaf whose moments are
+    written; ``means``: :func:`_placed_moments`' row means."""
+    row_mean = None
+    if means is not None:
+        row_mean = means[_spans(g.regions()[k])[:-2]].to(
+            g.blocks[k].device)
+    return _Adafactor.direction(
+        clipped(g, k), {key: t.blocks[k] for key, t in st.items()},
+        row_mean)
+
+
+def _adafactor_placed(upds: dict, groups, leaves: list, clipped) -> None:
+    """Adafactor over a training mesh's leaves in ``groups`` of leaf
+    indices, each group's update-RMS taken over all its leaves (as
+    :func:`_adafactor_update` takes them); ``leaves[i]`` is ``(path,
+    gradient, parameter, state)``, all :class:`Placed` on one mesh, and
+    ``clipped(g, k)`` the clipped gradient of position k's block.
+
+    Every position updates its own blocks on its device, as the
+    reference's devices update their shards.  A factored leaf's row
+    (column) moment is the distinct blocks' partial sums over their
+    columns (rows), added over the blocks that share its rows (columns)
+    and divided by the leaf's whole last (second last) dim; its row mean
+    is the distinct ``vr`` blocks' sums; the update-RMS the distinct
+    blocks' sums of squared directions over the group's elements.  Each
+    sum is added up once, in position order, and sent to every position
+    that reads it: the reference's all-reduces over ``data`` and
+    ``model`` (recorded at site ``adafactor_reduce`` under a counter).
+    Every holder of a replicated region computes its own copy from equal
+    inputs, as the reference's replicas do, so the copies are equal to
+    the bit.  A group is walked twice (moments and the squared
+    directions' sum, then the updates), so a position holds one block's
+    fp32 temporaries at a time.  A leaf placed otherwise is refused
+    before any block is written."""
+    for leaf in leaves:
+        _check_placement(*leaf)
+    for grp in groups:
+        sq, n, means = None, 0, {}
+        for i in grp:
+            path, g, p, st = leaves[i]
+            means[i] = _placed_moments(upds, g, p, st, clipped)
+            share = opcount.share(p)
+            split = any(e is not None for e in p.spec)
+            for k in p.distinct():
+                with _on_block(p, k, share):
+                    part = _block_direction(g, st, means[i], k,
+                                            clipped).square_().sum()
+                if split:
+                    opcount.collective("all-reduce", part, site=REDUCE_SITE,
+                                       position=p._layout().model[k])
+                part = part.to(p.mesh.lead)
+                sq = part if sq is None else sq + part
+            n += math.prod(p.shape)
+        rms = torch.sqrt(sq / n + 1e-30)
+        for i in grp:
+            path, g, p, st = leaves[i]
+            share = opcount.share(p)
+            for k, dev in enumerate(p.mesh.flat):
+                with _on_block(p, k, share):
+                    step = _block_direction(g, st, means[i], k, clipped)
+                    p.blocks[k].copy_(upds[dev].apply(p.blocks[k], step,
+                                                      rms.to(dev)))
+                    del step
+
+
 @torch.no_grad()
 def opt_update_placed(spec: OptimizerSpec, grads, state, params, lr=None,
                       *, clip_groups=None) -> dict:
@@ -383,12 +577,13 @@ def opt_update_placed(spec: OptimizerSpec, grads, state, params, lr=None,
     state, whose tensors are all :class:`Placed` on one mesh: writes the
     new parameters and state into their blocks and returns ``{"grad_norm",
     "lr"}``.  The norm is :func:`global_norm`'s (each element once, on the
-    lead); AdamW and SGD update each block on its position; Adafactor's
-    factored moments and update-RMS clip read whole rows, columns and
-    tensors, so each of its leaves is updated whole on the lead and
-    written back into every block (``clip_groups`` as for
-    :func:`opt_update`).  Copies of a replicated region get the same
-    inputs and the same update, so they cannot drift."""
+    lead).  Every block is updated on its position, AdamW's and SGD's
+    alone, Adafactor's with the sums across blocks its factored moments
+    and update-RMS clip need (:func:`_adafactor_placed`; ``clip_groups``
+    as for :func:`opt_update`); no leaf is gathered whole.  Copies of a
+    replicated region get the same inputs and the same update, so they
+    cannot drift.  Under a counter each block's work counts at its
+    position, its storages at the leaf's production share."""
     lr = lr if lr is not None else spec.lr
     gnorm = global_norm(grads)
     scale = _clip_scale(spec, gnorm)
@@ -396,34 +591,33 @@ def opt_update_placed(spec: OptimizerSpec, grads, state, params, lr=None,
     count = state["count"].blocks[0] + 1
     upds = {dev: _updater(spec, count.to(dev), lr)
             for dev in mesh.unique_devices()}
+    scales = None if scale is None else {
+        dev: scale.to(dev) for dev in mesh.unique_devices()}
+
+    def clipped(g, k):
+        gb = g.blocks[k]
+        if scales is None:
+            return gb
+        return gb.to(torch.float32, copy=True).mul_(
+            scales[mesh.flat[k]]).to(gb.dtype)
+
     g_l, p_l = tree_leaves(grads), tree_leaves(params)
     st_l = _leaf_states(spec, state, params)
     if spec.kind == "adafactor":
-        def read(i):
-            gw = g_l[i].gather()
-            if scale is not None:
-                gw = (gw.float() * scale).to(gw.dtype)
-            return gw, p_l[i].gather(), {k: v.gather()
-                                         for k, v in st_l[i].items()}
-
-        def write_state(i, st2):
-            for key, t in st2.items():
-                st_l[i][key].scatter_(t)
-
-        _adafactor_update(upds[mesh.lead],
-                          _rms_groups(spec, params, clip_groups), read,
-                          write_state, lambda i, p2: p_l[i].scatter_(p2))
+        paths = [path for path, _ in tree_paths(params)]
+        _adafactor_placed(upds, _rms_groups(spec, params, clip_groups),
+                          list(zip(paths, g_l, p_l, st_l)), clipped)
     else:
         for g, p, st in zip(g_l, p_l, st_l):
+            share = opcount.share(p)
             for k, dev in enumerate(mesh.flat):
-                gb = g.blocks[k]
-                if scale is not None:
-                    gb = (gb.float() * scale.to(dev)).to(gb.dtype)
-                p2, st2 = upds[dev](gb, p.blocks[k], {
-                    key: v.blocks[k] for key, v in st.items()})
-                p.blocks[k].copy_(p2)
-                for key, t in st2.items():
-                    st[key].blocks[k].copy_(t)
+                with _on_block(p, k, share):
+                    p2, st2 = upds[dev](clipped(g, k), p.blocks[k], {
+                        key: v.blocks[k] for key, v in st.items()})
+                    p.blocks[k].copy_(p2)
+                    for key, t in st2.items():
+                        st[key].blocks[k].copy_(t)
+                    del p2, st2
     for k, dev in enumerate(mesh.flat):
         state["count"].blocks[k].copy_(count.to(dev))
     return {"grad_norm": gnorm, "lr": torch.tensor(lr)}

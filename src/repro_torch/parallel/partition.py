@@ -536,12 +536,6 @@ class Placed:
         if dsts:
             torch._foreach_copy_(dsts, srcs)
 
-    @torch.no_grad()
-    def scatter_(self, whole: torch.Tensor) -> None:
-        """Write ``whole`` into every position's block."""
-        for blk, reg in zip(self.blocks, self.regions()):
-            blk.copy_(whole[reg])
-
 
 def _gather(reqs: list, device=None, *,
             site: str = "param_gather") -> list[torch.Tensor]:

@@ -42,7 +42,8 @@ position holds its blocks of the state, one fp32 gradient sum of its
 blocks, the saved activations, and the shards of the block that runs
 (two at a boundary).  The sums are divided, placed as the parameters are,
 and each block is updated on its position (``optim.opt_update_placed``;
-Adafactor still updates a leaf whole on the lead, one leaf at a time).
+Adafactor's factored moments and update-RMS clip add partial sums over
+the blocks, as the reference's all-reduces do, and no leaf is gathered).
 A 1 x 1 grid is no mesh: its state holds the tensors themselves and its
 step is the meshless one.
 """
